@@ -1,6 +1,6 @@
 """Typed configuration: the port's own copy of the JAX package's
-`config.py` model shapes, presets and special-token conventions, with
-`resolve_dtype` mapping to torch dtypes."""
+`config.py` model shapes, presets, optimizer settings and special-token
+conventions, with `resolve_dtype` mapping to torch dtypes."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 BOS_TOKEN = "<BOS>"
 EOS_TOKEN = "<EOS>"
 UNK_TOKEN = "<UNK>"
+IGNORE_INDEX = -1
 
 _DTYPES = {
     "float32": torch.float32,
@@ -63,6 +64,17 @@ class ModelConfig:
         """Output width of wk/wv: kv_heads * head_dim (== attn_dim for MHA)."""
         return self.kv_heads * self.head_dim
 
+    def num_params(self) -> int:
+        d, f, v, L = self.attn_dim, self.ffn_dim, self.vocab_size, self.num_layers
+        kd = self.kv_dim
+        attn = 2 * d * d + 2 * d * kd + 2 * d + 2 * kd  # wq/wo + wk/wv (+ biases)
+        if self.num_experts:
+            ffn = self.num_experts * 3 * d * f + d * self.num_experts  # experts + router
+        else:
+            ffn = 3 * d * f + 2 * f + d          # gate/up/down weights + biases
+        norms = 2 * d
+        return v * d + L * (attn + ffn + norms) + d + v * d + v  # emb + layers + final norm + lm_head
+
 
 # Named model presets: "45m" is the reference shape, "tiny" the CPU smoke.
 MODEL_PRESETS = {
@@ -96,3 +108,32 @@ class MeshConfig:
     ep: int = 1
     pp: int = 1
 
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """Adam + OneCycle with torch's OneCycleLR defaults (div_factor=25,
+    final_div_factor=1e4, cosine annealing, beta1 cycled between 0.85 and
+    0.95), field for field the JAX package's `OptimizerConfig`."""
+
+    lr: float = 3e-4
+    warmup_steps: int = 2000
+    max_steps: int = 20000
+    betas: tuple = (0.9, 0.999)
+    eps: float = 1e-8
+    # OneCycle details (torch defaults)
+    div_factor: float = 25.0
+    final_div_factor: float = 1e4
+    cycle_momentum: bool = True
+    base_momentum: float = 0.85
+    max_momentum: float = 0.95
+    # Global-norm gradient clipping (torch clip_grad_norm_ semantics: one
+    # norm over ALL grads, scale = max_norm / (norm + 1e-6) when exceeded).
+    # None = off.
+    clip_grad_norm: "float | None" = None
+    # Decoupled weight decay (torch.optim.AdamW semantics: params shrink by
+    # lr*wd BEFORE the Adam step). 0.0 = plain Adam.
+    weight_decay: float = 0.0
+    # 'onecycle', or 'cosine' (linear warmup over warmup_steps -> cosine
+    # decay to cosine_min_ratio * lr; beta1 fixed).
+    lr_schedule: str = "onecycle"
+    cosine_min_ratio: float = 0.1

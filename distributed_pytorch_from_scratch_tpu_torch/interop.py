@@ -7,7 +7,8 @@ stacks every per-layer leaf on a leading num_layers axis and keeps linear
 weights as (idim, odim); the port has one module per layer and torch's
 (odim, idim) layout, so layers are unstacked and linear weights
 transposed. This is what lets the tests feed both packages the same
-weights.
+weights. `adam_state_from_jax`/`adam_state_to_jax` carry the Adam moments
+the same way: they are trees of the param layout.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from .training.optim import AdamState
 
 # per-layer modules whose "weight" is a linear (idim, odim) matrix in JAX
 _LINEARS = ("wq", "wk", "wv", "wo", "gate_proj", "up_proj", "down_proj")
@@ -64,3 +67,18 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
                for leaf, by_i in leaves.items()}
         for name, leaves in per_layer.items()}
     return tree
+
+
+def adam_state_from_jax(state: Any) -> AdamState:
+    """A JAX `AdamState` (anything with `step`, `mu`, `nu`; trees of numpy
+    arrays) -> the port's AdamState."""
+    return AdamState(step=int(np.asarray(state.step)),
+                     mu=params_from_jax(state.mu),
+                     nu=params_from_jax(state.nu))
+
+
+def adam_state_to_jax(state: AdamState) -> Dict[str, Any]:
+    """The port's AdamState -> {"step", "mu", "nu"} in the JAX layout
+    (`AdamState(**adam_state_to_jax(s))` on the JAX side)."""
+    return {"step": np.asarray(state.step, np.int32),
+            "mu": params_to_jax(state.mu), "nu": params_to_jax(state.nu)}

@@ -50,6 +50,17 @@ def _finish_block(model, lp, x: torch.Tensor, o: torch.Tensor,
     return x + lp["down_proj"](torch.nn.functional.silu(g) * u, dtype)
 
 
+def _block(model, lp, x: torch.Tensor, cos, sin, dtype):
+    """One full-sequence decoder layer (the JAX `_layer_body` at tp=1):
+    returns (x', k, v), the layer's output and its post-RoPE k and v. The
+    attention is `causal_attention`: the flash kernels on the card."""
+    y = lp[model.attn_norm_key](x)
+    q, k, v = _qkv(model, lp, y, dtype)
+    q, k = apply_rotary(q, k, cos, sin)
+    o = causal_attention(q, k, v)
+    return _finish_block(model, lp, x, o, dtype), k, v
+
+
 def _logits_tokens(model, x: torch.Tensor, dtype) -> torch.Tensor:
     """Final norm + head on (b, t, d) -> (b, t, vocab). At tp=1 the vocab
     is unpadded, so no column needs masking."""
@@ -79,11 +90,7 @@ def _prefill(model, buf: torch.Tensor, prompt_len: torch.Tensor,
     cos, sin = _positions(cos_t, sin_t, pos)
     ks, vs = [], []
     for lp in model.layers:
-        y = lp[model.attn_norm_key](x)
-        q, k, v = _qkv(model, lp, y, dtype)
-        q, k = apply_rotary(q, k, cos, sin)
-        o = causal_attention(q, k, v)
-        x = _finish_block(model, lp, x, o, dtype)
+        x, k, v = _block(model, lp, x, cos, sin, dtype)
         ks.append(k)
         vs.append(v)
     idx = (prompt_len.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])

@@ -3,8 +3,9 @@
 `causal_attention_plain` mirrors `causal_attention_xla`: q @ k^T / sqrt(d)
 in the input dtype, masked positions set to -10000, softmax in f32,
 probabilities cast back to the input dtype, @ v. `causal_attention`
-dispatches like the JAX `impl="auto"`: the hand-written CUDA flash kernel
-for a CUDA tensor, the plain path for a CPU tensor."""
+dispatches like the JAX `impl="auto"`: the hand-written CUDA flash kernels
+(forward, and backward through an autograd Function) for a CUDA tensor,
+the plain path for a CPU tensor."""
 
 from __future__ import annotations
 
@@ -47,11 +48,14 @@ def causal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      t_real: int = None) -> torch.Tensor:
-    """The flash kernel's wrapper on a CUDA tensor (it raises rather than
-    fall back), `causal_attention_plain` on a CPU tensor."""
+    """The flash kernels on a CUDA tensor (they raise rather than fall back),
+    `causal_attention_plain` with torch autograd on a CPU tensor — JAX
+    `impl="auto"`. The CUDA path goes through `FlashAttention`, whose
+    backward launches the backward kernels; under no_grad/inference_mode
+    its output has no grad_fn, so the saved tensors go with the context and
+    serving keeps nothing for a backward."""
     if q.is_cuda:
-        from .cuda.flash_attention import flash_attention_fwd
-        o, _ = flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), t_real=t_real)
-        return o
+        from .cuda.flash_attention import FlashAttention
+        return FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), t_real)
     return causal_attention_plain(q, k, v, t_real=t_real)

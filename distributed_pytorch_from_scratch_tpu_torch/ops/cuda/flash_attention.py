@@ -1,18 +1,23 @@
-"""Causal flash-attention forward: the CUDA kernel `csrc/flash_fwd.cu` and
-its plain PyTorch version.
+"""Causal flash attention: the CUDA kernels `csrc/flash_fwd.cu` (forward)
+and `csrc/flash_bwd.cu` (backward: dq, and dk/dv), their plain PyTorch
+versions, and `FlashAttention`, the autograd Function that joins them.
 
-Counterpart of the JAX TPU kernel `_fwd_kernel` (via `_fwd_call`) in
-`distributed_pytorch_from_scratch_tpu/ops/pallas/flash_attention.py`.
+Counterparts of the JAX TPU kernels in
+`distributed_pytorch_from_scratch_tpu/ops/pallas/flash_attention.py`:
+`_fwd_kernel` (via `_fwd_call`) and the backward launches of `_bwd_call`.
 `flash_attention_fwd(q, k, v, t_real)` returns `(o, lse)`:
 
 * q (b, h, t, d); k, v (b, hkv, t, d) with hkv dividing h (grouped-query
-  attention is routed inside the kernel, K/V are never repeated);
+  attention is routed inside the kernels, K/V are never repeated);
 * o (b, h, t, d) in q's dtype; lse (b, h, t) float32, the row logsumexp;
 * rows >= t_real are padding: exact-zero output, lse = -1e30.
 
-On a CUDA tensor the wrapper launches the kernel (built on first use) or
-raises; on a CPU tensor it computes `flash_attention_fwd_plain`, the same
-math step by step. There is no fallback from one to the other.
+`flash_attention_bwd(q, k, v, o, lse, do, t_real)` returns `(dq, dk, dv)`
+in the dtypes of q, k, v; pad rows and pad keys get exact-zero gradients.
+
+On a CUDA tensor each wrapper launches its kernel(s) (built on first use)
+or raises; on a CPU tensor it computes the plain version, the same math
+step by step. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -31,6 +36,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 #           scale, stream)
 _C_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
            + [ctypes.c_float, ctypes.c_void_p])
+# flash_bwd_dq(q, k, v, do, lse, delta, dq, b, hq, hkv, t, t_real, head_dim,
+#              is_bf16, scale, stream); flash_bwd_dkv has dk, dv for dq
+_C_ARGS_DQ = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+              + [ctypes.c_float, ctypes.c_void_p])
+_C_ARGS_DKV = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+               + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,6 +66,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= t_real <= t:
         raise ValueError(f"t_real {t_real} must be in [1, t={t}]")
     return t_real
+
+
+def _check_kernel_inputs(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """What the CUDA kernels take; raises on anything else."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, _, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not built; the kernel takes {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"dtype {q.dtype} not built; the kernel takes {DTYPES}")
+    if not all(x.is_contiguous() for x in (q, *others)):
+        raise ValueError("kernel inputs must be contiguous")
+    if b * h > 65535:
+        raise ValueError(f"b*heads {b * h} exceeds the grid's y limit 65535")
+
+
+def _c_function(source: str, name: str, argtypes):
+    """The C entry point `name` of `csrc/{source}.cu`, built if needed."""
+    from .build import load
+    fn = getattr(load(source), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -92,22 +127,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, t_real)
     t_real = _check(q, k, v, t_real)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    _check_kernel_inputs(q, k, v)
     b, h, t, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not built; the kernel takes {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"dtype {q.dtype} not built; the kernel takes {DTYPES}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k, v must be contiguous")
-    if b * h > 65535:
-        raise ValueError(f"b*heads {b * h} exceeds the grid's y limit 65535")
-    from .build import load
-    lib = load("flash_fwd")
-    fn = lib.flash_fwd
-    fn.argtypes = _C_ARGS
-    fn.restype = ctypes.c_int
+    fn = _c_function("flash_fwd", "flash_fwd", _C_ARGS)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -122,3 +144,140 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0  # kernel launches (not plain-version calls)
+
+
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(f32(do) * f32(o)), (b, h, t) — plain torch on every device,
+    as JAX computes it in XLA outside the kernels."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def _check_bwd(q, k, v, o, lse, do, t_real) -> int:
+    t_real = _check(q, k, v, t_real)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {tuple(q.shape[:3])}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if not (o.dtype == do.dtype == q.dtype):
+        raise ValueError(f"o, do dtypes {o.dtype}, {do.dtype} differ from "
+                         f"q's {q.dtype}")
+    if not (o.device == do.device == lse.device == q.device):
+        raise ValueError("q, k, v, o, lse, do must lie on one device")
+    return t_real
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              t_real: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The backward kernels' math in step-by-step torch, over one tile that
+    spans every key: f32 scores from the input-dtype values, dead entries
+    hard-zeroed, p rounded to do's dtype before p^T do, ds rounded to q's
+    dtype before ds k and ds^T q, f32 sums cast once; dk, dv summed over
+    each kv head's group of query heads."""
+    t_real = _check_bwd(q, k, v, o, lse, do, t_real)
+    b, h, t, d = q.shape
+    hkv = k.shape[1]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    kf = torch.repeat_interleave(k, group, dim=1).float()
+    vf = torch.repeat_interleave(v, group, dim=1).float()
+    dof = do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    row = torch.arange(t, device=q.device)[:, None]
+    col = torch.arange(t, device=q.device)[None, :]
+    live = (col <= row) & (col < t_real) & (row < t_real)
+    s = s.masked_fill(~live, MASK)
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - _delta(o, do)[..., None]) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    per_kv = lambda x: x.reshape(b, hkv, group, t, d).sum(dim=2)
+    return (dq.to(q.dtype), per_kv(dk).to(k.dtype), per_kv(dv).to(v.dtype))
+
+
+def _bwd_args(q, k, v, lse, delta, do, t_real: int) -> tuple:
+    """The inputs and sizes both backward C functions take, in their order
+    (inputs checked by the caller; the tensors must outlive the launch)."""
+    b, h, t, d = q.shape
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (b, h, k.shape[1], t, t_real, d, int(q.dtype == torch.bfloat16),
+             1.0 / math.sqrt(d)))
+
+
+def _launch_dq(args: tuple, dq: torch.Tensor, stream: int) -> None:
+    """One launch of `flash_bwd_dq` into `dq`; not counted (the wrapper
+    counts its own)."""
+    ptrs, sizes = args
+    fn = _c_function("flash_bwd", "flash_bwd_dq", _C_ARGS_DQ)
+    err = fn(*ptrs, dq.data_ptr(), *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
+
+
+def _launch_dkv(args: tuple, dk: torch.Tensor, dv: torch.Tensor,
+                stream: int) -> None:
+    """One launch of `flash_bwd_dkv` into `dk`, `dv`; not counted."""
+    ptrs, sizes = args
+    fn = _c_function("flash_bwd", "flash_bwd_dkv", _C_ARGS_DKV)
+    err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *sizes, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        t_real: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of causal attention given the forward's (o, lse) and the
+    output cotangent `do`; see the module docstring. On a CUDA tensor: one
+    launch of `flash_bwd_dq` and one of `flash_bwd_dkv`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, t_real)
+    t_real = _check_bwd(q, k, v, o, lse, do, t_real)
+    _check_kernel_inputs(q, k, v, o, lse, do)
+    delta = _delta(o, do)
+    args = _bwd_args(q, k, v, lse, delta, do, t_real)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _launch_dq(args, dq, stream)
+        flash_attention_bwd.launches_dq += 1
+        _launch_dkv(args, dk, dv, stream)
+        flash_attention_bwd.launches_dkv += 1
+    return dq, dk, dv
+
+
+# kernel launches (not plain-version calls)
+flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dkv = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = causal attention of (q, k, v): the forward kernel, saving
+    (q, k, v, o, lse); the backward kernels for (dq, dk, dv). On CPU tensors
+    both sides are the plain versions. `t_real` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, t_real=None):
+        o, lse = flash_attention_fwd(q, k, v, t_real=t_real)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.t_real = t_real
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         t_real=ctx.t_real)
+        return dq, dk, dv, None

@@ -18,8 +18,7 @@ class VocabParallelEmbedding(nn.Module):
         self.vocab_size = vocab_size
         self.hdim = hdim
         self.weight = nn.Parameter(
-            torch.empty(vocab_size, hdim, dtype=torch.float32),
-            requires_grad=False)
+            torch.empty(vocab_size, hdim, dtype=torch.float32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         # normal(0, 1): nn.Embedding's default, the reference's init

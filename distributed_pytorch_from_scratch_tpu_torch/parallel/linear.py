@@ -6,7 +6,8 @@ the model's module names and the tp>1 slice keep their shape. Weights are
 stored in torch's (odim, idim) layout (`interop.params_from_jax`
 transposes the JAX (idim, odim) weights) and stay float32; they are cast to
 the compute dtype at use, and the bias is added after the product is
-rounded to that dtype, as in the JAX layer."""
+rounded to that dtype, as in the JAX layer. The per-use cast is inside the
+autograd graph, so the gradient reaches the float32 parameter."""
 
 from __future__ import annotations
 
@@ -22,9 +23,8 @@ class _Linear(nn.Module):
         self.idim = idim
         self.odim = odim
         self.weight = nn.Parameter(
-            torch.empty(odim, idim, dtype=torch.float32), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(odim, dtype=torch.float32),
-                                 requires_grad=False)
+            torch.empty(odim, idim, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(odim, dtype=torch.float32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         # Uniform(-1/sqrt(idim), 1/sqrt(idim)): the distribution of torch's

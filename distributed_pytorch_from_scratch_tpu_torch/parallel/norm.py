@@ -15,8 +15,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.hdim = hdim
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(hdim, dtype=torch.float32),
-                                  requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(hdim, dtype=torch.float32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         del generator
