@@ -42,7 +42,30 @@ result line):
     against the plain path on the CPU from the same weights, and one Adam
     update on both devices from the same inputs;
 12. train_profile: one 45m bf16 train step under torch.profiler (wall vs
-    device busy, kernels per step, the flash kernels' shares).
+    device busy, kernels per step, the flash kernels' shares);
+13. paged_check: the paged-attention kernel against its plain version, bf16
+    and f32: decode at page_size 64 with cursors at 0, mid-page, a page end
+    and the last position; GQA g 4 at page_size 8 and 16; the chunk shape
+    with per-row start/qlen; cw 128; head_dim 32 and 128; int8 pools;
+    pos_offset with return_lse (dead rows exactly -1e30 and 0), one launch
+    per call;
+14. paged_times: the paged kernel at the 45m decode shape q (16, 8, 1, 64)
+    and the chunk shape q (1, 8, 128, 64), bf16 and int8 pools, beside its
+    plain version, the gather impl, one PyTorch library call (SDPA over the
+    pre-gathered dense view) and the bound;
+15. paged_serve: `serve.main --paged` at the 45m preset, bf16, 32 requests
+    of mixed traffic (interleaved 64/512-token prompts behind a shared
+    64-token prefix, two tenants, three SLO classes) on 16 slots over an
+    80-page pool, then 16 requests with int8 pages — every request
+    completes with in-vocab tokens, prefix hits, a drained pool, the paged
+    kernel launched 12 times per decode step and per chunk dispatch, and
+    no flash kernel;
+16. paged_card_vs_cpu: 45m f32 chunks and decode steps through the kernel
+    on the card against the plain path on the CPU, then an 8-request f32
+    burst served with `--paged_attn kernel` and `gather` on the card:
+    identical greedy tokens;
+17. paged_profile: one decode step and one chunk dispatch of the paged
+    engine at the paged_serve shape under torch.profiler.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -79,6 +102,24 @@ SERVE_ARGS = ["--model", "45m", "--random_init", "--vocab_size", "1024",
               "--prompt_len_min", "64", "--prompt_len_max", "512",
               "--max_new_tokens", "64", "--slots", "8",
               "--max_prefill_batch", "4"]
+PAGED_SOURCE = ("distributed_pytorch_from_scratch_tpu_torch/ops/cuda/csrc/"
+                "paged_attn.cu")
+PAGED_REPLACES = "distributed_pytorch_from_scratch_tpu/ops/pallas/paged_attention.py:95"
+# mixed traffic: three SLO classes, two tenants, short and long prompts
+# interleaved behind a 96-token shared prefix, which ends half-way into its
+# second page, so a sharer copies that page before it writes (COW); 80 pages
+# against the 16 x 11 the slots could use, so pages run short and
+# preemption can happen
+PAGED_SERVE_ARGS = ["--model", "45m", "--random_init", "--vocab_size", "1024",
+                    "--bf16", "--paged", "--page_size", "64",
+                    "--prefill_chunk", "128", "--num_requests", "32",
+                    "--arrival", "burst", "--prompt_len_min", "64",
+                    "--prompt_len_max", "512", "--interleave",
+                    "--shared_prefix_len", "96", "--tenants", "2",
+                    "--class_mix", "interactive=1,standard=1,batch=1",
+                    "--max_new_tokens", "64", "--slots", "16",
+                    "--num_pages", "80"]
+PAGED_INT8_REQUESTS = 16
 
 
 def log(msg: str) -> None:
@@ -252,6 +293,7 @@ def phase_serve(torch) -> dict:
     _reset_launches()
     out = serve.main(SERVE_ARGS)
     launches, dq, dkv = _read_launches()
+    paged = _read_paged_launches()
     torch.cuda.synchronize()
     layers = model_preset("45m").num_layers
     log(f"serve: {out['completed']}/{out['requests']} requests, "
@@ -272,10 +314,11 @@ def phase_serve(torch) -> dict:
         raise AssertionError(f"flash kernel launched {launches} times, "
                              f"expected {layers} x "
                              f"{out['prefill_dispatches']} prefill dispatches")
-    if (dq, dkv) != (0, 0):
-        raise AssertionError(f"serving launched the backward kernels "
-                             f"(dq {dq}, dkv {dkv})")
-    return {"fwd": launches, "dq": dq, "dkv": dkv}
+    if (dq, dkv, paged) != (0, 0, 0):
+        raise AssertionError(f"slot serving launched the backward kernels "
+                             f"(dq {dq}, dkv {dkv}) or the paged kernel "
+                             f"({paged})")
+    return {"fwd": launches, "dq": dq, "dkv": dkv, "paged": paged}
 
 
 def phase_card_vs_cpu(torch) -> None:
@@ -628,16 +671,27 @@ def write_bigram_corpus(path: str, vocab: int = 1024, docs: int = 3000,
 def _reset_launches():
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches_dq = 0
     flash_attention_bwd.launches_dkv = 0
+    paged_attention.launches = 0
 
 
 def _read_launches():
+    """(fwd, dq, dkv) launches since the last reset; the paged kernel's
+    count is read by `_read_paged_launches`."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     return (flash_attention_fwd.launches, flash_attention_bwd.launches_dq,
             flash_attention_bwd.launches_dkv)
+
+
+def _read_paged_launches() -> int:
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
+    return paged_attention.launches
 
 
 def phase_train(torch, workdir: str) -> dict:
@@ -654,6 +708,7 @@ def phase_train(torch, workdir: str) -> dict:
     _reset_launches()
     out = train.main(args)
     fwd, dq, dkv = _read_launches()
+    paged = _read_paged_launches()
     layers = model_preset("45m").num_layers
     losses = out["losses"]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -673,9 +728,10 @@ def phase_train(torch, workdir: str) -> dict:
     if not last <= first - 1.0:
         raise AssertionError(f"train loss did not fall: {first} -> {last}")
     want = (2 * layers * TRAIN_STEPS, layers * TRAIN_STEPS,
-            layers * TRAIN_STEPS)
-    if (fwd, dq, dkv) != want:
-        raise AssertionError(f"launches fwd/dq/dkv {(fwd, dq, dkv)}, expected "
+            layers * TRAIN_STEPS, 0)
+    if (fwd, dq, dkv, paged) != want:
+        got = (fwd, dq, dkv, paged)
+        raise AssertionError(f"launches fwd/dq/dkv/paged {got}, expected "
                              f"{want} (remat: forward twice per layer)")
     ckpt = os.path.join(save_dir, f"tprank-0_iter-{TRAIN_STEPS}_loss-")
     if not any(p.startswith(ckpt) for p in out["checkpoints"]):
@@ -690,7 +746,8 @@ def phase_train(torch, workdir: str) -> dict:
             or resumed["steps"] != TRAIN_STEPS + 2
             or not all(math.isfinite(x) for x in resumed["losses"])):
         raise AssertionError("resume did not continue from the checkpoint")
-    return {"fwd": fwd, "dq": dq, "dkv": dkv, "summary": out}
+    return {"fwd": fwd, "dq": dq, "dkv": dkv, "paged": paged,
+            "summary": out}
 
 
 def phase_train_card_vs_cpu(torch) -> None:
@@ -819,9 +876,450 @@ def phase_train_profile(torch) -> dict:
             "shares": shares}
 
 
+def _paged_inputs(torch, b, h, kvh, cw, hd, ps, mp, dtype, int8, seed):
+    """q (b, h, cw, hd), one layer's k/v pools (b*mp pages + scratch,
+    native in `dtype` or int8 codes with f32 scales) and a scattered
+    (b, mp) int32 table, on the card from `seed`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_pages = b * mp
+    shape = (n_pages + 1, kvh, ps, hd)
+    if int8:
+        pool = lambda: (torch.randint(-127, 128, shape, generator=g,
+                                      device="cuda", dtype=torch.int8),
+                        0.01 + 0.04 * torch.rand(shape[:3], generator=g,
+                                                 device="cuda"))
+    else:
+        pool = lambda: torch.randn(shape, generator=g, device="cuda").to(dtype)
+    q = torch.randn((b, h, cw, hd), generator=g, device="cuda").to(dtype)
+    tbl = torch.randperm(n_pages, generator=g, device="cuda")
+    return q, pool(), pool(), tbl.reshape(b, mp).to(torch.int32)
+
+
+# kernel vs plain, element by element over the valid columns. f32: 1e-5 of
+# max(1, the largest |o|), the sum order only. bf16: both keep p and v in f32
+# and round o once, so an element may differ by one bf16 step of the plain
+# value, plus 1e-5 of its row's largest |o| for the f32 sum order
+PAGED_LIMIT = {"float32": "1e-5 x max(1, max |o|)",
+               "bfloat16": "1 bf16 step of each element + 1e-5 x its row's "
+                           "max |o|"}
+
+
+def _paged_err(torch, o, ro, valid, name) -> tuple:
+    """(max abs err, worst err / limit) of kernel output o against the plain
+    ro over each batch row's first `valid[r]` columns; a ratio <= 1 passes."""
+    err = worst = 0.0
+    for r, n in enumerate(valid):
+        a, x = o[r, :, :n].float(), ro[r, :, :n].float()
+        d = (a - x).abs()
+        if name == "float32":
+            limit = torch.full_like(
+                x, 1e-5 * max(1.0, ro.float().abs().max().item()))
+        else:
+            _, e = torch.frexp(x.abs())   # |x| in [2^(e-1), 2^e)
+            step = torch.where(x == 0, 0.0, torch.exp2((e - 8).float()))
+            limit = step + 1e-5 * x.abs().amax(-1, keepdim=True)
+        err = max(err, d.max().item())
+        worst = max(worst, (d / limit.clamp_min(1e-30)).max().item())
+    return err, worst
+PAGED_CASES = [  # (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
+    ("decode ps 64, cursors 0 / mid-page / page end / last", 4, 8, 8, 1, 64,
+     64, 11, False, [0, 100, 127, 703], None, 0),
+    ("GQA g 4, ps 8, cw 4, per-row qlen", 3, 16, 4, 4, 64, 8, 9, False,
+     [0, 13, 64], [4, 2, 3], 0),
+    ("GQA g 4, ps 16, decode", 3, 16, 4, 1, 64, 16, 6, False, [5, 16, 95],
+     None, 0),
+    ("chunk cw 4, per-row start/qlen", 3, 8, 8, 4, 64, 64, 3, False,
+     [0, 61, 130], [4, 3, 1], 0),
+    ("chunk cw 128, ps 64", 2, 8, 8, 128, 64, 64, 6, False, [256, 0],
+     [128, 77], 0),
+    ("head_dim 32", 3, 4, 2, 4, 32, 16, 4, False, [0, 9, 40], [4, 4, 2], 0),
+    ("head_dim 128", 3, 4, 4, 1, 128, 32, 4, False, [0, 31, 127], None, 0),
+    ("int8 pools, decode", 4, 8, 8, 1, 64, 64, 11, True, [0, 100, 127, 703],
+     None, 0),
+    ("int8 pools, chunk cw 128", 2, 8, 8, 128, 64, 64, 6, True, [256, 0],
+     [128, 77], 0),
+    ("pos_offset 128 + lse, row 0 sees nothing", 3, 8, 8, 1, 64, 64, 4,
+     False, [50, 128, 380], None, 128),
+]
+
+
+def phase_paged_check(torch) -> float:
+    """Returns the largest bf16 output error (the served dtype)."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        MASK, paged_attention, paged_attention_plain)
+    worst = 0.0
+    for i, (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens,
+            off) in enumerate(PAGED_CASES):
+        for name in ("bfloat16", "float32"):
+            q, kp, vp, tbl = _paged_inputs(torch, b, h, kvh, cw, hd, ps, mp,
+                                           getattr(torch, name), int8, 200 + i)
+            start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            kw = dict(page_size=ps, pos_offset=off, return_lse=True,
+                      qlen=None if qlens is None else torch.tensor(
+                          qlens, dtype=torch.int32, device="cuda"))
+            n = _read_paged_launches()
+            o, lse = paged_attention(q, kp, vp, tbl, start, **kw)
+            torch.cuda.synchronize()
+            launched = _read_paged_launches() - n
+            ro, rlse = paged_attention_plain(q, kp, vp, tbl, start, **kw)
+            valid = [cw if qlens is None else qlens[r] for r in range(b)]
+            err, ratio = _paged_err(torch, o, ro, valid, name)
+            lse_err = max((lse[r, :, :n] - rlse[r, :, :n]).abs().max().item()
+                          for r, n in enumerate(valid))
+            dead = [r for r in range(b) if starts[r] < off]
+            dead_ok = all(bool((o[r] == 0).all()) and bool((lse[r] == MASK)
+                                                           .all())
+                          for r in dead)
+            finite = bool(torch.isfinite(o.float()).all())
+            log(f"paged vs plain: {what}: q({b}, {h}, {cw}, {hd}) kvh {kvh} "
+                f"{name}: o max abs err {err:.3e}, worst err/limit "
+                f"{ratio:.3e} (limit {PAGED_LIMIT[name]}), lse "
+                f"{lse_err:.3e} (limit 1e-4); dead rows {dead} exact "
+                f"{dead_ok}; finite {finite}; launches {launched}")
+            if not (ratio <= 1.0 and lse_err <= 1e-4 and dead_ok and finite
+                    and launched == 1):
+                raise AssertionError(f"paged kernel disagrees with its plain "
+                                     f"version: {what} {name}")
+            if name == "bfloat16":
+                worst = max(worst, err)
+    return worst
+
+
+def bound_paged(b, h, kvh, cw, hd, ps, mp, starts, qlens, itemsize, int8,
+                pos_offset=0) -> tuple:
+    """(bound_ms, bound_by) of one paged-attention call on this data: bytes
+    = the K and V of the keys some query of the row sees (pos_offset ..
+    vmax, at most mp * ps; int8 adds a 4-byte scale per head-vector) read
+    once, the valid columns' q read and o written once; operations = 4 * hd
+    per (query, visible key) pair over the bf16 peak. Pad columns (>= qlen)
+    need nothing."""
+    kv_vec = hd * (1 if int8 else itemsize) + (4 if int8 else 0)
+    seen = lambda qpos: min(max(qpos - pos_offset + 1, 0), mp * ps)
+    nbytes = flops = 0
+    for r in range(b):
+        valid = cw if qlens is None else qlens[r]
+        vmax = starts[r] + max(valid, 1) - 1
+        nbytes += (2 * kvh * seen(vmax) * kv_vec
+                   + 2 * h * valid * hd * itemsize)
+        flops += 4 * hd * h * sum(seen(starts[r] + i) for i in range(valid))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_paged_times(torch) -> dict:
+    """Kernel, plain, gather-impl and library times at the 45m decode and
+    chunk shapes, bf16 and int8 pools; returns the kernels-line fields (the
+    decode shape in bf16, the main path's most frequent call) and every
+    shape's numbers under `by_shape`."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
+        _gather_attend, _gather_page_view)
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        _prepare, paged_attention, paged_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(11)
+    shapes = {  # name: (b, cw, starts, qlens)
+        "decode": (16, 1, [int(x) for x in rng.integers(64, 576, 16)], None),
+        "chunk": (1, 128, [256], [128]),
+    }
+    h, hd, ps, mp = 8, 64, 64, 11
+    by_shape = {}
+    for shape, (b, cw, starts, qlens) in shapes.items():
+        for kv in ("bf16", "int8"):
+            q, kp, vp, tbl = _paged_inputs(torch, b, h, h, cw, hd, ps, mp,
+                                           torch.bfloat16, kv == "int8", 300)
+            start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            qlen = (None if qlens is None else
+                    torch.tensor(qlens, dtype=torch.int32, device="cuda"))
+            pos = start[:, None] + torch.arange(cw, device="cuda")[None, :]
+            kw = dict(page_size=ps, qlen=qlen)
+            o = paged_attention(q, kp, vp, tbl, start, **kw)
+            ro = paged_attention_plain(q, kp, vp, tbl, start, **kw)
+            err, ratio = _paged_err(torch, o, ro, [cw if qlens is None else
+                                                   qlens[r] for r in range(b)],
+                                    "bfloat16")
+            if not ratio <= 1.0:
+                raise AssertionError(f"paged kernel disagrees with its plain "
+                                     f"version at the {shape} shape ({kv})")
+            kview = _gather_page_view(kp, tbl, torch.bfloat16)
+            vview = _gather_page_view(vp, tbl, torch.bfloat16)
+            mask = (torch.arange(mp * ps, device="cuda")[None, None, :]
+                    <= pos[:, :, None])[:, None]          # (b, 1, cw, T)
+            _, _, launch = _prepare(q, kp, vp, tbl, start, **kw)
+            stream = torch.cuda.current_stream().cuda_stream
+            kernel_ms = _time_ms(torch, lambda: launch(stream))
+            wrapper_ms = _time_ms(torch, lambda: paged_attention(
+                q, kp, vp, tbl, start, **kw))
+            plain_ms = _time_ms(torch, lambda: paged_attention_plain(
+                q, kp, vp, tbl, start, **kw), iters=20)
+            gather_ms = _time_ms(torch, lambda: _gather_attend(
+                q, kp, vp, tbl, pos, torch.bfloat16))
+            library_event_ms = _time_ms(torch, lambda: sdpa(
+                q, kview, vview, attn_mask=mask))
+            (device_ms, library_ms), how = _device_ms(
+                torch, [lambda: launch(stream),
+                        lambda: sdpa(q, kview, vview, attn_mask=mask)])
+            kernel_again = _time_ms(torch, lambda: launch(stream))
+            bound_ms, bound_by = bound_paged(b, h, h, cw, hd, ps, mp, starts,
+                                             qlens, 2, kv == "int8")
+            by_shape[f"{shape}_{kv}"] = {
+                "ms": kernel_ms, "ms_again": kernel_again,
+                "device_ms": device_ms, "wrapper_ms": wrapper_ms,
+                "plain_ms": plain_ms, "gather_ms": gather_ms,
+                "library_ms": library_ms,
+                "library_event_ms": library_event_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": err}
+            log(f"paged times, {shape} q({b}, {h}, {cw}, {hd}) ps {ps} "
+                f"max_pages {mp}, {kv} pool, bf16 q: kernel_ms {kernel_ms:.5f} "
+                f"(again {kernel_again:.5f}; bare launches, CUDA events over "
+                f"100), device_ms {device_ms:.5f} ({how}), through the "
+                f"wrapper {wrapper_ms:.5f} (events, host included), plain_ms "
+                f"{plain_ms:.5f} (events over 20), gather_ms {gather_ms:.5f} "
+                f"(the gather impl, events), library_ms {library_ms:.5f} "
+                f"(scaled_dot_product_attention over the pre-gathered dense "
+                f"view with the visibility mask, gather excluded; {how}; by "
+                f"events {library_event_ms:.5f}), bound_us "
+                f"{bound_ms * 1e3:.3f} ({bound_by}); max abs err vs plain "
+                f"{err:.3e}; cursors {starts}")
+    head = by_shape["decode_bf16"]
+    return {"ms": head["ms"], "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"], "gather_ms": head["gather_ms"],
+            "library_ms": head["library_ms"],
+            "library_for": "scaled_dot_product_attention over the "
+                           "pre-gathered dense view with the visibility "
+                           "mask, device kernel time (torch.profiler)",
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "shape": "decode q (16, 8, 1, 64), page_size 64, bf16",
+            "by_shape": by_shape}
+
+
+def _check_paged_run(out, stats, paged, flash, layers, vocab) -> None:
+    if out["completed"] != out["requests"]:
+        raise AssertionError(f"served {out['completed']} of "
+                             f"{out['requests']} requests")
+    toks = [t for ts in out["outputs"].values() for t in ts]
+    if not toks or not all(0 <= t < vocab for t in toks):
+        raise AssertionError("generated tokens missing or outside the vocab")
+    if (stats["prefix_hit_tokens"] <= 0 or stats["cow_copies"] <= 0
+            or stats["pages_in_use"] != 0):
+        raise AssertionError(f"prefix hits {stats['prefix_hit_tokens']}, "
+                             f"COW copies {stats['cow_copies']}, pages in "
+                             f"use after the drain {stats['pages_in_use']}")
+    want = layers * (stats["decode_steps"] + out["prefill_dispatches"])
+    if paged != want or paged == 0:
+        raise AssertionError(f"paged kernel launched {paged} times, expected "
+                             f"{want} = {layers} x (decode steps + chunks)")
+    if flash != (0, 0, 0):
+        raise AssertionError(f"paged serving launched flash kernels "
+                             f"(fwd/dq/dkv {flash})")
+
+
+def phase_paged_serve(torch) -> dict:
+    """Returns the bf16 run's launches {fwd, dq, dkv, paged} and the int8
+    run's paged launches."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    layers = model_preset("45m").num_layers
+    n = PAGED_SERVE_ARGS.index("--num_requests") + 1
+    runs = {"bf16": PAGED_SERVE_ARGS,
+            "int8": PAGED_SERVE_ARGS[:n] + [str(PAGED_INT8_REQUESTS)]
+            + PAGED_SERVE_ARGS[n + 1:] + ["--kv_dtype", "int8"]}
+    counts = {}
+    for kv, args in runs.items():
+        _reset_launches()
+        out = serve.main(args)
+        flash, paged = _read_launches(), _read_paged_launches()
+        torch.cuda.synchronize()
+        st = out["engine_stats"]
+        att = out.get("slo_attainment") or {}
+        log(f"paged serve ({kv} pages): {out['completed']}/{out['requests']} "
+            f"requests, {out['generated_tokens']} tokens in {out['wall_s']} "
+            f"s -> {out['tokens_per_sec']} tok/s; TTFT p50/p95 "
+            f"{out['ttft_ms_p50']}/{out['ttft_ms_p95']} ms; TPOT p50/p95 "
+            f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms; "
+            f"{st['decode_steps']} decode steps, {out['prefill_dispatches']} "
+            f"chunk dispatches, preemptions {st['preemptions']}, COW copies "
+            f"{st['cow_copies']}, prefix hit tokens "
+            f"{st['prefix_hit_tokens']} (rate {st['prefix_hit_rate']}), "
+            f"kv_util {st['kv_util_mean']}, max live {st['max_live']}, "
+            f"pages in use after drain {st['pages_in_use']}; SLO attainment "
+            + ", ".join(f"{c} {v['attained']} of {v['completed']}"
+                        for c, v in att.items())
+            + f"; paged kernel launches {paged}, flash fwd/dq/dkv {flash}; "
+            f"device {out['device']}")
+        _check_paged_run(out, st, paged, flash, layers, 1024)
+        counts[kv] = {"fwd": flash[0], "dq": flash[1], "dkv": flash[2],
+                      "paged": paged}
+    return {**counts["bf16"], "paged_int8": counts["int8"]["paged"]}
+
+
+def phase_paged_card_vs_cpu(torch) -> None:
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
+        _paged_decode_one, _paged_prefill_chunk)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.ops.rope import rope_tables
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        _chunk_maps)
+    cfg = model_preset("45m", compute_dtype="float32")
+    cpu = Transformer(cfg).init_weights(seed=6)
+    card = Transformer(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card.to("cuda")
+    b, ps, mp, cw = 4, 64, 6, 128
+    n_pages = b * mp
+    rng = np.random.default_rng(6)
+    tbl = rng.permutation(n_pages).reshape(b, mp).astype(np.int32)
+    shape = (cfg.num_layers, n_pages + 1, cfg.kv_heads, ps, cfg.head_dim)
+    pools = {dev: (torch.zeros(shape, device=dev),
+                   torch.zeros(shape, device=dev)) for dev in ("cuda", "cpu")}
+    tabs = {dev: rope_tables(cfg.maxlen, cfg.head_dim, cfg.rope_theta, dev)
+            for dev in ("cuda", "cpu")}
+    ids = rng.integers(3, cfg.vocab_size, (b, 2 * cw)).tolist()
+    cur = np.zeros(b, np.int32)
+    calls = []
+    for qlen in ([128, 128, 128, 100], [128, 90, 128, 128]):
+        qlen = np.array(qlen, np.int32)
+        # the engine's own chunk maps, one row each (pad columns: EOS)
+        maps = [_chunk_maps(ids[r], int(cur[r]), int(qlen[r]), cw, ps, 1,
+                            n_pages, tbl[r]) for r in range(b)]
+        chunk, dstp, dsto = (np.concatenate(m) for m in zip(*maps))
+        calls.append(("chunk", (chunk, cur.copy(), qlen, tbl, dstp, dsto)))
+        cur = cur + qlen
+    for _ in range(4):
+        calls.append(("decode", (rng.integers(3, cfg.vocab_size, b)
+                                 .astype(np.int32), cur.copy(), tbl)))
+        cur = cur + 1
+    worst = 0.0
+    for kind, args in calls:
+        lg = {}
+        for model, dev in ((card, "cuda"), (cpu, "cpu")):
+            t = [torch.from_numpy(a).to(dev) for a in args]
+            lower = _paged_prefill_chunk if kind == "chunk" else \
+                _paged_decode_one
+            with torch.inference_mode():
+                lg[dev] = lower(model, *pools[dev], *t, ps, *tabs[dev],
+                                torch.float32, attn_impl="kernel").cpu()
+        ratio = ((lg["cuda"] - lg["cpu"]).abs().max()
+                 / lg["cpu"].abs().max()).item()
+        worst = max(worst, ratio)
+    pool_ratio = max(((pools["cuda"][i].cpu() - pools["cpu"][i]).abs().max()
+                      / pools["cpu"][i].abs().max()).item() for i in (0, 1))
+    log(f"paged card vs cpu: 45m f32, {b} rows, chunks at start 0 and 128 "
+        f"(cw {cw}, per-row qlen) then 4 decode steps, kernel on the card vs "
+        f"plain on the CPU: worst logits max abs diff {worst:.3e} of max "
+        f"|logit| (tol 1e-4), pools {pool_ratio:.3e} of max |value| "
+        f"(tol 1e-5)")
+    if not (worst <= 1e-4 and pool_ratio <= 1e-5):
+        raise AssertionError("card and CPU paged lowerings disagree")
+    base = ["--model", "45m", "--random_init", "--vocab_size", "1024",
+            "--no-bf16", "--paged", "--page_size", "64", "--prefill_chunk",
+            "128", "--num_requests", "8", "--arrival", "burst",
+            "--prompt_len_min", "64", "--prompt_len_max", "512",
+            "--interleave", "--shared_prefix_len", "96",
+            "--max_new_tokens", "32", "--slots", "16"]
+    outs = {impl: serve.main(base + ["--paged_attn", impl])["outputs"]
+            for impl in ("kernel", "gather")}
+    same = sum(outs["kernel"][r] == outs["gather"][r] for r in outs["gather"])
+    log(f"paged kernel vs gather, 45m f32 on the card, 8-request burst, 32 "
+        f"new tokens: {same}/{len(outs['gather'])} requests token-identical")
+    if outs["kernel"] != outs["gather"]:
+        raise AssertionError("kernel and gather impls give different greedy "
+                             "tokens at f32")
+
+
+def phase_paged_profile(torch) -> dict:
+    """One decode step (16 live slots) and one 128-position chunk dispatch
+    of the paged engine at the paged_serve shape (45m bf16, page_size 64,
+    prefill_chunk 128), host wall from the clock around each (they end in
+    the token copy), device busy from a profiled repeat."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine, Request)
+    cfg = model_preset("45m", compute_dtype="bfloat16")
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    model = Transformer(cfg).init_weights(seed=1).to(mesh.device)
+    rng = np.random.default_rng(1)
+    prompt = lambda: [int(x) for x in rng.integers(3, cfg.vocab_size, 512)]
+    # eos_id = vocab_size: never picked, so every request stays live
+    eng = PagedEngine(model, mesh, num_slots=17, buf_len=642,
+                      eos_id=cfg.vocab_size, page_size=64, prefill_chunk=128)
+    for i in range(16):
+        eng.submit(Request(rid=i, prompt=prompt(), max_new=120))
+    while eng._prefilling or eng.scheduler.pending:
+        eng.step()
+    for _ in range(3):
+        eng.step()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def pump():
+        with torch.inference_mode():
+            eng._pump_prefill([])
+
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        cuda = torch.autograd.DeviceType.CUDA
+        busy = paged = 0.0
+        n = n_paged = 0
+        for e in prof.events():
+            if e.device_type != cuda:
+                continue
+            us = e.time_range.elapsed_us()
+            busy += us
+            n += 1
+            if "paged_attn_kernel" in e.name:
+                paged += us
+                n_paged += 1
+        return busy / 1e3, n, paged / 1e3, n_paged
+
+    decode_ms = timed(eng.step)
+    d = profiled(eng.step)
+    eng.submit(Request(rid=99, prompt=prompt(), max_new=8))
+    with torch.inference_mode():
+        eng._admit([])
+    d_chunks = eng.prefill_dispatches
+    chunk_ms = timed(pump)
+    c = profiled(pump)
+    if eng.prefill_dispatches - d_chunks != 2:
+        raise AssertionError("a pump did not dispatch exactly one chunk")
+    if d[1] == 0 or c[1] == 0:
+        log("paged profile: torch.profiler saw no device kernels; device "
+            "busy time not measured")
+        return {}
+    for what, wall, (busy, n, paged, n_paged) in (
+            ("decode step, 16 live", decode_ms, d),
+            ("chunk dispatch, 128 positions", chunk_ms, c)):
+        log(f"paged profile (45m bf16, ps 64): {what}: wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+            f"{n} kernels; paged kernel {paged:.3f} ms over {n_paged} "
+            f"launches ({paged / busy:.3f} of busy)")
+    return {"decode_wall_ms": decode_ms, "decode": d, "chunk_wall_ms":
+            chunk_ms, "chunk": c}
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
-          "train_profile")
+          "train_profile", "paged_check", "paged_times", "paged_serve",
+          "paged_card_vs_cpu", "paged_profile")
 
 
 def main() -> None:
@@ -869,11 +1367,22 @@ def main() -> None:
         phase_train_card_vs_cpu(torch)
     if "train_profile" in phases:
         phase_train_profile(torch)
+    if "paged_check" in phases:
+        paged_err = phase_paged_check(torch)
+    if "paged_times" in phases:
+        paged_times = phase_paged_times(torch)
+    if "paged_serve" in phases:
+        paged_served = phase_paged_serve(torch)
+    if "paged_card_vs_cpu" in phases:
+        phase_paged_card_vs_cpu(torch)
+    if "paged_profile" in phases:
+        phase_paged_profile(torch)
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
         return
-    by_path = lambda k: {"serve": served[k], "train": trained[k]}
+    by_path = lambda k: {"serve": served[k], "train": trained[k],
+                         "serve_paged": paged_served[k]}
     at_path = bwd_times["errs"]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
@@ -893,6 +1402,12 @@ def main() -> None:
          "max_abs_err": max(bwd_err["dkv"], at_path["dk"], at_path["dv"]),
          "max_abs_err_train_shape": max(at_path["dk"], at_path["dv"]),
          **bwd_times["dkv"], "launches_by_path": by_path("dkv")},
+        {"name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
+         "replaces": PAGED_REPLACES, "launches": paged_served["paged"],
+         "max_abs_err": max(paged_err, paged_times["by_shape"][
+             "decode_bf16"]["max_abs_err"]), **paged_times,
+         "launches_by_path": {**by_path("paged"), "serve_paged_int8":
+                              paged_served["paged_int8"]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

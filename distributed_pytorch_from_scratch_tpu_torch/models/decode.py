@@ -1,13 +1,17 @@
-"""KV-cache decoding lowerings shared by the serving engine — counterpart of
-the JAX `models/decode.py` (`_prefill`, `_decode_one`, the sampler).
+"""KV-cache decoding lowerings shared by the serving engines — counterpart
+of the JAX `models/decode.py` (`_prefill`, `_decode_one`, the paged
+`_paged_decode_one` / `_paged_prefill_chunk`, the sampler).
 
-Caches are (num_layers, b, kv_heads, buf_len, head_dim) in the compute
-dtype. Under grouped-query attention they hold kv_heads entries and query
-head i reads kv head i // (num_heads / kv_heads).
+Slot caches are (num_layers, b, kv_heads, buf_len, head_dim) in the compute
+dtype. Paged pools are (num_layers, num_pages + 1, kv_heads, page_size,
+head_dim), or (codes int8, scales f32 (num_layers, num_pages + 1, kv_heads,
+page_size)) tuples for int8 pages (serving/kv_manager.py). Under
+grouped-query attention they hold kv_heads entries and query head i reads kv
+head i // (num_heads / kv_heads).
 
-Where JAX returns updated caches from a pure function, `_decode_one` here
-writes the caches IN PLACE (torch runs eagerly; the JAX engine gets the
-same effect from buffer donation).
+Where JAX returns updated caches from a pure function, the lowerings here
+write the caches IN PLACE (torch runs eagerly; the JAX engine gets the same
+effect from buffer donation) and return only the logits.
 """
 
 from __future__ import annotations
@@ -17,7 +21,13 @@ import math
 import torch
 
 from ..ops.attention import MASK_VALUE, causal_attention
+from ..ops.cuda.paged_attention import paged_attention
+from ..ops.quant import quantize_rows
 from ..ops.rope import apply_rotary
+
+# the paged attends: the dense page view + einsum block (the oracle), or
+# `paged_attention` (the CUDA kernel on the card, its plain version on CPU)
+PAGED_ATTN_IMPLS = ("gather", "kernel")
 
 
 def _qkv(model, lp, y: torch.Tensor, dtype):
@@ -141,6 +151,169 @@ def _decode_one(model, cache_k: torch.Tensor, cache_v: torch.Tensor,
         o = o.reshape(b, kvh * g, hd)[:, :, None, :]   # (b, h, 1, hd)
         x = _finish_block(model, lp, x, o, dtype)
     return _logits_last(model, x, dtype)
+
+
+def _check_paged(attn_impl: str, cp: int) -> None:
+    if cp > 1:
+        raise NotImplementedError(
+            f"cp={cp}: the cp-sharded page pool is not ported yet, see "
+            f"ROADMAP Queue 1 (d); the port serves pages at cp=1")
+    if attn_impl not in PAGED_ATTN_IMPLS:
+        raise ValueError(f"paged attn impl must be one of "
+                         f"{PAGED_ATTN_IMPLS}, got {attn_impl!r}")
+
+
+def _layer_pool(pool, li: int):
+    """Layer li of a pool: a tensor, or a (codes, scales) tuple."""
+    if isinstance(pool, tuple):
+        return pool[0][li], pool[1][li]
+    return pool[li]
+
+
+def _paged_cache_write(cache, zi: torch.Tensor, dst_page: torch.Tensor,
+                       dst_off: torch.Tensor) -> None:
+    """Scatter head-vectors into one layer of the page pool, IN PLACE. `zi`
+    is shaped like the advanced-index result of `cache[dst_page, :,
+    dst_off]`: (b, kvh, hd) for the single-token step, (b, cw, kvh, hd) for
+    a chunk. A quantized (codes, scales) pool codes each vector on the way
+    in (one symmetric scale per head-vector, `ops.quant.quantize_rows`).
+
+    Free rows and pad columns aim at the scratch page, several at one
+    offset at times: which duplicate write lands there does not matter,
+    since no live row attends to the scratch page."""
+    if isinstance(cache, tuple):
+        codes, sc = cache
+        q, s = quantize_rows(zi)
+        codes[dst_page, :, dst_off, :] = q
+        sc[dst_page, :, dst_off] = s
+    else:
+        cache[dst_page, :, dst_off, :] = zi.to(cache.dtype)
+
+
+def _gather_page_view(cache, page_tbl: torch.Tensor,
+                      dtype) -> torch.Tensor:
+    """One pool layer (pages, kvh, ps, hd) + per-row page lists (b,
+    max_pages) -> the dense logical cache view (b, kvh, max_pages * ps, hd)
+    the gather impl's einsums consume; an int8 pool dequantizes into the
+    compute dtype here. Positions past a row's cursor hold whatever the
+    mapped page holds (zeros, the scratch page, a COW donor's later tokens):
+    finite, and masked before anything reads them."""
+    b, mp = page_tbl.shape
+    if isinstance(cache, tuple):
+        codes, sc = cache
+        view = (codes[page_tbl].float() * sc[page_tbl][..., None]).to(dtype)
+    else:
+        view = cache[page_tbl]                   # (b, mp, kvh, ps, hd)
+    _, _, kvh, ps, hd = view.shape
+    return view.transpose(1, 2).reshape(b, kvh, mp * ps, hd)
+
+
+def _gather_attend(q: torch.Tensor, k_cache, v_cache,
+                   page_tbl: torch.Tensor, pos: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """The gather impl (the oracle): q (b, h, cw, hd) at absolute positions
+    pos (b, cw) over the gathered page views, with `_decode_one`'s attend
+    block — f32 scores, -10000 on keys past the query's position, f32
+    softmax, probabilities cast to the compute dtype before p @ v."""
+    b, h, cw, hd = q.shape
+    k_view = _gather_page_view(k_cache, page_tbl, dtype)
+    v_view = _gather_page_view(v_cache, page_tbl, dtype)
+    kvh, t = k_view.shape[1], k_view.shape[2]
+    visible = (torch.arange(t, device=q.device)[None, None, :]
+               <= pos[:, :, None])[:, None, None]    # (b, 1, 1, cw, t)
+    qg = q.reshape(b, kvh, h // kvh, cw, hd)
+    s = torch.einsum("bkgqd,bktd->bkgqt", qg.float(), k_view.float())
+    s = s / math.sqrt(hd)
+    s = s.masked_fill(~visible, MASK_VALUE)
+    p = torch.softmax(s, dim=-1).to(dtype)
+    o = torch.einsum("bkgqt,bktd->bkgqd", p, v_view)
+    return o.reshape(b, h, cw, hd)
+
+
+def _paged_attend(q, k_cache, v_cache, page_tbl, start, pos, page_size: int,
+                  dtype, attn_impl: str, qlen=None) -> torch.Tensor:
+    """One layer's attend over the page pool; the layer's K/V writes are
+    already in the pool, so each query sees its own position."""
+    if attn_impl == "kernel":
+        return paged_attention(q.contiguous(), k_cache, v_cache, page_tbl,
+                               start, page_size=page_size,
+                               qlen=qlen).to(dtype)
+    return _gather_attend(q, k_cache, v_cache, page_tbl, pos, dtype)
+
+
+def _paged_decode_one(model, pool_k, pool_v, token: torch.Tensor,
+                      cur: torch.Tensor, page_tbl: torch.Tensor,
+                      page_size: int, cos_t, sin_t, dtype,
+                      attn_impl: str = "gather", cp: int = 1) -> torch.Tensor:
+    """`_decode_one` through a page table: row i writes its token's K/V (in
+    place) into the page its table maps for position cur[i], at offset
+    cur[i] % page_size, then attends over its page list; returns the (b,
+    vocab) logits. Every layer writes before it attends, as in JAX.
+
+    token, cur (b,) and page_tbl (b, max_pages) hold int32 ids; free rows'
+    tables aim every entry at the scratch page, so their position-0 write
+    lands there. `attn_impl`: 'gather' (the dense page view, the oracle) or
+    'kernel' (`ops.cuda.paged_attention`)."""
+    _check_paged(attn_impl, cp)
+    b = token.shape[0]
+    p1 = cur[:, None]
+    x = _embed(model, token[:, None], dtype)
+    cos, sin = _positions(cos_t, sin_t, p1)
+    rows = torch.arange(b, device=token.device)
+    dst_page = page_tbl[rows, cur // page_size]        # (b,)
+    dst_off = cur % page_size                          # (b,)
+    for li, lp in enumerate(model.layers):
+        y = lp[model.attn_norm_key](x)
+        q, k, v = _qkv(model, lp, y, dtype)       # q: (b, h, 1, hd); kv: kvh
+        q, k = apply_rotary(q, k, cos, sin)
+        k_cache = _layer_pool(pool_k, li)
+        v_cache = _layer_pool(pool_v, li)
+        _paged_cache_write(k_cache, k[:, :, 0, :], dst_page, dst_off)
+        _paged_cache_write(v_cache, v[:, :, 0, :], dst_page, dst_off)
+        o = _paged_attend(q, k_cache, v_cache, page_tbl, cur, p1, page_size,
+                          dtype, attn_impl)
+        x = _finish_block(model, lp, x, o, dtype)
+    return _logits_last(model, x, dtype)
+
+
+def _paged_prefill_chunk(model, pool_k, pool_v, chunk: torch.Tensor,
+                         start: torch.Tensor, qlen: torch.Tensor,
+                         page_tbl: torch.Tensor, dst_page: torch.Tensor,
+                         dst_off: torch.Tensor, page_size: int, cos_t, sin_t,
+                         dtype, all_logits: bool = False,
+                         attn_impl: str = "gather",
+                         cp: int = 1) -> torch.Tensor:
+    """One CHUNK of an incremental prefill: `chunk` (b, cw) tokens at
+    absolute positions start..start+qlen-1 (columns >= qlen are pad) write
+    their K/V (in place) into the pages dst_page/dst_off (b, cw) map (pad
+    columns aim at the scratch page), and each chunk query attends over the
+    row's whole page list — earlier chunks, a shared prefix another request
+    prefilled, and the chunk's own earlier positions. Returns the logits at
+    the last real position qlen-1, (b, vocab), or with `all_logits` at every
+    chunk position, (b, cw, vocab). Causality makes chunked prefill
+    value-identical to the whole-buffer `_prefill`."""
+    _check_paged(attn_impl, cp)
+    b, cw = chunk.shape
+    pos = start[:, None] + torch.arange(cw, device=chunk.device,
+                                        dtype=start.dtype)[None, :]
+    x = _embed(model, chunk, dtype)
+    cos, sin = _positions(cos_t, sin_t, pos)
+    for li, lp in enumerate(model.layers):
+        y = lp[model.attn_norm_key](x)
+        q, k, v = _qkv(model, lp, y, dtype)       # q: (b, h, cw, hd)
+        q, k = apply_rotary(q, k, cos, sin)
+        k_cache = _layer_pool(pool_k, li)
+        v_cache = _layer_pool(pool_v, li)
+        _paged_cache_write(k_cache, k.transpose(1, 2), dst_page, dst_off)
+        _paged_cache_write(v_cache, v.transpose(1, 2), dst_page, dst_off)
+        o = _paged_attend(q, k_cache, v_cache, page_tbl, start, pos,
+                          page_size, dtype, attn_impl, qlen=qlen)
+        x = _finish_block(model, lp, x, o, dtype)
+    if all_logits:
+        return _logits_tokens(model, x, dtype)
+    idx = torch.clamp(qlen.long() - 1, min=0)[:, None, None]
+    last = torch.gather(x, 1, idx.expand(b, 1, x.shape[-1]))
+    return _logits_last(model, last, dtype)
 
 
 def validate_sampling(cfg, temperature: float, top_k: int,

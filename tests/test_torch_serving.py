@@ -144,7 +144,8 @@ def test_serve_refuses_cpu_unless_asked(monkeypatch):
         serve.main(["--dry_run"])
     assert e.value.code not in (0, None)
     assert "--device cpu" in str(e.value.code)
-    for flag in (["--paged"], ["--tp_size", "2"], ["--temperature", "0.5"]):
+    for flag in (["--speculate", "2"], ["--tp_size", "2"],
+                 ["--temperature", "0.5"]):
         with pytest.raises(SystemExit) as e:
             serve.main(["--dry_run", "--device", "cpu", *flag])
         assert e.value.code == 2
