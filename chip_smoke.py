@@ -65,11 +65,35 @@ result line):
     burst served with `--paged_attn kernel` and `gather` on the card:
     identical greedy tokens;
 17. paged_profile: one decode step and one chunk dispatch of the paged
-    engine at the paged_serve shape under torch.profiler.
+    engine at the paged_serve shape under torch.profiler;
+18. ring_check: the positional block kernels of ring attention (forward,
+    dq, dk/dv) against their plain versions, f32 and bf16, with random
+    (do, dlse): zig-zag halves (250, 250) fully visible and diagonal, ragged
+    (100, 377) and (1, 64), a block where every row is dead (o exactly 0,
+    lse exactly -1e30, dq exactly 0), GQA h 8 / hkv 2, head_dim 128; one
+    launch of each kernel per call;
+19. ring_times: each block kernel at the cp=2 path's shape, q and k halves
+    (8, 8, 250, 64) bf16, a fully visible and a diagonal block, by bare
+    launches and device time, beside the plain versions, a library
+    yardstick (memory-efficient SDPA with a position bias) and the bound;
+20. cp_train: `train.main` at cp=2 (two ranks sharing the card over gloo),
+    the 45m preset, bf16, b 8 x t 1000 with remat: zig-zag 10 steps, a
+    checkpoint and a 2-step `--resume`; contiguous 3 steps; Ulysses 2
+    steps — finite losses, falling under zig-zag, the step-1 loss of each
+    and of a cp=1 run on the same batch within 1e-2, and each rank's kernel
+    launches equal to the ring schedule's (read from the counters);
+21. cp_card_vs_cpu: cp=2 zig-zag at the 45m widths, 2 layers, f32, b 2 x t
+    256: loss and every gradient, the kernels on the card against the plain
+    versions on the CPU, one gloo group;
+22. cp_profile: one cp=2 zig-zag step of the 45m bf16 cell under
+    torch.profiler in each rank: wall, device busy, the card's idle share,
+    kernels, the block kernels' share, and the time in the ring's hops.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
-a subset prints no result lines).
+a subset prints no result lines). The cp phases start their ranks as
+processes of their own (`runtime/launch.spawn`); the build phase has built
+every kernel before they start.
 """
 
 import argparse
@@ -292,8 +316,8 @@ def phase_serve(torch) -> dict:
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
     _reset_launches()
     out = serve.main(SERVE_ARGS)
-    launches, dq, dkv = _read_launches()
-    paged = _read_paged_launches()
+    counts = _read_launches()
+    launches = counts["flash_attention_fwd"]
     torch.cuda.synchronize()
     layers = model_preset("45m").num_layers
     log(f"serve: {out['completed']}/{out['requests']} requests, "
@@ -301,24 +325,19 @@ def phase_serve(torch) -> dict:
         f"{out['tokens_per_sec']} tok/s; TTFT p50/p95 {out['ttft_ms_p50']}/"
         f"{out['ttft_ms_p95']} ms; TPOT p50/p95 {out['tpot_ms_p50']}/"
         f"{out['tpot_ms_p95']} ms; {out['decode_steps']} decode steps, "
-        f"{out['prefill_dispatches']} prefill dispatches, flash kernel "
-        f"launches {launches} (backward dq/dkv {dq}/{dkv}); device "
-        f"{out['device']}")
+        f"{out['prefill_dispatches']} prefill dispatches, kernel launches "
+        f"{counts}; device {out['device']}")
     if out["completed"] != out["requests"]:
         raise AssertionError(f"served {out['completed']} of "
                              f"{out['requests']} requests")
     toks = [t for ts in out["outputs"].values() for t in ts]
     if not toks or not all(0 <= t < 1024 for t in toks):
         raise AssertionError("generated tokens missing or outside the vocab")
-    if launches != layers * out["prefill_dispatches"] or launches == 0:
-        raise AssertionError(f"flash kernel launched {launches} times, "
-                             f"expected {layers} x "
-                             f"{out['prefill_dispatches']} prefill dispatches")
-    if (dq, dkv, paged) != (0, 0, 0):
-        raise AssertionError(f"slot serving launched the backward kernels "
-                             f"(dq {dq}, dkv {dkv}) or the paged kernel "
-                             f"({paged})")
-    return {"fwd": launches, "dq": dq, "dkv": dkv, "paged": paged}
+    if launches == 0:
+        raise AssertionError("slot serving launched no flash kernel")
+    _only(counts, {"flash_attention_fwd": layers * out["prefill_dispatches"]},
+          f"slot serving ({layers} per prefill dispatch)")
+    return counts
 
 
 def phase_card_vs_cpu(torch) -> None:
@@ -373,6 +392,27 @@ def _device_busy(prof, torch) -> tuple:
             flash += us
             n_flash += 1
     return busy / 1e3, n, flash / 1e3, n_flash
+
+
+def _profiled(torch, fn, what: str, agree=lambda seen: seen) -> list:
+    """(name, us) of each device kernel that torch.profiler records over
+    fn() and a synchronize. A run that records none is profiled once more;
+    a second such run raises. `agree(seen)` turns this process's "recorded
+    some" into the decision every rank of a group takes (a collective), so
+    ranks repeat their collectives together."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == cuda]
+        if agree(bool(events)):
+            return events
+    raise AssertionError(f"{what}: torch.profiler recorded no device kernel "
+                         f"in two profiled runs")
 
 
 def profile_engine(torch, cfg, device: str, prompt_len: int = 512,
@@ -448,12 +488,14 @@ def profile_engine(torch, cfg, device: str, prompt_len: int = 512,
 
 def phase_profile(torch) -> None:
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
-    p = profile_engine(torch, model_preset("45m", compute_dtype="bfloat16"),
-                       "cuda")
-    if p["admit_kernels"] == 0 or p["decode_kernels"] == 0:
-        log("profile: torch.profiler saw no device kernels; device busy "
-            "time not measured")
-        return
+    for _ in range(2):   # fresh engines each time: a second try if needed
+        p = profile_engine(torch, model_preset("45m", compute_dtype="bfloat16"),
+                           "cuda")
+        if p["admit_kernels"] and p["decode_kernels"]:
+            break
+    else:
+        raise AssertionError("profile: torch.profiler recorded no device "
+                             "kernel in two profiled runs")
     log(f"profile (45m bf16, 8 slots): decode step with {p['live']} live: "
         f"wall {p['decode_ms']:.3f} ms, device busy "
         f"{p['decode_busy_ms']:.3f} ms, idle share "
@@ -669,6 +711,9 @@ def write_bigram_corpus(path: str, vocab: int = 1024, docs: int = 3000,
 
 
 def _reset_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.block_attention import (
+        block_attention_bwd, block_attention_fwd)
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd, flash_attention_fwd)
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
@@ -677,38 +722,50 @@ def _reset_launches():
     flash_attention_bwd.launches_dq = 0
     flash_attention_bwd.launches_dkv = 0
     paged_attention.launches = 0
+    block_attention_fwd.launches = 0
+    block_attention_bwd.launches_dq = 0
+    block_attention_bwd.launches_dkv = 0
 
 
-def _read_launches():
-    """(fwd, dq, dkv) launches since the last reset; the paged kernel's
-    count is read by `_read_paged_launches`."""
-    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_bwd, flash_attention_fwd)
-    return (flash_attention_fwd.launches, flash_attention_bwd.launches_dq,
-            flash_attention_bwd.launches_dkv)
+def _read_launches() -> dict:
+    """Every kernel's launches since the last reset, by kernel name."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda import (
+        launch_counts)
+    return launch_counts()
 
 
-def _read_paged_launches() -> int:
-    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
-        paged_attention)
-    return paged_attention.launches
+def _only(counts: dict, want: dict, what: str) -> None:
+    """Raise unless the kernels in `want` ran exactly so often and no other
+    kernel ran at all."""
+    got = {k: v for k, v in counts.items() if v or k in want}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want} and no other kernel")
+
+
+def _corpus(workdir: str) -> str:
+    """The seeded bigram corpus in `workdir`, written on first use."""
+    data = os.path.join(workdir, "bigram.json")
+    if not os.path.exists(data):
+        t0 = time.perf_counter()
+        write_bigram_corpus(data)
+        log(f"bigram corpus written in {time.perf_counter() - t0:.1f} s")
+    return data
 
 
 def phase_train(torch, workdir: str) -> dict:
-    """Returns the train path's launches {fwd, dq, dkv} and its summary."""
+    """Returns the train path's launches by kernel and its summary."""
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
-    data = os.path.join(workdir, "bigram.json")
-    t0 = time.perf_counter()
-    write_bigram_corpus(data)
-    log(f"train: bigram corpus written in {time.perf_counter() - t0:.1f} s")
+    data = _corpus(workdir)
     save_dir = os.path.join(workdir, "ckpt")
     args = TRAIN_ARGS + ["--data_path", data, "--save_dir", save_dir]
     _reset_launches()
     out = train.main(args)
-    fwd, dq, dkv = _read_launches()
-    paged = _read_paged_launches()
+    counts = _read_launches()
+    fwd, dq, dkv = (counts[f"flash_attention_{k}"]
+                    for k in ("fwd", "bwd_dq", "bwd_dkv"))
     layers = model_preset("45m").num_layers
     losses = out["losses"]
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -727,12 +784,10 @@ def phase_train(torch, workdir: str) -> dict:
     # so a drop of 1 nat is learning, not noise
     if not last <= first - 1.0:
         raise AssertionError(f"train loss did not fall: {first} -> {last}")
-    want = (2 * layers * TRAIN_STEPS, layers * TRAIN_STEPS,
-            layers * TRAIN_STEPS, 0)
-    if (fwd, dq, dkv, paged) != want:
-        got = (fwd, dq, dkv, paged)
-        raise AssertionError(f"launches fwd/dq/dkv/paged {got}, expected "
-                             f"{want} (remat: forward twice per layer)")
+    _only(counts, {"flash_attention_fwd": 2 * layers * TRAIN_STEPS,
+                   "flash_attention_bwd_dq": layers * TRAIN_STEPS,
+                   "flash_attention_bwd_dkv": layers * TRAIN_STEPS},
+          "train (remat: forward twice per layer)")
     ckpt = os.path.join(save_dir, f"tprank-0_iter-{TRAIN_STEPS}_loss-")
     if not any(p.startswith(ckpt) for p in out["checkpoints"]):
         raise AssertionError(f"no checkpoint at iter {TRAIN_STEPS}")
@@ -746,8 +801,7 @@ def phase_train(torch, workdir: str) -> dict:
             or resumed["steps"] != TRAIN_STEPS + 2
             or not all(math.isfinite(x) for x in resumed["losses"])):
         raise AssertionError("resume did not continue from the checkpoint")
-    return {"fwd": fwd, "dq": dq, "dkv": dkv, "paged": paged,
-            "summary": out}
+    return {**counts, "summary": out}
 
 
 def phase_train_card_vs_cpu(torch) -> None:
@@ -817,7 +871,6 @@ def phase_train_profile(torch) -> dict:
     """One 45m bf16 train step (b 32 x t 1000, remat) under torch.profiler,
     after two warm-up steps on the same batch."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from distributed_pytorch_from_scratch_tpu_torch.config import (
         OptimizerConfig, model_preset)
     from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
@@ -841,26 +894,19 @@ def phase_train_profile(torch) -> dict:
     _, _, state = step(state, ids, ids, pos)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def one_step():
+        nonlocal state
         _, _, state = step(state, ids, ids, pos)
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
+
     flash = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
     busy, n, by_name, counts = 0.0, 0, {}, {}
-    for e in prof.events():
-        if e.device_type != cuda:
-            continue
-        us = e.time_range.elapsed_us()
+    for name, us in _profiled(torch, one_step, "train profile"):
         busy += us
         n += 1
-        key = next((k for k in flash if k in e.name), e.name)
+        key = next((k for k in flash if k in name), name)
         by_name[key] = by_name.get(key, 0.0) + us
         counts[key] = counts.get(key, 0) + 1
-    if n == 0:
-        log("train profile: torch.profiler saw no device kernels; device "
-            "busy time not measured")
-        return {}
     shares = {k: by_name.get(k, 0.0) / busy for k in flash}
     others = sorted((k for k in by_name if k not in flash),
                     key=by_name.get, reverse=True)[:8]
@@ -957,10 +1003,10 @@ def phase_paged_check(torch) -> float:
             kw = dict(page_size=ps, pos_offset=off, return_lse=True,
                       qlen=None if qlens is None else torch.tensor(
                           qlens, dtype=torch.int32, device="cuda"))
-            n = _read_paged_launches()
+            n = paged_attention.launches
             o, lse = paged_attention(q, kp, vp, tbl, start, **kw)
             torch.cuda.synchronize()
-            launched = _read_paged_launches() - n
+            launched = paged_attention.launches - n
             ro, rlse = paged_attention_plain(q, kp, vp, tbl, start, **kw)
             valid = [cw if qlens is None else qlens[r] for r in range(b)]
             err, ratio = _paged_err(torch, o, ro, valid, name)
@@ -1094,7 +1140,7 @@ def phase_paged_times(torch) -> dict:
             "by_shape": by_shape}
 
 
-def _check_paged_run(out, stats, paged, flash, layers, vocab) -> None:
+def _check_paged_run(out, stats, counts, layers, vocab) -> None:
     if out["completed"] != out["requests"]:
         raise AssertionError(f"served {out['completed']} of "
                              f"{out['requests']} requests")
@@ -1106,13 +1152,11 @@ def _check_paged_run(out, stats, paged, flash, layers, vocab) -> None:
         raise AssertionError(f"prefix hits {stats['prefix_hit_tokens']}, "
                              f"COW copies {stats['cow_copies']}, pages in "
                              f"use after the drain {stats['pages_in_use']}")
-    want = layers * (stats["decode_steps"] + out["prefill_dispatches"])
-    if paged != want or paged == 0:
-        raise AssertionError(f"paged kernel launched {paged} times, expected "
-                             f"{want} = {layers} x (decode steps + chunks)")
-    if flash != (0, 0, 0):
-        raise AssertionError(f"paged serving launched flash kernels "
-                             f"(fwd/dq/dkv {flash})")
+    if counts["paged_attention"] == 0:
+        raise AssertionError("paged serving launched no paged kernel")
+    _only(counts, {"paged_attention": layers * (stats["decode_steps"]
+                                                + out["prefill_dispatches"])},
+          f"paged serving ({layers} x (decode steps + chunks))")
 
 
 def phase_paged_serve(torch) -> dict:
@@ -1125,11 +1169,12 @@ def phase_paged_serve(torch) -> dict:
     runs = {"bf16": PAGED_SERVE_ARGS,
             "int8": PAGED_SERVE_ARGS[:n] + [str(PAGED_INT8_REQUESTS)]
             + PAGED_SERVE_ARGS[n + 1:] + ["--kv_dtype", "int8"]}
-    counts = {}
+    by_kv = {}
     for kv, args in runs.items():
         _reset_launches()
         out = serve.main(args)
-        flash, paged = _read_launches(), _read_paged_launches()
+        counts = _read_launches()
+        paged = counts["paged_attention"]
         torch.cuda.synchronize()
         st = out["engine_stats"]
         att = out.get("slo_attainment") or {}
@@ -1146,12 +1191,11 @@ def phase_paged_serve(torch) -> dict:
             f"pages in use after drain {st['pages_in_use']}; SLO attainment "
             + ", ".join(f"{c} {v['attained']} of {v['completed']}"
                         for c, v in att.items())
-            + f"; paged kernel launches {paged}, flash fwd/dq/dkv {flash}; "
+            + f"; paged kernel launches {paged}, all kernels {counts}; "
             f"device {out['device']}")
-        _check_paged_run(out, st, paged, flash, layers, 1024)
-        counts[kv] = {"fwd": flash[0], "dq": flash[1], "dkv": flash[2],
-                      "paged": paged}
-    return {**counts["bf16"], "paged_int8": counts["int8"]["paged"]}
+        _check_paged_run(out, st, counts, layers, 1024)
+        by_kv[kv] = counts
+    return {**by_kv["bf16"], "paged_int8": by_kv["int8"]["paged_attention"]}
 
 
 def phase_paged_card_vs_cpu(torch) -> None:
@@ -1238,7 +1282,6 @@ def phase_paged_profile(torch) -> dict:
     prefill_chunk 128), host wall from the clock around each (they end in
     the token copy), device busy from a profiled repeat."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from distributed_pytorch_from_scratch_tpu_torch.config import (
         MeshConfig, model_preset)
     from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
@@ -1269,42 +1312,32 @@ def phase_paged_profile(torch) -> dict:
         return (time.perf_counter() - t0) * 1e3
 
     def pump():
+        before = eng.prefill_dispatches
         with torch.inference_mode():
             eng._pump_prefill([])
+        if eng.prefill_dispatches - before != 1:
+            raise AssertionError("a pump did not dispatch exactly one chunk")
 
-    def profiled(fn):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
+    def profiled(fn, what):
         busy = paged = 0.0
         n = n_paged = 0
-        for e in prof.events():
-            if e.device_type != cuda:
-                continue
-            us = e.time_range.elapsed_us()
+        for name, us in _profiled(torch, fn, f"paged profile, {what}"):
             busy += us
             n += 1
-            if "paged_attn_kernel" in e.name:
+            if "paged_attn_kernel" in name:
                 paged += us
                 n_paged += 1
         return busy / 1e3, n, paged / 1e3, n_paged
 
     decode_ms = timed(eng.step)
-    d = profiled(eng.step)
+    d = profiled(eng.step, "decode step")
+    # a 512-position prompt: four chunks, for the timed pump and at most
+    # two profiled ones
     eng.submit(Request(rid=99, prompt=prompt(), max_new=8))
     with torch.inference_mode():
         eng._admit([])
-    d_chunks = eng.prefill_dispatches
     chunk_ms = timed(pump)
-    c = profiled(pump)
-    if eng.prefill_dispatches - d_chunks != 2:
-        raise AssertionError("a pump did not dispatch exactly one chunk")
-    if d[1] == 0 or c[1] == 0:
-        log("paged profile: torch.profiler saw no device kernels; device "
-            "busy time not measured")
-        return {}
+    c = profiled(pump, "chunk dispatch")
     for what, wall, (busy, n, paged, n_paged) in (
             ("decode step, 16 live", decode_ms, d),
             ("chunk dispatch, 128 positions", chunk_ms, c)):
@@ -1316,10 +1349,513 @@ def phase_paged_profile(torch) -> dict:
             chunk_ms, "chunk": c}
 
 
+# ---- slice 4: ring attention (cp) and its positional block kernels ----
+
+BLOCK_SOURCE = ("distributed_pytorch_from_scratch_tpu_torch/ops/cuda/csrc/"
+                "block_attn.cu")
+# rows 6-8 of PERF.md's kernel table
+BLOCK_REPLACES = {"fwd": f"{PALLAS}:810", "dq": f"{PALLAS}:850",
+                  "dkv": f"{PALLAS}:878"}
+# (what, b, h, hkv, tq, tk, d, q positions, kv positions): the positions are
+# built by `_ring_positions` from these specs
+RING_CASES = [
+    ("zigzag halves (250, 250), fully visible", 2, 8, 8, 250, 250, 64,
+     ("range", 750), ("range", 0)),
+    ("zigzag halves (250, 250), diagonal", 2, 8, 8, 250, 250, 64,
+     ("range", 750), ("range", 750)),
+    ("ragged (100, 377), random positions", 2, 8, 8, 100, 377, 64,
+     ("random", 0, 600), ("random", 0, 600)),
+    ("ragged (1, 64)", 3, 8, 8, 1, 64, 64, ("random", 0, 64),
+     ("random", 0, 64)),
+    ("every row dead", 2, 8, 8, 96, 80, 64, ("range", 0), ("range", 500)),
+    ("GQA h 8 / hkv 2, some dead rows", 2, 8, 2, 96, 160, 64,
+     ("random", 0, 400), ("random", 100, 500)),
+    ("head_dim 128", 1, 4, 4, 130, 100, 128, ("random", 0, 300),
+     ("random", 0, 300)),
+    # one key tile (the kernels' tile is 32 keys): the running max is the
+    # final max, so the kernel rounds p where the plain version does; q, k,
+    # v and do on a grid of halves make every score and dp exact in f32
+    # (any sum order), so p and ds are the same bits on both sides and bf16
+    # is held with no rounding slack: a kernel that skipped rounding p (or
+    # ds) to bf16 fails here
+    ("one key tile (100, 20), grid values, no slack", 2, 8, 8, 100, 20, 64,
+     ("range", 10), ("range", 0), "exact"),
+]
+RING_LIMIT = {"float32": "1e-5 x max(1, max |plain|) of the tensor",
+              "bfloat16": "1 bf16 step of each element + its rounding slack "
+                          "(block_attention.rounding_slack) + 1e-5 of its "
+                          "row's max |plain|",
+              "bfloat16 exact": "1 bf16 step of each element + 1e-5 of its "
+                                "row's max |plain|, no slack"}
+
+
+def _ring_positions(torch, spec, b, t, g):
+    if spec[0] == "range":
+        return (spec[1] + torch.arange(t, device="cuda")).expand(b, t) \
+            .to(torch.int32).contiguous()
+    return torch.randint(spec[1], spec[2], (b, t), generator=g,
+                         device="cuda", dtype=torch.int32)
+
+
+def _ring_inputs(torch, case, dtype, seed):
+    """q, k, v, q_pos, kv_pos, do, dlse on the card from `seed`; an
+    "exact" case puts q, k, v and do on the grid {-1.5, -1, ..., 1.5}."""
+    _, b, h, hkv, tq, tk, d, qspec, kspec, *opts = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    q, k, v = mk(b, h, tq, d), mk(b, hkv, tk, d), mk(b, hkv, tk, d)
+    do, dlse = mk(b, h, tq, d), mk(b, h, tq)
+    if "exact" in opts:
+        q, k, v, do = (torch.round(2 * x).clamp(-3, 3) / 2
+                       for x in (q, k, v, do))
+    qp = _ring_positions(torch, qspec, b, tq, g)
+    kp = _ring_positions(torch, kspec, b, tk, g)
+    return ([x.to(dtype) for x in (q, k, v)] + [qp, kp, do.to(dtype), dlse])
+
+
+def _ring_err(torch, x, r, name, slack) -> tuple:
+    """(max abs err, worst err / limit) of kernel output x against plain r;
+    a ratio <= 1 passes. Rows are the last axis."""
+    x, r = x.float(), r.float()
+    d = (x - r).abs()
+    if name == "float32":
+        limit = torch.full_like(r, 1e-5 * max(1.0, r.abs().max().item()))
+    else:
+        _, e = torch.frexp(r.abs())   # |r| in [2^(e-1), 2^e)
+        step = torch.where(r == 0, 0.0, torch.exp2((e - 8).float()))
+        limit = step + slack + 1e-5 * r.abs().amax(-1, keepdim=True)
+    return d.max().item(), (d / limit.clamp_min(1e-30)).max().item()
+
+
+def _ring_case(torch, what, case, name, inputs) -> dict:
+    """The three block kernels (through their wrappers, one launch each)
+    against their plain versions on `inputs` (`_ring_inputs`); logs each
+    output's error beside its limit and raises on a miss. Returns the max
+    abs errors of o, dq, dk and dv."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.block_attention import (
+        MASK, block_attention_bwd, block_attention_bwd_plain,
+        block_attention_fwd, block_attention_plain, rounding_slack)
+    q, k, v, qp, kp, do, dlse = inputs
+    before = (block_attention_fwd.launches, block_attention_bwd.launches_dq,
+              block_attention_bwd.launches_dkv)
+    o, lse = block_attention_fwd(q, k, v, qp, kp)
+    ro, rlse = block_attention_plain(q, k, v, qp, kp)
+    # the backward pair from the plain forward's (o, lse): one input
+    got = block_attention_bwd(q, k, v, qp, kp, ro, rlse, do, dlse)
+    torch.cuda.synchronize()
+    launched = (block_attention_fwd.launches - before[0],
+                block_attention_bwd.launches_dq - before[1],
+                block_attention_bwd.launches_dkv - before[2])
+    ref = block_attention_bwd_plain(q, k, v, qp, kp, ro, rlse, do, dlse)
+    exact = "exact" in case[9:]
+    slack = rounding_slack(q, k, v, qp, kp, ro, rlse, do, dlse)
+    if exact:
+        slack = {label: torch.zeros_like(x) for label, x in slack.items()}
+    limit = RING_LIMIT[f"{name} exact" if exact and name == "bfloat16"
+                       else name]
+    errs, ratios = {}, {}
+    for label, x, r in (("o", o, ro), ("dq", got[0], ref[0]),
+                        ("dk", got[1], ref[1]), ("dv", got[2], ref[2])):
+        errs[label], ratios[label] = _ring_err(torch, x, r, name, slack[label])
+    dead = rlse <= MASK / 2
+    lse_err = (lse - rlse)[~dead].abs().max().item() if (~dead).any() else 0.0
+    dead_ok = (bool((lse[dead] == MASK).all())
+               and bool((o.float()[dead] == 0).all())
+               and bool((got[0].float()[dead] == 0).all()))
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in (o, lse, *got))
+    log(f"ring_check: {what}: q({case[1]}, {case[2]}, {case[4]}, {case[6]}) "
+        f"kv({case[1]}, {case[3]}, {case[5]}) {name}: max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; err/limit " + ", ".join(f"{k} {v:.3e}" for k, v in ratios.items())
+        + f" (limit {limit}); lse {lse_err:.3e} (limit 1e-5 x max(1, |lse|)); "
+        f"dead rows {int(dead.sum())} exact {dead_ok}; finite {finite}; "
+        f"launches fwd/dq/dkv {launched}")
+    lse_lim = 1e-5 * max(1.0, rlse[~dead].abs().max().item()) \
+        if (~dead).any() else 0.0
+    if not (max(ratios.values()) <= 1.0 and lse_err <= lse_lim and dead_ok
+            and finite and launched == (1, 1, 1)):
+        raise AssertionError(f"block kernels disagree with their plain "
+                             f"versions: {what} {name}")
+    return errs
+
+
+def _worst(errs: dict) -> dict:
+    """Per kernel, the largest abs error of its outputs."""
+    return {"fwd": errs["o"], "dq": errs["dq"],
+            "dkv": max(errs["dk"], errs["dv"])}
+
+
+def phase_ring_check(torch) -> dict:
+    """The three block kernels against their plain versions; returns the
+    largest abs error of each kernel's outputs over every case and dtype."""
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for i, case in enumerate(RING_CASES):
+        for name in ("bfloat16", "float32"):
+            inputs = _ring_inputs(torch, case, getattr(torch, name), 400 + i)
+            errs = _worst(_ring_case(torch, case[0], case, name, inputs))
+            worst = {part: max(worst[part], errs[part]) for part in worst}
+    return worst
+
+
+def bound_block(b, h, hkv, tq, tk, d, pairs, dtype_name, part) -> tuple:
+    """(bound_ms, bound_by) of one block call on this data: bytes = q, k, v
+    read, the part's outputs written (fwd: o and the f32 lse; dq; dk, dv;
+    pair: all three) in the input dtype, the backward's do read and f32 lse,
+    delta, dlse read, the int32 positions read; operations = 2*d flops per
+    product on each visible (q, k) pair of every head — 2 products forward
+    (s, pv), 3 for dq, 4 for dk/dv, 5 for the pair (as `bound_bwd`)."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    q_el, kv_el = b * h * tq * d, b * hkv * tk * d
+    rows = b * h * tq
+    out_el = {"fwd": q_el, "dq": q_el, "dkv": 2 * kv_el,
+              "pair": q_el + 2 * kv_el}[part]
+    nbytes = item * (q_el + 2 * kv_el + out_el) + 4 * b * (tq + tk)
+    nbytes += 4 * rows if part == "fwd" else item * q_el + 12 * rows
+    products = {"fwd": 2, "dq": 3, "dkv": 4, "pair": 5}[part]
+    flops = products * 2 * d * pairs
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_ring_times(torch) -> dict:
+    """At the cp=2 path's shape, q and k halves (8, 8, 250, 64) bf16: a fully
+    visible block and a diagonal one. Each kernel against its plain version
+    (ring_check's limits), then by 100 bare launches
+    (CUDA events) with its device time from torch.profiler beside it, the
+    plain versions, the library yardstick and the bound; returns the
+    kernels-line fields (the fully visible block) and every case under
+    `by_block`."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.block_attention import (
+        _launch_dkv, _launch_dq, _launch_fwd, block_attention_bwd_plain,
+        block_attention_plain, prepare_bwd, prepare_fwd)
+    b, h, t, d = 8, 8, 250, 64
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    stream = torch.cuda.current_stream().cuda_stream
+    by_block = {}
+    for block, qstart, kstart in (("full", 750, 0), ("diagonal", 750, 750)):
+        case = ("", b, h, h, t, t, d, ("range", qstart), ("range", kstart))
+        inputs = _ring_inputs(torch, case, torch.bfloat16, 500)
+        q, k, v, qp, kp, do, dlse = inputs
+        # the kernels against their plain versions at the path's own shape,
+        # with ring_check's limits, before they are timed
+        errs = _worst(_ring_case(torch, f"path shape, {block} block", case,
+                                 "bfloat16", inputs))
+        live = qp[:, :, None] >= kp[:, None, :]               # (b, tq, tk)
+        pairs = int(live.sum()) * h
+        fwd_args, keep_fwd = prepare_fwd(q, k, v, qp, kp)
+        args, keep = prepare_bwd(q, k, v, qp, kp, *block_attention_plain(
+            q, k, v, qp, kp), do, dlse)
+        o, lse = torch.empty_like(q), torch.empty_like(dlse)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        run = {"fwd": lambda: _launch_fwd(fwd_args, o, lse, stream),
+               "dq": lambda: _launch_dq(args, dq, stream),
+               "dkv": lambda: _launch_dkv(args, dk, dv, stream)}
+        ms = {part: _time_ms(torch, fn) for part, fn in run.items()}
+        dev, how = _device_ms(torch, list(run.values()))
+        ro, rlse = block_attention_plain(q, k, v, qp, kp)
+        plain = {"fwd": _time_ms(torch, lambda: block_attention_plain(
+                     q, k, v, qp, kp), iters=20),
+                 "bwd": _time_ms(torch, lambda: block_attention_bwd_plain(
+                     q, k, v, qp, kp, ro, rlse, do, dlse), iters=20)}
+        # the library yardstick: memory-efficient SDPA with an additive bias
+        # from the positions (last dim padded to 256 so its rows are 16-byte
+        # aligned, as SDPA pads it) and compute_log_sumexp=True: one call for
+        # the same (o, lse); its backward as forward+backward minus forward
+        bias_buf = torch.zeros((b, h, t, 256), dtype=torch.bfloat16,
+                               device="cuda")
+        bias = bias_buf[..., :t]
+        bias.copy_(torch.where(live, 0.0, float("-inf"))[:, None].expand(
+            b, h, t, t))
+        qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+
+        def lib_fwd():
+            efficient(q, k, v, bias, True)
+
+        def lib_both():
+            out = efficient(qg, kg, vg, bias, True)[0]
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        (lib_fwd_ms, lib_both_ms), lib_how = _device_ms(
+            torch, [lib_fwd, lib_both])
+        bounds = {part: bound_block(b, h, h, t, t, d, pairs, "bfloat16", part)
+                  for part in ("fwd", "dq", "dkv", "pair")}
+        again = _time_ms(torch, run["fwd"])
+        by_block[block] = {"errs": errs, "ms": ms, "fwd_ms_again": again,
+                           "device_ms": dict(zip(run, dev)),
+                           "plain_ms": plain, "library_fwd_ms": lib_fwd_ms,
+                           "library_bwd_ms": lib_both_ms - lib_fwd_ms,
+                           "bounds": bounds, "pairs": pairs}
+        log(f"ring_times, {block} block q({b}, {h}, {t}, {d}) bf16, "
+            f"{pairs} visible (q, k) pairs: bare launches, CUDA events over "
+            f"100: fwd {ms['fwd']:.5f} ms (again {again:.5f}), dq "
+            f"{ms['dq']:.5f}, dk/dv {ms['dkv']:.5f}; device time ({how}): "
+            + ", ".join(f"{p} {x:.5f}" for p, x in zip(run, dev))
+            + f"; plain (events over 20): fwd {plain['fwd']:.5f}, backward "
+            f"{plain['bwd']:.5f}; library (_scaled_dot_product_efficient_"
+            f"attention with a position bias, {lib_how}): fwd "
+            f"{lib_fwd_ms:.5f}, backward (fwd+bwd minus fwd) "
+            f"{lib_both_ms - lib_fwd_ms:.5f}; bounds: "
+            + ", ".join(f"{p} {x[0] * 1e3:.3f} us ({x[1]})"
+                        for p, x in bounds.items()))
+        del keep, keep_fwd, qg, kg, vg, bias_buf
+    full = by_block["full"]
+    common = {"plain_for": "plain forward resp. plain backward pair",
+              "library_for": "_scaled_dot_product_efficient_attention with "
+                             "an additive position bias: forward, resp. its "
+                             "backward (fwd+bwd minus fwd); device time",
+              "shape": "q, k halves (8, 8, 250, 64) bf16, fully visible",
+              "by_block": by_block}
+    fields = lambda part, plain, lib: {
+        "max_abs_err_path_shape": max(x["errs"][part]
+                                      for x in by_block.values()),
+        "ms": full["ms"][part], "device_ms": full["device_ms"][part],
+        "plain_ms": full["plain_ms"][plain], "library_ms": lib,
+        "bound_ms": full["bounds"][part][0],
+        "bound_by": full["bounds"][part][1], **common}
+    return {"fwd": fields("fwd", "fwd", full["library_fwd_ms"]),
+            "dq": fields("dq", "bwd", full["library_bwd_ms"]),
+            "dkv": fields("dkv", "bwd", full["library_bwd_ms"])}
+
+
+
+# the cp=2 cell-to-be: the 45m preset at b 8 x t 1000 bf16 with remat, two
+# ranks on the one card over gloo, the bigram corpus of the train phase
+CP_B, CP_T = 8, 1000
+CP_ARGS = ["--model", "45m", "--bf16", "--batch_size", str(CP_B), "--maxlen",
+           str(CP_T), "--warmup_steps", "2", "--lr", "1e-3", "--log_interval",
+           "5", "--save_interval", "1000", "--device", "cuda"]
+CP2 = ["--cp_size", "2", "--dist_backend", "gloo"]
+CP_RUNS = {  # name: (flags, steps)
+    "zigzag": (["--cp_layout", "zigzag"], 10),
+    "contiguous": (["--cp_layout", "contiguous"], 3),
+    "ulysses": (["--cp_impl", "ulysses"], 2),
+}
+
+
+def _cp_want(layers: int, steps: int, name: str, t: int, b: int) -> list:
+    """Per rank, the launches the run's schedule implies: the ring's blocks
+    from `block_schedule` over the batch's positions (docs mode: 0..t-1 in
+    every row, cut by the layout), forward twice per layer under remat;
+    Ulysses runs the flash kernels once per layer over the whole sequence."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.ops.ring_attention import (
+        block_schedule, cp_chunk_index)
+    if name == "ulysses":
+        return [{"flash_attention_fwd": 2 * layers * steps,
+                 "flash_attention_bwd_dq": layers * steps,
+                 "flash_attention_bwd_dkv": layers * steps}] * 2
+    pos = np.stack([np.tile(cp_chunk_index(t, 2, r, name), (b, 1))
+                    for r in range(2)])
+    blocks = [sum(len(s) for s in rank) for rank in block_schedule(pos)]
+    return [{"block_attention_fwd": 2 * layers * n * steps,
+             "block_attention_bwd_dq": layers * n * steps,
+             "block_attention_bwd_dkv": layers * n * steps} for n in blocks]
+
+
+def phase_cp_train(torch, workdir: str) -> dict:
+    """train.main at cp=2 in each layout and the cp=1 step on the same
+    batch; returns each run's launches summed over ranks and the zigzag
+    run's summary."""
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    data = _corpus(workdir)
+    layers = model_preset("45m").num_layers
+    base = CP_ARGS + ["--data_path", data]
+    cp1 = train.main(base + ["--max_steps", "1", "--save_dir",
+                             os.path.join(workdir, "cp1")])
+    first = {"cp1": cp1["losses"][0]}
+    out = {}
+    for name, (flags, steps) in CP_RUNS.items():
+        save = os.path.join(workdir, f"cp2_{name}")
+        res = train.main(base + CP2 + flags + ["--max_steps", str(steps),
+                                               "--save_dir", save])
+        losses = res["losses"]
+        first[name] = losses[0]
+        want = _cp_want(layers, steps, name, CP_T, CP_B)
+        summed = {}
+        for rank, w in zip(res["ranks"], want):
+            _only(rank["launches"], w, f"cp2 {name} rank {rank['rank']} "
+                                       f"({steps} steps)")
+            for k, v in rank["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        per_step = [{k: v // steps for k, v in w.items()} for w in want]
+        ranks = "; ".join(
+            f"rank {r['rank']}: peak {r['peak_mem_gib']:.3f} GiB, hops "
+            f"{r['collectives']['calls']} calls, "
+            f"{r['collectives']['bytes'] / 1e9:.3f} GB, wait "
+            f"{r['collectives']['wait_s']:.3f} s + hop "
+            f"{r['collectives']['hop_s']:.3f} s of {r['wall_s']:.3f} s wall "
+            f"(hop share {r['collectives']['hop_s'] / r['wall_s']:.3f})"
+            for r in res["ranks"])
+        log(f"cp_train {name}: {res['steps']} steps of b{CP_B} x t{CP_T} "
+            f"bf16, cp {res['cp']} ({res['cp_impl']}, {res['cp_layout']}) over "
+            f"{res['dist_backend']} on {res['cards']} card(s): losses "
+            f"{[round(x, 4) for x in losses]}; step p50 "
+            f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_sec']:.1f} "
+            f"tok/s, MFU {res['mfu']:.4f}; {ranks}; launches per rank per "
+            f"step {per_step} (checked against the schedule)")
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"cp2 {name}: losses not finite or not "
+                                 f"{steps}")
+        out[name] = summed
+        if name == "zigzag":
+            out["summary"] = res
+            # an untrained model's mean CE over a b8 batch's ~5k valid tokens
+            # varies by ~0.01 from batch to batch: a drop of 0.1 is learning
+            if not sum(losses[-3:]) / 3 <= sum(losses[:3]) / 3 - 0.1:
+                raise AssertionError(f"cp2 zigzag loss did not fall: {losses}")
+            resumed = train.main(base + CP2 + flags + [
+                "--max_steps", str(steps + 2), "--save_dir", save, "--resume"])
+            log(f"cp_train zigzag --resume: started at step "
+                f"{resumed['start_step']}, ran to {resumed['steps']}, losses "
+                f"{resumed['losses']}")
+            if (resumed["start_step"] != steps
+                    or resumed["steps"] != steps + 2
+                    or not all(math.isfinite(x) for x in resumed["losses"])):
+                raise AssertionError("cp2 resume did not continue from the "
+                                     "checkpoint")
+    spread = max(first.values()) - min(first.values())
+    log(f"cp_train: step-1 losses on the same batch {first}: spread "
+        f"{spread:.3e} (limit 1e-2 absolute)")
+    if not spread <= 1e-2:
+        raise AssertionError("cp=2 step-1 losses disagree with cp=1")
+    return out
+
+
+def phase_cp_card_vs_cpu(torch) -> None:
+    """cp=2 zigzag at the 45m widths, 2 layers, f32, b 2 x t 256: the block
+    kernels on the card against the plain versions on the CPU, one gloo
+    group, the same weights and batch."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        IGNORE_INDEX, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        cp_checks, launch)
+    cfg = model_preset("45m", num_layers=2, compute_dtype="float32")
+    sd = Transformer(cfg).init_weights(seed=7).state_dict()
+    rng = np.random.default_rng(7)
+    b, t = 2, 256
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t + 1))
+    tgt = ids[:, 1:].copy()
+    tgt[1, 180:] = IGNORE_INDEX                 # a padded tail, one chunk
+    run = dict(impl="ring", layout="zigzag",
+               batch=(ids[:, :-1], tgt, np.tile(np.arange(t), (b, 1))))
+    res = launch.spawn(cp_checks.model_runs, 2, dataclasses.asdict(cfg), sd,
+                       [run], ("cuda", "cpu"), "gloo")
+    card, cpu = res[0]
+    rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    worst, worst_key = 0.0, None
+    for k, g in cpu["grads"].items():
+        ratio = float(np.abs(card["grads"][k] - g).max() / np.abs(g).max())
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    log(f"cp card vs cpu: 45m widths, 2 layers, f32, b{b} x t{t}, cp=2 "
+        f"zigzag: loss {card['loss']:.7f} (card, kernels) vs "
+        f"{cpu['loss']:.7f} (cpu, plain), rel diff {rel:.3e} (tol 1e-5); "
+        f"worst grad leaf {worst_key}: max abs diff {worst:.3e} of its max "
+        f"|grad| (tol 1e-5)")
+    if not (rel <= 1e-5 and worst <= 1e-5):
+        raise AssertionError("cp=2 on the card and on the CPU disagree")
+
+
+def _cp_profile_rank(rank: int, nprocs: int, init_method: str) -> dict:
+    """One rank of the profiled cp=2 zigzag step (runtime/launch.spawn)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, OptimizerConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.ops import collectives
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
+        init_adam_state)
+    from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
+        build_train_step)
+    mesh = make_mesh(MeshConfig(cp=nprocs), device="cuda", rank=rank,
+                     backend="gloo", init_method=init_method)
+    cfg = model_preset("45m", compute_dtype="bfloat16")
+    model = Transformer(cfg, remat=True, cp_size=nprocs, cp_layout="zigzag",
+                        mesh=mesh).init_weights(seed=2).to(mesh.device)
+    step = build_train_step(model, OptimizerConfig(lr=1e-4))
+    state = init_adam_state(dict(model.named_parameters()))
+    b, t = 8, 1000
+    rng = np.random.default_rng(2)
+    ids, pos = (torch.from_numpy(np.ascontiguousarray(x)).to(mesh.device)
+                for x in model.cp_shard(rng.integers(3, cfg.vocab_size, (b, t)),
+                                        np.tile(np.arange(t), (b, 1))))
+    for _ in range(2):
+        _, _, state = step(state, ids, ids, pos)
+    torch.cuda.synchronize()
+    dist.barrier()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    _, _, state = step(state, ids, ids, pos)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    hops = dict(collectives.stats)
+    dist.barrier()
+
+    def one_step():
+        nonlocal state
+        _, _, state = step(state, ids, ids, pos)
+
+    def every_rank(seen: bool) -> bool:
+        # a rank that profiles again runs the step's collectives again: the
+        # other rank must too
+        flag = torch.tensor([int(seen)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+
+    k2 = ("block_attn_fwd_kernel", "block_attn_dq_kernel",
+          "block_attn_dkv_kernel")
+    busy, n, by_name = 0.0, 0, {}
+    for name, us in _profiled(torch, one_step, f"cp profile, rank {rank}",
+                              every_rank):
+        busy += us
+        n += 1
+        key = next((k for k in k2 if k in name), "other")
+        by_name[key] = by_name.get(key, 0.0) + us
+    return {"rank": rank, "wall_ms": wall_ms, "busy_ms": busy / 1e3,
+            "kernels": n, "k2_ms": {k: by_name.get(k, 0.0) / 1e3 for k in k2},
+            "hops": hops}
+
+
+def phase_cp_profile(torch) -> dict:
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
+    ranks = launch.spawn(_cp_profile_rank, 2)
+    r0 = ranks[0]
+    card_busy = sum(r["busy_ms"] for r in ranks)
+    k2 = sum(r0["k2_ms"].values())
+    hop = r0["hops"]
+    log(f"cp profile (45m bf16, cp=2 zigzag over gloo on one card, b8 x "
+        f"t1000, remat), rank 0's step: wall {r0['wall_ms']:.3f} ms, device "
+        f"busy {r0['busy_ms']:.3f} ms over {r0['kernels']} kernels (rank 1: "
+        f"{ranks[1]['busy_ms']:.3f} ms, {ranks[1]['kernels']}); the card's "
+        f"idle share 1 - (both ranks' busy) / wall "
+        f"{1 - card_busy / r0['wall_ms']:.3f} (rank 0's alone "
+        f"{1 - r0['busy_ms'] / r0['wall_ms']:.3f}); K2 kernels "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in r0["k2_ms"].items())
+        + f" ({k2 / r0['busy_ms']:.3f} of rank 0's busy); ring hops "
+        f"{hop['calls']} calls, {hop['bytes'] / 1e9:.3f} GB: wait for the "
+        f"device {hop['wait_s'] * 1e3:.3f} ms + staged copies and transfer "
+        f"{hop['hop_s'] * 1e3:.3f} ms ({hop['hop_s'] * 1e3 / r0['wall_ms']:.3f}"
+        f" of the wall)")
+    return {"ranks": ranks}
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
-          "paged_card_vs_cpu", "paged_profile")
+          "paged_card_vs_cpu", "paged_profile", "ring_check", "ring_times",
+          "cp_train", "cp_card_vs_cpu", "cp_profile")
 
 
 def main() -> None:
@@ -1342,6 +1878,15 @@ def main() -> None:
         sys.exit(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as workdir:
+        lines = run(torch, phases, workdir)
+    for line in lines:
+        print(json.dumps(line))
+
+
+def run(torch, phases: set, workdir: str) -> list:
+    """Run the phases in order; returns the result lines (none for a subset
+    of the phases)."""
     t0 = time.perf_counter()
     device = phase_device(torch)
     if "build" in phases:
@@ -1361,8 +1906,7 @@ def main() -> None:
     if "bwd_times" in phases:
         bwd_times = phase_bwd_times(torch)
     if "train" in phases:
-        with tempfile.TemporaryDirectory() as workdir:
-            trained = phase_train(torch, workdir)
+        trained = phase_train(torch, workdir)
     if "train_card_vs_cpu" in phases:
         phase_train_card_vs_cpu(torch)
     if "train_profile" in phases:
@@ -1377,40 +1921,65 @@ def main() -> None:
         phase_paged_card_vs_cpu(torch)
     if "paged_profile" in phases:
         phase_paged_profile(torch)
+    if "ring_check" in phases:
+        ring_err = phase_ring_check(torch)
+    if "ring_times" in phases:
+        ring_times = phase_ring_times(torch)
+    if "cp_train" in phases:
+        cp_runs = phase_cp_train(torch, workdir)
+    if "cp_card_vs_cpu" in phases:
+        phase_cp_card_vs_cpu(torch)
+    if "cp_profile" in phases:
+        phase_cp_profile(torch)
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
-        return
+        return []
     by_path = lambda k: {"serve": served[k], "train": trained[k],
-                         "serve_paged": paged_served[k]}
+                         "serve_paged": paged_served[k],
+                         "train_cp2": cp_runs["zigzag"][k],
+                         "train_cp2_contiguous": cp_runs["contiguous"][k],
+                         "train_cp2_ulysses": cp_runs["ulysses"][k]}
     at_path = bwd_times["errs"]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": served["fwd"],
+         "replaces": REPLACES, "launches": served["flash_attention_fwd"],
          "max_abs_err": max(max_err, at_path["o"]),
          "max_abs_err_train_shape": at_path["o"], **times,
-         "launches_by_path": by_path("fwd")},
+         "launches_by_path": by_path("flash_attention_fwd")},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-         "launches": trained["dq"],
+         "launches": trained["flash_attention_bwd_dq"],
          "max_abs_err": max(bwd_err["dq"], at_path["dq"]),
          "max_abs_err_train_shape": at_path["dq"], **bwd_times["dq"],
-         "launches_by_path": by_path("dq")},
+         "launches_by_path": by_path("flash_attention_bwd_dq")},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-         "launches": trained["dkv"],
+         "launches": trained["flash_attention_bwd_dkv"],
          "max_abs_err": max(bwd_err["dkv"], at_path["dk"], at_path["dv"]),
          "max_abs_err_train_shape": max(at_path["dk"], at_path["dv"]),
-         **bwd_times["dkv"], "launches_by_path": by_path("dkv")},
+         **bwd_times["dkv"],
+         "launches_by_path": by_path("flash_attention_bwd_dkv")},
         {"name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
-         "replaces": PAGED_REPLACES, "launches": paged_served["paged"],
+         "replaces": PAGED_REPLACES,
+         "launches": paged_served["paged_attention"],
          "max_abs_err": max(paged_err, paged_times["by_shape"][
              "decode_bf16"]["max_abs_err"]), **paged_times,
-         "launches_by_path": {**by_path("paged"), "serve_paged_int8":
-                              paged_served["paged_int8"]}},
+         "launches_by_path": {**by_path("paged_attention"),
+                              "serve_paged_int8": paged_served["paged_int8"]}},
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": device}))
+    for part, name in (("fwd", "block_attention_fwd"),
+                       ("dq", "block_attention_bwd_dq"),
+                       ("dkv", "block_attention_bwd_dkv")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": BLOCK_SOURCE,
+            "replaces": BLOCK_REPLACES[part],
+            "launches": cp_runs["zigzag"][name],
+            "max_abs_err": max(ring_err[part],
+                               ring_times[part]["max_abs_err_path_shape"]),
+            **ring_times[part],
+            "launches_by_path": by_path(name)})
+    return [{"kernels": kernels}, {"ok": True, "device": device}]
 
 
 if __name__ == "__main__":

@@ -99,8 +99,8 @@ def model_preset(name: str, **overrides) -> ModelConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'); the port runs the
-    1-device case only (runtime/mesh.py refuses any axis > 1)."""
+    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'); the port runs cp through
+    torch.distributed and refuses any other axis > 1 (runtime/mesh.py)."""
 
     dp: int = 1
     tp: int = 1

@@ -60,14 +60,17 @@ def _finish_block(model, lp, x: torch.Tensor, o: torch.Tensor,
     return x + lp["down_proj"](torch.nn.functional.silu(g) * u, dtype)
 
 
-def _block(model, lp, x: torch.Tensor, cos, sin, dtype):
+def _block(model, lp, x: torch.Tensor, cos, sin, dtype,
+           attend=causal_attention):
     """One full-sequence decoder layer (the JAX `_layer_body` at tp=1):
     returns (x', k, v), the layer's output and its post-RoPE k and v. The
-    attention is `causal_attention`: the flash kernels on the card."""
+    attention is `attend(q, k, v)`: by default `causal_attention`, the flash
+    kernels on the card; the cp training forward passes the ring or Ulysses
+    attention over its chunk."""
     y = lp[model.attn_norm_key](x)
     q, k, v = _qkv(model, lp, y, dtype)
     q, k = apply_rotary(q, k, cos, sin)
-    o = causal_attention(q, k, v)
+    o = attend(q, k, v)
     return _finish_block(model, lp, x, o, dtype), k, v
 
 

@@ -1,19 +1,31 @@
-"""Training entry point — the port's counterpart of the JAX `train.py`, on
-one device.
+"""Training entry point — the port's counterpart of the JAX `train.py`.
 
     python -m distributed_pytorch_from_scratch_tpu_torch.train \\
-        --model 45m --bf16 --data_path tokens.json --save_dir ckpt
+        --model 45m --bf16 --data_path tokens.json --save_dir ckpt \\
+        [--cp_size 2 [--cp_impl ring|ulysses] [--cp_layout contiguous|zigzag]]
 
-Parses the same flags as the JAX CLI, plus `--device` (default `cuda`; with
-no card the CLI exits non-zero rather than run on the CPU — pass `--device
-cpu` for the plain PyTorch path). The loop: epochs over the seeded data
-loader, host-to-device copy, one train step (forward, backward through the
-flash kernels, Adam/OneCycle in place), a log line every `--log_interval`
-steps (the one host sync of the interval), a checkpoint every
-`--save_interval` steps and at the end, in the JAX npz format, and
+Parses the same flags as the JAX CLI, plus two of its own: `--device`
+(default `cuda`; with no card the CLI exits non-zero rather than run on the
+CPU — pass `--device cpu` for the plain PyTorch path) and `--dist_backend`
+(the cp group's transport: nccl, the default on a card, needs one card per
+rank and is refused with fewer; gloo runs anywhere, a card's tensors staged
+through host memory). The loop: epochs over the seeded data loader,
+host-to-device copy, one train step (forward, backward through the
+attention kernels, Adam/OneCycle in place), a log line every
+`--log_interval` steps (the one host sync of the interval), a checkpoint
+every `--save_interval` steps and at the end, in the JAX npz format, and
 `--resume` from the newest checkpoint in `--save_dir` (either package's).
 
-A flag that takes the run off this slice (tp/dp/cp/ep/pp > 1, sequence
+Context parallelism (`--cp_size N > 1`): N ranks, one process each
+(`runtime/launch.spawn`), rank r on card r % device_count. Every rank draws
+the same seeded batch and takes its chunk of the sequence (zig-zag order
+first under `--cp_layout zigzag`); attention is the ring (the block kernels)
+or Ulysses (the flash kernels) over the group. Rank 0 alone prints and
+writes checkpoints (the ranks meet at a barrier around each save; every
+rank loads on `--resume`); parameters are replicated, so a cp checkpoint is
+the tp=1 file. A rank that fails fails the run.
+
+A flag that takes the run off the ported slices (tp/dp/ep/pp > 1, sequence
 parallelism, tp overlap, ZeRO, the bucketed dp reducer, MoE, the gpt2
 family, `--remat dots|auto`, `--seq_bucket`, `--steps_per_dispatch > 1`,
 the observability/control and multi-host flags) raises NotImplementedError
@@ -29,12 +41,16 @@ from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import (IGNORE_INDEX, MODEL_PRESETS, MeshConfig, ModelConfig,
                      OptimizerConfig, model_preset)
 from .data.dataset import get_dataloader
-from .models.transformer import Transformer
-from .runtime.mesh import make_mesh
+from .models.transformer import Transformer, validate_cp
+from .ops import collectives
+from .ops.cuda import launch_counts
+from .runtime import launch
+from .runtime.mesh import cp_backend, make_mesh, resolve_device
 from .training.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .training.metrics import device_peak_flops, model_flops_per_step
 from .training.optim import AdamState, init_adam_state, schedule_lr
@@ -43,7 +59,7 @@ from .training.train_step import build_grad_accum_step, build_train_step
 REMAT_CHOICES = {"true": True, "false": False}
 
 _MULTI = "ROADMAP Queue 1 (b): tp>1 and the dp axis through torch.distributed"
-_LATER = "ROADMAP Queue 1 (d): ring attention/cp, pipeline, MoE, perf layers"
+_LATER = "ROADMAP Queue 1 (d): pipeline, MoE, perf layers"
 _OBS = "ROADMAP Queue 1 item 5: the obs hooks of train.py"
 _LEFT = "ROADMAP Queue 1 (a): left out of the training slice"
 # (flag dest, default, the ROADMAP item that brings it)
@@ -52,8 +68,7 @@ OFF_SLICE = [
     ("sequence_parallel", False, _MULTI), ("zero", None, _LATER),
     ("zero1", False, _LATER), ("dp_reduce_bucket_mb", 0.0, _LATER),
     ("dp_reduce_dtype", "f32", _LATER), ("tp_overlap", "off", _LATER),
-    ("cp_size", 1, _LATER), ("cp_impl", "ring", _LATER),
-    ("cp_layout", "contiguous", _LATER), ("ep_size", 1, _LATER),
+    ("ep_size", 1, _LATER),
     ("pp_size", 1, _LATER), ("pp_microbatches", 0, _LATER),
     ("pp_remat_steps", False, _LATER), ("pp_schedule", "gpipe", _LATER),
     ("pp_virtual", 2, _LATER), ("num_experts", None, _LATER),
@@ -78,7 +93,8 @@ def get_train_args(argv=None) -> argparse.Namespace:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
 
-    g = p.add_argument_group("distributed (1 device in this port so far)")
+    g = p.add_argument_group("distributed (cp through torch.distributed; "
+                             "the other axes at 1 in this port so far)")
     g.add_argument("--tp_size", type=int, default=1)
     g.add_argument("--dp_size", type=int, default=1)
     g.add_argument("--cp_size", type=int, default=1)
@@ -187,6 +203,10 @@ def get_train_args(argv=None) -> argparse.Namespace:
     g.add_argument("--process_id", type=int, default=None)
     g.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    g.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="the cp group's transport (default: nccl on cuda, "
+                        "gloo on cpu); nccl needs one card per rank, gloo "
+                        "stages a card's tensors through host memory")
     return p.parse_args(argv)
 
 
@@ -253,35 +273,88 @@ def _device_name(device: torch.device) -> str:
             else "cpu")
 
 
+def _model_config(args: argparse.Namespace, vocab_size: int) -> ModelConfig:
+    """The model shape: preset fields, overridden by any explicit dim flag."""
+    preset = model_preset(args.model) if args.model else ModelConfig()
+    pick = lambda flag, dflt: dflt if flag is None else flag
+    return ModelConfig(attn_dim=pick(args.attn_dim, preset.attn_dim),
+                       ffn_dim=pick(args.ffn_dim, preset.ffn_dim),
+                       num_heads=pick(args.num_heads, preset.num_heads),
+                       num_kv_heads=pick(args.num_kv_heads,
+                                         preset.num_kv_heads),
+                       num_layers=pick(args.num_layers, preset.num_layers),
+                       vocab_size=vocab_size,
+                       maxlen=pick(args.maxlen, preset.maxlen),
+                       compute_dtype="bfloat16" if args.bf16 else "float32")
+
+
+def _check_cp(args: argparse.Namespace) -> None:
+    """The cp run's refusals, before any rank starts: no card, a transport
+    that cannot run, and the JAX package's checks and messages."""
+    try:
+        device = resolve_device(args.device)
+        cp_backend(args.dist_backend, device, args.cp_size)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"train: {e}")
+    cfg = _model_config(args, vocab_size=ModelConfig().vocab_size)
+    validate_cp(cfg, 1, args.cp_size, args.cp_impl, args.cp_layout)
+    if cfg.maxlen % args.cp_size != 0:
+        raise SystemExit(f"--maxlen {cfg.maxlen} must be divisible by "
+                         f"--cp_size {args.cp_size} (sequence is sharded "
+                         f"over the 'cp' mesh axis)")
+    if args.cp_layout == "zigzag" and cfg.maxlen % (2 * args.cp_size):
+        raise SystemExit(f"--cp_layout zigzag needs --maxlen {cfg.maxlen} "
+                         f"divisible by 2*cp ({2 * args.cp_size})")
+
+
 def train(args: argparse.Namespace) -> dict:
     """Run the loop; returns the summary: steps, start_step, final_loss,
     avg_loss, losses (per step of this run), grad_norm (last step),
     tokens_per_sec and mfu (None without a known peak) over all steps
     after the first two and their whole time, step_ms_p50 (their median),
-    peak_mem_gib (None on the CPU), device, checkpoints (paths written)."""
+    peak_mem_gib (None on the CPU), device, checkpoints (paths written),
+    cp, cp_impl, cp_layout, dist_backend, cards, and `ranks`: per rank its
+    kernel launches, peak memory and time in the cp collectives.
+
+    At cp > 1 the ranks run in processes of their own; the summary is rank
+    0's (the loss is global, so every rank's agrees), with every rank's
+    `ranks` entry."""
     refuse_off_slice(args)
+    if args.cp_size == 1:
+        return _train(args)
+    _check_cp(args)
+    summaries = launch.spawn(_cp_rank, args.cp_size, args)
+    return dict(summaries[0], ranks=[s["ranks"][0] for s in summaries])
+
+
+def _cp_rank(rank: int, nprocs: int, init_method: str,
+             args: argparse.Namespace) -> dict:
+    """One rank of a cp run (`runtime/launch.spawn` calls it)."""
+    return _train(args, rank, init_method)
+
+
+def _train(args: argparse.Namespace, rank: int = 0,
+           init_method: str = None) -> dict:
+    """The loop on one rank; see `train`."""
     try:
-        mesh = make_mesh(MeshConfig(), device=args.device)
-    except RuntimeError as e:
+        mesh = make_mesh(MeshConfig(cp=args.cp_size), device=args.device,
+                         rank=rank, backend=args.dist_backend,
+                         init_method=init_method)
+    except (RuntimeError, ValueError) as e:
         raise SystemExit(f"train: {e}")
-    device = mesh.device
-    preset = model_preset(args.model) if args.model else ModelConfig()
-    pick = lambda flag, dflt: dflt if flag is None else flag
-    maxlen = pick(args.maxlen, preset.maxlen)
+    device, cp = mesh.device, mesh.cp
+    is_main = mesh.cp_rank == 0
+    say = print if is_main else (lambda *a, **k: None)
+    maxlen = _model_config(args, 0).maxlen
     dataloader = get_dataloader(args.data_path, args.batch_size,
                                 IGNORE_INDEX, split="train", maxlen=maxlen,
                                 shuffle=True, seed=args.random_seed,
                                 data_mode=args.data_mode)
     vocab_size = dataloader.dataset.vocab_size
-    cfg = ModelConfig(attn_dim=pick(args.attn_dim, preset.attn_dim),
-                      ffn_dim=pick(args.ffn_dim, preset.ffn_dim),
-                      num_heads=pick(args.num_heads, preset.num_heads),
-                      num_kv_heads=pick(args.num_kv_heads,
-                                        preset.num_kv_heads),
-                      num_layers=pick(args.num_layers, preset.num_layers),
-                      vocab_size=vocab_size, maxlen=maxlen,
-                      compute_dtype="bfloat16" if args.bf16 else "float32")
-    model = Transformer(cfg, remat=REMAT_CHOICES[args.remat])
+    cfg = _model_config(args, vocab_size)
+    model = Transformer(cfg, remat=REMAT_CHOICES[args.remat], cp_size=cp,
+                        cp_impl=args.cp_impl, cp_layout=args.cp_layout,
+                        mesh=mesh if cp > 1 else None)
     model.init_weights(args.random_seed).to(device)
     ocfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup_steps,
                            max_steps=args.max_steps,
@@ -291,9 +364,14 @@ def train(args: argparse.Namespace) -> dict:
                            cosine_min_ratio=args.cosine_min_ratio)
     params = dict(model.named_parameters())
     n_params = sum(p.numel() for p in params.values())
-    print(f"model[llama]: {n_params / 1e6:.2f}M params, vocab={vocab_size}, "
-          f"mesh=dp1 x pp1 x cp1 x ep1 x tp1, compute={cfg.compute_dtype}, "
-          f"remat={args.remat}, device={_device_name(device)}")
+    cards = (len({r % torch.cuda.device_count() for r in range(cp)})
+             if device.type == "cuda" else 0)
+    cp_desc = ("" if cp == 1 else f", cp_impl={args.cp_impl}, cp_layout="
+               f"{args.cp_layout}, dist_backend={mesh.backend}, {cp} ranks "
+               f"on {cards or 'no'} card(s)")
+    say(f"model[llama]: {n_params / 1e6:.2f}M params, vocab={vocab_size}, "
+        f"mesh=dp1 x pp1 x cp{cp} x ep1 x tp1, compute={cfg.compute_dtype}, "
+        f"remat={args.remat}, device={_device_name(device)}{cp_desc}")
     opt_state = init_adam_state(params)
     start_step = 0
     if args.resume:
@@ -306,13 +384,15 @@ def train(args: argparse.Namespace) -> dict:
                 to_dev = lambda t: {k: v.to(device) for k, v in t.items()}
                 opt_state = AdamState(step=ck_opt.step, mu=to_dev(ck_opt.mu),
                                       nu=to_dev(ck_opt.nu))
-            print(f"resumed from iter {start_step} in {args.save_dir}")
+            say(f"resumed from iter {start_step} in {args.save_dir}")
 
     accum = max(1, args.grad_accum)
     build = build_grad_accum_step if accum > 1 else build_train_step
     step_fn = build(model, ocfg, args.loss_mode)
     flops_step = model_flops_per_step(cfg, args.batch_size, maxlen) * accum
     peak_flops = device_peak_flops(device)
+    if peak_flops is not None:
+        peak_flops *= max(cards, 1)   # MFU against the cards the run uses
 
     # with accumulation one optimizer step consumes `accum` batches
     steps_per_epoch = len(dataloader) // accum
@@ -328,6 +408,8 @@ def train(args: argparse.Namespace) -> dict:
     skip_batches = (start_step % steps_per_epoch) * accum
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    launches0 = launch_counts()
+    collectives.reset_stats()
 
     # losses stay on the device; the host reads them at log intervals only
     accum_loss = torch.zeros((), dtype=torch.float32, device=device)
@@ -340,12 +422,19 @@ def train(args: argparse.Namespace) -> dict:
     clock = _StepClock(device)
 
     def save(step: int) -> None:
+        # parameters are replicated over cp: rank 0 writes the tp=1 file,
+        # and no rank goes on (or reads it back) before it is published
         nonlocal last_saved
         avg = float(accum_loss) / max(step - start_step, 1)
-        saved.extend(save_checkpoint(
-            args.save_dir, step, avg, model.state_dict(), opt_state,
-            reserve_last_n=args.reserve_last_n_ckpts))
-        print(f"saved checkpoint iter {step}: {saved[-1]}")
+        if cp > 1:
+            dist.barrier()
+        if is_main:
+            saved.extend(save_checkpoint(
+                args.save_dir, step, avg, model.state_dict(), opt_state,
+                reserve_last_n=args.reserve_last_n_ckpts))
+            say(f"saved checkpoint iter {step}: {saved[-1]}")
+        if cp > 1:
+            dist.barrier()
         last_saved = step
 
     done = n >= args.max_steps
@@ -357,9 +446,10 @@ def train(args: argparse.Namespace) -> dict:
             if accum > 1 and window["input_ids"].shape[0] < accum:
                 continue  # partial accumulation group at the epoch end
             prev_n = n
-            ids, tgt, pos = (torch.from_numpy(window[k]).to(device).long()
-                             for k in ("input_ids", "target_ids",
-                                       "position_ids"))
+            chunks = model.cp_shard(*(window[k] for k in (
+                "input_ids", "target_ids", "position_ids")))
+            ids, tgt, pos = (torch.from_numpy(np.ascontiguousarray(x))
+                             .to(device).long() for x in chunks)
             loss, gnorm, opt_state = step_fn(opt_state, ids, tgt, pos)
             clock.tick()
             n += 1
@@ -376,13 +466,13 @@ def train(args: argparse.Namespace) -> dict:
                          f"{100 * flops_step * (n - last_log_n) / dt / peak_flops:.1f}%")
                 mem_s = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
                          if device.type == "cuda" else "n/a (cpu)")
-                print(f"step {n}/{args.max_steps} -> avg loss "
-                      f"{cum / (n - start_step):.4f}, interval loss "
-                      f"{(cum - last_cum) / (n - last_log_n):.4f}, lr "
-                      f"{float(lr):.8f}, {tps / 1e3:.1f}k tok/s "
-                      f"({100 * useful_since / max(tokens_since, 1):.0f}% "
-                      f"useful), MFU {mfu_s}, grad norm {float(gnorm):.4f}, "
-                      f"mem {mem_s}")
+                say(f"step {n}/{args.max_steps} -> avg loss "
+                    f"{cum / (n - start_step):.4f}, interval loss "
+                    f"{(cum - last_cum) / (n - last_log_n):.4f}, lr "
+                    f"{float(lr):.8f}, {tps / 1e3:.1f}k tok/s "
+                    f"({100 * useful_since / max(tokens_since, 1):.0f}% "
+                    f"useful), MFU {mfu_s}, grad norm {float(gnorm):.4f}, "
+                    f"mem {mem_s}")
                 last_cum, last_log_n = cum, n
                 t_start, tokens_since, useful_since = time.time(), 0, 0
             if n // args.save_interval > prev_n // args.save_interval:
@@ -390,7 +480,7 @@ def train(args: argparse.Namespace) -> dict:
             if n >= args.max_steps:
                 done = True
                 break
-        print(f"epoch {epoch + 1}/{max_epoch} finished")
+        say(f"epoch {epoch + 1}/{max_epoch} finished")
     if n > last_saved:
         save(n)
 
@@ -405,7 +495,10 @@ def train(args: argparse.Namespace) -> dict:
     loss_vals = ([float(x) for x in torch.stack(losses).cpu()]
                  if losses else [])
     avg_loss = float(accum_loss) / max(n - start_step, 1)
-    print(f"training finished at step {n}, avg loss {avg_loss:.4f}")
+    say(f"training finished at step {n}, avg loss {avg_loss:.4f}")
+    launches = launch_counts()
+    peak_mem = (torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else None)
     return {
         "steps": n, "start_step": start_step,
         "final_loss": loss_vals[-1] if loss_vals else None,
@@ -416,9 +509,16 @@ def train(args: argparse.Namespace) -> dict:
                            if window_s > 0 else None),
         "mfu": (flops_step * len(steady) / window_s / peak_flops
                 if window_s > 0 and peak_flops else None),
-        "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2**30
-                         if device.type == "cuda" else None),
+        "peak_mem_gib": peak_mem,
         "device": _device_name(device), "checkpoints": saved,
+        "cp": cp, "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
+        "dist_backend": mesh.backend, "cards": cards,
+        "ranks": [{"rank": mesh.cp_rank, "device": str(device),
+                   "peak_mem_gib": peak_mem, "step_ms_p50": step_ms_p50,
+                   "wall_s": sum(step_ms) / 1e3,
+                   "launches": {k: v - launches0[k]
+                                for k, v in launches.items()},
+                   "collectives": dict(collectives.stats)}],
     }
 
 

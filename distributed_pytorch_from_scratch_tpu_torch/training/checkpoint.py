@@ -9,7 +9,9 @@ files. `load_params` reads the JAX param tree (nested dicts of numpy
 arrays, which `interop.params_from_jax` maps onto the port's model);
 `save_checkpoint`/`load_checkpoint` carry the port's state_dict and
 AdamState through `interop`. tp=1 only: checkpoints written at tp > 1 are
-refused until tensor parallelism is ported.
+refused until tensor parallelism is ported. Parameters are replicated over
+cp, so a cp run's checkpoint is this same tp=1 file (its rank 0 writes it,
+every rank reads it), and runs at any cp read each other's.
 
 Not ported: the asynchronous writer (writes here are synchronous) and the
 `__layout__` stamp (the JAX reader treats an unstamped file as a legacy

@@ -1,9 +1,9 @@
 """Training throughput accounting: model FLOPs per step (the JAX
 `training/metrics.model_flops_per_step`) and the card's peak rate, for MFU.
 
-MFU counts against the card's dense bf16 tensor-core peak, as the JAX
-package counts against the chip's bf16 peak. Peaks are NVIDIA's data-sheet
-numbers (SXM part, dense, at the full power limit).
+MFU counts against the dense bf16 tensor-core peak of the cards the run
+uses, as the JAX package counts against the chips' bf16 peak. Peaks are
+NVIDIA's data-sheet numbers (SXM part, dense, at the full power limit).
 """
 
 from __future__ import annotations
@@ -41,7 +41,10 @@ def device_peak_flops(device: torch.device) -> Optional[float]:
 
 def model_flops_per_step(cfg, batch: int, seqlen: int) -> float:
     """Model FLOPs of one fwd+bwd train step (no remat recompute counted):
-    6N per token + the 12*L*h*T^2*hd attention term."""
+    6N per token + the 12*L*h*T^2*hd attention term. Under context
+    parallelism the count is the same: the dense T^2 attention term of the
+    whole sequence, not the blocks the ring schedule computes (about half
+    of them, the causal ones)."""
     n = cfg.num_params()
     return (6 * n * batch * seqlen
             + 12 * cfg.num_layers * batch * cfg.num_heads

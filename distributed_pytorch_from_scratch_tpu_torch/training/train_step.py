@@ -8,6 +8,12 @@ norm and updates the parameters and moments in place. It returns
 so the caller decides when to sync (the train loop does so once per log
 interval).
 
+At cp > 1 every rank runs the step on its chunk of the batch; after the
+backward the gradients are summed over the cp group in one flat buffer
+(each rank's loss is its local sum over the global count, so the sum is the
+global loss's gradient), and only then are the norm, the clip and Adam
+taken — every rank then holds the same parameters.
+
 Not ported: the multi-step-per-dispatch variant (`lax.scan` over N steps
 in one program), whose eager counterpart would be a CUDA graph (ROADMAP),
 and the ZeRO / bucketed dp reducers (multi-device work).
@@ -20,6 +26,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..config import OptimizerConfig
+from ..ops.collectives import all_reduce_sum_
 from .optim import AdamState, adam_update, global_norm
 
 StepFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, AdamState]]
@@ -62,6 +69,8 @@ def build_grad_accum_step(model, ocfg: OptimizerConfig,
             loss.backward()  # sums into .grad
             loss_sum = loss_sum + loss.detach()
         grads = {k: p.grad for k, p in params.items()}
+        if model.cp_size > 1:
+            all_reduce_sum_(list(grads.values()), model.mesh)
         if a > 1:
             torch._foreach_div_(list(grads.values()), a)
         gnorm = global_norm(grads)  # of the MEAN gradient, what Adam sees

@@ -1,6 +1,7 @@
 """The port's CUDA kernels: build plumbing (CPU) and the kernels themselves
-— the flash-attention forward, the backward pair (dq, dk/dv) and paged
-attention — against their plain versions (marker `cuda`, needs a card).
+— the flash-attention forward, the backward pair (dq, dk/dv), paged
+attention and the positional block kernels of ring attention (forward, dq,
+dk/dv) — against their plain versions (marker `cuda`, needs a card).
 
 This file imports torch and the port only — no jax — so the card tests run
 on a machine without jax:
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda import build
+from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.block_attention import (
+    BlockAttention, block_attention_bwd, block_attention_bwd_plain,
+    block_attention_fwd, block_attention_plain, rounding_slack)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
     MASK, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
@@ -30,6 +34,7 @@ def test_sources_and_build_targets():
     assert "flash_fwd" in build.all_sources()
     assert "flash_bwd" in build.all_sources()
     assert "paged_attn" in build.all_sources()
+    assert "block_attn" in build.all_sources()
     a = build._target("flash_fwd")
     assert a == build._target("flash_fwd")        # content-addressed
     assert a.parent == build.BUILD_DIR and a.name.startswith("flash_fwd-")
@@ -167,3 +172,130 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
                        + 1e-5 * x.abs().amax(-1, keepdim=True))
             assert (err <= tol).all(), (i, row, err.max().item())
         assert torch.isfinite(o.float()).all()
+
+
+def _bf16_limit(r: torch.Tensor, slack: torch.Tensor) -> torch.Tensor:
+    """One bf16 step of each plain element + its rounding slack + 1e-5 of
+    its row's largest |value|."""
+    _, e = torch.frexp(r.abs())   # |r| in [2^(e-1), 2^e)
+    step = torch.where(r == 0, 0.0, torch.exp2((e - 8).float()))
+    return step + slack + 1e-5 * r.abs().amax(-1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_kernels_match_plain_on_card(cuda_device, dtype):
+    """The three block kernels against their plain versions on one ragged
+    GQA block (tq 90, tk 200, h 8 / hkv 2) whose first rows see nothing,
+    with random (do, dlse): f32 within 1e-5 of max(1, the tensor's largest
+    |value|) (sum order); bf16 per element within one bf16 step of the plain
+    value plus what rounding p and ds can move it by (`rounding_slack`) plus
+    1e-5 of its row's largest |value|; dead rows exactly o = 0,
+    lse = -1e30, dq = 0; one launch of each kernel per call, and
+    `BlockAttention` runs the same kernels."""
+    torch_dtype = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    b, h, hkv, tq, tk, d = 2, 8, 2, 90, 200, 64
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+    q, k, v, do = (x.to(cuda_device, torch_dtype) for x in (
+        f(b, h, tq, d), f(b, hkv, tk, d), f(b, hkv, tk, d), f(b, h, tq, d)))
+    dlse = f(b, h, tq).to(cuda_device)
+    qp = torch.from_numpy(rng.integers(0, 400, (b, tq)).astype(np.int32))
+    qp[:, :5] = 0
+    kp = torch.from_numpy(rng.integers(50, 450, (b, tk)).astype(np.int32))
+    qp, kp = qp.to(cuda_device), kp.to(cuda_device)
+    before = (block_attention_fwd.launches, block_attention_bwd.launches_dq,
+              block_attention_bwd.launches_dkv)
+    o, lse = block_attention_fwd(q, k, v, qp, kp)
+    ro, rlse = block_attention_plain(q, k, v, qp, kp)
+    got = block_attention_bwd(q, k, v, qp, kp, ro, rlse, do, dlse)
+    torch.cuda.synchronize()
+    assert (block_attention_fwd.launches, block_attention_bwd.launches_dq,
+            block_attention_bwd.launches_dkv) == tuple(n + 1 for n in before)
+    ref = block_attention_bwd_plain(q, k, v, qp, kp, ro, rlse, do, dlse)
+    slack = rounding_slack(q, k, v, qp, kp, ro, rlse, do, dlse)
+    for name, x, r in zip(("o", "dq", "dk", "dv"), (o, *got), (ro, *ref)):
+        assert x.dtype == r.dtype and x.shape == r.shape
+        x, r = x.float(), r.float()
+        if dtype == "float32":
+            tol = 1e-5 * max(1.0, r.abs().max().item())
+        else:
+            tol = _bf16_limit(r, slack[name])
+        assert ((x - r).abs() <= tol).all(), name
+    dead = rlse <= -1e30 / 2
+    assert dead[:, :, :5].all()
+    assert (lse[dead] == -1e30).all() and (o.float()[dead] == 0).all()
+    assert (got[0].float()[dead] == 0).all()
+    live = ~dead
+    assert (lse - rlse)[live].abs().max().item() <= 1e-5 * max(
+        1.0, rlse[live].abs().max().item())
+    # the autograd Function launches the same kernels, forward and backward
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fo, flse = BlockAttention.apply(*leaves, qp, kp)
+    torch.autograd.backward([fo, flse], [do, dlse])
+    assert torch.equal(fo, o) and torch.equal(flse, lse)
+    assert block_attention_fwd.launches == before[0] + 2
+    assert block_attention_bwd.launches_dq == before[1] + 2
+
+
+@pytest.mark.cuda
+def test_block_kernels_round_p_as_plain_on_one_key_tile(cuda_device):
+    """bf16 on one key tile (tk 20; the kernels' tile is 32 keys): the
+    running row max is the final one, so the kernel rounds p where the plain
+    version does. q, k, v and do on a grid of halves make every score and
+    dp exact in any sum order, so p and ds are the same bits on both sides:
+    o, dq, dk and dv within one bf16 step of each element plus 1e-5 of its
+    row's largest |value|, with no rounding slack. A kernel that skipped
+    rounding p (or ds) to bf16 would miss this by far more."""
+    rng = np.random.default_rng(11)
+    b, h, tq, tk, d = 2, 8, 100, 20, 64
+    grid = lambda *s: torch.from_numpy(np.clip(np.round(
+        2 * rng.standard_normal(s)), -3, 3).astype(np.float32) / 2)
+    q, k, v, do = (x.to(cuda_device, torch.bfloat16) for x in (
+        grid(b, h, tq, d), grid(b, h, tk, d), grid(b, h, tk, d),
+        grid(b, h, tq, d)))
+    dlse = torch.from_numpy(rng.standard_normal((b, h, tq)).astype(
+        np.float32)).to(cuda_device)
+    qp = (10 + torch.arange(tq, device=cuda_device, dtype=torch.int32)
+          ).expand(b, tq).contiguous()
+    kp = torch.arange(tk, device=cuda_device, dtype=torch.int32
+                      ).expand(b, tk).contiguous()
+    o, _ = block_attention_fwd(q, k, v, qp, kp)
+    ro, rlse = block_attention_plain(q, k, v, qp, kp)
+    got = block_attention_bwd(q, k, v, qp, kp, ro, rlse, do, dlse)
+    ref = block_attention_bwd_plain(q, k, v, qp, kp, ro, rlse, do, dlse)
+    for name, x, r in zip(("o", "dq", "dk", "dv"), (o, *got), (ro, *ref)):
+        x, r = x.float(), r.float()
+        assert ((x - r).abs() <= _bf16_limit(r, 0.0)).all(), name
+
+
+def test_one_key_tile_limit_catches_unrounded_p():
+    """The no-slack limit of the one-key-tile card test (CPU: the plain
+    forward stands for a right kernel) separates the two roundings: a
+    forward that sums the same bf16-rounded p in another order stays within
+    it, one that skips rounding p to bf16 misses it."""
+    rng = np.random.default_rng(11)
+    b, h, tq, tk, d = 2, 8, 100, 20, 64
+    grid = lambda *s: torch.from_numpy(np.clip(np.round(
+        2 * rng.standard_normal(s)), -3, 3).astype(np.float32) / 2)
+    q, k, v = (x.to(torch.bfloat16) for x in (
+        grid(b, h, tq, d), grid(b, h, tk, d), grid(b, h, tk, d)))
+    qp = (10 + torch.arange(tq, dtype=torch.int32)).expand(b, tq)
+    kp = torch.arange(tk, dtype=torch.int32).expand(b, tk)
+    ro, _ = block_attention_plain(q, k, v, qp, kp)
+    r = ro.float()
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5
+    live = qp[:, None, :, None] >= kp[:, None, None, :]
+    s = s.masked_fill(~live, MASK)
+    p = torch.where(live, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+
+    def forward(pv):   # keys summed last to first, one at a time
+        acc = torch.zeros(b, h, tq, d)
+        for j in reversed(range(tk)):
+            acc = acc + pv[..., j:j + 1] * v.float()[:, :, j:j + 1]
+        return (acc / l).to(torch.bfloat16).float()
+
+    limit = _bf16_limit(r, 0.0)
+    assert ((forward(p.to(torch.bfloat16).float()) - r).abs() <= limit).all()
+    assert not ((forward(p) - r).abs() <= limit).all()
