@@ -3,8 +3,9 @@
 Each source compiles with nvcc, on its own, into a shared library with a
 plain C interface that `ctypes` loads — no PyTorch headers, so a build
 takes seconds. Outputs go to `build/` beside this file (git-ignored),
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. A failed build raises; nothing falls back.
+named by a hash of the source, every shared header (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. A failed build raises; nothing falls back.
 `-Xptxas -v` makes nvcc report each kernel's registers, shared memory and
 spills; `build()` returns that report (chip_smoke.py prints it).
 """
@@ -51,8 +52,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,5 +1,6 @@
-// Causal flash-attention backward for NVIDIA Hopper (sm_90a): two kernels,
-// flash_bwd_dq and flash_bwd_dkv.
+// Causal flash-attention backward for NVIDIA Hopper (sm_90a), the float32
+// route: two kernels, flash_bwd_dq and flash_bwd_dkv (bfloat16 inputs go to
+// flash_bwd_sm90.cu, on the tensor cores).
 //
 // Replaces the four TPU backward launches of
 // distributed_pytorch_from_scratch_tpu/ops/pallas/flash_attention.py, all
@@ -24,16 +25,15 @@
 //     so no atomics and no repeated K/V in device memory;
 //   * pad rows and pad keys (>= t_real) come out as exact zeros.
 //
-// Bound on the H100 at the 45m training shape (q, do (32, 8, 1000, 64) bf16,
-// MHA): the function must move ~231 MB (q, k, v, do read and dq, dk, dv
-// written in bf16, lse and delta read in f32), 69 us at 3.35 TB/s, and do
-// 5 products of 2*D flops on each of b*h*t(t+1)/2 live pairs, ~82 GFLOP,
-// 83 us at the 989 TFLOP/s bf16 tensor-core peak: the bound is operations.
+// Bound on the H100: f32 has no tensor-core route that keeps its numbers
+// (TF32 would round the inputs), so the f32 FMA pipe, 67 TFLOP/s, bounds the
+// 5 products of 2*D flops on each of b*h*t(t+1)/2 live pairs.
 //
 // What this design does about it: this is the simple, right first version.
-// Both kernels are SIMT with f32 FMAs (no mma/wgmma, no TMA), so they run
-// far above that bound, limited by the f32 FMA pipe (67 TFLOP/s at best)
-// and the shared-memory reads that feed it. They recompute s and p instead
+// Both kernels are SIMT with f32 FMAs (no mma/wgmma, no TMA), limited by the
+// f32 FMA pipe and the shared-memory reads that feed it. The f32 route is
+// what the card's checks against the CPU hold at 1e-6; the bf16 path of the
+// model does not come here. They recompute s and p instead
 // of storing the t x t matrices (7 products in all, as the TPU's split
 // path), so nothing of size t^2 ever reaches device memory. Blocks run in
 // parallel and in no order, so the TPU kernels' sequential grid axes
@@ -48,7 +48,6 @@
 // in dkv), each owning the dims c, c+4, c+8, ... of its row's vectors and
 // accumulators, so a dot product is a partial sum plus two warp shuffles.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,19 +58,12 @@ constexpr int kThreadsPerRow = 4;  // threads sharing one row
 constexpr int kThreads = kBlockM * kThreadsPerRow;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
 }
 
 // x rounded to T and back: the TPU kernels' `.astype(dtype)` before a dot
@@ -312,37 +304,36 @@ int dispatch_dim(const Args& a, int d) {
 }
 
 template <bool kDq>
-int dispatch(const Args& a, int head_dim, int is_bf16) {
+int dispatch(const Args& a, int head_dim) {
   if (a.b < 1 || a.hq < 1 || a.hkv < 1 || a.hq % a.hkv != 0 || a.t < 1 ||
       a.t_real < 1 || a.t_real > a.t)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16) return dispatch_dim<kDq, __nv_bfloat16>(a, head_dim);
   return dispatch_dim<kDq, float>(a, head_dim);
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes. Each launches on `stream`, does
-// not synchronise, allocates nothing, and returns cudaGetLastError() after
-// the launch (0 = launched). is_bf16: 1 for bfloat16 inputs, 0 for float32.
+// Plain C entry points, bound with ctypes: float32 inputs. Each launches on
+// `stream`, does not synchronise, allocates nothing, and returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int b, int hq,
                             int hkv, int t, int t_real, int head_dim,
-                            int is_bf16, float scale, void* stream) {
+                            float scale, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr,
                b, hq, hkv, t, t_real, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, head_dim, is_bf16);
+  return dispatch<true>(a, head_dim);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dk, void* dv, int b,
                              int hq, int hkv, int t, int t_real, int head_dim,
-                             int is_bf16, float scale, void* stream) {
+                             float scale, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dk, dv,
                b, hq, hkv, t, t_real, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, head_dim, is_bf16);
+  return dispatch<false>(a, head_dim);
 }

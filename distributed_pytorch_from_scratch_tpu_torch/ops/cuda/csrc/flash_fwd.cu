@@ -1,4 +1,5 @@
-// Causal flash-attention forward for NVIDIA Hopper (sm_90a).
+// Causal flash-attention forward for NVIDIA Hopper (sm_90a), the float32
+// route (bfloat16 inputs go to flash_fwd_sm90.cu, on the tensor cores).
 //
 // Replaces the TPU kernel `_fwd_kernel` in
 // distributed_pytorch_from_scratch_tpu/ops/pallas/flash_attention.py (driven
@@ -13,15 +14,15 @@
 //   * q k^T reads the inputs in their own dtype and accumulates in f32; p is
 //     rounded to v's dtype before p v, as the TPU kernel does.
 //
-// Bound on the H100: at the 45m prefill shape (b 4, h 8, t 512, d 64, bf16)
-// the kernel must move ~8.4 MB (q, k, v read once, o and lse written once),
-// 2.5 us at 3.35 TB/s, against ~1.1 GFLOP of causal work, 1.1 us at the
-// 989 TFLOP/s bf16 tensor-core peak: the bound is bytes.
+// Bound on the H100: f32 has no tensor-core route that keeps its numbers
+// (TF32 would round the inputs), so the f32 FMA pipe, 67 TFLOP/s, bounds the
+// ~1.1 GFLOP of causal work at the 45m prefill shape (b 4, h 8, t 512, d 64).
 //
 // What this design does about it: it is the simple, right first version, a
-// SIMT kernel with f32 FMAs (no mma/wgmma, no TMA), so it runs far above that
-// bound -- limited by the f32 FMA pipe and the shared-memory reads that feed
-// it. It does keep the flash property that matters for the bytes: each block
+// SIMT kernel with f32 FMAs (no mma/wgmma, no TMA), limited by that pipe and
+// the shared-memory reads that feed it. The f32 route is what the card's
+// checks against the CPU hold at 1e-6; the bf16 path of the model does not
+// come here. It does keep the flash property that matters for the bytes: each block
 // holds 64 query rows in registers and streams K/V tiles through shared
 // memory once, so q, k, v are read from HBM once per 64-row tile and the
 // t x t score matrix never leaves the chip. Tiles entirely above the causal
@@ -33,7 +34,6 @@
 // query row, each owning the dims c, c+4, c+8, ... of q and of the
 // accumulator, so a score is a partial dot plus two warp shuffles.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,19 +45,12 @@ constexpr int kThreads = kBlockM * kThreadsPerRow;
 constexpr float kMask = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
 }
 
 template <typename T, int D>
@@ -186,20 +179,16 @@ int dispatch_dim(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Launches on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() after the
-// launch (0 = launched). is_bf16: 1 for bfloat16 inputs, 0 for float32.
+// Plain C entry point, bound with ctypes: float32 inputs. Launches on
+// `stream`, does not synchronise, allocates nothing; returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int b, int hq, int hkv, int t,
-                         int t_real, int head_dim, int is_bf16, float scale,
-                         void* stream) {
+                         int t_real, int head_dim, float scale, void* stream) {
   if (b < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 || t < 1 || t_real < 1 ||
       t_real > t)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_dim<__nv_bfloat16>(q, k, v, o, lse, b, hq, hkv, t, t_real,
-                                       head_dim, scale, s);
   return dispatch_dim<float>(q, k, v, o, lse, b, hq, hkv, t, t_real, head_dim,
                              scale, s);
 }

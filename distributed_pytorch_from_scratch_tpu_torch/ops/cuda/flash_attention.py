@@ -1,6 +1,6 @@
-"""Causal flash attention: the CUDA kernels `csrc/flash_fwd.cu` (forward)
-and `csrc/flash_bwd.cu` (backward: dq, and dk/dv), their plain PyTorch
-versions, and `FlashAttention`, the autograd Function that joins them.
+"""Causal flash attention: the CUDA kernels (forward; backward as dq and
+dk/dv), their plain PyTorch versions, and `FlashAttention`, the autograd
+Function that joins them.
 
 Counterparts of the JAX TPU kernels in
 `distributed_pytorch_from_scratch_tpu/ops/pallas/flash_attention.py`:
@@ -17,7 +17,16 @@ in the dtypes of q, k, v; pad rows and pad keys get exact-zero gradients.
 
 On a CUDA tensor each wrapper launches its kernel(s) (built on first use)
 or raises; on a CPU tensor it computes the plain version, the same math
-step by step. There is no fallback from one to the other.
+step by step. There is no fallback from one to the other. The dtype picks
+the kernels, by dispatch, not fallback:
+
+* bfloat16 (every path of the model: training, the slot engine's prefill,
+  Ulysses): `csrc/flash_fwd_sm90.cu` and `csrc/flash_bwd_sm90.cu`, wgmma
+  kernels fed by TMA through an mbarrier ring;
+* float32: `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, SIMT kernels with
+  f32 FMAs (tensor cores would mean TF32, which changes the numbers).
+
+The launch counters count either route.
 """
 
 from __future__ import annotations
@@ -32,16 +41,21 @@ MASK = -1e30  # hard mask, as the TPU kernel's
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
-# flash_fwd(q, k, v, o, lse, b, hq, hkv, t, t_real, head_dim, is_bf16,
-#           scale, stream)
-_C_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+# flash_fwd[_sm90](q, k, v, o, lse, b, hq, hkv, t, t_real, head_dim, scale,
+#                 stream)
+_C_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
            + [ctypes.c_float, ctypes.c_void_p])
-# flash_bwd_dq(q, k, v, do, lse, delta, dq, b, hq, hkv, t, t_real, head_dim,
-#              is_bf16, scale, stream); flash_bwd_dkv has dk, dv for dq
-_C_ARGS_DQ = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+# flash_bwd_dq[_sm90](q, k, v, do, lse, delta, dq, b, hq, hkv, t, t_real,
+#                     head_dim, scale, stream); _dkv has dk, dv for dq
+_C_ARGS_DQ = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
               + [ctypes.c_float, ctypes.c_void_p])
-_C_ARGS_DKV = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_C_ARGS_DKV = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                + [ctypes.c_float, ctypes.c_void_p])
+# dtype -> (source, C-name suffix) of the forward and of the backward pair
+_FWD_ROUTE = {torch.float32: ("flash_fwd", ""),
+              torch.bfloat16: ("flash_fwd_sm90", "_sm90")}
+_BWD_ROUTE = {torch.float32: ("flash_bwd", ""),
+              torch.bfloat16: ("flash_bwd_sm90", "_sm90")}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,6 +93,9 @@ def _check_kernel_inputs(q: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"dtype {q.dtype} not built; the kernel takes {DTYPES}")
     if not all(x.is_contiguous() for x in (q, *others)):
         raise ValueError("kernel inputs must be contiguous")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, *others)):
+        raise ValueError("bf16 kernel inputs must be 16-byte aligned (TMA)")
     if b * h > 65535:
         raise ValueError(f"b*heads {b * h} exceeds the grid's y limit 65535")
 
@@ -120,6 +137,20 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
+def _launch_fwd(q, k, v, o, lse, t_real: int, stream: int) -> None:
+    """One launch of the forward kernel of q's dtype into `o`, `lse` (inputs
+    checked by the caller); not counted (the wrapper counts its own)."""
+    b, h, t, d = q.shape
+    source, suffix = _FWD_ROUTE[q.dtype]
+    fn = _c_function(source, f"flash_fwd{suffix}", _C_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), b, h, k.shape[1], t, t_real, d,
+             1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd{suffix} launch failed: CUDA error "
+                           f"{err}")
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         t_real: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -128,17 +159,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_fwd_plain(q, k, v, t_real)
     t_real = _check(q, k, v, t_real)
     _check_kernel_inputs(q, k, v)
-    b, h, t, d = q.shape
-    fn = _c_function("flash_fwd", "flash_fwd", _C_ARGS)
+    b, h, t, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, h, k.shape[1], t, t_real, d,
-                 int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
+        _launch_fwd(q, k, v, o, lse, t_real,
+                    torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -203,34 +229,100 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return (dq.to(q.dtype), per_kv(dk).to(k.dtype), per_kv(dv).to(v.dtype))
 
 
-def _bwd_args(q, k, v, lse, delta, do, t_real: int) -> tuple:
-    """The inputs and sizes both backward C functions take, in their order
-    (inputs checked by the caller; the tensors must outlive the launch)."""
+def rounding_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                   t_real: Optional[int] = None) -> dict:
+    """How far rounding p and ds to a bf16 operand can move each element of
+    o, dq, dk and dv between two right implementations (the kernels and the
+    plain versions), given the plain forward's (o, lse); f32 tensors shaped
+    like each output. A bf16 rounding errs by at most 2^-8 of the value, so
+    two roundings of one term differ by at most 2^-7 of it:
+
+    * o: the kernel rounds each p against its running row max (one max per
+      64-key tile), the plain version against the final one, so every term
+      p_j v_j may differ: 2^-7 sum_j p_j |v_j|, p normalized;
+    * dq, dk, dv: p and ds are the same f32 formula on both sides, but
+      their last bits differ (sum order), so a value on a rounding edge may
+      round either way: 2^-7 |ds| @ |k|, |ds|^T @ |q|, |p|^T @ |do|, summed
+      over each kv head's group;
+    * dq, dk: ds = p (dp - delta) scale, and dp = do v^T is a sum of d
+      products that the two sides add in other orders (the tensor cores'
+      f32 accumulation does not round to nearest): up to d 2^-22 sum |do||v|
+      apart. Where dp - delta cancels (a row that sees one key has o = v,
+      so dp = delta) that difference is all of ds: p d 2^-22 (|do| @ |v|^T)
+      scale joins |ds| above, without the 2^-7.
+
+    The output's own rounding (one bf16 step) comes on top. f32 inputs
+    round nothing to bf16, so their slack is the sum-order term alone (o,
+    dv: 0). For the comparison of the kernels with their plain versions;
+    not used on the model's path."""
+    t_real = _check_bwd(q, k, v, o, lse, do, t_real)
     b, h, t, d = q.shape
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    hkv = k.shape[1]
+    group = h // hkv
+    rep = lambda x: torch.repeat_interleave(x, group, dim=1).float()
+    qf, kf, vf, dof = q.float(), rep(k), rep(v), do.float()
+    row = torch.arange(t, device=q.device)[:, None]
+    col = torch.arange(t, device=q.device)[None, :]
+    live = (col <= row) & (col < t_real) & (row < t_real)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    p = torch.where(live, torch.exp(s.masked_fill(~live, MASK)
+                                    - lse[..., None]), 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - _delta(o, do)[..., None]) / math.sqrt(d)).abs()
+    dp_order = d * 2.0 ** -22 * torch.matmul(dof.abs(), vf.abs().transpose(-1, -2))
+    per_kv = lambda x: x.reshape(b, hkv, group, t, d).sum(dim=2)
+    edge = 2.0 ** -7 if q.dtype == torch.bfloat16 else 0.0
+    ds = edge * ds + p * dp_order / math.sqrt(d)
+    return {"o": edge * torch.matmul(p, vf.abs()),
+            "dq": torch.matmul(ds, kf.abs()),
+            "dk": per_kv(torch.matmul(ds.transpose(-1, -2), qf.abs())),
+            "dv": edge * per_kv(torch.matmul(p.transpose(-1, -2), dof.abs()))}
+
+
+def bf16_limit(r: torch.Tensor, slack) -> torch.Tensor:
+    """The per-element rule for a bf16 kernel output against its plain
+    value r: one bf16 step of each element + its rounding slack (this
+    module's or `block_attention.rounding_slack`, or 0 where none applies)
+    + 1e-5 of its row's largest |value| (f32 sum order)."""
+    r = r.float()
+    _, e = torch.frexp(r.abs())   # |r| in [2^(e-1), 2^e)
+    step = torch.where(r == 0, 0.0, torch.exp2((e - 8).float()))
+    return step + slack + 1e-5 * r.abs().amax(-1, keepdim=True)
+
+
+def _bwd_args(q, k, v, lse, delta, do, t_real: int) -> tuple:
+    """The route (`_BWD_ROUTE`), then the inputs and sizes both backward C
+    functions take, in their order (inputs checked by the caller; the
+    tensors must outlive the launch)."""
+    b, h, t, d = q.shape
+    return (_BWD_ROUTE[q.dtype],
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr()),
-            (b, h, k.shape[1], t, t_real, d, int(q.dtype == torch.bfloat16),
-             1.0 / math.sqrt(d)))
+            (b, h, k.shape[1], t, t_real, d, 1.0 / math.sqrt(d)))
 
 
 def _launch_dq(args: tuple, dq: torch.Tensor, stream: int) -> None:
-    """One launch of `flash_bwd_dq` into `dq`; not counted (the wrapper
-    counts its own)."""
-    ptrs, sizes = args
-    fn = _c_function("flash_bwd", "flash_bwd_dq", _C_ARGS_DQ)
+    """One launch of the dq kernel of the args' route into `dq`; not
+    counted (the wrapper counts its own)."""
+    (source, suffix), ptrs, sizes = args
+    fn = _c_function(source, f"flash_bwd_dq{suffix}", _C_ARGS_DQ)
     err = fn(*ptrs, dq.data_ptr(), *sizes, stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_bwd_dq{suffix} launch failed: CUDA error "
+                           f"{err}")
 
 
 def _launch_dkv(args: tuple, dk: torch.Tensor, dv: torch.Tensor,
                 stream: int) -> None:
-    """One launch of `flash_bwd_dkv` into `dk`, `dv`; not counted."""
-    ptrs, sizes = args
-    fn = _c_function("flash_bwd", "flash_bwd_dkv", _C_ARGS_DKV)
+    """One launch of the dk/dv kernel of the args' route into `dk`, `dv`;
+    not counted."""
+    (source, suffix), ptrs, sizes = args
+    fn = _c_function(source, f"flash_bwd_dkv{suffix}", _C_ARGS_DKV)
     err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *sizes, stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_bwd_dkv{suffix} launch failed: CUDA error "
+                           f"{err}")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -239,7 +331,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of causal attention given the forward's (o, lse) and the
     output cotangent `do`; see the module docstring. On a CUDA tensor: one
-    launch of `flash_bwd_dq` and one of `flash_bwd_dkv`."""
+    launch of the dtype's dq kernel and one of its dk/dv kernel."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, t_real)
     t_real = _check_bwd(q, k, v, o, lse, do, t_real)

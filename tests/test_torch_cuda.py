@@ -1,7 +1,8 @@
 """The port's CUDA kernels: build plumbing (CPU) and the kernels themselves
-— the flash-attention forward, the backward pair (dq, dk/dv), paged
-attention and the positional block kernels of ring attention (forward, dq,
-dk/dv) — against their plain versions (marker `cuda`, needs a card).
+— the flash-attention forward and backward pair (dq, dk/dv) on both routes
+(bf16: the wgmma kernels; f32: the SIMT ones), paged attention and the
+positional block kernels of ring attention (forward, dq, dk/dv) — against
+their plain versions (marker `cuda`, needs a card).
 
 This file imports torch and the port only — no jax — so the card tests run
 on a machine without jax:
@@ -18,27 +19,53 @@ from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.block_attention import 
     BlockAttention, block_attention_bwd, block_attention_bwd_plain,
     block_attention_fwd, block_attention_plain, rounding_slack)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
-    MASK, flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_fwd_plain)
+    MASK, bf16_limit, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd, flash_attention_fwd_plain)
+from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
+    rounding_slack as flash_rounding_slack)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
     paged_attention, paged_attention_plain)
 
 # (b, h, hkv, t, d, t_real): MHA, GQA with padding rows, t not a multiple of
-# 64, the 45m prefill shape, head_dim 128
+# 64, the 45m prefill shape, head_dim 128; then the edges of the wgmma
+# kernels' 64-row tiles (t 1, 63, 64, 65, 127, 129, 1000) at head_dim 32, 64
+# and 128, GQA groups 2 and 4, t_real < t
 CASES = [(2, 4, 4, 128, 32, None), (1, 4, 2, 200, 32, 150),
          (2, 2, 1, 77, 64, None), (4, 8, 8, 512, 64, None),
-         (1, 2, 2, 130, 128, 100)]
+         (1, 2, 2, 130, 128, 100),
+         (1, 8, 2, 1, 64, None), (2, 4, 1, 63, 32, None),
+         (2, 4, 2, 64, 64, 50), (1, 4, 4, 65, 128, None),
+         (2, 8, 2, 127, 64, 100), (1, 4, 2, 129, 128, 128),
+         (1, 8, 4, 1000, 64, 999)]
 
 
 def test_sources_and_build_targets():
-    assert "flash_fwd" in build.all_sources()
-    assert "flash_bwd" in build.all_sources()
-    assert "paged_attn" in build.all_sources()
-    assert "block_attn" in build.all_sources()
+    assert build.all_sources() == ["block_attn", "flash_bwd", "flash_bwd_sm90",
+                                   "flash_fwd", "flash_fwd_sm90",
+                                   "paged_attn"]
+    assert (build.CSRC / "sm90.cuh").is_file()
     a = build._target("flash_fwd")
     assert a == build._target("flash_fwd")        # content-addressed
     assert a.parent == build.BUILD_DIR and a.name.startswith("flash_fwd-")
+    assert build._target("flash_fwd_sm90").name.startswith("flash_fwd_sm90-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_editing_a_header_changes_every_target(monkeypatch, tmp_path):
+    """A source includes the shared headers, so each target's name hashes
+    them too: editing a `.cuh` rebuilds, and a stale `.so` is never
+    reused."""
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    before = build._target("a")
+    assert build._target("a") == before
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    assert build._target("a") != before
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    assert build._target("a") == before
+    (tmp_path / "g.cuh").write_text("// new header\n")
+    assert build._target("a") != before
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -55,22 +82,43 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _flash_inputs(seed, shapes, device, dtype, grid=False):
+    """Standard normal tensors from a numpy seed (on the grid of halves
+    {-1.5, ..., 1.5} with `grid`), cast to dtype on device."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        x = rng.standard_normal(shape, dtype=np.float32)
+        if grid:
+            x = np.clip(np.round(2 * x), -3, 3).astype(np.float32) / 2
+        out.append(torch.from_numpy(x).to(device, dtype))
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype):
+    """The forward kernel of the dtype's route against the plain forward:
+    f32 within 1e-4 (sum order); bf16 per element within one bf16 step +
+    what rounding p against the running max can move it (`rounding_slack`)
+    + 1e-5 of its row's max; lse within 1e-3; pad rows exactly o = 0,
+    lse = -1e30; one launch per call."""
     torch_dtype = getattr(torch, dtype)
-    tol = 1e-4 if dtype == "float32" else 3e-2
     for b, h, hkv, t, d, t_real in CASES:
-        rng = np.random.default_rng(t)
-        q, k, v = (torch.from_numpy(rng.standard_normal((b, n, t, d),
-                                                        dtype=np.float32))
-                   .to(cuda_device, torch_dtype) for n in (h, hkv, hkv))
+        q, k, v = _flash_inputs(t, [(b, n, t, d) for n in (h, hkv, hkv)],
+                                cuda_device, torch_dtype)
         before = flash_attention_fwd.launches
         o, lse = flash_attention_fwd(q, k, v, t_real=t_real)
         torch.cuda.synchronize()
         assert flash_attention_fwd.launches == before + 1
         ro, rlse = flash_attention_fwd_plain(q, k, v, t_real=t_real)
-        assert (o.float() - ro.float()).abs().max().item() < tol
+        err = (o.float() - ro.float()).abs()
+        if dtype == "float32":
+            assert err.max().item() < 1e-4
+        else:
+            slack = flash_rounding_slack(q, k, v, ro, rlse,
+                                         torch.zeros_like(q), t_real)["o"]
+            assert (err <= bf16_limit(ro, slack)).all(), (t, d, t_real)
         live = t_real or t
         assert (lse - rlse)[..., :live].abs().max().item() < 1e-3
         if t_real is not None:
@@ -81,17 +129,18 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, dtype):
-    """Both backward kernels against the plain backward: error relative to
-    the largest |gradient| within 1e-4 (f32: summation order) or 1e-2
-    (bf16: also one rounding step of the outputs); pad rows and pad keys
-    exactly zero; one launch of each kernel per call."""
+    """Both backward kernels of the dtype's route against the plain
+    backward: f32 within 1e-4 of the largest |gradient| plus the sum order
+    of dp carried through ds (`rounding_slack` of f32 inputs; at t 1 every
+    dq and dk value is that noise); bf16 per element within one bf16 step +
+    what rounding p and ds can move it (`rounding_slack`) + 1e-5 of its
+    row's max; pad rows and pad keys exactly zero; one launch of each
+    kernel per call; a second call gives the same bits (no atomics)."""
     torch_dtype = getattr(torch, dtype)
-    tol = 1e-4 if dtype == "float32" else 1e-2
     for b, h, hkv, t, d, t_real in CASES:
-        rng = np.random.default_rng(t + 1)
-        q, k, v, do = (torch.from_numpy(rng.standard_normal(
-            (b, n, t, d), dtype=np.float32)).to(cuda_device, torch_dtype)
-            for n in (h, hkv, hkv, h))
+        q, k, v, do = _flash_inputs(
+            t + 1, [(b, n, t, d) for n in (h, hkv, hkv, h)], cuda_device,
+            torch_dtype)
         o, lse = flash_attention_fwd_plain(q, k, v, t_real=t_real)
         before = (flash_attention_bwd.launches_dq,
                   flash_attention_bwd.launches_dkv)
@@ -100,13 +149,105 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, dtype):
         assert (flash_attention_bwd.launches_dq,
                 flash_attention_bwd.launches_dkv) == (before[0] + 1,
                                                       before[1] + 1)
+        again = flash_attention_bwd(q, k, v, o, lse, do, t_real=t_real)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
         ref = flash_attention_bwd_plain(q, k, v, o, lse, do, t_real=t_real)
-        for x, r in zip(got, ref):
+        slack = flash_rounding_slack(q, k, v, o, lse, do, t_real)
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
             assert x.dtype == r.dtype and x.shape == r.shape
-            err = (x.float() - r.float()).abs().max().item()
-            assert err <= tol * r.float().abs().max().item()
+            err = (x.float() - r.float()).abs()
+            if dtype == "float32":
+                assert (err <= slack[name] + 1e-4 * r.float().abs().max()
+                        ).all(), (t, name)
+            else:
+                assert (err <= bf16_limit(r, slack[name])).all(), (t, name)
             if t_real is not None:
                 assert (x[:, :, t_real:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_kernels_round_p_as_plain_on_one_key_tile(cuda_device):
+    """bf16, t 60 <= the wgmma kernels' 64-key tile: the running row max is
+    the final one, so the forward rounds p where the plain version does. q,
+    k, v and do on a grid of halves make every score and dp exact in any
+    sum order, so p and ds are the same bits on both sides: o, dq, dk and
+    dv within one bf16 step of each element plus 1e-5 of its row's largest
+    |value|, with no rounding slack. A kernel that skipped rounding p (or
+    ds) to bf16 would miss this by far more."""
+    b, h, t, d = 2, 8, 60, 64
+    q, k, v, do = _flash_inputs(11, [(b, h, t, d)] * 4, cuda_device,
+                                torch.bfloat16, grid=True)
+    o, _ = flash_attention_fwd(q, k, v)
+    ro, rlse = flash_attention_fwd_plain(q, k, v)
+    got = flash_attention_bwd(q, k, v, ro, rlse, do)
+    ref = flash_attention_bwd_plain(q, k, v, ro, rlse, do)
+    for name, x, r in zip(("o", "dq", "dk", "dv"), (o, *got), (ro, *ref)):
+        assert ((x.float() - r.float()).abs() <= bf16_limit(r, 0.0)).all(), \
+            name
+
+
+def test_flash_one_key_tile_limit_catches_unrounded_p():
+    """The no-slack limit of the one-key-tile card test (CPU: the plain
+    forward stands for a right kernel) separates the two roundings: a
+    forward that sums the same bf16-rounded p in another order stays within
+    it, one that skips rounding p to bf16 misses it."""
+    b, h, t, d = 2, 8, 60, 64
+    q, k, v = _flash_inputs(11, [(b, h, t, d)] * 3, "cpu", torch.bfloat16,
+                            grid=True)
+    ro, _ = flash_attention_fwd_plain(q, k, v)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / d ** 0.5
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    s = s.masked_fill(~causal, MASK)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+
+    def forward(pv):   # keys summed last to first, one at a time
+        acc = torch.zeros(b, h, t, d)
+        for j in reversed(range(t)):
+            acc = acc + pv[..., j:j + 1] * v.float()[:, :, j:j + 1]
+        return (acc / l).to(torch.bfloat16).float()
+
+    limit = bf16_limit(ro, 0.0)
+    assert ((forward(p.to(torch.bfloat16).float()) - ro.float()).abs()
+            <= limit).all()
+    assert not ((forward(p) - ro.float()).abs() <= limit).all()
+
+
+def test_flash_rounding_slack_is_the_block_rule_on_causal_positions():
+    """K1's rounding slack is K2's (`block_attention.rounding_slack`) with
+    positions 0..t-1 on both sides, no dlse, and the pad rows and keys of
+    t_real dead, plus, for dq and dk, the f32 sum order of dp carried
+    through ds: p d 2^-22 (|do| @ |v|^T) scale, times |k| and |q|. It is
+    what holds a row that sees one key, where ds cancels to 0."""
+    b, h, hkv, t, d, t_real = 2, 4, 2, 70, 32, 57
+    q, k, v, do = (x.to(torch.bfloat16) for x in _flash_inputs(
+        5, [(b, n, t, d) for n in (h, hkv, hkv, h)], "cpu", torch.float32))
+    o, lse = flash_attention_fwd_plain(q, k, v, t_real=t_real)
+    got = flash_rounding_slack(q, k, v, o, lse, do, t_real)
+    pos = torch.arange(t, dtype=torch.int32).expand(b, t).clone()
+    kv_pos = pos.clone()
+    kv_pos[:, t_real:] = 10 ** 6              # pad keys: seen by no row
+    q_pos = pos.clone()
+    q_pos[:, t_real:] = -1                    # pad rows: see no key
+    want = rounding_slack(q, k, v, q_pos, kv_pos, o, lse, do,
+                          torch.zeros(b, h, t))
+    rep = lambda x: torch.repeat_interleave(x, h // hkv, dim=1).float()
+    s = torch.matmul(q.float(), rep(k).transpose(-1, -2)) / d ** 0.5
+    live = ((pos[0, None, :] <= pos[0, :, None]) & (pos[0, :, None] < t_real)
+            & (pos[0, None, :] < t_real))
+    p = torch.where(live, torch.exp(s - lse[..., None]), 0.0)
+    extra = p * d * 2.0 ** -22 * torch.matmul(
+        do.float().abs(), rep(v).abs().transpose(-1, -2)) / d ** 0.5
+    per_kv = lambda x: x.reshape(b, hkv, h // hkv, t, d).sum(dim=2)
+    want["dq"] = want["dq"] + torch.matmul(extra, rep(k).abs())
+    want["dk"] = want["dk"] + per_kv(torch.matmul(extra.transpose(-1, -2),
+                                                  q.float().abs()))
+    for name in ("o", "dv"):
+        assert torch.equal(got[name], want[name]), name
+    for name in ("dq", "dk"):
+        assert torch.allclose(got[name], want[name], rtol=1e-6, atol=0), name
+    assert (got["o"][:, :, t_real:] == 0).all()
+    assert (got["dq"][:, :, 0] > 0).all()     # row 0 sees one key: ds = 0
 
 
 # (b, heads, kv_heads, cw, hd, page_size, max_pages, int8, with qlen):
@@ -174,14 +315,6 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
         assert torch.isfinite(o.float()).all()
 
 
-def _bf16_limit(r: torch.Tensor, slack: torch.Tensor) -> torch.Tensor:
-    """One bf16 step of each plain element + its rounding slack + 1e-5 of
-    its row's largest |value|."""
-    _, e = torch.frexp(r.abs())   # |r| in [2^(e-1), 2^e)
-    step = torch.where(r == 0, 0.0, torch.exp2((e - 8).float()))
-    return step + slack + 1e-5 * r.abs().amax(-1, keepdim=True)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_kernels_match_plain_on_card(cuda_device, dtype):
@@ -220,7 +353,7 @@ def test_block_kernels_match_plain_on_card(cuda_device, dtype):
         if dtype == "float32":
             tol = 1e-5 * max(1.0, r.abs().max().item())
         else:
-            tol = _bf16_limit(r, slack[name])
+            tol = bf16_limit(r, slack[name])
         assert ((x - r).abs() <= tol).all(), name
     dead = rlse <= -1e30 / 2
     assert dead[:, :, :5].all()
@@ -266,7 +399,7 @@ def test_block_kernels_round_p_as_plain_on_one_key_tile(cuda_device):
     ref = block_attention_bwd_plain(q, k, v, qp, kp, ro, rlse, do, dlse)
     for name, x, r in zip(("o", "dq", "dk", "dv"), (o, *got), (ro, *ref)):
         x, r = x.float(), r.float()
-        assert ((x - r).abs() <= _bf16_limit(r, 0.0)).all(), name
+        assert ((x - r).abs() <= bf16_limit(r, 0.0)).all(), name
 
 
 def test_one_key_tile_limit_catches_unrounded_p():
@@ -296,6 +429,6 @@ def test_one_key_tile_limit_catches_unrounded_p():
             acc = acc + pv[..., j:j + 1] * v.float()[:, :, j:j + 1]
         return (acc / l).to(torch.bfloat16).float()
 
-    limit = _bf16_limit(r, 0.0)
+    limit = bf16_limit(r, 0.0)
     assert ((forward(p.to(torch.bfloat16).float()) - r).abs() <= limit).all()
     assert not ((forward(p) - r).abs() <= limit).all()
