@@ -11,8 +11,9 @@ result line):
 1. device: nvidia-smi's name and power limit, torch's device name and count;
 2. build: every CUDA source of the port with nvcc, in parallel, with the
    compiler's per-kernel registers / shared memory / spills; the wgmma
-   kernels of K1's bf16 route (flash_fwd_sm90, flash_bwd_sm90) must show
-   HGMMA instructions in their SASS (cuobjdump) and no spill at head_dim 64;
+   kernels of the bf16 routes of K1 (flash_fwd_sm90, flash_bwd_sm90) and K2
+   (block_attn_sm90) must show HGMMA instructions in their SASS (cuobjdump)
+   and no spill at head_dim 64;
 3. kernel vs plain: the flash-attention forward against its plain PyTorch
    version on the card, bf16 (the wgmma kernel, per element: one bf16 step
    + `flash_attention.rounding_slack` + 1e-5 of the row's max; one key
@@ -79,11 +80,14 @@ result line):
 17. paged_profile: one decode step and one chunk dispatch of the paged
     engine at the paged_serve shape under torch.profiler;
 18. ring_check: the positional block kernels of ring attention (forward,
-    dq, dk/dv) against their plain versions, f32 and bf16, with random
-    (do, dlse): zig-zag halves (250, 250) fully visible and diagonal, ragged
-    (100, 377) and (1, 64), a block where every row is dead (o exactly 0,
-    lse exactly -1e30, dq exactly 0), GQA h 8 / hkv 2, head_dim 128; one
-    launch of each kernel per call;
+    dq, dk/dv) against their plain versions, f32 (the SIMT block_attn.cu)
+    and bf16 (the wgmma block_attn_sm90.cu), with random (do, dlse):
+    zig-zag halves (250, 250) fully visible and diagonal, ragged (100, 377)
+    and (1, 64), the edges of 64-row tiles (tq, tk in 1, 63, 64, 65, 127,
+    129, 250), a block where every row is dead (o exactly 0, lse exactly
+    -1e30, dq exactly 0), a block whose positions give dead, fully visible
+    and mixed tiles, GQA groups 2 and 4, head_dim 32 and 128; one launch of
+    each kernel per call;
 19. ring_times: each block kernel at the cp=2 path's shape, q and k halves
     (8, 8, 250, 64) bf16, a fully visible and a diagonal block, by bare
     launches and device time, beside the plain versions, a library
@@ -94,12 +98,17 @@ result line):
     steps — finite losses, falling under zig-zag, the step-1 loss of each
     and of a cp=1 run on the same batch within 1e-2, and each rank's kernel
     launches equal to the ring schedule's (read from the counters);
-21. cp_card_vs_cpu: cp=2 zig-zag at the 45m widths, 2 layers, f32, b 2 x t
+21. cp_tiny: `train.main --model tiny --cp_size 2 --cp_impl ring`, 2 steps
+    on the card at f32 (the CLI default) and with --bf16: head_dim 32 on
+    both routes of the block kernels, finite losses, launches per the ring
+    schedule;
+22. cp_card_vs_cpu: cp=2 zig-zag at the 45m widths, 2 layers, f32, b 2 x t
     256: loss and every gradient, the kernels on the card against the plain
     versions on the CPU, one gloo group;
-22. cp_profile: one cp=2 zig-zag step of the 45m bf16 cell under
+23. cp_profile: one cp=2 zig-zag step of the 45m bf16 cell under
     torch.profiler in each rank: wall, device busy, the card's idle share,
-    kernels, the block kernels' share, and the time in the ring's hops.
+    kernels, the block kernels' share (no SIMT block kernel may run), and
+    the time in the ring's hops.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -126,6 +135,13 @@ BWD_SOURCE = ("distributed_pytorch_from_scratch_tpu_torch/ops/cuda/csrc/"
               "flash_bwd_sm90.cu")
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
                 "flash_bwd_dkv_sm90_kernel")
+# K2's bf16 route, block_attn_sm90.cu (the f32 route keeps the SIMT
+# block_attn.cu: block_attn_{fwd,dq,dkv}_kernel)
+BLOCK_SM90_KERNELS = ("block_attn_fwd_sm90_kernel", "block_attn_dq_sm90_kernel",
+                      "block_attn_dkv_sm90_kernel")
+BLOCK_SIMT_KERNELS = ("block_attn_fwd_kernel", "block_attn_dq_kernel",
+                      "block_attn_dkv_kernel")
+WGMMA_KERNELS = SM90_KERNELS + BLOCK_SM90_KERNELS
 # rows 2-5 of PERF.md's kernel table: _bwd_fused_kernel, _bwd_fused_gqa_kernel,
 # _dq_kernel, _dkv_kernel
 BWD_REPLACES = f"{PALLAS}:306,343,210,255"
@@ -218,14 +234,16 @@ def _hgmma_counts(so_path) -> dict:
 
 def phase_build() -> None:
     """Every source built; each kernel's registers / smem / spills printed.
-    The wgmma kernels must hold HGMMA instructions (cuobjdump) and, at
-    head_dim 64 (the model's), spill nothing."""
+    Every wgmma kernel (`WGMMA_KERNELS`) must be found, hold HGMMA
+    instructions (cuobjdump) and, at head_dim 64 (the model's), spill
+    nothing."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.build import (
         all_sources, build)
     t0 = time.perf_counter()
     results = build(all_sources())
     log(f"build: {len(results)} source(s) in "
         f"{time.perf_counter() - t0:.1f} s")
+    found = set()
     for r in results:
         log(f"build: {r.name}.cu -> {r.path.name} ({r.seconds:.1f} s)")
         for line in r.log.splitlines():
@@ -234,15 +252,20 @@ def phase_build() -> None:
         if not r.name.endswith("_sm90"):
             continue
         for name, n in sorted(_hgmma_counts(r.path).items()):
-            if any(k in name for k in SM90_KERNELS):
+            kernel = next((k for k in WGMMA_KERNELS if k in name), None)
+            if kernel:
+                found.add(kernel)
                 log(f"build: {name}: {n} HGMMA instructions")
                 if n == 0:
                     raise AssertionError(f"{name} has no HGMMA instruction")
         for name, (st, ld) in _spills(r.log).items():
-            if any(k in name for k in SM90_KERNELS) and "ILi64E" in name \
+            if any(k in name for k in WGMMA_KERNELS) and "ILi64E" in name \
                     and (st or ld):
                 raise AssertionError(f"{name} spills at head_dim 64: {st} "
                                      f"bytes stored, {ld} loaded")
+    if found != set(WGMMA_KERNELS):
+        raise AssertionError(f"wgmma kernels not found in the SASS: "
+                             f"{sorted(set(WGMMA_KERNELS) - found)}")
 
 
 def _inputs(torch, shape, hkv, dtype, seed):
@@ -348,6 +371,21 @@ def _time_ms(torch, fn, iters: int = 100, warmup: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_ms(torch, fn, iters: int = 100, warmup: int = 10) -> float:
+    """Host time per call of `fn`, by the host's clock over `iters` calls
+    that are only enqueued (no synchronisation between them): what a
+    launch costs the host, whatever the kernel takes on the card."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return host
 
 
 def _device_ms(torch, fns, iters: int = 20, warmup: int = 3,
@@ -1605,8 +1643,11 @@ def phase_paged_profile(torch) -> dict:
 
 # ---- slice 4: ring attention (cp) and its positional block kernels ----
 
-BLOCK_SOURCE = ("distributed_pytorch_from_scratch_tpu_torch/ops/cuda/csrc/"
-                "block_attn.cu")
+# K2's sources by route: bf16 (the cp model's path) and f32
+BLOCK_SOURCES = {"bfloat16": ("distributed_pytorch_from_scratch_tpu_torch/ops/"
+                              "cuda/csrc/block_attn_sm90.cu"),
+                 "float32": ("distributed_pytorch_from_scratch_tpu_torch/ops/"
+                             "cuda/csrc/block_attn.cu")}
 # rows 6-8 of PERF.md's kernel table
 BLOCK_REPLACES = {"fwd": f"{PALLAS}:810", "dq": f"{PALLAS}:850",
                   "dkv": f"{PALLAS}:878"}
@@ -1626,12 +1667,33 @@ RING_CASES = [
      ("random", 0, 400), ("random", 100, 500)),
     ("head_dim 128", 1, 4, 4, 130, 100, 128, ("random", 0, 300),
      ("random", 0, 300)),
-    # one key tile (the kernels' tile is 32 keys): the running max is the
-    # final max, so the kernel rounds p where the plain version does; q, k,
-    # v and do on a grid of halves make every score and dp exact in f32
-    # (any sum order), so p and ds are the same bits on both sides and bf16
-    # is held with no rounding slack: a kernel that skipped rounding p (or
-    # ds) to bf16 fails here
+    ("head_dim 32, GQA h 8 / hkv 4", 2, 8, 4, 90, 200, 32, ("random", 0, 400),
+     ("random", 50, 450)),
+    # the edges of the wgmma kernels' 64-row tiles, in q and in k
+    ("tile edges (63, 65), head_dim 32", 2, 8, 8, 63, 65, 32,
+     ("random", 0, 150), ("random", 0, 150)),
+    ("tile edges (64, 127)", 1, 8, 2, 64, 127, 64, ("random", 0, 200),
+     ("random", 0, 200)),
+    ("tile edges (65, 129), head_dim 128", 1, 4, 4, 65, 129, 128,
+     ("random", 0, 200), ("random", 0, 200)),
+    ("tile edges (127, 64), head_dim 32, GQA h 8 / hkv 2", 2, 8, 2, 127, 64,
+     32, ("random", 0, 200), ("random", 0, 200)),
+    ("tile edges (129, 1)", 2, 8, 8, 129, 1, 64, ("random", 0, 100),
+     ("random", 0, 100)),
+    ("tile edges (250, 63)", 2, 8, 8, 250, 63, 64, ("range", 200),
+     ("random", 150, 400)),
+    # position bands per 64-row tile: q tile 0 sees nothing, tile 2 every
+    # key of k tiles 0-1, tile 1 a mix; k tile 2 no row. Each kernel meets
+    # dead, fully visible and mixed tiles in one block
+    ("dead, fully visible and mixed tiles in one block", 2, 8, 4, 192, 180,
+     64, ("bands", (0, 64), (500, 600), (1000, 1100)),
+     ("bands", (100, 200), (300, 700), (2000, 2100))),
+    # one key tile (tk 20 <= the bf16 kernels' 64-key tile): the running max
+    # is the final max, so the kernel rounds p where the plain version does;
+    # q, k, v and do on a grid of halves make every score and dp exact in
+    # f32 (any sum order), so p and ds are the same bits on both sides and
+    # bf16 is held with no rounding slack: a kernel that skipped rounding p
+    # (or ds) to bf16 fails here
     ("one key tile (100, 20), grid values, no slack", 2, 8, 8, 100, 20, 64,
      ("range", 10), ("range", 0), "exact"),
 ]
@@ -1644,9 +1706,17 @@ RING_LIMIT = {"float32": "1e-5 x max(1, max |plain|) of the tensor",
 
 
 def _ring_positions(torch, spec, b, t, g):
+    """(b, t) int32 positions: ("range", start) start, start + 1, ...;
+    ("random", lo, hi) uniform in [lo, hi); ("bands", (lo, hi), ...) the
+    i-th 64 positions uniform in the i-th band."""
     if spec[0] == "range":
         return (spec[1] + torch.arange(t, device="cuda")).expand(b, t) \
             .to(torch.int32).contiguous()
+    if spec[0] == "bands":
+        return torch.cat([torch.randint(lo, hi, (b, min(64, t - 64 * i)),
+                                        generator=g, device="cuda",
+                                        dtype=torch.int32)
+                          for i, (lo, hi) in enumerate(spec[1:])], dim=1)
     return torch.randint(spec[1], spec[2], (b, t), generator=g,
                          device="cuda", dtype=torch.int32)
 
@@ -1773,13 +1843,14 @@ def bound_block(b, h, hkv, tq, tk, d, pairs, dtype_name, part) -> tuple:
 
 
 def phase_ring_times(torch) -> dict:
-    """At the cp=2 path's shape, q and k halves (8, 8, 250, 64) bf16: a fully
-    visible block and a diagonal one. Each kernel against its plain version
-    (ring_check's limits), then by 100 bare launches
-    (CUDA events) with its device time from torch.profiler beside it, the
-    plain versions, the library yardstick and the bound; returns the
-    kernels-line fields (the fully visible block) and every case under
-    `by_block`."""
+    """At the cp=2 path's shape, q and k halves (8, 8, 250, 64) bf16 (the
+    wgmma route): a fully visible block and a diagonal one. Each kernel
+    against its plain version (ring_check's limits), then 100 bare launches
+    by CUDA events (the kernels line's `ms`, host launch cost included), the
+    host's time per launch, its device time from torch.profiler and its
+    TFLOP/s on the visible pairs, the plain versions, the library yardstick
+    and the bound; returns the kernels-line fields (the fully visible
+    block) and every case under `by_block`."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.block_attention import (
         _launch_dkv, _launch_dq, _launch_fwd, block_attention_bwd_plain,
         block_attention_plain, prepare_bwd, prepare_fwd)
@@ -1806,6 +1877,7 @@ def phase_ring_times(torch) -> dict:
                "dq": lambda: _launch_dq(args, dq, stream),
                "dkv": lambda: _launch_dkv(args, dk, dv, stream)}
         ms = {part: _time_ms(torch, fn) for part, fn in run.items()}
+        host = {part: _host_ms(torch, fn) for part, fn in run.items()}
         dev, how = _device_ms(torch, list(run.values()))
         ro, rlse = block_attention_plain(q, k, v, qp, kp)
         plain = {"fwd": _time_ms(torch, lambda: block_attention_plain(
@@ -1836,16 +1908,24 @@ def phase_ring_times(torch) -> dict:
         bounds = {part: bound_block(b, h, h, t, t, d, pairs, "bfloat16", part)
                   for part in ("fwd", "dq", "dkv", "pair")}
         again = _time_ms(torch, run["fwd"])
+        products = {"fwd": 2, "dq": 3, "dkv": 4}
+        tflops = {p: products[p] * 2 * d * pairs / (x * 1e-3) / 1e12
+                  for p, x in zip(run, dev)}
         by_block[block] = {"errs": errs, "ms": ms, "fwd_ms_again": again,
-                           "device_ms": dict(zip(run, dev)),
+                           "device_ms": dict(zip(run, dev)), "tflops": tflops,
+                           "host_ms": host,
                            "plain_ms": plain, "library_fwd_ms": lib_fwd_ms,
                            "library_bwd_ms": lib_both_ms - lib_fwd_ms,
                            "bounds": bounds, "pairs": pairs}
-        log(f"ring_times, {block} block q({b}, {h}, {t}, {d}) bf16, "
-            f"{pairs} visible (q, k) pairs: bare launches, CUDA events over "
-            f"100: fwd {ms['fwd']:.5f} ms (again {again:.5f}), dq "
-            f"{ms['dq']:.5f}, dk/dv {ms['dkv']:.5f}; device time ({how}): "
-            + ", ".join(f"{p} {x:.5f}" for p, x in zip(run, dev))
+        log(f"ring_times, {block} block q({b}, {h}, {t}, {d}) bf16 "
+            f"(block_attn_sm90), {pairs} visible (q, k) pairs: bare launches, "
+            f"CUDA events over 100: fwd {ms['fwd']:.5f} ms (again "
+            f"{again:.5f}), dq {ms['dq']:.5f}, dk/dv {ms['dkv']:.5f}; device "
+            f"time ({how}): "
+            + ", ".join(f"{p} {x:.5f} ({tflops[p]:.1f} TFLOP/s)"
+                        for p, x in zip(run, dev))
+            + "; host per launch (perf_counter over 100 enqueued): "
+            + ", ".join(f"{p} {x:.5f}" for p, x in host.items())
             + f"; plain (events over 20): fwd {plain['fwd']:.5f}, backward "
             f"{plain['bwd']:.5f}; library (_scaled_dot_product_efficient_"
             f"attention with a position bias, {lib_how}): fwd "
@@ -1865,6 +1945,7 @@ def phase_ring_times(torch) -> dict:
         "max_abs_err_path_shape": max(x["errs"][part]
                                       for x in by_block.values()),
         "ms": full["ms"][part], "device_ms": full["device_ms"][part],
+        "tflops": full["tflops"][part], "host_ms": full["host_ms"][part],
         "plain_ms": full["plain_ms"][plain], "library_ms": lib,
         "bound_ms": full["bounds"][part][0],
         "bound_by": full["bounds"][part][1], **common}
@@ -1979,6 +2060,44 @@ def phase_cp_train(torch, workdir: str) -> dict:
     return out
 
 
+def phase_cp_tiny(torch, workdir: str) -> dict:
+    """`train --model tiny --cp_size 2 --cp_impl ring`, 2 steps on the card,
+    at f32 (the CLI default: block_attn.cu) and with --bf16
+    (block_attn_sm90.cu): the tiny preset's head_dim is 32. Finite losses,
+    each rank's launches per the ring schedule; returns the launches summed
+    over ranks, by dtype."""
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    cfg = model_preset("tiny")
+    b, steps = 4, 2
+    base = ["--model", "tiny", "--cp_size", "2", "--cp_impl", "ring",
+            "--dist_backend", "gloo", "--batch_size", str(b), "--max_steps",
+            str(steps), "--warmup_steps", "1", "--log_interval", "1",
+            "--device", "cuda", "--data_path", _corpus(workdir)]
+    want = _cp_want(cfg.num_layers, steps, "contiguous", cfg.maxlen, b)
+    out = {}
+    for name, flags in (("float32", []), ("bfloat16", ["--bf16"])):
+        res = train.main(base + flags + ["--save_dir", os.path.join(
+            workdir, f"cp_tiny_{name}")])
+        summed = {}
+        for rank, w in zip(res["ranks"], want):
+            _only(rank["launches"], w, f"cp_tiny {name} rank {rank['rank']}")
+            for k, v in rank["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        log(f"cp_tiny {name}: tiny preset (head_dim {cfg.head_dim}), cp 2 "
+            f"ring over gloo on the card, b{b} x t{cfg.maxlen}: losses "
+            f"{res['losses']}; block launches summed over ranks "
+            f"{ {k: v for k, v in summed.items() if v} } (checked per rank "
+            f"against the schedule)")
+        if len(res["losses"]) != steps or not all(
+                math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"cp_tiny {name}: losses not finite or not "
+                                 f"{steps}")
+        out[name] = summed
+    return out
+
+
 def phase_cp_card_vs_cpu(torch) -> None:
     """cp=2 zigzag at the 45m widths, 2 layers, f32, b 2 x t 256: the block
     kernels on the card against the plain versions on the CPU, one gloo
@@ -2068,13 +2187,15 @@ def _cp_profile_rank(rank: int, nprocs: int, init_method: str) -> dict:
         dist.all_reduce(flag, op=dist.ReduceOp.MIN)
         return bool(flag.item())
 
-    k2 = ("block_attn_fwd_kernel", "block_attn_dq_kernel",
-          "block_attn_dkv_kernel")
+    k2 = BLOCK_SM90_KERNELS   # the bf16 route's; the SIMT ones are f32's
     busy, n, by_name = 0.0, 0, {}
     for name, us in _profiled(torch, one_step, f"cp profile, rank {rank}",
                               every_rank):
         busy += us
         n += 1
+        if any(k in name for k in BLOCK_SIMT_KERNELS):
+            raise AssertionError(f"the bf16 cp step ran a SIMT block kernel: "
+                                 f"{name}")
         key = next((k for k in k2 if k in name), "other")
         by_name[key] = by_name.get(key, 0.0) + us
     return {"rank": rank, "wall_ms": wall_ms, "busy_ms": busy / 1e3,
@@ -2109,7 +2230,7 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
           "paged_card_vs_cpu", "paged_profile", "ring_check", "ring_times",
-          "cp_train", "cp_card_vs_cpu", "cp_profile")
+          "cp_train", "cp_tiny", "cp_card_vs_cpu", "cp_profile")
 
 
 def main() -> None:
@@ -2181,6 +2302,8 @@ def run(torch, phases: set, workdir: str) -> list:
         ring_times = phase_ring_times(torch)
     if "cp_train" in phases:
         cp_runs = phase_cp_train(torch, workdir)
+    if "cp_tiny" in phases:
+        cp_tiny = phase_cp_tiny(torch, workdir)
     if "cp_card_vs_cpu" in phases:
         phase_cp_card_vs_cpu(torch)
     if "cp_profile" in phases:
@@ -2193,7 +2316,9 @@ def run(torch, phases: set, workdir: str) -> list:
                          "serve_paged": paged_served[k],
                          "train_cp2": cp_runs["zigzag"][k],
                          "train_cp2_contiguous": cp_runs["contiguous"][k],
-                         "train_cp2_ulysses": cp_runs["ulysses"][k]}
+                         "train_cp2_ulysses": cp_runs["ulysses"][k],
+                         "train_cp2_tiny_f32": cp_tiny["float32"].get(k, 0),
+                         "train_cp2_tiny_bf16": cp_tiny["bfloat16"].get(k, 0)}
     at_path = bwd_times["errs"]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
@@ -2227,7 +2352,9 @@ def run(torch, phases: set, workdir: str) -> list:
                        ("dq", "block_attention_bwd_dq"),
                        ("dkv", "block_attention_bwd_dkv")):
         kernels.append({
-            "name": name, "route": "cuda", "source": BLOCK_SOURCE,
+            "name": name, "route": "cuda",
+            "source": BLOCK_SOURCES["bfloat16"],
+            "source_by_route": BLOCK_SOURCES,
             "replaces": BLOCK_REPLACES[part],
             "launches": cp_runs["zigzag"][name],
             "max_abs_err": max(ring_err[part],

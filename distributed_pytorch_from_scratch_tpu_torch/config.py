@@ -1,6 +1,8 @@
 """Typed configuration: the port's own copy of the JAX package's
 `config.py` model shapes, presets, optimizer settings and special-token
-conventions, with `resolve_dtype` mapping to torch dtypes."""
+conventions, with `resolve_dtype` mapping to torch dtypes (and
+`resolve_dtype_on` refusing, on a card, what the port's kernels do not
+take)."""
 
 from __future__ import annotations
 
@@ -22,10 +24,29 @@ _DTYPES = {
 }
 
 
+# the compute dtypes the port's CUDA kernels take
+KERNEL_DTYPES = ("float32", "bfloat16")
+
+
 def resolve_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"Unknown dtype {name!r}; expected one of {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+def resolve_dtype_on(name: str, device) -> torch.dtype:
+    """`resolve_dtype` for a model or engine whose tensors live on `device`.
+    On a CUDA device only `KERNEL_DTYPES` are taken: float16 has no kernel
+    there and is refused here, before anything is built on the card, rather
+    than deep inside the first attention call. The CPU takes every dtype,
+    as the JAX package does."""
+    dtype = resolve_dtype(name)
+    if torch.device(device).type == "cuda" and name not in KERNEL_DTYPES:
+        raise ValueError(
+            f"compute_dtype {name!r} is not supported on a CUDA device: the "
+            f"port's kernels take float32 and bfloat16 (run {name} on the "
+            f"CPU, or pick one of those)")
+    return dtype
 
 
 @dataclass(frozen=True)

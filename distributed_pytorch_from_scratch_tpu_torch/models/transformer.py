@@ -32,7 +32,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..config import IGNORE_INDEX, ModelConfig, resolve_dtype
+from ..config import IGNORE_INDEX, ModelConfig, resolve_dtype_on
 from ..ops.attention import causal_attention
 from ..ops.collectives import all_gather, all_reduce_sum
 from ..ops.ring_attention import (cp_chunk_index, ring_attention,
@@ -108,6 +108,8 @@ class Transformer(nn.Module):
         if cp_size > 1 and (mesh is None or mesh.cp != cp_size):
             raise ValueError(f"cp_size {cp_size} needs the Mesh of its cp "
                              f"group (runtime.mesh.make_mesh), got {mesh}")
+        if mesh is not None:    # the device is known: refuse before weights
+            resolve_dtype_on(cfg.compute_dtype, mesh.device)
         self.cfg = cfg
         self.remat = remat
         self.cp_size = cp_size
@@ -167,7 +169,7 @@ class Transformer(nn.Module):
         dtype; at cp > 1 this rank's chunk in, its chunk's logits out.
         Positions outside the RoPE table clamp to its last row (JAX
         mode='clip')."""
-        dtype = resolve_dtype(self.cfg.compute_dtype)
+        dtype = resolve_dtype_on(self.cfg.compute_dtype, input_ids.device)
         x = _embed(self, input_ids, dtype)
         cos_t, sin_t = rope_tables(self.cfg.maxlen, self.cfg.head_dim,
                                    self.cfg.rope_theta, x.device)

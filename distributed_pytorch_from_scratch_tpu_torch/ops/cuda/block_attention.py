@@ -1,7 +1,6 @@
 """Positional block attention, the building block of ring attention: the
-CUDA kernels `csrc/block_attn.cu` (forward; backward dq and dk/dv), their
-plain PyTorch versions, and `BlockAttention`, the autograd Function that
-joins them.
+CUDA kernels (forward; backward dq and dk/dv), their plain PyTorch versions,
+and `BlockAttention`, the autograd Function that joins them.
 
 Counterparts of the JAX TPU kernels `_pos_fwd_kernel`, `_pos_dq_kernel` and
 `_pos_dkv_kernel` behind `block_attention` in
@@ -25,7 +24,14 @@ dlse)` returns (dq, dk, dv) in the dtypes of q, k, v.
 
 On a CUDA tensor each wrapper launches its kernel(s) (built on first use) or
 raises; on a CPU tensor it computes the plain version, the same math step by
-step. There is no fallback from one to the other.
+step. There is no fallback from one to the other. The dtype picks the
+kernels, by dispatch, not fallback (`kernel_route`):
+
+* bfloat16 (the cp model's path): `csrc/block_attn_sm90.cu`, wgmma kernels
+  fed by TMA through an mbarrier ring, with a per-tile skip by position;
+* float32: `csrc/block_attn.cu`, SIMT kernels with f32 FMAs.
+
+The launch counters count either route.
 """
 
 from __future__ import annotations
@@ -39,17 +45,32 @@ import torch
 from .flash_attention import _c_function, _delta
 
 MASK = -1e30  # hard mask and dead-row lse, as the TPU kernels'
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# block_attn_fwd(q, k, v, q_pos, kv_pos, o, lse, b, hq, hkv, tq, tk,
-#                head_dim, is_bf16, scale, stream)
-_C_FWD = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]
-# block_attn_dq(q, k, v, q_pos, kv_pos, do, lse, delta, dlse, dq, <sizes>);
-# block_attn_dkv has dk, dv for dq
-_C_DQ = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
-_C_DKV = [_P] * 11 + [_I] * 7 + [ctypes.c_float, _P]
+# block_attn_fwd[_sm90](q, k, v, q_pos, kv_pos, o, lse, b, hq, hkv, tq, tk,
+#                       head_dim, scale, stream)
+_C_FWD = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+# block_attn_dq[_sm90](q, k, v, q_pos, kv_pos, do, lse, delta, dlse, dq,
+#                      <sizes>); block_attn_dkv[_sm90] has dk, dv for dq
+_C_DQ = [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P]
+_C_DKV = [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P]
+# dtype -> (source, C-name suffix) of all three kernels
+_ROUTE = {torch.float32: ("block_attn", ""),
+          torch.bfloat16: ("block_attn_sm90", "_sm90")}
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> Tuple[str, str]:
+    """(source under `csrc/`, C-name suffix) of the kernels that take this
+    dtype and head_dim; raises on what is not built."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not built; the kernels take "
+                         f"{HEAD_DIMS}")
+    if dtype not in _ROUTE:
+        raise ValueError(f"dtype {dtype} not built; the kernels take "
+                         f"{DTYPES}")
+    return _ROUTE[dtype]
 
 
 def _check(q, k, v, q_pos, kv_pos) -> None:
@@ -77,21 +98,22 @@ def _check(q, k, v, q_pos, kv_pos) -> None:
         raise ValueError("q, k, v and the positions must lie on one device")
 
 
-def _check_kernel_inputs(q: torch.Tensor, *others: torch.Tensor) -> None:
-    """What the CUDA kernels take; raises on anything else."""
+def _check_kernel_inputs(q: torch.Tensor, *others: torch.Tensor
+                         ) -> Tuple[str, str]:
+    """What the CUDA kernels take; raises on anything else. Returns the
+    route (`kernel_route`)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, _, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not built; the kernels take "
-                         f"{HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"dtype {q.dtype} not built; the kernels take "
-                         f"{DTYPES}")
+    route = kernel_route(q.dtype, d)
     if not all(x.is_contiguous() for x in (q, *others)):
         raise ValueError("kernel inputs must be contiguous")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, *others)):
+        raise ValueError("bf16 kernel inputs must be 16-byte aligned (TMA)")
     if b * h > 65535:
         raise ValueError(f"b*heads {b * h} exceeds the grid's y limit 65535")
+    return route
 
 
 def _positions(q_pos, kv_pos):
@@ -134,35 +156,37 @@ def block_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def prepare_fwd(q, k, v, q_pos, kv_pos) -> tuple:
     """Checked kernel arguments of the forward on the card, positions int32.
-    Returns the `_launch_fwd` args and the tensors they point into (keep
-    them alive while launching)."""
+    Returns the `_launch_fwd` args (the route, then pointers and sizes) and
+    the tensors they point into (keep them alive while launching)."""
     _check(q, k, v, q_pos, kv_pos)
     q_pos, kv_pos = _positions(q_pos, kv_pos)
-    _check_kernel_inputs(q, k, v)
+    route = _check_kernel_inputs(q, k, v)
     b, h, tq, d = q.shape
-    args = ((q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+    args = (route,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              kv_pos.data_ptr()),
-            (b, h, k.shape[1], tq, k.shape[2], d,
-             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d)))
+            (b, h, k.shape[1], tq, k.shape[2], d, 1.0 / math.sqrt(d)))
     return args, (q_pos, kv_pos)
 
 
 def _launch_fwd(args: tuple, o: torch.Tensor, lse: torch.Tensor,
                 stream: int) -> None:
-    """One launch of `block_attn_fwd` into `o` (q's shape and dtype) and
-    `lse` ((b, h, tq) float32); not counted (the wrapper counts its own)."""
-    ptrs, sizes = args
-    fn = _c_function("block_attn", "block_attn_fwd", _C_FWD)
+    """One launch of the forward kernel of the args' route into `o` (q's
+    shape and dtype) and `lse` ((b, h, tq) float32); not counted (the
+    wrapper counts its own)."""
+    (source, suffix), ptrs, sizes = args
+    fn = _c_function(source, f"block_attn_fwd{suffix}", _C_FWD)
     err = fn(*ptrs, o.data_ptr(), lse.data_ptr(), *sizes, stream)
     if err != 0:
-        raise RuntimeError(f"block_attn_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"block_attn_fwd{suffix} launch failed: CUDA "
+                           f"error {err}")
 
 
 def block_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         q_pos: torch.Tensor, kv_pos: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse) of one position-masked block; see the module docstring. On
-    a CUDA tensor: one launch of `block_attn_fwd`."""
+    a CUDA tensor: one launch of the dtype's forward kernel."""
     if q.device.type == "cpu":
         return block_attention_plain(q, k, v, q_pos, kv_pos)
     args, _keep = prepare_fwd(q, k, v, q_pos, kv_pos)
@@ -273,35 +297,39 @@ def rounding_slack(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "dv": edge * per_kv(torch.matmul(p.transpose(-1, -2), dof.abs()))}
 
 
-def _bwd_args(q, k, v, q_pos, kv_pos, lse, delta, do, dlse) -> tuple:
-    """The inputs and sizes both backward C functions take, in their order
-    (inputs checked by the caller; the tensors must outlive the launch)."""
+def _bwd_args(route, q, k, v, q_pos, kv_pos, lse, delta, do, dlse) -> tuple:
+    """The route, then the inputs and sizes both backward C functions take,
+    in their order (inputs checked by the caller; the tensors must outlive
+    the launch)."""
     b, h, tq, d = q.shape
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+    return (route,
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              kv_pos.data_ptr(), do.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dlse.data_ptr()),
-            (b, h, k.shape[1], tq, k.shape[2], d,
-             int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d)))
+            (b, h, k.shape[1], tq, k.shape[2], d, 1.0 / math.sqrt(d)))
 
 
 def _launch_dq(args: tuple, dq: torch.Tensor, stream: int) -> None:
-    """One launch of `block_attn_dq` into `dq`; not counted (the wrapper
-    counts its own)."""
-    ptrs, sizes = args
-    fn = _c_function("block_attn", "block_attn_dq", _C_DQ)
+    """One launch of the dq kernel of the args' route into `dq`; not
+    counted (the wrapper counts its own)."""
+    (source, suffix), ptrs, sizes = args
+    fn = _c_function(source, f"block_attn_dq{suffix}", _C_DQ)
     err = fn(*ptrs, dq.data_ptr(), *sizes, stream)
     if err != 0:
-        raise RuntimeError(f"block_attn_dq launch failed: CUDA error {err}")
+        raise RuntimeError(f"block_attn_dq{suffix} launch failed: CUDA "
+                           f"error {err}")
 
 
 def _launch_dkv(args: tuple, dk: torch.Tensor, dv: torch.Tensor,
                 stream: int) -> None:
-    """One launch of `block_attn_dkv` into `dk`, `dv`; not counted."""
-    ptrs, sizes = args
-    fn = _c_function("block_attn", "block_attn_dkv", _C_DKV)
+    """One launch of the dk/dv kernel of the args' route into `dk`, `dv`;
+    not counted."""
+    (source, suffix), ptrs, sizes = args
+    fn = _c_function(source, f"block_attn_dkv{suffix}", _C_DKV)
     err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *sizes, stream)
     if err != 0:
-        raise RuntimeError(f"block_attn_dkv launch failed: CUDA error {err}")
+        raise RuntimeError(f"block_attn_dkv{suffix} launch failed: CUDA "
+                           f"error {err}")
 
 
 def prepare_bwd(q, k, v, q_pos, kv_pos, o, lse, do, dlse) -> tuple:
@@ -312,10 +340,11 @@ def prepare_bwd(q, k, v, q_pos, kv_pos, o, lse, do, dlse) -> tuple:
     _check_bwd(q, k, v, q_pos, kv_pos, o, lse, do, dlse)
     q_pos, kv_pos = _positions(q_pos, kv_pos)
     dlse = dlse.contiguous()
-    _check_kernel_inputs(q, k, v, o, lse, do, dlse)
+    route = _check_kernel_inputs(q, k, v, o, lse, do, dlse)
     delta = _delta(o, do)
     keep = (q_pos, kv_pos, delta, dlse)
-    return _bwd_args(q, k, v, q_pos, kv_pos, lse, delta, do, dlse), keep
+    return (_bwd_args(route, q, k, v, q_pos, kv_pos, lse, delta, do, dlse),
+            keep)
 
 
 def block_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -325,7 +354,7 @@ def block_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of one block given the forward's (o, lse) and both
     cotangents; see the module docstring. On a CUDA tensor: one launch of
-    `block_attn_dq` and one of `block_attn_dkv`."""
+    the dtype's dq kernel and one of its dk/dv kernel."""
     if q.device.type == "cpu":
         return block_attention_bwd_plain(q, k, v, q_pos, kv_pos, o, lse, do,
                                          dlse)

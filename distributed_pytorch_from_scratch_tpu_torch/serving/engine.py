@@ -31,7 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import resolve_dtype
+from ..config import resolve_dtype_on
 from ..models.decode import (
     PAGED_ATTN_IMPLS, _decode_one, _paged_decode_one, _paged_prefill_chunk,
     _prefill, make_token_sampler)
@@ -154,7 +154,7 @@ class ContinuousBatchingEngine:
         self.buf_len = buf_len
         self.eos_id = int(eos_id)
         self.max_prefill_batch = max_prefill_batch
-        self._dtype = resolve_dtype(model.cfg.compute_dtype)
+        self._dtype = resolve_dtype_on(model.cfg.compute_dtype, mesh.device)
         table_len = max(model.cfg.maxlen, buf_len)
         self._cos, self._sin = rope_tables(table_len, model.cfg.head_dim,
                                            model.cfg.rope_theta, self.device)
@@ -397,7 +397,7 @@ class PagedEngine:
         self.eos_id = int(eos_id)
         self.prefill_chunk = prefill_chunk
         self._clock = clock
-        self._dtype = resolve_dtype(model.cfg.compute_dtype)
+        self._dtype = resolve_dtype_on(model.cfg.compute_dtype, mesh.device)
         table_len = max(model.cfg.maxlen, self.buf_len)
         self._cos, self._sin = rope_tables(table_len, model.cfg.head_dim,
                                            model.cfg.rope_theta, self.device)

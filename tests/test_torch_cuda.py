@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from distributed_pytorch_from_scratch_tpu_torch.config import (
+    resolve_dtype_on)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda import build
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.block_attention import (
     BlockAttention, block_attention_bwd, block_attention_bwd_plain,
-    block_attention_fwd, block_attention_plain, rounding_slack)
+    block_attention_fwd, block_attention_plain, kernel_route, rounding_slack)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
     MASK, bf16_limit, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
@@ -40,7 +42,8 @@ CASES = [(2, 4, 4, 128, 32, None), (1, 4, 2, 200, 32, 150),
 
 
 def test_sources_and_build_targets():
-    assert build.all_sources() == ["block_attn", "flash_bwd", "flash_bwd_sm90",
+    assert build.all_sources() == ["block_attn", "block_attn_sm90",
+                                   "flash_bwd", "flash_bwd_sm90",
                                    "flash_fwd", "flash_fwd_sm90",
                                    "paged_attn"]
     assert (build.CSRC / "sm90.cuh").is_file()
@@ -49,6 +52,49 @@ def test_sources_and_build_targets():
     assert a.parent == build.BUILD_DIR and a.name.startswith("flash_fwd-")
     assert build._target("flash_fwd_sm90").name.startswith("flash_fwd_sm90-")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_block_kernel_route_by_dtype(head_dim):
+    """K2's kernels by dtype, dispatch and not fallback: bf16 to the wgmma
+    source, f32 to the SIMT one, at every built head_dim; anything else
+    raises before a launch."""
+    assert kernel_route(torch.bfloat16, head_dim) == ("block_attn_sm90",
+                                                      "_sm90")
+    assert kernel_route(torch.float32, head_dim) == ("block_attn", "")
+    with pytest.raises(ValueError, match="dtype torch.float16 not built"):
+        kernel_route(torch.float16, head_dim)
+    with pytest.raises(ValueError, match="head_dim 48 not built"):
+        kernel_route(torch.bfloat16, 48)
+    for source, _ in (kernel_route(torch.bfloat16, head_dim),
+                      kernel_route(torch.float32, head_dim)):
+        assert source in build.all_sources()
+
+
+def test_float16_refused_on_a_card_only():
+    """float16 has no kernel on the card: the dtype is refused for a CUDA
+    device (string or torch.device, before a model builds any weights when
+    it is given its mesh) and taken on the CPU, as in JAX."""
+    from types import SimpleNamespace
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    msg = "the port's kernels take float32 and bfloat16"
+    for device in ("cuda", "cuda:0", torch.device("cuda", 1)):
+        with pytest.raises(ValueError, match=msg):
+            resolve_dtype_on("float16", device)
+        assert resolve_dtype_on("bfloat16", device) == torch.bfloat16
+        assert resolve_dtype_on("float32", device) == torch.float32
+    assert resolve_dtype_on("float16", "cpu") == torch.float16
+    assert resolve_dtype_on("float16", torch.device("cpu")) == torch.float16
+    cfg = model_preset("tiny", compute_dtype="float16")
+    card = SimpleNamespace(device=torch.device("cuda"), cp=1)
+    with pytest.raises(ValueError, match=msg):
+        Transformer(cfg, mesh=card)
+    model = Transformer(cfg, remat=False).init_weights(seed=0)
+    ids = torch.zeros((1, 4), dtype=torch.long)
+    logits = model(ids, torch.arange(4)[None])
+    assert logits.dtype == torch.float16 and logits.shape == (1, 4, 1024)
 
 
 def test_editing_a_header_changes_every_target(monkeypatch, tmp_path):
@@ -315,28 +361,43 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
         assert torch.isfinite(o.float()).all()
 
 
+# (b, h, hkv, tq, tk, d): a ragged GQA block (group 4) at head_dim 64, 32
+# and 128 (MHA), and the edges of the bf16 kernels' 64-row tiles (tq 129,
+# tk 63, group 2)
+BLOCK_CARD_CASES = [(2, 8, 2, 90, 200, 64), (2, 8, 2, 90, 200, 32),
+                    (1, 4, 4, 90, 200, 128), (2, 8, 4, 129, 63, 64)]
+
+
+def _block_card_inputs(case, device, dtype, seed=7):
+    """q, k, v, do in dtype, dlse f32 and int32 positions from a numpy seed;
+    the first 5 rows of every batch row see no key."""
+    b, h, hkv, tq, tk, d = case
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+    q, k, v, do = (x.to(device, dtype) for x in (
+        f(b, h, tq, d), f(b, hkv, tk, d), f(b, hkv, tk, d), f(b, h, tq, d)))
+    dlse = f(b, h, tq).to(device)
+    qp = torch.from_numpy(rng.integers(0, 400, (b, tq)).astype(np.int32))
+    qp[:, :5] = 0
+    kp = torch.from_numpy(rng.integers(50, 450, (b, tk)).astype(np.int32))
+    return q, k, v, qp.to(device), kp.to(device), do, dlse
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", BLOCK_CARD_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_block_kernels_match_plain_on_card(cuda_device, dtype):
-    """The three block kernels against their plain versions on one ragged
-    GQA block (tq 90, tk 200, h 8 / hkv 2) whose first rows see nothing,
-    with random (do, dlse): f32 within 1e-5 of max(1, the tensor's largest
+def test_block_kernels_match_plain_on_card(cuda_device, dtype, case):
+    """The three block kernels of the dtype's route against their plain
+    versions on a ragged GQA block whose first rows see nothing, with
+    random (do, dlse): f32 within 1e-5 of max(1, the tensor's largest
     |value|) (sum order); bf16 per element within one bf16 step of the plain
     value plus what rounding p and ds can move it by (`rounding_slack`) plus
     1e-5 of its row's largest |value|; dead rows exactly o = 0,
     lse = -1e30, dq = 0; one launch of each kernel per call, and
     `BlockAttention` runs the same kernels."""
-    torch_dtype = getattr(torch, dtype)
-    rng = np.random.default_rng(7)
-    b, h, hkv, tq, tk, d = 2, 8, 2, 90, 200, 64
-    f = lambda *s: torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
-    q, k, v, do = (x.to(cuda_device, torch_dtype) for x in (
-        f(b, h, tq, d), f(b, hkv, tk, d), f(b, hkv, tk, d), f(b, h, tq, d)))
-    dlse = f(b, h, tq).to(cuda_device)
-    qp = torch.from_numpy(rng.integers(0, 400, (b, tq)).astype(np.int32))
-    qp[:, :5] = 0
-    kp = torch.from_numpy(rng.integers(50, 450, (b, tk)).astype(np.int32))
-    qp, kp = qp.to(cuda_device), kp.to(cuda_device)
+    q, k, v, qp, kp, do, dlse = _block_card_inputs(case, cuda_device,
+                                                   getattr(torch, dtype))
     before = (block_attention_fwd.launches, block_attention_bwd.launches_dq,
               block_attention_bwd.launches_dkv)
     o, lse = block_attention_fwd(q, k, v, qp, kp)
@@ -372,8 +433,24 @@ def test_block_kernels_match_plain_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_backward_is_bit_equal_from_call_to_call(cuda_device, dtype):
+    """dk/dv of a kv head sum over its query group inside one block, with no
+    atomics: two backward calls on the same inputs give the same bits, on
+    either route."""
+    q, k, v, qp, kp, do, dlse = _block_card_inputs(
+        (2, 8, 2, 129, 250, 64), cuda_device, getattr(torch, dtype), seed=9)
+    o, lse = block_attention_plain(q, k, v, qp, kp)
+    first = block_attention_bwd(q, k, v, qp, kp, o, lse, do, dlse)
+    again = block_attention_bwd(q, k, v, qp, kp, o, lse, do, dlse)
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 def test_block_kernels_round_p_as_plain_on_one_key_tile(cuda_device):
-    """bf16 on one key tile (tk 20; the kernels' tile is 32 keys): the
+    """bf16 on one key tile (tk 20 <= the bf16 kernels' 64-key tile): the
     running row max is the final one, so the kernel rounds p where the plain
     version does. q, k, v and do on a grid of halves make every score and
     dp exact in any sum order, so p and ds are the same bits on both sides:

@@ -72,8 +72,10 @@ from distributed_pytorch_from_scratch_tpu_torch.training import checkpoint
 
 # ---- (a) one block: plain vs the JAX block math and the Pallas kernel ----
 
-# (b, h, hkv, tq, tk, d): GQA with tq != tk and row 0 dead; MHA, tq < tk
-BLOCK_CASES = [(2, 4, 2, 48, 80, 16), (1, 2, 2, 33, 70, 16)]
+# (b, h, hkv, tq, tk, d): GQA with tq != tk and row 0 dead; MHA, tq < tk;
+# head_dim 32 (the tiny preset's) with GQA group 4
+BLOCK_CASES = [(2, 4, 2, 48, 80, 16), (1, 2, 2, 33, 70, 16),
+               (1, 8, 2, 40, 72, 32)]
 
 
 def _block_inputs(case, seed):
@@ -113,8 +115,8 @@ def test_block_plain_matches_jax_block_math(case):
     assert (grads[0].numpy()[:, :, 0] == 0).all()
 
 
-def test_block_plain_matches_pallas_kernel_in_interpret_mode():
-    q, k, v, qp, kp, do, dlse = _block_inputs(BLOCK_CASES[0], seed=3)
+def _check_plain_against_pallas(case, seed):
+    q, k, v, qp, kp, do, dlse = _block_inputs(case, seed=seed)
     (jo, jlse), vjp = jax.vjp(
         lambda q, k, v: jblock_attention(q, k, v, qp, kp), q, k, v)
     jgrads = vjp((jnp.asarray(do), jnp.asarray(dlse)))
@@ -127,6 +129,16 @@ def test_block_plain_matches_pallas_kernel_in_interpret_mode():
     grads = block_attention_bwd_plain(*t[:5], o, lse, t[5], t[6])
     for x, r in zip(grads, jgrads):
         assert np.abs(x.numpy() - np.asarray(r)).max() < 5e-5
+
+
+def test_block_plain_matches_pallas_kernel_in_interpret_mode():
+    _check_plain_against_pallas(BLOCK_CASES[0], seed=3)
+
+
+def test_block_plain_matches_pallas_kernel_at_head_dim_32():
+    """The Pallas kernel (interpret mode) at head_dim 32, where the card's
+    block kernels are built too (`block_attention.HEAD_DIMS`)."""
+    _check_plain_against_pallas(BLOCK_CASES[2], seed=4)
 
 
 def test_block_function_on_cpu_is_plain_autograd():
