@@ -13,7 +13,7 @@ result line):
    compiler's per-kernel registers / shared memory / spills; the wgmma
    kernels of the bf16 routes of K1 (flash_fwd_sm90, flash_bwd_sm90) and K2
    (block_attn_sm90) must show HGMMA instructions in their SASS (cuobjdump)
-   and no spill at head_dim 64;
+   and no spill at head_dim 64, nor may K3's decode kernel (paged_decode);
 3. kernel vs plain: the flash-attention forward against its plain PyTorch
    version on the card, bf16 (the wgmma kernel, per element: one bf16 step
    + `flash_attention.rounding_slack` + 1e-5 of the row's max; one key
@@ -56,29 +56,38 @@ result line):
 12. train_profile: one 45m bf16 train step under torch.profiler (wall vs
     device busy, kernels per step, the wgmma flash kernels' launches and
     shares; no SIMT flash kernel may run);
-13. paged_check: the paged-attention kernel against its plain version, bf16
-    and f32: decode at page_size 64 with cursors at 0, mid-page, a page end
-    and the last position; GQA g 4 at page_size 8 and 16; the chunk shape
-    with per-row start/qlen; cw 128; head_dim 32 and 128; int8 pools;
-    pos_offset with return_lse (dead rows exactly -1e30 and 0), one launch
-    per call;
-14. paged_times: the paged kernel at the 45m decode shape q (16, 8, 1, 64)
+13. paged_check: the paged-attention kernels (decode route paged_decode.cu
+    at cw = 1, chunk route paged_attn.cu at cw > 1) against their plain
+    version, bf16 and f32: decode at page_size 64 with cursors at 0,
+    mid-page, a page end and the last position; GQA g 4 at page_size 8 and
+    16; the chunk shape with per-row start/qlen; cw 128; head_dim 32 and
+    128; int8 pools; pos_offset with return_lse (dead rows exactly -1e30
+    and 0); then the decode route's edges: one live key, keys ending on a
+    sub-tile and a page end, rows too short to reach every warp, a full
+    table, ps 8 (sub-tiles across pages), GQA g 4 and g 8, head_dim 32 and
+    128 with int8 pools, b 1; one launch per call, on the route its width
+    names; two decode calls bit-equal;
+14. paged_times: each paged route at the 45m decode shape q (16, 8, 1, 64)
     and the chunk shape q (1, 8, 128, 64), bf16 and int8 pools, beside its
     plain version, the gather impl, one PyTorch library call (SDPA over the
-    pre-gathered dense view) and the bound;
+    pre-gathered dense view) and the bound; and the decode route at
+    `decode_long`, one row at cursor 703 (8 blocks), recorded only;
 15. paged_serve: `serve.main --paged` at the 45m preset, bf16, 32 requests
     of mixed traffic (interleaved 64/512-token prompts behind a shared
     64-token prefix, two tenants, three SLO classes) on 16 slots over an
     80-page pool, then 16 requests with int8 pages — every request
     completes with in-vocab tokens, prefix hits, a drained pool, the paged
-    kernel launched 12 times per decode step and per chunk dispatch, and
+    kernels launched 12 times per decode step and per one-position chunk
+    (decode route, cw = 1) and per other chunk dispatch (chunk route), and
     no flash kernel;
 16. paged_card_vs_cpu: 45m f32 chunks and decode steps through the kernel
     on the card against the plain path on the CPU, then an 8-request f32
     burst served with `--paged_attn kernel` and `gather` on the card:
     identical greedy tokens;
 17. paged_profile: one decode step and one chunk dispatch of the paged
-    engine at the paged_serve shape under torch.profiler;
+    engine at the paged_serve shape under torch.profiler; the decode step
+    runs the decode kernel (paged_decode_kernel) 12 times and no chunk
+    kernel (paged_attn_kernel), the chunk dispatch no decode kernel;
 18. ring_check: the positional block kernels of ring attention (forward,
     dq, dk/dv) against their plain versions, f32 (the SIMT block_attn.cu)
     and bf16 (the wgmma block_attn_sm90.cu), with random (do, dlse):
@@ -162,6 +171,12 @@ SERVE_ARGS = ["--model", "45m", "--random_init", "--vocab_size", "1024",
               "--max_prefill_batch", "4"]
 PAGED_SOURCE = ("distributed_pytorch_from_scratch_tpu_torch/ops/cuda/csrc/"
                 "paged_attn.cu")
+# K3's sources by route (`paged_attention.kernel_route`): decode steps
+# (cw = 1) and prefill chunks (cw > 1), and their kernels' names
+PAGED_SOURCES = {"decode": ("distributed_pytorch_from_scratch_tpu_torch/ops/"
+                            "cuda/csrc/paged_decode.cu"),
+                 "chunk": PAGED_SOURCE}
+PAGED_KERNELS = {"decode": "paged_decode_kernel", "chunk": "paged_attn_kernel"}
 PAGED_REPLACES = "distributed_pytorch_from_scratch_tpu/ops/pallas/paged_attention.py:95"
 # mixed traffic: three SLO classes, two tenants, short and long prompts
 # interleaved behind a 96-token shared prefix, which ends half-way into its
@@ -236,7 +251,7 @@ def phase_build() -> None:
     """Every source built; each kernel's registers / smem / spills printed.
     Every wgmma kernel (`WGMMA_KERNELS`) must be found, hold HGMMA
     instructions (cuobjdump) and, at head_dim 64 (the model's), spill
-    nothing."""
+    nothing; nor may any instantiation of the decode kernel at head_dim 64."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.build import (
         all_sources, build)
     t0 = time.perf_counter()
@@ -249,6 +264,16 @@ def phase_build() -> None:
         for line in r.log.splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  {line.strip()}")
+        if r.name == "paged_decode":
+            decode = {n: sl for n, sl in _spills(r.log).items()
+                      if PAGED_KERNELS["decode"] in n and "Li64E" in n}
+            if not decode:
+                raise AssertionError("no head_dim 64 decode kernel in the "
+                                     "ptxas report")
+            for name, (st, ld) in decode.items():
+                if st or ld:
+                    raise AssertionError(f"{name} spills at head_dim 64: "
+                                         f"{st} bytes stored, {ld} loaded")
         if not r.name.endswith("_sm90"):
             continue
         for name, n in sorted(_hgmma_counts(r.path).items()):
@@ -952,6 +977,7 @@ def _reset_launches():
     flash_attention_bwd.launches_dq = 0
     flash_attention_bwd.launches_dkv = 0
     paged_attention.launches = 0
+    paged_attention.launches_by_route = {"decode": 0, "chunk": 0}
     block_attention_fwd.launches = 0
     block_attention_bwd.launches_dq = 0
     block_attention_bwd.launches_dkv = 0
@@ -1278,6 +1304,27 @@ PAGED_CASES = [  # (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
      [128, 77], 0),
     ("pos_offset 128 + lse, row 0 sees nothing", 3, 8, 8, 1, 64, 64, 4,
      False, [50, 128, 380], None, 128),
+    # the decode route's edges: its warps split each row's keys into
+    # sub-tiles (16 keys at bf16 head_dim 64, 8 at f32) and combine once
+    ("decode, one live key (cursor 0)", 2, 8, 8, 1, 64, 64, 4, False,
+     [0, 0], None, 0),
+    ("decode, keys end on a sub-tile and a page end", 4, 8, 8, 1, 64, 64, 5,
+     False, [31, 63, 127, 255], None, 0),
+    ("decode, rows too short to reach every warp", 3, 8, 8, 1, 64, 64, 3,
+     False, [5, 40, 100], None, 0),
+    ("decode, full table (cursor mp * ps - 1)", 2, 8, 8, 1, 64, 64, 11,
+     False, [703, 703], None, 0),
+    ("decode, ps 8: sub-tiles across pages", 3, 8, 8, 1, 64, 8, 40, False,
+     [37, 100, 319], None, 0),
+    ("decode, GQA g 4", 3, 16, 4, 1, 64, 16, 12, False, [0, 77, 191], None,
+     0),
+    ("decode, GQA g 8 (two row chunks)", 2, 32, 4, 1, 64, 32, 8, False,
+     [130, 255], None, 0),
+    ("decode, head_dim 32, int8 pools, ps 8: loads across pages", 3, 8, 8,
+     1, 32, 8, 48, True, [0, 200, 383], None, 0),
+    ("decode, head_dim 128, int8 pools", 3, 8, 8, 1, 128, 32, 8, True,
+     [0, 100, 255], None, 0),
+    ("decode, b 1", 1, 8, 8, 1, 64, 64, 11, False, [450], None, 0),
 ]
 
 
@@ -1285,6 +1332,7 @@ def phase_paged_check(torch) -> float:
     """Returns the largest bf16 output error (the served dtype)."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
         MASK, paged_attention, paged_attention_plain)
+    by_route = paged_attention.launches_by_route
     worst = 0.0
     for i, (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens,
             off) in enumerate(PAGED_CASES):
@@ -1295,10 +1343,12 @@ def phase_paged_check(torch) -> float:
             kw = dict(page_size=ps, pos_offset=off, return_lse=True,
                       qlen=None if qlens is None else torch.tensor(
                           qlens, dtype=torch.int32, device="cuda"))
-            n = paged_attention.launches
+            route = "decode" if cw == 1 else "chunk"
+            n, n_route = paged_attention.launches, by_route[route]
             o, lse = paged_attention(q, kp, vp, tbl, start, **kw)
             torch.cuda.synchronize()
             launched = paged_attention.launches - n
+            on_route = by_route[route] - n_route
             ro, rlse = paged_attention_plain(q, kp, vp, tbl, start, **kw)
             valid = [cw if qlens is None else qlens[r] for r in range(b)]
             err, ratio = _paged_err(torch, o, ro, valid, name)
@@ -1313,13 +1363,27 @@ def phase_paged_check(torch) -> float:
                 f"{name}: o max abs err {err:.3e}, worst err/limit "
                 f"{ratio:.3e} (limit {PAGED_LIMIT[name]}), lse "
                 f"{lse_err:.3e} (limit 1e-4); dead rows {dead} exact "
-                f"{dead_ok}; finite {finite}; launches {launched}")
+                f"{dead_ok}; finite {finite}; launches {launched}, "
+                f"{on_route} on the {route} route")
             if not (ratio <= 1.0 and lse_err <= 1e-4 and dead_ok and finite
-                    and launched == 1):
+                    and launched == on_route == 1):
                 raise AssertionError(f"paged kernel disagrees with its plain "
                                      f"version: {what} {name}")
             if name == "bfloat16":
                 worst = max(worst, err)
+    # no atomics, a fixed combine order: two decode calls, the same bits
+    for name in ("bfloat16", "float32"):
+        q, kp, vp, tbl = _paged_inputs(torch, 16, 8, 8, 1, 64, 64, 11,
+                                       getattr(torch, name), False, 250)
+        start = 40 + 44 * torch.arange(16, dtype=torch.int32, device="cuda")
+        kw = dict(page_size=64, return_lse=True)
+        first = paged_attention(q, kp, vp, tbl, start, **kw)
+        again = paged_attention(q, kp, vp, tbl, start, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        log(f"paged decode twice, q(16, 8, 1, 64) {name}: bit-equal {same}")
+        if not same:
+            raise AssertionError(f"two decode calls differ ({name})")
     return worst
 
 
@@ -1347,9 +1411,11 @@ def bound_paged(b, h, kvh, cw, hd, ps, mp, starts, qlens, itemsize, int8,
 
 def phase_paged_times(torch) -> dict:
     """Kernel, plain, gather-impl and library times at the 45m decode and
-    chunk shapes, bf16 and int8 pools; returns the kernels-line fields (the
-    decode shape in bf16, the main path's most frequent call) and every
-    shape's numbers under `by_shape`."""
+    chunk shapes (the decode and chunk routes), bf16 and int8 pools, and at
+    `decode_long` (one row at cursor 703: 8 blocks, where the split inside a
+    block stops filling the card; recorded only); returns the kernels-line
+    fields (the decode shape in bf16, the main path's most frequent call)
+    and every shape's numbers under `by_shape`."""
     import numpy as np
     from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
         _gather_attend, _gather_page_view)
@@ -1360,6 +1426,7 @@ def phase_paged_times(torch) -> dict:
     shapes = {  # name: (b, cw, starts, qlens)
         "decode": (16, 1, [int(x) for x in rng.integers(64, 576, 16)], None),
         "chunk": (1, 128, [256], [128]),
+        "decode_long": (1, 1, [703], None),
     }
     h, hd, ps, mp = 8, 64, 64, 11
     by_shape = {}
@@ -1402,13 +1469,15 @@ def phase_paged_times(torch) -> dict:
             bound_ms, bound_by = bound_paged(b, h, h, cw, hd, ps, mp, starts,
                                              qlens, 2, kv == "int8")
             by_shape[f"{shape}_{kv}"] = {
+                "route": "decode" if cw == 1 else "chunk",
                 "ms": kernel_ms, "ms_again": kernel_again,
                 "device_ms": device_ms, "wrapper_ms": wrapper_ms,
                 "plain_ms": plain_ms, "gather_ms": gather_ms,
                 "library_ms": library_ms,
                 "library_event_ms": library_event_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "max_abs_err": err}
-            log(f"paged times, {shape} q({b}, {h}, {cw}, {hd}) ps {ps} "
+            log(f"paged times, {shape} ({by_shape[f'{shape}_{kv}']['route']} "
+                f"route) q({b}, {h}, {cw}, {hd}) ps {ps} "
                 f"max_pages {mp}, {kv} pool, bf16 q: kernel_ms {kernel_ms:.5f} "
                 f"(again {kernel_again:.5f}; bare launches, CUDA events over "
                 f"100), device_ms {device_ms:.5f} ({how}), through the "
@@ -1432,7 +1501,11 @@ def phase_paged_times(torch) -> dict:
             "by_shape": by_shape}
 
 
-def _check_paged_run(out, stats, counts, layers, vocab) -> None:
+def _check_paged_run(out, stats, counts, by_route, widths, layers,
+                     vocab) -> None:
+    """`by_route`: the paged launches per route; `widths`: the valid
+    positions of each chunk dispatch. A one-position chunk is decode-shaped
+    (cw = 1), so `kernel_route` sends it to the decode kernel."""
     if out["completed"] != out["requests"]:
         raise AssertionError(f"served {out['completed']} of "
                              f"{out['requests']} requests")
@@ -1449,14 +1522,36 @@ def _check_paged_run(out, stats, counts, layers, vocab) -> None:
     _only(counts, {"paged_attention": layers * (stats["decode_steps"]
                                                 + out["prefill_dispatches"])},
           f"paged serving ({layers} x (decode steps + chunks))")
+    if len(widths) != out["prefill_dispatches"]:
+        raise AssertionError(f"{len(widths)} chunk dispatches seen, "
+                             f"{out['prefill_dispatches']} counted")
+    one = widths.count(1)
+    want = {"decode": layers * (stats["decode_steps"] + one),
+            "chunk": layers * (out["prefill_dispatches"] - one)}
+    if by_route != want:
+        raise AssertionError(f"paged launches by route {by_route}, expected "
+                             f"{want} ({layers} x (decode steps + {one} "
+                             f"one-position chunks), {layers} x the other "
+                             f"chunk dispatches)")
 
 
 def phase_paged_serve(torch) -> dict:
-    """Returns the bf16 run's launches {fwd, dq, dkv, paged} and the int8
-    run's paged launches."""
+    """Returns the bf16 run's launches {fwd, dq, dkv, paged}, the int8 run's
+    paged launches and both runs' paged launches by route."""
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine)
     layers = model_preset("45m").num_layers
+    dispatch = PagedEngine._dispatch_chunk
+    widths = []
+
+    def seen(self, slot, st, n, done):   # records each chunk's width
+        widths.append(n)
+        return dispatch(self, slot, st, n, done)
+
     n = PAGED_SERVE_ARGS.index("--num_requests") + 1
     runs = {"bf16": PAGED_SERVE_ARGS,
             "int8": PAGED_SERVE_ARGS[:n] + [str(PAGED_INT8_REQUESTS)]
@@ -1464,8 +1559,14 @@ def phase_paged_serve(torch) -> dict:
     by_kv = {}
     for kv, args in runs.items():
         _reset_launches()
-        out = serve.main(args)
+        widths.clear()
+        PagedEngine._dispatch_chunk = seen
+        try:
+            out = serve.main(args)
+        finally:
+            PagedEngine._dispatch_chunk = dispatch
         counts = _read_launches()
+        by_route = dict(paged_attention.launches_by_route)
         paged = counts["paged_attention"]
         torch.cuda.synchronize()
         st = out["engine_stats"]
@@ -1483,11 +1584,13 @@ def phase_paged_serve(torch) -> dict:
             f"pages in use after drain {st['pages_in_use']}; SLO attainment "
             + ", ".join(f"{c} {v['attained']} of {v['completed']}"
                         for c, v in att.items())
-            + f"; paged kernel launches {paged}, all kernels {counts}; "
+            + f"; paged kernel launches {paged} (by route {by_route}; "
+            f"one-position chunks {widths.count(1)}), all kernels {counts}; "
             f"device {out['device']}")
-        _check_paged_run(out, st, counts, layers, 1024)
-        by_kv[kv] = counts
-    return {**by_kv["bf16"], "paged_int8": by_kv["int8"]["paged_attention"]}
+        _check_paged_run(out, st, counts, by_route, widths, layers, 1024)
+        by_kv[kv] = {**counts, "paged_by_route": by_route}
+    return {**by_kv["bf16"], "paged_int8": by_kv["int8"]["paged_attention"],
+            "paged_int8_by_route": by_kv["int8"]["paged_by_route"]}
 
 
 def phase_paged_card_vs_cpu(torch) -> None:
@@ -1611,15 +1714,20 @@ def phase_paged_profile(torch) -> dict:
             raise AssertionError("a pump did not dispatch exactly one chunk")
 
     def profiled(fn, what):
+        """(busy ms, kernels, paged ms, paged launches, {route: launches})
+        over either route's kernel, matched by name"""
         busy = paged = 0.0
         n = n_paged = 0
+        by_route = {route: 0 for route in PAGED_KERNELS}
         for name, us in _profiled(torch, fn, f"paged profile, {what}"):
             busy += us
             n += 1
-            if "paged_attn_kernel" in name:
-                paged += us
-                n_paged += 1
-        return busy / 1e3, n, paged / 1e3, n_paged
+            for route, kernel in PAGED_KERNELS.items():
+                if kernel in name:
+                    paged += us
+                    n_paged += 1
+                    by_route[route] += 1
+        return busy / 1e3, n, paged / 1e3, n_paged, by_route
 
     decode_ms = timed(eng.step)
     d = profiled(eng.step, "decode step")
@@ -1630,13 +1738,21 @@ def phase_paged_profile(torch) -> dict:
         eng._admit([])
     chunk_ms = timed(pump)
     c = profiled(pump, "chunk dispatch")
-    for what, wall, (busy, n, paged, n_paged) in (
+    for what, wall, (busy, n, paged, n_paged, by_route) in (
             ("decode step, 16 live", decode_ms, d),
             ("chunk dispatch, 128 positions", chunk_ms, c)):
         log(f"paged profile (45m bf16, ps 64): {what}: wall {wall:.3f} ms, "
             f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
             f"{n} kernels; paged kernel {paged:.3f} ms over {n_paged} "
-            f"launches ({paged / busy:.3f} of busy)")
+            f"launches ({paged / busy:.3f} of busy), by route {by_route}")
+    layers = cfg.num_layers
+    if d[4] != {"decode": layers, "chunk": 0}:
+        raise AssertionError(f"a decode step ran paged kernels {d[4]}, "
+                             f"expected the decode kernel {layers} times "
+                             f"and no chunk kernel")
+    if c[4]["decode"] != 0 or c[4]["chunk"] == 0:
+        raise AssertionError(f"a chunk dispatch ran paged kernels {c[4]}, "
+                             f"expected the chunk kernel and no decode one")
     return {"decode_wall_ms": decode_ms, "decode": d, "chunk_wall_ms":
             chunk_ms, "chunk": c}
 
@@ -2340,13 +2456,17 @@ def run(torch, phases: set, workdir: str) -> list:
          "max_abs_err_train_shape": max(at_path["dk"], at_path["dv"]),
          **bwd_times["dkv"],
          "launches_by_path": by_path("flash_attention_bwd_dkv")},
-        {"name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
+        {"name": "paged_attention", "route": "cuda",
+         "source": PAGED_SOURCES["decode"], "source_by_route": PAGED_SOURCES,
          "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_attention"],
+         "launches_by_route": paged_served["paged_by_route"],
          "max_abs_err": max(paged_err, paged_times["by_shape"][
              "decode_bf16"]["max_abs_err"]), **paged_times,
          "launches_by_path": {**by_path("paged_attention"),
-                              "serve_paged_int8": paged_served["paged_int8"]}},
+                              "serve_paged_int8": paged_served["paged_int8"],
+                              "serve_paged_int8_by_route":
+                                  paged_served["paged_int8_by_route"]}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

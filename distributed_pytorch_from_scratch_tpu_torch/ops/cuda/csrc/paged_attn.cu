@@ -1,9 +1,12 @@
-// Paged attention for NVIDIA Hopper (sm_90a).
+// Paged attention for NVIDIA Hopper (sm_90a): the prefill-chunk route.
 //
 // Replaces the TPU kernel `_paged_kernel` in
 // distributed_pytorch_from_scratch_tpu/ops/pallas/paged_attention.py:95 (row 9
 // of PERF.md's kernel table; driven there by `paged_attention`, :186-317): the
-// same function, not the same blocking. One layer's KV pool is a stack of
+// same function, not the same blocking. Only chunks (cw > 1) reach this
+// kernel: `kernel_route` in ops/cuda/paged_attention.py sends decode steps
+// (cw = 1) to paged_decode.cu, which splits the page walk across its warps.
+// The entry point still takes cw = 1, which the notes below describe. One layer's KV pool is a stack of
 // pages (P+1, kv_heads, page_size, head_dim); a request's cache row is its
 // list of page ids in the (b, max_pages) page table. Index P is the scratch
 // page that free rows and pad columns aim at.

@@ -1,5 +1,6 @@
-"""Paged attention: the CUDA kernel `csrc/paged_attn.cu`, its plain PyTorch
-version, and the wrapper the paged serving lowerings call.
+"""Paged attention: the CUDA kernels `csrc/paged_decode.cu` and
+`csrc/paged_attn.cu`, their plain PyTorch version, and the wrapper the paged
+serving lowerings call.
 
 Counterpart of the JAX TPU kernel `_paged_kernel` via `paged_attention` in
 `distributed_pytorch_from_scratch_tpu/ops/pallas/paged_attention.py`, with
@@ -22,19 +23,23 @@ its signature:
   nothing (its o is then exactly 0).
 
 `pages_per_block` is taken for signature parity: the TPU kernel's block of
-pages per grid step, which changes nothing in the result; the kernel here
-walks one page after another.
+pages per grid step, which changes nothing in the result.
 
-On a CUDA tensor the wrapper launches the kernel (built on first use) or
-raises; on a CPU tensor it computes the plain version, the kernel's math step
-by step. There is no fallback from one to the other.
+Two kernels compute the function, by shape (dispatch, not fallback;
+`kernel_route`): a decode step (cw = 1) goes to `csrc/paged_decode.cu`, whose
+block splits the row's page walk across its warps; a prefill chunk (cw > 1)
+to `csrc/paged_attn.cu`. Both take one C argument list. On a CUDA tensor the
+wrapper launches the route's kernel (built on first use) or raises; on a CPU
+tensor it computes the plain version, the kernels' math step by step. There
+is no fallback from one to the other. `paged_attention.launches` counts the
+launches of either route, `paged_attention.launches_by_route` each route's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,11 +49,26 @@ MASK = -1e30  # hard mask and dead-row lse, as the TPU kernel's
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
-# paged_attn(q, k, v, k_scale, v_scale, tbl, start, qlen, o, lse, b, kvh, R,
-#            cw, head_dim, ps, mp, n_pool_pages, pos_offset, is_bf16,
-#            quantized, scale, stream)
+# paged_decode / paged_attn(q, k, v, k_scale, v_scale, tbl, start, qlen, o,
+#     lse, b, kvh, R, cw, head_dim, ps, mp, n_pool_pages, pos_offset, is_bf16,
+#     quantized, scale, stream)
 _C_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
            + [ctypes.c_float, ctypes.c_void_p])
+
+
+def kernel_route(cw: int, dtype: torch.dtype, head_dim: int) -> Tuple[str, str]:
+    """(source under `csrc/`, C entry point) of the kernel that takes this
+    query width, q dtype and head_dim (native or int8 pools alike): cw = 1
+    -> `paged_decode`, cw > 1 -> `paged_attn`; raises on what is not built."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not built; the kernels take "
+                         f"{HEAD_DIMS}")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype} not built; the kernels take "
+                         f"{DTYPES}")
+    if cw < 1:
+        raise ValueError(f"query width {cw} < 1")
+    return ("paged_decode",) * 2 if cw == 1 else ("paged_attn",) * 2
 
 
 def _parts(pool):
@@ -158,14 +178,9 @@ def paged_attention_plain(q: torch.Tensor, k_pool, v_pool,
 
 
 def _check_kernel_inputs(q, k_pool, v_pool, page_tbl) -> None:
-    """The head dims, dtypes and layouts the CUDA kernel takes; raises on
+    """The head dims, dtypes and layouts the CUDA kernels take; raises on
     anything else."""
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} not built; the kernel takes "
-                         f"{HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"dtype {q.dtype} not built; the kernel takes "
-                         f"{DTYPES}")
+    kernel_route(q.shape[2], q.dtype, q.shape[3])
     if page_tbl.dtype != torch.int32:
         raise ValueError(f"page_tbl must be int32, got {page_tbl.dtype}")
     parts = [x for pool in (k_pool, v_pool) for x in _parts(pool)
@@ -184,8 +199,9 @@ def _check_kernel_inputs(q, k_pool, v_pool, page_tbl) -> None:
 def _prepare(q, k_pool, v_pool, page_tbl, start, *, page_size: int,
              qlen=None, pos_offset: int = 0, return_lse: bool = False):
     """Check the inputs, allocate (o, lse) and return (o, lse, launch):
-    `launch(stream)` enqueues one uncounted launch into o and lse (it holds
-    the tensors it points at, so they outlive the launch)."""
+    `launch(stream)` enqueues one uncounted launch of the kernel that
+    `kernel_route` names into o and lse (it holds the tensors it points at,
+    so they outlive the launch)."""
     kvh, quantized = _check(q, k_pool, v_pool, page_tbl, page_size)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -205,13 +221,14 @@ def _prepare(q, k_pool, v_pool, page_tbl, start, *, page_size: int,
             page_tbl.shape[1], kd.shape[0], int(pos_offset),
             int(q.dtype == torch.bfloat16), int(quantized),
             1.0 / math.sqrt(hd))
-    fn = _c_function("paged_attn", "paged_attn", _C_ARGS)
+    source, entry = kernel_route(cw, q.dtype, hd)
+    fn = _c_function(source, entry, _C_ARGS)
 
     def launch(stream: int,
                _held=(q, k_pool, v_pool, page_tbl, start, qlen)) -> None:
         err = fn(*args, stream)
         if err != 0:
-            raise RuntimeError(f"paged_attn launch failed: CUDA error {err}")
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
     return o, lse, launch
 
@@ -221,7 +238,8 @@ def paged_attention(q: torch.Tensor, k_pool, v_pool, page_tbl: torch.Tensor,
                     pages_per_block: Optional[int] = None,
                     pos_offset: int = 0, return_lse: bool = False):
     """Attention of q over the paged pool through the page table; see the
-    module docstring. One launch of `paged_attn` on a CUDA tensor."""
+    module docstring. One launch of the `kernel_route` kernel on a CUDA
+    tensor."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pool, v_pool, page_tbl, start, page_size=page_size,
@@ -233,7 +251,10 @@ def paged_attention(q: torch.Tensor, k_pool, v_pool, page_tbl: torch.Tensor,
     with torch.cuda.device(q.device):
         launch(torch.cuda.current_stream(q.device).cuda_stream)
     paged_attention.launches += 1
+    paged_attention.launches_by_route["decode" if q.shape[2] == 1
+                                      else "chunk"] += 1
     return (o, lse) if return_lse else o
 
 
 paged_attention.launches = 0  # kernel launches (not plain-version calls)
+paged_attention.launches_by_route = {"decode": 0, "chunk": 0}

@@ -45,7 +45,7 @@ def test_sources_and_build_targets():
     assert build.all_sources() == ["block_attn", "block_attn_sm90",
                                    "flash_bwd", "flash_bwd_sm90",
                                    "flash_fwd", "flash_fwd_sm90",
-                                   "paged_attn"]
+                                   "paged_attn", "paged_decode"]
     assert (build.CSRC / "sm90.cuh").is_file()
     a = build._target("flash_fwd")
     assert a == build._target("flash_fwd")        # content-addressed
@@ -298,12 +298,16 @@ def test_flash_rounding_slack_is_the_block_rule_on_causal_positions():
 
 # (b, heads, kv_heads, cw, hd, page_size, max_pages, int8, with qlen):
 # decode (MHA, the 45m shape's head_dim), GQA decode with small pages, the
-# chunk shape with GQA and per-row qlen, int8 pools, head_dim 32 and 128
+# chunk shape with GQA and per-row qlen, int8 pools, head_dim 32 and 128;
+# then decode at b 1, whose one row (cursor 0) sees one key, and GQA g 8
+# decode at page_size 8 (two blocks of rows, sub-tiles across pages)
 PAGED_CASES = [(4, 8, 8, 1, 64, 64, 6, False, False),
                (3, 8, 2, 1, 32, 8, 9, False, False),
                (3, 8, 2, 4, 64, 16, 5, False, True),
                (2, 4, 4, 8, 128, 16, 4, True, True),
-               (4, 8, 8, 1, 64, 64, 6, True, False)]
+               (4, 8, 8, 1, 64, 64, 6, True, False),
+               (1, 8, 8, 1, 64, 64, 4, False, False),
+               (3, 16, 2, 1, 64, 8, 30, False, False)]
 
 
 @pytest.mark.cuda
@@ -343,9 +347,12 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
         kw = dict(page_size=ps, qlen=None if qlen is None
                   else torch.from_numpy(qlen).to(cuda_device))
         before = paged_attention.launches
+        route = "decode" if cw == 1 else "chunk"
+        before_route = paged_attention.launches_by_route[route]
         o = paged_attention(*args, **kw)
         torch.cuda.synchronize()
         assert paged_attention.launches == before + 1
+        assert paged_attention.launches_by_route[route] == before_route + 1
         r = paged_attention_plain(*args, **kw)
         for row in range(b):
             n = cw if qlen is None else int(qlen[row])
@@ -359,6 +366,29 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
                        + 1e-5 * x.abs().amax(-1, keepdim=True))
             assert (err <= tol).all(), (i, row, err.max().item())
         assert torch.isfinite(o.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_is_bit_equal_from_call_to_call(cuda_device, dtype):
+    """The decode kernel's warps combine their shares of the walk in a fixed
+    order, with no atomics: two calls on the same inputs give the same bits
+    (o and lse), at the 45m decode shape."""
+    rng = np.random.default_rng(12)
+    b, h, hd, ps, mp = 16, 8, 64, 64, 11
+    torch_dtype = getattr(torch, dtype)
+    pools = [torch.from_numpy(rng.standard_normal((b * mp + 1, h, ps, hd),
+                                                  dtype=np.float32))
+             .to(cuda_device, torch_dtype) for _ in range(2)]
+    tbl = torch.from_numpy(rng.permutation(b * mp).reshape(b, mp)
+                           .astype(np.int32)).to(cuda_device)
+    start = torch.from_numpy(rng.integers(0, mp * ps, b).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((b, h, 1, hd), dtype=np.float32))
+    args = (q.to(cuda_device, torch_dtype), *pools, tbl, start.to(cuda_device))
+    first = paged_attention(*args, page_size=ps, return_lse=True)
+    again = paged_attention(*args, page_size=ps, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 # (b, h, hkv, tq, tk, d): a ragged GQA block (group 4) at head_dim 64, 32

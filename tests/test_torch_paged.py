@@ -55,8 +55,10 @@ from distributed_pytorch_from_scratch_tpu_torch.models import decode
 from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
     Transformer)
 from distributed_pytorch_from_scratch_tpu_torch.ops import quant
+from distributed_pytorch_from_scratch_tpu_torch.ops.cuda import build
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
-    MASK, _check_kernel_inputs, paged_attention, paged_attention_plain)
+    MASK, _check_kernel_inputs, kernel_route, paged_attention,
+    paged_attention_plain)
 from distributed_pytorch_from_scratch_tpu_torch.ops.rope import rope_tables
 from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
 from distributed_pytorch_from_scratch_tpu_torch.serving import (
@@ -216,6 +218,33 @@ def test_kernel_input_check_takes_every_layer_of_an_int8_pool():
     bad = (shifted.view(codes[1].shape), scales[1])
     with pytest.raises(ValueError, match="16-byte"):
         _check_kernel_inputs(q, bad, pool, tbl)
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_paged_kernel_route(head_dim):
+    """K3's kernels by query width, dispatch and not fallback: a decode step
+    (cw = 1) to `paged_decode`, a chunk (cw > 1) to `paged_attn`, at both
+    built dtypes; anything else raises before a launch. The CPU wrapper
+    counts no launch on either route."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert kernel_route(1, dtype, head_dim) == ("paged_decode",
+                                                    "paged_decode")
+        for cw in (2, 128):
+            assert kernel_route(cw, dtype, head_dim) == ("paged_attn",
+                                                         "paged_attn")
+    with pytest.raises(ValueError, match="dtype torch.float16 not built"):
+        kernel_route(1, torch.float16, head_dim)
+    with pytest.raises(ValueError, match="head_dim 48 not built"):
+        kernel_route(1, torch.bfloat16, 48)
+    with pytest.raises(ValueError, match="head_dim 48 not built"):
+        kernel_route(4, torch.float32, 48)
+    assert {"paged_decode", "paged_attn"} <= set(build.all_sources())
+    before = dict(paged_attention.launches_by_route)
+    q = torch.zeros((1, 2, 1, head_dim))
+    pool = torch.zeros((2, 2, 8, head_dim))
+    paged_attention(q, pool, pool, torch.zeros((1, 1), dtype=torch.int32), 3,
+                    page_size=8)
+    assert paged_attention.launches_by_route == before
 
 
 # ------------------------------------------------------ (b) int8 codes --
