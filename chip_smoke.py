@@ -11,9 +11,11 @@ result line):
 1. device: nvidia-smi's name and power limit, torch's device name and count;
 2. build: every CUDA source of the port with nvcc, in parallel, with the
    compiler's per-kernel registers / shared memory / spills; the wgmma
-   kernels of the bf16 routes of K1 (flash_fwd_sm90, flash_bwd_sm90) and K2
-   (block_attn_sm90) must show HGMMA instructions in their SASS (cuobjdump)
-   and no spill at head_dim 64, nor may K3's decode kernel (paged_decode);
+   kernels of the bf16 routes of K1 (flash_fwd_sm90, flash_bwd_sm90), K2
+   (block_attn_sm90) and K3's chunks (paged_chunk_sm90) must show HGMMA
+   instructions in their SASS (cuobjdump) and no spill at head_dim 64 (the
+   paged chunk kernel: at any head_dim), nor may K3's decode kernel
+   (paged_decode);
 3. kernel vs plain: the flash-attention forward against its plain PyTorch
    version on the card, bf16 (the wgmma kernel, per element: one bf16 step
    + `flash_attention.rounding_slack` + 1e-5 of the row's max; one key
@@ -57,29 +59,37 @@ result line):
     device busy, kernels per step, the wgmma flash kernels' launches and
     shares; no SIMT flash kernel may run);
 13. paged_check: the paged-attention kernels (decode route paged_decode.cu
-    at cw = 1, chunk route paged_attn.cu at cw > 1) against their plain
-    version, bf16 and f32: decode at page_size 64 with cursors at 0,
+    at cw = 1; chunk route at cw > 1: the wgmma paged_chunk_sm90.cu in
+    bf16, the SIMT paged_attn.cu in f32) against their plain version, bf16
+    and f32: decode at page_size 64 with cursors at 0,
     mid-page, a page end and the last position; GQA g 4 at page_size 8 and
     16; the chunk shape with per-row start/qlen; cw 128; head_dim 32 and
     128; int8 pools; pos_offset with return_lse (dead rows exactly -1e30
     and 0); then the decode route's edges: one live key, keys ending on a
     sub-tile and a page end, rows too short to reach every warp, a full
     table, ps 8 (sub-tiles across pages), GQA g 4 and g 8, head_dim 32 and
-    128 with int8 pools, b 1; one launch per call, on the route its width
-    names; two decode calls bit-equal;
+    128 with int8 pools, b 1; then the chunk route's edges: cw 64 and 65
+    (a ragged row tile), cw 128 from start 61, ps 8 and ps 16 (key tiles
+    across pages), ps 128 (a page across key tiles), GQA g 4 at cw 32 (row
+    tiles span heads), head_dim 32 and 128 with int8 pools, pos_offset with
+    a row that sees nothing, a full table, pad columns (qlen < cw); one
+    launch per call, on the route its width names and the kernel
+    `kernel_route` names for its dtype; two decode calls bit-equal, two
+    bf16 chunk calls bit-equal (native and int8 pools);
 14. paged_times: each paged route at the 45m decode shape q (16, 8, 1, 64)
     and the chunk shape q (1, 8, 128, 64), bf16 and int8 pools, beside its
     plain version, the gather impl, one PyTorch library call (SDPA over the
-    pre-gathered dense view) and the bound; and the decode route at
-    `decode_long`, one row at cursor 703 (8 blocks), recorded only;
+    pre-gathered dense view) and the bound; and, recorded only, the decode
+    route at `decode_long`, one row at cursor 703 (8 blocks), and the chunk
+    route at `chunk_late`, the chunk shape at start 512 (a 640-key walk);
 15. paged_serve: `serve.main --paged` at the 45m preset, bf16, 32 requests
     of mixed traffic (interleaved 64/512-token prompts behind a shared
     64-token prefix, two tenants, three SLO classes) on 16 slots over an
     80-page pool, then 16 requests with int8 pages — every request
     completes with in-vocab tokens, prefix hits, a drained pool, the paged
     kernels launched 12 times per decode step and per one-position chunk
-    (decode route, cw = 1) and per other chunk dispatch (chunk route), and
-    no flash kernel;
+    (decode route, cw = 1) and per other chunk dispatch (chunk route: the
+    wgmma kernel every time, the SIMT one never), and no flash kernel;
 16. paged_card_vs_cpu: 45m f32 chunks and decode steps through the kernel
     on the card against the plain path on the CPU, then an 8-request f32
     burst served with `--paged_attn kernel` and `gather` on the card:
@@ -87,7 +97,9 @@ result line):
 17. paged_profile: one decode step and one chunk dispatch of the paged
     engine at the paged_serve shape under torch.profiler; the decode step
     runs the decode kernel (paged_decode_kernel) 12 times and no chunk
-    kernel (paged_attn_kernel), the chunk dispatch no decode kernel;
+    kernel, the chunk dispatch the wgmma chunk kernel
+    (paged_chunk_sm90_kernel), no decode kernel and no SIMT one
+    (paged_attn_kernel); its paged share of device busy is printed;
 18. ring_check: the positional block kernels of ring attention (forward,
     dq, dk/dv) against their plain versions, f32 (the SIMT block_attn.cu)
     and bf16 (the wgmma block_attn_sm90.cu), with random (do, dlse):
@@ -150,7 +162,8 @@ BLOCK_SM90_KERNELS = ("block_attn_fwd_sm90_kernel", "block_attn_dq_sm90_kernel",
                       "block_attn_dkv_sm90_kernel")
 BLOCK_SIMT_KERNELS = ("block_attn_fwd_kernel", "block_attn_dq_kernel",
                       "block_attn_dkv_kernel")
-WGMMA_KERNELS = SM90_KERNELS + BLOCK_SM90_KERNELS
+WGMMA_KERNELS = (SM90_KERNELS + BLOCK_SM90_KERNELS
+                 + ("paged_chunk_sm90_kernel",))   # + K3's bf16 chunk route
 # rows 2-5 of PERF.md's kernel table: _bwd_fused_kernel, _bwd_fused_gqa_kernel,
 # _dq_kernel, _dkv_kernel
 BWD_REPLACES = f"{PALLAS}:306,343,210,255"
@@ -169,14 +182,18 @@ SERVE_ARGS = ["--model", "45m", "--random_init", "--vocab_size", "1024",
               "--prompt_len_min", "64", "--prompt_len_max", "512",
               "--max_new_tokens", "64", "--slots", "8",
               "--max_prefill_batch", "4"]
-PAGED_SOURCE = ("distributed_pytorch_from_scratch_tpu_torch/ops/cuda/csrc/"
-                "paged_attn.cu")
 # K3's sources by route (`paged_attention.kernel_route`): decode steps
-# (cw = 1) and prefill chunks (cw > 1), and their kernels' names
+# (cw = 1, either dtype), bf16 prefill chunks (cw > 1; every served chunk)
+# and f32 chunks, and the kernels' names
 PAGED_SOURCES = {"decode": ("distributed_pytorch_from_scratch_tpu_torch/ops/"
                             "cuda/csrc/paged_decode.cu"),
-                 "chunk": PAGED_SOURCE}
-PAGED_KERNELS = {"decode": "paged_decode_kernel", "chunk": "paged_attn_kernel"}
+                 "chunk": ("distributed_pytorch_from_scratch_tpu_torch/ops/"
+                           "cuda/csrc/paged_chunk_sm90.cu"),
+                 "chunk_f32": ("distributed_pytorch_from_scratch_tpu_torch/"
+                               "ops/cuda/csrc/paged_attn.cu")}
+PAGED_KERNELS = {"decode": "paged_decode_kernel",
+                 "chunk": "paged_chunk_sm90_kernel"}
+PAGED_SIMT_KERNEL = "paged_attn_kernel"   # the f32 chunk route's
 PAGED_REPLACES = "distributed_pytorch_from_scratch_tpu/ops/pallas/paged_attention.py:95"
 # mixed traffic: three SLO classes, two tenants, short and long prompts
 # interleaved behind a 96-token shared prefix, which ends half-way into its
@@ -251,7 +268,8 @@ def phase_build() -> None:
     """Every source built; each kernel's registers / smem / spills printed.
     Every wgmma kernel (`WGMMA_KERNELS`) must be found, hold HGMMA
     instructions (cuobjdump) and, at head_dim 64 (the model's), spill
-    nothing; nor may any instantiation of the decode kernel at head_dim 64."""
+    nothing; nor may any instantiation of the decode kernel at head_dim 64,
+    nor the paged chunk kernel at any head_dim or pool dtype."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.build import (
         all_sources, build)
     t0 = time.perf_counter()
@@ -284,10 +302,11 @@ def phase_build() -> None:
                 if n == 0:
                     raise AssertionError(f"{name} has no HGMMA instruction")
         for name, (st, ld) in _spills(r.log).items():
-            if any(k in name for k in WGMMA_KERNELS) and "ILi64E" in name \
+            if any(k in name for k in WGMMA_KERNELS) and (
+                    "ILi64E" in name or PAGED_KERNELS["chunk"] in name) \
                     and (st or ld):
-                raise AssertionError(f"{name} spills at head_dim 64: {st} "
-                                     f"bytes stored, {ld} loaded")
+                raise AssertionError(f"{name} spills: {st} bytes stored, "
+                                     f"{ld} loaded")
     if found != set(WGMMA_KERNELS):
         raise AssertionError(f"wgmma kernels not found in the SASS: "
                              f"{sorted(set(WGMMA_KERNELS) - found)}")
@@ -978,6 +997,8 @@ def _reset_launches():
     flash_attention_bwd.launches_dkv = 0
     paged_attention.launches = 0
     paged_attention.launches_by_route = {"decode": 0, "chunk": 0}
+    paged_attention.launches_by_kernel = {
+        k: 0 for k in paged_attention.launches_by_kernel}
     block_attention_fwd.launches = 0
     block_attention_bwd.launches_dq = 0
     block_attention_bwd.launches_dkv = 0
@@ -1325,15 +1346,43 @@ PAGED_CASES = [  # (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
     ("decode, head_dim 128, int8 pools", 3, 8, 8, 1, 128, 32, 8, True,
      [0, 100, 255], None, 0),
     ("decode, b 1", 1, 8, 8, 1, 64, 64, 11, False, [450], None, 0),
+    # the chunk route's edges: bf16 chunks run in 64-row tiles of the g * cw
+    # stacked rows and 64-key tiles of the walk (f32 chunks: the SIMT kernel)
+    ("chunk cw 64, one full row tile", 2, 8, 8, 64, 64, 64, 4, False,
+     [0, 100], None, 0),
+    ("chunk cw 65, a ragged row tile", 2, 8, 8, 65, 64, 64, 4, False,
+     [0, 130], None, 0),
+    ("chunk cw 128 at start 61: the chunk starts mid-page", 1, 8, 8, 128,
+     64, 64, 4, False, [61], None, 0),
+    ("chunk ps 8: key tiles across pages", 2, 8, 8, 64, 64, 8, 40, False,
+     [37, 200], None, 0),
+    ("chunk ps 16, cw 100, per-row qlen", 2, 8, 8, 100, 64, 16, 20, False,
+     [3, 150], [100, 77], 0),
+    ("chunk ps 128: a page across key tiles", 2, 8, 8, 128, 64, 128, 4,
+     False, [100, 300], None, 0),
+    ("chunk GQA g 4, cw 32: row tiles span heads", 2, 16, 4, 32, 64, 16, 10,
+     False, [5, 100], [32, 20], 0),
+    ("chunk head_dim 32, int8 pools, GQA g 2", 2, 8, 4, 64, 32, 16, 10, True,
+     [0, 77], [64, 50], 0),
+    ("chunk head_dim 128, int8 pools", 2, 4, 4, 96, 128, 32, 8, True,
+     [10, 150], None, 0),
+    ("chunk pos_offset 128 + lse, row 0 sees nothing", 3, 8, 8, 64, 64, 64,
+     4, False, [50, 128, 300], None, 128),
+    ("chunk full table (start + cw = mp * ps)", 2, 8, 8, 128, 64, 64, 4,
+     False, [128, 128], None, 0),
+    ("chunk qlen < cw: pad columns", 3, 8, 8, 128, 64, 64, 6, False,
+     [0, 64, 200], [1, 50, 128], 0),
 ]
 
 
-def phase_paged_check(torch) -> float:
-    """Returns the largest bf16 output error (the served dtype)."""
+def phase_paged_check(torch) -> dict:
+    """Returns the largest bf16 output error (the served dtype) of each
+    route, {"decode": x, "chunk": y}."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
-        MASK, paged_attention, paged_attention_plain)
+        MASK, kernel_route, paged_attention, paged_attention_plain)
     by_route = paged_attention.launches_by_route
-    worst = 0.0
+    by_kernel = paged_attention.launches_by_kernel
+    worst = {"decode": 0.0, "chunk": 0.0}
     for i, (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens,
             off) in enumerate(PAGED_CASES):
         for name in ("bfloat16", "float32"):
@@ -1344,17 +1393,20 @@ def phase_paged_check(torch) -> float:
                       qlen=None if qlens is None else torch.tensor(
                           qlens, dtype=torch.int32, device="cuda"))
             route = "decode" if cw == 1 else "chunk"
+            entry = kernel_route(cw, q.dtype, hd)[1]
             n, n_route = paged_attention.launches, by_route[route]
+            n_entry = by_kernel[entry]
             o, lse = paged_attention(q, kp, vp, tbl, start, **kw)
             torch.cuda.synchronize()
             launched = paged_attention.launches - n
             on_route = by_route[route] - n_route
+            on_entry = by_kernel[entry] - n_entry
             ro, rlse = paged_attention_plain(q, kp, vp, tbl, start, **kw)
             valid = [cw if qlens is None else qlens[r] for r in range(b)]
             err, ratio = _paged_err(torch, o, ro, valid, name)
             lse_err = max((lse[r, :, :n] - rlse[r, :, :n]).abs().max().item()
                           for r, n in enumerate(valid))
-            dead = [r for r in range(b) if starts[r] < off]
+            dead = [r for r in range(b) if starts[r] + cw - 1 < off]
             dead_ok = all(bool((o[r] == 0).all()) and bool((lse[r] == MASK)
                                                            .all())
                           for r in dead)
@@ -1364,13 +1416,13 @@ def phase_paged_check(torch) -> float:
                 f"{ratio:.3e} (limit {PAGED_LIMIT[name]}), lse "
                 f"{lse_err:.3e} (limit 1e-4); dead rows {dead} exact "
                 f"{dead_ok}; finite {finite}; launches {launched}, "
-                f"{on_route} on the {route} route")
+                f"{on_route} on the {route} route, {on_entry} of {entry}")
             if not (ratio <= 1.0 and lse_err <= 1e-4 and dead_ok and finite
-                    and launched == on_route == 1):
+                    and launched == on_route == on_entry == 1):
                 raise AssertionError(f"paged kernel disagrees with its plain "
                                      f"version: {what} {name}")
             if name == "bfloat16":
-                worst = max(worst, err)
+                worst[route] = max(worst[route], err)
     # no atomics, a fixed combine order: two decode calls, the same bits
     for name in ("bfloat16", "float32"):
         q, kp, vp, tbl = _paged_inputs(torch, 16, 8, 8, 1, 64, 64, 11,
@@ -1384,17 +1436,30 @@ def phase_paged_check(torch) -> float:
         log(f"paged decode twice, q(16, 8, 1, 64) {name}: bit-equal {same}")
         if not same:
             raise AssertionError(f"two decode calls differ ({name})")
+    # nor in the chunk kernel's: two bf16 chunk calls, the same bits
+    for kv in ("bf16", "int8"):
+        q, kp, vp, tbl = _paged_inputs(torch, 2, 8, 8, 128, 64, 64, 11,
+                                       torch.bfloat16, kv == "int8", 251)
+        start = torch.tensor([256, 61], dtype=torch.int32, device="cuda")
+        kw = dict(page_size=64, return_lse=True)
+        first = paged_attention(q, kp, vp, tbl, start, **kw)
+        again = paged_attention(q, kp, vp, tbl, start, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        log(f"paged chunk twice, q(2, 8, 128, 64) bf16, {kv} pool: bit-equal "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"two chunk calls differ ({kv} pool)")
     return worst
 
 
-def bound_paged(b, h, kvh, cw, hd, ps, mp, starts, qlens, itemsize, int8,
-                pos_offset=0) -> tuple:
-    """(bound_ms, bound_by) of one paged-attention call on this data: bytes
-    = the K and V of the keys some query of the row sees (pos_offset ..
-    vmax, at most mp * ps; int8 adds a 4-byte scale per head-vector) read
+def paged_work(b, h, kvh, cw, hd, ps, mp, starts, qlens, itemsize, int8,
+               pos_offset=0) -> tuple:
+    """(bytes, operations) one paged-attention call needs on this data:
+    bytes = the K and V of the keys some query of the row sees (pos_offset
+    .. vmax, at most mp * ps; int8 adds a 4-byte scale per head-vector) read
     once, the valid columns' q read and o written once; operations = 4 * hd
-    per (query, visible key) pair over the bf16 peak. Pad columns (>= qlen)
-    need nothing."""
+    per (query, visible key) pair. Pad columns (>= qlen) need nothing."""
     kv_vec = hd * (1 if int8 else itemsize) + (4 if int8 else 0)
     seen = lambda qpos: min(max(qpos - pos_offset + 1, 0), mp * ps)
     nbytes = flops = 0
@@ -1404,6 +1469,14 @@ def bound_paged(b, h, kvh, cw, hd, ps, mp, starts, qlens, itemsize, int8,
         nbytes += (2 * kvh * seen(vmax) * kv_vec
                    + 2 * h * valid * hd * itemsize)
         flops += 4 * hd * h * sum(seen(starts[r] + i) for i in range(valid))
+    return nbytes, flops
+
+
+def bound_paged(*args, **kw) -> tuple:
+    """(bound_ms, bound_by) of one paged-attention call on this data: the
+    larger of `paged_work`'s bytes over the memory rate and its operations
+    over the bf16 peak."""
+    nbytes, flops = paged_work(*args, **kw)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
@@ -1411,10 +1484,12 @@ def bound_paged(b, h, kvh, cw, hd, ps, mp, starts, qlens, itemsize, int8,
 
 def phase_paged_times(torch) -> dict:
     """Kernel, plain, gather-impl and library times at the 45m decode and
-    chunk shapes (the decode and chunk routes), bf16 and int8 pools, and at
+    chunk shapes (the decode and chunk routes), bf16 and int8 pools, at
     `decode_long` (one row at cursor 703: 8 blocks, where the split inside a
-    block stops filling the card; recorded only); returns the kernels-line
-    fields (the decode shape in bf16, the main path's most frequent call)
+    block stops filling the card) and at `chunk_late` (the chunk shape at
+    start 512: a 640-key walk, how the chunk route's time grows with the
+    walk); the last two are recorded only. Returns the kernels-line fields of
+    each route (the decode and chunk shapes in bf16, the main path's calls)
     and every shape's numbers under `by_shape`."""
     import numpy as np
     from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
@@ -1427,6 +1502,7 @@ def phase_paged_times(torch) -> dict:
         "decode": (16, 1, [int(x) for x in rng.integers(64, 576, 16)], None),
         "chunk": (1, 128, [256], [128]),
         "decode_long": (1, 1, [703], None),
+        "chunk_late": (1, 128, [512], [128]),
     }
     h, hd, ps, mp = 8, 64, 64, 11
     by_shape = {}
@@ -1466,8 +1542,9 @@ def phase_paged_times(torch) -> dict:
                 torch, [lambda: launch(stream),
                         lambda: sdpa(q, kview, vview, attn_mask=mask)])
             kernel_again = _time_ms(torch, lambda: launch(stream))
-            bound_ms, bound_by = bound_paged(b, h, h, cw, hd, ps, mp, starts,
-                                             qlens, 2, kv == "int8")
+            work = (b, h, h, cw, hd, ps, mp, starts, qlens, 2, kv == "int8")
+            bound_ms, bound_by = bound_paged(*work)
+            tflops = paged_work(*work)[1] / (device_ms * 1e-3) / 1e12
             by_shape[f"{shape}_{kv}"] = {
                 "route": "decode" if cw == 1 else "chunk",
                 "ms": kernel_ms, "ms_again": kernel_again,
@@ -1475,12 +1552,13 @@ def phase_paged_times(torch) -> dict:
                 "plain_ms": plain_ms, "gather_ms": gather_ms,
                 "library_ms": library_ms,
                 "library_event_ms": library_event_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "max_abs_err": err}
+                "bound_by": bound_by, "tflops": tflops, "max_abs_err": err}
             log(f"paged times, {shape} ({by_shape[f'{shape}_{kv}']['route']} "
                 f"route) q({b}, {h}, {cw}, {hd}) ps {ps} "
                 f"max_pages {mp}, {kv} pool, bf16 q: kernel_ms {kernel_ms:.5f} "
                 f"(again {kernel_again:.5f}; bare launches, CUDA events over "
-                f"100), device_ms {device_ms:.5f} ({how}), through the "
+                f"100), device_ms {device_ms:.5f} ({how}), {tflops:.2f} "
+                f"TFLOP/s of the visible pairs, through the "
                 f"wrapper {wrapper_ms:.5f} (events, host included), plain_ms "
                 f"{plain_ms:.5f} (events over 20), gather_ms {gather_ms:.5f} "
                 f"(the gather impl, events), library_ms {library_ms:.5f} "
@@ -1489,23 +1567,30 @@ def phase_paged_times(torch) -> dict:
                 f"events {library_event_ms:.5f}), bound_us "
                 f"{bound_ms * 1e3:.3f} ({bound_by}); max abs err vs plain "
                 f"{err:.3e}; cursors {starts}")
-    head = by_shape["decode_bf16"]
-    return {"ms": head["ms"], "device_ms": head["device_ms"],
-            "plain_ms": head["plain_ms"], "gather_ms": head["gather_ms"],
-            "library_ms": head["library_ms"],
-            "library_for": "scaled_dot_product_attention over the "
-                           "pre-gathered dense view with the visibility "
-                           "mask, device kernel time (torch.profiler)",
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "shape": "decode q (16, 8, 1, 64), page_size 64, bf16",
-            "by_shape": by_shape}
+    fields = lambda head, shape: {
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"], "gather_ms": head["gather_ms"],
+        "library_ms": head["library_ms"],
+        "library_for": "scaled_dot_product_attention over the pre-gathered "
+                       "dense view with the visibility mask, device kernel "
+                       "time (torch.profiler)",
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "shape": shape}
+    return {"decode": {**fields(by_shape["decode_bf16"],
+                                "decode q (16, 8, 1, 64), page_size 64, "
+                                "bf16"), "by_shape": by_shape},
+            "chunk": fields(by_shape["chunk_bf16"],
+                            "chunk q (1, 8, 128, 64) at start 256, "
+                            "page_size 64, bf16")}
 
 
-def _check_paged_run(out, stats, counts, by_route, widths, layers,
+def _check_paged_run(out, stats, counts, by_route, by_kernel, widths, layers,
                      vocab) -> None:
-    """`by_route`: the paged launches per route; `widths`: the valid
-    positions of each chunk dispatch. A one-position chunk is decode-shaped
-    (cw = 1), so `kernel_route` sends it to the decode kernel."""
+    """`by_route`: the paged launches per route; `by_kernel`: per C entry
+    point; `widths`: the valid positions of each chunk dispatch. A
+    one-position chunk is decode-shaped (cw = 1), so `kernel_route` sends it
+    to the decode kernel; every other chunk is bf16, so the wgmma chunk
+    kernel takes it and the SIMT one never runs."""
     if out["completed"] != out["requests"]:
         raise AssertionError(f"served {out['completed']} of "
                              f"{out['requests']} requests")
@@ -1533,11 +1618,16 @@ def _check_paged_run(out, stats, counts, by_route, widths, layers,
                              f"{want} ({layers} x (decode steps + {one} "
                              f"one-position chunks), {layers} x the other "
                              f"chunk dispatches)")
+    want = {"paged_decode": want["decode"], "paged_chunk_sm90": want["chunk"],
+            "paged_attn": 0}
+    if by_kernel != want:
+        raise AssertionError(f"paged launches by kernel {by_kernel}, "
+                             f"expected {want}")
 
 
 def phase_paged_serve(torch) -> dict:
     """Returns the bf16 run's launches {fwd, dq, dkv, paged}, the int8 run's
-    paged launches and both runs' paged launches by route."""
+    paged launches and both runs' paged launches by route and by kernel."""
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
         paged_attention)
@@ -1567,6 +1657,7 @@ def phase_paged_serve(torch) -> dict:
             PagedEngine._dispatch_chunk = dispatch
         counts = _read_launches()
         by_route = dict(paged_attention.launches_by_route)
+        by_kernel = dict(paged_attention.launches_by_kernel)
         paged = counts["paged_attention"]
         torch.cuda.synchronize()
         st = out["engine_stats"]
@@ -1584,13 +1675,16 @@ def phase_paged_serve(torch) -> dict:
             f"pages in use after drain {st['pages_in_use']}; SLO attainment "
             + ", ".join(f"{c} {v['attained']} of {v['completed']}"
                         for c, v in att.items())
-            + f"; paged kernel launches {paged} (by route {by_route}; "
-            f"one-position chunks {widths.count(1)}), all kernels {counts}; "
-            f"device {out['device']}")
-        _check_paged_run(out, st, counts, by_route, widths, layers, 1024)
-        by_kv[kv] = {**counts, "paged_by_route": by_route}
+            + f"; paged kernel launches {paged} (by route {by_route}, by "
+            f"kernel {by_kernel}; one-position chunks {widths.count(1)}), all "
+            f"kernels {counts}; device {out['device']}")
+        _check_paged_run(out, st, counts, by_route, by_kernel, widths, layers,
+                         1024)
+        by_kv[kv] = {**counts, "paged_by_route": by_route,
+                     "paged_by_kernel": by_kernel}
     return {**by_kv["bf16"], "paged_int8": by_kv["int8"]["paged_attention"],
-            "paged_int8_by_route": by_kv["int8"]["paged_by_route"]}
+            "paged_int8_by_route": by_kv["int8"]["paged_by_route"],
+            "paged_int8_by_kernel": by_kv["int8"]["paged_by_kernel"]}
 
 
 def phase_paged_card_vs_cpu(torch) -> None:
@@ -1713,16 +1807,18 @@ def phase_paged_profile(torch) -> dict:
         if eng.prefill_dispatches - before != 1:
             raise AssertionError("a pump did not dispatch exactly one chunk")
 
+    kernels = {**PAGED_KERNELS, "chunk_f32": PAGED_SIMT_KERNEL}
+
     def profiled(fn, what):
         """(busy ms, kernels, paged ms, paged launches, {route: launches})
-        over either route's kernel, matched by name"""
+        over every route's kernel, matched by name"""
         busy = paged = 0.0
         n = n_paged = 0
-        by_route = {route: 0 for route in PAGED_KERNELS}
+        by_route = {route: 0 for route in kernels}
         for name, us in _profiled(torch, fn, f"paged profile, {what}"):
             busy += us
             n += 1
-            for route, kernel in PAGED_KERNELS.items():
+            for route, kernel in kernels.items():
                 if kernel in name:
                     paged += us
                     n_paged += 1
@@ -1746,13 +1842,13 @@ def phase_paged_profile(torch) -> dict:
             f"{n} kernels; paged kernel {paged:.3f} ms over {n_paged} "
             f"launches ({paged / busy:.3f} of busy), by route {by_route}")
     layers = cfg.num_layers
-    if d[4] != {"decode": layers, "chunk": 0}:
+    if d[4] != {"decode": layers, "chunk": 0, "chunk_f32": 0}:
         raise AssertionError(f"a decode step ran paged kernels {d[4]}, "
                              f"expected the decode kernel {layers} times "
                              f"and no chunk kernel")
-    if c[4]["decode"] != 0 or c[4]["chunk"] == 0:
+    if c[4]["decode"] != 0 or c[4]["chunk"] == 0 or c[4]["chunk_f32"] != 0:
         raise AssertionError(f"a chunk dispatch ran paged kernels {c[4]}, "
-                             f"expected the chunk kernel and no decode one")
+                             f"expected the wgmma chunk kernel and no other")
     return {"decode_wall_ms": decode_ms, "decode": d, "chunk_wall_ms":
             chunk_ms, "chunk": c}
 
@@ -2456,17 +2552,32 @@ def run(torch, phases: set, workdir: str) -> list:
          "max_abs_err_train_shape": max(at_path["dk"], at_path["dv"]),
          **bwd_times["dkv"],
          "launches_by_path": by_path("flash_attention_bwd_dkv")},
+        # K3's wrapper runs two kernels on the bf16 path, an entry each:
+        # `launches` counts the entry's kernel; `launches_by_route` and
+        # `launches_by_path` count the wrapper's launches, every route
         {"name": "paged_attention", "route": "cuda",
          "source": PAGED_SOURCES["decode"], "source_by_route": PAGED_SOURCES,
          "replaces": PAGED_REPLACES,
-         "launches": paged_served["paged_attention"],
+         "launches": paged_served["paged_by_kernel"]["paged_decode"],
          "launches_by_route": paged_served["paged_by_route"],
-         "max_abs_err": max(paged_err, paged_times["by_shape"][
-             "decode_bf16"]["max_abs_err"]), **paged_times,
+         "max_abs_err": max(paged_err["decode"], paged_times["decode"][
+             "by_shape"]["decode_bf16"]["max_abs_err"]),
+         **paged_times["decode"],
          "launches_by_path": {**by_path("paged_attention"),
                               "serve_paged_int8": paged_served["paged_int8"],
                               "serve_paged_int8_by_route":
                                   paged_served["paged_int8_by_route"]}},
+        {"name": "paged_attention_chunk", "route": "cuda",
+         "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
+         "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
+         "max_abs_err": max(paged_err["chunk"], paged_times["decode"][
+             "by_shape"]["chunk_bf16"]["max_abs_err"]),
+         **paged_times["chunk"],
+         "launches_by_path": {
+             "serve_paged": paged_served["paged_by_kernel"][
+                 "paged_chunk_sm90"],
+             "serve_paged_int8": paged_served["paged_int8_by_kernel"][
+                 "paged_chunk_sm90"]}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

@@ -1,16 +1,18 @@
-// Hopper (sm_90a) building blocks shared by flash_fwd_sm90.cu and
-// flash_bwd_sm90.cu: mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the three wgmma shapes the flash kernels use, written as
-// inline PTX. Host side: the TMA tensor maps, encoded by
+// Hopper (sm_90a) building blocks shared by the wgmma kernels
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, block_attn_sm90.cu,
+// paged_chunk_sm90.cu): mbarriers, TMA tile loads, tile stores by threads,
+// wgmma shared-memory descriptors and the three wgmma shapes the kernels use,
+// written as inline PTX. Host side: the TMA tensor maps, encoded by
 // cuTensorMapEncodeTiled looked up at run time (no -lcuda link).
 //
 // Tiles. Every tile the kernels stage is 64 rows (sequence positions) of a
-// (rows, D) bf16 matrix, loaded by TMA with the hardware swizzle that wgmma
-// reads. A tile is cut along D into column blocks ("atoms") as wide as the
-// swizzle span: D 32 -> one 64-byte-swizzled block; D 64 -> one
-// 128-byte-swizzled block; D 128 -> two 128-byte-swizzled blocks, one after
-// the other. Within a block, row r sits at r * span bytes and its 16-byte
-// chunks are permuted by the swizzle. Blocks start 1024-byte aligned.
+// (rows, D) bf16 matrix, loaded by TMA (or stored by threads, `tile_chunk`)
+// with the hardware swizzle that wgmma reads. A tile is cut along D into
+// column blocks ("atoms") as wide as the swizzle span: D 32 -> one
+// 64-byte-swizzled block; D 64 -> one 128-byte-swizzled block; D 128 -> two
+// 128-byte-swizzled blocks, one after the other. Within a block, row r sits
+// at r * span bytes and its 16-byte chunks are permuted by the swizzle.
+// Blocks start 1024-byte aligned.
 //
 // The same tile serves as a K-major operand (the product's K axis is D: Q and
 // K in q k^T) and as an MN-major one (the product's K axis is the rows, its N
@@ -257,6 +259,33 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- tiles stored by threads (paged_chunk_sm90.cu: pages found one by one)
+
+// Byte offset, in a Tile<D>, of the 16-byte chunk that holds columns
+// [8 c, 8 c + 8) of row r: the layout TMA writes with the tile's swizzle (the
+// chunk's index within its swizzle row XOR r % 8 at a 128-byte span, XOR
+// (r / 2) % 4 at a 64-byte span), so wgmma reads a tile that threads stored
+// as it reads one that TMA loaded.
+template <int D>
+__device__ __forceinline__ uint32_t tile_chunk(int r, int c) {
+  using L = Tile<D>;
+  constexpr int kChunks = L::kSpan / 16;  // chunks per swizzle row
+  const int sw = L::kSpan == 128 ? (r & 7) : ((r >> 1) & 3);
+  return (c / kChunks) * L::kAtomBytes + r * L::kSpan +
+         (((c % kChunks) ^ sw) << 4);
+}
+
+// orders this thread's shared-memory stores before later reads by the async
+// proxy (wgmma operands); issued before the barrier that publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// barrier `id` (not 0, which __syncthreads uses) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {

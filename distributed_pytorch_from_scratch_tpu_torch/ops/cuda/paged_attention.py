@@ -1,6 +1,6 @@
-"""Paged attention: the CUDA kernels `csrc/paged_decode.cu` and
-`csrc/paged_attn.cu`, their plain PyTorch version, and the wrapper the paged
-serving lowerings call.
+"""Paged attention: the CUDA kernels `csrc/paged_decode.cu`,
+`csrc/paged_chunk_sm90.cu` and `csrc/paged_attn.cu`, their plain PyTorch
+version, and the wrapper the paged serving lowerings call.
 
 Counterpart of the JAX TPU kernel `_paged_kernel` via `paged_attention` in
 `distributed_pytorch_from_scratch_tpu/ops/pallas/paged_attention.py`, with
@@ -25,14 +25,19 @@ its signature:
 `pages_per_block` is taken for signature parity: the TPU kernel's block of
 pages per grid step, which changes nothing in the result.
 
-Two kernels compute the function, by shape (dispatch, not fallback;
-`kernel_route`): a decode step (cw = 1) goes to `csrc/paged_decode.cu`, whose
-block splits the row's page walk across its warps; a prefill chunk (cw > 1)
-to `csrc/paged_attn.cu`. Both take one C argument list. On a CUDA tensor the
+Three kernels compute the function, by query width and dtype (dispatch, not
+fallback; `kernel_route`): a decode step (cw = 1, either dtype) goes to
+`csrc/paged_decode.cu`, whose block splits the row's page walk across its
+warps; a bf16 prefill chunk (cw > 1) to `csrc/paged_chunk_sm90.cu`, whose
+64-row tiles run both products on the tensor cores (wgmma) with p split into
+two bf16 terms, so nothing is rounded before p . v; an f32 chunk to the SIMT
+`csrc/paged_attn.cu`. All take one C argument list. On a CUDA tensor the
 wrapper launches the route's kernel (built on first use) or raises; on a CPU
 tensor it computes the plain version, the kernels' math step by step. There
-is no fallback from one to the other. `paged_attention.launches` counts the
-launches of either route, `paged_attention.launches_by_route` each route's.
+is no fallback from one to another. `paged_attention.launches` counts the
+launches of every route, `paged_attention.launches_by_route` those of decode
+steps and of chunks, and `paged_attention.launches_by_kernel` those of each
+C entry point.
 """
 
 from __future__ import annotations
@@ -49,9 +54,9 @@ MASK = -1e30  # hard mask and dead-row lse, as the TPU kernel's
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
-# paged_decode / paged_attn(q, k, v, k_scale, v_scale, tbl, start, qlen, o,
-#     lse, b, kvh, R, cw, head_dim, ps, mp, n_pool_pages, pos_offset, is_bf16,
-#     quantized, scale, stream)
+# paged_decode / paged_chunk_sm90 / paged_attn(q, k, v, k_scale, v_scale,
+#     tbl, start, qlen, o, lse, b, kvh, R, cw, head_dim, ps, mp, n_pool_pages,
+#     pos_offset, is_bf16, quantized, scale, stream)
 _C_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
            + [ctypes.c_float, ctypes.c_void_p])
 
@@ -59,7 +64,8 @@ _C_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
 def kernel_route(cw: int, dtype: torch.dtype, head_dim: int) -> Tuple[str, str]:
     """(source under `csrc/`, C entry point) of the kernel that takes this
     query width, q dtype and head_dim (native or int8 pools alike): cw = 1
-    -> `paged_decode`, cw > 1 -> `paged_attn`; raises on what is not built."""
+    -> `paged_decode`; cw > 1 -> `paged_chunk_sm90` in bfloat16,
+    `paged_attn` in float32; raises on what is not built."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"head_dim {head_dim} not built; the kernels take "
                          f"{HEAD_DIMS}")
@@ -68,7 +74,11 @@ def kernel_route(cw: int, dtype: torch.dtype, head_dim: int) -> Tuple[str, str]:
                          f"{DTYPES}")
     if cw < 1:
         raise ValueError(f"query width {cw} < 1")
-    return ("paged_decode",) * 2 if cw == 1 else ("paged_attn",) * 2
+    if cw == 1:
+        return ("paged_decode",) * 2
+    if dtype == torch.bfloat16:
+        return ("paged_chunk_sm90",) * 2
+    return ("paged_attn",) * 2
 
 
 def _parts(pool):
@@ -180,7 +190,7 @@ def paged_attention_plain(q: torch.Tensor, k_pool, v_pool,
 def _check_kernel_inputs(q, k_pool, v_pool, page_tbl) -> None:
     """The head dims, dtypes and layouts the CUDA kernels take; raises on
     anything else."""
-    kernel_route(q.shape[2], q.dtype, q.shape[3])
+    source, _ = kernel_route(q.shape[2], q.dtype, q.shape[3])
     if page_tbl.dtype != torch.int32:
         raise ValueError(f"page_tbl must be int32, got {page_tbl.dtype}")
     parts = [x for pool in (k_pool, v_pool) for x in _parts(pool)
@@ -190,6 +200,9 @@ def _check_kernel_inputs(q, k_pool, v_pool, page_tbl) -> None:
     # K/V data are read in 16-byte vectors; int8 scales one float at a time
     if any(_parts(pool)[0].data_ptr() % 16 for pool in (k_pool, v_pool)):
         raise ValueError("pool data must start on a 16-byte boundary (the "
+                         "kernel reads it in 16-byte vectors)")
+    if source == "paged_chunk_sm90" and q.data_ptr() % 16:
+        raise ValueError("q must start on a 16-byte boundary (the chunk "
                          "kernel reads it in 16-byte vectors)")
     if q.shape[0] > 65535:
         raise ValueError(f"batch {q.shape[0]} exceeds the grid's z limit "
@@ -253,8 +266,12 @@ def paged_attention(q: torch.Tensor, k_pool, v_pool, page_tbl: torch.Tensor,
     paged_attention.launches += 1
     paged_attention.launches_by_route["decode" if q.shape[2] == 1
                                       else "chunk"] += 1
+    paged_attention.launches_by_kernel[
+        kernel_route(q.shape[2], q.dtype, q.shape[3])[1]] += 1
     return (o, lse) if return_lse else o
 
 
 paged_attention.launches = 0  # kernel launches (not plain-version calls)
 paged_attention.launches_by_route = {"decode": 0, "chunk": 0}
+paged_attention.launches_by_kernel = {"paged_decode": 0, "paged_chunk_sm90": 0,
+                                      "paged_attn": 0}

@@ -112,7 +112,7 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                    help="--paged: the attend over the page table. 'kernel' "
                         "(the default; 'pallas' is another name for it) "
                         "walks the table in place in the CUDA paged-"
-                        "attention kernel (ops/cuda/csrc/paged_attn.cu), "
+                        "attention kernels (ops/cuda/paged_attention.py), "
                         "int8 dequant fused; 'gather' materializes the "
                         "dense page view per layer (the oracle). Token-"
                         "identical greedy output at float32")

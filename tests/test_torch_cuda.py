@@ -26,7 +26,7 @@ from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import 
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
     rounding_slack as flash_rounding_slack)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
-    paged_attention, paged_attention_plain)
+    kernel_route as paged_kernel_route, paged_attention, paged_attention_plain)
 
 # (b, h, hkv, t, d, t_real): MHA, GQA with padding rows, t not a multiple of
 # 64, the 45m prefill shape, head_dim 128; then the edges of the wgmma
@@ -45,7 +45,8 @@ def test_sources_and_build_targets():
     assert build.all_sources() == ["block_attn", "block_attn_sm90",
                                    "flash_bwd", "flash_bwd_sm90",
                                    "flash_fwd", "flash_fwd_sm90",
-                                   "paged_attn", "paged_decode"]
+                                   "paged_attn", "paged_chunk_sm90",
+                                   "paged_decode"]
     assert (build.CSRC / "sm90.cuh").is_file()
     a = build._target("flash_fwd")
     assert a == build._target("flash_fwd")        # content-addressed
@@ -300,14 +301,21 @@ def test_flash_rounding_slack_is_the_block_rule_on_causal_positions():
 # decode (MHA, the 45m shape's head_dim), GQA decode with small pages, the
 # chunk shape with GQA and per-row qlen, int8 pools, head_dim 32 and 128;
 # then decode at b 1, whose one row (cursor 0) sees one key, and GQA g 8
-# decode at page_size 8 (two blocks of rows, sub-tiles across pages)
+# decode at page_size 8 (two blocks of rows, sub-tiles across pages); then
+# the bf16 chunk kernel's edges: a ragged 64-row tile (cw 65), row tiles
+# spanning heads (GQA g 4, cw 32), int8 pools at head_dim 128 and at head_dim
+# 32 with key tiles across pages of 8
 PAGED_CASES = [(4, 8, 8, 1, 64, 64, 6, False, False),
                (3, 8, 2, 1, 32, 8, 9, False, False),
                (3, 8, 2, 4, 64, 16, 5, False, True),
                (2, 4, 4, 8, 128, 16, 4, True, True),
                (4, 8, 8, 1, 64, 64, 6, True, False),
                (1, 8, 8, 1, 64, 64, 4, False, False),
-               (3, 16, 2, 1, 64, 8, 30, False, False)]
+               (3, 16, 2, 1, 64, 8, 30, False, False),
+               (2, 8, 8, 65, 64, 64, 4, False, True),
+               (2, 16, 4, 32, 64, 16, 10, False, True),
+               (2, 4, 4, 96, 128, 32, 8, True, False),
+               (2, 8, 8, 128, 32, 8, 40, True, False)]
 
 
 @pytest.mark.cuda
@@ -316,8 +324,9 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
     """The paged kernel against its plain version, element by element: f32
     within 1e-5 of max(1, the largest |o|) (sum order); bf16 within one bf16
     step of the plain element plus 1e-5 of its row's largest |o| (both keep
-    p and v in f32 and round o once); valid columns only where qlen is
-    given; one launch per call."""
+    p and v in f32 and round o once; the bf16 chunk kernel splits p into two
+    bf16 terms for that); valid columns only where qlen is given; one launch
+    per call, of the kernel `kernel_route` names."""
     torch_dtype = getattr(torch, dtype)
     for i, (b, h, kvh, cw, hd, ps, mp, int8, with_qlen) in enumerate(
             PAGED_CASES):
@@ -349,10 +358,13 @@ def test_paged_kernel_matches_plain_on_card(cuda_device, dtype):
         before = paged_attention.launches
         route = "decode" if cw == 1 else "chunk"
         before_route = paged_attention.launches_by_route[route]
+        entry = paged_kernel_route(cw, torch_dtype, hd)[1]
+        before_entry = paged_attention.launches_by_kernel[entry]
         o = paged_attention(*args, **kw)
         torch.cuda.synchronize()
         assert paged_attention.launches == before + 1
         assert paged_attention.launches_by_route[route] == before_route + 1
+        assert paged_attention.launches_by_kernel[entry] == before_entry + 1
         r = paged_attention_plain(*args, **kw)
         for row in range(b):
             n = cw if qlen is None else int(qlen[row])
@@ -388,6 +400,37 @@ def test_paged_decode_is_bit_equal_from_call_to_call(cuda_device, dtype):
     first = paged_attention(*args, page_size=ps, return_lse=True)
     again = paged_attention(*args, page_size=ps, return_lse=True)
     torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_chunk_is_bit_equal_from_call_to_call(cuda_device, int8):
+    """The bf16 chunk kernel walks each row tile's keys in one fixed order,
+    with no atomics: two calls on the same inputs give the same bits (o and
+    lse), at the chunk shape with a second row starting mid-page."""
+    rng = np.random.default_rng(13)
+    b, h, cw, hd, ps, mp = 2, 8, 128, 64, 64, 11
+    shape = (b * mp + 1, h, ps, hd)
+    if int8:
+        pools = [(torch.from_numpy(rng.integers(-127, 128, shape)
+                                   .astype(np.int8)).to(cuda_device),
+                  torch.from_numpy(rng.uniform(0.01, 0.05, shape[:3])
+                                   .astype(np.float32)).to(cuda_device))
+                 for _ in range(2)]
+    else:
+        pools = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                 .to(cuda_device, torch.bfloat16) for _ in range(2)]
+    tbl = torch.from_numpy(rng.permutation(b * mp).reshape(b, mp)
+                           .astype(np.int32)).to(cuda_device)
+    start = torch.tensor([256, 61], dtype=torch.int32, device=cuda_device)
+    q = torch.from_numpy(rng.standard_normal((b, h, cw, hd), dtype=np.float32))
+    args = (q.to(cuda_device, torch.bfloat16), *pools, tbl, start)
+    before = paged_attention.launches_by_kernel["paged_chunk_sm90"]
+    first = paged_attention(*args, page_size=ps, return_lse=True)
+    again = paged_attention(*args, page_size=ps, return_lse=True)
+    torch.cuda.synchronize()
+    assert paged_attention.launches_by_kernel["paged_chunk_sm90"] == before + 2
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 

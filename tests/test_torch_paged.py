@@ -23,6 +23,7 @@ tiny shape of tests/test_paged_kernel.py (d 32, 8 heads, 2 layers, vocab
 
 import itertools
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -220,31 +221,224 @@ def test_kernel_input_check_takes_every_layer_of_an_int8_pool():
         _check_kernel_inputs(q, bad, pool, tbl)
 
 
+def test_kernel_input_check_wants_q_aligned_for_the_chunk_kernel():
+    """The bf16 chunk kernel reads q in 16-byte vectors, so a q view that
+    starts off a 16-byte boundary is refused on that route; the decode and
+    f32 chunk kernels read q element by element and take it."""
+    pool = torch.zeros((3, 2, 8, 64), dtype=torch.bfloat16)
+    tbl = torch.zeros((1, 2), dtype=torch.int32)
+    cases = ((4, torch.bfloat16, False), (1, torch.bfloat16, True),
+             (4, torch.float32, True))
+    for cw, dtype, ok in cases:
+        flat = torch.zeros(4 * cw * 64 + 1, dtype=dtype)
+        q = flat[1:].view(1, 4, cw, 64)
+        assert q.data_ptr() % 16 and q.is_contiguous()
+        pools = (pool.to(dtype),) * 2
+        if ok:
+            _check_kernel_inputs(q, *pools, tbl)
+        else:
+            with pytest.raises(ValueError, match="q must start on a 16-byte"):
+                _check_kernel_inputs(q, *pools, tbl)
+
+
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 def test_paged_kernel_route(head_dim):
-    """K3's kernels by query width, dispatch and not fallback: a decode step
-    (cw = 1) to `paged_decode`, a chunk (cw > 1) to `paged_attn`, at both
-    built dtypes; anything else raises before a launch. The CPU wrapper
-    counts no launch on either route."""
+    """K3's kernels by query width and dtype, dispatch and not fallback: a
+    decode step (cw = 1) to `paged_decode` at both built dtypes; a chunk
+    (cw > 1) to the wgmma `paged_chunk_sm90` in bfloat16 and to the SIMT
+    `paged_attn` in float32; anything else raises before a launch. The CPU
+    wrapper counts no launch on any route."""
     for dtype in (torch.float32, torch.bfloat16):
         assert kernel_route(1, dtype, head_dim) == ("paged_decode",
                                                     "paged_decode")
-        for cw in (2, 128):
-            assert kernel_route(cw, dtype, head_dim) == ("paged_attn",
-                                                         "paged_attn")
+    for cw in (2, 128):
+        assert kernel_route(cw, torch.bfloat16, head_dim) == (
+            "paged_chunk_sm90", "paged_chunk_sm90")
+        assert kernel_route(cw, torch.float32, head_dim) == ("paged_attn",
+                                                             "paged_attn")
     with pytest.raises(ValueError, match="dtype torch.float16 not built"):
         kernel_route(1, torch.float16, head_dim)
     with pytest.raises(ValueError, match="head_dim 48 not built"):
         kernel_route(1, torch.bfloat16, 48)
     with pytest.raises(ValueError, match="head_dim 48 not built"):
         kernel_route(4, torch.float32, 48)
-    assert {"paged_decode", "paged_attn"} <= set(build.all_sources())
-    before = dict(paged_attention.launches_by_route)
-    q = torch.zeros((1, 2, 1, head_dim))
-    pool = torch.zeros((2, 2, 8, head_dim))
-    paged_attention(q, pool, pool, torch.zeros((1, 1), dtype=torch.int32), 3,
-                    page_size=8)
-    assert paged_attention.launches_by_route == before
+    assert {"paged_decode", "paged_chunk_sm90", "paged_attn"} <= set(
+        build.all_sources())
+    before = (dict(paged_attention.launches_by_route),
+              dict(paged_attention.launches_by_kernel))
+    for dtype in (torch.float32, torch.bfloat16):
+        for cw in (1, 4):
+            q = torch.zeros((1, 2, cw, head_dim), dtype=dtype)
+            pool = torch.zeros((2, 2, 8, head_dim), dtype=dtype)
+            paged_attention(q, pool, pool,
+                            torch.zeros((1, 1), dtype=torch.int32), 3,
+                            page_size=8)
+    assert (paged_attention.launches_by_route,
+            paged_attention.launches_by_kernel) == before
+
+
+# The bf16 chunk kernel's rounding scheme (csrc/paged_chunk_sm90.cu), step
+# by step in torch: 64-row tiles of the stacked rows, each walking its keys
+# in tiles of 64 up to its own last visible key; bf16 q and k (int8 codes
+# are exact in bf16) multiplied in f32, k's scale on the scores' columns;
+# an online softmax; p times v's scale split into bf16 p_hi + p_lo, both
+# multiplied by v. It guards the precision argument where no card is: held
+# against the plain version under PAGED_LIMIT (chip_smoke.py) — one bf16
+# step of each plain element + 1e-5 of its row's max |o| — it must pass,
+# and with p rounded once (no p_lo) it must not.
+CHUNK_CASES = [  # (b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
+    (2, 8, 8, 64, 64, 64, 4, False, [0, 100], None, 0),
+    (2, 8, 8, 65, 64, 64, 4, False, [0, 130], None, 0),
+    (1, 8, 8, 128, 64, 64, 4, False, [61], None, 0),
+    (2, 4, 4, 64, 64, 8, 40, False, [37, 200], None, 0),
+    (2, 4, 4, 100, 64, 16, 20, False, [3, 150], [100, 77], 0),
+    (2, 4, 4, 128, 64, 128, 4, False, [100, 300], None, 0),
+    (2, 16, 4, 32, 64, 16, 10, False, [5, 100], [32, 20], 0),
+    (2, 8, 4, 64, 32, 16, 10, True, [0, 77], [64, 50], 0),
+    (2, 4, 4, 96, 128, 32, 8, True, [10, 150], None, 0),
+    (3, 8, 8, 64, 64, 64, 4, False, [50, 128, 300], None, 128),
+    (2, 8, 8, 128, 64, 64, 4, False, [128, 128], None, 0),
+    (3, 4, 4, 128, 64, 64, 6, True, [0, 64, 200], [1, 50, 128], 0),
+]
+CHUNK_IDS = ["cw64", "cw65", "start61", "ps8", "ps16-qlen", "ps128",
+             "gqa4-cw32", "hd32-int8", "hd128-int8", "pos_offset-dead-row",
+             "full-table", "pad-columns-int8"]
+
+
+def _chunk_kernel_emulation(q, k_pool, v_pool, page_tbl, start, *,
+                            page_size, qlen=None, pos_offset=0, p_lo=True):
+    """(o bf16, lse f32) as paged_chunk_sm90.cu computes them."""
+    kd, ks = k_pool if isinstance(k_pool, tuple) else (k_pool, None)
+    vd, vs = v_pool if isinstance(v_pool, tuple) else (v_pool, None)
+    b, h, cw, hd = q.shape
+    kvh = kd.shape[1]
+    R, ps, mp = (h // kvh) * cw, page_size, page_tbl.shape[1]
+    qs = q.to(torch.bfloat16).float().reshape(b, kvh, R, hd)
+    o = torch.zeros((b, kvh, R, hd))
+    lse = torch.full((b, kvh, R), MASK)
+    bf16 = lambda x: x.to(torch.bfloat16).float()
+    for bi in range(b):
+        st = int(start[bi])
+        vmax = st + (max(int(qlen[bi]), 1) if qlen is not None else cw) - 1
+        n_live = (0 if vmax < pos_offset
+                  else min(mp, (vmax - pos_offset) // ps + 1))
+        walk_end = n_live * ps
+        keys = torch.arange(walk_end)
+        page = page_tbl[bi].long().clamp(0, kd.shape[0] - 1)[keys // ps]
+        k = kd[page, :, keys % ps].float().transpose(0, 1)   # (kvh, T, hd)
+        v = vd[page, :, keys % ps].float().transpose(0, 1)
+        k_sc = (ks[page, :, keys % ps].T if ks is not None
+                else torch.ones((kvh, walk_end)))
+        v_sc = (vs[page, :, keys % ps].T if vs is not None
+                else torch.ones((kvh, walk_end)))
+        for r0 in range(0, R, 64):
+            rows = torch.arange(r0, min(r0 + 64, R))
+            qpos = st + rows % cw
+            key_end = max(0, min(walk_end, int(qpos.max()) - pos_offset + 1))
+            m = torch.full((kvh, len(rows)), MASK)
+            l = torch.zeros((kvh, len(rows)))
+            acc = torch.zeros((kvh, len(rows), hd))
+            for k0 in range(0, key_end, 64):
+                kk = torch.arange(k0, min(k0 + 64, key_end))
+                s = (torch.matmul(qs[bi][:, rows], k[:, kk].transpose(1, 2))
+                     * k_sc[:, None, kk] * (1.0 / math.sqrt(hd)))
+                live = (pos_offset + kk)[None, :] <= qpos[:, None]
+                s = torch.where(live, s, MASK)
+                mx = torch.maximum(m, s.amax(-1))
+                m_safe = mx.clamp(min=MASK / 2)
+                alpha = torch.exp(m - m_safe)
+                p = torch.where(live, torch.exp(s - m_safe[..., None]), 0.0)
+                l = alpha * l + p.sum(-1)
+                m = mx
+                pv = p * v_sc[:, None, kk]
+                hi = bf16(pv)
+                lo = bf16(pv - hi) if p_lo else torch.zeros_like(pv)
+                acc = (acc * alpha[..., None] + torch.matmul(hi, v[:, kk])
+                       + torch.matmul(lo, v[:, kk]))
+            l_safe = torch.where(l == 0, 1.0, l)
+            o[bi][:, rows] = acc / l_safe[..., None]
+            lse[bi][:, rows] = torch.where(l == 0, MASK, m + torch.log(l_safe))
+    return (o.to(torch.bfloat16).reshape(b, h, cw, hd),
+            lse.reshape(b, h, cw))
+
+
+def _paged_limit_ratio(o, ref, valid):
+    """Worst |o - ref| / (one bf16 step of the ref element + 1e-5 x its
+    row's max |ref|) over each batch row's valid columns: PAGED_LIMIT's
+    bf16 rule in chip_smoke.py, which holds the chunk kernel on the card."""
+    worst = 0.0
+    for r, n in enumerate(valid):
+        a, x = o[r, :, :n].float(), ref[r, :, :n].float()
+        _, e = torch.frexp(x.abs())               # |x| in [2^(e-1), 2^e)
+        step = torch.where(x == 0, 0.0, torch.exp2((e - 8).float()))
+        limit = step + 1e-5 * x.abs().amax(-1, keepdim=True)
+        worst = max(worst, ((a - x).abs() / limit.clamp_min(1e-30))
+                    .max().item())
+    return worst
+
+
+def _chunk_inputs(case, seed):
+    b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off = case
+    rng = np.random.default_rng(seed)
+    n_pages = b * mp
+    kp, vp = _pool(rng, n_pages, kvh, ps, hd, int8=int8)
+    if not int8:
+        kp, vp = (torch.from_numpy(x).to(torch.bfloat16) for x in (kp, vp))
+    else:
+        kp, vp = _to(torch.from_numpy, kp), _to(torch.from_numpy, vp)
+    q = torch.from_numpy(rng.normal(size=(b, h, cw, hd)).astype(np.float32))
+    tbl = torch.from_numpy(rng.permutation(n_pages).reshape(b, mp)
+                           .astype(np.int32))
+    kw = dict(page_size=ps, pos_offset=off,
+              qlen=None if qlens is None else torch.tensor(qlens))
+    return (q.to(torch.bfloat16), kp, vp, tbl, torch.tensor(starts)), kw
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES, ids=CHUNK_IDS)
+def test_chunk_kernel_rounding_within_paged_limit(case):
+    """The bf16 chunk kernel's scheme against the plain version: within
+    PAGED_LIMIT over the valid columns, lse within 1e-4, a row that sees
+    nothing exactly 0 / -1e30, finite pad columns. Rounding p once instead
+    breaks the limit on the native-pool cases of many keys."""
+    b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off = case
+    args, kw = _chunk_inputs(case, seed=sum(starts) + cw)
+    ro, rlse = paged_attention_plain(*args, return_lse=True, **kw)
+    o, lse = _chunk_kernel_emulation(*args, **kw)
+    valid = [cw if qlens is None else qlens[r] for r in range(b)]
+    assert _paged_limit_ratio(o, ro, valid) <= 1.0
+    for r, n in enumerate(valid):
+        assert (lse[r, :, :n] - rlse[r, :, :n]).abs().max() <= 1e-4
+    for r in range(b):
+        if starts[r] + cw - 1 < off:
+            assert (o[r] == 0).all() and (lse[r] == MASK).all()
+            assert (ro[r] == 0).all() and (rlse[r] == MASK).all()
+    assert torch.isfinite(o.float()).all()
+    if not int8 and off == 0 and mp * ps >= 256:
+        once, _ = _chunk_kernel_emulation(*args, p_lo=False, **kw)
+        assert _paged_limit_ratio(once, ro, valid) > 1.0
+
+
+def test_chunk_kernel_rounding_matches_jax_kernel():
+    """One chunk case through the JAX kernel (interpret mode, bf16 q and
+    pools) and the chunk kernel's scheme: two row tiles, the first spanning
+    heads (GQA g 2, cw 40), a walk of several key tiles across pages of
+    16, per-row qlen; within PAGED_LIMIT, lse within 1e-4."""
+    case = (2, 4, 2, 40, 32, 16, 10, False, [30, 97], [40, 23], 0)
+    args, kw = _chunk_inputs(case, seed=5)
+    q, kp, vp, tbl, start = args
+    (jo, jlse) = jpa.paged_attention(
+        jnp.asarray(q.float().numpy(), jnp.bfloat16),
+        jnp.asarray(kp.float().numpy(), jnp.bfloat16),
+        jnp.asarray(vp.float().numpy(), jnp.bfloat16), jnp.asarray(tbl),
+        jnp.asarray(start.numpy().astype(np.int32)), page_size=16,
+        qlen=jnp.asarray(np.array([40, 23], np.int32)), pages_per_block=2,
+        return_lse=True, interpret=True)
+    o, lse = _chunk_kernel_emulation(*args, **kw)
+    jo = torch.from_numpy(np.asarray(jo.astype(jnp.float32)))
+    jlse = torch.from_numpy(np.asarray(jlse))
+    assert _paged_limit_ratio(o, jo, [40, 23]) <= 1.0
+    for r, n in enumerate([40, 23]):
+        assert (lse[r, :, :n] - jlse[r, :, :n]).abs().max() <= 1e-4
 
 
 # ------------------------------------------------------ (b) int8 codes --
