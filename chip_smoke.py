@@ -127,15 +127,36 @@ result line):
     256: loss and every gradient, the kernels on the card against the plain
     versions on the CPU, one gloo group;
 23. cp_profile: one cp=2 zig-zag step of the 45m bf16 cell under
-    torch.profiler in each rank: wall, device busy, the card's idle share,
+    torch.profiler in each rank: wall, device busy (the kernels apart from
+    the hops' copies to and from the host), the card's idle share,
     kernels, the block kernels' share (no SIMT block kernel may run), and
-    the time in the ring's hops.
+    the time in the ring's hops;
+24. tp_train: `train.main` at tp=2 (two ranks sharing the card over gloo),
+    the 45m preset, bf16, b 8 x t 1000 with remat: 10 steps, one
+    checkpoint file per tp rank and a 2-step `--resume`, then that
+    checkpoint resumed at tp=1 for a step; tp=2 with
+    `--sequence_parallel` 3 steps; tp 2 x dp 2 (four ranks) 2 steps —
+    finite losses, falling at tp=2, the step-1 loss of each and of a tp=1
+    run on the same batch within 1e-2, each rank's flash launches 2 x 12
+    (forward) and 12 (dq, dk/dv) per step and no other attention kernel;
+25. tp_tiny: `train.main --model tiny --tp_size 2 --cp_size 2 --cp_impl
+    ring`, four ranks, 2 steps at f32 and with --bf16: head_dim 32 with 2
+    local heads on both routes of the block kernels, launches per the
+    ring schedule of each rank's cp index;
+26. tp_card_vs_cpu: tp=2 with sequence parallelism at the 45m widths, 2
+    layers, f32, b 2 x t 256: the loss and every rank's gradient shard,
+    the kernels on the card against the plain versions on the CPU, one
+    gloo group;
+27. tp_profile: one tp=2 step of the 45m bf16 cell under torch.profiler in
+    each rank: wall, device busy (the kernels apart from the hops'
+    copies), the card's idle share, kernels, the flash kernels' share (no
+    SIMT flash kernel may run), and the tp hops' host time and bytes.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
-a subset prints no result lines). The cp phases start their ranks as
-processes of their own (`runtime/launch.spawn`); the build phase has built
-every kernel before they start.
+a subset prints no result lines). The cp and tp phases start their ranks
+as processes of their own (`runtime/launch.spawn`); the build phase has
+built every kernel before they start.
 """
 
 import argparse
@@ -2229,14 +2250,7 @@ def phase_cp_train(torch, workdir: str) -> dict:
             for k, v in rank["launches"].items():
                 summed[k] = summed.get(k, 0) + v
         per_step = [{k: v // steps for k, v in w.items()} for w in want]
-        ranks = "; ".join(
-            f"rank {r['rank']}: peak {r['peak_mem_gib']:.3f} GiB, hops "
-            f"{r['collectives']['calls']} calls, "
-            f"{r['collectives']['bytes'] / 1e9:.3f} GB, wait "
-            f"{r['collectives']['wait_s']:.3f} s + hop "
-            f"{r['collectives']['hop_s']:.3f} s of {r['wall_s']:.3f} s wall "
-            f"(hop share {r['collectives']['hop_s'] / r['wall_s']:.3f})"
-            for r in res["ranks"])
+        ranks = "; ".join(_rank_hops(r) for r in res["ranks"])
         log(f"cp_train {name}: {res['steps']} steps of b{CP_B} x t{CP_T} "
             f"bf16, cp {res['cp']} ({res['cp_impl']}, {res['cp_layout']}) over "
             f"{res['dist_backend']} on {res['cards']} card(s): losses "
@@ -2385,7 +2399,7 @@ def _cp_profile_rank(rank: int, nprocs: int, init_method: str) -> dict:
     _, _, state = step(state, ids, ids, pos)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    hops = dict(collectives.stats)
+    hops = collectives.total_stats()
     dist.barrier()
 
     def one_step():
@@ -2400,7 +2414,7 @@ def _cp_profile_rank(rank: int, nprocs: int, init_method: str) -> dict:
         return bool(flag.item())
 
     k2 = BLOCK_SM90_KERNELS   # the bf16 route's; the SIMT ones are f32's
-    busy, n, by_name = 0.0, 0, {}
+    busy, n, copies, by_name = 0.0, 0, 0, {}
     for name, us in _profiled(torch, one_step, f"cp profile, rank {rank}",
                               every_rank):
         busy += us
@@ -2408,10 +2422,16 @@ def _cp_profile_rank(rank: int, nprocs: int, init_method: str) -> dict:
         if any(k in name for k in BLOCK_SIMT_KERNELS):
             raise AssertionError(f"the bf16 cp step ran a SIMT block kernel: "
                                  f"{name}")
-        key = next((k for k in k2 if k in name), "other")
+        # the staged hops' copies to and from the host are device events
+        # too: counted apart from the kernels
+        key = ("copies" if "memcpy" in name.lower() else
+               next((k for k in k2 if k in name), "other"))
         by_name[key] = by_name.get(key, 0.0) + us
+        copies += key == "copies"
     return {"rank": rank, "wall_ms": wall_ms, "busy_ms": busy / 1e3,
-            "kernels": n, "k2_ms": {k: by_name.get(k, 0.0) / 1e3 for k in k2},
+            "events": n, "copies": copies,
+            "copy_ms": by_name.get("copies", 0.0) / 1e3,
+            "k2_ms": {k: by_name.get(k, 0.0) / 1e3 for k in k2},
             "hops": hops}
 
 
@@ -2420,17 +2440,20 @@ def phase_cp_profile(torch) -> dict:
     ranks = launch.spawn(_cp_profile_rank, 2)
     r0 = ranks[0]
     card_busy = sum(r["busy_ms"] for r in ranks)
+    kern = lambda r: r["busy_ms"] - r["copy_ms"]
     k2 = sum(r0["k2_ms"].values())
     hop = r0["hops"]
     log(f"cp profile (45m bf16, cp=2 zigzag over gloo on one card, b8 x "
         f"t1000, remat), rank 0's step: wall {r0['wall_ms']:.3f} ms, device "
-        f"busy {r0['busy_ms']:.3f} ms over {r0['kernels']} kernels (rank 1: "
-        f"{ranks[1]['busy_ms']:.3f} ms, {ranks[1]['kernels']}); the card's "
-        f"idle share 1 - (both ranks' busy) / wall "
-        f"{1 - card_busy / r0['wall_ms']:.3f} (rank 0's alone "
-        f"{1 - r0['busy_ms'] / r0['wall_ms']:.3f}); K2 kernels "
+        f"busy {r0['busy_ms']:.3f} ms over {r0['events']} events: kernels "
+        f"{kern(r0):.3f} ms ({r0['events'] - r0['copies']}), the hops' "
+        f"copies to and from the host {r0['copy_ms']:.3f} ms "
+        f"({r0['copies']}) (rank 1: kernels {kern(ranks[1]):.3f} ms, copies "
+        f"{ranks[1]['copy_ms']:.3f} ms); the card's idle share 1 - (both "
+        f"ranks' busy) / wall {1 - card_busy / r0['wall_ms']:.3f} (rank 0's "
+        f"alone {1 - r0['busy_ms'] / r0['wall_ms']:.3f}); K2 kernels "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in r0["k2_ms"].items())
-        + f" ({k2 / r0['busy_ms']:.3f} of rank 0's busy); ring hops "
+        + f" ({k2 / kern(r0):.3f} of rank 0's kernel time); ring hops "
         f"{hop['calls']} calls, {hop['bytes'] / 1e9:.3f} GB: wait for the "
         f"device {hop['wait_s'] * 1e3:.3f} ms + staged copies and transfer "
         f"{hop['hop_s'] * 1e3:.3f} ms ({hop['hop_s'] * 1e3 / r0['wall_ms']:.3f}"
@@ -2438,11 +2461,310 @@ def phase_cp_profile(torch) -> dict:
     return {"ranks": ranks}
 
 
+# the tp=2 cell-to-be: the 45m preset at b 8 x t 1000 bf16 with remat, the
+# ranks sharing the one card over gloo, the cp cell's flags and corpus
+TP2 = ["--tp_size", "2", "--dist_backend", "gloo"]
+TP_RUNS = {  # name: (flags, steps)
+    "tp2": ([], 10),
+    "tp2_sp": (["--sequence_parallel"], 3),
+    "tp2_dp2": (["--dp_size", "2"], 2),
+}
+
+
+def _flash_want(layers: int, steps: int) -> dict:
+    """A rank's flash launches over `steps` (remat: the forward twice)."""
+    return {"flash_attention_fwd": 2 * layers * steps,
+            "flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps}
+
+
+def _rank_hops(r: dict) -> str:
+    """One rank's summary line: coordinates, peak memory, and its hops per
+    axis."""
+    axes = "; ".join(
+        f"{a}: {s['calls']} calls, {s['bytes'] / 1e9:.3f} GB, wait "
+        f"{s['wait_s']:.3f} s + hop {s['hop_s']:.3f} s"
+        for a, s in r["collectives"].items() if s["calls"])
+    hop = sum(s["hop_s"] for s in r["collectives"].values())
+    return (f"rank {r['rank']} (dp {r['dp']}, cp {r['cp']}, tp {r['tp']}): "
+            f"peak {r['peak_mem_gib']:.3f} GiB, {axes} of {r['wall_s']:.3f} "
+            f"s wall (hop share {hop / r['wall_s']:.3f})")
+
+
+def phase_tp_train(torch, workdir: str) -> dict:
+    """train.main at tp=2 (10 steps, a checkpoint and a 2-step --resume),
+    tp=2 with sequence parallelism (3 steps), tp 2 x dp 2 (2 steps), the tp
+    checkpoint resumed at tp=1 (1 step), and a tp=1 step on the same first
+    batch; returns each tp run's launches summed over ranks and the tp=2
+    run's summary."""
+    import glob
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    data = _corpus(workdir)
+    layers = model_preset("45m").num_layers
+    base = CP_ARGS + ["--data_path", data]
+    first = {"tp1": train.main(base + ["--max_steps", "1", "--save_dir",
+                                       os.path.join(workdir, "tp1")])[
+        "losses"][0]}
+    out = {}
+    for name, (flags, steps) in TP_RUNS.items():
+        save = os.path.join(workdir, name)
+        res = train.main(base + TP2 + flags + ["--max_steps", str(steps),
+                                               "--save_dir", save])
+        losses = res["losses"]
+        first[name] = losses[0]
+        summed = {}
+        for rank in res["ranks"]:
+            _only(rank["launches"], _flash_want(layers, steps),
+                  f"{name} rank {rank['rank']} ({steps} steps)")
+            for k, v in rank["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        log(f"tp_train {name}: {res['steps']} steps of b{CP_B} x t{CP_T} "
+            f"bf16, dp {res['dp']} x cp {res['cp']} x tp {res['tp']} "
+            f"(sequence_parallel={res['sequence_parallel']}) over "
+            f"{res['dist_backend']} on {res['cards']} card(s): losses "
+            f"{[round(x, 4) for x in losses]}; step p50 "
+            f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_sec']:.1f} tok/s,"
+            f" MFU {res['mfu']:.4f} (per card); "
+            + "; ".join(_rank_hops(r) for r in res["ranks"])
+            + f"; flash launches per rank per step fwd {2 * layers}, dq "
+            f"{layers}, dk/dv {layers} (checked)")
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: losses not finite or not {steps}")
+        out[name] = summed
+        if name != "tp2":
+            continue
+        out["summary"] = res
+        # as cp_train's: a drop of 0.1 over a b8 batch's ~5k tokens is
+        # learning, not noise
+        if not sum(losses[-3:]) / 3 <= sum(losses[:3]) / 3 - 0.1:
+            raise AssertionError(f"tp2 loss did not fall: {losses}")
+        files = sorted(glob.glob(os.path.join(save, f"tprank-*_iter-{steps}_"
+                                                    f"loss-*.npz")))
+        log(f"tp_train tp2 checkpoint: {[os.path.basename(f) for f in files]}")
+        if [os.path.basename(f).split("_")[0] for f in files] != [
+                "tprank-0", "tprank-1"]:
+            raise AssertionError("tp2 did not write one file per tp rank")
+        resumed = train.main(base + TP2 + ["--max_steps", str(steps + 2),
+                                           "--save_dir", save, "--resume"])
+        log(f"tp_train tp2 --resume: started at step "
+            f"{resumed['start_step']}, ran to {resumed['steps']}, losses "
+            f"{resumed['losses']}")
+        if (resumed["start_step"] != steps or resumed["steps"] != steps + 2
+                or not all(math.isfinite(x) for x in resumed["losses"])):
+            raise AssertionError("tp2 resume did not continue from the "
+                                 "checkpoint")
+        at_tp1 = train.main(base + ["--max_steps", str(steps + 3),
+                                    "--save_dir", save, "--resume"])
+        log(f"tp_train: the tp2 checkpoint resumed at tp=1 from step "
+            f"{at_tp1['start_step']}: losses {at_tp1['losses']}")
+        if (at_tp1["start_step"] != steps + 2
+                or not all(math.isfinite(x) for x in at_tp1["losses"])):
+            raise AssertionError("the tp2 checkpoint did not resume at tp=1")
+    spread = max(first.values()) - min(first.values())
+    log(f"tp_train: step-1 losses on the same batch {first}: spread "
+        f"{spread:.3e} (limit 1e-2 absolute)")
+    if not spread <= 1e-2:
+        raise AssertionError("tp step-1 losses disagree with tp=1")
+    return out
+
+
+def phase_tp_tiny(torch, workdir: str) -> dict:
+    """`train --model tiny --tp_size 2 --cp_size 2 --cp_impl ring`, four
+    ranks, 2 steps on the card at f32 (block_attn.cu) and with --bf16
+    (block_attn_sm90.cu): head_dim 32 with 2 local heads. Finite losses,
+    each rank's block launches per the ring schedule of its cp index;
+    returns the launches summed over ranks, by dtype."""
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    cfg = model_preset("tiny")
+    b, steps = 4, 2
+    base = ["--model", "tiny", "--tp_size", "2", "--cp_size", "2",
+            "--cp_impl", "ring", "--dist_backend", "gloo", "--batch_size",
+            str(b), "--max_steps", str(steps), "--warmup_steps", "1",
+            "--log_interval", "1", "--device", "cuda", "--data_path",
+            _corpus(workdir)]
+    want = _cp_want(cfg.num_layers, steps, "contiguous", cfg.maxlen, b)
+    out = {}
+    for name, flags in (("float32", []), ("bfloat16", ["--bf16"])):
+        res = train.main(base + flags + ["--save_dir", os.path.join(
+            workdir, f"tp_tiny_{name}")])
+        summed = {}
+        for rank in res["ranks"]:
+            _only(rank["launches"], want[rank["cp"]],
+                  f"tp_tiny {name} rank {rank['rank']} (cp {rank['cp']})")
+            for k, v in rank["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        log(f"tp_tiny {name}: tiny preset (head_dim {cfg.head_dim}, "
+            f"{cfg.num_heads // 2} local heads), tp 2 x cp 2 ring over gloo "
+            f"on the card, b{b} x t{cfg.maxlen}: losses {res['losses']}; "
+            f"block launches summed over ranks "
+            f"{ {k: v for k, v in summed.items() if v} } (checked per rank "
+            f"against its cp index's schedule)")
+        if len(res["losses"]) != steps or not all(
+                math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"tp_tiny {name}: losses not finite or not "
+                                 f"{steps}")
+        out[name] = summed
+    return out
+
+
+def phase_tp_card_vs_cpu(torch) -> None:
+    """tp=2 with sequence parallelism at the 45m widths, 2 layers, f32, b 2
+    x t 256: the loss and every rank's gradient shard, the kernels on the
+    card against the plain versions on the CPU, one gloo group, the same
+    weights and batch."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        IGNORE_INDEX, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    cfg = model_preset("45m", num_layers=2, compute_dtype="float32")
+    tree = params_to_jax(Transformer(cfg).init_weights(seed=8).state_dict())
+    rng = np.random.default_rng(8)
+    b, t = 2, 256
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t + 1))
+    tgt = ids[:, 1:].copy()
+    tgt[1, 180:] = IGNORE_INDEX                 # a padded tail
+    run = dict(sp=True, batch=(ids[:, :-1], tgt, np.tile(np.arange(t),
+                                                         (b, 1))))
+    todo = [("model_runs", {"tp": 2},
+             dict(cfg=dataclasses.asdict(cfg), tree=tree, runs=[run]))]
+    res = launch.spawn(tp_checks.jobs, 2, todo, ("cuda", "cpu"), "gloo")
+    worst, worst_key, rel = 0.0, None, 0.0
+    for r, (card, cpu) in enumerate(res):
+        card, cpu = card[0], cpu[0]
+        rel = max(rel, abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]))
+        for k, g in cpu["grads"].items():
+            ratio = float(np.abs(card["grads"][k] - g).max()
+                          / max(np.abs(g).max(), 1e-30))
+            if ratio > worst:
+                worst, worst_key = ratio, f"rank {r} {k}"
+    log(f"tp card vs cpu: 45m widths, 2 layers, f32, b{b} x t{t}, tp=2 with "
+        f"sequence parallelism: loss {res[0][0][0]['loss']:.7f} (card, "
+        f"kernels) vs {res[0][1][0]['loss']:.7f} (cpu, plain), worst rel "
+        f"diff over ranks {rel:.3e} (tol 1e-5); worst grad shard {worst_key}:"
+        f" max abs diff {worst:.3e} of its max |grad| (tol 1e-5)")
+    if not (rel <= 1e-5 and worst <= 1e-5):
+        raise AssertionError("tp=2 on the card and on the CPU disagree")
+
+
+def _tp_profile_rank(rank: int, nprocs: int, init_method: str) -> dict:
+    """One rank of the profiled tp=2 step (runtime/launch.spawn)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, OptimizerConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.ops import collectives
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
+        init_adam_state)
+    from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
+        build_train_step)
+    mesh = make_mesh(MeshConfig(tp=nprocs), device="cuda", rank=rank,
+                     backend="gloo", init_method=init_method)
+    cfg = model_preset("45m", compute_dtype="bfloat16")
+    model = Transformer(cfg, remat=True, mesh=mesh).init_weights(
+        seed=2).to(mesh.device)
+    step = build_train_step(model, OptimizerConfig(lr=1e-4))
+    state = init_adam_state(dict(model.named_parameters()))
+    b, t = CP_B, CP_T
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, t))).to(
+        mesh.device)
+    pos = torch.arange(t, device=mesh.device).expand(b, t)
+    for _ in range(2):
+        _, _, state = step(state, ids, ids, pos)
+    torch.cuda.synchronize()
+    dist.barrier()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    _, _, state = step(state, ids, ids, pos)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    hops = dict(collectives.stats["tp"])
+    dist.barrier()
+
+    def one_step():
+        nonlocal state
+        _, _, state = step(state, ids, ids, pos)
+
+    def every_rank(seen: bool) -> bool:
+        # a rank that profiles again runs the step's collectives again: the
+        # other rank must too
+        flag = torch.tensor([int(seen)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+
+    simt = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    busy, n, by_name, counts = 0.0, 0, {}, {}
+    for name, us in _profiled(torch, one_step, f"tp profile, rank {rank}",
+                              every_rank):
+        busy += us
+        n += 1
+        if any(k in name for k in simt):
+            raise AssertionError(f"the bf16 tp step ran a SIMT flash kernel: "
+                                 f"{name}")
+        # the staged hops' copies to and from the host are device events
+        # too: counted apart from the kernels
+        key = ("copies" if "memcpy" in name.lower() else
+               next((k for k in SM90_KERNELS if k in name), "other"))
+        by_name[key] = by_name.get(key, 0.0) + us
+        counts[key] = counts.get(key, 0) + 1
+    layers = cfg.num_layers
+    want = {SM90_KERNELS[0]: 2 * layers, SM90_KERNELS[1]: layers,
+            SM90_KERNELS[2]: layers}
+    if {k: counts.get(k, 0) for k in SM90_KERNELS} != want:
+        raise AssertionError(f"tp profile rank {rank}: flash kernels "
+                             f"{ {k: counts.get(k, 0) for k in SM90_KERNELS} }"
+                             f", expected {want}")
+    return {"rank": rank, "wall_ms": wall_ms, "busy_ms": busy / 1e3,
+            "events": n, "copies": counts.get("copies", 0),
+            "copy_ms": by_name.get("copies", 0.0) / 1e3,
+            "flash_ms": sum(by_name.get(k, 0.0) for k in SM90_KERNELS) / 1e3,
+            "hops": hops}
+
+
+def phase_tp_profile(torch) -> dict:
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
+    ranks = launch.spawn(_tp_profile_rank, 2)
+    r0 = ranks[0]
+    kern = lambda r: r["busy_ms"] - r["copy_ms"]
+    card_busy = sum(r["busy_ms"] for r in ranks)
+    hop = r0["hops"]
+    log(f"tp profile (45m bf16, tp=2 over gloo on one card, b{CP_B} x "
+        f"t{CP_T}, remat), rank 0's step: wall {r0['wall_ms']:.3f} ms, "
+        f"device busy {r0['busy_ms']:.3f} ms over {r0['events']} events: "
+        f"kernels {kern(r0):.3f} ms ({r0['events'] - r0['copies']}), the "
+        f"hops' copies to and from the host {r0['copy_ms']:.3f} ms "
+        f"({r0['copies']}) (rank 1: kernels {kern(ranks[1]):.3f} ms, copies "
+        f"{ranks[1]['copy_ms']:.3f} ms); the card's idle share 1 - (both "
+        f"ranks' busy) / wall {1 - card_busy / r0['wall_ms']:.3f} (rank 0's "
+        f"alone {1 - r0['busy_ms'] / r0['wall_ms']:.3f}); flash kernels "
+        f"{r0['flash_ms']:.3f} ms ({r0['flash_ms'] / kern(r0):.3f} of rank "
+        f"0's kernel time); tp hops {hop['calls']} calls, "
+        f"{hop['bytes'] / 1e9:.3f} GB: wait for the device "
+        f"{hop['wait_s'] * 1e3:.3f} ms + staged copies and transfer "
+        f"{hop['hop_s'] * 1e3:.3f} ms ({hop['hop_s'] * 1e3 / r0['wall_ms']:.3f}"
+        f" of the wall)")
+    return {"ranks": ranks}
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
           "paged_card_vs_cpu", "paged_profile", "ring_check", "ring_times",
-          "cp_train", "cp_tiny", "cp_card_vs_cpu", "cp_profile")
+          "cp_train", "cp_tiny", "cp_card_vs_cpu", "cp_profile", "tp_train",
+          "tp_tiny", "tp_card_vs_cpu", "tp_profile")
 
 
 def main() -> None:
@@ -2476,50 +2798,23 @@ def run(torch, phases: set, workdir: str) -> list:
     of the phases)."""
     t0 = time.perf_counter()
     device = phase_device(torch)
-    if "build" in phases:
-        phase_build()
-    if "kernel_vs_plain" in phases:
-        max_err = phase_kernel_vs_plain(torch)
-    if "times" in phases:
-        times = phase_times(torch)
-    if "serve" in phases:
-        served = phase_serve(torch)
-    if "card_vs_cpu" in phases:
-        phase_card_vs_cpu(torch)
-    if "profile" in phases:
-        phase_profile(torch)
-    if "bwd_check" in phases:
-        bwd_err = phase_bwd_check(torch)
-    if "bwd_times" in phases:
-        bwd_times = phase_bwd_times(torch)
-    if "train" in phases:
-        trained = phase_train(torch, workdir)
-    if "train_card_vs_cpu" in phases:
-        phase_train_card_vs_cpu(torch)
-    if "train_profile" in phases:
-        phase_train_profile(torch)
-    if "paged_check" in phases:
-        paged_err = phase_paged_check(torch)
-    if "paged_times" in phases:
-        paged_times = phase_paged_times(torch)
-    if "paged_serve" in phases:
-        paged_served = phase_paged_serve(torch)
-    if "paged_card_vs_cpu" in phases:
-        phase_paged_card_vs_cpu(torch)
-    if "paged_profile" in phases:
-        phase_paged_profile(torch)
-    if "ring_check" in phases:
-        ring_err = phase_ring_check(torch)
-    if "ring_times" in phases:
-        ring_times = phase_ring_times(torch)
-    if "cp_train" in phases:
-        cp_runs = phase_cp_train(torch, workdir)
-    if "cp_tiny" in phases:
-        cp_tiny = phase_cp_tiny(torch, workdir)
-    if "cp_card_vs_cpu" in phases:
-        phase_cp_card_vs_cpu(torch)
-    if "cp_profile" in phases:
-        phase_cp_profile(torch)
+    with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny")
+    res = {}
+    for name in PHASES:
+        if name not in phases:
+            continue
+        t1 = time.perf_counter()
+        fn = globals()[f"phase_{name}"]
+        res[name] = (fn() if name == "build" else
+                     fn(torch, workdir) if name in with_dir else fn(torch))
+        log(f"chip_smoke: phase {name} took "
+            f"{time.perf_counter() - t1:.1f} s")
+    (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
+     paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
+     tp_runs, tp_tiny) = (res.get(k) for k in (
+         "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
+         "train", "paged_check", "paged_times", "paged_serve", "ring_check",
+         "ring_times", "cp_train", "cp_tiny", "tp_train", "tp_tiny"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -2530,7 +2825,13 @@ def run(torch, phases: set, workdir: str) -> list:
                          "train_cp2_contiguous": cp_runs["contiguous"][k],
                          "train_cp2_ulysses": cp_runs["ulysses"][k],
                          "train_cp2_tiny_f32": cp_tiny["float32"].get(k, 0),
-                         "train_cp2_tiny_bf16": cp_tiny["bfloat16"].get(k, 0)}
+                         "train_cp2_tiny_bf16": cp_tiny["bfloat16"].get(k, 0),
+                         "train_tp2": tp_runs["tp2"].get(k, 0),
+                         "train_tp2_sp": tp_runs["tp2_sp"].get(k, 0),
+                         "train_tp2_dp2": tp_runs["tp2_dp2"].get(k, 0),
+                         "train_tp2_cp2_tiny_f32": tp_tiny["float32"].get(k, 0),
+                         "train_tp2_cp2_tiny_bf16":
+                             tp_tiny["bfloat16"].get(k, 0)}
     at_path = bwd_times["errs"]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,

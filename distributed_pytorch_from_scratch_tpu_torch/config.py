@@ -28,6 +28,13 @@ _DTYPES = {
 KERNEL_DTYPES = ("float32", "bfloat16")
 
 
+def padded_vocab_size(vocab_size: int, tp_size: int) -> int:
+    """Vocab size rounded up to a multiple of tp_size: the embedding's rows
+    and the head's columns shard evenly over tp, the padded rows and
+    columns are zero and the padded logits are masked."""
+    return -(-vocab_size // tp_size) * tp_size
+
+
 def resolve_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"Unknown dtype {name!r}; expected one of {sorted(_DTYPES)}")
@@ -85,6 +92,9 @@ class ModelConfig:
         """Output width of wk/wv: kv_heads * head_dim (== attn_dim for MHA)."""
         return self.kv_heads * self.head_dim
 
+    def padded_vocab_size(self, tp_size: int) -> int:
+        return padded_vocab_size(self.vocab_size, tp_size)
+
     def num_params(self) -> int:
         d, f, v, L = self.attn_dim, self.ffn_dim, self.vocab_size, self.num_layers
         kd = self.kv_dim
@@ -120,8 +130,9 @@ def model_preset(name: str, **overrides) -> ModelConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'); the port runs cp through
-    torch.distributed and refuses any other axis > 1 (runtime/mesh.py)."""
+    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'); the port runs dp, cp and
+    tp through torch.distributed and refuses pp and ep > 1
+    (runtime/mesh.py)."""
 
     dp: int = 1
     tp: int = 1

@@ -253,3 +253,17 @@ def get_dataloader(data_path: str, batch_size: int,
         drop_last = split == "train"
     return DataLoader(ds, batch_size, ignore_idx, shuffle, seed, pad_to,
                       drop_last, backend)
+
+
+def dp_rows(x: np.ndarray, dp: int, dp_rank: int) -> np.ndarray:
+    """Data-parallel rank dp_rank's rows of a batch array (..., b, t): rows
+    [dp_rank * b/dp, (dp_rank + 1) * b/dp) of the one seeded batch every
+    rank draws — the JAX `batch_feeder`'s P(('dp', 'ep'), 'cp') split of
+    the batch dim."""
+    b = x.shape[-2]
+    if b % dp:
+        raise ValueError(f"batch size {b} is not divisible by dp_size {dp} "
+                         f"(each dp rank takes b/dp rows of the batch)")
+    n = b // dp
+    return x[..., dp_rank * n:(dp_rank + 1) * n, :]
+

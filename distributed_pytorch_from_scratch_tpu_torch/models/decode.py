@@ -21,6 +21,7 @@ import math
 import torch
 
 from ..ops.attention import MASK_VALUE, causal_attention
+from ..ops.collectives import copy_to, gather_from
 from ..ops.cuda.paged_attention import paged_attention
 from ..ops.quant import quantize_rows
 from ..ops.rope import apply_rotary
@@ -28,46 +29,72 @@ from ..ops.rope import apply_rotary
 # the paged attends: the dense page view + einsum block (the oracle), or
 # `paged_attention` (the CUDA kernel on the card, its plain version on CPU)
 PAGED_ATTN_IMPLS = ("gather", "kernel")
+# the padded vocab columns' logit (JAX `models/transformer.py` NEG_INF)
+NEG_INF = -1e9
 
 
 def _qkv(model, lp, y: torch.Tensor, dtype):
-    """Project y (b, t, d) -> q (b, heads, t, hd) and k, v at
-    (b, kv_heads, t, hd)."""
+    """Project y (b, t, d) -> q (b, local heads, t, hd) and k, v at (b,
+    local kv heads, t, hd); y is the sublayer's shared input (`_tp_in`), so
+    the projections take it as 'gathered'."""
     b, t, _ = y.shape
     h = model.cfg.head_dim
     split = lambda z, nh: z.reshape(b, t, nh, h).transpose(1, 2)
-    q = split(lp["wq"](y, dtype), model.cfg.num_heads)
-    k = split(lp["wk"](y, dtype), model.cfg.kv_heads)
-    v = split(lp["wv"](y, dtype), model.cfg.kv_heads)
+    q = split(lp["wq"](y, dtype, "gathered"), model.num_local_heads)
+    k = split(lp["wk"](y, dtype, "gathered"), model.num_local_kv_heads)
+    v = split(lp["wv"](y, dtype, "gathered"), model.num_local_kv_heads)
     return q, k, v
 
 
+def _tp_in(model, y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's normed input, shared by its column projections: at tp >
+    1 one `copy_to` (whose backward all-reduces the projections' summed
+    input gradient), or under sequence parallelism one all-gather of the
+    sequence (the JAX `maybe_gather`: its backward is one reduce-scatter)."""
+    if model.tp_size == 1:
+        return y
+    if model.sequence_parallel:
+        return gather_from(y, model.mesh, dim=-2)
+    return copy_to(y, model.mesh)
+
+
+def _act_layout(model) -> str:
+    """The layout of the activations between sublayers — the embedding's
+    and the row layers' output, the head's input: this rank's chunk of the
+    sequence under sequence parallelism, else the whole sequence."""
+    return "seq_sharded" if model.sequence_parallel else "replicated"
+
+
 def _embed(model, ids: torch.Tensor, dtype) -> torch.Tensor:
-    """Token embedding (the llama family has no learned positions)."""
-    return model.embedding(ids).to(dtype)
+    """Token embedding (the llama family has no learned positions); under
+    sequence parallelism this rank's chunk of the sequence."""
+    return model.embedding(ids, _act_layout(model)).to(dtype)
 
 
 def _finish_block(model, lp, x: torch.Tensor, o: torch.Tensor,
                   dtype) -> torch.Tensor:
     """Residual + wo, then the SwiGLU FFN sublayer (shared by prefill and
     decode)."""
-    b, t = x.shape[0], x.shape[1]
-    o = o.transpose(1, 2).reshape(b, t, model.cfg.num_heads * model.cfg.head_dim)
-    x = x + lp["wo"](o, dtype)
-    y = lp[model.ffn_norm_key](x)
-    g = lp["gate_proj"](y, dtype)
-    u = lp["up_proj"](y, dtype)
-    return x + lp["down_proj"](torch.nn.functional.silu(g) * u, dtype)
+    b, t = o.shape[0], o.shape[2]
+    o = o.transpose(1, 2).reshape(b, t,
+                                  model.num_local_heads * model.cfg.head_dim)
+    x = x + lp["wo"](o, dtype, _act_layout(model))
+    y = _tp_in(model, lp[model.ffn_norm_key](x))
+    g = lp["gate_proj"](y, dtype, "gathered")
+    u = lp["up_proj"](y, dtype, "gathered")
+    return x + lp["down_proj"](torch.nn.functional.silu(g) * u, dtype,
+                               _act_layout(model))
 
 
 def _block(model, lp, x: torch.Tensor, cos, sin, dtype,
            attend=causal_attention):
-    """One full-sequence decoder layer (the JAX `_layer_body` at tp=1):
-    returns (x', k, v), the layer's output and its post-RoPE k and v. The
+    """One full-sequence decoder layer (the JAX `_layer_body`): returns (x',
+    k, v), the layer's output and its post-RoPE k and v (local heads). The
     attention is `attend(q, k, v)`: by default `causal_attention`, the flash
     kernels on the card; the cp training forward passes the ring or Ulysses
-    attention over its chunk."""
-    y = lp[model.attn_norm_key](x)
+    attention over its chunk. Under sequence parallelism x and x' are this
+    rank's chunk of the sequence and q, k, v cover the whole of it."""
+    y = _tp_in(model, lp[model.attn_norm_key](x))
     q, k, v = _qkv(model, lp, y, dtype)
     q, k = apply_rotary(q, k, cos, sin)
     o = attend(q, k, v)
@@ -75,9 +102,17 @@ def _block(model, lp, x: torch.Tensor, cos, sin, dtype,
 
 
 def _logits_tokens(model, x: torch.Tensor, dtype) -> torch.Tensor:
-    """Final norm + head on (b, t, d) -> (b, t, vocab). At tp=1 the vocab
-    is unpadded, so no column needs masking."""
-    return model.lm_head(model.norm(x), dtype)
+    """Final norm + head on (b, t, d) -> (b, t, vocab_padded / tp), this
+    rank's vocab columns (under sequence parallelism x is the sequence
+    chunk and the head all-gathers it); padded vocab columns are masked to
+    NEG_INF (JAX `models/transformer.py`), so they carry no probability."""
+    logits = model.lm_head(model.norm(x), dtype, _act_layout(model))
+    if model.vocab_padded == model.cfg.vocab_size:
+        return logits
+    local_v = logits.shape[-1]
+    col = model.mesh.tp_rank * local_v + torch.arange(local_v,
+                                                      device=logits.device)
+    return logits.masked_fill(col >= model.cfg.vocab_size, NEG_INF)
 
 
 def _logits_last(model, x_last: torch.Tensor, dtype) -> torch.Tensor:

@@ -1,28 +1,37 @@
 """Dense LLaMA-style decoder (RoPE + RMSNorm + SwiGLU) — counterpart of
-the JAX `models/transformer.py` at tp=1, with context parallelism.
+the JAX `models/transformer.py`, with tensor, sequence, context and data
+parallelism.
 
 The module holds its weights (float32, like the JAX param tree): per layer
 `wq/wk/wv/wo/norm1/norm2/gate_proj/up_proj/down_proj`, then the final
 `norm` and a biased `lm_head`. `interop.params_from_jax` maps a JAX param
-tree onto this module's `state_dict`.
+tree onto this module's `state_dict` (one tp rank's shard of it at tp > 1).
 
 `forward` is the full-sequence training forward (the JAX `_layer_body`
-stack at tp=1) and `loss` the f32 masked-mean cross-entropy of
-`loss_shard`. The decoding lowerings live in `models/decode.py`, as in the
-JAX package; both share its layer block. `remat=True` recomputes each layer
-in the backward (`torch.utils.checkpoint`, the JAX `remat_wrap`); `False`
-saves every activation.
+stack) and `loss` the f32 masked-mean cross-entropy of `loss_shard`. The
+decoding lowerings live in `models/decode.py`, as in the JAX package; both
+share its layer block. `remat=True` recomputes each layer in the backward
+(`torch.utils.checkpoint`, the JAX `remat_wrap`); `False` saves every
+activation.
 
-At `cp_size > 1` the model runs on one rank of the cp group (`mesh`):
-`forward` and `loss` take this rank's chunk of the sequence (`cp_shard`
-cuts it from a full batch: the zig-zag order first under
-`cp_layout='zigzag'`, then the rank's contiguous slice), attention is
-`ring_attention` or `ulysses_attention` over the group, and the loss sums
-its numerator and count over the group before it divides. Parameters are
-replicated; the train step sums their gradients over the group.
+The model runs on one rank of a `runtime.mesh.Mesh`:
+* at `tp_size > 1` the rank holds its tp shard: wq/wk/wv/gate/up are
+  column-parallel (local heads num_heads/tp and kv_heads/tp), wo/down row-
+  parallel, the embedding and the head vocab-parallel over a vocab padded
+  to a multiple of tp (padded logits masked to NEG_INF); with
+  `sequence_parallel` the activations between sublayers are this rank's
+  t/tp chunk of the sequence (one all-gather of the normed input per
+  sublayer, the row layers reduce-scatter);
+* at `cp_size > 1` `forward` and `loss` take this rank's chunk of the
+  sequence (`cp_shard` cuts it from a full batch: the zig-zag order first
+  under `cp_layout='zigzag'`, then the rank's contiguous slice), and
+  attention is `ring_attention` or `ulysses_attention` over the cp group;
+* the dp axis takes rows of the batch (the train loop cuts them);
+* the loss sums its numerator and count over the batch group (dp x cp)
+  before it divides; the train step sums the gradients over it.
 
-Not ported (multi-device work): tp > 1, MoE, pipeline, sequence
-parallelism, tp overlap, and the 'dots'/'auto' remat policies.
+Not ported: MoE, pipeline, tp overlap, and the 'dots'/'auto' remat
+policies.
 """
 
 from __future__ import annotations
@@ -34,11 +43,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import IGNORE_INDEX, ModelConfig, resolve_dtype_on
 from ..ops.attention import causal_attention
-from ..ops.collectives import all_gather, all_reduce_sum
+from ..ops.collectives import (all_gather, all_max, all_reduce_sum,
+                               gather_from, reduce_from)
 from ..ops.ring_attention import (cp_chunk_index, ring_attention,
                                   ring_schedule, ulysses_attention)
 from ..ops.rope import rope_tables
 from ..parallel.embedding import VocabParallelEmbedding
+from ..parallel.layout import shard_params
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..parallel.norm import RMSNorm
 from .decode import _block, _embed, _logits_tokens, _positions
@@ -67,18 +78,36 @@ def validate_cp(cfg: ModelConfig, tp: int, cp_size: int, cp_impl: str,
                          "(Ulysses assumes rank-order contiguous chunks)")
 
 
-def _layer(cfg: ModelConfig) -> nn.ModuleDict:
+def validate_tp(cfg: ModelConfig, tp: int) -> None:
+    """The JAX `Transformer.__post_init__` divisibility checks, with its
+    messages."""
+    if cfg.num_heads % tp != 0:
+        raise ValueError(f"num_heads {cfg.num_heads} not divisible by "
+                         f"tp_size {tp}")
+    if cfg.attn_dim % tp != 0 or cfg.ffn_dim % tp != 0:
+        raise ValueError(
+            f"attn_dim {cfg.attn_dim} and ffn_dim {cfg.ffn_dim} must be "
+            f"divisible by tp_size {tp}")
+    if cfg.num_heads % cfg.kv_heads != 0:
+        raise ValueError(f"num_heads {cfg.num_heads} must be a multiple "
+                         f"of num_kv_heads {cfg.kv_heads}")
+    if cfg.kv_heads % tp != 0:
+        raise ValueError(f"num_kv_heads {cfg.kv_heads} not divisible by "
+                         f"tp_size {tp}")
+
+
+def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
     d, f, kd = cfg.attn_dim, cfg.ffn_dim, cfg.kv_dim
     return nn.ModuleDict({
-        "wq": ColumnParallelLinear(d, d),
-        "wk": ColumnParallelLinear(d, kd),
-        "wv": ColumnParallelLinear(d, kd),
-        "wo": RowParallelLinear(d, d),
+        "wq": ColumnParallelLinear(d, d, mesh),
+        "wk": ColumnParallelLinear(d, kd, mesh),
+        "wv": ColumnParallelLinear(d, kd, mesh),
+        "wo": RowParallelLinear(d, d, mesh),
         "norm1": RMSNorm(d),
         "norm2": RMSNorm(d),
-        "gate_proj": ColumnParallelLinear(d, f),
-        "up_proj": ColumnParallelLinear(d, f),
-        "down_proj": RowParallelLinear(f, d),
+        "gate_proj": ColumnParallelLinear(d, f, mesh),
+        "up_proj": ColumnParallelLinear(d, f, mesh),
+        "down_proj": RowParallelLinear(f, d, mesh),
     })
 
 
@@ -90,7 +119,8 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, remat: bool = True,
                  cp_size: int = 1, cp_impl: str = "ring",
-                 cp_layout: str = "contiguous", mesh=None):
+                 cp_layout: str = "contiguous", mesh=None,
+                 sequence_parallel: bool = False):
         super().__init__()
         if remat in ("dots", "auto"):
             raise NotImplementedError(
@@ -101,33 +131,50 @@ class Transformer(nn.Module):
         if cfg.num_experts:
             raise NotImplementedError(
                 "num_experts > 0: MoE is not ported yet, see ROADMAP")
-        if cfg.num_heads % cfg.kv_heads != 0:
-            raise ValueError(f"num_heads {cfg.num_heads} must be a multiple "
-                             f"of num_kv_heads {cfg.kv_heads}")
-        validate_cp(cfg, 1, cp_size, cp_impl, cp_layout)
-        if cp_size > 1 and (mesh is None or mesh.cp != cp_size):
-            raise ValueError(f"cp_size {cp_size} needs the Mesh of its cp "
-                             f"group (runtime.mesh.make_mesh), got {mesh}")
         if mesh is not None:    # the device is known: refuse before weights
             resolve_dtype_on(cfg.compute_dtype, mesh.device)
+        tp_size = 1 if mesh is None else mesh.tp
+        validate_tp(cfg, tp_size)
+        validate_cp(cfg, tp_size, cp_size, cp_impl, cp_layout)
+        if cp_size > 1 and (mesh is None or mesh.cp != cp_size):
+            raise ValueError(f"cp_size {cp_size} needs the Mesh of its "
+                             f"group (runtime.mesh.make_mesh), got {mesh}")
         self.cfg = cfg
         self.remat = remat
         self.cp_size = cp_size
         self.cp_impl, self.cp_layout = cp_impl, cp_layout
+        self.tp_size = tp_size
+        self.sequence_parallel = sequence_parallel and tp_size > 1
         self.mesh = mesh
-        self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim)
-        self.layers = nn.ModuleList(_layer(cfg) for _ in range(cfg.num_layers))
+        self.num_local_heads = cfg.num_heads // tp_size
+        self.num_local_kv_heads = cfg.kv_heads // tp_size
+        self.vocab_padded = cfg.padded_vocab_size(tp_size)
+        tp_mesh = mesh if tp_size > 1 else None
+        self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
+                                                tp_mesh)
+        self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
+                                    for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.attn_dim)
-        # at tp=1 the vocab needs no padding, so the head is vocab wide
-        self.lm_head = ColumnParallelLinear(cfg.attn_dim, cfg.vocab_size)
+        self.lm_head = ColumnParallelLinear(cfg.attn_dim, self.vocab_padded,
+                                            tp_mesh)
 
     def init_weights(self, seed: int) -> "Transformer":
         """Random init from `seed` with the JAX package's distributions
         (same distributions, not the same bits): normal(0, 1) embedding,
         uniform(+-1/sqrt(idim)) linear weights, zero biases, unit norms.
-        Draws on the CPU, so a seed gives the same weights on any device."""
-        gen = torch.Generator(device="cpu").manual_seed(seed)
+        Draws on the CPU, so a seed gives the same weights on any device.
+
+        At tp > 1 the full tree is drawn exactly as at tp = 1 and this rank
+        keeps its slice; the padded embedding rows and head columns are
+        zero. So a tp model from seed s is the same function as a tp = 1
+        model from seed s."""
         device = self.embedding.weight.device
+        if self.tp_size > 1:
+            full = Transformer(self.cfg).init_weights(seed).state_dict()
+            self.load_state_dict(shard_params(full, self.tp_size,
+                                              self.mesh.tp_rank))
+            return self
+        gen = torch.Generator(device="cpu").manual_seed(seed)
         self.to("cpu")
         for mod in self.modules():
             if mod is not self and hasattr(mod, "reset_parameters"):
@@ -165,10 +212,15 @@ class Transformer(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: torch.Tensor) -> torch.Tensor:
-        """(b, t) ids and positions -> (b, t, vocab) logits in the compute
-        dtype; at cp > 1 this rank's chunk in, its chunk's logits out.
-        Positions outside the RoPE table clamp to its last row (JAX
-        mode='clip')."""
+        """(b, t) ids and positions -> (b, t, vocab_padded / tp) logits in
+        the compute dtype, this tp rank's vocab columns; at cp > 1 this
+        rank's chunk in, its chunk's logits out. Positions outside the RoPE
+        table clamp to its last row (JAX mode='clip')."""
+        if (self.sequence_parallel
+                and input_ids.shape[-1] % self.tp_size != 0):
+            raise ValueError(
+                f"sequence_parallel needs the (cp-local) sequence length "
+                f"{input_ids.shape[-1]} divisible by tp_size {self.tp_size}")
         dtype = resolve_dtype_on(self.cfg.compute_dtype, input_ids.device)
         x = _embed(self, input_ids, dtype)
         cos_t, sin_t = rope_tables(self.cfg.maxlen, self.cfg.head_dim,
@@ -190,11 +242,14 @@ class Transformer(nn.Module):
     def full_logits(self, input_ids: torch.Tensor,
                     position_ids: torch.Tensor) -> torch.Tensor:
         """The JAX `make_forward`: a FULL (b, t) batch in natural token
-        order -> its (b, t, vocab) logits in natural order, on every rank
-        (each rank runs its chunk; the chunks are gathered and, under the
-        zig-zag layout, put back in order)."""
+        order -> its (b, t, vocab_padded) logits in natural order, on every
+        rank (each rank runs its chunk; the chunks and the tp vocab shards
+        are gathered and, under the zig-zag layout, put back in order)."""
         ids, pos = self.cp_shard(input_ids, position_ids)
         logits = self.forward(ids, pos)
+        if self.tp_size > 1:
+            logits = torch.cat(all_gather(logits, self.mesh, "tp").unbind(0),
+                               dim=-1)
         if self.cp_size == 1:
             return logits
         t = input_ids.shape[-1]
@@ -206,29 +261,62 @@ class Transformer(nn.Module):
         inv = torch.from_numpy(np.argsort(order)).to(full.device)
         return full[:, inv]
 
+    def _token_ce(self, logits: torch.Tensor, tgt: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+        """Per-token f32 CE (..., t) from this rank's vocab columns (the JAX
+        `_token_ce`); tgt holds valid ids (ignored targets set to 0).
+
+        At tp = 1 both modes are one logsumexp over the whole vocab. At tp >
+        1, 'gather' all-gathers the logits over the vocab, computes the CE
+        on every rank and averages the tp-identical copies (/ tp: the value
+        is tp-invariant, and the gather's reduce-scatter backward sums the
+        copies' cotangents); 'vocab_parallel' never forms the full logits:
+        a stop-gradient global max, the summed sumexp, and the target logit
+        taken on the rank that owns it."""
+        if self.tp_size == 1:
+            lse = torch.logsumexp(logits, dim=-1)
+            return lse - torch.gather(logits, -1, tgt[..., None])[..., 0]
+        if mode == "gather":
+            full = gather_from(logits, self.mesh)
+            lse = torch.logsumexp(full, dim=-1)
+            tgt_logit = torch.gather(full, -1, tgt[..., None])[..., 0]
+            return reduce_from(lse - tgt_logit, self.mesh) / self.tp_size
+        local_v = logits.shape[-1]
+        gmax = all_max(logits.detach().amax(dim=-1), self.mesh)
+        sumexp = reduce_from(torch.exp(logits - gmax[..., None]).sum(dim=-1),
+                             self.mesh)
+        lse = torch.log(sumexp) + gmax
+        local = tgt - self.mesh.tp_rank * local_v
+        owned = (local >= 0) & (local < local_v)
+        tgt_logit = torch.gather(logits, -1,
+                                 torch.where(owned, local, 0)[..., None])
+        tgt_logit = reduce_from(torch.where(owned, tgt_logit[..., 0], 0.0),
+                                self.mesh)
+        return lse - tgt_logit
+
     def loss(self, input_ids: torch.Tensor, target_ids: torch.Tensor,
              position_ids: torch.Tensor,
              mode: str = "vocab_parallel") -> torch.Tensor:
         """Mean f32 cross-entropy over the targets that are not
-        IGNORE_INDEX (denominator max(count, 1)), the JAX `loss_shard`. At
-        tp=1 the 'vocab_parallel' and 'gather' modes compute the same
-        value; both names are accepted.
+        IGNORE_INDEX (denominator max(count, 1)), the JAX `loss_shard`, in
+        either of its modes (`_token_ce`; at tp = 1 they compute the same
+        value).
 
-        At cp > 1 the arguments are this rank's chunk; the masked sum and
-        the count are summed over the group first, so every rank returns the
-        global loss. The sum's backward passes its cotangent through, so a
-        rank's gradient is that of local_sum / global_count, and the cp sum
-        of the ranks' gradients (the train step) is the global loss's."""
+        On a mesh the arguments are this rank's rows and chunk; the masked
+        sum and the count are summed over the batch group (dp x cp) first,
+        so every rank returns the global loss. The sum's backward passes
+        its cotangent through, so a rank's gradient is that of local_sum /
+        global_count, and the batch group's sum of the ranks' gradients
+        (the train step) is the global loss's."""
         if mode not in ("vocab_parallel", "gather"):
             raise ValueError(f"unknown loss mode {mode!r}")
         logits = self.forward(input_ids, position_ids).float()
         valid = target_ids != IGNORE_INDEX
         tgt = torch.where(valid, target_ids, 0).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt_logit = torch.gather(logits, -1, tgt[..., None])[..., 0]
-        loss_sum = torch.where(valid, lse - tgt_logit, 0.0).sum()
+        token_loss = self._token_ce(logits, tgt, mode)
+        loss_sum = torch.where(valid, token_loss, 0.0).sum()
         count = valid.float().sum()
-        if self.cp_size > 1:
+        if self.mesh is not None and self.mesh.dp * self.mesh.cp > 1:
             loss_sum, count = all_reduce_sum(torch.stack([loss_sum, count]),
-                                             self.mesh).unbind()
+                                             self.mesh, "batch").unbind()
         return loss_sum / torch.clamp(count, min=1.0)

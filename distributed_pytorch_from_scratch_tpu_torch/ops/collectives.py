@@ -1,74 +1,270 @@
-"""Collectives over the cp group — the part of the JAX `ops/collectives.py`
-that context parallelism needs, as `torch.autograd.Function` conjugate pairs:
+"""Collectives over one axis of the mesh — the port of the JAX
+`ops/collectives.py`, as `torch.autograd.Function` conjugate pairs. Every
+op takes the `Mesh` and the name of the axis it runs over ('tp', 'cp',
+'dp' or 'batch', the dp x cp ranks that share a tp index); at axis size 1
+each is the identity.
+
+Megatron's tensor-parallel pairs (the JAX primitive in brackets):
+
+* `copy_to`: identity forward, all-reduce backward (`pvary`);
+* `reduce_from`: all-reduce forward, identity backward (`psum`);
+* `split_to(dim)`: this rank's slice forward, all-gather backward;
+* `gather_from(dim)`: all-gather forward, reduce-scatter backward
+  (`all_gather`, whose transpose is `psum_scatter`: the cotangents of every
+  rank's copy are summed, not sliced from one);
+* `reduce_scatter(dim)`: reduce-scatter forward, all-gather backward
+  (`psum_scatter`);
+* `all_max`: the max over the axis, no gradient (`pmax` under
+  `stop_gradient`).
+
+Context parallelism's:
 
 * `ring_permute(x, mesh, shift)`: send to rank+shift, receive from
   rank-shift, in one `batch_isend_irecv`; its backward permutes the
   cotangent the other way (the transpose of JAX's `ppermute`);
 * `all_to_all(x, mesh, split_axis, concat_axis)` (JAX's tiled
   `lax.all_to_all`); its backward is the inverse all-to-all;
-* `all_reduce_sum(x, mesh)`: the loss's sum and count. Its backward passes
-  the cotangent through: the sum is replicated, every rank differentiates
-  its own copy of the one global loss, and the train step sums the ranks'
-  gradients (`all_reduce_sum_`, in place, one flat buffer, no autograd);
+* `all_reduce_sum(x, mesh, axis)`: the loss's sum and count. Its backward
+  passes the cotangent through: the sum is replicated, every rank
+  differentiates its own copy of the one global loss, and the train step
+  sums the ranks' gradients (`all_reduce_sum_`, in place, one flat buffer,
+  no autograd);
 * `all_gather(x, mesh)`: every rank's x, stacked (positions, logits; no
   autograd).
 
 Transport: under gloo a CUDA tensor is copied to the host, sent, received
-and copied back, in these functions and nowhere else — gloo's point-to-point
-and all-to-all take CPU tensors only, and NCCL refuses two ranks on one card,
-so a cp group that shares one card runs over gloo. Under NCCL the tensors go
-as they are. `stats` counts what the staging costs on the host: `wait_s`, the
-wait for the device work queued before a staged call (the copy to the host
-must see it finished), and `hop_s`, the copies and the transfer themselves.
+and copied back, in these functions and nowhere else — gloo takes CPU
+tensors only, and NCCL refuses two ranks on one card, so ranks that share
+one card run over gloo. Under NCCL the tensors go as they are. `stats`
+counts per axis what the staging costs on the host: `wait_s`, the wait for
+the device work queued before a staged call (the copy to the host must see
+it finished), and `hop_s`, the copies and the transfer themselves; `calls`
+and `bytes` count every call.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List
+from typing import Dict, List
 
 import torch
 import torch.distributed as dist
 
-stats = {"calls": 0, "bytes": 0, "wait_s": 0.0, "hop_s": 0.0}
+STAT_AXES = ("tp", "cp", "dp", "batch")
+
+
+def _zero() -> Dict[str, float]:
+    return {"calls": 0, "bytes": 0, "wait_s": 0.0, "hop_s": 0.0}
+
+
+stats: Dict[str, Dict[str, float]] = {a: _zero() for a in STAT_AXES}
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, wait_s=0.0, hop_s=0.0)
+    for a in STAT_AXES:
+        stats[a] = _zero()
 
 
-def _staged(mesh, x: torch.Tensor) -> bool:
-    return mesh.backend == "gloo" and x.is_cuda
+def total_stats() -> Dict[str, float]:
+    """`stats` summed over the axes."""
+    out = _zero()
+    for s in stats.values():
+        for k in out:
+            out[k] += s[k]
+    return out
 
 
-def _collective(mesh, x: torch.Tensor, run) -> torch.Tensor:
-    """`run(x_on_the_wire) -> result on the wire`, with x staged through the
-    host under gloo and the result copied back to x's device."""
-    stats["calls"] += 1
-    stats["bytes"] += x.numel() * x.element_size()
-    if not _staged(mesh, x):
+def _collective(mesh, axis: str, x: torch.Tensor, run) -> torch.Tensor:
+    """`run(x_on_the_wire) -> result on the wire` over `axis`, with x staged
+    through the host under gloo and the result copied back to x's
+    device."""
+    st = stats[axis]
+    st["calls"] += 1
+    st["bytes"] += x.numel() * x.element_size()
+    if not (mesh.backend == "gloo" and x.is_cuda):
         return run(x.contiguous())
     t0 = time.perf_counter()
     torch.cuda.current_stream(x.device).synchronize()
     t1 = time.perf_counter()
     out = run(x.cpu()).to(x.device)
-    stats["wait_s"] += t1 - t0
-    stats["hop_s"] += time.perf_counter() - t1
+    st["wait_s"] += t1 - t0
+    st["hop_s"] += time.perf_counter() - t1
     return out
 
 
+def _all_reduce(x: torch.Tensor, mesh, axis: str, op=dist.ReduceOp.SUM,
+                owned: bool = False) -> torch.Tensor:
+    """The reduction of x over `axis`: in a new tensor, or written into x
+    where the caller `owned` it and it was not staged."""
+    group = mesh.axis(axis).group
+
+    def run(buf):
+        buf = buf if owned or buf.data_ptr() != x.data_ptr() else buf.clone()
+        dist.all_reduce(buf, op=op, group=group)
+        return buf
+
+    return _collective(mesh, axis, x, run)
+
+
+def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's x concatenated along `dim`, in axis order."""
+    ax = mesh.axis(axis)
+    moved = x.movedim(dim, 0)
+
+    def run(send):
+        recv = send.new_empty((ax.size * send.shape[0],) + send.shape[1:])
+        dist.all_gather_into_tensor(recv, send, group=ax.group)
+        return recv
+
+    return _collective(mesh, axis, moved, run).movedim(0, dim)
+
+
+def _scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """The sum over `axis` of x, this rank's 1/size chunk along `dim`."""
+    ax = mesh.axis(axis)
+    if x.shape[dim] % ax.size:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {ax.size} ranks")
+    moved = x.movedim(dim, 0)
+
+    def run(send):
+        recv = send.new_empty((send.shape[0] // ax.size,) + send.shape[1:])
+        dist.reduce_scatter_tensor(recv, send, group=ax.group)
+        return recv
+
+    return _collective(mesh, axis, moved, run).movedim(0, dim)
+
+
+def _slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    ax = mesh.axis(axis)
+    if x.shape[dim] % ax.size:
+        raise ValueError(f"split_to: dim {dim} of {tuple(x.shape)} does not "
+                         f"split over {ax.size} ranks")
+    n = x.shape[dim] // ax.size
+    return x.narrow(dim, ax.rank * n, n).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, *ctx.args), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _slice(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, *ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, *ctx.args), None, None, None
+
+
+def copy_to(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """Identity forward; the all-reduce of the cotangent backward (Megatron's
+    f: the input of column-parallel work that every rank shares)."""
+    if mesh.axis(axis).size == 1:
+        return x
+    return _CopyTo.apply(x, mesh, axis)
+
+
+def reduce_from(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """The all-reduce (sum) forward; identity backward (Megatron's g: the
+    partial sums of row-parallel work)."""
+    if mesh.axis(axis).size == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def split_to(x: torch.Tensor, mesh, axis: str = "tp",
+             dim: int = -1) -> torch.Tensor:
+    """This rank's chunk of a replicated x along `dim` forward; the
+    all-gather of the cotangent backward."""
+    if mesh.axis(axis).size == 1:
+        return x
+    return _SplitTo.apply(x, mesh, axis, dim)
+
+
+def gather_from(x: torch.Tensor, mesh, axis: str = "tp",
+                dim: int = -1) -> torch.Tensor:
+    """Every rank's x concatenated along `dim` forward; backward, the
+    cotangents of every rank summed and this rank's chunk kept (a
+    reduce-scatter, the transpose JAX derives)."""
+    if mesh.axis(axis).size == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str = "tp",
+                   dim: int = -1) -> torch.Tensor:
+    """The sum over the axis, this rank's chunk along `dim`, forward; the
+    all-gather of the cotangent backward."""
+    if mesh.axis(axis).size == 1:
+        return x
+    return _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+@torch.no_grad()
+def all_max(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """The elementwise max over the axis; carries no gradient."""
+    if mesh.axis(axis).size == 1:
+        return x.detach()
+    return _all_reduce(x.detach(), mesh, axis, op=dist.ReduceOp.MAX)
+
+
 def _permute(x: torch.Tensor, mesh, shift: int) -> torch.Tensor:
-    n, r = mesh.cp, mesh.cp_rank
+    ax = mesh.axis("cp")
+    n, r = ax.size, ax.rank
 
     def run(send):
         recv = torch.empty_like(send)
-        ops = [dist.P2POp(dist.isend, send, (r + shift) % n, mesh.group),
-               dist.P2POp(dist.irecv, recv, (r - shift) % n, mesh.group)]
+        ops = [dist.P2POp(dist.isend, send, ax.members[(r + shift) % n],
+                          ax.group),
+               dist.P2POp(dist.irecv, recv, ax.members[(r - shift) % n],
+                          ax.group)]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recv
 
-    return _collective(mesh, x, run)
+    return _collective(mesh, "cp", x, run)
 
 
 class _RingPermute(torch.autograd.Function):
@@ -83,11 +279,11 @@ class _RingPermute(torch.autograd.Function):
 
 
 def ring_permute(x: torch.Tensor, mesh, shift: int = 1) -> torch.Tensor:
-    """One ring hop in an explicit direction: rank r sends x to r+shift and
-    returns what r-shift sent, so after s hops of shift=+1 rank r holds the
-    value of rank r-s (the JAX convention). With 2 ranks "next" and
-    "previous" are one peer: both transfers go in one `batch_isend_irecv`,
-    never a blocking send before a blocking receive."""
+    """One ring hop over the cp axis in an explicit direction: rank r sends
+    x to r+shift and returns what r-shift sent, so after s hops of shift=+1
+    rank r holds the value of rank r-s (the JAX convention). With 2 ranks
+    "next" and "previous" are one peer: both transfers go in one
+    `batch_isend_irecv`, never a blocking send before a blocking receive."""
     if shift % mesh.cp == 0:
         raise ValueError("ring_permute needs a shift that is not a multiple "
                          f"of the group size {mesh.cp}; it would self-send")
@@ -96,14 +292,16 @@ def ring_permute(x: torch.Tensor, mesh, shift: int = 1) -> torch.Tensor:
 
 def _a2a(x: torch.Tensor, mesh, split_axis: int, concat_axis: int
          ) -> torch.Tensor:
-    parts = torch.stack(torch.chunk(x, mesh.cp, dim=split_axis))
+    ax = mesh.axis("cp")
+    parts = torch.stack(torch.chunk(x, ax.size, dim=split_axis))
 
     def run(send):
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, group=mesh.group)
+        dist.all_to_all_single(recv, send, group=ax.group)
         return recv
 
-    return torch.cat(_collective(mesh, parts, run).unbind(0), dim=concat_axis)
+    return torch.cat(_collective(mesh, "cp", parts, run).unbind(0),
+                     dim=concat_axis)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -119,62 +317,56 @@ class _AllToAll(torch.autograd.Function):
 
 def all_to_all(x: torch.Tensor, mesh, split_axis: int, concat_axis: int
                ) -> torch.Tensor:
-    """JAX's tiled `all_to_all`: x splits into cp equal chunks along
-    `split_axis`, chunk j goes to rank j, and the chunks received are
-    concatenated along `concat_axis` in rank order."""
+    """JAX's tiled `all_to_all` over the cp axis: x splits into cp equal
+    chunks along `split_axis`, chunk j goes to rank j, and the chunks
+    received are concatenated along `concat_axis` in rank order."""
     if x.shape[split_axis] % mesh.cp:
         raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
                          f"does not split over {mesh.cp} ranks")
     return _AllToAll.apply(x, mesh, split_axis, concat_axis)
 
 
-def _sum_(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The cp sum of x, written into x where x is not staged: callers pass
-    a tensor of their own."""
-    def run(buf):
-        dist.all_reduce(buf, group=mesh.group)
-        return buf
-
-    return _collective(mesh, x, run)
-
-
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return _sum_(x.clone(), mesh)
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def all_reduce_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The cp sum of x on every rank; the cotangent passes through."""
-    if mesh.cp == 1:
+def all_reduce_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum of x over `axis` on every rank; the cotangent passes
+    through."""
+    if mesh.axis(axis).size == 1:
         return x
-    return _AllReduceSum.apply(x, mesh)
+    return _AllReduceSum.apply(x, mesh, axis)
 
 
 @torch.no_grad()
-def all_reduce_sum_(tensors: List[torch.Tensor], mesh) -> None:
-    """Sum every tensor over the cp group IN PLACE, through ONE flat f32
-    buffer (one collective, not one per tensor)."""
-    if mesh.cp == 1 or not tensors:
+def all_reduce_sum_(tensors: List[torch.Tensor], mesh, axis: str) -> None:
+    """Sum every tensor over `axis` IN PLACE, through ONE flat f32 buffer
+    (one collective, not one per tensor)."""
+    if mesh.axis(axis).size == 1 or not tensors:
         return
-    flat = _sum_(torch.cat([t.reshape(-1).float() for t in tensors]), mesh)
+    flat = _all_reduce(torch.cat([t.reshape(-1).float() for t in tensors]),
+                       mesh, axis, owned=True)
     for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(part.view_as(t))
 
 
 @torch.no_grad()
-def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
-    """(cp, *x.shape): every rank's x in rank order (no gradient)."""
-    if mesh.cp == 1:
+def all_gather(x: torch.Tensor, mesh, axis: str = "cp") -> torch.Tensor:
+    """(size, *x.shape): every rank's x on `axis` in rank order (no
+    gradient)."""
+    ax = mesh.axis(axis)
+    if ax.size == 1:
         return x[None]
 
     def run(send):
-        recv = [torch.empty_like(send) for _ in range(mesh.cp)]
-        dist.all_gather(recv, send, group=mesh.group)
+        recv = [torch.empty_like(send) for _ in range(ax.size)]
+        dist.all_gather(recv, send, group=ax.group)
         return torch.stack(recv)
 
-    return _collective(mesh, x, run)
+    return _collective(mesh, axis, x, run)

@@ -16,11 +16,10 @@ import torch
 
 from ..config import MeshConfig, ModelConfig, OptimizerConfig
 from ..models.transformer import Transformer
-from ..ops.collectives import all_reduce_sum_
 from ..ops.ring_attention import (cp_chunk_index, ring_attention,
                                   ring_schedule, ulysses_attention)
 from ..training.optim import init_adam_state
-from ..training.train_step import build_train_step
+from ..training.train_step import build_train_step, reduce_grads
 from .mesh import make_mesh
 
 _np = lambda x: x.detach().float().cpu().numpy()
@@ -90,7 +89,7 @@ def model_runs(rank: int, nprocs: int, init_method: str, cfg: Dict,
             loss = model.loss(*batch)
             loss.backward()
             params = dict(model.named_parameters())
-            all_reduce_sum_([p.grad for p in params.values()], mesh)
+            reduce_grads(model, {k: p.grad for k, p in params.items()})
             ids, _, pos = (torch.from_numpy(np.ascontiguousarray(x)).long()
                            .to(mesh.device) for x in run["batch"])
             out.append({"loss": loss.item(),

@@ -1,6 +1,7 @@
-"""Run one function on every rank of a cp group: one process per rank,
-started with `torch.multiprocessing.spawn` (start method `spawn`: forking a
-process that has initialised CUDA breaks it), joined through a `file://`
+"""Run one function on every rank of a mesh (dp x cp x tp ranks): one
+process per rank, started with `torch.multiprocessing.spawn` (start method
+`spawn`: forking a process that has initialised CUDA breaks it), joined
+through a `file://`
 rendezvous in a fresh temporary directory (no port to collide with another
 group on the same machine). A rank that raises fails the whole group: spawn
 stops the others and re-raises it in the caller.
@@ -39,7 +40,7 @@ def _run(rank: int, fn: Callable, nprocs: int, workdir: str,
 def spawn(fn: Callable, nprocs: int, *args: Any) -> List[Any]:
     """[fn(rank, nprocs, init_method, *args) for each rank], each run in a
     process of its own; see the module docstring."""
-    with tempfile.TemporaryDirectory(prefix="cp-group-") as workdir:
+    with tempfile.TemporaryDirectory(prefix="mesh-group-") as workdir:
         mp.spawn(_run, args=(fn, nprocs, workdir, args), nprocs=nprocs,
                  join=True, start_method="spawn")
         return [torch.load(os.path.join(workdir, f"rank-{r}.pt"),

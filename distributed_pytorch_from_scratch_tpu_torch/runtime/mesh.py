@@ -1,15 +1,22 @@
 """The port's counterpart of the JAX package's `runtime/mesh.py`.
 
 The JAX mesh names five axes ('dp', 'pp', 'cp', 'ep', 'tp') over the devices
-of one program. The port runs the cp axis as `torch.distributed` processes,
-one per rank, as the reference ran its ranks (`mp.spawn` + NCCL): a `Mesh` is
-this process's device plus, at cp > 1, its place in the cp group — the group
-size, this process's rank, the process group and its backend. cp = 1 is one
-device and no group. Every other axis > 1 is refused until its slice lands
-(ROADMAP Queue 1).
+of one program. The port runs the dp, cp and tp axes as `torch.distributed`
+processes, one per rank, as the reference ran its ranks (`mp.spawn` + NCCL).
+Ranks take their coordinates in the JAX device order: the grid (dp, pp, cp,
+ep, tp) with tp innermost, so global rank r sits at tp index r % tp, cp
+index (r // tp) % cp and dp index r // (tp * cp). pp and ep > 1 are refused
+until their slice lands (ROADMAP Queue 1 item 7).
+
+A `Mesh` is this process's device plus its place on each axis: the axis
+size, this process's index on it and the process group of the ranks that
+differ from it on that axis alone. One more group, the batch group, holds
+the dp x cp ranks that share this process's tp index: the loss sums its
+numerator and count over it and the train step sums the gradients over it
+(the JAX `batch_axes`). An axis of size 1 has no group.
 
 Transport: NCCL (one card per rank) or gloo. NCCL refuses two ranks on one
-card, so a cp group on a machine with fewer cards than ranks runs over gloo;
+card, so a group on a machine with fewer cards than ranks runs over gloo;
 gloo moves CPU tensors only, so `ops/collectives.py` stages CUDA tensors
 through host memory there. The transport is the caller's choice
 (`--dist_backend`): nothing switches it silently.
@@ -17,9 +24,9 @@ through host memory there. The transport is the caller's choice
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -27,6 +34,8 @@ import torch.distributed as dist
 from ..config import MeshConfig
 
 AXIS_NAMES = ("dp", "pp", "cp", "ep", "tp")
+# the axes the port runs, and the order every rank creates their groups in
+GROUP_AXES = ("dp", "cp", "tp", "batch")
 BACKENDS = ("nccl", "gloo")
 # a collective that waits longer than this fails the run instead of
 # hanging it (no step of this port waits on a peer for minutes)
@@ -49,10 +58,11 @@ def resolve_device(name) -> torch.device:
     return device
 
 
-def cp_backend(backend: Optional[str], device: torch.device, cp: int) -> str:
-    """The cp group's backend: `backend`, or NCCL on a card and gloo on the
-    CPU when None. Raises where it cannot run: NCCL on CPU tensors, or NCCL
-    with fewer cards than ranks (it refuses two ranks on one card)."""
+def dist_backend(backend: Optional[str], device: torch.device,
+                 world: int) -> str:
+    """The process groups' backend: `backend`, or NCCL on a card and gloo on
+    the CPU when None. Raises where it cannot run: NCCL on CPU tensors, or
+    NCCL with fewer cards than ranks (it refuses two ranks on one card)."""
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend not in BACKENDS:
         raise ValueError(f"dist backend {backend!r}; expected one of "
@@ -60,59 +70,136 @@ def cp_backend(backend: Optional[str], device: torch.device, cp: int) -> str:
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("--dist_backend nccl moves CUDA tensors only; on "
                          "--device cpu use --dist_backend gloo")
-    if backend == "nccl" and torch.cuda.device_count() < cp:
+    if backend == "nccl" and torch.cuda.device_count() < world:
         raise RuntimeError(
-            f"--dist_backend nccl needs one card per rank: {cp} ranks, "
+            f"--dist_backend nccl needs one card per rank: {world} ranks, "
             f"{torch.cuda.device_count()} card(s) visible (NCCL refuses two "
-            f"ranks on one card); pass --dist_backend gloo to run the cp "
-            f"group over gloo, its hops staged through host memory")
+            f"ranks on one card); pass --dist_backend gloo to run the groups "
+            f"over gloo, their hops staged through host memory")
     return backend
+
+
+def coords(rank: int, dp: int, cp: int, tp: int) -> Dict[str, int]:
+    """Global rank -> {dp, cp, tp} indices, tp innermost (JAX device order)."""
+    return {"dp": rank // (tp * cp), "cp": (rank // tp) % cp, "tp": rank % tp}
+
+
+def axis_groups(axis: str, dp: int, cp: int, tp: int) -> List[List[int]]:
+    """Every group of `axis` as its ascending global ranks, in one fixed
+    order. 'batch' groups the dp x cp ranks of each tp index."""
+    world = dp * cp * tp
+    if axis == "batch":
+        key = lambda r: coords(r, dp, cp, tp)["tp"]
+    else:
+        # the ranks that agree on every other axis form one group
+        key = lambda r: tuple(v for a, v in coords(r, dp, cp, tp).items()
+                              if a != axis)
+    groups: Dict[Any, List[int]] = {}
+    for r in range(world):
+        groups.setdefault(key(r), []).append(r)
+    return list(groups.values())
+
+
+@dataclass(frozen=True)
+class Axis:
+    """This process's place on one axis: the axis size, its index there, the
+    group's global ranks in index order and the process group (None at
+    size 1)."""
+
+    name: str
+    size: int = 1
+    rank: int = 0
+    members: Tuple[int, ...] = (0,)
+    group: Any = None
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's device and, at cp > 1, its place in the cp group."""
+    """This process's device and its place on the dp, cp, tp and batch
+    axes."""
 
     device: torch.device
+    dp: int = 1
     cp: int = 1
-    cp_rank: int = 0
-    group: Any = None              # the cp process group; None at cp = 1
-    backend: Optional[str] = None  # "nccl" or "gloo"; None at cp = 1
+    tp: int = 1
+    rank: int = 0                  # global rank
+    backend: Optional[str] = None  # "nccl" or "gloo"; None on one rank
+    axes: Dict[str, Axis] = field(default_factory=dict)
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.cp * self.tp
+
+    def axis(self, name: str) -> Axis:
+        return self.axes.get(name) or Axis(name)
+
+    @property
+    def dp_rank(self) -> int:
+        return self.axis("dp").rank
+
+    @property
+    def cp_rank(self) -> int:
+        return self.axis("cp").rank
+
+    @property
+    def tp_rank(self) -> int:
+        return self.axis("tp").rank
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {"dp": self.dp_rank, "cp": self.cp_rank, "tp": self.tp_rank}
 
 
 def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
               backend: Optional[str] = None,
               init_method: Optional[str] = None) -> Mesh:
-    """The mesh of this process. Refuses every axis > 1 but cp. At cp > 1
-    this process is rank `rank` of the cp group: it takes card
-    `rank % device_count` on a card, and joins the process group through
-    `init_method` (e.g. `file://<dir>/rendezvous`) unless one exists.
+    """The mesh of this process: global rank `rank` of dp * cp * tp. With
+    more than one rank it takes card `rank % device_count` on a card, joins
+    the process group through `init_method` (e.g. `file://<dir>/rendezvous`)
+    unless one exists, and creates every axis's groups — every rank creates
+    every group, in the one order of `GROUP_AXES` and `axis_groups`
+    (`dist.new_group` is a collective: a rank that skipped one would hang
+    the others).
 
     Also pins float32 matmuls to full float32 on the card (no TF32), so a
     float32 run here computes what the float32 reference computes."""
-    for axis in AXIS_NAMES:
+    for axis in ("pp", "ep"):
         n = getattr(cfg, axis)
-        if n > 1 and axis != "cp":
+        if n > 1:
             raise NotImplementedError(
-                f"{axis}={n}: not ported yet, see ROADMAP Queue 1 (the port "
-                f"runs dp=pp=ep=tp=1; cp through torch.distributed)")
+                f"{axis}={n}: not ported yet, see ROADMAP Queue 1 item 7 "
+                f"(the port runs dp, cp and tp through torch.distributed)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(device)
-    if cfg.cp == 1:
+    world = cfg.dp * cfg.cp * cfg.tp
+    if world == 1:
         return Mesh(dev)
-    if not 0 <= rank < cfg.cp:
-        raise ValueError(f"rank {rank} outside the cp group of {cfg.cp}")
-    backend = cp_backend(backend, dev, cfg.cp)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside the mesh of {world} ranks "
+                         f"(dp {cfg.dp} x cp {cfg.cp} x tp {cfg.tp})")
+    backend = dist_backend(backend, dev, world)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method,
-                                world_size=cfg.cp, rank=rank,
+                                world_size=world, rank=rank,
                                 timeout=COLLECTIVE_TIMEOUT)
-    if dist.get_world_size() != cfg.cp or dist.get_rank() != rank:
+    if dist.get_world_size() != world or dist.get_rank() != rank:
         raise RuntimeError(f"the process group holds rank "
                            f"{dist.get_rank()} of {dist.get_world_size()}, "
-                           f"not rank {rank} of cp {cfg.cp}")
-    return Mesh(dev, cfg.cp, rank, dist.group.WORLD, backend)
+                           f"not rank {rank} of dp {cfg.dp} x cp {cfg.cp} x "
+                           f"tp {cfg.tp}")
+    sizes = {"dp": cfg.dp, "cp": cfg.cp, "tp": cfg.tp,
+             "batch": cfg.dp * cfg.cp}
+    axes = {}
+    for name in GROUP_AXES:
+        if sizes[name] == 1:
+            continue
+        for members in axis_groups(name, cfg.dp, cfg.cp, cfg.tp):
+            group = dist.new_group(members, timeout=COLLECTIVE_TIMEOUT)
+            if rank in members:
+                axes[name] = Axis(name, sizes[name], members.index(rank),
+                                  tuple(members), group)
+    return Mesh(dev, cfg.dp, cfg.cp, cfg.tp, rank, backend, axes)

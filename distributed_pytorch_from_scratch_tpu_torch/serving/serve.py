@@ -52,7 +52,8 @@ _DRY_CFG = ModelConfig(attn_dim=64, ffn_dim=128, num_heads=2, num_layers=2,
 # JAX CLI flags kept so its command lines parse: any value but the default
 # is refused, naming what is not ported yet (ROADMAP.md)
 NOT_PORTED = [  # (flag dest, default, what the flag would turn on)
-    ("tp_size", 1, "tensor parallelism"),
+    ("tp_size", 1, "serving at tp>1, ROADMAP Queue 1 item 2; training runs "
+                   "at tp>1"),
     ("cp", 1, "the cp-sharded page pool"),
     ("speculate", 0, "speculative decoding"),
     ("decode_weight_dtype", "native", "int8 decode weights"),

@@ -2,34 +2,41 @@
 
     python -m distributed_pytorch_from_scratch_tpu_torch.train \\
         --model 45m --bf16 --data_path tokens.json --save_dir ckpt \\
+        [--tp_size 2 [--sequence_parallel]] [--dp_size 2] \\
         [--cp_size 2 [--cp_impl ring|ulysses] [--cp_layout contiguous|zigzag]]
 
 Parses the same flags as the JAX CLI, plus two of its own: `--device`
 (default `cuda`; with no card the CLI exits non-zero rather than run on the
 CPU — pass `--device cpu` for the plain PyTorch path) and `--dist_backend`
-(the cp group's transport: nccl, the default on a card, needs one card per
-rank and is refused with fewer; gloo runs anywhere, a card's tensors staged
-through host memory). The loop: epochs over the seeded data loader,
+(the process groups' transport: nccl, the default on a card, needs one card
+per rank and is refused with fewer; gloo runs anywhere, a card's tensors
+staged through host memory). The loop: epochs over the seeded data loader,
 host-to-device copy, one train step (forward, backward through the
 attention kernels, Adam/OneCycle in place), a log line every
 `--log_interval` steps (the one host sync of the interval), a checkpoint
 every `--save_interval` steps and at the end, in the JAX npz format, and
 `--resume` from the newest checkpoint in `--save_dir` (either package's).
 
-Context parallelism (`--cp_size N > 1`): N ranks, one process each
-(`runtime/launch.spawn`), rank r on card r % device_count. Every rank draws
-the same seeded batch and takes its chunk of the sequence (zig-zag order
-first under `--cp_layout zigzag`); attention is the ring (the block kernels)
-or Ulysses (the flash kernels) over the group. Rank 0 alone prints and
-writes checkpoints (the ranks meet at a barrier around each save; every
-rank loads on `--resume`); parameters are replicated, so a cp checkpoint is
-the tp=1 file. A rank that fails fails the run.
+Parallelism: `--dp_size M --cp_size C --tp_size N` run M·C·N ranks, one
+process each (`runtime/launch.spawn`), rank r on card r % device_count, at
+the coordinates of the JAX device order (`runtime/mesh.py`, tp innermost).
+Every rank draws the same seeded batch; its dp index takes b/M of the rows,
+its cp index its chunk of the sequence (zig-zag order first under
+`--cp_layout zigzag`), and its tp index its shard of every tp-sharded
+weight (Megatron's column/row layers, the vocab-parallel embedding and
+head; `--sequence_parallel` shards the activations between sublayers over
+the sequence too). Attention is the flash kernels on the rank's local
+heads, or at cp > 1 the ring (the block kernels) or Ulysses over the cp
+group. Global rank 0 alone prints. The ranks at dp = cp = 0 write one
+checkpoint file per tp rank, in the JAX shard format, between barriers;
+every rank loads on `--resume`, from files written at any tp its vocab
+divides. A rank that fails fails the run.
 
-A flag that takes the run off the ported slices (tp/dp/ep/pp > 1, sequence
-parallelism, tp overlap, ZeRO, the bucketed dp reducer, MoE, the gpt2
-family, `--remat dots|auto`, `--seq_bucket`, `--steps_per_dispatch > 1`,
-the observability/control and multi-host flags) raises NotImplementedError
-at any non-default value, naming its ROADMAP item.
+A flag that takes the run off the ported slices (ep/pp > 1, tp overlap,
+ZeRO, the bucketed dp reducer, MoE, the gpt2 family, `--remat dots|auto`,
+`--seq_bucket`, `--steps_per_dispatch > 1`, the observability/control and
+multi-host flags) raises NotImplementedError at any non-default value,
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,12 +52,13 @@ import torch.distributed as dist
 
 from .config import (IGNORE_INDEX, MODEL_PRESETS, MeshConfig, ModelConfig,
                      OptimizerConfig, model_preset)
-from .data.dataset import get_dataloader
-from .models.transformer import Transformer, validate_cp
+from .data.dataset import dp_rows, get_dataloader
+from .models.transformer import Transformer, validate_cp, validate_tp
 from .ops import collectives
 from .ops.cuda import launch_counts
 from .runtime import launch
-from .runtime.mesh import cp_backend, make_mesh, resolve_device
+from .parallel.layout import tp_dim
+from .runtime.mesh import dist_backend, make_mesh, resolve_device
 from .training.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .training.metrics import device_peak_flops, model_flops_per_step
 from .training.optim import AdamState, init_adam_state, schedule_lr
@@ -58,14 +66,13 @@ from .training.train_step import build_grad_accum_step, build_train_step
 
 REMAT_CHOICES = {"true": True, "false": False}
 
-_MULTI = "ROADMAP Queue 1 (b): tp>1 and the dp axis through torch.distributed"
-_LATER = "ROADMAP Queue 1 (d): pipeline, MoE, perf layers"
+_MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
+_LATER = "ROADMAP Queue 1 item 7 (d): pipeline, MoE, perf layers"
 _OBS = "ROADMAP Queue 1 item 5: the obs hooks of train.py"
 _LEFT = "ROADMAP Queue 1 (a): left out of the training slice"
 # (flag dest, default, the ROADMAP item that brings it)
 OFF_SLICE = [
-    ("tp_size", 1, _MULTI), ("dp_size", 1, _MULTI),
-    ("sequence_parallel", False, _MULTI), ("zero", None, _LATER),
+    ("zero", None, _LATER),
     ("zero1", False, _LATER), ("dp_reduce_bucket_mb", 0.0, _LATER),
     ("dp_reduce_dtype", "f32", _LATER), ("tp_overlap", "off", _LATER),
     ("ep_size", 1, _LATER),
@@ -93,8 +100,9 @@ def get_train_args(argv=None) -> argparse.Namespace:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
 
-    g = p.add_argument_group("distributed (cp through torch.distributed; "
-                             "the other axes at 1 in this port so far)")
+    g = p.add_argument_group("distributed (dp, cp and tp through "
+                             "torch.distributed; ep and pp at 1 in this port "
+                             "so far)")
     g.add_argument("--tp_size", type=int, default=1)
     g.add_argument("--dp_size", type=int, default=1)
     g.add_argument("--cp_size", type=int, default=1)
@@ -204,9 +212,9 @@ def get_train_args(argv=None) -> argparse.Namespace:
     g.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     g.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
-                   help="the cp group's transport (default: nccl on cuda, "
-                        "gloo on cpu); nccl needs one card per rank, gloo "
-                        "stages a card's tensors through host memory")
+                   help="the process groups' transport (default: nccl on "
+                        "cuda, gloo on cpu); nccl needs one card per rank, "
+                        "gloo stages a card's tensors through host memory")
     return p.parse_args(argv)
 
 
@@ -288,16 +296,23 @@ def _model_config(args: argparse.Namespace, vocab_size: int) -> ModelConfig:
                        compute_dtype="bfloat16" if args.bf16 else "float32")
 
 
-def _check_cp(args: argparse.Namespace) -> None:
-    """The cp run's refusals, before any rank starts: no card, a transport
-    that cannot run, and the JAX package's checks and messages."""
+def _world(args: argparse.Namespace) -> int:
+    return args.dp_size * args.cp_size * args.tp_size
+
+
+def _check_dist(args: argparse.Namespace) -> None:
+    """A run of more than one rank's refusals, before any rank starts: no
+    card, a transport that cannot run, the JAX package's checks and
+    messages, and shapes that do not shard."""
     try:
         device = resolve_device(args.device)
-        cp_backend(args.dist_backend, device, args.cp_size)
+        dist_backend(args.dist_backend, device, _world(args))
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"train: {e}")
     cfg = _model_config(args, vocab_size=ModelConfig().vocab_size)
-    validate_cp(cfg, 1, args.cp_size, args.cp_impl, args.cp_layout)
+    validate_tp(cfg, args.tp_size)
+    validate_cp(cfg, args.tp_size, args.cp_size, args.cp_impl,
+                args.cp_layout)
     if cfg.maxlen % args.cp_size != 0:
         raise SystemExit(f"--maxlen {cfg.maxlen} must be divisible by "
                          f"--cp_size {args.cp_size} (sequence is sharded "
@@ -305,46 +320,77 @@ def _check_cp(args: argparse.Namespace) -> None:
     if args.cp_layout == "zigzag" and cfg.maxlen % (2 * args.cp_size):
         raise SystemExit(f"--cp_layout zigzag needs --maxlen {cfg.maxlen} "
                          f"divisible by 2*cp ({2 * args.cp_size})")
+    if args.sequence_parallel and (cfg.maxlen // args.cp_size) % args.tp_size:
+        raise SystemExit(f"--sequence_parallel needs the cp-local sequence "
+                         f"length {cfg.maxlen // args.cp_size} divisible by "
+                         f"--tp_size {args.tp_size}")
+    if args.batch_size % args.dp_size:
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible "
+                         f"by --dp_size {args.dp_size} (each dp rank takes "
+                         f"b/dp rows of the batch)")
 
 
 def train(args: argparse.Namespace) -> dict:
     """Run the loop; returns the summary: steps, start_step, final_loss,
     avg_loss, losses (per step of this run), grad_norm (last step),
-    tokens_per_sec and mfu (None without a known peak) over all steps
-    after the first two and their whole time, step_ms_p50 (their median),
-    peak_mem_gib (None on the CPU), device, checkpoints (paths written),
-    cp, cp_impl, cp_layout, dist_backend, cards, and `ranks`: per rank its
-    kernel launches, peak memory and time in the cp collectives.
+    tokens_per_sec and mfu (per card; None without a known peak) over all
+    steps after the first two and their whole time, step_ms_p50 (their
+    median), peak_mem_gib (None on the CPU), device, checkpoints (paths
+    written, every tp rank's), the mesh (dp, cp, tp, sequence_parallel,
+    cp_impl, cp_layout), dist_backend, cards, and `ranks`: per rank its
+    coordinates, kernel launches, peak memory and time in the collectives
+    per axis.
 
-    At cp > 1 the ranks run in processes of their own; the summary is rank
-    0's (the loss is global, so every rank's agrees), with every rank's
-    `ranks` entry."""
+    With more than one rank the ranks run in processes of their own; the
+    summary is global rank 0's (the loss is global, so every rank's
+    agrees), with every rank's `ranks` entry."""
     refuse_off_slice(args)
-    if args.cp_size == 1:
+    if _world(args) == 1:
         return _train(args)
-    _check_cp(args)
-    summaries = launch.spawn(_cp_rank, args.cp_size, args)
-    return dict(summaries[0], ranks=[s["ranks"][0] for s in summaries])
+    _check_dist(args)
+    summaries = launch.spawn(_rank_main, _world(args), args)
+    return dict(summaries[0], ranks=[s["ranks"][0] for s in summaries],
+                checkpoints=sorted({p for s in summaries
+                                    for p in s["checkpoints"]}))
 
 
-def _cp_rank(rank: int, nprocs: int, init_method: str,
-             args: argparse.Namespace) -> dict:
-    """One rank of a cp run (`runtime/launch.spawn` calls it)."""
+def _rank_main(rank: int, nprocs: int, init_method: str,
+               args: argparse.Namespace) -> dict:
+    """One rank of a run of more than one (`runtime/launch.spawn` calls
+    it)."""
     return _train(args, rank, init_method)
+
+
+def _load_into(model: Transformer, state_dict: Dict[str, torch.Tensor],
+               where: str) -> None:
+    """`model.load_state_dict`, refusing a checkpoint whose padded shapes do
+    not map onto this run's with a message (not torch's size mismatch)."""
+    own = model.state_dict()
+    for key, x in state_dict.items():
+        if key in own and own[key].shape != x.shape:
+            raise SystemExit(
+                f"train: the checkpoint in {where} does not map onto this "
+                f"run: {key} is {tuple(x.shape)} there, "
+                f"{tuple(own[key].shape)} here (tp={model.tp_size}, vocab "
+                f"{model.cfg.vocab_size} padded to {model.vocab_padded}); "
+                f"resume at the tp it was written at")
+    model.load_state_dict(state_dict)
 
 
 def _train(args: argparse.Namespace, rank: int = 0,
            init_method: str = None) -> dict:
     """The loop on one rank; see `train`."""
     try:
-        mesh = make_mesh(MeshConfig(cp=args.cp_size), device=args.device,
-                         rank=rank, backend=args.dist_backend,
-                         init_method=init_method)
+        mesh = make_mesh(MeshConfig(dp=args.dp_size, cp=args.cp_size,
+                                    tp=args.tp_size),
+                         device=args.device, rank=rank,
+                         backend=args.dist_backend, init_method=init_method)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"train: {e}")
-    device, cp = mesh.device, mesh.cp
-    is_main = mesh.cp_rank == 0
-    say = print if is_main else (lambda *a, **k: None)
+    device, cp, tp, world = mesh.device, mesh.cp, mesh.tp, mesh.world
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    # the ranks at dp = cp = 0 write the checkpoint, one file per tp rank
+    is_writer = mesh.dp_rank == 0 and mesh.cp_rank == 0
     maxlen = _model_config(args, 0).maxlen
     dataloader = get_dataloader(args.data_path, args.batch_size,
                                 IGNORE_INDEX, split="train", maxlen=maxlen,
@@ -354,7 +400,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
     cfg = _model_config(args, vocab_size)
     model = Transformer(cfg, remat=REMAT_CHOICES[args.remat], cp_size=cp,
                         cp_impl=args.cp_impl, cp_layout=args.cp_layout,
-                        mesh=mesh if cp > 1 else None)
+                        mesh=mesh if world > 1 else None,
+                        sequence_parallel=args.sequence_parallel)
     model.init_weights(args.random_seed).to(device)
     ocfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup_steps,
                            max_steps=args.max_steps,
@@ -363,23 +410,31 @@ def _train(args: argparse.Namespace, rank: int = 0,
                            lr_schedule=args.lr_schedule,
                            cosine_min_ratio=args.cosine_min_ratio)
     params = dict(model.named_parameters())
-    n_params = sum(p.numel() for p in params.values())
-    cards = (len({r % torch.cuda.device_count() for r in range(cp)})
+    # the global count: tp-sharded leaves hold 1/tp of theirs on each rank
+    n_params = sum(p.numel() * (1 if tp_dim(k) is None else tp)
+                   for k, p in params.items())
+    cards = (len({r % torch.cuda.device_count() for r in range(world)})
              if device.type == "cuda" else 0)
-    cp_desc = ("" if cp == 1 else f", cp_impl={args.cp_impl}, cp_layout="
-               f"{args.cp_layout}, dist_backend={mesh.backend}, {cp} ranks "
-               f"on {cards or 'no'} card(s)")
+    dist_desc = ("" if world == 1 else
+                 f", sequence_parallel={model.sequence_parallel}, cp_impl="
+                 f"{args.cp_impl}, cp_layout={args.cp_layout}, dist_backend="
+                 f"{mesh.backend}, {world} ranks on {cards or 'no'} card(s)")
     say(f"model[llama]: {n_params / 1e6:.2f}M params, vocab={vocab_size}, "
-        f"mesh=dp1 x pp1 x cp{cp} x ep1 x tp1, compute={cfg.compute_dtype}, "
-        f"remat={args.remat}, device={_device_name(device)}{cp_desc}")
+        f"mesh=dp{mesh.dp} x pp1 x cp{cp} x ep1 x tp{tp}, compute="
+        f"{cfg.compute_dtype}, remat={args.remat}, device="
+        f"{_device_name(device)}{dist_desc}")
     opt_state = init_adam_state(params)
     start_step = 0
     if args.resume:
         last = latest_step(args.save_dir)
         if last is not None:
-            state_dict, ck_opt, start_step = load_checkpoint(
-                args.save_dir, last, with_opt=True)
-            model.load_state_dict(state_dict)
+            try:
+                state_dict, ck_opt, start_step = load_checkpoint(
+                    args.save_dir, last, with_opt=True, tp_size=tp,
+                    tp_rank=mesh.tp_rank)
+            except ValueError as e:
+                raise SystemExit(f"train: {e}")
+            _load_into(model, state_dict, args.save_dir)
             if ck_opt is not None:
                 to_dev = lambda t: {k: v.to(device) for k, v in t.items()}
                 opt_state = AdamState(step=ck_opt.step, mu=to_dev(ck_opt.mu),
@@ -392,7 +447,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
     flops_step = model_flops_per_step(cfg, args.batch_size, maxlen) * accum
     peak_flops = device_peak_flops(device)
     if peak_flops is not None:
-        peak_flops *= max(cards, 1)   # MFU against the cards the run uses
+        peak_flops *= max(cards, 1)   # MFU per card: against those it uses
 
     # with accumulation one optimizer step consumes `accum` batches
     steps_per_epoch = len(dataloader) // accum
@@ -422,18 +477,20 @@ def _train(args: argparse.Namespace, rank: int = 0,
     clock = _StepClock(device)
 
     def save(step: int) -> None:
-        # parameters are replicated over cp: rank 0 writes the tp=1 file,
-        # and no rank goes on (or reads it back) before it is published
+        # parameters are replicated over dp and cp: the ranks at dp = cp = 0
+        # write one file per tp rank, and no rank goes on (or reads them
+        # back) before every file is published
         nonlocal last_saved
         avg = float(accum_loss) / max(step - start_step, 1)
-        if cp > 1:
+        if world > 1:
             dist.barrier()
-        if is_main:
+        if is_writer:
             saved.extend(save_checkpoint(
                 args.save_dir, step, avg, model.state_dict(), opt_state,
-                reserve_last_n=args.reserve_last_n_ckpts))
+                reserve_last_n=args.reserve_last_n_ckpts, tp_size=tp,
+                tp_rank=mesh.tp_rank))
             say(f"saved checkpoint iter {step}: {saved[-1]}")
-        if cp > 1:
+        if world > 1:
             dist.barrier()
         last_saved = step
 
@@ -446,8 +503,9 @@ def _train(args: argparse.Namespace, rank: int = 0,
             if accum > 1 and window["input_ids"].shape[0] < accum:
                 continue  # partial accumulation group at the epoch end
             prev_n = n
-            chunks = model.cp_shard(*(window[k] for k in (
-                "input_ids", "target_ids", "position_ids")))
+            chunks = model.cp_shard(*(
+                dp_rows(window[k], mesh.dp, mesh.dp_rank)
+                for k in ("input_ids", "target_ids", "position_ids")))
             ids, tgt, pos = (torch.from_numpy(np.ascontiguousarray(x))
                              .to(device).long() for x in chunks)
             loss, gnorm, opt_state = step_fn(opt_state, ids, tgt, pos)
@@ -511,14 +569,17 @@ def _train(args: argparse.Namespace, rank: int = 0,
                 if window_s > 0 and peak_flops else None),
         "peak_mem_gib": peak_mem,
         "device": _device_name(device), "checkpoints": saved,
-        "cp": cp, "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
+        "dp": mesh.dp, "cp": cp, "tp": tp,
+        "sequence_parallel": model.sequence_parallel,
+        "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
         "dist_backend": mesh.backend, "cards": cards,
-        "ranks": [{"rank": mesh.cp_rank, "device": str(device),
+        "ranks": [{"rank": mesh.rank, **mesh.coords, "device": str(device),
                    "peak_mem_gib": peak_mem, "step_ms_p50": step_ms_p50,
                    "wall_s": sum(step_ms) / 1e3,
                    "launches": {k: v - launches0[k]
                                 for k, v in launches.items()},
-                   "collectives": dict(collectives.stats)}],
+                   "collectives": {a: dict(v) for a, v in
+                                   collectives.stats.items()}}],
     }
 
 

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from ..config import OptimizerConfig
+from ..ops.collectives import all_reduce_sum
+from ..parallel.layout import tp_dim
 
 Tensors = Dict[str, torch.Tensor]
 _f32 = np.float32
@@ -110,24 +112,38 @@ def schedule_lr(cfg: OptimizerConfig, step: int) -> Tuple[np.float32,
     return onecycle_lr(cfg, step)
 
 
-def global_norm(grads: Tensors) -> torch.Tensor:
+def global_norm(grads: Tensors, mesh=None) -> torch.Tensor:
     """Global L2 norm over every gradient, reduced in float32 — shared by
     the clipper and the train step's logged grad norm. A device tensor: no
-    host sync."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    host sync.
+
+    At tp > 1 (`mesh`) each rank holds its shard of the tp-sharded
+    gradients and a whole copy of the replicated ones: the squares of the
+    sharded ones are summed over the tp group, the replicated ones counted
+    once."""
+    sq = lambda keys: sum(torch.sum(torch.square(grads[k].float()))
+                          for k in keys)
+    if mesh is None or mesh.tp == 1:
+        return torch.sqrt(sq(grads))
+    sharded = [k for k in grads if tp_dim(k) is not None]
+    replicated = [k for k in grads if tp_dim(k) is None]
+    return torch.sqrt(all_reduce_sum(sq(sharded), mesh, "tp")
+                      + sq(replicated))
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float) -> Tensors:
-    """torch `clip_grad_norm_` semantics: one L2 norm over every gradient,
-    scaled by max_norm/(norm + 1e-6) only when the norm exceeds max_norm."""
-    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
+def clip_by_global_norm(grads: Tensors, max_norm: float, mesh=None,
+                        norm=None) -> Tensors:
+    """torch `clip_grad_norm_` semantics: one L2 norm over every gradient
+    (`norm`, when the caller has it), scaled by max_norm/(norm + 1e-6) only
+    when the norm exceeds max_norm."""
+    norm = global_norm(grads, mesh) if norm is None else norm
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}
 
 
 @torch.no_grad()
 def adam_update(cfg: OptimizerConfig, params: Tensors, grads: Tensors,
-                state: AdamState) -> AdamState:
+                state: AdamState, mesh=None, norm=None) -> AdamState:
     """One Adam(W) step with this step's scheduled (lr, beta1), in place on
     `params` and the moments; returns the state with step + 1.
 
@@ -135,9 +151,11 @@ def adam_update(cfg: OptimizerConfig, params: Tensors, grads: Tensors,
         nu <- b2*nu + (1-b2)*g^2
         p  <- p - lr * (mu/(1-b1^t)) / (sqrt(nu/(1-b2^t)) + eps)
 
-    and with cfg.weight_decay > 0, p *= 1 - lr*wd first (AdamW)."""
+    and with cfg.weight_decay > 0, p *= 1 - lr*wd first (AdamW). The clip
+    takes the global norm of a tp-sharded gradient over `mesh`; `norm` is
+    that norm when the caller has taken it already."""
     if cfg.clip_grad_norm is not None:
-        grads = clip_by_global_norm(grads, cfg.clip_grad_norm)
+        grads = clip_by_global_norm(grads, cfg.clip_grad_norm, mesh, norm)
     lr, beta1 = schedule_lr(cfg, state.step)
     beta2 = cfg.betas[1]
     t = _f32(state.step + 1)

@@ -378,7 +378,7 @@ def test_train_cli_refusals(tmp_path):
     with pytest.raises(SystemExit) as exc:   # no card, no --device cpu
         train_cli.main(base)
     assert exc.value.code not in (0, None)
-    for flags in (["--tp_size", "2"], ["--remat", "dots"],
+    for flags in (["--tp_overlap", "ring"], ["--remat", "dots"],
                   ["--steps_per_dispatch", "2"], ["--seq_bucket", "128"],
                   ["--family", "gpt2"], ["--zero", "1"], ["--no_trace"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
