@@ -21,8 +21,8 @@ result line):
    + `flash_attention.rounding_slack` + 1e-5 of the row's max; one key
    tile of grid values with no slack) and f32 (the SIMT kernel), at the
    45m prefill shapes and the tile edges t 1, 63, 64, 65, 127, 129, 1000,
-   head_dim 32/64/128, GQA groups 2 and 4, pad rows exactly zero, one
-   launch per call;
+   head_dim 32/64/128, GQA groups 2 and 4, the tp=2 prefill's 4 local
+   heads over 4 kv heads, pad rows exactly zero, one launch per call;
 4. kernel times at the largest 45m prefill shape: bare launches (CUDA
    events) and device time (torch.profiler), achieved TFLOP/s, beside the
    plain version, SDPA as a yardstick, and the bound;
@@ -72,7 +72,9 @@ result line):
     (a ragged row tile), cw 128 from start 61, ps 8 and ps 16 (key tiles
     across pages), ps 128 (a page across key tiles), GQA g 4 at cw 32 (row
     tiles span heads), head_dim 32 and 128 with int8 pools, pos_offset with
-    a row that sees nothing, a full table, pad columns (qlen < cw); one
+    a row that sees nothing, a full table, pad columns (qlen < cw); the
+    tp=2 engine's shapes, 4 local heads over 4 kv heads: decode q (16, 4,
+    1, 64) and chunk q (1, 4, 128, 64), native and int8 pools; one
     launch per call, on the route its width names and the kernel
     `kernel_route` names for its dtype; two decode calls bit-equal, two
     bf16 chunk calls bit-equal (native and int8 pools);
@@ -150,7 +152,27 @@ result line):
 27. tp_profile: one tp=2 step of the 45m bf16 cell under torch.profiler in
     each rank: wall, device busy (the kernels apart from the hops'
     copies), the card's idle share, kernels, the flash kernels' share (no
-    SIMT flash kernel may run), and the tp hops' host time and bytes.
+    SIMT flash kernel may run), and the tp hops' host time and bytes;
+28. tp_serve: `serve.main --tp_size 2 --dist_backend gloo` (two ranks on
+    the card; rank 0 decides each dispatch and broadcasts it) at the 45m
+    preset, bf16: the slot engine on 8 requests (prompts 64-512, 32 new
+    tokens, 8 slots), then the paged engine on 8 requests behind a
+    96-token shared prefix (page 64, chunk 128, COW, no preemption), bf16
+    and int8 pages — every request served in-vocab, both ranks' dispatches
+    equal by kind and shape, on each rank K1 forward 12 times per prefill
+    dispatch, K3 12 times per decode step and per chunk (the decode
+    kernel at one position, the wgmma chunk kernel above; no SIMT route),
+    2 x 12 + 2 tp hops per dispatch (the dispatch broadcasts apart); TPOT,
+    TTFT, tokens/s and the cost per hop printed;
+29. tp_serve_card_vs_cpu: the 45m widths at 2 layers, f32, 4 requests
+    through each engine: tp=2 on the card gives the greedy tokens of tp=1
+    on the card and on the CPU's plain path, and the first prefill's
+    gathered logits are within 1e-4 (of the largest |logit|, at least 1)
+    of tp=1's;
+30. tp_serve_profile: one tp=2 decode step of each engine (45m bf16, 8
+    live requests) under torch.profiler in each rank: wall, device busy
+    (kernels apart from the hops' copies), the tp hops' host time, the
+    card's idle share, the paged decode kernel 12 times.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -363,6 +385,8 @@ FWD_LIMIT = {"bfloat16": "1 bf16 step + rounding_slack + 1e-5 of the row's "
 # and GQA group 2 and 4, t_real < t
 FWD_CASES = [((4, 8, 64, 64), 8, None, ()), ((4, 8, 300, 64), 8, None, ()),
              ((4, 8, 512, 64), 8, None, ()), ((2, 8, 256, 64), 4, 200, ()),
+             # the slot prefill at tp 2: 4 local heads, 4 local kv heads
+             ((4, 4, 512, 64), 4, None, ()), ((2, 4, 192, 64), 4, None, ()),
              ((2, 4, 256, 128), 4, None, ()), ((2, 4, 192, 32), 2, 150, ()),
              ((1, 8, 1, 64), 2, None, ()), ((2, 4, 63, 32), 1, None, ()),
              ((1, 4, 65, 128), 2, 60, ()), ((2, 8, 127, 64), 2, 100, ()),
@@ -1393,6 +1417,15 @@ PAGED_CASES = [  # (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
      False, [128, 128], None, 0),
     ("chunk qlen < cw: pad columns", 3, 8, 8, 128, 64, 64, 6, False,
      [0, 64, 200], [1, 50, 128], 0),
+    # the paged engine at tp 2: 4 local heads over 4 local kv heads
+    ("tp 2 decode, 4 local heads", 16, 4, 4, 1, 64, 64, 11, False,
+     [40 + 44 * i for i in range(16)], None, 0),
+    ("tp 2 decode, 4 local heads, int8 pools", 16, 4, 4, 1, 64, 64, 11, True,
+     [40 + 44 * i for i in range(16)], None, 0),
+    ("tp 2 chunk, 4 local heads", 1, 4, 4, 128, 64, 64, 6, False, [256],
+     None, 0),
+    ("tp 2 chunk, 4 local heads, int8 pools", 1, 4, 4, 128, 64, 64, 6, True,
+     [256], None, 0),
 ]
 
 
@@ -2759,12 +2792,346 @@ def phase_tp_profile(torch) -> dict:
         f" of the wall)")
     return {"ranks": ranks}
 
+# ---- slice 11: serving at tp > 1 ----
+
+# the tp=2 serve runs: the 45m preset, bf16, two ranks sharing the one card
+# over gloo. The slot engine takes a burst of 8 prompts of 64-512 tokens;
+# the paged engine 8 behind a 96-token shared prefix (it ends mid-page, so
+# sharers copy that page: COW) on the default pool, slots x pages per
+# slot, so no request is preempted; then the same with int8 pages
+TP_SERVE_BASE = ["--model", "45m", "--random_init", "--vocab_size", "1024",
+                 "--tp_size", "2", "--dist_backend", "gloo",
+                 "--num_requests", "8", "--arrival", "burst",
+                 "--prompt_len_min", "64", "--prompt_len_max", "512",
+                 "--max_new_tokens", "32", "--slots", "8"]
+TP_SERVE_RUNS = {  # name: flags
+    "serve_tp2": ["--max_prefill_batch", "4"],
+    "serve_paged_tp2": ["--paged", "--page_size", "64", "--prefill_chunk",
+                        "128", "--shared_prefix_len", "96"],
+    "serve_paged_tp2_int8": ["--paged", "--page_size", "64",
+                             "--prefill_chunk", "128", "--shared_prefix_len",
+                             "96", "--kv_dtype", "int8"],
+}
+
+
+def _check_tp_serve_rank(name, r, layers) -> None:
+    """One rank of a tp=2 serve run: its kernels per dispatch, its tp hops
+    per dispatch (the dispatch broadcasts apart), no SIMT route."""
+    d = r["dispatches"]
+    model_dispatches = sum(n for k, n in d.items() if k != "cow_copy")
+    what = f"{name} rank {r['rank']}"
+    if r["tp_hops"]["calls"] != (2 * layers + 2) * model_dispatches:
+        raise AssertionError(
+            f"{what}: {r['tp_hops']['calls']} tp hops over "
+            f"{model_dispatches} dispatches, expected {2 * layers + 2} each "
+            f"(wo and down_proj all-reduces, the embedding's, the logits "
+            f"gather)")
+    if name == "serve_tp2":
+        _only(r["launches"], {"flash_attention_fwd":
+                              layers * d["slot_prefill"]},
+              f"{what} ({layers} per prefill dispatch)")
+        return
+    one = sum(n for kind, shape, n in r["dispatch_shapes"]
+              if kind == "paged_chunk" and shape[0] == 1)
+    chunks = d["paged_chunk"]
+    _only(r["launches"], {"paged_attention": layers * (d["paged_decode"]
+                                                      + chunks)},
+          f"{what} ({layers} x (decode steps + chunks))")
+    # a one-position chunk is decode-shaped: the decode kernel takes it
+    want = {"paged_decode": layers * (d["paged_decode"] + one),
+            "paged_chunk_sm90": layers * (chunks - one), "paged_attn": 0}
+    if r["paged_launches_by_kernel"] != want:
+        raise AssertionError(f"{what}: paged launches by kernel "
+                             f"{r['paged_launches_by_kernel']}, expected "
+                             f"{want} (no SIMT route)")
+
+
+def phase_tp_serve(torch) -> dict:
+    """serve.main at tp=2 over gloo on the one card, the slot engine and the
+    paged engine (bf16 and int8 pages): every request served with in-vocab
+    tokens, both ranks in lockstep, K1 forward 12 times per prefill
+    dispatch and K3 12 times per decode step (decode kernel) and per chunk
+    (the wgmma chunk kernel above one position) on each rank, 2L + 2 tp
+    hops per dispatch. Returns each run's launches summed over the ranks
+    and its summary."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    layers = model_preset("45m").num_layers
+    res = {}
+    for name, flags in TP_SERVE_RUNS.items():
+        out = serve.main(TP_SERVE_BASE + flags)
+        ranks, st = out["ranks"], out["engine_stats"]
+        if out["completed"] != out["requests"]:
+            raise AssertionError(f"{name}: served {out['completed']} of "
+                                 f"{out['requests']} requests")
+        toks = [t for ts in out["outputs"].values() for t in ts]
+        if not toks or not all(0 <= t < 1024 for t in toks):
+            raise AssertionError(f"{name}: tokens missing or outside the "
+                                 f"vocab")
+        if not all(r["dispatches"] == ranks[0]["dispatches"] and
+                   r["dispatch_shapes"] == ranks[0]["dispatch_shapes"]
+                   for r in ranks):
+            raise AssertionError(f"{name}: the ranks ran different "
+                                 f"dispatches: "
+                                 f"{[r['dispatches'] for r in ranks]}")
+        for r in ranks:
+            _check_tp_serve_rank(name, r, layers)
+        if "paged" in name and (st["cow_copies"] <= 0 or st["preemptions"]
+                                or st["prefix_hit_tokens"] <= 0
+                                or st["pages_in_use"]):
+            raise AssertionError(f"{name}: COW copies {st['cow_copies']}, "
+                                 f"preemptions {st['preemptions']}, prefix "
+                                 f"hits {st['prefix_hit_tokens']}, pages in "
+                                 f"use {st['pages_in_use']}")
+        summed = {}
+        for r in ranks:
+            for k, v in list(r["launches"].items()) + [
+                    (f"paged_{k}", v) for k, v in
+                    r["paged_launches_by_kernel"].items()]:
+                summed[k] = summed.get(k, 0) + v
+        d = ranks[0]["dispatches"]
+        hops = ranks[0]["tp_hops"]
+        host_s = hops["wait_s"] + hops["hop_s"]
+        bc = ranks[0]["dispatch_broadcasts"]
+        model_dispatches = sum(n for k, n in d.items() if k != "cow_copy")
+        log(f"tp_serve {name} (45m bf16, tp=2 over gloo on one card): "
+            f"{out['completed']}/{out['requests']} requests, "
+            f"{out['generated_tokens']} tokens in {out['wall_s']} s -> "
+            f"{out['tokens_per_sec']} tok/s; TTFT p50/p95 "
+            f"{out['ttft_ms_p50']}/{out['ttft_ms_p95']} ms; TPOT p50/p95 "
+            f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms; dispatches per "
+            f"rank {d} (lockstep checked); tp hops per dispatch "
+            f"{hops['calls'] / model_dispatches:.1f} (= 2 x {layers} + 2, "
+            f"checked), rank 0 {hops['calls']} hops, "
+            f"{hops['bytes'] / max(hops['calls'], 1) / 1e3:.3f} KB each on "
+            f"average, host {host_s:.3f} s (wait {hops['wait_s']:.3f}"
+            f" + hop {hops['hop_s']:.3f}) = "
+            f"{host_s / max(hops['calls'], 1) * 1e3:.3f} ms per hop, "
+            f"{host_s / ranks[0]['wall_s']:.3f} of rank 0's "
+            f"{ranks[0]['wall_s']:.3f} s; dispatch broadcasts "
+            f"{bc['calls']} calls, {bc['bytes']} bytes, host "
+            f"{bc['hop_s'] * 1e3:.3f} ms; "
+            + ("" if "paged" not in name else
+               f"COW copies {st['cow_copies']}, prefix hit tokens "
+               f"{st['prefix_hit_tokens']}, preemptions "
+               f"{st['preemptions']}; ")
+            + f"kernel launches summed over ranks "
+            f"{ {k: v for k, v in summed.items() if v} }")
+        res[name] = {"launches": summed, "summary": out}
+    return res
+
+
+def _tp_serve_cases(cfg, seed: int) -> list:
+    """serve_runs' runs for the card-vs-CPU check: 4 requests of 64-200
+    tokens (the paged ones behind a 96-token shared prefix), 16 new tokens,
+    through each engine."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = [64, 200, 131, 97]
+    prompts = [[int(x) for x in rng.integers(3, cfg.vocab_size, n)]
+               for n in lens]
+    prefix = [int(x) for x in rng.integers(3, cfg.vocab_size, 96)]
+    req = lambda ps: [(p, 16, "default", None) for p in ps]
+    buf = 96 + max(lens) + 18
+    return [dict(engine="slot", kw=dict(num_slots=4, buf_len=buf, eos_id=1,
+                                        prefill_bucket=64,
+                                        max_prefill_batch=2),
+                 requests=req(prompts), stagger=1, tick=0.02),
+            dict(engine="paged", kw=dict(num_slots=4, buf_len=buf, eos_id=1,
+                                         page_size=64, prefill_chunk=128),
+                 requests=req([prefix + p for p in prompts]), stagger=1,
+                 tick=0.02)]
+
+
+def phase_tp_serve_card_vs_cpu(torch) -> None:
+    """The 45m widths at 2 layers, f32: both engines at tp=2 on the card
+    (one gloo group) give the greedy tokens of tp=1 on the card and of tp=1
+    on the CPU's plain path, and the first prefill's gathered logits are
+    within 1e-4 of tp=1's on the card (of the largest |logit|, at least
+    1)."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    cfg = model_preset("45m", num_layers=2, compute_dtype="float32")
+    tree = params_to_jax(Transformer(cfg).init_weights(seed=9).state_dict())
+    runs = _tp_serve_cases(cfg, 9)
+    rng = np.random.default_rng(9)
+    buf = np.ones((2, 256), np.int32)              # EOS-padded, one bucket
+    buf[0, :200] = rng.integers(3, cfg.vocab_size, 200)
+    buf[1, :117] = rng.integers(3, cfg.vocab_size, 117)
+    calls = [dict(kind="prefill", args=(buf, np.array([200, 117], np.int32)),
+                  page_size=None)]
+    kw = dict(cfg=dataclasses.asdict(cfg), tree=tree)
+    todo = [("serve_runs", {"tp": 2}, dict(kw, runs=runs)),
+            ("decode_logits", {"tp": 2}, dict(kw, calls=calls))]
+    tp2 = launch.spawn(tp_checks.jobs, 2, todo, ("cuda",), "gloo")
+    one = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_mesh(MeshConfig(), device=dev)
+        one[dev] = (tp_checks.serve_runs(mesh, kw["cfg"], tree, runs),
+                    tp_checks.decode_logits(mesh, kw["cfg"], tree, calls))
+    for i, run in enumerate(runs):
+        toks = tp2[0][0][i]["tokens"]
+        same = {dev: sum(toks[r] == one[dev][0][i]["tokens"][r]
+                         for r in toks) for dev in one}
+        log(f"tp serve card vs cpu ({run['engine']} engine, 45m widths, 2 "
+            f"layers, f32, {len(toks)} requests x 16 new tokens): tp=2 on "
+            f"the card token-identical to tp=1 on the card for "
+            f"{same['cuda']}, to tp=1 on the CPU for {same['cpu']} of "
+            f"{len(toks)} requests; rank dispatches "
+            f"{tp2[0][0][i]['dispatches']} / {tp2[1][0][i]['dispatches']}")
+        if not (toks == one["cuda"][0][i]["tokens"] ==
+                one["cpu"][0][i]["tokens"]):
+            raise AssertionError(f"tp=2 {run['engine']} tokens differ from "
+                                 f"tp=1's")
+        if tp2[0][0][i]["dispatches"] != tp2[1][0][i]["dispatches"]:
+            raise AssertionError("the tp=2 ranks ran different dispatches")
+    lg2, lg1, lgc = tp2[0][1][0], one["cuda"][1][0], one["cpu"][1][0]
+    scale = max(1.0, float(np.abs(lg1).max()))
+    diff = float(np.abs(lg2 - lg1).max())
+    log(f"tp serve card vs cpu: the first prefill's gathered logits (2 "
+        f"prompts, 200 and 117 tokens) at tp=2 vs tp=1 on the card: max abs "
+        f"diff {diff:.3e} (limit 1e-4 x {scale:.3f}); tp=1 card vs cpu "
+        f"{float(np.abs(lg1 - lgc).max()):.3e}; the ranks' gathered logits "
+        f"equal: {bool(np.array_equal(tp2[0][1][0], tp2[1][1][0]))}")
+    if not (diff <= 1e-4 * scale
+            and np.array_equal(tp2[0][1][0], tp2[1][1][0])):
+        raise AssertionError("tp=2 prefill logits disagree with tp=1's")
+
+
+def _tp_serve_profile_rank(rank: int, nprocs: int, init_method: str) -> dict:
+    """One rank of the profiled tp=2 decode steps (runtime/launch.spawn):
+    each engine at the 45m bf16 preset with 8 live requests, then one
+    timed decode step and one under torch.profiler."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.ops import collectives
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine, PagedEngine, Request)
+    mesh = make_mesh(MeshConfig(tp=nprocs), device="cuda", rank=rank,
+                     backend="gloo", init_method=init_method)
+    cfg = model_preset("45m", compute_dtype="bfloat16")
+    model = Transformer(cfg, mesh=mesh).init_weights(seed=1).to(mesh.device)
+    rng = np.random.default_rng(1)
+
+    def every_rank(seen: bool) -> bool:
+        flag = torch.tensor([int(seen)])
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+        return bool(flag.item())
+
+    out = {"rank": rank}
+    for kind, plen in (("slot", 512), ("paged", 128)):
+        # eos_id = vocab_size: never picked, so every request stays live
+        if kind == "slot":
+            eng = ContinuousBatchingEngine(
+                model, mesh, num_slots=8, buf_len=plen + 64,
+                eos_id=cfg.vocab_size, max_prefill_batch=4)
+        else:
+            eng = PagedEngine(model, mesh, num_slots=8, buf_len=plen + 64,
+                              eos_id=cfg.vocab_size, page_size=64,
+                              prefill_chunk=128)
+        leader = eng.dispatch.leader
+        if leader:
+            for i in range(8):
+                eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(
+                    3, cfg.vocab_size, plen)], max_new=40))
+            while eng.scheduler.pending or getattr(eng, "_prefilling", {}):
+                eng.step()
+            for _ in range(3):
+                eng.step()
+            eng.dispatch.stop()
+        else:
+            eng.dispatch.serve()
+        # from here on a leader's step is one decode dispatch
+        one_step = eng.step if leader else (lambda: eng.dispatch.serve(1))
+        torch.cuda.synchronize()
+        dist.barrier()
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        hops = dict(collectives.stats["tp"])
+        bcast = dict(collectives.stats["dispatch"])
+        dist.barrier()
+        busy = copy = 0.0
+        n = n_copy = 0
+        counts = {}
+        for name, us in _profiled(torch, one_step,
+                                  f"tp serve profile {kind}, rank {rank}",
+                                  every_rank):
+            busy += us
+            n += 1
+            if "memcpy" in name.lower():
+                copy += us
+                n_copy += 1
+            for k in (PAGED_KERNELS["decode"], PAGED_KERNELS["chunk"],
+                      PAGED_SIMT_KERNEL) + SM90_KERNELS:
+                if k in name:
+                    counts[k] = counts.get(k, 0) + 1
+        want = ({PAGED_KERNELS["decode"]: cfg.num_layers} if kind == "paged"
+                else {})
+        if counts != want:
+            raise AssertionError(f"tp serve profile {kind} rank {rank}: a "
+                                 f"decode step ran attention kernels "
+                                 f"{counts}, expected {want}")
+        out[kind] = {"wall_ms": wall_ms, "busy_ms": busy / 1e3,
+                     "events": n, "copy_ms": copy / 1e3, "copies": n_copy,
+                     "hops": hops, "bcast": bcast, "attn": counts}
+    return out
+
+
+def phase_tp_serve_profile(torch) -> dict:
+    """One tp=2 decode step of each engine (45m bf16, 8 live requests)
+    under torch.profiler in each rank: wall, device busy (kernels apart
+    from the hops' copies), the tp hops' host time and the card's idle
+    share."""
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
+    ranks = launch.spawn(_tp_serve_profile_rank, 2)
+    for kind in ("slot", "paged"):
+        r0, r1 = ranks[0][kind], ranks[1][kind]
+        kern = lambda r: r["busy_ms"] - r["copy_ms"]
+        hop = r0["hops"]
+        log(f"tp serve profile ({kind} engine, 45m bf16, tp=2 over gloo on "
+            f"one card, 8 live requests): rank 0's decode step: wall "
+            f"{r0['wall_ms']:.3f} ms, device busy {r0['busy_ms']:.3f} ms "
+            f"over {r0['events']} events: kernels {kern(r0):.3f} ms, the "
+            f"hops' copies {r0['copy_ms']:.3f} ms ({r0['copies']}) (rank 1: "
+            f"kernels {kern(r1):.3f} ms, copies {r1['copy_ms']:.3f} ms); the "
+            f"card's idle share 1 - (both ranks' busy) / wall "
+            f"{1 - (r0['busy_ms'] + r1['busy_ms']) / r0['wall_ms']:.3f}; tp "
+            f"hops {hop['calls']} calls, {hop['bytes'] / 1e3:.3f} KB: wait "
+            f"{hop['wait_s'] * 1e3:.3f} ms + staged copies and transfer "
+            f"{hop['hop_s'] * 1e3:.3f} ms ("
+            f"{(hop['wait_s'] + hop['hop_s']) * 1e3 / r0['wall_ms']:.3f} of "
+            f"the wall, {(hop['wait_s'] + hop['hop_s']) * 1e3 / max(hop['calls'], 1):.3f}"
+            f" ms per hop); dispatch broadcast {r0['bcast']['calls']} calls,"
+            f" {r0['bcast']['bytes']} bytes, host "
+            f"{r0['bcast']['hop_s'] * 1e3:.3f} ms; attention kernels "
+            f"{r0['attn']}")
+    return {"ranks": ranks}
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
           "paged_card_vs_cpu", "paged_profile", "ring_check", "ring_times",
           "cp_train", "cp_tiny", "cp_card_vs_cpu", "cp_profile", "tp_train",
-          "tp_tiny", "tp_card_vs_cpu", "tp_profile")
+          "tp_tiny", "tp_card_vs_cpu", "tp_profile", "tp_serve",
+          "tp_serve_card_vs_cpu", "tp_serve_profile")
 
 
 def main() -> None:
@@ -2811,10 +3178,11 @@ def run(torch, phases: set, workdir: str) -> list:
             f"{time.perf_counter() - t1:.1f} s")
     (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
-     tp_runs, tp_tiny) = (res.get(k) for k in (
+     tp_runs, tp_tiny, tp_served) = (res.get(k) for k in (
          "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
          "train", "paged_check", "paged_times", "paged_serve", "ring_check",
-         "ring_times", "cp_train", "cp_tiny", "tp_train", "tp_tiny"))
+         "ring_times", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
+         "tp_serve"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -2831,7 +3199,9 @@ def run(torch, phases: set, workdir: str) -> list:
                          "train_tp2_dp2": tp_runs["tp2_dp2"].get(k, 0),
                          "train_tp2_cp2_tiny_f32": tp_tiny["float32"].get(k, 0),
                          "train_tp2_cp2_tiny_bf16":
-                             tp_tiny["bfloat16"].get(k, 0)}
+                             tp_tiny["bfloat16"].get(k, 0),
+                         **{name: run["launches"].get(k, 0)
+                            for name, run in tp_served.items()}}
     at_path = bwd_times["errs"]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
@@ -2878,7 +3248,9 @@ def run(torch, phases: set, workdir: str) -> list:
              "serve_paged": paged_served["paged_by_kernel"][
                  "paged_chunk_sm90"],
              "serve_paged_int8": paged_served["paged_int8_by_kernel"][
-                 "paged_chunk_sm90"]}},
+                 "paged_chunk_sm90"],
+             **{name: run["launches"]["paged_paged_chunk_sm90"]
+                for name, run in tp_served.items()}}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

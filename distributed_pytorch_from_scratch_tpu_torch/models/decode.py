@@ -7,7 +7,9 @@ dtype. Paged pools are (num_layers, num_pages + 1, kv_heads, page_size,
 head_dim), or (codes int8, scales f32 (num_layers, num_pages + 1, kv_heads,
 page_size)) tuples for int8 pages (serving/kv_manager.py). Under
 grouped-query attention they hold kv_heads entries and query head i reads kv
-head i // (num_heads / kv_heads).
+head i // (num_heads / kv_heads). At tp > 1 a rank's caches hold its
+kv_heads / tp local heads, its q its num_heads / tp, and the lowerings
+return its vocab columns of the logits; the sampler gathers them.
 
 Where JAX returns updated caches from a pure function, the lowerings here
 write the caches IN PLACE (torch runs eagerly; the JAX engine gets the same
@@ -116,8 +118,19 @@ def _logits_tokens(model, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _logits_last(model, x_last: torch.Tensor, dtype) -> torch.Tensor:
-    """`_logits_tokens` at t = 1: (b, 1, d) -> (b, vocab)."""
+    """`_logits_tokens` at t = 1: (b, 1, d) -> (b, vocab_padded / tp)."""
     return _logits_tokens(model, x_last, dtype)[:, 0, :]
+
+
+def _full_vocab_logits(model, logits: torch.Tensor) -> torch.Tensor:
+    """This rank's vocab columns (..., vocab_padded / tp) -> the full (...,
+    vocab_size) f32 logits, the same on every rank: the tp shards gathered
+    on the last dim (the one tp hop of a dispatch past the model's), the
+    padded columns dropped."""
+    full = logits.float()
+    if model.tp_size > 1:
+        full = gather_from(full, model.mesh)
+    return full[..., :model.cfg.vocab_size]
 
 
 def _positions(cos_t, sin_t, pos: torch.Tensor):
@@ -169,8 +182,8 @@ def _decode_one(model, cache_k: torch.Tensor, cache_v: torch.Tensor,
     # out-of-bounds scatter, here it lands on the free row's own last
     # position — garbage into a row nothing reads before rewriting it
     wcur = cur.clamp(max=buf_len - 1)
-    kvh = model.cfg.kv_heads
-    g = model.cfg.num_heads // kvh
+    kvh = model.num_local_kv_heads
+    g = model.num_local_heads // kvh
     hd = model.cfg.head_dim
     for li, lp in enumerate(model.layers):
         y = lp[model.attn_norm_key](x)
@@ -367,10 +380,12 @@ def validate_sampling(cfg, temperature: float, top_k: int,
 
 def make_token_sampler(model, temperature: float = 0.0, top_k: int = 0,
                        top_p: float = 0.0):
-    """`sample(logits, seeds, positions)` -> (b,) token ids. Greedy only:
-    argmax over the full-vocab f32 logits, first maximal index on ties (as
-    jnp.argmax). Sampled decoding is not ported: jax.random draws cannot be
-    replayed in torch, so it needs its own distributional tests."""
+    """`sample(logits, seeds, positions)` -> (b,) token ids from this
+    rank's vocab columns. Greedy only: argmax over the full-vocab f32
+    logits (`_full_vocab_logits`: every tp rank picks the same tokens),
+    first maximal index on ties (as jnp.argmax). Sampled decoding is not
+    ported: jax.random draws cannot be replayed in torch, so it needs its
+    own distributional tests."""
     validate_sampling(model.cfg, temperature, top_k, top_p)
     if temperature > 0.0:
         raise NotImplementedError(
@@ -378,6 +393,6 @@ def make_token_sampler(model, temperature: float = 0.0, top_k: int = 0,
             "ROADMAP; use temperature 0 (greedy)")
 
     def sample(logits: torch.Tensor, seeds=None, positions=None) -> torch.Tensor:
-        return torch.argmax(logits.float(), dim=-1)
+        return torch.argmax(_full_vocab_logits(model, logits), dim=-1)
 
     return sample

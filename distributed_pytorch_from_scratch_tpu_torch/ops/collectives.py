@@ -32,14 +32,20 @@ Context parallelism's:
 * `all_gather(x, mesh)`: every rank's x, stacked (positions, logits; no
   autograd).
 
+Serving's: `broadcast_ints(x, mesh)` sends a host int tensor from tp index
+0 to the other tp ranks (a serving engine's dispatch: rank 0 decides, every
+rank computes; `serving/tp_dispatch.py`). It is no autograd Function and
+is counted apart from the model's hops, under `stats["dispatch"]`.
+
 Transport: under gloo a CUDA tensor is copied to the host, sent, received
 and copied back, in these functions and nowhere else — gloo takes CPU
 tensors only, and NCCL refuses two ranks on one card, so ranks that share
 one card run over gloo. Under NCCL the tensors go as they are. `stats`
 counts per axis what the staging costs on the host: `wait_s`, the wait for
 the device work queued before a staged call (the copy to the host must see
-it finished), and `hop_s`, the copies and the transfer themselves; `calls`
-and `bytes` count every call.
+it finished), and `hop_s`, the copies and the transfer themselves (a
+host tensor's transfer alone; NCCL's enqueue is not timed); `calls` and
+`bytes` count every call.
 """
 
 from __future__ import annotations
@@ -51,39 +57,48 @@ import torch
 import torch.distributed as dist
 
 STAT_AXES = ("tp", "cp", "dp", "batch")
+# the serving dispatch broadcasts' entry in `stats`, apart from the axes
+DISPATCH = "dispatch"
 
 
 def _zero() -> Dict[str, float]:
     return {"calls": 0, "bytes": 0, "wait_s": 0.0, "hop_s": 0.0}
 
 
-stats: Dict[str, Dict[str, float]] = {a: _zero() for a in STAT_AXES}
+stats: Dict[str, Dict[str, float]] = {a: _zero()
+                                      for a in STAT_AXES + (DISPATCH,)}
 
 
 def reset_stats() -> None:
-    for a in STAT_AXES:
+    for a in stats:
         stats[a] = _zero()
 
 
 def total_stats() -> Dict[str, float]:
-    """`stats` summed over the axes."""
+    """`stats` summed over the axes, and under "dispatch" the dispatch
+    broadcasts' own counts (not in the sums)."""
     out = _zero()
-    for s in stats.values():
+    for a in STAT_AXES:
         for k in out:
-            out[k] += s[k]
-    return out
+            out[k] += stats[a][k]
+    return {**out, DISPATCH: dict(stats[DISPATCH])}
 
 
-def _collective(mesh, axis: str, x: torch.Tensor, run) -> torch.Tensor:
+def _collective(mesh, axis: str, x: torch.Tensor, run,
+                stat: str = None) -> torch.Tensor:
     """`run(x_on_the_wire) -> result on the wire` over `axis`, with x staged
-    through the host under gloo and the result copied back to x's
-    device."""
-    st = stats[axis]
+    through the host under gloo and the result copied back to x's device;
+    counted under `stat` (default: the axis)."""
+    st = stats[stat or axis]
     st["calls"] += 1
     st["bytes"] += x.numel() * x.element_size()
-    if not (mesh.backend == "gloo" and x.is_cuda):
-        return run(x.contiguous())
+    if x.is_cuda and mesh.backend != "gloo":
+        return run(x.contiguous())      # NCCL: enqueued, not timed here
     t0 = time.perf_counter()
+    if not x.is_cuda:                   # a host tensor: gloo blocks
+        out = run(x.contiguous())
+        st["hop_s"] += time.perf_counter() - t0
+        return out
     torch.cuda.current_stream(x.device).synchronize()
     t1 = time.perf_counter()
     out = run(x.cpu()).to(x.device)
@@ -370,3 +385,24 @@ def all_gather(x: torch.Tensor, mesh, axis: str = "cp") -> torch.Tensor:
         return torch.stack(recv)
 
     return _collective(mesh, axis, x, run)
+
+
+@torch.no_grad()
+def broadcast_ints(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
+    """x, a contiguous host int tensor, as the rank at index 0 of `axis`
+    holds it: that rank sends its x, every other rank passes a tensor of
+    the same shape and dtype and gets the sender's values. Under gloo the
+    host tensor goes as it is (received in place); NCCL moves it through
+    the card."""
+    ax = mesh.axis(axis)
+    if ax.size == 1:
+        return x
+
+    def run(buf):
+        dist.broadcast(buf, src=ax.members[0], group=ax.group)
+        return buf
+
+    if mesh.backend == "nccl":
+        return _collective(mesh, axis, x.to(mesh.device), run,
+                           DISPATCH).cpu()
+    return _collective(mesh, axis, x, run, DISPATCH)

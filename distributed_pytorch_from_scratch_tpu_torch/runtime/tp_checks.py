@@ -1,7 +1,9 @@
 """Rank programs that hold the tp, dp and sequence-parallel paths against a
 reference, run through `runtime.launch.spawn` — by the tests (against the
 JAX package, on the CPU) and by chip_smoke.py (the card's kernels against
-the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths.
+the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
+training (`collective_pairs`, `layer_cases`, `model_runs`,
+`seed_identity`) and serving at tp > 1 (`serve_runs`, `decode_logits`).
 
 `jobs(rank, nprocs, init_method, todo)` runs a list of `(name, axes,
 kwargs)` jobs in one process group, one after the other, each on the mesh
@@ -14,16 +16,20 @@ assemble (`interop.assemble_params`).
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from ..config import MeshConfig, ModelConfig, OptimizerConfig
+from ..config import MeshConfig, ModelConfig, OptimizerConfig, resolve_dtype_on
 from ..data.dataset import dp_rows
 from ..interop import params_from_jax
+from ..models import decode
 from ..models.transformer import Transformer
 from ..ops import collectives as C
+from ..ops.rope import rope_tables
+from ..serving.engine import ContinuousBatchingEngine, PagedEngine, Request
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..training.optim import init_adam_state
@@ -211,6 +217,116 @@ def seed_identity(mesh, cfg: Dict, seed: int, batch) -> Dict:
     return {"tp": loss, "tp1": loss1}
 
 
+def _serving_model(mesh, cfg: Dict, tree) -> Transformer:
+    """This rank's shard of the JAX param tree `tree` on its device."""
+    model = Transformer(ModelConfig(**cfg), mesh=mesh)
+    model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank))
+    return model.to(mesh.device)
+
+
+def counting_clock(tick: float):
+    """A scripted engine clock: 0, tick, 2 tick, ... one step per call."""
+    count = itertools.count()
+    return lambda: next(count) * tick
+
+
+def drive(eng, requests: Sequence, stagger: int):
+    """The JAX engine tests' drive, for an engine of either package: submit
+    the first two requests, step `stagger` times, submit the rest in
+    reverse order, step to the end. Returns ({rid: tokens}, the page table
+    after every step: the paged engines')."""
+    tables = []
+
+    def step():
+        eng.step()
+        if hasattr(eng, "_tbl"):
+            tables.append(np.array(eng._tbl))
+
+    for r in requests[:2]:
+        eng.submit(r)
+    for _ in range(stagger):
+        step()
+    for r in reversed(requests[2:]):
+        eng.submit(r)
+    while eng.has_work():
+        step()
+    return {r.rid: list(r.tokens) for r in eng.completed}, tables
+
+
+def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
+    """Each run {engine: slot | paged, kw: the engine's kwargs, requests:
+    [(prompt, max_new, tenant, slo_class)], stagger, tick}: one engine on
+    every tp rank of `mesh`, with this rank's shard of `tree`. tp rank 0
+    runs `drive`, the paged engine on a scripted clock that advances
+    `tick` per call, then stops the workers, which serve its dispatches
+    meanwhile.
+    Every rank returns its dispatches by kind and by shape; tp rank 0 also
+    {rid: tokens}, the stats and the paged engine's page table after every
+    step."""
+    model = _serving_model(mesh, cfg, tree)
+    out = []
+    for run in runs:
+        kw = dict(run["kw"])
+        if run["engine"] == "paged":
+            kw["clock"] = counting_clock(run["tick"])
+            eng = PagedEngine(model, mesh, **kw)
+        else:
+            eng = ContinuousBatchingEngine(model, mesh, **kw)
+        res = {}
+        if eng.dispatch.leader:
+            reqs = [Request(rid=i, prompt=list(p), max_new=m, tenant=t,
+                            slo_class=c)
+                    for i, (p, m, t, c) in enumerate(run["requests"])]
+            tokens, tables = drive(eng, reqs, run["stagger"])
+            eng.dispatch.stop()
+            res = {"tokens": tokens, "stats": eng.stats(), "tables": tables}
+        else:
+            eng.dispatch.serve()
+        res.update(dispatches=eng.dispatch.counts,
+                   shapes=sorted((k, list(s), n) for (k, s), n in
+                                 eng.dispatch.shapes.items()))
+        out.append(res)
+    return out
+
+
+def decode_logits(mesh, cfg: Dict, tree, calls: Sequence[Dict]
+                  ) -> List[np.ndarray]:
+    """Each call {kind, args}: 'prefill' (buf, prompt_len), 'decode'
+    (cache_k, cache_v, token, cur) or 'paged_decode' (pool_k, pool_v,
+    token, cur, page_tbl, with `page_size`), the caches and pools given
+    whole (every kv head: this rank takes a copy of its own), through the
+    lowering on this rank's shard of `tree`. Returns
+    each call's full-vocab f32 logits after the sampler's gather (the same
+    on every rank)."""
+    model = _serving_model(mesh, cfg, tree)
+    dev, n, r = mesh.device, mesh.tp, mesh.tp_rank
+    dtype = resolve_dtype_on(model.cfg.compute_dtype, dev)
+    heads = lambda x: _t(_local(x, 2, n, r), dev)
+    out = []
+    for call in calls:
+        kind, args = call["kind"], call["args"]
+        t_len = max(model.cfg.maxlen,
+                    args[0].shape[3] if kind == "decode" else 0)
+        cos, sin = rope_tables(t_len, model.cfg.head_dim,
+                               model.cfg.rope_theta, dev)
+        with torch.inference_mode():
+            if kind == "prefill":
+                logits = decode._prefill(model, _t(args[0], dev),
+                                         _t(args[1], dev), cos, sin,
+                                         dtype)[2]
+            elif kind == "decode":
+                logits = decode._decode_one(
+                    model, heads(args[0]), heads(args[1]), _t(args[2], dev),
+                    _t(args[3], dev), args[0].shape[3], cos, sin, dtype)
+            else:
+                logits = decode._paged_decode_one(
+                    model, heads(args[0]), heads(args[1]),
+                    *(_t(a, dev) for a in args[2:]), call["page_size"], cos,
+                    sin, dtype, attn_impl="kernel")
+            out.append(_np(decode._full_vocab_logits(model, logits)))
+    return out
+
+
 def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
          devices: Sequence[str] = ("cpu",), backend: str = "gloo") -> List:
     """Run `todo`, a list of (job name, mesh axes {dp, cp, tp}, kwargs), on
@@ -218,7 +334,8 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
     product is nprocs), on each of `devices` in turn, one group for all.
     Returns the jobs' results, device by device, each in `todo`'s order."""
     fns = {"collective_pairs": collective_pairs, "layer_cases": layer_cases,
-           "model_runs": model_runs, "seed_identity": seed_identity}
+           "model_runs": model_runs, "seed_identity": seed_identity,
+           "serve_runs": serve_runs, "decode_logits": decode_logits}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

@@ -15,10 +15,13 @@ decode lowerings in `models/decode.py`:
 
 Step loop: admit (FIFO groups -> prefill) -> one decode dispatch -> retire.
 Each dispatch ends in a host copy of the chosen tokens, as the JAX engine's
-`np.asarray(tok)` does. TTFT/TPOT/queue-wait are measured per request; the
-JAX engine's tracing hooks (span tracer, metrics writer, request tracer,
-flight recorder, telemetry, duty profiler, HBM plane) wait for the obs
-slice (ROADMAP.md).
+`np.asarray(tok)` does. Both engines send every device dispatch through a
+`tp_dispatch.Dispatcher`: at tp > 1 tp rank 0 runs the host loop and
+broadcasts each dispatch, and the other ranks run it on their shards
+(`engine.dispatch.serve()`) until rank 0's `engine.dispatch.stop()`.
+TTFT/TPOT/queue-wait are measured per request; the JAX engine's tracing
+hooks (span tracer, metrics writer, request tracer, flight recorder,
+telemetry, duty profiler, HBM plane) wait for the obs slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..models.decode import (
 from ..ops.rope import rope_tables
 from .kv_manager import KVCachePool, PagedKVPool, PoolExhausted
 from .scheduler import FIFOScheduler, SLOScheduler
+from .tp_dispatch import Dispatcher
 
 
 @dataclass
@@ -133,10 +137,13 @@ def _chunk_maps(ids, s: int, n: int, cw: int, ps: int, eos_id: int,
 
 
 class ContinuousBatchingEngine:
-    """Slot-based continuous batching on one device.
+    """Slot-based continuous batching on one device, or across the tp ranks
+    of `mesh` (one engine per rank; see `tp_dispatch`: the scheduler lives
+    on tp rank 0 alone).
 
     The JAX engine takes (model, mesh, params, ...); here the model module
-    carries its weights, which must already lie on `mesh.device`."""
+    carries its weights (this rank's shard), which must already lie on
+    `mesh.device`."""
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
                  eos_id: int, temperature: float = 0.0,
@@ -160,11 +167,15 @@ class ContinuousBatchingEngine:
                                            model.cfg.rope_theta, self.device)
         self._sample = make_token_sampler(model, temperature=temperature)
         self.pool = KVCachePool(model, mesh, num_slots, buf_len)
-        self.scheduler = FIFOScheduler(buf_len, prefill_bucket=prefill_bucket,
-                                       max_queue=max_queue)
+        self.dispatch = Dispatcher(mesh, {"slot_prefill": self._run_prefill,
+                                          "slot_decode": self._run_decode})
+        self.scheduler = (FIFOScheduler(buf_len,
+                                        prefill_bucket=prefill_bucket,
+                                        max_queue=max_queue)
+                          if self.dispatch.leader else None)
         n = num_slots + 1  # + the scratch row (kv_manager.py)
-        self._tokens = np.zeros(n, np.int64)
-        self._pos = np.zeros(n, np.int64)
+        self._tokens = np.zeros(n, np.int32)
+        self._pos = np.zeros(n, np.int32)
         self._slot_req: Dict[int, Request] = {}
         self.completed: List[Request] = []
         # -- aggregate stats ---------------------------------------------
@@ -232,22 +243,16 @@ class ContinuousBatchingEngine:
         width = self.scheduler.group_width(ready)
         nb = _pow2_at_most(len(ready), self.max_prefill_batch)
         slots = self.pool.alloc_many(len(ready))
-        buf = np.full((nb, width), self.eos_id, np.int64)
-        plens = np.ones(nb, np.int64)          # pad rows: 1-token dummy
-        slot_idx = np.full(nb, self.pool.scratch_slot, np.int64)
+        buf = np.full((nb, width), self.eos_id, np.int32)
+        plens = np.ones(nb, np.int32)          # pad rows: 1-token dummy
+        slot_idx = np.full(nb, self.pool.scratch_slot, np.int32)
         for i, req in enumerate(ready):
             buf[i, : req.prompt_len] = req.prompt
             plens[i] = req.prompt_len
             slot_idx[i] = slots[i]
-        ks, vs, logits = _prefill(self.model, _to_device(buf, self.device),
-                                  _to_device(plens, self.device), self._cos,
-                                  self._sin, self._dtype)
-        # pad rows all aim at the scratch slot, so `idx` repeats it: which
-        # duplicate write lands there does not matter, nothing reads it
-        idx = _to_device(slot_idx, self.device)
-        self.pool.ks[:, idx, :, :width, :] = ks
-        self.pool.vs[:, idx, :, :width, :] = vs
-        tok = self._sample(logits).cpu().numpy()
+        # one copy: the prompt buffer | prompt lengths | target slots
+        tok = self.dispatch("slot_prefill", (nb, width),
+                            np.concatenate([buf.ravel(), plens, slot_idx]))
         self.prefill_dispatches += 1
         self.prefill_positions += nb * width
         self.prefill_positions_monolithic += len(ready) * self.buf_len
@@ -265,12 +270,37 @@ class ContinuousBatchingEngine:
             self._tokens[slot] = first
             self._pos[slot] = req.prompt_len
 
+    def _run_prefill(self, shape, packed: np.ndarray) -> np.ndarray:
+        """The prefill dispatch: the causal forward over the (nb, width)
+        buffer, its K/V written into the target slots' rows, the first
+        tokens."""
+        nb, width = shape[:2]
+        dev = _to_device(packed, self.device)
+        o = nb * width
+        ks, vs, logits = _prefill(self.model, dev[:o].view(nb, width),
+                                  dev[o:o + nb], self._cos, self._sin,
+                                  self._dtype)
+        # pad rows all aim at the scratch slot, so `idx` repeats it: which
+        # duplicate write lands there does not matter, nothing reads it
+        idx = dev[o + nb:]
+        self.pool.ks[:, idx, :, :width, :] = ks
+        self.pool.vs[:, idx, :, :width, :] = vs
+        return self._sample(logits).cpu().numpy()
+
+    def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
+        """The decode dispatch: every slot row one token on (pending tokens
+        | cursors)."""
+        n = packed.size // 2
+        dev = _to_device(packed, self.device)
+        logits = _decode_one(self.model, self.pool.ks, self.pool.vs, dev[:n],
+                             dev[n:], self.buf_len, self._cos, self._sin,
+                             self._dtype)
+        return self._sample(logits).cpu().numpy()
+
     def _decode(self, done: List[Request]) -> None:
-        logits = _decode_one(self.model, self.pool.ks, self.pool.vs,
-                             _to_device(self._tokens, self.device),
-                             _to_device(self._pos, self.device), self.buf_len,
-                             self._cos, self._sin, self._dtype)
-        tok = self._sample(logits).cpu().numpy()
+        # one copy: pending tokens | cursors
+        tok = self.dispatch("slot_decode", (),
+                            np.concatenate([self._tokens, self._pos]))
         now = time.monotonic()
         self.decode_steps += 1
         self._occupancy_sum += self.pool.occupancy
@@ -332,7 +362,7 @@ class _PrefillState:
 
 class PagedEngine:
     """Continuous batching over a PAGED KV cache (the JAX `PagedEngine` at
-    tp=cp=1, greedy).
+    cp=1, greedy; at tp > 1 one engine per rank, as the slot engine).
 
     The same host-driven loop as `ContinuousBatchingEngine` — admit, pump
     prefill, one decode dispatch — over a pool of fixed-size pages
@@ -355,8 +385,10 @@ class PagedEngine:
     prefix re-prefilled through the COW path (greedy decode restarted from
     prompt + generated gives the same tokens as the uninterrupted run).
 
-    Device work per dispatch: the page table, cursors and tokens go to the
-    card in ONE copy, the lowering (`models/decode._paged_decode_one` or
+    Device work per dispatch (a chunk, a decode step, or a copy-on-write
+    page copy, each through `self.dispatch`): the page table, cursors and
+    tokens go to the card in ONE copy, the lowering
+    (`models/decode._paged_decode_one` or
     `_paged_prefill_chunk`) writes the pool in place and attends through
     `paged_attn_impl` — 'kernel' (the CUDA paged-attention kernel; its plain
     version on the CPU) or 'gather' (the dense page view, the oracle) — and
@@ -406,9 +438,13 @@ class PagedEngine:
         self.kv_dtype = kv_dtype
         self.pool = PagedKVPool(model, mesh, num_pages, page_size,
                                 kv_dtype=kv_dtype)
-        self.scheduler = SLOScheduler(self.buf_len, classes=slo_classes,
-                                      default_class=default_class,
-                                      max_queue=max_queue, clock=clock)
+        self.dispatch = Dispatcher(mesh, {"paged_chunk": self._run_chunk,
+                                          "paged_decode": self._run_decode,
+                                          "cow_copy": self._run_copy})
+        self.scheduler = (SLOScheduler(self.buf_len, classes=slo_classes,
+                                       default_class=default_class,
+                                       max_queue=max_queue, clock=clock)
+                          if self.dispatch.leader else None)
         self._free_slots = deque(range(num_slots))
         # (slots, max_pages) page table; free rows aim at the scratch page
         self._tbl = np.full((num_slots, self.max_pages),
@@ -640,7 +676,12 @@ class PagedEngine:
                 pairs.append((pid, new))
                 self.pool.unref(pid)
                 self._tbl[slot, j] = new
-        self.pool.copy_pages(pairs)
+        if pairs:
+            self.dispatch("cow_copy", (), np.array(pairs, np.int32))
+
+    def _run_copy(self, shape, pairs: np.ndarray) -> None:
+        """The copy-on-write dispatch: (src, dst) page pairs."""
+        self.pool.copy_pages(pairs.reshape(-1, 2).tolist())
 
     def _pump_prefill(self, done: List[Request]) -> None:
         """Advance prefills chunk by chunk. While ANY stream is live
@@ -664,7 +705,7 @@ class PagedEngine:
 
     def _dispatch_chunk(self, slot: int, st: _PrefillState, n: int,
                         done: List[Request]) -> None:
-        ps, mp = self.page_size, self.max_pages
+        ps = self.page_size
         s, ids = st.s, st.ids
         self._ensure_writable(slot, s, s + n)
         cw = _pow2_at_most(n, self.prefill_chunk)
@@ -672,16 +713,9 @@ class PagedEngine:
                                       self.pool.scratch_page,
                                       self._tbl[slot])
         # one copy: tokens | start | qlen | table row | dst pages | offsets
-        packed = np.concatenate([buf[0], np.array([s, n], np.int32),
-                                 self._tbl[slot], dstp[0], dsto[0]])
-        dev = _to_device(packed, self.device)
-        o = cw + 2 + mp
-        logits = _paged_prefill_chunk(
-            self.model, self.pool.ks, self.pool.vs, dev[None, :cw],
-            dev[cw:cw + 1], dev[cw + 1:cw + 2], dev[None, cw + 2:o],
-            dev[None, o:o + cw], dev[None, o + cw:], ps, self._cos,
-            self._sin, self._dtype, attn_impl=self.paged_attn_impl)
-        tok = self._sample(logits).cpu().numpy()
+        tok = self.dispatch("paged_chunk", (cw,), np.concatenate([
+            buf[0], np.array([s, n], np.int32), self._tbl[slot], dstp[0],
+            dsto[0]]))
         self.prefill_dispatches += 1
         self.prefill_positions += n
         # register freshly completed prompt pages in the prefix index: full
@@ -697,6 +731,19 @@ class PagedEngine:
         st.s += n
         if st.s >= len(ids):
             self._finish_prefill(slot, st, int(tok[0]), done)
+
+    def _run_chunk(self, shape, packed: np.ndarray) -> np.ndarray:
+        """The chunk dispatch: one row's chunk of width shape[0]."""
+        cw, mp = shape[0], self.max_pages
+        dev = _to_device(packed, self.device)
+        o = cw + 2 + mp
+        logits = _paged_prefill_chunk(
+            self.model, self.pool.ks, self.pool.vs, dev[None, :cw],
+            dev[cw:cw + 1], dev[cw + 1:cw + 2], dev[None, cw + 2:o],
+            dev[None, o:o + cw], dev[None, o + cw:], self.page_size,
+            self._cos, self._sin, self._dtype,
+            attn_impl=self.paged_attn_impl)
+        return self._sample(logits).cpu().numpy()
 
     def _finish_prefill(self, slot: int, st: _PrefillState, first: int,
                         done: List[Request]) -> None:
@@ -736,15 +783,9 @@ class PagedEngine:
             tbl = self._tbl.copy()
             for slot in self._prefilling:
                 tbl[slot, :] = self.pool.scratch_page
-        n = self.num_slots
         # one copy: pending tokens | cursors | page table
-        dev = _to_device(np.concatenate([self._tokens, self._pos,
-                                         tbl.ravel()]), self.device)
-        logits = _paged_decode_one(
-            self.model, self.pool.ks, self.pool.vs, dev[:n], dev[n:2 * n],
-            dev[2 * n:].view(n, self.max_pages), self.page_size, self._cos,
-            self._sin, self._dtype, attn_impl=self.paged_attn_impl)
-        tok = self._sample(logits).cpu().numpy()
+        tok = self.dispatch("paged_decode", (), np.concatenate(
+            [self._tokens, self._pos, tbl.ravel()]))
         now = self._clock()
         self.decode_steps += 1
         live_tokens = sum(int(self._pos[s]) + 1 for s in self._slot_req)
@@ -769,6 +810,16 @@ class PagedEngine:
                 self._complete(req, done)
             else:
                 self._tokens[slot] = cand
+
+    def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
+        """The decode dispatch: every slot row one token on."""
+        n = self.num_slots
+        dev = _to_device(packed, self.device)
+        logits = _paged_decode_one(
+            self.model, self.pool.ks, self.pool.vs, dev[:n], dev[n:2 * n],
+            dev[2 * n:].view(n, self.max_pages), self.page_size, self._cos,
+            self._sin, self._dtype, attn_impl=self.paged_attn_impl)
+        return self._sample(logits).cpu().numpy()
 
     def _complete(self, req: Request, done: List[Request]) -> None:
         self.completed.append(req)

@@ -1,16 +1,18 @@
 """KV-cache pools: the slot-granular `KVCachePool` of the continuous-
 batching engine and the page pool `PagedKVPool` of the paged engine
-(counterparts of both in the JAX `serving/kv_manager.py`, at tp=cp=1).
+(counterparts of both in the JAX `serving/kv_manager.py`, at cp=1).
 
 One device tensor per K/V with a `slots` axis,
 
-    (num_layers, num_slots + 1, kv_heads, buf_len, head_dim)
+    (num_layers, num_slots + 1, kv_heads / tp, buf_len, head_dim)
 
-in the compute dtype. `alloc()` leases a free slot to a request; prefill
-writes the prompt's K/V into that slot's rows; every decode step advances
-all slots; `free()` returns the slot. The LAST slot (index `num_slots`) is
-a scratch row that is never leased: prefill batches padded up to a bucket
-size aim their pad rows at it, so pad work lands somewhere harmless.
+in the compute dtype; at tp > 1 each rank's pool holds its kv_heads / tp
+local heads (the JAX pools are sharded on that dim). `alloc()` leases a
+free slot to a request; prefill writes the prompt's K/V into that slot's
+rows; every decode step advances all slots; `free()` returns the slot.
+The LAST slot (index `num_slots`) is a scratch row that is never leased:
+prefill batches padded up to a bucket size aim their pad rows at it, so
+pad work lands somewhere harmless.
 
 The engine writes these tensors in place (index assignment under
 `torch.inference_mode`), which takes the place of the JAX engine's buffer
@@ -30,8 +32,9 @@ from ..config import resolve_dtype
 
 def kv_token_bytes(cfg, kv_dtype=None) -> int:
     """K+V cache bytes per TOKEN POSITION at a model shape (all layers, all
-    kv heads, K and V). An int8 pool pays one code per element plus the f32
-    scale of each stored head-vector."""
+    kv heads — every tp rank's together, as JAX counts them — K and V). An
+    int8 pool pays one code per element plus the f32 scale of each stored
+    head-vector."""
     if kv_dtype == "int8":
         per_head = cfg.head_dim + 4            # int8 codes + f32 scale
     else:
@@ -57,8 +60,8 @@ class KVCachePool:
         self.buf_len = buf_len
         self.scratch_slot = num_slots          # never leased; pad-row target
         self.dtype = resolve_dtype(cfg.compute_dtype)
-        shape = (cfg.num_layers, num_slots + 1, cfg.kv_heads, buf_len,
-                 cfg.head_dim)
+        shape = (cfg.num_layers, num_slots + 1, model.num_local_kv_heads,
+                 buf_len, cfg.head_dim)
         self.ks = torch.zeros(shape, dtype=self.dtype, device=mesh.device)
         self.vs = torch.zeros(shape, dtype=self.dtype, device=mesh.device)
         self._free = deque(range(num_slots))
@@ -100,7 +103,7 @@ class PagedKVPool:
     content-addressed prefix index. The unit is a page of `page_size` token
     positions,
 
-        (num_layers, num_pages + 1, kv_heads, page_size, head_dim)
+        (num_layers, num_pages + 1, kv_heads / tp, page_size, head_dim)
 
     and a request's logical cache row is its page list (the engine's
     (slots, max_pages) page table), leased as its cursor grows — capacity is
@@ -145,8 +148,8 @@ class PagedKVPool:
         self.page_size = page_size
         self.scratch_page = num_pages          # never leased; pad target
         self.kv_dtype = "int8" if kv_dtype == "int8" else None
-        shape = (cfg.num_layers, num_pages + 1, cfg.kv_heads, page_size,
-                 cfg.head_dim)
+        shape = (cfg.num_layers, num_pages + 1, model.num_local_kv_heads,
+                 page_size, cfg.head_dim)
         dev = mesh.device
         if self.kv_dtype:
             self.dtype = torch.int8

@@ -16,12 +16,21 @@ cpu` is given; with no card and no `--device cpu` it exits non-zero. The
 paged engine attends through the CUDA paged-attention kernel unless
 `--paged_attn gather` asks for the dense page view.
 
-Weights: `--random_init` (fresh random weights from `--seed`, the
-checkpoint-free benchmark), or `--ckpt_dir` with a tp=1 checkpoint written
-by the JAX package's trainer. `--dry_run` shrinks everything to a tiny
+`--tp_size N` serves over N tensor-parallel ranks, one process each
+(`runtime/launch.spawn`; the transport is `--dist_backend`, nccl by default
+on a card: one card per rank; two ranks sharing one card need gloo): each
+rank holds its shard of the weights and of the KV pool, tp rank 0 runs the
+loadgen and the engine's host loop and broadcasts each device dispatch
+(`serving/tp_dispatch.py`), and every rank computes the same greedy tokens
+as tp=1. Rank 0's record is printed, with every rank's tp hops and
+dispatch counts under `ranks` in the returned summary.
+
+Weights: `--random_init` (fresh random weights from `--seed`, the same
+model at any tp), or `--ckpt_dir` with a checkpoint written by either
+package's trainer, at any tp. `--dry_run` shrinks everything to a tiny
 smoke run.
 
-Not ported yet, refused with a message: tp > 1, cp > 1, sampled decoding
+Not ported yet, refused with a message: cp > 1, sampled decoding
 (temperature > 0), speculative decoding, int8 decode weights. The JAX
 CLI's gpt2 family, trace replay and observability/control flags do not
 exist here yet (ROADMAP.md).
@@ -32,15 +41,19 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import torch
 
 from ..cli import add_model_shape_args, build_model_config
 from ..config import MeshConfig, ModelConfig
-from ..interop import params_from_jax
-from ..models.transformer import Transformer
-from ..runtime.mesh import make_mesh
-from ..training.checkpoint import latest_step, load_params
+from ..models.transformer import Transformer, validate_tp
+from ..ops import collectives
+from ..ops.cuda import launch_counts
+from ..ops.cuda.paged_attention import paged_attention
+from ..runtime import launch
+from ..runtime.mesh import dist_backend, make_mesh, resolve_device
+from ..training.checkpoint import latest_step, load_checkpoint
 from .engine import ContinuousBatchingEngine, PagedEngine
 from .loadgen import run_loadgen, synthetic_requests
 from .scheduler import parse_slo_classes
@@ -52,9 +65,7 @@ _DRY_CFG = ModelConfig(attn_dim=64, ffn_dim=128, num_heads=2, num_layers=2,
 # JAX CLI flags kept so its command lines parse: any value but the default
 # is refused, naming what is not ported yet (ROADMAP.md)
 NOT_PORTED = [  # (flag dest, default, what the flag would turn on)
-    ("tp_size", 1, "serving at tp>1, ROADMAP Queue 1 item 2; training runs "
-                   "at tp>1"),
-    ("cp", 1, "the cp-sharded page pool"),
+    ("cp", 1, "the cp-sharded page pool, alone or with --tp_size"),
     ("speculate", 0, "speculative decoding"),
     ("decode_weight_dtype", "native", "int8 decode weights"),
 ]
@@ -65,20 +76,27 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     g = p.add_argument_group("model")
     g.add_argument("--ckpt_dir", default=None,
-                   help="serve this tp=1 checkpoint (the JAX trainer's npz "
-                        "shards); omit with --random_init/--dry_run")
+                   help="serve this checkpoint (either trainer's npz "
+                        "shards, written at any tp); omit with "
+                        "--random_init/--dry_run")
     g.add_argument("--iter", type=int, default=None,
                    help="checkpoint iteration (default: latest)")
     g.add_argument("--random_init", action="store_true",
                    help="serve fresh random weights at the flag shape")
     g.add_argument("--vocab_size", type=int, default=1024,
                    help="vocab size (EOS id is 1, the shipped tokenizer's)")
-    g.add_argument("--tp_size", type=int, default=1, help="1 only, so far")
+    g.add_argument("--tp_size", type=int, default=1,
+                   help="tensor-parallel ranks, one process each")
     add_model_shape_args(g)
 
     g = p.add_argument_group("engine")
     g.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    g.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="--tp_size > 1: the ranks' transport (default: "
+                        "nccl on cuda, gloo on cpu); nccl needs one card "
+                        "per rank, gloo stages a card's tensors through "
+                        "host memory")
     g.add_argument("--slots", type=int, default=8,
                    help="KV-pool slots = max concurrently decoding requests")
     g.add_argument("--buf_len", type=int, default=0,
@@ -194,55 +212,66 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _load_model(args, cfg: ModelConfig, device) -> Transformer:
-    model = Transformer(cfg)
+def _model_config(args: argparse.Namespace) -> ModelConfig:
+    """The model shape; `--dry_run` also shrinks the run (in `args`)."""
+    if not args.dry_run:
+        return build_model_config(args, args.vocab_size)
+    args.vocab_size = _DRY_CFG.vocab_size
+    args.slots, args.max_prefill_batch = 4, 2
+    args.num_requests, args.arrival = 6, "burst"
+    args.prompt_len_min, args.prompt_len_max = 4, 12
+    args.max_new_tokens = min(args.max_new_tokens, 8)
+    args.buf_len, args.prefill_bucket = 24, 8
+    if args.paged:       # tiny pages so the smoke crosses boundaries
+        args.page_size, args.prefill_chunk = 8, 8
+        args.num_pages = 0
+        if not args.class_mix:
+            args.class_mix = "interactive=1,standard=1"
+        args.shared_prefix_len = max(args.shared_prefix_len, 4)
+    return _DRY_CFG
+
+
+def _load_model(args, cfg: ModelConfig, mesh) -> Transformer:
+    """This rank's shard of the model, on its device: from `--seed` (the
+    full tree drawn, the shard kept: the same model at any tp) or from a
+    checkpoint of any tp."""
+    model = Transformer(cfg, mesh=mesh)
     if args.random_init or args.dry_run or not args.ckpt_dir:
         model.init_weights(args.seed)
     else:
         step = args.iter if args.iter is not None else latest_step(args.ckpt_dir)
         if step is None:
             raise SystemExit(f"no checkpoints found in {args.ckpt_dir}")
-        model.load_state_dict(params_from_jax(load_params(args.ckpt_dir, step)))
-        print(f"serving checkpoint iter {step} from {args.ckpt_dir}",
-              file=sys.stderr)
-    return model.to(device)
+        state, _, _ = load_checkpoint(args.ckpt_dir, step, tp_size=mesh.tp,
+                                      tp_rank=mesh.tp_rank)
+        model.load_state_dict(state)
+        if mesh.rank == 0:
+            print(f"serving checkpoint iter {step} from {args.ckpt_dir}",
+                  file=sys.stderr)
+    return model.to(mesh.device)
 
 
-def serve(args: argparse.Namespace) -> dict:
-    """Run the benchmark; prints the JSON record and returns the loadgen
-    summary plus `device`, `prefill_dispatches` (prefill or chunk
-    dispatches), `engine_stats` (the engine's `stats()` after the drain)
-    and `outputs` ({rid: generated ids})."""
+def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
+           init_method: str = None) -> dict:
+    """One rank's run: tp rank 0 drives the loadgen and returns its summary,
+    the other ranks serve its dispatches; each adds its `ranks` entry."""
     try:
-        mesh = make_mesh(MeshConfig(tp=args.tp_size), device=args.device)
-    except RuntimeError as e:
+        mesh = make_mesh(MeshConfig(tp=args.tp_size), device=args.device,
+                         rank=rank, backend=args.dist_backend,
+                         init_method=init_method)
+    except (RuntimeError, ValueError) as e:
         raise SystemExit(f"serve: {e}")
     eos_id = 1  # the shipped tokenizer's EOS (tokenizer/tokenizer.json)
-    vocab_size = args.vocab_size
-    if args.dry_run:
-        cfg = _DRY_CFG
-        vocab_size = cfg.vocab_size
-        args.slots, args.max_prefill_batch = 4, 2
-        args.num_requests, args.arrival = 6, "burst"
-        args.prompt_len_min, args.prompt_len_max = 4, 12
-        args.max_new_tokens = min(args.max_new_tokens, 8)
-        args.buf_len, args.prefill_bucket = 24, 8
-        if args.paged:       # tiny pages so the smoke crosses boundaries
-            args.page_size, args.prefill_chunk = 8, 8
-            args.num_pages = 0
-            if not args.class_mix:
-                args.class_mix = "interactive=1,standard=1"
-            args.shared_prefix_len = max(args.shared_prefix_len, 4)
-    else:
-        cfg = build_model_config(args, vocab_size)
-    model = _load_model(args, cfg, mesh.device)
+    model = _load_model(args, cfg, mesh)
 
     mix = parse_slo_classes(args.class_mix) if args.class_mix else None
+    # every rank draws the (seeded) stream: its longest prompt sizes the pool
     requests = synthetic_requests(
         args.num_requests, args.prompt_len_min, args.prompt_len_max,
-        args.max_new_tokens, vocab_size, seed=args.seed, rate=args.rate,
-        arrival=args.arrival, class_mix=mix, tenants=args.tenants,
-        shared_prefix_len=args.shared_prefix_len, interleave=args.interleave)
+        args.max_new_tokens, args.vocab_size, seed=args.seed,
+        rate=args.rate, arrival=args.arrival, class_mix=mix,
+        tenants=args.tenants, shared_prefix_len=args.shared_prefix_len,
+        interleave=args.interleave)
     longest = max(len(r.prompt) for r in requests)
     buf_len = args.buf_len or (longest + args.max_new_tokens + 2)
     if args.paged:
@@ -262,11 +291,52 @@ def serve(args: argparse.Namespace) -> dict:
             prefill_bucket=args.prefill_bucket,
             max_prefill_batch=args.max_prefill_batch,
             max_queue=args.queue_limit)
-    summary = run_loadgen(engine, requests)
+    launches0 = launch_counts()
+    kernels0 = dict(paged_attention.launches_by_kernel)
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    if engine.dispatch.leader:
+        out = run_loadgen(engine, requests)
+        engine.dispatch.stop()
+    else:
+        engine.dispatch.serve()
+        out = {}
+    wall = time.perf_counter() - t0
+    delta = lambda now, then: {k: v - then[k] for k, v in now.items()}
+    ranked = {
+        "rank": mesh.rank, "tp": mesh.tp_rank, "device": str(mesh.device),
+        "wall_s": wall,
+        "dispatches": engine.dispatch.counts,
+        "dispatch_shapes": sorted([kind, list(shape), n] for (kind, shape), n
+                                  in engine.dispatch.shapes.items()),
+        # host seconds: wait_s (for the device) + hop_s (copies, transfer)
+        "tp_hops": dict(collectives.stats["tp"]),
+        "dispatch_broadcasts": dict(collectives.stats["dispatch"]),
+        "launches": delta(launch_counts(), launches0),
+        "paged_launches_by_kernel": delta(paged_attention.launches_by_kernel,
+                                          kernels0),
+    }
+    if not engine.dispatch.leader:
+        return {"ranks": [ranked]}
     device_name = (torch.cuda.get_device_name(mesh.device)
                    if mesh.device.type == "cuda" else "cpu")
+    return {**out, "device": device_name,
+            "prefill_dispatches": engine.prefill_dispatches,
+            "engine_stats": engine.stats(),
+            "outputs": {r.rid: list(r.tokens) for r in engine.completed},
+            "ranks": [ranked]}
+
+
+def _rank_main(rank: int, nprocs: int, init_method: str,
+               args: argparse.Namespace, cfg: ModelConfig) -> dict:
+    """One tp rank of a run (`runtime/launch.spawn` calls it)."""
+    return _serve(args, cfg, rank, init_method)
+
+
+def _report(args: argparse.Namespace, summary: dict) -> None:
+    """The stderr line and the JSON record on stdout."""
     fmt = lambda v: "-" if v is None else f"{v:.1f}"
-    print(f"serve[llama tp{args.tp_size} on {device_name}]: "
+    print(f"serve[llama tp{args.tp_size} on {summary['device']}]: "
           f"{summary['completed']}/{summary['requests']} requests "
           f"({summary['rejected']} rejected) in {summary['wall_s']:.1f}s — "
           f"{summary['tokens_per_sec']:.0f} tok/s, occupancy "
@@ -294,7 +364,7 @@ def serve(args: argparse.Namespace) -> dict:
             "slot_occupancy_mean", "ttft_ms_p50", "ttft_ms_p95",
             "tpot_ms_p50", "tpot_ms_p95", "queue_wait_ms_p50",
             "queue_wait_ms_p95", "prefill_pad_waste_eliminated")},
-        "device": device_name,
+        "device": summary["device"],
     }
     for k in ("kv_dtype", "paged_attn", "cp", "pages_per_rank", "num_pages",
               "kv_util_mean", "kv_fragmentation_mean", "prefix_hit_rate",
@@ -303,10 +373,30 @@ def serve(args: argparse.Namespace) -> dict:
         if k in summary:
             rec[k] = summary[k]
     print(json.dumps(rec))
-    return {**summary, "device": device_name,
-            "prefill_dispatches": engine.prefill_dispatches,
-            "engine_stats": engine.stats(),
-            "outputs": {r.rid: list(r.tokens) for r in engine.completed}}
+
+
+def serve(args: argparse.Namespace) -> dict:
+    """Run the benchmark; prints the JSON record and returns the loadgen
+    summary plus `device`, `prefill_dispatches` (prefill or chunk
+    dispatches), `engine_stats` (the engine's `stats()` after the drain),
+    `outputs` ({rid: generated ids}) and `ranks`: per tp rank its tp hops
+    (calls, bytes, host seconds), its dispatch broadcasts, its dispatches
+    by kind (and by shape) and its kernel launches. At tp > 1 the ranks run
+    in processes of their own and the summary is tp rank 0's."""
+    cfg = _model_config(args)
+    if args.tp_size == 1:
+        out = _serve(args, cfg)
+    else:
+        try:
+            dist_backend(args.dist_backend, resolve_device(args.device),
+                         args.tp_size)
+            validate_tp(cfg, args.tp_size)
+        except (RuntimeError, ValueError) as e:
+            raise SystemExit(f"serve: {e}")
+        outs = launch.spawn(_rank_main, args.tp_size, args, cfg)
+        out = dict(outs[0], ranks=[o["ranks"][0] for o in outs])
+    _report(args, out)
+    return out
 
 
 def main(argv=None) -> dict:

@@ -10,10 +10,10 @@ or serves the other's files. `save_checkpoint` writes one rank's file from
 that rank's shard; `load_checkpoint` reads every rank file, assembles the
 global arrays and cuts the running rank's slice, so a file written at one
 tp loads at another (the vocab leaves are padded to a multiple of the
-writing tp: they must divide by the reading tp too). `load_params` reads
-the JAX param tree (nested dicts of numpy arrays) of a tp=1 file for the
-serving CLI. Parameters are replicated over dp and cp, so the ranks at dp =
-cp = 0 write, one file per tp rank, and every rank reads.
+writing tp: they must divide by the reading tp too); the trainer and the
+serving CLI both load this way. Parameters are replicated over dp and cp,
+so the ranks at dp = cp = 0 write, one file per tp rank, and every rank
+reads.
 
 Not ported: the asynchronous writer (writes here are synchronous) and the
 `__layout__` stamp (the JAX reader treats an unstamped file as a legacy
@@ -98,20 +98,6 @@ def _read_rank_files(ckpt_dir: str, step: int
         with np.load(rank_files[r]) as shard:
             files.append({k: shard[k] for k in shard.files})
     return tp_size, files
-
-
-def load_params(ckpt_dir: str, step: int) -> Dict[str, Any]:
-    """The param tree of iteration `step` from a tp=1 checkpoint (the
-    serving loader: serving from a checkpoint written at tp > 1 comes with
-    serving at tp > 1)."""
-    tp_size, files = _read_rank_files(ckpt_dir, step)
-    if tp_size != 1:
-        raise NotImplementedError(
-            f"checkpoint iter {step} in {ckpt_dir} was written at "
-            f"tp_size={tp_size}: serving from a tp>1 checkpoint is not "
-            f"ported yet, see ROADMAP Queue 1 item 2 (serving at tp>1); "
-            f"the train CLI reads it at any tp")
-    return _unflatten(files[0], "param")
 
 
 def _assemble(files: List[Dict[str, np.ndarray]], prefix: str,

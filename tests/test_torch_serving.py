@@ -7,7 +7,8 @@
 * `serve.main` runs on the CPU only when asked (`--device cpu`); without a
   card and without that flag it exits non-zero with a message.
 * A tp=1 checkpoint written by the JAX trainer serves through the port's
-  CLI with the JAX engine's tokens; a tp=2 checkpoint is refused.
+  CLI with the JAX engine's tokens, and so does a tp=2 checkpoint of the
+  same weights served at tp=1.
 """
 
 import json
@@ -42,8 +43,6 @@ from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
     ContinuousBatchingEngine, decode_prompts)
 from distributed_pytorch_from_scratch_tpu_torch.serving.loadgen import (
     synthetic_requests)
-from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
-    load_params)
 
 SHAPE = dict(attn_dim=64, ffn_dim=128, num_heads=4, num_kv_heads=2,
              num_layers=2, vocab_size=96, maxlen=64)
@@ -144,7 +143,7 @@ def test_serve_refuses_cpu_unless_asked(monkeypatch):
         serve.main(["--dry_run"])
     assert e.value.code not in (0, None)
     assert "--device cpu" in str(e.value.code)
-    for flag in (["--speculate", "2"], ["--tp_size", "2"],
+    for flag in (["--speculate", "2"], ["--decode_weight_dtype", "int8"],
                  ["--temperature", "0.5"]):
         with pytest.raises(SystemExit) as e:
             serve.main(["--dry_run", "--device", "cpu", *flag])
@@ -154,14 +153,16 @@ def test_serve_refuses_cpu_unless_asked(monkeypatch):
 def test_serve_jax_checkpoint(jax_run, tmp_path):
     jmodel, tree, ref, _ = jax_run
     save_checkpoint(str(tmp_path / "tp1"), 5, 1.25, tree, jmodel.specs(), 1)
+    flags = [*SHAPE_FLAGS, "--num_requests", str(LOAD["num"]), "--arrival",
+             "burst", "--prompt_len_min", "4", "--prompt_len_max", "12",
+             "--max_new_tokens", "8", "--seed", str(SEED), "--slots", "3",
+             "--buf_len", str(BUF), "--prefill_bucket", "8",
+             "--max_prefill_batch", "2"]
     out = serve.main(["--device", "cpu", "--ckpt_dir", str(tmp_path / "tp1"),
-                      *SHAPE_FLAGS, "--num_requests", str(LOAD["num"]),
-                      "--arrival", "burst", "--prompt_len_min", "4",
-                      "--prompt_len_max", "12", "--max_new_tokens", "8",
-                      "--seed", str(SEED), "--slots", "3", "--buf_len",
-                      str(BUF), "--prefill_bucket", "8",
-                      "--max_prefill_batch", "2"])
+                      *flags])
     assert out["outputs"] == ref
+    # the same weights in two tp rank files, assembled at tp=1
     save_checkpoint(str(tmp_path / "tp2"), 5, 1.25, tree, jmodel.specs(), 2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        load_params(str(tmp_path / "tp2"), 5)
+    out = serve.main(["--device", "cpu", "--ckpt_dir", str(tmp_path / "tp2"),
+                      *flags])
+    assert out["outputs"] == ref

@@ -701,8 +701,9 @@ def test_tp_cli_refusals_and_divisibility_errors(tmp_path):
                   ["--pp_size", "2"], ["--ep_size", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _cli(tmp_path, TP2 + flags)
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--dry_run", "--device", "cpu", "--tp_size", "2"])
+    with pytest.raises(SystemExit) as e:   # serving at tp>1 has no cp yet
+        serve.main(["--dry_run", "--device", "cpu", "--tp_size", "2",
+                    "--cp", "2"])
     assert e.value.code == 2
     with pytest.raises(SystemExit) as exc:          # no card, no --device cpu
         train_cli.main(["--data_path", "x", "--tp_size", "2"])
