@@ -27,13 +27,15 @@ result line):
    events) and device time (torch.profiler), achieved TFLOP/s, beside the
    plain version, SDPA as a yardstick, and the bound;
 5. serve: the port's `serve.main` at the 45m preset, full width, bf16,
-   random weights — every request completes, every token is in the vocab,
-   the forward kernel ran exactly 12 times (once per layer) per prefill
-   dispatch and the backward kernels not at all;
+   random weights, the decode step a CUDA graph (`--decode_graph auto`)
+   — every request completes, every token is in the vocab, the forward
+   kernel ran exactly 12 times (once per layer) per prefill dispatch and
+   the backward kernels not at all;
 6. card vs CPU: 45m prefill logits at f32 from the same weights, the
    kernel on the card against the plain path on the CPU;
 7. profile: where the time goes in the 45m bf16 prefill and decode steps
-   (host wall vs device busy from torch.profiler, kernels per step);
+   (host wall vs device busy from torch.profiler, kernels per step; the
+   decode step graphed);
 8. bwd_check: the flash-attention backward kernels (dq, dk/dv) against
    their plain version, in the cases that on the TPU took each of its four
    backward launches (one block, GQA, multi-block) and at the tile edges,
@@ -91,7 +93,8 @@ result line):
     completes with in-vocab tokens, prefix hits, a drained pool, the paged
     kernels launched 12 times per decode step and per one-position chunk
     (decode route, cw = 1) and per other chunk dispatch (chunk route: the
-    wgmma kernel every time, the SIMT one never), and no flash kernel;
+    wgmma kernel every time, the SIMT one never), and no flash kernel —
+    the decode steps' launches counted through the graph's replays;
 16. paged_card_vs_cpu: 45m f32 chunks and decode steps through the kernel
     on the card against the plain path on the CPU, then an 8-request f32
     burst served with `--paged_attn kernel` and `gather` on the card:
@@ -172,7 +175,24 @@ result line):
 30. tp_serve_profile: one tp=2 decode step of each engine (45m bf16, 8
     live requests) under torch.profiler in each rank: wall, device busy
     (kernels apart from the hops' copies), the tp hops' host time, the
-    card's idle share, the paged decode kernel 12 times.
+    card's idle share, the paged decode kernel 12 times;
+31. graph_check: both engines at the phase-5 and phase-15 traffic (its
+    deadlines x 1000, so the schedule does not follow the clock) with
+    the decode step graphed (`--decode_graph auto`) and eager (`off`), at
+    bf16 and f32: identical tokens, the graph run on every decode step;
+    a replayed decode step's logits and tokens bitwise the eager step's
+    on the live rows (bf16 and f32, both engines); per engine (bf16, 8 and
+    16 live) the decode step's wall, device busy and idle share both ways;
+32. train_remat: the train cell (45m bf16, b 32 x t 1000) 10 steps at
+    `--remat true`, `dots`, `false` and `auto` (its pick printed): losses
+    equal true's within 1e-6 relative, K1's forward 12 launches per step
+    under dots and false (24 under true), dq and dk/dv 12; step p50,
+    tokens/s, MFU and peak memory;
+33. train_spd: the train cell 10 steps at `--steps_per_dispatch 4`
+    (dispatches of 4, 4 and 2) against 1: identical losses, final
+    parameters and moments (max abs diff 0) and launches; the Adam update
+    from device scalars bitwise the host-float one on the card; a profiled
+    dispatch of 4 steps against 4 eager steps (wall, busy, idle share).
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -2504,9 +2524,10 @@ TP_RUNS = {  # name: (flags, steps)
 }
 
 
-def _flash_want(layers: int, steps: int) -> dict:
-    """A rank's flash launches over `steps` (remat: the forward twice)."""
-    return {"flash_attention_fwd": 2 * layers * steps,
+def _flash_want(layers: int, steps: int, forwards: int = 2) -> dict:
+    """A rank's flash launches over `steps`: the forward `forwards` times
+    per layer (2 under remat true, 1 where (o, lse) are kept)."""
+    return {"flash_attention_fwd": forwards * layers * steps,
             "flash_attention_bwd_dq": layers * steps,
             "flash_attention_bwd_dkv": layers * steps}
 
@@ -3125,13 +3146,322 @@ def phase_tp_serve_profile(torch) -> dict:
             f"{r0['attn']}")
     return {"ranks": ranks}
 
+# ---- slice 12: one dispatch per step (CUDA graphs), the remat policies ----
+
+REMAT_STEPS = 10       # train_remat and train_spd: 10 steps of the train cell
+SPD = 4                # train_spd: dispatches of 4, 4 and 2 steps
+
+
+def _replace_flag(args: list, flag: str, value: str) -> list:
+    i = args.index(flag)
+    return args[:i + 1] + [value] + args[i + 2:]
+
+
+def _train_run(workdir: str, name: str, extra: list) -> tuple:
+    """`train.main` on the train cell (45m bf16, b 32 x t 1000) for
+    REMAT_STEPS steps, one checkpoint at the end under `workdir/name`;
+    returns (summary, kernel launches)."""
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    args = _replace_flag(_replace_flag(TRAIN_ARGS, "--max_steps",
+                                       str(REMAT_STEPS)),
+                         "--save_interval", str(REMAT_STEPS))
+    _reset_launches()
+    out = train.main(args + ["--data_path", _corpus(workdir), "--save_dir",
+                             os.path.join(workdir, name)] + extra)
+    counts = _read_launches()
+    log(f"{name}: remat {out['remat']}, {out['steps']} steps at "
+        f"{out['steps_per_dispatch']} per dispatch: losses "
+        f"{[round(x, 6) for x in out['losses']]}; step p50 "
+        f"{out['step_ms_p50']:.3f} ms, {out['tokens_per_sec']:.1f} tok/s, "
+        f"MFU {out['mfu']:.4f}, peak memory {out['peak_mem_gib']:.3f} GiB; "
+        f"launches {counts}")
+    return out, counts
+
+
+def phase_train_remat(torch, workdir: str) -> dict:
+    """The train cell at --remat true, dots, false and auto, and dots at 4
+    steps per dispatch: the losses of each equal true's (1e-6 relative;
+    the same kernels on the same values, so bitwise is expected), and K1's
+    forward launches 12 times per step where the policy keeps (o, lse)
+    (dots, false), 24 where it recomputes them (true). Returns each run's
+    launches."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    layers = model_preset("45m").num_layers
+    runs = {p: _train_run(workdir, f"train_remat_{p}", ["--remat", p])
+            for p in ("true", "dots", "false", "auto")}
+    # dots with its step captured: the selective policy's dispatch mode
+    # costs the host per op, a replay does not
+    runs["dots_spd4"] = _train_run(workdir, "train_remat_dots_spd4",
+                                   ["--remat", "dots",
+                                    "--steps_per_dispatch", str(SPD)])
+    ref = runs["true"][0]["losses"]
+    log(f"train_remat: --remat auto picked {runs['auto'][0]['remat']!r}")
+    for policy, (out, counts) in runs.items():
+        picked = out["remat"]
+        _only(counts, _flash_want(layers, REMAT_STEPS,
+                                  2 if picked == "true" else 1),
+              f"train at --remat {policy} ({picked})")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], ref))
+        log(f"train_remat {policy}: losses against true's: max relative "
+            f"diff {rel:.3e} (tol 1e-6), bitwise "
+            f"{out['losses'] == ref}")
+        if len(out["losses"]) != REMAT_STEPS or not rel <= 1e-6:
+            raise AssertionError(f"--remat {policy} trains otherwise than "
+                                 f"--remat true")
+    return {p: counts for p, (_, counts) in runs.items()}
+
+
+def phase_train_spd(torch, workdir: str) -> dict:
+    """--steps_per_dispatch 4 on the train cell for REMAT_STEPS steps
+    (dispatches of 4, 4 and 2) against 1: identical losses, identical final
+    parameters and moments (max abs diff 0), identical kernel launches; the
+    Adam update from device scalars bitwise the host-scalar one on the
+    card; then a profiled dispatch of 4 steps beside 4 eager steps."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        OptimizerConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
+        load_checkpoint)
+    from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
+        adam_scalars, adam_update, init_adam_state)
+    from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
+        build_train_step, build_train_step_multi)
+    cfg_layers = model_preset("45m").num_layers
+    runs = {n: _train_run(workdir, f"train_spd{n}",
+                          ["--steps_per_dispatch", str(n)])
+            for n in (1, SPD)}
+    (one, c1), (multi, cn) = runs[1], runs[SPD]
+    states = {n: load_checkpoint(os.path.join(workdir, f"train_spd{n}"),
+                                 REMAT_STEPS, with_opt=True)
+              for n in (1, SPD)}
+    (p1, o1, _), (pn, on, _) = states[1], states[SPD]
+    diff = max([(pn[k] - v).abs().max().item() for k, v in p1.items()]
+               + [(on.mu[k] - v).abs().max().item() for k, v in o1.mu.items()]
+               + [(on.nu[k] - v).abs().max().item() for k, v in o1.nu.items()])
+    log(f"train_spd: {SPD} steps per dispatch against 1, {REMAT_STEPS} "
+        f"steps: losses identical {multi['losses'] == one['losses']}, final "
+        f"parameters and moments max abs diff {diff:.3e}, launches "
+        f"identical {cn == c1}; step p50 {multi['step_ms_p50']:.3f} ms vs "
+        f"{one['step_ms_p50']:.3f} ms")
+    if (multi["losses"] != one["losses"] or diff != 0.0 or cn != c1
+            or multi["steps"] != REMAT_STEPS):
+        raise AssertionError("several steps per dispatch train otherwise "
+                             "than one")
+    _only(cn, _flash_want(cfg_layers, REMAT_STEPS),
+          "train --steps_per_dispatch")
+
+    # the Adam update's scalars from the card, against host floats
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=2, max_steps=5,
+                           clip_grad_norm=0.5, weight_decay=0.1)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    init = {k: torch.randn(s, generator=g, device="cuda")
+            for k, s in (("w", (512, 2048)), ("b", (2048,)))}
+    host = {k: v.clone() for k, v in init.items()}
+    dev = {k: v.clone() for k, v in init.items()}
+    sh, sd = init_adam_state(host), init_adam_state(dev)
+    for _ in range(5):
+        grads = {k: torch.randn(v.shape, generator=g, device="cuda")
+                 for k, v in init.items()}
+        sh = adam_update(ocfg, host, grads, sh)
+        sd = adam_update(ocfg, dev, grads, sd, scalars=torch.from_numpy(
+            adam_scalars(ocfg, sd.step)).cuda())
+    same = all(torch.equal(host[k], dev[k]) and torch.equal(sh.nu[k], sd.nu[k])
+               for k in init)
+    log(f"train_spd: 5 Adam updates (clip, weight decay) from device "
+        f"scalars vs host floats on the card: bitwise {same}")
+    if not same:
+        raise AssertionError("adam_update from device scalars differs")
+
+    # one profiled dispatch of SPD steps, beside SPD eager steps
+    cfg = model_preset("45m", compute_dtype="bfloat16")
+    b, t = TRAIN_SHAPE[0], TRAIN_SHAPE[2]
+    rng = np.random.default_rng(2)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size,
+                                        (SPD, b, t))).cuda()
+    pos = torch.arange(t, device="cuda").expand(SPD, b, t)
+    res = {}
+    for name, build in (("eager", build_train_step),
+                        ("graph", build_train_step_multi)):
+        model = Transformer(cfg, remat=True).init_weights(seed=2).to("cuda")
+        step = build(model, OptimizerConfig(lr=1e-4))
+        state = init_adam_state(dict(model.named_parameters()))
+
+        def dispatch():
+            nonlocal state
+            if name == "graph":
+                _, _, state = step(state, ids, ids, pos)
+            else:
+                for i in range(SPD):
+                    _, _, state = step(state, ids[i], ids[i], pos[i])
+
+        dispatch()                       # build, warm (and capture)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(us for _, us in _profiled(torch, dispatch,
+                                             f"train_spd {name}")) / 1e3
+        res[name] = {"wall_ms": wall / SPD, "busy_ms": busy / SPD,
+                     "idle": 1 - busy / wall}
+        log(f"train_spd profile ({name}, {SPD} steps of 45m bf16 b{b} x "
+            f"t{t}, remat): wall {wall / SPD:.3f} ms per step, device busy "
+            f"{busy / SPD:.3f} ms, idle share {1 - busy / wall:.3f}")
+        del model, step, state
+    return {**cn, "profile": res}
+
+
+def _live_engine(torch, kind: str, model, mesh, mode: str):
+    """A slot (8 slots) or paged (16 slots, page 64, chunk 128) engine at
+    the profile phases' shape with every slot live on a 512-token prompt,
+    its decode step graphed or not (`mode`), a few steps in."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine, PagedEngine, Request)
+    vocab = model.cfg.vocab_size
+    if kind == "slot":
+        n, eng = 8, ContinuousBatchingEngine(
+            model, mesh, num_slots=8, buf_len=642, eos_id=vocab,
+            max_prefill_batch=4, decode_graph=mode)
+    else:
+        n, eng = 16, PagedEngine(
+            model, mesh, num_slots=16, buf_len=642, eos_id=vocab,
+            page_size=64, prefill_chunk=128, decode_graph=mode)
+    rng = np.random.default_rng(1)
+    # eos_id = vocab: never picked, so every request stays live
+    for i in range(n):
+        eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(
+            3, vocab, 512)], max_new=120))
+    while eng.scheduler.pending or getattr(eng, "_prefilling", None):
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    return eng
+
+
+def _decode_window(torch, eng, steps: int = 10) -> dict:
+    """Wall per decode step (host clock around `steps` engine steps, each
+    ending in its token copy) and, from a profiled repeat, device busy and
+    kernels per step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    events = _profiled(torch, lambda: [eng.step() for _ in range(steps)],
+                       "graph_check decode window")
+    busy = sum(us for _, us in events) / 1e3 / steps
+    return {"wall_ms": wall, "busy_ms": busy, "kernels": len(events) / steps,
+            "idle": 1 - busy / wall}
+
+
+def _replay_vs_eager(torch, eng) -> tuple:
+    """The next decode dispatch run eagerly and by the graph's replay (a
+    step writes the same K/V at the same places each time, so the two see
+    the same pool): (live rows' logits and tokens bitwise equal, max abs
+    logit diff, live rows)."""
+    payload = eng._decode_payload()
+    live = sorted(eng._slot_req)
+    with torch.inference_mode():
+        tok, logits = (x.clone() for x in eng._decode_body(
+            torch.from_numpy(payload).to(eng.device)))
+        gtok, glogits = eng._decode_graph(payload)
+    same = (torch.equal(glogits[live], logits[live])
+            and torch.equal(gtok[live], tok[live]))
+    diff = (glogits[live].float() - logits[live].float()).abs().max().item()
+    return same, diff, len(live)
+
+
+# graph_check's paged traffic: phase 15's three classes with their TTFT
+# deadlines x 1000, so that no admission or preemption depends on the clock.
+# At the real deadlines a faster decode step changes which requests are
+# overdue and which are preempted, and a preempted request's tokens are
+# re-prefilled by the chunk kernel, whose bf16 roundings are not the decode
+# step's: the two runs would serve other schedules, not the same requests.
+GRAPH_CHECK_SLO = ["--slo_classes", "interactive=250,standard=1000,batch=8000"]
+
+
+def phase_graph_check(torch) -> dict:
+    """Both engines with the decode step graphed (`--decode_graph auto`)
+    against eager (`off`): the phase-5 and phase-15 traffic (its deadlines
+    scaled, `GRAPH_CHECK_SLO`) served both ways at bf16 and f32 gives
+    identical tokens; a replayed decode step's
+    logits are bitwise the eager step's (bf16 and f32); and per engine the
+    decode step's wall, device busy and idle share both ways (profiled, as
+    phases 7 and 17), with the served TPOT p50 and tokens/s."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    res = {}
+    for kind, args in (("slot", SERVE_ARGS),
+                       ("paged", PAGED_SERVE_ARGS + GRAPH_CHECK_SLO)):
+        for dtype, flag in (("bfloat16", "--bf16"), ("float32", "--no-bf16")):
+            outs = {m: serve.main(args + [flag, "--decode_graph", m])
+                    for m in ("off", "auto")}
+            for m, out in outs.items():
+                log(f"graph_check {kind} {dtype} decode {m}: "
+                    f"{out['completed']}/{out['requests']} requests, "
+                    f"{out['generated_tokens']} tokens, TPOT p50 "
+                    f"{out['tpot_ms_p50']:.3f} ms, TTFT p50 "
+                    f"{out['ttft_ms_p50']:.3f} ms, {out['tokens_per_sec']:.1f}"
+                    f" tok/s, decode graph {out['decode_graph']} "
+                    f"({out['decode_graph_replays']} replays of "
+                    f"{out['decode_graph_launches']} kernel launches each)")
+            if outs["auto"]["outputs"] != outs["off"]["outputs"]:
+                raise AssertionError(f"{kind} {dtype}: the graphed decode "
+                                     f"gives other tokens than eager")
+            if (outs["auto"]["decode_graph"] is not True
+                    or outs["off"]["decode_graph"] is not False
+                    or outs["auto"]["decode_graph_replays"]
+                    != outs["auto"]["engine_stats"]["decode_steps"]):
+                raise AssertionError(f"{kind} {dtype}: the decode graph did "
+                                     f"not run on every decode step")
+            res[(kind, dtype)] = {m: {k: outs[m][k] for k in (
+                "tpot_ms_p50", "ttft_ms_p50", "tokens_per_sec")}
+                for m in outs}
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        model = Transformer(model_preset("45m", compute_dtype=dtype)
+                            ).init_weights(seed=1).to(mesh.device)
+        for kind in ("slot", "paged"):
+            eng = _live_engine(torch, kind, model, mesh, "auto")
+            same, diff, live = _replay_vs_eager(torch, eng)
+            log(f"graph_check {kind} {dtype}: replayed decode step vs eager "
+                f"on {live} live rows: logits and tokens bitwise {same} "
+                f"(max abs logit diff {diff:.3e})")
+            if not same:
+                raise AssertionError(f"{kind} {dtype}: a replayed decode "
+                                     f"step differs from the eager step")
+            if dtype != "bfloat16":
+                continue
+            win = {"auto": _decode_window(torch, eng)}
+            del eng
+            win["off"] = _decode_window(torch, _live_engine(
+                torch, kind, model, mesh, "off"))
+            for m, w in win.items():
+                log(f"graph_check {kind} bf16 decode step ({m}): wall "
+                    f"{w['wall_ms']:.3f} ms, device busy {w['busy_ms']:.3f} "
+                    f"ms, idle share {w['idle']:.3f}, {w['kernels']:.0f} "
+                    f"kernels per step")
+            res[(kind, "window")] = win
+        del model
+    return res
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
           "paged_card_vs_cpu", "paged_profile", "ring_check", "ring_times",
           "cp_train", "cp_tiny", "cp_card_vs_cpu", "cp_profile", "tp_train",
           "tp_tiny", "tp_card_vs_cpu", "tp_profile", "tp_serve",
-          "tp_serve_card_vs_cpu", "tp_serve_profile")
+          "tp_serve_card_vs_cpu", "tp_serve_profile", "graph_check",
+          "train_remat", "train_spd")
 
 
 def main() -> None:
@@ -3165,7 +3495,8 @@ def run(torch, phases: set, workdir: str) -> list:
     of the phases)."""
     t0 = time.perf_counter()
     device = phase_device(torch)
-    with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny")
+    with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
+                "train_remat", "train_spd")
     res = {}
     for name in PHASES:
         if name not in phases:
@@ -3178,11 +3509,12 @@ def run(torch, phases: set, workdir: str) -> list:
             f"{time.perf_counter() - t1:.1f} s")
     (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
-     tp_runs, tp_tiny, tp_served) = (res.get(k) for k in (
-         "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
-         "train", "paged_check", "paged_times", "paged_serve", "ring_check",
-         "ring_times", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
-         "tp_serve"))
+     tp_runs, tp_tiny, tp_served, remat_runs, spd_run) = (
+         res.get(k) for k in (
+             "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
+             "train", "paged_check", "paged_times", "paged_serve",
+             "ring_check", "ring_times", "cp_train", "cp_tiny", "tp_train",
+             "tp_tiny", "tp_serve", "train_remat", "train_spd"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -3200,6 +3532,9 @@ def run(torch, phases: set, workdir: str) -> list:
                          "train_tp2_cp2_tiny_f32": tp_tiny["float32"].get(k, 0),
                          "train_tp2_cp2_tiny_bf16":
                              tp_tiny["bfloat16"].get(k, 0),
+                         "train_dots": remat_runs["dots"][k],
+                         "train_false": remat_runs["false"][k],
+                         "train_spd4": spd_run[k],
                          **{name: run["launches"].get(k, 0)
                             for name, run in tp_served.items()}}
     at_path = bwd_times["errs"]

@@ -10,9 +10,14 @@ tree onto this module's `state_dict` (one tp rank's shard of it at tp > 1).
 `forward` is the full-sequence training forward (the JAX `_layer_body`
 stack) and `loss` the f32 masked-mean cross-entropy of `loss_shard`. The
 decoding lowerings live in `models/decode.py`, as in the JAX package; both
-share its layer block. `remat=True` recomputes each layer in the backward
-(`torch.utils.checkpoint`, the JAX `remat_wrap`); `False` saves every
-activation.
+share its layer block. `remat` is the JAX `remat_wrap` policy (`True`,
+`False` or `'dots'`; `'auto'` is resolved by the train CLI through
+`training/memory.select_remat`): `True` recomputes each layer in the
+backward (`torch.utils.checkpoint`), `False` saves every activation, and
+`'dots'` saves the outputs of the matrix products and of the flash forward
+(o and lse) and recomputes only the elementwise ops between them
+(selective activation checkpointing, `DOTS_SAVED`), so the backward never
+launches the attention forward again.
 
 The model runs on one rank of a `runtime.mesh.Mesh`:
 * at `tp_size > 1` the rank holds its tp shard: wq/wk/wv/gate/up are
@@ -30,8 +35,7 @@ The model runs on one rank of a `runtime.mesh.Mesh`:
 * the loss sums its numerator and count over the batch group (dp x cp)
   before it divides; the train step sums the gradients over it.
 
-Not ported: MoE, pipeline, tp overlap, and the 'dots'/'auto' remat
-policies.
+Not ported: MoE, pipeline and tp overlap.
 """
 
 from __future__ import annotations
@@ -39,10 +43,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..config import IGNORE_INDEX, ModelConfig, resolve_dtype_on
 from ..ops.attention import causal_attention
+from ..ops.cuda.flash_attention import flash_attention
 from ..ops.collectives import (all_gather, all_max, all_reduce_sum,
                                gather_from, reduce_from)
 from ..ops.ring_attention import (cp_chunk_index, ring_attention,
@@ -96,6 +102,26 @@ def validate_tp(cfg: ModelConfig, tp: int) -> None:
                          f"tp_size {tp}")
 
 
+# remat='dots': the ops whose outputs a layer keeps for its backward — every
+# matrix product (the JAX `checkpoint_dots`) and the flash forward's (o,
+# lse) (the JAX kernel's `flash_out`/`flash_lse` names). On the CPU the
+# attention is the plain einsums, whose products (bmm) are kept, as JAX's
+# XLA path keeps its dots where the flash names do not exist.
+DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+              torch.ops.aten.bmm.default, flash_attention._opoverload]
+
+
+def _remat_kwargs(remat) -> dict:
+    """`torch.utils.checkpoint` arguments of a remat policy. The model draws
+    no random numbers, so no RNG state is stashed for the replay (which
+    also keeps a captured step free of host reads of the RNG)."""
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            DOTS_SAVED)
+    return kw
+
+
 def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
     d, f, kd = cfg.attn_dim, cfg.ffn_dim, cfg.kv_dim
     return nn.ModuleDict({
@@ -122,12 +148,9 @@ class Transformer(nn.Module):
                  cp_layout: str = "contiguous", mesh=None,
                  sequence_parallel: bool = False):
         super().__init__()
-        if remat in ("dots", "auto"):
-            raise NotImplementedError(
-                f"remat={remat!r}: the selective remat policies are not "
-                f"ported yet, see ROADMAP Queue 1 (a); use True or False")
-        if remat not in (True, False):
-            raise ValueError(f"remat must be True or False, got {remat!r}")
+        if remat not in (True, False, "dots"):
+            raise ValueError(
+                f"remat must be True, False or 'dots', got {remat!r}")
         if cfg.num_experts:
             raise NotImplementedError(
                 "num_experts > 0: MoE is not ported yet, see ROADMAP")
@@ -233,7 +256,7 @@ class Transformer(nn.Module):
 
         for lp in self.layers:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, lp, use_reentrant=False)
+                x = checkpoint(layer, x, lp, **_remat_kwargs(self.remat))
             else:
                 x = layer(x, lp)
         return _logits_tokens(self, x, dtype)

@@ -50,12 +50,12 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      t_real: int = None) -> torch.Tensor:
     """The flash kernels on a CUDA tensor (they raise rather than fall back),
     `causal_attention_plain` with torch autograd on a CPU tensor — JAX
-    `impl="auto"`. The CUDA path goes through `FlashAttention`, whose
-    backward launches the backward kernels; under no_grad/inference_mode
-    its output has no grad_fn, so the saved tensors go with the context and
-    serving keeps nothing for a backward."""
+    `impl="auto"`. The CUDA path goes through the `flash_attention` op,
+    whose backward launches the backward kernels; under
+    no_grad/inference_mode its output has no grad_fn, so nothing is saved
+    and serving keeps nothing for a backward."""
     if q.is_cuda:
-        from .cuda.flash_attention import FlashAttention
-        return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), t_real)
+        from .cuda.flash_attention import flash_attention
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), t_real)[0]
     return causal_attention_plain(q, k, v, t_real=t_real)

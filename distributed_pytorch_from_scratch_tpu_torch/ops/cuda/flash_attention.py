@@ -1,6 +1,6 @@
 """Causal flash attention: the CUDA kernels (forward; backward as dq and
-dk/dv), their plain PyTorch versions, and `FlashAttention`, the autograd
-Function that joins them.
+dk/dv), their plain PyTorch versions, and `flash_attention`, the
+dispatcher op with a gradient that joins them.
 
 Counterparts of the JAX TPU kernels in
 `distributed_pytorch_from_scratch_tpu/ops/pallas/flash_attention.py`:
@@ -355,21 +355,36 @@ flash_attention_bwd.launches_dq = 0
 flash_attention_bwd.launches_dkv = 0
 
 
-class FlashAttention(torch.autograd.Function):
-    """o = causal attention of (q, k, v): the forward kernel, saving
-    (q, k, v, o, lse); the backward kernels for (dq, dk, dv). On CPU tensors
-    both sides are the plain versions. `t_real` gets no gradient."""
+@torch.library.custom_op("distributed_pytorch_from_scratch_tpu_torch::flash_attention",
+                         mutates_args=())
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    t_real: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of causal attention, `flash_attention_fwd` as a dispatcher
+    op with its gradient: the backward launches the backward kernels from
+    the saved (q, k, v, o, lse). Being an op of the dispatcher, it can be
+    named by a selective-checkpoint policy, which keeps its outputs rather
+    than launching the forward again in the recompute (the 'dots' remat
+    policy, `models/transformer.py`; the JAX kernel's `flash_out` and
+    `flash_lse` tags). On CPU tensors both sides are the plain versions.
+    `t_real` gets no gradient, nor does lse (the model reads only o)."""
+    return flash_attention_fwd(q, k, v, t_real=t_real)
 
-    @staticmethod
-    def forward(ctx, q, k, v, t_real=None):
-        o, lse = flash_attention_fwd(q, k, v, t_real=t_real)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.t_real = t_real
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         t_real=ctx.t_real)
-        return dq, dk, dv, None
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, t_real = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.t_real = t_real
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                     t_real=ctx.t_real)
+    return dq, dk, dv, None
+
+
+flash_attention.register_autograd(_backward, setup_context=_setup_context)

@@ -15,8 +15,10 @@ def rope_tables(maxlen: int, head_dim: int, base: float = 10000.0,
     assert head_dim % 2 == 0
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    theta = 1.0 / torch.pow(torch.tensor(base, dtype=torch.float32,
-                                         device=device), exponent)
+    # the base made on the device (no host copy: a captured step builds the
+    # tables inside its graph)
+    theta = 1.0 / torch.pow(torch.full((), base, dtype=torch.float32,
+                                       device=device), exponent)
     pos = torch.arange(maxlen, dtype=torch.float32, device=device)[:, None]
     ang = pos * theta[None, :]                    # (maxlen, head_dim/2)
     ang = torch.cat([ang, ang], dim=-1)           # repeat(1, 2) layout

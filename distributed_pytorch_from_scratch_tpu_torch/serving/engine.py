@@ -15,7 +15,13 @@ decode lowerings in `models/decode.py`:
 
 Step loop: admit (FIFO groups -> prefill) -> one decode dispatch -> retire.
 Each dispatch ends in a host copy of the chosen tokens, as the JAX engine's
-`np.asarray(tok)` does. Both engines send every device dispatch through a
+`np.asarray(tok)` does. Both engines' decode step has one shape (every slot
+row, the whole buffer or page table), so on a card at tp = 1 it is
+captured once as a CUDA graph and replayed (`decode_graph`,
+`runtime/graphs.py`): one launch from the host per step, where the eager
+step is ~900, the JAX step's one compiled dispatch. The prefill and chunk
+dispatches, whose widths vary by bucket, and the copy-on-write page copies
+stay eager. Both engines send every device dispatch through a
 `tp_dispatch.Dispatcher`: at tp > 1 tp rank 0 runs the host loop and
 broadcasts each dispatch, and the other ranks run it on their shards
 (`engine.dispatch.serve()`) until rank 0's `engine.dispatch.stop()`.
@@ -39,6 +45,7 @@ from ..models.decode import (
     PAGED_ATTN_IMPLS, _decode_one, _paged_decode_one, _paged_prefill_chunk,
     _prefill, make_token_sampler)
 from ..ops.rope import rope_tables
+from ..runtime.graphs import CapturedStep, use_decode_graph
 from .kv_manager import KVCachePool, PagedKVPool, PoolExhausted
 from .scheduler import FIFOScheduler, SLOScheduler
 from .tp_dispatch import Dispatcher
@@ -116,6 +123,39 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device, non_blocking=True)
 
 
+def _capture_decode(engine, mode: str, tp: int,
+                    example: np.ndarray) -> Optional[CapturedStep]:
+    """The engine's decode step `engine._decode_body(packed) -> (tokens,
+    logits)` captured for the packed dispatch's shape, where `mode` and
+    the rank say so (`use_decode_graph`), else None. The warm-up runs
+    `example` for real: the engines pass one that writes only free rows
+    and the scratch page."""
+    if not use_decode_graph(mode, engine.device, tp):
+        return None
+    with torch.no_grad():
+        return CapturedStep(engine._decode_body,
+                            [torch.from_numpy(example).to(engine.device)])
+
+
+def _run_decode_step(engine, packed: np.ndarray) -> np.ndarray:
+    """The decode dispatch: the captured step's replay, or the eager step;
+    the chosen tokens on the host."""
+    if engine._decode_graph is not None:
+        tok, _ = engine._decode_graph(packed)
+    else:
+        tok, _ = engine._decode_body(_to_device(packed, engine.device))
+    return tok.cpu().numpy()
+
+
+def graph_stats(engine) -> dict:
+    """Whether the engine's decode step runs as a graph, its replays, and
+    the kernel launches one replay holds, by kernel."""
+    graph = engine._decode_graph
+    return {"decode_graph": graph is not None,
+            "decode_graph_replays": graph.replays if graph else 0,
+            "decode_graph_launches": graph.kernel_launches if graph else {}}
+
+
 def _chunk_maps(ids, s: int, n: int, cw: int, ps: int, eos_id: int,
                 scratch_page: int, tbl_row):
     """Host-side maps of one prefill chunk: the (1, cw) token buffer
@@ -143,12 +183,14 @@ class ContinuousBatchingEngine:
 
     The JAX engine takes (model, mesh, params, ...); here the model module
     carries its weights (this rank's shard), which must already lie on
-    `mesh.device`."""
+    `mesh.device`. `decode_graph` ('auto', 'on', 'off';
+    `runtime/graphs.use_decode_graph`) says whether the decode step runs
+    as a CUDA graph."""
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
                  eos_id: int, temperature: float = 0.0,
                  prefill_bucket: int = 64, max_prefill_batch: int = 4,
-                 max_queue: int = 0):
+                 max_queue: int = 0, decode_graph: str = "auto"):
         if max_prefill_batch < 1:
             raise ValueError(f"max_prefill_batch must be >= 1, got "
                              f"{max_prefill_batch}")
@@ -186,6 +228,9 @@ class ContinuousBatchingEngine:
         self.prefill_positions_monolithic = 0  # Σ rows * buf_len (no bucket)
         self.prompt_tokens = 0
         self.prefill_dispatches = 0
+        # the example: token 0 at cursor 0 in every row, all free now
+        self._decode_graph = _capture_decode(self, decode_graph, mesh.tp,
+                                             np.zeros(2 * n, np.int32))
 
     # -- request intake --------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -287,20 +332,24 @@ class ContinuousBatchingEngine:
         self.pool.vs[:, idx, :, :width, :] = vs
         return self._sample(logits).cpu().numpy()
 
-    def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
-        """The decode dispatch: every slot row one token on (pending tokens
-        | cursors)."""
-        n = packed.size // 2
-        dev = _to_device(packed, self.device)
+    def _decode_body(self, dev: torch.Tensor):
+        """Every slot row one token on, from the packed dispatch on the card
+        (pending tokens | cursors): (tokens, logits)."""
+        n = dev.shape[0] // 2
         logits = _decode_one(self.model, self.pool.ks, self.pool.vs, dev[:n],
                              dev[n:], self.buf_len, self._cos, self._sin,
                              self._dtype)
-        return self._sample(logits).cpu().numpy()
+        return self._sample(logits), logits
+
+    def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
+        return _run_decode_step(self, packed)
+
+    def _decode_payload(self) -> np.ndarray:
+        """The decode dispatch, one copy: pending tokens | cursors."""
+        return np.concatenate([self._tokens, self._pos])
 
     def _decode(self, done: List[Request]) -> None:
-        # one copy: pending tokens | cursors
-        tok = self.dispatch("slot_decode", (),
-                            np.concatenate([self._tokens, self._pos]))
+        tok = self.dispatch("slot_decode", (), self._decode_payload())
         now = time.monotonic()
         self.decode_steps += 1
         self._occupancy_sum += self.pool.occupancy
@@ -395,14 +444,15 @@ class PagedEngine:
     the only sync is the host copy of the chosen tokens. The JAX engine's
     tracing hooks, handoff methods (disaggregated serving), speculative
     decoding, int8 decode weights and sampled decoding are not ported
-    (ROADMAP)."""
+    (ROADMAP). `decode_graph` as the slot engine's."""
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
                  eos_id: int, page_size: int = 64, num_pages: int = 0,
                  prefill_chunk: int = 128, temperature: float = 0.0,
                  slo_classes=None, default_class: str = "standard",
                  max_queue: int = 0, kv_dtype=None,
-                 paged_attn_impl: str = "kernel", clock=time.monotonic):
+                 paged_attn_impl: str = "kernel", clock=time.monotonic,
+                 decode_graph: str = "auto"):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if page_size < 1:
@@ -468,6 +518,13 @@ class PagedEngine:
         self._occupancy_sum = 0.0
         self._kv_util_sum = 0.0
         self._pages_used_sum = 0
+        # the example: token 0 at cursor 0 in every row, every table entry
+        # on the scratch page, the only page it writes
+        self._decode_graph = _capture_decode(
+            self, decode_graph, mesh.tp, np.concatenate([
+                np.zeros(2 * num_slots, np.int32),
+                np.full(num_slots * self.max_pages, self.pool.scratch_page,
+                        np.int32)]))
 
     # -- request intake ---------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -761,7 +818,9 @@ class PagedEngine:
         self._tokens[slot] = first
         self._pos[slot] = len(st.ids)
 
-    def _decode(self, done: List[Request]) -> None:
+    def _decode_payload(self):
+        """Make every live slot's write position private, then the decode
+        dispatch (None when no slot is left live)."""
         # grow/privatise the write page of every live slot FIRST — this may
         # itself preempt victims (page exhaustion), so iterate a snapshot
         # and re-check liveness
@@ -771,7 +830,7 @@ class PagedEngine:
             pos = int(self._pos[slot])
             self._ensure_writable(slot, pos, pos + 1)
         if not self._slot_req:
-            return
+            return None
         # the dispatch is dense over ALL slot rows, and a non-live row (a
         # slot mid-prefill, or freed this step) still flows through it with
         # cursor 0 and a stale pending token — so its position-0 K/V write
@@ -784,8 +843,13 @@ class PagedEngine:
             for slot in self._prefilling:
                 tbl[slot, :] = self.pool.scratch_page
         # one copy: pending tokens | cursors | page table
-        tok = self.dispatch("paged_decode", (), np.concatenate(
-            [self._tokens, self._pos, tbl.ravel()]))
+        return np.concatenate([self._tokens, self._pos, tbl.ravel()])
+
+    def _decode(self, done: List[Request]) -> None:
+        payload = self._decode_payload()
+        if payload is None:
+            return
+        tok = self.dispatch("paged_decode", (), payload)
         now = self._clock()
         self.decode_steps += 1
         live_tokens = sum(int(self._pos[s]) + 1 for s in self._slot_req)
@@ -811,15 +875,18 @@ class PagedEngine:
             else:
                 self._tokens[slot] = cand
 
-    def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
-        """The decode dispatch: every slot row one token on."""
+    def _decode_body(self, dev: torch.Tensor):
+        """Every slot row one token on, from the packed dispatch on the card
+        (pending tokens | cursors | page table): (tokens, logits)."""
         n = self.num_slots
-        dev = _to_device(packed, self.device)
         logits = _paged_decode_one(
             self.model, self.pool.ks, self.pool.vs, dev[:n], dev[n:2 * n],
             dev[2 * n:].view(n, self.max_pages), self.page_size, self._cos,
             self._sin, self._dtype, attn_impl=self.paged_attn_impl)
-        return self._sample(logits).cpu().numpy()
+        return self._sample(logits), logits
+
+    def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
+        return _run_decode_step(self, packed)
 
     def _complete(self, req: Request, done: List[Request]) -> None:
         self.completed.append(req)

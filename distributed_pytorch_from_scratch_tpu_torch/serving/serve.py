@@ -14,7 +14,12 @@ for the paged engine the page, prefix-cache, preemption and SLO-attainment
 numbers — and the device that ran them. Runs on `cuda:0` unless `--device
 cpu` is given; with no card and no `--device cpu` it exits non-zero. The
 paged engine attends through the CUDA paged-attention kernel unless
-`--paged_attn gather` asks for the dense page view.
+`--paged_attn gather` asks for the dense page view. On a card at tp = 1
+both engines run their decode step as a CUDA graph (`--decode_graph auto`,
+the default; `off` runs the eager step, the graph's oracle and the A/B;
+`on` demands the graph and is refused on the CPU and at tp > 1); the
+summary says which, with the graph's replays and the kernel launches one
+replay holds.
 
 `--tp_size N` serves over N tensor-parallel ranks, one process each
 (`runtime/launch.spawn`; the transport is `--dist_backend`, nccl by default
@@ -52,9 +57,10 @@ from ..ops import collectives
 from ..ops.cuda import launch_counts
 from ..ops.cuda.paged_attention import paged_attention
 from ..runtime import launch
+from ..runtime.graphs import DECODE_GRAPH_MODES, use_decode_graph
 from ..runtime.mesh import dist_backend, make_mesh, resolve_device
 from ..training.checkpoint import latest_step, load_checkpoint
-from .engine import ContinuousBatchingEngine, PagedEngine
+from .engine import ContinuousBatchingEngine, PagedEngine, graph_stats
 from .loadgen import run_loadgen, synthetic_requests
 from .scheduler import parse_slo_classes
 
@@ -114,6 +120,12 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                    help="0 = greedy (the only mode ported so far)")
     g.add_argument("--decode_weight_dtype", choices=["native", "int8"],
                    default="native", help="native only, so far")
+    g.add_argument("--decode_graph", choices=DECODE_GRAPH_MODES,
+                   default="auto",
+                   help="run the decode step as a CUDA graph: 'auto' on a "
+                        "card at tp=1 (eager on the CPU and at tp>1), 'off' "
+                        "the eager step (the graph's oracle), 'on' demands "
+                        "the graph")
 
     g = p.add_argument_group("paged engine")
     g.add_argument("--paged", action="store_true",
@@ -186,6 +198,10 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                 "ROADMAP)")
     if args.temperature < 0:
         p.error(f"--temperature must be >= 0, got {args.temperature}")
+    try:
+        use_decode_graph(args.decode_graph, args.device, args.tp_size)
+    except ValueError as e:
+        p.error(f"--decode_graph: {e}")
     # the page and SLO knobs only matter to the paged engine; a silent
     # no-op would misreport what the run measured
     if not args.paged:
@@ -283,14 +299,14 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
             slo_classes=parse_slo_classes(args.slo_classes),
             default_class=args.default_class, max_queue=args.queue_limit,
             kv_dtype=None if args.kv_dtype == "native" else args.kv_dtype,
-            paged_attn_impl=args.paged_attn)
+            paged_attn_impl=args.paged_attn, decode_graph=args.decode_graph)
     else:
         engine = ContinuousBatchingEngine(
             model, mesh, num_slots=args.slots, buf_len=buf_len,
             eos_id=eos_id, temperature=args.temperature,
             prefill_bucket=args.prefill_bucket,
             max_prefill_batch=args.max_prefill_batch,
-            max_queue=args.queue_limit)
+            max_queue=args.queue_limit, decode_graph=args.decode_graph)
     launches0 = launch_counts()
     kernels0 = dict(paged_attention.launches_by_kernel)
     collectives.reset_stats()
@@ -315,12 +331,13 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
         "launches": delta(launch_counts(), launches0),
         "paged_launches_by_kernel": delta(paged_attention.launches_by_kernel,
                                           kernels0),
+        **graph_stats(engine),
     }
     if not engine.dispatch.leader:
         return {"ranks": [ranked]}
     device_name = (torch.cuda.get_device_name(mesh.device)
                    if mesh.device.type == "cuda" else "cpu")
-    return {**out, "device": device_name,
+    return {**out, "device": device_name, **graph_stats(engine),
             "prefill_dispatches": engine.prefill_dispatches,
             "engine_stats": engine.stats(),
             "outputs": {r.rid: list(r.tokens) for r in engine.completed},
@@ -345,7 +362,8 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
           f"TPOT p50/p95 {fmt(summary['tpot_ms_p50'])}/"
           f"{fmt(summary['tpot_ms_p95'])}ms, queue p50/p95 "
           f"{fmt(summary['queue_wait_ms_p50'])}/"
-          f"{fmt(summary['queue_wait_ms_p95'])}ms"
+          f"{fmt(summary['queue_wait_ms_p95'])}ms, decode "
+          f"{'graph' if summary['decode_graph'] else 'eager'}"
           + (f"; kv util {summary['kv_util_mean']:.2f}, prefix hits "
              f"{100 * summary['prefix_hit_rate']:.0f}%, "
              f"{summary['preemptions']} preempted, paged attn "
@@ -363,7 +381,8 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
             "requests", "completed", "rejected", "invalid", "wall_s",
             "slot_occupancy_mean", "ttft_ms_p50", "ttft_ms_p95",
             "tpot_ms_p50", "tpot_ms_p95", "queue_wait_ms_p50",
-            "queue_wait_ms_p95", "prefill_pad_waste_eliminated")},
+            "queue_wait_ms_p95", "prefill_pad_waste_eliminated",
+            "decode_graph", "decode_graph_replays")},
         "device": summary["device"],
     }
     for k in ("kv_dtype", "paged_attn", "cp", "pages_per_rank", "num_pages",
@@ -377,7 +396,9 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
 
 def serve(args: argparse.Namespace) -> dict:
     """Run the benchmark; prints the JSON record and returns the loadgen
-    summary plus `device`, `prefill_dispatches` (prefill or chunk
+    summary plus `device`, `decode_graph` (whether the decode step ran as
+    a graph), `decode_graph_replays`, `decode_graph_launches` (the kernel
+    launches one replay holds), `prefill_dispatches` (prefill or chunk
     dispatches), `engine_stats` (the engine's `stats()` after the drain),
     `outputs` ({rid: generated ids}) and `ranks`: per tp rank its tp hops
     (calls, bytes, host seconds), its dispatch broadcasts, its dispatches

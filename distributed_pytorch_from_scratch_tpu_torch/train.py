@@ -32,11 +32,18 @@ checkpoint file per tp rank, in the JAX shard format, between barriers;
 every rank loads on `--resume`, from files written at any tp its vocab
 divides. A rank that fails fails the run.
 
+`--remat` takes the JAX policies: true, false, dots, and auto, which
+`training/memory.select_remat` resolves against the card's memory (printed
+with its estimates). `--steps_per_dispatch N` runs N optimizer steps per
+host dispatch (`training/train_step.build_train_step_multi`: the one-step
+graph replayed N times on a card), the same training bitwise; logs and
+saves land on dispatch boundaries and the last dispatch shrinks to end on
+`--max_steps`. It takes one rank and no `--grad_accum`.
+
 A flag that takes the run off the ported slices (ep/pp > 1, tp overlap,
-ZeRO, the bucketed dp reducer, MoE, the gpt2 family, `--remat dots|auto`,
-`--seq_bucket`, `--steps_per_dispatch > 1`, the observability/control and
-multi-host flags) raises NotImplementedError at any non-default value,
-naming its ROADMAP item.
+ZeRO, the bucketed dp reducer, MoE, the gpt2 family, `--seq_bucket`, the
+observability/control and multi-host flags) raises NotImplementedError at
+any non-default value, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -60,16 +67,18 @@ from .runtime import launch
 from .parallel.layout import tp_dim
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
 from .training.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from .training.memory import hbm_budget_gib, select_remat
 from .training.metrics import device_peak_flops, model_flops_per_step
 from .training.optim import AdamState, init_adam_state, schedule_lr
-from .training.train_step import build_grad_accum_step, build_train_step
+from .training.train_step import (build_grad_accum_step, build_train_step,
+                                  build_train_step_multi)
 
-REMAT_CHOICES = {"true": True, "false": False}
+# CLI flag-string -> Transformer.remat value ('auto' resolves to a key)
+REMAT_CHOICES = {"true": True, "dots": "dots", "false": False}
 
 _MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
 _LATER = "ROADMAP Queue 1 item 7 (d): pipeline, MoE, perf layers"
 _OBS = "ROADMAP Queue 1 item 5: the obs hooks of train.py"
-_LEFT = "ROADMAP Queue 1 (a): left out of the training slice"
 # (flag dest, default, the ROADMAP item that brings it)
 OFF_SLICE = [
     ("zero", None, _LATER),
@@ -81,8 +90,7 @@ OFF_SLICE = [
     ("pp_virtual", 2, _LATER), ("num_experts", None, _LATER),
     ("moe_top_k", None, _LATER), ("moe_capacity_factor", None, _LATER),
     ("family", "llama", "ROADMAP Queue 1 item 5: the gpt2 family"),
-    ("seq_bucket", 0, _LEFT),
-    ("steps_per_dispatch", 1, _LEFT + " (CUDA graphs)"),
+    ("seq_bucket", 0, "ROADMAP Queue 1 item 3: --seq_bucket"),
     ("no_trace", False, _OBS), ("no_sentinel", False, _OBS),
     ("sentinel_spike_factor", 3.0, _OBS), ("watchdog_secs", 300.0, _OBS),
     ("flight_ring", 256, _OBS), ("metrics_port", None, _OBS),
@@ -152,10 +160,15 @@ def get_train_args(argv=None) -> argparse.Namespace:
                    default="vocab_parallel")
     g.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --save_dir")
-    g.add_argument("--steps_per_dispatch", type=int, default=1)
+    g.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="run N optimizer steps per host dispatch (the "
+                        "one-step CUDA graph replayed N times on a card): "
+                        "bitwise the same training; logs/saves land on "
+                        "dispatch boundaries")
     g.add_argument("--grad_accum", type=int, default=1,
                    help="each optimizer step averages the grads of N "
-                        "microbatches")
+                        "microbatches; exclusive with --steps_per_dispatch "
+                        "> 1")
 
     g = p.add_argument_group("model")
     g.add_argument("--family", choices=["llama", "gpt2"], default="llama")
@@ -176,7 +189,9 @@ def get_train_args(argv=None) -> argparse.Namespace:
                    default="true",
                    help="per-layer rematerialisation: 'true' recomputes "
                         "each layer in the backward, 'false' saves every "
-                        "activation")
+                        "activation, 'dots' saves the matmul and flash "
+                        "outputs, 'auto' picks the fastest that fits the "
+                        "card (training/memory.select_remat)")
     g.add_argument("--seq_bucket", type=int, default=0)
 
     g = p.add_argument_group("data")
@@ -219,16 +234,24 @@ def get_train_args(argv=None) -> argparse.Namespace:
 
 
 def refuse_off_slice(args: argparse.Namespace) -> None:
-    """NotImplementedError for any flag at a value this slice cannot run."""
+    """NotImplementedError for any flag at a value this slice cannot run;
+    SystemExit for --grad_accum with several steps per dispatch (the JAX
+    CLI's refusal)."""
     for dest, default, item in OFF_SLICE:
         val = getattr(args, dest)
         if val != default:
             raise NotImplementedError(
                 f"--{dest} {val}: not ported yet, see {item}")
-    if args.remat not in REMAT_CHOICES:
-        raise NotImplementedError(
-            f"--remat {args.remat}: the selective remat policies are not "
-            f"ported yet, see {_LEFT}; use true or false")
+    if args.steps_per_dispatch > 1:
+        if args.grad_accum > 1:
+            raise SystemExit("--grad_accum and --steps_per_dispatch > 1 "
+                             "are mutually exclusive")
+        if _world(args) > 1:
+            raise NotImplementedError(
+                f"--steps_per_dispatch {args.steps_per_dispatch} at "
+                f"{_world(args)} ranks: the hops between ranks are staged "
+                f"through host memory (gloo) and cannot be captured in a "
+                f"CUDA graph, and NCCL is unrun, see ROADMAP Queue 1 item 2")
 
 
 def _windows(batches: Iterator[Dict[str, np.ndarray]], size: int,
@@ -251,29 +274,45 @@ def _windows(batches: Iterator[Dict[str, np.ndarray]], size: int,
 
 
 class _StepClock:
-    """Per-step times without a host sync: CUDA events recorded between
-    steps on the card (read once, at the end), the host clock on the CPU
-    (whose ops finish before they return)."""
+    """Per-dispatch times without a host sync: CUDA events recorded between
+    dispatches on the card (read once, at the end), the host clock on the
+    CPU (whose ops finish before they return)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks = []
-        self.tick()
+        self.steps = []    # optimizer steps of each dispatch
+        self.tick(0)
 
-    def tick(self) -> None:
+    def tick(self, steps: int) -> None:
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.marks.append(ev)
         else:
             self.marks.append(time.perf_counter())
+        self.steps.append(steps)
 
     def step_ms(self) -> List[float]:
+        """Per optimizer step: a dispatch of n steps gives n times, each
+        its time over n."""
         if self.cuda:
             self.marks[-1].synchronize()
-            return [a.elapsed_time(b) for a, b in zip(self.marks,
-                                                      self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+            ms = [a.elapsed_time(b) for a, b in zip(self.marks,
+                                                    self.marks[1:])]
+        else:
+            ms = [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+        return [t / n for t, n in zip(ms, self.steps[1:]) for _ in range(n)]
+
+    def steady_from(self, skip: int) -> int:
+        """The first step of the dispatch after the one that completes step
+        `skip`: the steady window starts on a dispatch boundary."""
+        done = 0
+        for n in self.steps[1:]:
+            if done >= skip:
+                break
+            done += n
+        return done
 
 
 def _device_name(device: torch.device) -> str:
@@ -333,13 +372,15 @@ def _check_dist(args: argparse.Namespace) -> None:
 def train(args: argparse.Namespace) -> dict:
     """Run the loop; returns the summary: steps, start_step, final_loss,
     avg_loss, losses (per step of this run), grad_norm (last step),
-    tokens_per_sec and mfu (per card; None without a known peak) over all
-    steps after the first two and their whole time, step_ms_p50 (their
-    median), peak_mem_gib (None on the CPU), device, checkpoints (paths
-    written, every tp rank's), the mesh (dp, cp, tp, sequence_parallel,
-    cp_impl, cp_layout), dist_backend, cards, and `ranks`: per rank its
-    coordinates, kernel launches, peak memory and time in the collectives
-    per axis.
+    tokens_per_sec and mfu (per card; None without a known peak) over the
+    steps of the dispatches after the one that completes step 2, and their
+    whole time, step_ms_p50 (their median; a dispatch of n steps counts n
+    times its time / n), peak_mem_gib (None on the CPU), device,
+    checkpoints (paths written, every tp rank's), the mesh (dp, cp, tp,
+    sequence_parallel, cp_impl, cp_layout), dist_backend, cards, remat (the
+    policy run, `auto` resolved), steps_per_dispatch, and `ranks`: per rank
+    its coordinates, kernel launches, peak memory and time in the
+    collectives per axis.
 
     With more than one rank the ranks run in processes of their own; the
     summary is global rank 0's (the loss is global, so every rank's
@@ -398,7 +439,13 @@ def _train(args: argparse.Namespace, rank: int = 0,
                                 data_mode=args.data_mode)
     vocab_size = dataloader.dataset.vocab_size
     cfg = _model_config(args, vocab_size)
-    model = Transformer(cfg, remat=REMAT_CHOICES[args.remat], cp_size=cp,
+    remat = args.remat
+    if remat == "auto":      # the JAX train.py's resolution
+        remat = select_remat(cfg, args.batch_size, maxlen, tp=tp,
+                             world=world, dp=mesh.dp,
+                             budget_gib=hbm_budget_gib(device=device),
+                             verbose=mesh.rank == 0)
+    model = Transformer(cfg, remat=REMAT_CHOICES[remat], cp_size=cp,
                         cp_impl=args.cp_impl, cp_layout=args.cp_layout,
                         mesh=mesh if world > 1 else None,
                         sequence_parallel=args.sequence_parallel)
@@ -421,7 +468,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
                  f"{mesh.backend}, {world} ranks on {cards or 'no'} card(s)")
     say(f"model[llama]: {n_params / 1e6:.2f}M params, vocab={vocab_size}, "
         f"mesh=dp{mesh.dp} x pp1 x cp{cp} x ep1 x tp{tp}, compute="
-        f"{cfg.compute_dtype}, remat={args.remat}, device="
+        f"{cfg.compute_dtype}, remat={remat}"
+        + (" (auto)" if args.remat == "auto" else "") + ", device="
         f"{_device_name(device)}{dist_desc}")
     opt_state = init_adam_state(params)
     start_step = 0
@@ -442,7 +490,9 @@ def _train(args: argparse.Namespace, rank: int = 0,
             say(f"resumed from iter {start_step} in {args.save_dir}")
 
     accum = max(1, args.grad_accum)
-    build = build_grad_accum_step if accum > 1 else build_train_step
+    spd = max(1, args.steps_per_dispatch)
+    build = (build_grad_accum_step if accum > 1 else
+             build_train_step_multi if spd > 1 else build_train_step)
     step_fn = build(model, ocfg, args.loss_mode)
     flops_step = model_flops_per_step(cfg, args.batch_size, maxlen) * accum
     peak_flops = device_peak_flops(device)
@@ -498,10 +548,17 @@ def _train(args: argparse.Namespace, rank: int = 0,
     for epoch in range(start_epoch, max_epoch):
         if done:
             break
-        for window in _windows(dataloader.epoch(epoch), accum,
+        # a window is one dispatch: `accum` microbatches of one step, or
+        # `spd` steps (the epoch's last window may hold fewer: it dispatches
+        # smaller, as the JAX loop's)
+        for window in _windows(dataloader.epoch(epoch), accum * spd,
                                skip_batches if epoch == start_epoch else 0):
             if accum > 1 and window["input_ids"].shape[0] < accum:
                 continue  # partial accumulation group at the epoch end
+            if spd > 1 and window["input_ids"].shape[0] > args.max_steps - n:
+                # the last dispatch shrinks to end exactly on max_steps
+                window = {k: v[:args.max_steps - n] for k, v in window.items()}
+            steps_in = window["input_ids"].shape[0] if spd > 1 else 1
             prev_n = n
             chunks = model.cp_shard(*(
                 dp_rows(window[k], mesh.dp, mesh.dp_rank)
@@ -509,10 +566,10 @@ def _train(args: argparse.Namespace, rank: int = 0,
             ids, tgt, pos = (torch.from_numpy(np.ascontiguousarray(x))
                              .to(device).long() for x in chunks)
             loss, gnorm, opt_state = step_fn(opt_state, ids, tgt, pos)
-            clock.tick()
-            n += 1
-            losses.append(loss)
-            accum_loss += loss
+            clock.tick(steps_in)
+            n += steps_in
+            losses.append(loss.reshape(-1))
+            accum_loss += loss.sum() if spd > 1 else loss
             tokens_since += window["input_ids"].size
             useful_since += int((window["target_ids"] != IGNORE_INDEX).sum())
             if n // args.log_interval > prev_n // args.log_interval:
@@ -543,14 +600,17 @@ def _train(args: argparse.Namespace, rank: int = 0,
         save(n)
 
     step_ms = clock.step_ms()
-    # the first steps build the kernels and warm the allocator. The rates
-    # divide the steady window's work by its whole time, stalls (logging,
-    # checkpoint writes) included; the median is a separate statistic
-    steady = step_ms[min(2, len(step_ms) - 1):] if step_ms else []
+    # the first steps build the kernels and warm the allocator (and, with
+    # several steps per dispatch, capture the step): the steady window
+    # starts at the first dispatch after step 2. The rates divide its work
+    # by its whole time, stalls (logging, checkpoint writes) included; the
+    # median is a separate statistic
+    steady = (step_ms[min(clock.steady_from(2), len(step_ms) - 1):]
+              if step_ms else [])
     step_ms_p50 = float(np.median(steady)) if steady else None
     window_s = sum(steady) / 1e3
     tokens_step = args.batch_size * maxlen * accum
-    loss_vals = ([float(x) for x in torch.stack(losses).cpu()]
+    loss_vals = ([float(x) for x in torch.cat(losses).cpu()]
                  if losses else [])
     avg_loss = float(accum_loss) / max(n - start_step, 1)
     say(f"training finished at step {n}, avg loss {avg_loss:.4f}")
@@ -573,6 +633,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
         "sequence_parallel": model.sequence_parallel,
         "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
         "dist_backend": mesh.backend, "cards": cards,
+        "remat": remat, "steps_per_dispatch": spd,
         "ranks": [{"rank": mesh.rank, **mesh.coords, "device": str(device),
                    "peak_mem_gib": peak_mem, "step_ms_p50": step_ms_p50,
                    "wall_s": sum(step_ms) / 1e3,

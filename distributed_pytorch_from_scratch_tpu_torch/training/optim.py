@@ -141,9 +141,37 @@ def clip_by_global_norm(grads: Tensors, max_norm: float, mesh=None,
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}
 
 
+# the per-step scalars of one Adam(W) update, in `adam_scalars` order
+ADAM_SCALARS = ("decay", "beta1", "one_minus_beta1", "inv_bc1", "inv_bc2",
+                "lr")
+
+
+def adam_scalars(cfg: OptimizerConfig, step: int) -> np.ndarray:
+    """The `ADAM_SCALARS` of the update that completes step `step` + 1, as
+    float32: the decoupled decay factor 1 - lr*wd, beta1, 1 - beta1, the
+    reciprocals of the two bias corrections 1 - beta^t, and lr, from this
+    step's scheduled (lr, beta1). Each is the float32 value the host-scalar
+    update hands the kernels, so an update from a device copy of them is
+    bitwise the same.
+
+    The bias corrections are applied as products with their float32
+    reciprocals. On the card that is what dividing by a host float
+    computes (PyTorch multiplies by the reciprocal there), while a device
+    tensor would be divided by exactly; the product is the same on every
+    device, whichever side the scalar lives on."""
+    lr, beta1 = schedule_lr(cfg, step)
+    t = _f32(step + 1)
+    bc1 = _f32(1.0) - np.power(beta1, t, dtype=_f32)
+    bc2 = _f32(1.0) - np.power(_f32(cfg.betas[1]), t, dtype=_f32)
+    return np.array([_f32(1.0) - lr * _f32(cfg.weight_decay), beta1,
+                     _f32(1.0) - beta1, _f32(1.0) / bc1, _f32(1.0) / bc2,
+                     lr], dtype=_f32)
+
+
 @torch.no_grad()
 def adam_update(cfg: OptimizerConfig, params: Tensors, grads: Tensors,
-                state: AdamState, mesh=None, norm=None) -> AdamState:
+                state: AdamState, mesh=None, norm=None,
+                scalars: torch.Tensor = None) -> AdamState:
     """One Adam(W) step with this step's scheduled (lr, beta1), in place on
     `params` and the moments; returns the state with step + 1.
 
@@ -153,14 +181,25 @@ def adam_update(cfg: OptimizerConfig, params: Tensors, grads: Tensors,
 
     and with cfg.weight_decay > 0, p *= 1 - lr*wd first (AdamW). The clip
     takes the global norm of a tp-sharded gradient over `mesh`; `norm` is
-    that norm when the caller has taken it already."""
+    that norm when the caller has taken it already.
+
+    `scalars`, when given, is this step's `adam_scalars` as a float32
+    tensor on the parameters' device, read there by the kernels (the
+    Tensor-scalar overloads of `torch._foreach_*`) in place of host floats
+    from `state.step`: a captured step (`train_step.build_train_step_multi`)
+    replays with new values in it, where host floats would stay frozen at
+    the capture's. The arithmetic is the same (products only, see
+    `adam_scalars`), so the result is bitwise that of the host-scalar
+    update."""
     if cfg.clip_grad_norm is not None:
         grads = clip_by_global_norm(grads, cfg.clip_grad_norm, mesh, norm)
-    lr, beta1 = schedule_lr(cfg, state.step)
+    if scalars is None:
+        decay, beta1, one_minus_beta1, inv_bc1, inv_bc2, lr = (
+            float(x) for x in adam_scalars(cfg, state.step))
+    else:
+        decay, beta1, one_minus_beta1, inv_bc1, inv_bc2, lr = (
+            scalars.unbind(0))
     beta2 = cfg.betas[1]
-    t = _f32(state.step + 1)
-    bc1 = _f32(1.0) - np.power(beta1, t, dtype=_f32)
-    bc2 = _f32(1.0) - np.power(_f32(beta2), t, dtype=_f32)
 
     keys = list(params)
     p = [params[k] for k in keys]
@@ -168,21 +207,21 @@ def adam_update(cfg: OptimizerConfig, params: Tensors, grads: Tensors,
     m = [state.mu[k] for k in keys]
     v = [state.nu[k] for k in keys]
     if cfg.weight_decay:
-        torch._foreach_mul_(p, float(_f32(1.0) - lr * _f32(cfg.weight_decay)))
+        torch._foreach_mul_(p, decay)
     # m <- beta1*m + (1-beta1)*g
-    torch._foreach_mul_(m, float(beta1))
-    torch._foreach_add_(m, torch._foreach_mul(g, float(_f32(1.0) - beta1)))
+    torch._foreach_mul_(m, beta1)
+    torch._foreach_add_(m, torch._foreach_mul(g, one_minus_beta1))
     # v <- beta2*v + (1-beta2)*g^2
     torch._foreach_mul_(v, beta2)
     gg = torch._foreach_mul(g, g)
     torch._foreach_mul_(gg, 1.0 - beta2)
     torch._foreach_add_(v, gg)
     # p <- p - lr * m_hat / (sqrt(v_hat) + eps)
-    step = torch._foreach_div(m, float(bc1))
-    denom = torch._foreach_div(v, float(bc2))
+    step = torch._foreach_mul(m, inv_bc1)
+    denom = torch._foreach_mul(v, inv_bc2)
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, cfg.eps)
-    torch._foreach_mul_(step, float(lr))
+    torch._foreach_mul_(step, lr)
     torch._foreach_div_(step, denom)
     torch._foreach_sub_(p, step)
     return AdamState(step=state.step + 1, mu=state.mu, nu=state.nu)

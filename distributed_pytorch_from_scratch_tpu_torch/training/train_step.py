@@ -23,21 +23,32 @@ backward:
 (c) then the norm (the tp-sharded squares summed over tp), the clip and
     Adam — every rank of a tp index then holds the same parameters.
 
-Not ported: the multi-step-per-dispatch variant (`lax.scan` over N steps
-in one program), whose eager counterpart would be a CUDA graph (ROADMAP),
-and the ZeRO / bucketed dp reducers (ROADMAP Queue 1 item 7).
+`build_train_step_multi` runs N steps per host dispatch, the JAX
+`lax.scan` variant. On a card it captures the ONE-step body once as a CUDA
+graph (`runtime/graphs.CapturedStep`) and replays that graph N times; it
+does not capture N steps in one graph. One capture then serves every N,
+the shorter tail dispatch included, and the capture's time and memory do
+not grow with N. Between replays the next step's batch and Adam scalars
+(`optim.adam_scalars`: one (N, k) table copied to the card per dispatch)
+are copied into the graph's static inputs on the card, so the N steps run
+with no host sync between them, and each costs the host one graph launch
+and a few copies instead of the eager step's ~2000 launches.
+
+Not ported: the ZeRO / bucketed dp reducers (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from ..config import OptimizerConfig
 from ..ops.collectives import all_reduce_sum_
 from ..parallel.layout import tp_dim
-from .optim import AdamState, adam_update, global_norm
+from ..runtime.graphs import CapturedStep
+from .optim import AdamState, adam_scalars, adam_update, global_norm
 
 StepFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, AdamState]]
 
@@ -79,10 +90,12 @@ def build_grad_accum_step(model, ocfg: OptimizerConfig,
     target_ids(A,B,T), position_ids(A,B,T)) -> (mean_loss, grad_norm,
     opt_state)`: each microbatch's masked token-mean CE and its gradient get
     equal weight (mean of means, as the JAX step); peak activation memory
-    stays that of one microbatch."""
+    stays that of one microbatch. `scalars`, when given, is this step's
+    `optim.adam_scalars` on the card (the captured step's Adam input)."""
     params = dict(model.named_parameters())
 
-    def step(opt_state: AdamState, input_ids, target_ids, position_ids):
+    def step(opt_state: AdamState, input_ids, target_ids, position_ids,
+             scalars=None):
         for p in params.values():
             p.grad = None
         a = input_ids.shape[0]
@@ -100,7 +113,74 @@ def build_grad_accum_step(model, ocfg: OptimizerConfig,
         # of the MEAN gradient, what Adam sees
         gnorm = global_norm(grads, model.mesh)
         opt_state = adam_update(ocfg, params, grads, opt_state, model.mesh,
-                                gnorm)
+                                gnorm, scalars)
         return loss_sum / a, gnorm, opt_state
+
+    return step
+
+
+def build_train_step_multi(model, ocfg: OptimizerConfig,
+                           loss_mode: str = "vocab_parallel") -> StepFn:
+    """N optimizer steps per dispatch (the JAX `build_train_step_multi`):
+    `step(opt_state, input_ids(N,B,T), target_ids(N,B,T),
+    position_ids(N,B,T)) -> (losses(N), grad_norm, opt_state)`, the same
+    training as N calls of `build_train_step`, bitwise; `grad_norm` is the
+    last step's. On a card the one-step body is captured at the first call
+    and replayed N times (module docstring); on the CPU the same body runs
+    N times. The steps' Adam scalars come from one device table, so the
+    capture holds no host value of a step. The captured step holds the
+    parameters and the moments of the first call's state: later calls pass
+    that state on. One rank only: at more than one, the hops between ranks
+    are staged through host memory (gloo), which a capture cannot hold."""
+    if model.mesh is not None and model.mesh.world > 1:
+        raise NotImplementedError(
+            "several steps per dispatch at more than one rank: the "
+            "host-staged hops cannot be captured, and NCCL is unrun, see "
+            "ROADMAP Queue 1 item 2")
+    body = build_grad_accum_step(model, ocfg, loss_mode)
+    params = dict(model.named_parameters())
+    graph = held = None   # the captured step, the moments it holds
+
+    def one(opt_state, ids, tgt, pos, scalars):
+        loss, gnorm, _ = body(opt_state, ids[None], tgt[None], pos[None],
+                              scalars)
+        return loss, gnorm
+
+    def capture(opt_state, examples) -> CapturedStep:
+        # the warm-up runs real steps: the parameters and moments it moves
+        # are put back before the first replay
+        state = [*params.values(), *opt_state.mu.values(),
+                 *opt_state.nu.values()]
+        kept = [t.detach().clone() for t in state]
+        captured = CapturedStep(lambda *x: one(opt_state, *x), examples)
+        with torch.no_grad():
+            torch._foreach_copy_(state, kept)
+        return captured
+
+    def step(opt_state: AdamState, input_ids, target_ids, position_ids):
+        nonlocal graph, held
+        n = input_ids.shape[0]
+        table = torch.from_numpy(np.stack(
+            [adam_scalars(ocfg, opt_state.step + i) for i in range(n)]
+        )).to(input_ids.device)
+        batches = [(input_ids[i], target_ids[i], position_ids[i], table[i])
+                   for i in range(n)]
+        if input_ids.device.type == "cpu":
+            outs = [one(opt_state, *x) for x in batches]
+            losses, gnorm = torch.stack([l for l, _ in outs]), outs[-1][1]
+        else:
+            if graph is None:
+                graph, held = capture(opt_state, batches[0]), opt_state.mu
+            elif opt_state.mu is not held:
+                raise ValueError("the captured step holds the moments of "
+                                 "its first call's state; pass that state on")
+            losses = torch.empty(n, dtype=torch.float32,
+                                 device=input_ids.device)
+            for i, x in enumerate(batches):
+                loss, gnorm = graph(*x)
+                losses[i].copy_(loss)
+            gnorm = gnorm.clone()
+        return losses, gnorm, AdamState(step=opt_state.step + n,
+                                        mu=opt_state.mu, nu=opt_state.nu)
 
     return step

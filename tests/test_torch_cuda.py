@@ -582,3 +582,115 @@ def test_one_key_tile_limit_catches_unrounded_p():
     limit = bf16_limit(r, 0.0)
     assert ((forward(p.to(torch.bfloat16).float()) - r).abs() <= limit).all()
     assert not ((forward(p) - r).abs() <= limit).all()
+
+
+# ---- one dispatch per step: the CUDA-graph runner and the decode graphs ----
+
+
+@pytest.mark.cuda
+def test_captured_step_counts_each_replay(cuda_device):
+    """The runner's set-up (warm-up, capture) leaves every launch counter
+    as it was; each replay adds what the capture launched, the dict
+    counters included, and returns what the eager body returns."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda import (
+        launch_counts)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.graphs import (
+        CapturedStep)
+    q, k, v = _flash_inputs(21, [(1, 4, 64, 64)] * 3, cuda_device,
+                            torch.bfloat16)
+    kpool = torch.randn(5, 4, 16, 64, device=cuda_device).to(torch.bfloat16)
+    vpool = torch.randn(5, 4, 16, 64, device=cuda_device).to(torch.bfloat16)
+    tbl = torch.tensor([[0, 1, 2, 3]], dtype=torch.int32, device=cuda_device)
+    cur = torch.tensor([40], dtype=torch.int32, device=cuda_device)
+
+    def body(x):
+        o, _ = flash_attention_fwd(x, k, v)
+        return o, paged_attention(x[:, :, -1:].contiguous(), kpool, vpool,
+                                  tbl, cur, page_size=16)
+
+    before = launch_counts()
+    routes = dict(paged_attention.launches_by_route)
+    step = CapturedStep(body, [q])
+    assert launch_counts() == before
+    assert step.kernel_launches == {"flash_attention_fwd": 1,
+                                    "paged_attention": 1}
+    for i in range(3):
+        x = q * (i + 1)
+        o, po = step(x)
+        ro, rpo = body(x)
+        assert torch.equal(o, ro) and torch.equal(po, rpo)
+    after = launch_counts()
+    # 3 replays + 3 eager calls of the body
+    assert after["flash_attention_fwd"] - before["flash_attention_fwd"] == 6
+    assert after["paged_attention"] - before["paged_attention"] == 6
+    assert paged_attention.launches_by_route["decode"] - routes["decode"] == 6
+    assert step.replays == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_graphed_decode_step_is_the_eager_step(cuda_device, paged):
+    """A replay of an engine's captured decode step gives the eager step's
+    logits and tokens bit for bit on the live rows (the step writes the
+    same K/V at the same places each time, so both see the same pool)."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine, PagedEngine, Request)
+    cfg = model_preset("tiny", compute_dtype="bfloat16")
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    model = Transformer(cfg).init_weights(seed=3).to(mesh.device)
+    eos = cfg.vocab_size                 # never picked: rows stay live
+    eng = (PagedEngine(model, mesh, num_slots=4, buf_len=96, eos_id=eos,
+                       page_size=16, prefill_chunk=32, decode_graph="on")
+           if paged else
+           ContinuousBatchingEngine(model, mesh, num_slots=4, buf_len=96,
+                                    eos_id=eos, decode_graph="on"))
+    rng = np.random.default_rng(3)
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            3, cfg.vocab_size, 20 + 7 * i).tolist(), max_new=40))
+    for _ in range(12):
+        eng.step()
+    assert not getattr(eng, "_prefilling", None) and len(eng._slot_req) == 3
+    payload = eng._decode_payload()
+    live = sorted(eng._slot_req)
+    with torch.inference_mode():
+        tok, logits = (x.clone() for x in eng._decode_body(
+            torch.from_numpy(payload).to(mesh.device)))
+        gtok, glogits = eng._decode_graph(payload)
+    assert torch.equal(glogits[live], logits[live])
+    assert torch.equal(gtok[live], tok[live])
+
+
+@pytest.mark.cuda
+def test_adam_device_scalars_bitwise_host_on_card(cuda_device):
+    """The Adam update from a device table of its scalars (what a captured
+    train step reads) is bit for bit the host-float update on the card,
+    clip and weight decay included."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        OptimizerConfig)
+    from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
+        adam_scalars, adam_update, init_adam_state)
+    cfg = OptimizerConfig(lr=1e-2, warmup_steps=2, max_steps=5,
+                          clip_grad_norm=0.5, weight_decay=0.1)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    init = {k: torch.randn(s, generator=g, device=cuda_device)
+            for k, s in (("w", (512, 2048)), ("b", (2048,)))}
+    host = {k: v.clone() for k, v in init.items()}
+    dev = {k: v.clone() for k, v in init.items()}
+    sh, sd = init_adam_state(host), init_adam_state(dev)
+    for _ in range(5):
+        grads = {k: torch.randn(v.shape, generator=g, device=cuda_device)
+                 for k, v in init.items()}
+        sh = adam_update(cfg, host, grads, sh)
+        sd = adam_update(cfg, dev, grads, sd, scalars=torch.from_numpy(
+            adam_scalars(cfg, sd.step)).to(cuda_device))
+        for k in init:
+            assert torch.equal(dev[k], host[k])
+            assert torch.equal(sd.mu[k], sh.mu[k])
+            assert torch.equal(sd.nu[k], sh.nu[k])

@@ -8,8 +8,8 @@ same weights (a JAX `Transformer.init` tree mapped by
     kernels — against `jax.grad` of the Pallas `flash_attention` run in
     interpret mode, including the split dq/dkv kernels (t = 300, 128-row
     backward blocks); 1e-5 at f32;
-(b) the autograd `FlashAttention` on CPU tensors against torch autograd
-    through `causal_attention_plain`;
+(b) the `flash_attention` op with its gradient on CPU tensors against
+    torch autograd through `causal_attention_plain`;
 (c) the model's loss and every parameter gradient against
     `jax.value_and_grad(model.make_loss(mesh))`, with and without remat;
 (d) `adam_update` against the JAX one over 5 steps (OneCycle, cosine,
@@ -60,8 +60,10 @@ from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
 from distributed_pytorch_from_scratch_tpu_torch.ops.attention import (
     causal_attention, causal_attention_plain)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
-    FlashAttention, flash_attention_bwd, flash_attention_bwd_plain,
-    flash_attention_fwd, flash_attention_fwd_plain)
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_fwd_plain)
+from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention as flash_attention_op)
 from distributed_pytorch_from_scratch_tpu_torch.serving import serve
 from distributed_pytorch_from_scratch_tpu_torch.training import checkpoint
 from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
@@ -148,7 +150,7 @@ def test_flash_function_on_cpu_is_plain_autograd():
     q, k, v, do = (torch.from_numpy(x)
                    for x in _attn_inputs(1, 4, 2, 96, 32, seed=4))
     grads = []
-    for fn in (lambda *a: FlashAttention.apply(*a, 70),
+    for fn in (lambda *a: flash_attention_op(*a, 70)[0],
                lambda *a: causal_attention_plain(*a, t_real=70)):
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         out = fn(*leaves)
@@ -187,8 +189,11 @@ def test_loss_and_grads_match_jax(remat):
 
 
 def test_remat_policies_refused():
-    for policy in ("dots", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the JAX constructor's contract: True, False or 'dots'; 'auto' is the
+    # CLI's to resolve
+    for policy in ("auto", "sometimes"):
+        with pytest.raises(ValueError, match="remat must be True, False or "
+                                             "'dots'"):
             Transformer(ModelConfig(**SHAPE), remat=policy)
 
 
@@ -378,8 +383,7 @@ def test_train_cli_refusals(tmp_path):
     with pytest.raises(SystemExit) as exc:   # no card, no --device cpu
         train_cli.main(base)
     assert exc.value.code not in (0, None)
-    for flags in (["--tp_overlap", "ring"], ["--remat", "dots"],
-                  ["--steps_per_dispatch", "2"], ["--seq_bucket", "128"],
+    for flags in (["--tp_overlap", "ring"], ["--seq_bucket", "128"],
                   ["--family", "gpt2"], ["--zero", "1"], ["--no_trace"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_cli.main(base + ["--device", "cpu"] + flags)
