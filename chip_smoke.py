@@ -192,7 +192,29 @@ result line):
     (dispatches of 4, 4 and 2) against 1: identical losses, final
     parameters and moments (max abs diff 0) and launches; the Adam update
     from device scalars bitwise the host-float one on the card; a profiled
-    dispatch of 4 steps against 4 eager steps (wall, busy, idle share).
+    dispatch of 4 steps against 4 eager steps (wall, busy, idle share);
+34. eval: the source repo's workflow after training — 20 steps of the
+    train cell on a seeded bigram corpus with 64 validation documents of
+    200-999 tokens (checkpoints at 10 and 20), then `python -m
+    ...evaluate --batch_size 8` with the shipped tokenizer as a CLI in its
+    own process: bf16 with the slot engine's KV decoder (its decode step
+    graphed), f32 with it and f32 with `--no_kv_cache` — every val loss
+    finite, the newest bf16 one within EVAL_LOSS_TOL of a
+    one-document-at-a-time mean of `Transformer.loss`, the tokenizer
+    backend's ids of the eight prompts those of HF, K1 forward 12 times
+    per batch per checkpoint plus 12 per prefill dispatch (or per full
+    forward) and no other kernel, identical f32 tokens from both decoders;
+    the sweep's tokens/s and ms per checkpoint, the decode wall of each
+    decoder and the share of greedy next tokens that are the corpus's
+    bigram successor are printed, and which of tokenizers, pandas, pyarrow
+    and tensorboardX the machine has;
+35. eval_pth: the newest checkpoint exported by the interop CLI as the
+    source repo's .pth files at tp 2, imported back and evaluated: its val
+    loss bit for bit the npz run's;
+36. eval_tp: `evaluate --tp_size 2 --dist_backend gloo` (two ranks on the
+    card) at f32 on the same checkpoints: val losses within EVAL_TP_TOL of
+    tp=1's, tp=1's greedy tokens, each rank's launches per batch and
+    prefill dispatch at 4 local heads.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -1027,24 +1049,43 @@ def phase_bwd_times(torch) -> dict:
             "fwd": fwd, "errs": errs}
 
 
+def _bigram_rule(rng, vocab: int):
+    """The successor table next[prev] (a permutation of ids 3..vocab-1),
+    the seed's first draw."""
+    import numpy as np
+    nxt = np.zeros(vocab, np.int64)
+    nxt[3:] = rng.permutation(np.arange(3, vocab))
+    return nxt
+
+
+def _bigram_docs(rng, nxt, docs: int) -> list:
+    """`docs` chains of 200-999 tokens under the rule, each from a random
+    first token."""
+    import numpy as np
+    lens = rng.integers(200, 1000, size=docs)
+    chains = np.empty((docs, int(lens.max())), np.int64)
+    chains[:, 0] = rng.integers(3, len(nxt), size=docs)
+    for i in range(1, chains.shape[1]):
+        chains[:, i] = nxt[chains[:, i - 1]]
+    return [row[:n].tolist() for row, n in zip(chains, lens)]
+
+
 def write_bigram_corpus(path: str, vocab: int = 1024, docs: int = 3000,
-                        seed: int = 0) -> None:
+                        seed: int = 0, val_docs: int = 0) -> None:
     """Token JSON in TokenDataset's schema: `docs` documents of 200-999
     tokens, each following one bigram rule drawn from the seed (next =
     perm[prev]) from a random first token, so the loss has something to
-    learn. Ids 0-2 are the special tokens."""
+    learn. Ids 0-2 are the special tokens. The validation split is the
+    first 8 training documents, or with `val_docs` that many documents
+    drawn after the training ones (the same rule; the training split is
+    the same either way)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    nxt = np.zeros(vocab, np.int64)
-    nxt[3:] = rng.permutation(np.arange(3, vocab))
-    lens = rng.integers(200, 1000, size=docs)
-    chains = np.empty((docs, int(lens.max())), np.int64)
-    chains[:, 0] = rng.integers(3, vocab, size=docs)
-    for i in range(1, chains.shape[1]):
-        chains[:, i] = nxt[chains[:, i - 1]]
-    train = [row[:n].tolist() for row, n in zip(chains, lens)]
+    nxt = _bigram_rule(rng, vocab)
+    train = _bigram_docs(rng, nxt, docs)
+    val = _bigram_docs(rng, nxt, val_docs) if val_docs else train[:8]
     with open(path, "w") as f:
-        json.dump({"train": train, "validation": train[:8],
+        json.dump({"train": train, "validation": val,
                    "special_ids": {"<BOS>": 0, "<EOS>": 1, "<UNK>": 2},
                    "vocab_size": vocab}, f)
 
@@ -3454,6 +3495,270 @@ def phase_graph_check(torch) -> dict:
     return res
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TOKENIZER = os.path.join(ROOT, "tokenizer", "tokenizer.json")
+EVAL_STEPS = 20        # eval: 20 steps of the train cell, a checkpoint every 10
+EVAL_VAL_DOCS = 64     # the validation split: 8 batches of 8 at t <= 1000
+EVAL_F32_LEN = 64      # the f32 decodes' --max_decode_len (token checks)
+EVAL_LOSS_TOL = 1e-2   # bf16 sweep vs one document at a time (absolute)
+EVAL_TP_TOL = 1e-4     # f32 tp=2 sweep vs tp=1 (absolute)
+# evaluate.DECODE_PROMPTS (stripped, as evaluate encodes them) under the
+# shipped tokenizer, by HF `tokenizers`
+PROMPT_IDS = [
+    [331, 75, 175, 423, 169, 71, 284, 525, 81, 87, 14, 545, 433],
+    [676, 153, 145, 219, 199, 75, 153, 727, 321, 167, 260, 85, 14, 545, 829],
+    [119, 59, 81, 251, 169, 67, 76, 209, 91, 14, 545, 433, 169, 91, 197, 176,
+     91],
+    [649, 271, 260, 677, 227, 189, 70],
+    [119, 57, 74, 145, 172, 227, 78, 683, 423],
+    [474, 74, 471, 292, 186, 217, 71, 67, 77, 14, 545, 433],
+    [632, 174, 161, 286, 169, 257, 727],
+    [305, 81, 158, 193, 930, 169, 257, 14, 545, 433],
+]
+
+
+def _eval_files(workdir: str) -> tuple:
+    """(token JSON, checkpoint dir) of the eval phases."""
+    return (os.path.join(workdir, "eval_tokens.json"),
+            os.path.join(workdir, "eval_ckpt"))
+
+
+def _eval_run(workdir: str, name: str, ckpt_dir: str, extra: list,
+              own_process: bool = False) -> dict:
+    """`evaluate` at the 45m preset, batch 8, the shipped tokenizer, as
+    `python -m ...evaluate` in a process of its own or through its `main`
+    in this one (warm: no process start, no first-use cost of the card's
+    libraries); returns its --summary_json plus the wall `run_s`."""
+    from distributed_pytorch_from_scratch_tpu_torch import evaluate
+    data, _ = _eval_files(workdir)
+    out = os.path.join(workdir, f"{name}.json")
+    args = ["--model", "45m", "--batch_size", "8", "--data_path", data,
+            "--tokenizer_path", TOKENIZER, "--ckpt_dir", ckpt_dir,
+            "--summary_json", out] + extra
+    t0 = time.perf_counter()
+    if own_process:
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "distributed_pytorch_from_scratch_tpu_torch.evaluate"] + args,
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        log(f"{name}: evaluate CLI {' '.join(extra)} -> rc "
+            f"{proc.returncode}; stdout ({len(lines)} lines): "
+            + " | ".join(lines[:3] + ["..."] + lines[-9:]))
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: evaluate failed: "
+                               f"{proc.stderr.strip()[-3000:]}")
+    else:
+        evaluate.main(args)
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        summary = json.load(f)
+    summary["run_s"] = wall
+    log(f"{name}: evaluate {' '.join(extra)} took {wall:.1f} s"
+        + (" in its own process" if own_process else " in this process"))
+    return summary
+
+
+def _check_eval_run(name: str, s: dict, layers: int, ckpts: int) -> dict:
+    """Finite losses for every checkpoint, the tokenizer's prompt ids,
+    every rank's launches exactly 12 per layer per batch per checkpoint
+    plus 12 per prefill dispatch (KV) or per full forward (--no_kv_cache)
+    and no other kernel; returns the sweep's numbers."""
+    import math
+    losses = s["val_losses"]
+    if len(losses) != ckpts or not all(math.isfinite(v)
+                                       for v in losses.values()):
+        raise AssertionError(f"{name}: val losses {losses} (expected "
+                             f"{ckpts} finite)")
+    if s["prompt_ids"] != PROMPT_IDS:
+        raise AssertionError(f"{name}: the {s['tokenizer_backend']} "
+                             f"tokenizer encodes the prompts to "
+                             f"{s['prompt_ids']}, HF to {PROMPT_IDS}")
+    batches = sum(n // (8 * 1000) for n in s["sweep_tokens"].values())
+    decode = s.get("prefill_dispatches", s.get("forwards"))
+    for r in s["ranks"]:
+        _only(r["launches"],
+              {"flash_attention_fwd": layers * (batches + decode)},
+              f"{name} rank {r['rank']} ({layers} per layer per batch, "
+              f"{batches} batches, + {layers} x {decode} "
+              + ("prefill dispatches)" if "prefill_dispatches" in s
+                 else "full forwards)"))
+    per = {it: {"ms": 1e3 * s["sweep_s"][it],
+                "tokens_per_s": s["sweep_tokens"][it] / s["sweep_s"][it]}
+           for it in sorted(losses, key=int)}
+    log(f"{name}: val losses {losses}; sweep per checkpoint "
+        + ", ".join(f"iter {it}: {v['ms']:.1f} ms, {v['tokens_per_s']:.1f} "
+                    f"tokens/s" for it, v in per.items())
+        + f"; decode wall {s['decode_s']:.3f} s ("
+        + (f"{s['prefill_dispatches']} prefill dispatches, "
+           f"{s['decode_steps']} decode steps, graph {s['decode_graph']}"
+           if "prefill_dispatches" in s else
+           f"{s['forwards']} full forwards") + f"); tokenizer "
+        f"{s['tokenizer_backend']}; launches "
+        f"{[r['launches']['flash_attention_fwd'] for r in s['ranks']]}")
+    return per
+
+
+def phase_eval(torch, workdir: str) -> dict:
+    """The reference's workflow after training: 20 steps of the train cell
+    into a fresh save dir (checkpoints at 10 and 20), then `evaluate` on
+    them: bf16 with the KV decoder as a CLI in its own process, then in
+    this process f32 with it and f32 with --no_kv_cache. Checks the losses (finite; the newest bf16 one against
+    a one-document-at-a-time mean of `Transformer.loss`), the prompts'
+    ids, the launches, and identical f32 tokens from both decoders.
+    Returns each run's summary."""
+    import importlib.util
+    import shutil
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.data.dataset import (
+        collate)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
+        load_checkpoint)
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("tokenizers", "pandas", "pyarrow", "tensorboardX")}
+    log(f"eval: installed here {have}; g++ {shutil.which('g++')}")
+    data, ckpt = _eval_files(workdir)
+    t0 = time.perf_counter()
+    write_bigram_corpus(data, val_docs=EVAL_VAL_DOCS)
+    log(f"eval: corpus with {EVAL_VAL_DOCS} validation documents written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    args = _replace_flag(_replace_flag(TRAIN_ARGS, "--max_steps",
+                                       str(EVAL_STEPS)),
+                         "--save_interval", str(EVAL_STEPS // 2))
+    trained = train.main(args + ["--data_path", data, "--save_dir", ckpt])
+    log(f"eval: trained {trained['steps']} steps, losses "
+        f"{[round(x, 4) for x in trained['losses']]}; checkpoints "
+        f"{trained['checkpoints']}")
+    layers = model_preset("45m").num_layers
+    runs = {"bf16": _eval_run(workdir, "eval_bf16", ckpt, [],
+                              own_process=True),
+            "kv_f32": _eval_run(workdir, "eval_kv_f32", ckpt,
+                                ["--no-bf16", "--max_decode_len",
+                                 str(EVAL_F32_LEN)]),
+            "no_kv_f32": _eval_run(workdir, "eval_no_kv_f32", ckpt,
+                                   ["--no-bf16", "--no_kv_cache",
+                                    "--max_decode_len", str(EVAL_F32_LEN)])}
+    for name, s in runs.items():
+        s["per_ckpt"] = _check_eval_run(f"eval {name}", s, layers, 2)
+    kv, full = runs["kv_f32"], runs["no_kv_f32"]
+    log(f"eval: f32 decoders, KV vs full recompute: tokens identical "
+        f"{kv['generated_ids'] == full['generated_ids']}; decode wall "
+        f"{kv['decode_s']:.3f} s vs {full['decode_s']:.3f} s")
+    if kv["generated_ids"] != full["generated_ids"]:
+        raise AssertionError("the KV and full-recompute decoders disagree "
+                             "at f32")
+
+    # the newest bf16 loss against one document at a time
+    newest = max(int(k) for k in runs["bf16"]["val_losses"])
+    swept = runs["bf16"]["val_losses"][str(newest)]
+    model = Transformer(model_preset("45m", compute_dtype="bfloat16"))
+    model.load_state_dict(load_checkpoint(ckpt, newest)[0])
+    model.to("cuda")
+    with open(data) as f:
+        docs = json.load(f)["validation"]
+    per_doc = []
+    with torch.no_grad():
+        for doc in docs:
+            b = collate([doc], 0, 1, -1, pad_to=1000)
+            ids, tgt, pos = (torch.from_numpy(b[k]).cuda().long() for k in
+                             ("input_ids", "target_ids", "position_ids"))
+            per_doc.append(float(model.loss(ids, tgt, pos)))
+    one_by_one = sum(per_doc) / len(per_doc)
+    log(f"eval: iter {newest} sweep loss {swept!r} vs the mean of "
+        f"{len(per_doc)} one-document Transformer.loss {one_by_one!r}: "
+        f"|diff| {abs(swept - one_by_one):.3e} (tol {EVAL_LOSS_TOL})")
+    if not abs(swept - one_by_one) <= EVAL_LOSS_TOL:
+        raise AssertionError("the sweep's loss is not the mean of "
+                             "per-document means")
+    del model
+
+    # how often the greedy next token is the corpus's bigram successor
+    nxt = _bigram_rule(np.random.default_rng(0), 1024)
+    hits = total = 0
+    for prompt, gen in zip(runs["bf16"]["prompt_ids"],
+                           runs["bf16"]["generated_ids"]):
+        seq = prompt[-1:] + gen
+        hits += sum(int(nxt[a] == b) for a, b in zip(seq, seq[1:]))
+        total += len(seq) - 1
+    runs["bigram_share"] = hits / max(total, 1)
+    log(f"eval: {hits} of {total} greedy next tokens (bf16, KV) are the "
+        f"bigram successor: share {runs['bigram_share']:.4f}")
+    return runs
+
+
+def _eval_result(workdir: str, name: str) -> dict:
+    path = os.path.join(workdir, f"{name}.json")
+    if not os.path.exists(path):
+        raise RuntimeError(f"{name}.json missing: run the eval phase first")
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_eval_pth(torch, workdir: str) -> dict:
+    """The newest eval checkpoint exported by the interop CLI as the source
+    repo's .pth files at tp 2, imported back, and evaluated (bf16, KV,
+    in this process):
+    its val loss equals the npz run's bit for bit (the same f32 bytes
+    through the same program). Returns the run's summary."""
+    from distributed_pytorch_from_scratch_tpu_torch import interop
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    ref = _eval_result(workdir, "eval_bf16")
+    _, ckpt = _eval_files(workdir)
+    newest = max(int(k) for k in ref["val_losses"])
+    cfg = model_preset("45m")
+    shape = ["--attn_dim", str(cfg.attn_dim), "--ffn_dim", str(cfg.ffn_dim),
+             "--num_heads", str(cfg.num_heads), "--num_layers",
+             str(cfg.num_layers), "--vocab_size", str(cfg.vocab_size),
+             "--maxlen", str(cfg.maxlen)]
+    pth, back = os.path.join(workdir, "eval_pth"), os.path.join(
+        workdir, "eval_pth_ckpt")
+    t0 = time.perf_counter()
+    interop.main(["--direction", "export", "--our_ckpt_dir", ckpt,
+                  "--export_tp", "2", "--out_dir", pth] + shape)
+    t1 = time.perf_counter()
+    interop.main(["--ref_ckpt_dir", pth, "--out_dir", back] + shape)
+    log(f"eval_pth: export to 2 .pth rank files {t1 - t0:.1f} s, import "
+        f"{time.perf_counter() - t1:.1f} s: "
+        f"{sorted(os.listdir(pth))} -> {sorted(os.listdir(back))}")
+    s = _eval_run(workdir, "eval_pth", back, [])
+    _check_eval_run("eval_pth", s, cfg.num_layers, 1)
+    got, want = s["val_losses"][str(newest)], ref["val_losses"][str(newest)]
+    log(f"eval_pth: iter {newest} val loss {got!r} through .pth vs "
+        f"{want!r} from the npz: bitwise {got == want}")
+    if got != want:
+        raise AssertionError("the .pth round trip changed the val loss")
+    return s
+
+
+def phase_eval_tp(torch, workdir: str) -> dict:
+    """`evaluate --tp_size 2 --dist_backend gloo` (two ranks on the card)
+    at f32 on the eval checkpoints: val losses within EVAL_TP_TOL of
+    tp=1's, the greedy tokens tp=1's, each rank's launches per batch and
+    prefill dispatch at 4 local heads. Returns the run's summary."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    ref = _eval_result(workdir, "eval_kv_f32")
+    _, ckpt = _eval_files(workdir)
+    s = _eval_run(workdir, "eval_tp2", ckpt,
+                  ["--no-bf16", "--max_decode_len", str(EVAL_F32_LEN),
+                   "--tp_size", "2", "--dist_backend", "gloo"])
+    s["per_ckpt"] = _check_eval_run("eval_tp2", s,
+                                    model_preset("45m").num_layers, 2)
+    diff = max(abs(s["val_losses"][k] - v)
+               for k, v in ref["val_losses"].items())
+    log(f"eval_tp2: val losses {s['val_losses']} vs tp=1 "
+        f"{ref['val_losses']}: max |diff| {diff:.3e} (tol {EVAL_TP_TOL}); "
+        f"tokens identical {s['generated_ids'] == ref['generated_ids']}")
+    if not diff <= EVAL_TP_TOL or len(s["ranks"]) != 2:
+        raise AssertionError("tp=2 evaluates otherwise than tp=1")
+    if s["generated_ids"] != ref["generated_ids"]:
+        raise AssertionError("tp=2 decodes otherwise than tp=1 at f32")
+    return s
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -3461,7 +3766,7 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "cp_train", "cp_tiny", "cp_card_vs_cpu", "cp_profile", "tp_train",
           "tp_tiny", "tp_card_vs_cpu", "tp_profile", "tp_serve",
           "tp_serve_card_vs_cpu", "tp_serve_profile", "graph_check",
-          "train_remat", "train_spd")
+          "train_remat", "train_spd", "eval", "eval_pth", "eval_tp")
 
 
 def main() -> None:
@@ -3496,7 +3801,7 @@ def run(torch, phases: set, workdir: str) -> list:
     t0 = time.perf_counter()
     device = phase_device(torch)
     with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
-                "train_remat", "train_spd")
+                "train_remat", "train_spd", "eval", "eval_pth", "eval_tp")
     res = {}
     for name in PHASES:
         if name not in phases:
@@ -3509,12 +3814,14 @@ def run(torch, phases: set, workdir: str) -> list:
             f"{time.perf_counter() - t1:.1f} s")
     (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
-     tp_runs, tp_tiny, tp_served, remat_runs, spd_run) = (
+     tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
+     eval_tp) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
              "ring_check", "ring_times", "cp_train", "cp_tiny", "tp_train",
-             "tp_tiny", "tp_serve", "train_remat", "train_spd"))
+             "tp_tiny", "tp_serve", "train_remat", "train_spd", "eval",
+             "eval_pth", "eval_tp"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -3536,7 +3843,14 @@ def run(torch, phases: set, workdir: str) -> list:
                          "train_false": remat_runs["false"][k],
                          "train_spd4": spd_run[k],
                          **{name: run["launches"].get(k, 0)
-                            for name, run in tp_served.items()}}
+                            for name, run in tp_served.items()},
+                         **{f"eval_{name}": evals[name]["ranks"][0][
+                             "launches"].get(k, 0)
+                            for name in ("bf16", "kv_f32", "no_kv_f32")},
+                         "eval_pth": eval_pth["ranks"][0]["launches"].get(
+                             k, 0),
+                         "eval_tp2": sum(r["launches"].get(k, 0)
+                                         for r in eval_tp["ranks"])}
     at_path = bwd_times["errs"]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,

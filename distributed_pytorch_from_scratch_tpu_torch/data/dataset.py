@@ -14,9 +14,12 @@ masked out of the CE mean. Sequences longer than maxlen-1 are truncated
 with a warning. The batches are byte-identical to the JAX package's numpy
 backend for the same seed (tests/test_torch_training.py).
 
-Not ported: the native C++ collate (`data/native.py`) and the prefetch
-thread (`data/prefetch.py`) — ROADMAP Queue 1 (a). `backend='auto'` is the
-numpy path here; 'native' is refused.
+The collate runs in numpy or in the native C++ library (`data/native.py`,
+over the repo's `csrc/dataloader.cpp`): `backend='native'` takes the C++
+path, 'numpy' the Python one, and 'auto' the C++ one when the library
+builds; both give the same bytes (tests/test_torch_data_pipeline.py).
+
+Not ported: the prefetch thread (`data/prefetch.py`) — ROADMAP Queue 1 (a).
 """
 
 from __future__ import annotations
@@ -71,6 +74,21 @@ class TokenDataset:
             tokens = tokens[: self.maxlen - 1]
         return tokens
 
+    def packed(self):
+        """(packed int32, offsets int64): the whole split concatenated, for
+        the native indexed collate (it gathers rows straight from this
+        buffer and truncates to maxlen-1 in C++). Built once, cached."""
+        if not hasattr(self, "_packed"):
+            seqs = self.data[self.split]
+            lens = np.fromiter((len(s) for s in seqs), np.int64, len(seqs))
+            offsets = np.zeros(len(seqs) + 1, np.int64)
+            np.cumsum(lens, out=offsets[1:])
+            packed = np.empty(int(offsets[-1]), np.int32)
+            for i, s in enumerate(seqs):
+                packed[offsets[i]:offsets[i + 1]] = s
+            self._packed = (packed, offsets)
+        return self._packed
+
 
 def collate(batch: List[List[int]], bos: int, eos: int, ignore_idx: int,
             pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
@@ -99,7 +117,8 @@ class DataLoader:
 
     Order per epoch: `np.random.RandomState(seed + epoch).permutation`.
     `drop_last=True` for training keeps every batch the same shape.
-    `backend`: 'numpy' or 'auto' (the same here); 'native' is refused.
+    `backend`: 'native' (the C++ collate), 'numpy', or 'auto' (native
+    when the library builds); the same batches either way.
     """
 
     dataset: TokenDataset
@@ -112,16 +131,24 @@ class DataLoader:
     backend: str = "auto"
 
     def __post_init__(self):
-        if self.backend == "native":
-            raise NotImplementedError(
-                "the native C++ collate is not ported yet, see ROADMAP "
-                "Queue 1 (a); the numpy backend gives the same batches")
-        if self.backend not in ("auto", "numpy"):
+        if self.backend not in ("auto", "native", "numpy"):
             raise ValueError(f"backend must be auto|native|numpy, "
                              f"got {self.backend!r}")
+        use_native = False
+        if self.backend in ("auto", "native"):
+            from .native import native_available
+            use_native = native_available()
+            if self.backend == "native" and not use_native:
+                raise RuntimeError("native collate requested but the C++ "
+                                   "library is unavailable")
+        self._use_native = use_native
 
     def _collate(self, batch: List[List[int]]) -> Dict[str, np.ndarray]:
         ds = self.dataset
+        if self._use_native:
+            from .native import native_collate
+            return native_collate(batch, ds.bos, ds.eos, self.ignore_idx,
+                                  self.pad_to)
         return collate(batch, ds.bos, ds.eos, self.ignore_idx, self.pad_to)
 
     def __len__(self) -> int:
@@ -136,6 +163,24 @@ class DataLoader:
             order = np.random.RandomState(self.seed + epoch).permutation(n)
         bs = self.batch_size
         end = n - n % bs if self.drop_last else n
+        if self._use_native:
+            # one GIL-released C++ call gathers each batch's rows from the
+            # packed split, truncates and collates them
+            from .native import native_collate_indexed
+            ds = self.dataset
+            packed, offsets = ds.packed()
+            cap = ds.maxlen - 1
+            for st in range(0, end, bs):
+                idxs = order[st : st + bs]
+                if self.pad_to is None:
+                    lens = offsets[idxs + 1] - offsets[idxs]
+                    width = int(min(lens.max(), cap)) + 1
+                else:
+                    width = self.pad_to
+                yield native_collate_indexed(packed, offsets, idxs, cap,
+                                             width, ds.bos, ds.eos,
+                                             self.ignore_idx)
+            return
         for st in range(0, end, bs):
             idxs = order[st : st + bs]
             batch = [self.dataset[int(i)] for i in idxs]

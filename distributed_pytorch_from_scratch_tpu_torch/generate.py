@@ -1,0 +1,191 @@
+"""Generation entry point: prompts in, text out — the port's counterpart of
+the JAX `generate.py`.
+
+    python -m distributed_pytorch_from_scratch_tpu_torch.generate \\
+        --ckpt_dir ckpt --tokenizer_path tokenizer/tokenizer.json \\
+        --model 45m --prompt "Once upon a time" [--prompt ...] \\
+        [--tp_size 2 --dist_backend gloo]
+
+Loads the newest checkpoint in `--ckpt_dir` (or `--iter`; either
+package's npz shards, written at any tp its vocab divides) and decodes
+every `--prompt` greedily through the slot engine
+(`ContinuousBatchingEngine` + `decode_prompts`, the llama family): on a
+card at tp = 1 its decode step is a CUDA graph; at `--tp_size N` one
+process per tp rank (`runtime/launch.spawn`), tp rank 0 drives the engine
+and broadcasts each dispatch (`serving/tp_dispatch.py`). The tokenizer is
+`data/tokenizer.load_tokenizer` (`--tokenizer_backend auto | hf |
+native`). Runs on the card unless `--device cpu` is given; with no card it
+exits non-zero.
+
+Refused with NotImplementedError, naming the ROADMAP item, as evaluate.py
+refuses them: `--cp_size > 1` (item 6: the cp-sharded paged engine),
+`--family gpt2` and `--temperature > 0` (item 5). The JAX CLI's ulysses
+refusal stays, with its message.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .cli import add_model_shape_args, build_model_config
+from .config import BOS_TOKEN, EOS_TOKEN, MeshConfig
+from .data.tokenizer import BACKENDS, load_tokenizer
+from .evaluate import _CP_KV, _GPT2, _SAMPLED
+from .models.transformer import Transformer, validate_tp
+from .runtime import launch
+from .runtime.mesh import dist_backend, make_mesh, resolve_device
+from .serving.engine import ContinuousBatchingEngine, decode_prompts
+from .training.checkpoint import latest_step, load_checkpoint
+
+
+def get_generate_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--ckpt_dir", required=True)
+    p.add_argument("--tokenizer_path", "-t", required=True)
+    p.add_argument("--tokenizer_backend", choices=list(BACKENDS),
+                   default="auto")
+    p.add_argument("--prompt", action="append", required=True,
+                   help="repeatable; the prompts decode together")
+    p.add_argument("--iter", type=int, default=None,
+                   help="checkpoint iteration (default: latest)")
+    p.add_argument("--max_new_tokens", type=int, default=128)
+    p.add_argument("--tp_size", type=int, default=1)
+    p.add_argument("--cp_size", type=int, default=1,
+                   help="1 only, so far (the cp-sharded paged engine is "
+                        "not ported)")
+    p.add_argument("--cp_impl", choices=["ring", "ulysses"], default="ring")
+    p.add_argument("--family", choices=["llama", "gpt2"], default="llama")
+    add_model_shape_args(p.add_argument_group("model shape"))
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy (the only mode ported so far)")
+    p.add_argument("--decode_top_k", type=int, default=0)
+    p.add_argument("--decode_top_p", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--prefill_bucket", type=int, default=64,
+                   help="slot-engine prefill width bucket: each prompt "
+                        "prefills over a buffer padded to a multiple of "
+                        "this (identical tokens); 0 pads to the full buffer")
+    p.add_argument("--slots", type=int, default=8,
+                   help="slot-engine KV slots (concurrent decodes); prompts "
+                        "beyond this queue FIFO")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="--tp_size > 1: the ranks' transport (default: "
+                        "nccl on cuda, gloo on cpu)")
+    args = p.parse_args(argv)
+    if (args.decode_top_k or args.decode_top_p) and not args.temperature:
+        p.error("--decode_top_k/--decode_top_p need --temperature > 0")
+    if not 0.0 <= args.decode_top_p <= 1.0:
+        p.error(f"--decode_top_p must be in [0, 1], got {args.decode_top_p}")
+    return args
+
+
+def _refuse(args: argparse.Namespace) -> None:
+    if args.cp_size > 1 and args.cp_impl == "ulysses":
+        raise SystemExit(
+            f"--cp_impl ulysses has no decode path (cp decoding is "
+            f"ring-only: cp serving rings the prefill queries over "
+            f"cp-local pages). A "
+            f"ulysses-trained checkpoint is layout-identical to a ring one "
+            f"— cp_impl only changes the attention schedule, not the "
+            f"weights — so rerun with --cp_impl ring or --cp_size 1 (got "
+            f"--cp_size {args.cp_size})")
+    if args.cp_size > 1:
+        raise NotImplementedError(
+            f"--cp_size {args.cp_size}: decoding over cp ranks is not "
+            f"ported yet, see {_CP_KV}; rerun with --cp_size 1")
+    if args.family != "llama":
+        raise NotImplementedError(f"--family {args.family}: not ported yet, "
+                                  f"see {_GPT2}")
+    if args.temperature > 0:
+        raise NotImplementedError(
+            f"--temperature {args.temperature}: not ported yet, see "
+            f"{_SAMPLED}")
+
+
+def generate(args: argparse.Namespace) -> list:
+    """The decoded texts (prompt + completion, stripped), in prompt
+    order."""
+    _refuse(args)
+    if args.tp_size == 1:
+        return _generate(args)
+    try:
+        dist_backend(args.dist_backend, resolve_device(args.device),
+                     args.tp_size)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"generate: {e}")
+    return launch.spawn(_rank_main, args.tp_size, args)[0]
+
+
+def _rank_main(rank: int, nprocs: int, init_method: str,
+               args: argparse.Namespace) -> list:
+    """One tp rank (`runtime/launch.spawn`)."""
+    return _generate(args, rank, init_method)
+
+
+def _generate(args: argparse.Namespace, rank: int = 0,
+              init_method: str = None) -> list:
+    try:
+        mesh = make_mesh(MeshConfig(tp=args.tp_size), device=args.device,
+                         rank=rank, backend=args.dist_backend,
+                         init_method=init_method)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"generate: {e}")
+    say = print if mesh.rank == 0 else (lambda *a, **k: None)
+    tokenizer = load_tokenizer(args.tokenizer_path, args.tokenizer_backend,
+                               verbose=mesh.rank == 0)
+    bos_id = tokenizer.token_to_id(BOS_TOKEN)
+    eos_id = tokenizer.token_to_id(EOS_TOKEN)
+    if bos_id is None or eos_id is None:
+        raise SystemExit(f"tokenizer {args.tokenizer_path} lacks the "
+                         f"{BOS_TOKEN}/{EOS_TOKEN} specials")
+    cfg = build_model_config(args, tokenizer.get_vocab_size())
+    try:
+        validate_tp(cfg, args.tp_size)
+    except ValueError as e:
+        raise SystemExit(f"generate: {e}")
+    step = args.iter if args.iter is not None else latest_step(args.ckpt_dir)
+    if step is None:
+        raise SystemExit(f"no checkpoints found in {args.ckpt_dir}")
+    model = Transformer(cfg, mesh=mesh)
+    state, _, _ = load_checkpoint(args.ckpt_dir, step, tp_size=mesh.tp,
+                                  tp_rank=mesh.tp_rank)
+    model.load_state_dict(state)
+    model.to(mesh.device)
+    say(f"loaded checkpoint iter {step} from {args.ckpt_dir}")
+
+    encoded = [tokenizer.encode(t) for t in args.prompt]
+    buf_len = max(len(e) for e in encoded) + args.max_new_tokens + 2
+    prompts = [[bos_id] + e for e in encoded]
+    engine = ContinuousBatchingEngine(
+        model, mesh, num_slots=min(len(prompts), args.slots),
+        buf_len=buf_len, eos_id=eos_id, prefill_bucket=args.prefill_bucket)
+    if not engine.dispatch.leader:
+        engine.dispatch.serve()
+        return []
+    gens = decode_prompts(engine, prompts, args.max_new_tokens,
+                          base_seed=args.seed)
+    engine.dispatch.stop()
+    waste = engine.stats()["prefill_pad_waste_eliminated"]
+    if waste > 0:
+        say(f"prefill pad waste eliminated by length bucketing: "
+            f"{100 * waste:.0f}% ({engine.prefill_positions} bucketed "
+            f"positions vs {engine.prefill_positions_monolithic} at the "
+            f"full-buffer padding)")
+    outs = []
+    for text, ids, gen in zip(args.prompt, encoded, gens):
+        full = tokenizer.decode(ids + gen).strip()
+        outs.append(full)
+        say(f"{text!r} -> {full!r}")
+    return outs
+
+
+def main(argv=None) -> list:
+    return generate(get_generate_args(argv))
+
+
+if __name__ == "__main__":
+    main()

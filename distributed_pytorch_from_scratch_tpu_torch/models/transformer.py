@@ -8,7 +8,8 @@ The module holds its weights (float32, like the JAX param tree): per layer
 tree onto this module's `state_dict` (one tp rank's shard of it at tp > 1).
 
 `forward` is the full-sequence training forward (the JAX `_layer_body`
-stack) and `loss` the f32 masked-mean cross-entropy of `loss_shard`. The
+stack), `loss` the f32 masked-mean cross-entropy of `loss_shard` and
+`doc_loss` the per-document means of `doc_loss_shard` (evaluation). The
 decoding lowerings live in `models/decode.py`, as in the JAX package; both
 share its layer block. `remat` is the JAX `remat_wrap` policy (`True`,
 `False` or `'dots'`; `'auto'` is resolved by the train CLI through
@@ -343,3 +344,30 @@ class Transformer(nn.Module):
             loss_sum, count = all_reduce_sum(torch.stack([loss_sum, count]),
                                              self.mesh, "batch").unbind()
         return loss_sum / torch.clamp(count, min=1.0)
+
+    @torch.no_grad()
+    def doc_loss(self, input_ids: torch.Tensor, target_ids: torch.Tensor,
+                 position_ids: torch.Tensor, mode: str = "vocab_parallel"):
+        """Per-DOCUMENT mean f32 CE, the JAX `doc_loss_shard` behind
+        `make_doc_loss`: ((b,) means, (b,) real-row mask) for this rank's
+        rows. The same vocab-parallel CE as training (`_token_ce`: no
+        gather of the (b, t, V) logits); each row's masked sum and count
+        are summed over the cp group before the division, so at cp > 1
+        every rank of a row's group returns that row's document mean. A
+        padding row (every target IGNORE_INDEX) has mask False.
+
+        At cp > 1 the arguments are this rank's chunk (`cp_shard`; under
+        the zig-zag layout the tokens are permuted first, which no
+        per-document mean depends on)."""
+        if mode not in ("vocab_parallel", "gather"):
+            raise ValueError(f"unknown loss mode {mode!r}")
+        logits = self.forward(input_ids, position_ids).float()
+        valid = target_ids != IGNORE_INDEX
+        tgt = torch.where(valid, target_ids, 0).long()
+        token_loss = self._token_ce(logits, tgt, mode)
+        row_sum = torch.where(valid, token_loss, 0.0).sum(dim=-1)
+        row_cnt = valid.float().sum(dim=-1)
+        if self.cp_size > 1:
+            row_sum, row_cnt = all_reduce_sum(
+                torch.stack([row_sum, row_cnt]), self.mesh, "cp").unbind()
+        return row_sum / torch.clamp(row_cnt, min=1.0), row_cnt > 0

@@ -3,7 +3,8 @@ reference, run through `runtime.launch.spawn` — by the tests (against the
 JAX package, on the CPU) and by chip_smoke.py (the card's kernels against
 the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
 training (`collective_pairs`, `layer_cases`, `model_runs`,
-`seed_identity`) and serving at tp > 1 (`serve_runs`, `decode_logits`).
+`seed_identity`), serving at tp > 1 (`serve_runs`, `decode_logits`) and
+the evaluation loss on any mesh (`doc_losses`).
 
 `jobs(rank, nprocs, init_method, todo)` runs a list of `(name, axes,
 kwargs)` jobs in one process group, one after the other, each on the mesh
@@ -204,6 +205,20 @@ def model_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     return out
 
 
+def doc_losses(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
+    """For each run {layout, impl, batch: (ids, targets, positions) (b,
+    t)}: `Transformer.doc_loss` on this rank's rows and chunk — the
+    per-document means and real-row mask of its dp rows, with its
+    coordinates."""
+    out = []
+    for run in runs:
+        model = _model(mesh, run, cfg, tree)
+        means, real = model.doc_loss(*_batch(model, mesh, run["batch"]))
+        out.append({"coords": mesh.coords, "means": _np(means),
+                    "real": real.cpu().numpy()})
+    return out
+
+
 def seed_identity(mesh, cfg: Dict, seed: int, batch) -> Dict:
     """The loss of this tp mesh's model from `seed` (`init_weights` draws
     the full tree and keeps the rank's slice) and of a tp = 1 model from
@@ -335,7 +350,8 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
     Returns the jobs' results, device by device, each in `todo`'s order."""
     fns = {"collective_pairs": collective_pairs, "layer_cases": layer_cases,
            "model_runs": model_runs, "seed_identity": seed_identity,
-           "serve_runs": serve_runs, "decode_logits": decode_logits}
+           "serve_runs": serve_runs, "decode_logits": decode_logits,
+           "doc_losses": doc_losses}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

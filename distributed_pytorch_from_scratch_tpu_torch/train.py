@@ -13,8 +13,13 @@ per rank and is refused with fewer; gloo runs anywhere, a card's tensors
 staged through host memory). The loop: epochs over the seeded data loader,
 host-to-device copy, one train step (forward, backward through the
 attention kernels, Adam/OneCycle in place), a log line every
-`--log_interval` steps (the one host sync of the interval), a checkpoint
-every `--save_interval` steps and at the end, in the JAX npz format, and
+`--log_interval` steps (the one host sync of the interval), with the
+JAX trainer's scalars (`train/ce_loss`, `train/lr`, `train/tokens_per_sec`,
+`train/useful_token_frac`, `train/mfu`, `device_memory_gib`,
+`train/grad_norm`) written to `save_dir/logs` (`training/metrics
+.MetricsWriter`: `metrics.jsonl`, and TensorBoard when `tensorboardX`
+imports) by the ranks at dp = cp = 0, a checkpoint every
+`--save_interval` steps and at the end, in the JAX npz format, and
 `--resume` from the newest checkpoint in `--save_dir` (either package's).
 
 Parallelism: `--dp_size M --cp_size C --tp_size N` run M·C·N ranks, one
@@ -50,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 from typing import Dict, Iterator, List
 
@@ -68,7 +74,8 @@ from .parallel.layout import tp_dim
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
 from .training.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .training.memory import hbm_budget_gib, select_remat
-from .training.metrics import device_peak_flops, model_flops_per_step
+from .training.metrics import (MetricsWriter, device_peak_flops,
+                               model_flops_per_step)
 from .training.optim import AdamState, init_adam_state, schedule_lr
 from .training.train_step import (build_grad_accum_step, build_train_step,
                                   build_train_step_multi)
@@ -525,6 +532,10 @@ def _train(args: argparse.Namespace, rank: int = 0,
     gnorm = None
     saved: List[str] = []
     clock = _StepClock(device)
+    # the JAX trainer's scalars, one file per writing process (the ranks at
+    # dp = cp = 0, as for the checkpoints)
+    writer = (MetricsWriter(os.path.join(args.save_dir, "logs"),
+                            process_index=mesh.rank) if is_writer else None)
 
     def save(step: int) -> None:
         # parameters are replicated over dp and cp: the ranks at dp = cp = 0
@@ -577,17 +588,30 @@ def _train(args: argparse.Namespace, rank: int = 0,
                 cum = float(accum_loss)  # the interval's one host sync
                 dt = time.time() - t_start
                 tps = tokens_since / max(dt, 1e-9)
-                mfu_s = ("n/a" if peak_flops is None else
-                         f"{100 * flops_step * (n - last_log_n) / dt / peak_flops:.1f}%")
-                mem_s = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB"
-                         if device.type == "cuda" else "n/a (cpu)")
-                say(f"step {n}/{args.max_steps} -> avg loss "
-                    f"{cum / (n - start_step):.4f}, interval loss "
+                avg = cum / (n - start_step)
+                useful = useful_since / max(tokens_since, 1)
+                mfu = (None if peak_flops is None else
+                       flops_step * (n - last_log_n) / dt / peak_flops)
+                mem = (torch.cuda.max_memory_allocated(device) / 2**30
+                       if device.type == "cuda" else None)
+                say(f"step {n}/{args.max_steps} -> avg loss {avg:.4f}, "
+                    f"interval loss "
                     f"{(cum - last_cum) / (n - last_log_n):.4f}, lr "
                     f"{float(lr):.8f}, {tps / 1e3:.1f}k tok/s "
-                    f"({100 * useful_since / max(tokens_since, 1):.0f}% "
-                    f"useful), MFU {mfu_s}, grad norm {float(gnorm):.4f}, "
-                    f"mem {mem_s}")
+                    f"({100 * useful:.0f}% useful), MFU "
+                    + ("n/a" if mfu is None else f"{100 * mfu:.1f}%")
+                    + f", grad norm {float(gnorm):.4f}, mem "
+                    + ("n/a (cpu)" if mem is None else f"{mem:.2f} GiB"))
+                if writer is not None:
+                    writer.scalar("train/ce_loss", avg, n)
+                    writer.scalar("train/lr", float(lr), n)
+                    writer.scalar("train/tokens_per_sec", tps, n)
+                    writer.scalar("train/useful_token_frac", useful, n)
+                    if mfu is not None:   # no peak known: no fake number
+                        writer.scalar("train/mfu", mfu, n)
+                    if mem is not None:
+                        writer.scalar("device_memory_gib", mem, n)
+                    writer.scalar("train/grad_norm", float(gnorm), n)
                 last_cum, last_log_n = cum, n
                 t_start, tokens_since, useful_since = time.time(), 0, 0
             if n // args.save_interval > prev_n // args.save_interval:
@@ -598,6 +622,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
         say(f"epoch {epoch + 1}/{max_epoch} finished")
     if n > last_saved:
         save(n)
+    if writer is not None:
+        writer.close()
 
     step_ms = clock.step_ms()
     # the first steps build the kernels and warm the allocator (and, with
