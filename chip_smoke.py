@@ -76,8 +76,9 @@ result line):
     tiles span heads), head_dim 32 and 128 with int8 pools, pos_offset with
     a row that sees nothing, a full table, pad columns (qlen < cw); the
     tp=2 engine's shapes, 4 local heads over 4 kv heads: decode q (16, 4,
-    1, 64) and chunk q (1, 4, 128, 64), native and int8 pools; one
-    launch per call, on the route its width names and the kernel
+    1, 64) and chunk q (1, 4, 128, 64), native and int8 pools; the gpt2
+    engine's, 12 heads over 12 kv heads: decode q (16, 12, 1, 64) and
+    chunk q (1, 12, 128, 64), native and int8 pools; one launch per call, on the route its width names and the kernel
     `kernel_route` names for its dtype; two decode calls bit-equal, two
     bf16 chunk calls bit-equal (native and int8 pools);
 14. paged_times: each paged route at the 45m decode shape q (16, 8, 1, 64)
@@ -214,7 +215,39 @@ result line):
 36. eval_tp: `evaluate --tp_size 2 --dist_backend gloo` (two ranks on the
     card) at f32 on the same checkpoints: val losses within EVAL_TP_TOL of
     tp=1's, tp=1's greedy tokens, each rank's launches per batch and
-    prefill dispatch at 4 local heads.
+    prefill dispatch at 4 local heads;
+37. gpt2_kernels: K1's forward and backward pair at the gpt2 train shape
+    q (8, 12, 1024, 64) bf16 held against their plain versions per
+    element (`flash_attention.bf16_limit`), then timed as phase 9 does,
+    with the bound and the SDPA yardstick;
+38. gpt2_train: `train --family gpt2 --model gpt2-124m` (d 768, 12 heads,
+    ffn 3072, 12 layers, maxlen 1024) at b 8 x t 1024, bf16, remat, on a
+    seeded bigram corpus at vocab 50257 (the tied head at GPT-2's width;
+    the rule over ids < 1024), 60 steps at lr 6e-4 and a 2-step
+    `--resume`: finite losses, the last 5's mean 1 nat below the first 5's
+    and 0.5 nat below the unigram floor ln 1021 (the bigram learned
+    through the blocks), K1 forward 2 x 12 x 60 and dq, dk/dv 12 x 60
+    launches, nothing else; step p50, tokens/s, MFU (N from the real
+    parameters) and peak memory; the 60 steps again at
+    `--steps_per_dispatch 4`: bitwise the same losses and launches;
+39. gpt2_serve: `serve --family gpt2 --random_init --vocab_size 50257`
+    at that width, bf16, the decode step graphed: the slot engine on
+    phase 5's traffic, the paged engine on phase 15's (bf16, then int8
+    pages), each greedy and sampled (temperature 0.8, top-k 50, top-p
+    0.95): in-vocab tokens, exact launches (K1 12 per prefill dispatch;
+    K3 12 per decode step and per chunk), a drained pool; sampled slot
+    tokens identical with the decode step eager and with
+    `--debug_host_sampler`, sampled paged tokens (deadlines x 1000) with
+    the host sampler;
+40. gpt2_card_vs_cpu: GPT-2 small's widths at 2 layers, f32: logits, the
+    first step's loss and gradients on the card against the CPU's plain
+    path; both engines' greedy and sampled tokens for 4 seeded requests
+    identical on the card and the CPU; tp=2 over gloo on the card: loss
+    within 1e-5 of tp=1's, identical tokens;
+41. sampler_check: 20,000 sampled draws (seeds 0..19,999) on the card
+    from one seeded row of 50257 logits at top-k 50, top-p 0.95 against
+    the filtered softmax by a chi-square at p = 1e-3; the first 500 draws
+    identical on the CPU.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -295,6 +328,43 @@ PAGED_SERVE_ARGS = ["--model", "45m", "--random_init", "--vocab_size", "1024",
                     "--max_new_tokens", "64", "--slots", "16",
                     "--num_pages", "80"]
 PAGED_INT8_REQUESTS = 16
+# the gpt2 family at GPT-2 small's published widths (d 768, 12 heads of 64,
+# ffn 3072, 12 layers, maxlen 1024) and vocab 50257, so the tied head runs
+# at full width: the train cell b 8 x t 1024 bf16 and its attention shape
+GPT2_SHAPE = (8, 12, 1024, 64)
+GPT2_VOCAB = 50257
+GPT2_STEPS = 60
+GPT2_DOCS = 1200         # 60 steps of b 8 use 480 documents; the resume 16
+# the corpus's rule runs over ids below 1024 (the head and the CE still run
+# at 50257), so a model that learns only the unigram stops at ln(1021) and
+# a loss below it needs the bigram, which the tied head cannot hold without
+# the blocks: a rule over all 50257 ids gave a loss that rose at lr 1e-3
+# over 20 steps (its cause not checked). lr 6e-4 is GPT-2 small's
+# published rate
+GPT2_RULE_VOCAB = 1024
+GPT2_LEARNED = 0.5       # gpt2_train: the last 5 losses' mean this far
+                         # (nats) below ln(GPT2_RULE_VOCAB - 3)
+GPT2_SPD = 4             # gpt2_train: its steps again, 4 per dispatch
+GPT2_MODEL = ["--family", "gpt2", "--model", "gpt2-124m"]
+GPT2_TRAIN_ARGS = GPT2_MODEL + [
+    "--bf16", "--batch_size", "8", "--maxlen", "1024", "--max_steps",
+    str(GPT2_STEPS), "--warmup_steps", "5", "--lr", "6e-4",
+    "--log_interval", "5", "--save_interval", str(GPT2_STEPS), "--device",
+    "cuda"]
+# the serve cells: phase 5's and phase 15's traffic at the gpt2 widths
+GPT2_SERVE_ARGS = (GPT2_MODEL + ["--vocab_size", str(GPT2_VOCAB)]
+                   + SERVE_ARGS[SERVE_ARGS.index("--random_init"):
+                                SERVE_ARGS.index("--vocab_size")]
+                   + SERVE_ARGS[SERVE_ARGS.index("--vocab_size") + 2:])
+GPT2_PAGED_ARGS = (GPT2_MODEL + ["--vocab_size", str(GPT2_VOCAB)]
+                   + PAGED_SERVE_ARGS[PAGED_SERVE_ARGS.index("--random_init"):
+                                      PAGED_SERVE_ARGS.index("--vocab_size")]
+                   + PAGED_SERVE_ARGS[PAGED_SERVE_ARGS.index("--vocab_size")
+                                      + 2:])
+SAMPLED_ARGS = ["--temperature", "0.8", "--decode_top_k", "50",
+                "--decode_top_p", "0.95"]
+SAMPLER_DRAWS = 20000    # sampler_check: seeds 0..19999 on one row
+SAMPLER_P = 1e-3         # its chi-square's significance level
 
 
 def log(msg: str) -> None:
@@ -950,19 +1020,25 @@ def phase_bwd_check(torch) -> dict:
 
 
 def phase_bwd_times(torch) -> dict:
-    """At the training shape, the shape the train path launches: the
-    forward and both backward kernels held against their plain versions on
-    the same inputs (bf16 per element, with their rounding slack), then
-    timed by bare launches (CUDA events) and device time (torch.profiler).
-    Returns the kernels-line fields of flash_attention_bwd_dq / _dkv, the
-    forward's times and the errors."""
+    """At the 45m training shape, the shape the train path launches: see
+    `_flash_times_at`."""
+    return _flash_times_at(torch, TRAIN_SHAPE, seed=7)
+
+
+def _flash_times_at(torch, shape, seed: int) -> dict:
+    """At a train path's `shape` (b, h, t, d): the forward and both
+    backward kernels held against their plain versions on the same inputs
+    (bf16 per element, with their rounding slack), then timed by bare
+    launches (CUDA events) and device time (torch.profiler). Returns the
+    kernels-line fields of flash_attention_bwd_dq / _dkv, the forward's
+    times and the errors."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
         _bwd_args, _delta, _launch_dkv, _launch_dq, flash_attention_bwd,
         flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain, rounding_slack)
-    b, h, t, d = TRAIN_SHAPE
-    q, k, v = _inputs(torch, TRAIN_SHAPE, h, torch.bfloat16, seed=7)
-    g = torch.Generator(device="cuda").manual_seed(8)
+    b, h, t, d = shape
+    q, k, v = _inputs(torch, shape, h, torch.bfloat16, seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
     do = torch.randn(q.shape, generator=g, device="cuda").to(torch.bfloat16)
     o, lse = flash_attention_fwd(q, k, v)
     ro, rlse = flash_attention_fwd_plain(q, k, v)
@@ -977,7 +1053,7 @@ def phase_bwd_times(torch) -> dict:
     ratios.update(r)
     del ro, rlse, got, ref, slack
     torch.cuda.empty_cache()   # the plain versions' t x t temporaries
-    log(f"kernels vs plain at q{TRAIN_SHAPE} bf16 (the train path's shape): "
+    log(f"kernels vs plain at q{shape} bf16 (the train path's shape): "
         f"max abs err " + ", ".join(f"{x} {errs[x]:.3e}" for x in errs)
         + "; err/limit " + ", ".join(f"{x} {ratios[x]:.3f}" for x in ratios)
         + f" (limit {BWD_LIMIT['bfloat16']}; lse tol "
@@ -985,8 +1061,8 @@ def phase_bwd_times(torch) -> dict:
     if not (max(ratios.values()) <= 1.0
             and errs["lse"] <= FWD_LSE_TOL["bfloat16"]):
         raise AssertionError(f"flash kernels disagree with their plain "
-                             f"versions at q{TRAIN_SHAPE} bf16")
-    fwd = _fwd_times(torch, TRAIN_SHAPE, seed=7)
+                             f"versions at q{shape} bf16")
+    fwd = _fwd_times(torch, shape, seed=seed)
     # bare launches of each backward kernel (not counted), to time it alone
     delta = _delta(o, do)
     args = _bwd_args(q, k, v, lse, delta, do, t)
@@ -1021,7 +1097,7 @@ def phase_bwd_times(torch) -> dict:
     # dk): 7 for the pair
     tflops = {"dq": causal_flops(b, h, t, d, 3) / (dq_dev * 1e-3) / 1e12,
               "dkv": causal_flops(b, h, t, d, 4) / (dkv_dev * 1e-3) / 1e12}
-    log(f"bwd times at q{TRAIN_SHAPE} bf16 (flash_bwd_sm90), bare launches, "
+    log(f"bwd times at q{shape} bf16 (flash_bwd_sm90), bare launches, "
         f"CUDA events over 100 (plain: 10): dq {dq_ms:.5f} ms, device "
         f"{dq_dev:.5f} ms = {tflops['dq']:.1f} TFLOP/s (bound "
         f"{bounds['dq'][0]:.5f} ms, {bounds['dq'][1]}); dk/dv {dkv_ms:.5f} "
@@ -1071,17 +1147,19 @@ def _bigram_docs(rng, nxt, docs: int) -> list:
 
 
 def write_bigram_corpus(path: str, vocab: int = 1024, docs: int = 3000,
-                        seed: int = 0, val_docs: int = 0) -> None:
+                        seed: int = 0, val_docs: int = 0,
+                        rule_vocab: int = 0) -> None:
     """Token JSON in TokenDataset's schema: `docs` documents of 200-999
     tokens, each following one bigram rule drawn from the seed (next =
     perm[prev]) from a random first token, so the loss has something to
     learn. Ids 0-2 are the special tokens. The validation split is the
     first 8 training documents, or with `val_docs` that many documents
     drawn after the training ones (the same rule; the training split is
-    the same either way)."""
+    the same either way). The rule runs over ids below `rule_vocab` (0:
+    the whole vocab); the file declares `vocab` either way."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    nxt = _bigram_rule(rng, vocab)
+    nxt = _bigram_rule(rng, rule_vocab or vocab)
     train = _bigram_docs(rng, nxt, docs)
     val = _bigram_docs(rng, nxt, val_docs) if val_docs else train[:8]
     with open(path, "w") as f:
@@ -1412,6 +1490,8 @@ def _paged_err(torch, o, ro, valid, name) -> tuple:
         err = max(err, d.max().item())
         worst = max(worst, (d / limit.clamp_min(1e-30)).max().item())
     return err, worst
+
+
 PAGED_CASES = [  # (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
     ("decode ps 64, cursors 0 / mid-page / page end / last", 4, 8, 8, 1, 64,
      64, 11, False, [0, 100, 127, 703], None, 0),
@@ -1486,6 +1566,16 @@ PAGED_CASES = [  # (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
     ("tp 2 chunk, 4 local heads", 1, 4, 4, 128, 64, 64, 6, False, [256],
      None, 0),
     ("tp 2 chunk, 4 local heads, int8 pools", 1, 4, 4, 128, 64, 64, 6, True,
+     [256], None, 0),
+    # the gpt2 paged engine: 12 heads over 12 kv heads (MHA), its decode
+    # batch of 16 and its 128-wide chunks
+    ("gpt2 decode, 12 heads", 16, 12, 12, 1, 64, 64, 11, False,
+     [40 + 44 * i for i in range(16)], None, 0),
+    ("gpt2 decode, 12 heads, int8 pools", 16, 12, 12, 1, 64, 64, 11, True,
+     [40 + 44 * i for i in range(16)], None, 0),
+    ("gpt2 chunk, 12 heads", 1, 12, 12, 128, 64, 64, 6, False, [256], None,
+     0),
+    ("gpt2 chunk, 12 heads, int8 pools", 1, 12, 12, 128, 64, 64, 6, True,
      [256], None, 0),
 ]
 
@@ -3759,6 +3849,395 @@ def phase_eval_tp(torch, workdir: str) -> dict:
     return s
 
 
+def phase_gpt2_kernels(torch) -> dict:
+    """K1's forward and backward pair at the gpt2 train shape (8, 12, 1024,
+    64) bf16: held against their plain versions per element, then timed
+    with the bound and the SDPA yardstick (`_flash_times_at`)."""
+    return _flash_times_at(torch, GPT2_SHAPE, seed=17)
+
+
+def _gpt2_corpus(workdir: str) -> str:
+    """The seeded bigram corpus at vocab 50257, written on first use."""
+    data = os.path.join(workdir, "bigram_gpt2.json")
+    if not os.path.exists(data):
+        t0 = time.perf_counter()
+        write_bigram_corpus(data, vocab=GPT2_VOCAB, docs=GPT2_DOCS,
+                            rule_vocab=GPT2_RULE_VOCAB)
+        log(f"gpt2 bigram corpus (vocab {GPT2_VOCAB}, the rule over ids < "
+            f"{GPT2_RULE_VOCAB}, {GPT2_DOCS} documents) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def phase_gpt2_train(torch, workdir: str) -> dict:
+    """`train --family gpt2 --model gpt2-124m` at b 8 x t 1024 bf16 with
+    remat, 60 steps on the seeded bigram corpus at vocab 50257 (its rule
+    over ids below 1024), then a 2-step `--resume`: finite, falling losses
+    (the mean of the last 5 at least 1 nat below the first 5's and
+    GPT2_LEARNED below the unigram floor ln 1021), K1 forward 2 x 12 x 60
+    and dq, dk/dv 12 x 60 launches and no other kernel; step p50,
+    tokens/s, MFU (N counted from the real parameters) and peak memory
+    printed; then the 60 steps at `--steps_per_dispatch 4`: bitwise the
+    same losses and launches.
+    Returns the launches and the summary."""
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    data = _gpt2_corpus(workdir)
+    save_dir = os.path.join(workdir, "ckpt_gpt2")
+    args = GPT2_TRAIN_ARGS + ["--data_path", data, "--save_dir", save_dir]
+    _reset_launches()
+    out = train.main(args)
+    counts = _read_launches()
+    layers = model_preset("gpt2-124m").num_layers
+    losses = out["losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"gpt2_train: {out['steps']} steps of b8 x t1024 bf16 (GPT-2 small, "
+        f"vocab {GPT2_VOCAB}, tied head) on {out['device']}: losses "
+        f"{[round(x, 4) for x in losses]}; mean of first/last 5 "
+        f"{first:.4f}/{last:.4f}; step p50 {out['step_ms_p50']:.3f} ms, "
+        f"{out['tokens_per_sec']:.1f} tok/s, MFU {out['mfu']:.4f} (N "
+        f"{out['params']:,} from the real parameters), peak memory "
+        f"{out['peak_mem_gib']:.3f} GiB; launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != GPT2_STEPS:
+        raise AssertionError(f"gpt2 train losses not finite or not "
+                             f"{GPT2_STEPS}")
+    # as the 45m cell's check: a drop of 1 nat is learning, not noise; and
+    # below the unigram floor the blocks have learned the bigram
+    floor = math.log(GPT2_RULE_VOCAB - 3)
+    log(f"gpt2_train: last 5 mean {last:.4f} against the unigram floor "
+        f"ln({GPT2_RULE_VOCAB - 3}) = {floor:.4f} (must be <= "
+        f"{floor - GPT2_LEARNED:.4f})")
+    if not (last <= first - 1.0 and last <= floor - GPT2_LEARNED):
+        raise AssertionError(f"gpt2 train loss did not fall below the "
+                             f"unigram floor: {first} -> {last}")
+    counts_want = {"flash_attention_fwd": 2 * layers * GPT2_STEPS,
+                   "flash_attention_bwd_dq": layers * GPT2_STEPS,
+                   "flash_attention_bwd_dkv": layers * GPT2_STEPS}
+    _only(counts, counts_want, "gpt2 train (remat: forward twice per layer)")
+    resumed = train.main(_replace_flag(args, "--max_steps",
+                                       str(GPT2_STEPS + 2)) + ["--resume"])
+    log(f"gpt2_train --resume: started at step {resumed['start_step']}, ran "
+        f"to {resumed['steps']}, losses {resumed['losses']}")
+    if (resumed["start_step"] != GPT2_STEPS
+            or resumed["steps"] != GPT2_STEPS + 2
+            or not all(math.isfinite(x) for x in resumed["losses"])):
+        raise AssertionError("gpt2 resume did not continue from the "
+                             "checkpoint")
+    # the same steps, GPT2_SPD to each captured dispatch: bitwise the
+    # same losses, the launches counted through the replays
+    _reset_launches()
+    spd = train.main(_replace_flag(args, "--save_dir", save_dir + "_spd")
+                     + ["--steps_per_dispatch", str(GPT2_SPD)])
+    spd_counts = _read_launches()
+    log(f"gpt2_train --steps_per_dispatch {GPT2_SPD}: step p50 "
+        f"{spd['step_ms_p50']:.3f} ms, losses bitwise the one-step run's: "
+        f"{spd['losses'] == losses}; launches {spd_counts}")
+    if spd["losses"] != losses:
+        raise AssertionError("gpt2 --steps_per_dispatch changed the losses")
+    _only(spd_counts, counts_want, f"gpt2 train, {GPT2_SPD} steps per "
+                                   f"dispatch")
+    return {**counts, "summary": out, "spd": spd_counts}
+
+
+def _serve_line(name: str, out: dict, counts: dict) -> None:
+    st = out["engine_stats"]
+    log(f"gpt2_serve {name}: {out['completed']}/{out['requests']} requests, "
+        f"{out['generated_tokens']} tokens in {out['wall_s']} s -> "
+        f"{out['tokens_per_sec']} tok/s; TTFT p50/p95 {out['ttft_ms_p50']}/"
+        f"{out['ttft_ms_p95']} ms; TPOT p50/p95 {out['tpot_ms_p50']}/"
+        f"{out['tpot_ms_p95']} ms; {st['decode_steps']} decode steps, "
+        f"{out['prefill_dispatches']} prefill dispatches, decode graph "
+        f"{out['decode_graph']} ({out['decode_graph_replays']} replays)"
+        + (f", preemptions {st['preemptions']}, COW copies "
+           f"{st['cow_copies']}, pages in use after the drain "
+           f"{st['pages_in_use']}" if "pages_in_use" in st else "")
+        + f"; launches {counts}")
+
+
+def phase_gpt2_serve(torch) -> dict:
+    """`serve --family gpt2 --random_init --vocab_size 50257` at GPT-2
+    small's widths, bf16, the decode step graphed: the slot engine on
+    phase 5's traffic and the paged engine on phase 15's (bf16, then int8
+    pages), each greedy and then sampled (temperature 0.8, top-k 50,
+    top-p 0.95). Checks: every request served with in-vocab tokens; K1
+    forward 12 per prefill dispatch (slot), K3 12 per decode step and per
+    chunk, on the routes `_check_paged_run` names, and the pool drained
+    (paged); the sampled slot run's tokens identical with the decode step
+    eager (`--decode_graph off`) and with `--debug_host_sampler`, and the
+    sampled paged run's (its deadlines scaled, `GRAPH_CHECK_SLO`) with
+    `--debug_host_sampler`; sampled tokens differ from greedy. Returns each
+    run's numbers and launches."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine)
+    layers = model_preset("gpt2-124m").num_layers
+    dispatch = PagedEngine._dispatch_chunk
+    widths = []
+
+    def seen(self, slot, st, n, done):   # records each chunk's width
+        widths.append(n)
+        return dispatch(self, slot, st, n, done)
+
+    def run(name, args):
+        _reset_launches()
+        widths.clear()
+        PagedEngine._dispatch_chunk = seen
+        try:
+            out = serve.main(args)
+        finally:
+            PagedEngine._dispatch_chunk = dispatch
+        counts = _read_launches()
+        by_route = dict(paged_attention.launches_by_route)
+        by_kernel = dict(paged_attention.launches_by_kernel)
+        torch.cuda.synchronize()
+        _serve_line(name, out, counts)
+        if "--paged" in args:
+            _check_paged_run(out, out["engine_stats"], counts, by_route,
+                             by_kernel, widths, layers, GPT2_VOCAB)
+        else:
+            if out["completed"] != out["requests"]:
+                raise AssertionError(f"{name}: served {out['completed']} of "
+                                     f"{out['requests']} requests")
+            toks = [t for ts in out["outputs"].values() for t in ts]
+            if not toks or not all(0 <= t < GPT2_VOCAB for t in toks):
+                raise AssertionError(f"{name}: tokens missing or outside "
+                                     f"the vocab")
+            _only(counts, {"flash_attention_fwd":
+                           layers * out["prefill_dispatches"]},
+                  f"{name} ({layers} per prefill dispatch)")
+        if "--decode_graph" not in args and (
+                out["decode_graph_replays"]
+                != out["engine_stats"]["decode_steps"]):
+            raise AssertionError(f"{name}: the decode graph did not run on "
+                                 f"every decode step")
+        return {"out": out, "launches": counts, "paged_by_route": by_route,
+                "paged_by_kernel": by_kernel}
+
+    n = GPT2_PAGED_ARGS.index("--num_requests") + 1
+    int8 = (GPT2_PAGED_ARGS[:n] + [str(PAGED_INT8_REQUESTS)]
+            + GPT2_PAGED_ARGS[n + 1:] + ["--kv_dtype", "int8"])
+    runs = {
+        "slot": run("slot greedy", GPT2_SERVE_ARGS),
+        "slot_sampled": run("slot sampled", GPT2_SERVE_ARGS + SAMPLED_ARGS),
+        "slot_sampled_eager": run("slot sampled, eager decode",
+                                  GPT2_SERVE_ARGS + SAMPLED_ARGS
+                                  + ["--decode_graph", "off"]),
+        "slot_sampled_host": run("slot sampled, host sampler",
+                                 GPT2_SERVE_ARGS + SAMPLED_ARGS
+                                 + ["--debug_host_sampler"]),
+        "paged": run("paged greedy (bf16 pages)", GPT2_PAGED_ARGS),
+        "paged_sampled": run("paged sampled (bf16 pages, deadlines x 1000)",
+                             GPT2_PAGED_ARGS + SAMPLED_ARGS
+                             + GRAPH_CHECK_SLO),
+        "paged_sampled_host": run(
+            "paged sampled, host sampler (bf16 pages, deadlines x 1000)",
+            GPT2_PAGED_ARGS + SAMPLED_ARGS + GRAPH_CHECK_SLO
+            + ["--debug_host_sampler"]),
+        "paged_int8": run("paged greedy (int8 pages)", int8),
+        "paged_int8_sampled": run("paged sampled (int8 pages)",
+                                  int8 + SAMPLED_ARGS),
+    }
+    toks = lambda name: runs[name]["out"]["outputs"]
+    checks = {
+        "sampled slot: graph == eager": toks("slot_sampled")
+        == toks("slot_sampled_eager"),
+        "sampled slot: fused == host": toks("slot_sampled")
+        == toks("slot_sampled_host"),
+        "sampled paged: fused == host": toks("paged_sampled")
+        == toks("paged_sampled_host"),
+        "slot: sampled != greedy": toks("slot_sampled") != toks("slot"),
+        "paged: sampled != greedy": toks("paged_sampled") != toks("paged"),
+    }
+    log(f"gpt2_serve checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"gpt2_serve: {checks}")
+    return runs
+
+
+def _gpt2_serve_cases(cfg, seed: int) -> list:
+    """serve_runs' runs for the card-vs-CPU and tp checks: 4 requests of
+    64-200 tokens, 16 new tokens, through each engine, greedy and sampled
+    (request seeds 40..43)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = [64, 200, 131, 97]
+    prompts = [[int(x) for x in rng.integers(3, cfg.vocab_size, n)]
+               for n in lens]
+    reqs = [(p, 16, "default", None, 40 + i) for i, p in enumerate(prompts)]
+    buf = max(lens) + 18
+    slot = dict(num_slots=4, buf_len=buf, eos_id=1, prefill_bucket=64,
+                max_prefill_batch=2)
+    paged = dict(num_slots=4, buf_len=buf, eos_id=1, page_size=64,
+                 prefill_chunk=128)
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.95)
+    return [dict(engine=eng, kw=dict(kw, **extra), requests=reqs, stagger=1,
+                 tick=0.02)
+            for eng, kw in (("slot", slot), ("paged", paged))
+            for extra in ({}, sampled)]
+
+
+def phase_gpt2_card_vs_cpu(torch) -> None:
+    """GPT-2 small's widths at 2 layers, f32, the same weights: (1) the
+    forward logits (b 2 x t 256) on the card against the CPU's plain path
+    within 1e-4 of the largest |logit|; (2) the first step's loss (rel
+    1e-5) and every gradient (1e-3 of its max |grad| + 1e-6 of the
+    largest |grad| of any leaf); (3) both engines'
+    greedy and sampled tokens for 4 seeded requests identical on the card
+    and on the CPU; (4) tp=2 over gloo (two ranks on the card): the loss
+    within 1e-5 (relative) of tp=1's on the card and the engines' greedy
+    and sampled tokens identical to tp=1's."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        IGNORE_INDEX, MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.models.gpt2 import (
+        GPT2Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    cfg = model_preset("gpt2-124m", num_layers=2, compute_dtype="float32")
+    cpu = GPT2Transformer(cfg, remat=False).init_weights(seed=12)
+    card = GPT2Transformer(cfg, remat=True)
+    card.load_state_dict(cpu.state_dict())
+    card.to("cuda")
+    rng = np.random.default_rng(12)
+    b, t = 2, 256
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t + 1))
+    tgt = ids[:, 1:].copy()
+    tgt[1, 200:] = IGNORE_INDEX            # a padded tail
+    pos = np.tile(np.arange(t), (b, 1))
+    batch = [torch.from_numpy(a) for a in (ids[:, :-1], tgt, pos)]
+    res = {}
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        with torch.no_grad():
+            logits = model(batch[0].to(dev), batch[2].to(dev)).float().cpu()
+        loss = model.loss(*(x.to(dev) for x in batch))
+        loss.backward()
+        res[dev] = (logits, loss.item(), {k: p.grad.cpu() for k, p in
+                                          model.named_parameters()})
+    (lg_card, l_card, g_card), (lg_cpu, l_cpu, g_cpu) = (res["cuda"],
+                                                         res["cpu"])
+    scale = max(1.0, lg_cpu.abs().max().item())
+    lg_diff = (lg_card - lg_cpu).abs().max().item()
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    # each leaf within 1e-3 of its max |grad|, plus 1e-6 of the largest
+    # |grad| of any leaf: without RoPE the wk bias's gradient is zero in
+    # exact arithmetic (a bias on every key of a query shifts all its
+    # scores alike, which the softmax ignores), so both devices hold
+    # rounding noise there (PR 14, call 2: 3.8 x that leaf's own max)
+    gmax = max(gc.abs().max().item() for gc in g_cpu.values())
+    worst, worst_key = 0.0, None
+    for k, gc in g_cpu.items():
+        diff = (g_card[k] - gc).abs().max().item()
+        leaf = gc.abs().max().item()
+        ratio = diff / (1e-3 * leaf + 1e-6 * gmax)
+        if ratio > worst:
+            worst = ratio
+            worst_key = (f"{k} (max abs diff {diff:.3e}, max |grad| "
+                         f"{leaf:.3e})")
+    log(f"gpt2 card vs cpu: GPT-2 small widths, 2 layers, f32, b{b} x t{t}: "
+        f"logits max abs diff {lg_diff:.3e} (limit 1e-4 x {scale:.3f}); loss "
+        f"{l_card:.7f} (card, kernels) vs {l_cpu:.7f} (cpu, plain), rel diff "
+        f"{rel:.3e} (tol 1e-5); worst grad leaf {worst_key}: err/limit "
+        f"{worst:.3f} (limit 1e-3 of its max |grad| + 1e-6 of the largest, "
+        f"{gmax:.3e})")
+    if not (lg_diff <= 1e-4 * scale and rel <= 1e-5 and worst <= 1.0):
+        raise AssertionError("gpt2 on the card and on the CPU disagree")
+    del card, res
+    tree = params_to_jax(cpu.state_dict())
+    kw = dict(cfg=dataclasses.asdict(cfg), tree=tree)
+    runs = _gpt2_serve_cases(cfg, 12)
+    one = {dev: tp_checks.serve_runs(make_mesh(MeshConfig(), device=dev),
+                                     kw["cfg"], tree, runs)
+           for dev in ("cuda", "cpu")}
+    card_loss = tp_checks.model_runs(
+        make_mesh(MeshConfig(), device="cuda"), kw["cfg"], tree,
+        [dict(batch=(ids[:, :-1], tgt, pos))])[0]["loss"]
+    todo = [("model_runs", {"tp": 2}, dict(kw, runs=[dict(
+                sp=True, batch=(ids[:, :-1], tgt, pos))])),
+            ("serve_runs", {"tp": 2}, dict(kw, runs=runs))]
+    tp2 = launch.spawn(tp_checks.jobs, 2, todo, ("cuda",), "gloo")
+    tp2_loss = tp2[0][0][0]["loss"]
+    tp_rel = abs(tp2_loss - card_loss) / abs(card_loss)
+    for i, r in enumerate(runs):
+        what = (f"{r['engine']} "
+                f"{'sampled' if r['kw'].get('temperature') else 'greedy'}")
+        toks = one["cuda"][i]["tokens"]
+        same = {"cpu": toks == one["cpu"][i]["tokens"],
+                "tp2": toks == tp2[0][1][i]["tokens"],
+                "ranks": (tp2[0][1][i]["dispatches"]
+                          == tp2[1][1][i]["dispatches"])}
+        log(f"gpt2 card vs cpu tokens ({what}, {len(toks)} requests x 16 "
+            f"new): card tp=1 == cpu {same['cpu']}, == card tp=2 "
+            f"{same['tp2']}; the tp=2 ranks' dispatches equal "
+            f"{same['ranks']}")
+        if not all(same.values()):
+            raise AssertionError(f"gpt2 {what}: tokens differ ({same})")
+    log(f"gpt2 tp=2 (SP, gloo, two ranks on the card) loss {tp2_loss:.7f} vs "
+        f"tp=1 {card_loss:.7f}: rel diff {tp_rel:.3e} (tol 1e-5)")
+    if not tp_rel <= 1e-5:
+        raise AssertionError("gpt2 tp=2 loss disagrees with tp=1's")
+
+
+def phase_sampler_check(torch) -> dict:
+    """The sampler on the card: 20,000 draws (request seeds 0..19,999, one
+    position) from one seeded row of 50257 logits at temperature 0.8, top-k
+    50, top-p 0.95, against the exact filtered softmax by a one-sample
+    chi-square (tokens expected >= 5 times are bins of their own, the rest
+    one bin) at p = 1e-3 with its fixed critical value; the draws are
+    deterministic, so the test is too. The first 500 draws also on the
+    CPU: identical tokens. Returns the statistic and its limit."""
+    import numpy as np
+    from scipy.stats import chi2
+    from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
+        _filter_logits, sample_from_full)
+    temperature, top_k, top_p, pos = 0.8, 50, 0.95, 17
+    row = torch.from_numpy((np.random.default_rng(5).standard_normal(
+        GPT2_VOCAB) * 2).astype(np.float32))
+
+    def draws(dev, lo, hi):
+        n = hi - lo
+        full = row.to(dev)[None].expand(n, -1)
+        seeds = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        return sample_from_full(full, seeds, torch.full((n,), pos,
+                                                        device=dev),
+                                temperature, top_k, top_p).cpu().numpy()
+
+    t0 = time.perf_counter()
+    card = np.concatenate([draws("cuda", lo, lo + 2000)
+                           for lo in range(0, SAMPLER_DRAWS, 2000)])
+    card_s = time.perf_counter() - t0
+    cpu = draws("cpu", 0, 500)
+    probs = torch.softmax(_filter_logits(row[None] / temperature, top_k,
+                                         top_p)[0].double(), -1).numpy()
+    counts = np.bincount(card, minlength=GPT2_VOCAB).astype(float)
+    exp = probs * SAMPLER_DRAWS
+    keep = exp >= 5
+    obs = np.append(counts[keep], counts[~keep].sum())
+    want = np.append(exp[keep], exp[~keep].sum())
+    if want[-1] == 0:
+        obs, want = obs[:-1], want[:-1]
+    stat = float(((obs - want) ** 2 / want).sum())
+    crit = float(chi2.ppf(1 - SAMPLER_P, len(obs) - 1))
+    outside = int(counts[probs == 0].sum())
+    log(f"sampler_check: {SAMPLER_DRAWS} draws on the card in {card_s:.2f} s "
+        f"(temperature {temperature}, top-k {top_k}, top-p {top_p}; "
+        f"{int((probs > 0).sum())} tokens survive the filter): chi-square "
+        f"{stat:.3f} over {len(obs) - 1} dof, critical {crit:.3f} at p = "
+        f"{SAMPLER_P:g}; draws outside the filter {outside}; the first 500 "
+        f"identical on the CPU: {bool((cpu == card[:500]).all())}")
+    if not (stat < crit and outside == 0 and (cpu == card[:500]).all()):
+        raise AssertionError("the sampler's draws do not follow the filtered "
+                             "softmax, or the card and the CPU draw apart")
+    return {"chi2": stat, "critical": crit, "dof": len(obs) - 1}
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -3766,7 +4245,9 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "cp_train", "cp_tiny", "cp_card_vs_cpu", "cp_profile", "tp_train",
           "tp_tiny", "tp_card_vs_cpu", "tp_profile", "tp_serve",
           "tp_serve_card_vs_cpu", "tp_serve_profile", "graph_check",
-          "train_remat", "train_spd", "eval", "eval_pth", "eval_tp")
+          "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
+          "gpt2_kernels", "gpt2_train", "gpt2_serve", "gpt2_card_vs_cpu",
+          "sampler_check")
 
 
 def main() -> None:
@@ -3801,7 +4282,8 @@ def run(torch, phases: set, workdir: str) -> list:
     t0 = time.perf_counter()
     device = phase_device(torch)
     with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
-                "train_remat", "train_spd", "eval", "eval_pth", "eval_tp")
+                "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
+                "gpt2_train")
     res = {}
     for name in PHASES:
         if name not in phases:
@@ -3815,13 +4297,14 @@ def run(torch, phases: set, workdir: str) -> list:
     (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
-     eval_tp) = (
+     eval_tp, gpt2_times, gpt2_trained, gpt2_served) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
              "ring_check", "ring_times", "cp_train", "cp_tiny", "tp_train",
              "tp_tiny", "tp_serve", "train_remat", "train_spd", "eval",
-             "eval_pth", "eval_tp"))
+             "eval_pth", "eval_tp", "gpt2_kernels", "gpt2_train",
+             "gpt2_serve"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -3850,27 +4333,40 @@ def run(torch, phases: set, workdir: str) -> list:
                          "eval_pth": eval_pth["ranks"][0]["launches"].get(
                              k, 0),
                          "eval_tp2": sum(r["launches"].get(k, 0)
-                                         for r in eval_tp["ranks"])}
-    at_path = bwd_times["errs"]
+                                         for r in eval_tp["ranks"]),
+                         "train_gpt2": gpt2_trained[k],
+                         **{f"serve_gpt2_{name}": run["launches"].get(k, 0)
+                            for name, run in gpt2_served.items()}}
+    at_path, at_gpt2 = bwd_times["errs"], gpt2_times["errs"]
+    # K3's launches on the gpt2 paged runs, by C entry point
+    gpt2_paged = lambda kernel: {
+        f"serve_gpt2_{name}": run["paged_by_kernel"][kernel]
+        for name, run in gpt2_served.items() if name.startswith("paged")}
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": served["flash_attention_fwd"],
-         "max_abs_err": max(max_err, at_path["o"]),
-         "max_abs_err_train_shape": at_path["o"], **times,
+         "max_abs_err": max(max_err, at_path["o"], at_gpt2["o"]),
+         "max_abs_err_train_shape": at_path["o"],
+         "max_abs_err_gpt2_shape": at_gpt2["o"], **times,
          "train_shape": bwd_times["fwd"],
+         "gpt2_train_shape": gpt2_times["fwd"],
          "launches_by_path": by_path("flash_attention_fwd")},
         {"name": "flash_attention_bwd_dq", "route": "cuda",
          "source": BWD_SOURCE, "replaces": BWD_REPLACES,
          "launches": trained["flash_attention_bwd_dq"],
-         "max_abs_err": max(bwd_err["dq"], at_path["dq"]),
-         "max_abs_err_train_shape": at_path["dq"], **bwd_times["dq"],
+         "max_abs_err": max(bwd_err["dq"], at_path["dq"], at_gpt2["dq"]),
+         "max_abs_err_train_shape": at_path["dq"],
+         "max_abs_err_gpt2_shape": at_gpt2["dq"], **bwd_times["dq"],
+         "gpt2_train_shape": gpt2_times["dq"],
          "launches_by_path": by_path("flash_attention_bwd_dq")},
         {"name": "flash_attention_bwd_dkv", "route": "cuda",
          "source": BWD_SOURCE, "replaces": BWD_REPLACES,
          "launches": trained["flash_attention_bwd_dkv"],
-         "max_abs_err": max(bwd_err["dkv"], at_path["dk"], at_path["dv"]),
+         "max_abs_err": max(bwd_err["dkv"], at_path["dk"], at_path["dv"],
+                            at_gpt2["dk"], at_gpt2["dv"]),
          "max_abs_err_train_shape": max(at_path["dk"], at_path["dv"]),
-         **bwd_times["dkv"],
+         "max_abs_err_gpt2_shape": max(at_gpt2["dk"], at_gpt2["dv"]),
+         **bwd_times["dkv"], "gpt2_train_shape": gpt2_times["dkv"],
          "launches_by_path": by_path("flash_attention_bwd_dkv")},
         # K3's wrapper runs two kernels on the bf16 path, an entry each:
         # `launches` counts the entry's kernel; `launches_by_route` and
@@ -3886,7 +4382,9 @@ def run(torch, phases: set, workdir: str) -> list:
          "launches_by_path": {**by_path("paged_attention"),
                               "serve_paged_int8": paged_served["paged_int8"],
                               "serve_paged_int8_by_route":
-                                  paged_served["paged_int8_by_route"]}},
+                                  paged_served["paged_int8_by_route"],
+                              "gpt2_paged_decode_kernel":
+                                  gpt2_paged("paged_decode")}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
@@ -3899,7 +4397,8 @@ def run(torch, phases: set, workdir: str) -> list:
              "serve_paged_int8": paged_served["paged_int8_by_kernel"][
                  "paged_chunk_sm90"],
              **{name: run["launches"]["paged_paged_chunk_sm90"]
-                for name, run in tp_served.items()}}},
+                for name, run in tp_served.items()},
+             **gpt2_paged("paged_chunk_sm90")}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

@@ -36,10 +36,16 @@ the run's numbers: losses, decoded ids, times, kernel launches per rank).
   the `val/loss` scalars (`training/metrics.MetricsWriter`) under
   `--ckpt_dir`.
 
-Refused with NotImplementedError, naming the ROADMAP item: `--family
-gpt2` and `--temperature > 0` (item 5), KV decoding at `--cp_size > 1`
-with the contiguous layout (item 6: JAX routes it to the cp-sharded paged
-engine), the multi-host flags (item 2). The JAX CLI's own refusals stay,
+`--family gpt2` evaluates the GPT-2 family (`models/gpt2.py`) the same
+way; its decode buffer is clamped to the learned position table (the JAX
+CLI's warning, and its refusal when the prompts do not fit).
+`--temperature > 0` (with `--decode_top_k` / `--decode_top_p`) samples
+through the slot engine, prompt i drawing from seed `--random_seed` + i.
+
+Refused with NotImplementedError, naming the ROADMAP item: KV decoding at
+`--cp_size > 1` with the contiguous layout (item 6: JAX routes it to the
+cp-sharded paged engine), `--num_experts` (item 7), the multi-host flags
+(item 2). The JAX CLI's own refusals stay,
 with its messages. Not ported: the JAX CLI's span tracer (`val/trace.json`,
 ROADMAP item 8).
 """
@@ -61,6 +67,7 @@ from .config import (BOS_TOKEN, EOS_TOKEN, IGNORE_INDEX, MeshConfig,
 from .data.dataset import dp_rows, get_dataloader
 from .data.tokenizer import BACKENDS, load_tokenizer
 from .models.decode import _full_vocab_logits
+from .models import build_model
 from .models.transformer import Transformer, validate_cp, validate_tp
 from .ops.collectives import all_gather
 from .ops.cuda import launch_counts
@@ -84,8 +91,7 @@ DECODE_PROMPTS = [
 ]
 
 _MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
-_GPT2 = "ROADMAP Queue 1 item 5: the gpt2 family"
-_SAMPLED = "ROADMAP Queue 1 item 5: sampled decoding"
+_MOE = "ROADMAP Queue 1 item 7 (d): MoE"
 _CP_KV = ("ROADMAP Queue 1 item 6: serve --paged --cp, the cp-sharded "
           "page pool")
 
@@ -129,8 +135,9 @@ def get_eval_args(argv=None) -> argparse.Namespace:
 
     g = p.add_argument_group("model")
     g.add_argument("--family", choices=["llama", "gpt2"], default="llama",
-                   help="must match the trained model family (llama only, "
-                        "so far)")
+                   help="must match the trained model family; both decode "
+                        "via the KV-cache decoder (gpt2's buffer is capped "
+                        "at its learned position table)")
     g.add_argument("--ckpt_dir", required=True)
     add_model_shape_args(g)
 
@@ -141,7 +148,8 @@ def get_eval_args(argv=None) -> argparse.Namespace:
                         "once per token (the source repo's decoder) "
                         "instead of the slot engine's KV cache")
     g.add_argument("--temperature", type=float, default=0.0,
-                   help="0 = greedy argmax (the only mode ported so far)")
+                   help="0 = greedy argmax; > 0 samples (KV decoder only), "
+                        "prompt i seeded by --random_seed + i")
     g.add_argument("--decode_top_k", type=int, default=0)
     g.add_argument("--decode_top_p", type=float, default=0.0)
 
@@ -177,13 +185,9 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if getattr(args, dest) is not None:
             raise NotImplementedError(
                 f"--{dest} {getattr(args, dest)}: not ported yet, see {item}")
-    if args.family != "llama":
-        raise NotImplementedError(f"--family {args.family}: not ported yet, "
-                                  f"see {_GPT2}")
-    if args.temperature > 0:
-        raise NotImplementedError(
-            f"--temperature {args.temperature}: not ported yet, see "
-            f"{_SAMPLED}")
+    if args.num_experts:
+        raise NotImplementedError(f"--num_experts {args.num_experts}: not "
+                                  f"ported yet, see {_MOE}")
 
 
 def _pad_batch(batch, rows: int):
@@ -250,10 +254,14 @@ def _argmax_at(model: Transformer, buf: np.ndarray, cur: int) -> int:
 def greedy_decode(model: Transformer, mesh, tokenizer, prompts: List[str],
                   bos_id: int, eos_id: int, max_decode_len: int = 128,
                   use_kv_cache: bool = True,
-                  stats: Optional[dict] = None
+                  stats: Optional[dict] = None, temperature: float = 0.0,
+                  top_k: int = 0, top_p: float = 0.0, seed: int = 0
                   ) -> Optional[List[Tuple[str, str]]]:
-    """(prompt, completion) pairs, the JAX `greedy_decode`'s at
-    temperature 0. The KV path decodes through the slot engine: tp rank 0
+    """(prompt, completion) pairs, the JAX `greedy_decode`'s. The buffer of
+    a model with learned positions (gpt2) is clamped to its table, with
+    the JAX warning, or refused when the prompts do not fit. At
+    `temperature > 0` the KV path samples, prompt i from seed `seed` + i.
+    The KV path decodes through the slot engine: tp rank 0
     drives it and returns the pairs, the other tp ranks serve its
     dispatches and return None. The full-recompute path runs on every tp
     rank in lockstep (the gathered logits agree) and returns the pairs
@@ -265,13 +273,28 @@ def greedy_decode(model: Transformer, mesh, tokenizer, prompts: List[str],
     # one buffer for every prompt; room for BOS and at least one new token
     buf_len = max(max_decode_len + 1,
                   max(len(i) for i in encoded.values()) + 2)
+    # learned positions (gpt2) cap the buffer at the table: positions past
+    # it would clip to its last row and degrade the generations
+    cap = getattr(model, "max_decode_positions", None)
+    if cap is not None and buf_len > cap:
+        longest = max(len(i) for i in encoded.values())
+        if cap < longest + 2:
+            raise SystemExit(
+                f"prompts need {longest + 2} positions but the model's "
+                f"learned position table has only {cap}")
+        if mesh.rank == 0:
+            print(f"Warning: clamping decode buffer {buf_len} -> {cap} "
+                  f"(learned position table size); reduce --max_decode_len "
+                  f"to silence")
+        buf_len = cap
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
     if use_kv_cache:
         prompt_ids = [[bos_id] + encoded[t] for t in texts]
         engine = ContinuousBatchingEngine(
             model, mesh, num_slots=min(len(prompt_ids), 8), buf_len=buf_len,
-            eos_id=eos_id)
+            eos_id=eos_id, temperature=temperature, top_k=top_k,
+            top_p=top_p)
         if not engine.dispatch.leader:
             engine.dispatch.serve()
             stats["decode_s"] = time.perf_counter() - t0
@@ -279,7 +302,8 @@ def greedy_decode(model: Transformer, mesh, tokenizer, prompts: List[str],
         # the same TOTAL-length budget as the full-recompute path's
         gens = decode_prompts(
             engine, prompt_ids,
-            [max(0, max_decode_len + 1 - len(pr)) for pr in prompt_ids])
+            [max(0, max_decode_len + 1 - len(pr)) for pr in prompt_ids],
+            base_seed=seed)
         engine.dispatch.stop()
         stats.update(prefill_dispatches=engine.prefill_dispatches,
                      decode_steps=engine.decode_steps,
@@ -414,12 +438,13 @@ def _evaluate(args: argparse.Namespace, maxlen: int, rank: int = 0,
                                 shuffle=False, drop_last=False)
     ds = dataloader.dataset
     cfg = build_model_config(args, ds.vocab_size)
-    model_val = Transformer(cfg, cp_size=args.cp_size, cp_impl=args.cp_impl,
-                            cp_layout=args.cp_layout, mesh=mesh)
+    model_val = build_model(args.family, cfg, cp_size=args.cp_size,
+                            cp_impl=args.cp_impl, cp_layout=args.cp_layout,
+                            mesh=mesh)
     model_val.to(mesh.device)
     # decoding runs on the cp = 1 path (the contiguous KV case is refused)
     model = (model_val if args.cp_size == 1 else
-             Transformer(cfg, mesh=mesh).to(mesh.device))
+             build_model(args.family, cfg, mesh=mesh).to(mesh.device))
     ckpts = list_checkpoints(args.ckpt_dir, rank=0)
     if not ckpts:
         raise SystemExit(f"no checkpoints found in {args.ckpt_dir}")
@@ -466,7 +491,10 @@ def _evaluate(args: argparse.Namespace, maxlen: int, rank: int = 0,
         decoded = greedy_decode(model, mesh, tokenizer, DECODE_PROMPTS,
                                 bos_id, eos_id, args.max_decode_len,
                                 use_kv_cache=not args.no_kv_cache,
-                                stats=stats)
+                                stats=stats, temperature=args.temperature,
+                                top_k=args.decode_top_k,
+                                top_p=args.decode_top_p,
+                                seed=args.random_seed)
         with open(report_path if is_main else os.devnull, "a") as f:
             f.write("\n\nInput texts -> Decoded texts\n")
             for prompt, completion in decoded or []:

@@ -8,9 +8,11 @@ the JAX `generate.py`.
 
 Loads the newest checkpoint in `--ckpt_dir` (or `--iter`; either
 package's npz shards, written at any tp its vocab divides) and decodes
-every `--prompt` greedily through the slot engine
-(`ContinuousBatchingEngine` + `decode_prompts`, the llama family): on a
-card at tp = 1 its decode step is a CUDA graph; at `--tp_size N` one
+every `--prompt` through the slot engine (`ContinuousBatchingEngine` +
+`decode_prompts`, either `--family`): greedily, or at `--temperature > 0`
+sampled (`--decode_top_k`, `--decode_top_p`), prompt i drawing from seed
+`--seed` + i. A gpt2 buffer is clamped to its learned position table. On a
+card at tp = 1 the decode step is a CUDA graph; at `--tp_size N` one
 process per tp rank (`runtime/launch.spawn`), tp rank 0 drives the engine
 and broadcasts each dispatch (`serving/tp_dispatch.py`). The tokenizer is
 `data/tokenizer.load_tokenizer` (`--tokenizer_backend auto | hf |
@@ -18,9 +20,9 @@ native`). Runs on the card unless `--device cpu` is given; with no card it
 exits non-zero.
 
 Refused with NotImplementedError, naming the ROADMAP item, as evaluate.py
-refuses them: `--cp_size > 1` (item 6: the cp-sharded paged engine),
-`--family gpt2` and `--temperature > 0` (item 5). The JAX CLI's ulysses
-refusal stays, with its message.
+refuses them: `--cp_size > 1` (item 6: the cp-sharded paged engine) and
+`--num_experts` (item 7). The JAX CLI's ulysses refusal stays, with its
+message.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ import argparse
 from .cli import add_model_shape_args, build_model_config
 from .config import BOS_TOKEN, EOS_TOKEN, MeshConfig
 from .data.tokenizer import BACKENDS, load_tokenizer
-from .evaluate import _CP_KV, _GPT2, _SAMPLED
-from .models.transformer import Transformer, validate_tp
+from .evaluate import _CP_KV, _MOE
+from .models import build_model
+from .models.transformer import validate_tp
 from .runtime import launch
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
 from .serving.engine import ContinuousBatchingEngine, decode_prompts
@@ -59,7 +62,7 @@ def get_generate_args(argv=None) -> argparse.Namespace:
     p.add_argument("--family", choices=["llama", "gpt2"], default="llama")
     add_model_shape_args(p.add_argument_group("model shape"))
     p.add_argument("--temperature", type=float, default=0.0,
-                   help="0 = greedy (the only mode ported so far)")
+                   help="0 = greedy; > 0 samples softmax(logits/T)")
     p.add_argument("--decode_top_k", type=int, default=0)
     p.add_argument("--decode_top_p", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
@@ -97,13 +100,9 @@ def _refuse(args: argparse.Namespace) -> None:
         raise NotImplementedError(
             f"--cp_size {args.cp_size}: decoding over cp ranks is not "
             f"ported yet, see {_CP_KV}; rerun with --cp_size 1")
-    if args.family != "llama":
-        raise NotImplementedError(f"--family {args.family}: not ported yet, "
-                                  f"see {_GPT2}")
-    if args.temperature > 0:
-        raise NotImplementedError(
-            f"--temperature {args.temperature}: not ported yet, see "
-            f"{_SAMPLED}")
+    if args.num_experts:
+        raise NotImplementedError(f"--num_experts {args.num_experts}: not "
+                                  f"ported yet, see {_MOE}")
 
 
 def generate(args: argparse.Namespace) -> list:
@@ -150,7 +149,7 @@ def _generate(args: argparse.Namespace, rank: int = 0,
     step = args.iter if args.iter is not None else latest_step(args.ckpt_dir)
     if step is None:
         raise SystemExit(f"no checkpoints found in {args.ckpt_dir}")
-    model = Transformer(cfg, mesh=mesh)
+    model = build_model(args.family, cfg, mesh=mesh)
     state, _, _ = load_checkpoint(args.ckpt_dir, step, tp_size=mesh.tp,
                                   tp_rank=mesh.tp_rank)
     model.load_state_dict(state)
@@ -158,11 +157,20 @@ def _generate(args: argparse.Namespace, rank: int = 0,
     say(f"loaded checkpoint iter {step} from {args.ckpt_dir}")
 
     encoded = [tokenizer.encode(t) for t in args.prompt]
-    buf_len = max(len(e) for e in encoded) + args.max_new_tokens + 2
+    longest = max(len(e) for e in encoded)
+    buf_len = longest + args.max_new_tokens + 2
+    cap = getattr(model, "max_decode_positions", None)
+    if cap is not None:
+        buf_len = min(buf_len, cap)
+        if buf_len < longest + 2:
+            raise SystemExit(f"prompt needs {longest + 2} positions but the "
+                             f"model's position table has {cap}")
     prompts = [[bos_id] + e for e in encoded]
     engine = ContinuousBatchingEngine(
         model, mesh, num_slots=min(len(prompts), args.slots),
-        buf_len=buf_len, eos_id=eos_id, prefill_bucket=args.prefill_bucket)
+        buf_len=buf_len, eos_id=eos_id, temperature=args.temperature,
+        top_k=args.decode_top_k, top_p=args.decode_top_p,
+        prefill_bucket=args.prefill_bucket)
     if not engine.dispatch.leader:
         engine.dispatch.serve()
         return []

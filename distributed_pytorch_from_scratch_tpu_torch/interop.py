@@ -1,8 +1,10 @@
 """Weight exchange with the JAX package and with the source repo.
 
-`params_from_jax` maps a JAX llama param tree (as numpy arrays: the tree
-`Transformer.init` returns, or a checkpoint's params) onto the port's
-`Transformer.state_dict()`, whole or one tp rank's shard of it;
+`params_from_jax` maps a JAX param tree of either family (as numpy
+arrays: the tree `Transformer.init` or `GPT2Transformer.init` returns, or
+a checkpoint's params; the family shows in the tree: llama has an
+`lm_head`, gpt2 a `pos_embedding`, LayerNorm biases and a tied head) onto
+the port's model `state_dict()`, whole or one tp rank's shard of it;
 `params_to_jax` is its inverse, and `shards_to_jax` assembles every tp
 rank's shard into the global tree. The JAX tree stacks every per-layer
 leaf on a leading num_layers axis and keeps linear weights as (idim,
@@ -69,7 +71,14 @@ from .parallel.layout import Tensors, assemble_params, shard_params
 from .training.optim import AdamState
 
 # per-layer modules whose "weight" is a linear (idim, odim) matrix in JAX
-_LINEARS = ("wq", "wk", "wv", "wo", "gate_proj", "up_proj", "down_proj")
+_LINEARS = ("wq", "wk", "wv", "wo", "gate_proj", "up_proj", "down_proj",
+            "fc", "proj")
+
+
+def tree_family(tree: Dict[str, Any]) -> str:
+    """'llama' (the tree has an lm_head) or 'gpt2' (its head is tied)."""
+    return "llama" if "lm_head" in tree else "gpt2"
+
 
 
 def params_from_jax(tree: Dict[str, Any], tp_size: int = 1,
@@ -77,10 +86,13 @@ def params_from_jax(tree: Dict[str, Any], tp_size: int = 1,
     """JAX param tree (nested dicts of numpy arrays) -> torch state_dict:
     the whole of it at tp_size 1, else rank tp_rank's shard."""
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
-    sd = {"embedding.weight": t(tree["embedding"]["weight"]),
-          "norm.scale": t(tree["norm"]["scale"]),
-          "lm_head.weight": t(tree["lm_head"]["weight"]).T.contiguous(),
-          "lm_head.bias": t(tree["lm_head"]["bias"])}
+    sd = {"embedding.weight": t(tree["embedding"]["weight"])}
+    if "pos_embedding" in tree:
+        sd["pos_embedding.weight"] = t(tree["pos_embedding"]["weight"])
+    sd.update({f"norm.{leaf}": t(arr) for leaf, arr in tree["norm"].items()})
+    if "lm_head" in tree:
+        sd["lm_head.weight"] = t(tree["lm_head"]["weight"]).T.contiguous()
+        sd["lm_head.bias"] = t(tree["lm_head"]["bias"])
     layers = tree["layers"]
     num_layers = np.shape(layers["wq"]["weight"])[0]
     for i in range(num_layers):
@@ -101,10 +113,16 @@ def params_to_jax(state_dict: Tensors) -> Dict[str, Any]:
     n = lambda x: x.detach().cpu().float().numpy()
     tree: Dict[str, Any] = {
         "embedding": {"weight": n(state_dict["embedding.weight"])},
-        "norm": {"scale": n(state_dict["norm.scale"])},
-        "lm_head": {"weight": n(state_dict["lm_head.weight"]).T.copy(),
-                    "bias": n(state_dict["lm_head.bias"])},
+        "norm": {leaf: n(state_dict[f"norm.{leaf}"])
+                 for leaf in ("scale", "bias")
+                 if f"norm.{leaf}" in state_dict},
     }
+    if "pos_embedding.weight" in state_dict:
+        tree["pos_embedding"] = {
+            "weight": n(state_dict["pos_embedding.weight"])}
+    if "lm_head.weight" in state_dict:
+        tree["lm_head"] = {"weight": n(state_dict["lm_head.weight"]).T.copy(),
+                           "bias": n(state_dict["lm_head.bias"])}
     per_layer: Dict[str, Dict[str, Dict[int, np.ndarray]]] = {}
     for key, val in state_dict.items():
         if not key.startswith("layers."):
@@ -188,6 +206,12 @@ def convert_state_dicts(shards: List[Dict[str, np.ndarray]],
     and lm_head up to a multiple of this value (a checkpoint loads at a tp
     only when its vocab rows divide by that tp; a vocab that divides —
     e.g. 1024 — needs no padding for any practical tp)."""
+    if "lm_head.weight" not in shards[0] or any(
+            k.startswith("pos_embedding.") for k in shards[0]):
+        raise ValueError(
+            "these state_dicts hold a gpt2 tree (a tied head or learned "
+            "positions): the source repo's .pth format is the llama "
+            "family's only, and the gpt2 family has no .pth form")
     L = cfg.num_layers
     m = max(1, pad_vocab_multiple)
     vp = ((cfg.vocab_size + m - 1) // m) * m
@@ -282,7 +306,13 @@ def export_state_dicts(params: Dict, cfg: ModelConfig,
     of `convert_state_dicts` (the JAX `export_state_dicts`). Only what the
     source repo can express exports: MHA (no GQA), a dense FFN (no MoE),
     and a tp that divides the vocab, heads and widths, as its layers
-    require. Vocab padding rows/cols are dropped."""
+    require. Vocab padding rows/cols are dropped. A gpt2 tree is refused
+    by its family's name."""
+    if tree_family(params) != "llama":
+        raise ValueError(
+            f"a {tree_family(params)} checkpoint has no .pth form: the "
+            f"source repo implements the llama family only (RoPE/RMSNorm/"
+            f"SwiGLU with an lm_head)")
     L, V, d = cfg.num_layers, cfg.vocab_size, cfg.attn_dim
     if cfg.num_experts:
         raise ValueError("MoE checkpoints cannot export: the reference's "

@@ -14,19 +14,35 @@ return its vocab columns of the logits; the sampler gathers them.
 Where JAX returns updated caches from a pure function, the lowerings here
 write the caches IN PLACE (torch runs eagerly; the JAX engine gets the same
 effect from buffer donation) and return only the logits.
+
+The lowerings are generic over the model FAMILY, as the JAX decoder is:
+each family class declares `uses_rope`, `attn_norm_key` and
+`ffn_norm_key`, and the module dict says the rest. The gpt2 family
+(`models/gpt2.py`) adds learned position rows at the input (`_embed`),
+runs a tanh-GELU MLP (`"fc"` among the layer's modules) and ties its head
+to the token embedding (no `lm_head`).
+
+The sampler (`make_token_sampler`, `host_sample_tokens`) is greedy at
+temperature 0; above it, top-k then top-p filtering (`_filter_logits`, the
+JAX mask) and a Gumbel-max draw whose noise is a counter-based hash of
+(request seed, absolute position, column) in integer tensor ops
+(`gumbel_noise`): a request's tokens depend on nothing else, every tp rank
+draws the same token from the gathered logits, the draw runs inside a
+captured CUDA graph, and the fused and host samplers agree bit for bit.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..ops.attention import MASK_VALUE, causal_attention
 from ..ops.collectives import copy_to, gather_from
 from ..ops.cuda.paged_attention import paged_attention
 from ..ops.quant import quantize_rows
-from ..ops.rope import apply_rotary
+from ..ops.rope import apply_rotary, rope_tables
 
 # the paged attends: the dense page view + einsum block (the oracle), or
 # `paged_attention` (the CUDA kernel on the card, its plain version on CPU)
@@ -67,21 +83,38 @@ def _act_layout(model) -> str:
     return "seq_sharded" if model.sequence_parallel else "replicated"
 
 
-def _embed(model, ids: torch.Tensor, dtype) -> torch.Tensor:
-    """Token embedding (the llama family has no learned positions); under
-    sequence parallelism this rank's chunk of the sequence."""
-    return model.embedding(ids, _act_layout(model)).to(dtype)
+def _embed(model, ids: torch.Tensor, pos: torch.Tensor,
+           dtype) -> torch.Tensor:
+    """Token embedding, plus the learned position rows at `pos` (clamped
+    into the table, JAX mode='clip') for a family without RoPE (gpt2),
+    added in f32 before the cast; under sequence parallelism this rank's
+    chunk of the sequence, the position rows sliced to it before the
+    add."""
+    x = model.embedding(ids, _act_layout(model))
+    if not model.uses_rope:
+        table = model.pos_embedding.weight
+        rows = table[pos.long().clamp(0, table.shape[0] - 1)]
+        if model.sequence_parallel:
+            tl = rows.shape[-2] // model.tp_size
+            r = model.mesh.tp_rank
+            rows = rows[..., r * tl:(r + 1) * tl, :]
+        x = x + rows
+    return x.to(dtype)
 
 
 def _finish_block(model, lp, x: torch.Tensor, o: torch.Tensor,
                   dtype) -> torch.Tensor:
-    """Residual + wo, then the SwiGLU FFN sublayer (shared by prefill and
-    decode)."""
+    """Residual + wo, then the FFN sublayer (shared by prefill and decode):
+    gpt2's tanh-GELU MLP where the layer has an `fc`, else SwiGLU."""
     b, t = o.shape[0], o.shape[2]
     o = o.transpose(1, 2).reshape(b, t,
                                   model.num_local_heads * model.cfg.head_dim)
     x = x + lp["wo"](o, dtype, _act_layout(model))
     y = _tp_in(model, lp[model.ffn_norm_key](x))
+    if "fc" in lp:
+        h = torch.nn.functional.gelu(lp["fc"](y, dtype, "gathered"),
+                                     approximate="tanh")
+        return x + lp["proj"](h, dtype, _act_layout(model))
     g = lp["gate_proj"](y, dtype, "gathered")
     u = lp["up_proj"](y, dtype, "gathered")
     return x + lp["down_proj"](torch.nn.functional.silu(g) * u, dtype,
@@ -98,7 +131,7 @@ def _block(model, lp, x: torch.Tensor, cos, sin, dtype,
     rank's chunk of the sequence and q, k, v cover the whole of it."""
     y = _tp_in(model, lp[model.attn_norm_key](x))
     q, k, v = _qkv(model, lp, y, dtype)
-    q, k = apply_rotary(q, k, cos, sin)
+    q, k = _rotate(model, q, k, cos, sin)
     o = attend(q, k, v)
     return _finish_block(model, lp, x, o, dtype), k, v
 
@@ -107,8 +140,19 @@ def _logits_tokens(model, x: torch.Tensor, dtype) -> torch.Tensor:
     """Final norm + head on (b, t, d) -> (b, t, vocab_padded / tp), this
     rank's vocab columns (under sequence parallelism x is the sequence
     chunk and the head all-gathers it); padded vocab columns are masked to
-    NEG_INF (JAX `models/transformer.py`), so they carry no probability."""
-    logits = model.lm_head(model.norm(x), dtype, _act_layout(model))
+    NEG_INF (JAX `models/transformer.py`), so they carry no probability.
+    A family without an `lm_head` (gpt2) ties the head to this rank's rows
+    of the token embedding: `x @ embedding.weight.T`, the same local-vocab
+    layout, and the embedding weight takes both gradients."""
+    y = model.norm(x)
+    if hasattr(model, "lm_head"):
+        logits = model.lm_head(y, dtype, _act_layout(model))
+    else:
+        if model.tp_size > 1:       # the column layer's input layouts
+            y = (gather_from(y, model.mesh, dim=-2)
+                 if model.sequence_parallel else copy_to(y, model.mesh))
+        logits = torch.matmul(y.to(dtype),
+                              model.embedding.weight.to(dtype).t())
     if model.vocab_padded == model.cfg.vocab_size:
         return logits
     local_v = logits.shape[-1]
@@ -134,9 +178,29 @@ def _full_vocab_logits(model, logits: torch.Tensor) -> torch.Tensor:
 
 
 def _positions(cos_t, sin_t, pos: torch.Tensor):
-    """cos/sin rows at `pos`, clamped into the table (JAX mode='clip')."""
+    """cos/sin rows at `pos`, clamped into the table (JAX mode='clip');
+    (None, None) without tables (a family without RoPE)."""
+    if cos_t is None:
+        return None, None
     pos = pos.clamp(0, cos_t.shape[0] - 1)
     return cos_t[pos], sin_t[pos]
+
+
+def _rotate(model, q: torch.Tensor, k: torch.Tensor, cos, sin):
+    """RoPE on q and k for a family that uses it; else q and k as they
+    are (gpt2's positions entered at the embedding)."""
+    if not model.uses_rope:
+        return q, k
+    return apply_rotary(q, k, cos, sin)
+
+
+def decode_tables(model, length: int, device):
+    """The RoPE (cos, sin) tables the lowerings take, `length` rows; (None,
+    None) for a family without RoPE."""
+    if not model.uses_rope:
+        return None, None
+    return rope_tables(length, model.cfg.head_dim, model.cfg.rope_theta,
+                       device)
 
 
 def _prefill(model, buf: torch.Tensor, prompt_len: torch.Tensor,
@@ -147,7 +211,7 @@ def _prefill(model, buf: torch.Tensor, prompt_len: torch.Tensor,
     flash kernel on the card."""
     b, t = buf.shape
     pos = torch.arange(t, device=buf.device)[None, :].expand(b, t)
-    x = _embed(model, buf, dtype)
+    x = _embed(model, buf, pos, dtype)
     cos, sin = _positions(cos_t, sin_t, pos)
     ks, vs = [], []
     for lp in model.layers:
@@ -173,7 +237,7 @@ def _decode_one(model, cache_k: torch.Tensor, cache_v: torch.Tensor,
     b = token.shape[0]
     cur = torch.as_tensor(cur, device=token.device).long().expand(b)
     p1 = cur[:, None]
-    x = _embed(model, token[:, None], dtype)
+    x = _embed(model, token[:, None], p1, dtype)
     cos, sin = _positions(cos_t, sin_t, p1)
     visible = (torch.arange(buf_len, device=token.device)[None, :]
                <= cur[:, None])[:, None, None, :]
@@ -188,7 +252,7 @@ def _decode_one(model, cache_k: torch.Tensor, cache_v: torch.Tensor,
     for li, lp in enumerate(model.layers):
         y = lp[model.attn_norm_key](x)
         q, k, v = _qkv(model, lp, y, dtype)       # q: (b, h, 1, hd); kv: kvh
-        q, k = apply_rotary(q, k, cos, sin)
+        q, k = _rotate(model, q, k, cos, sin)
         k_cache, v_cache = cache_k[li], cache_v[li]
         # advanced indices split by a slice: the indexed view is (b, kvh, hd)
         k_cache[rows, :, wcur, :] = k[:, :, 0, :].to(k_cache.dtype)
@@ -308,7 +372,7 @@ def _paged_decode_one(model, pool_k, pool_v, token: torch.Tensor,
     _check_paged(attn_impl, cp)
     b = token.shape[0]
     p1 = cur[:, None]
-    x = _embed(model, token[:, None], dtype)
+    x = _embed(model, token[:, None], p1, dtype)
     cos, sin = _positions(cos_t, sin_t, p1)
     rows = torch.arange(b, device=token.device)
     dst_page = page_tbl[rows, cur // page_size]        # (b,)
@@ -316,7 +380,7 @@ def _paged_decode_one(model, pool_k, pool_v, token: torch.Tensor,
     for li, lp in enumerate(model.layers):
         y = lp[model.attn_norm_key](x)
         q, k, v = _qkv(model, lp, y, dtype)       # q: (b, h, 1, hd); kv: kvh
-        q, k = apply_rotary(q, k, cos, sin)
+        q, k = _rotate(model, q, k, cos, sin)
         k_cache = _layer_pool(pool_k, li)
         v_cache = _layer_pool(pool_v, li)
         _paged_cache_write(k_cache, k[:, :, 0, :], dst_page, dst_off)
@@ -347,12 +411,12 @@ def _paged_prefill_chunk(model, pool_k, pool_v, chunk: torch.Tensor,
     b, cw = chunk.shape
     pos = start[:, None] + torch.arange(cw, device=chunk.device,
                                         dtype=start.dtype)[None, :]
-    x = _embed(model, chunk, dtype)
+    x = _embed(model, chunk, pos, dtype)
     cos, sin = _positions(cos_t, sin_t, pos)
     for li, lp in enumerate(model.layers):
         y = lp[model.attn_norm_key](x)
         q, k, v = _qkv(model, lp, y, dtype)       # q: (b, h, cw, hd)
-        q, k = apply_rotary(q, k, cos, sin)
+        q, k = _rotate(model, q, k, cos, sin)
         k_cache = _layer_pool(pool_k, li)
         v_cache = _layer_pool(pool_v, li)
         _paged_cache_write(k_cache, k.transpose(1, 2), dst_page, dst_off)
@@ -378,21 +442,116 @@ def validate_sampling(cfg, temperature: float, top_k: int,
         raise ValueError(f"top_p must be in [0, 1] (0 = off), got {top_p}")
 
 
+def _filter_logits(scaled: torch.Tensor, top_k: int,
+                   top_p: float) -> torch.Tensor:
+    """Top-k then top-p (nucleus) filtering of temperature-scaled (b, V)
+    f32 logits, the JAX `_filter_logits`: filtered-out entries become
+    -inf. Top-k keeps every entry at or above the k-th largest value (ties
+    at the threshold all survive); top-p keeps the smallest descending
+    prefix whose mass reaches top_p (the exclusive cumsum of the sorted
+    softmax below top_p; the top token always survives), its threshold
+    mapped back to the unsorted layout by value, so ties survive there
+    too."""
+    if top_k:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled >= kth, scaled, -math.inf)
+    if top_p and top_p < 1.0:
+        sorted_l = torch.sort(scaled, dim=-1, descending=True).values
+        e = torch.exp(sorted_l - sorted_l[:, :1])
+        probs = e / e.sum(dim=-1, keepdim=True)
+        cum = torch.cumsum(probs, dim=-1) - probs      # exclusive
+        thresh = torch.where(cum < top_p, sorted_l, math.inf).amin(
+            dim=-1, keepdim=True)
+        scaled = torch.where(scaled >= thresh, scaled, -math.inf)
+    return scaled
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32,
+    by 16-bit halves, so no intermediate leaves [0, 2^63)."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer on int64 values in [0, 2^32): every
+    shift acts on a non-negative value, so it is the logical shift."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """(b, vocab) float64 Gumbel noise, a pure function of each row's
+    (seed, absolute position) and the column: a counter-based hash (two
+    MurmurHash3 finalizer rounds over a per-row key) gives 32 bits per
+    entry, u = (h + 1/2) / 2^32 lies in (0, 1), and the noise is
+    -log(-log u). Seeds are the requests' uint32 seeds (any int dtype; the
+    low 32 bits count), positions int. The counterpart of JAX's
+    `fold_in(fold_in(key(0), seed), pos)` stream, not its bits."""
+    seed = seeds.long() & _M32
+    pos = positions.long() & _M32
+    key = _fmix32(_fmix32((seed + 0x9E3779B9) & _M32) ^ pos)[:, None]
+    col = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    h = _fmix32(key ^ _mul32(col + 1, 0x27D4EB2F))
+    h = _fmix32((h + _fmix32(key ^ 0x165667B1)) & _M32)
+    u = (h.double() + 0.5) * 2.0 ** -32
+    return -torch.log(-torch.log(u))
+
+
+def sample_from_full(full: torch.Tensor, seeds: torch.Tensor,
+                     positions: torch.Tensor, temperature: float,
+                     top_k: int, top_p: float) -> torch.Tensor:
+    """(b,) int64 token ids from full-vocab (b, V) f32 logits: the argmax
+    at temperature 0, else the filtered, temperature-scaled logits plus
+    `gumbel_noise` of each row's (seed, position), their argmax (first
+    index on ties, as jnp.argmax)."""
+    if temperature == 0.0:
+        return torch.argmax(full, dim=-1)
+    scaled = _filter_logits(full / temperature, top_k, top_p)
+    noise = gumbel_noise(seeds, positions, full.shape[-1])
+    return torch.argmax(scaled.double() + noise, dim=-1)
+
+
 def make_token_sampler(model, temperature: float = 0.0, top_k: int = 0,
                        top_p: float = 0.0):
     """`sample(logits, seeds, positions)` -> (b,) token ids from this
-    rank's vocab columns. Greedy only: argmax over the full-vocab f32
-    logits (`_full_vocab_logits`: every tp rank picks the same tokens),
-    first maximal index on ties (as jnp.argmax). Sampled decoding is not
-    ported: jax.random draws cannot be replayed in torch, so it needs its
-    own distributional tests."""
+    rank's vocab columns: `sample_from_full` over the gathered full-vocab
+    f32 logits (`_full_vocab_logits`), so every tp rank picks the same
+    tokens. Greedy (temperature 0) ignores seeds and positions; a sampled
+    row draws from the request's seed and the absolute position the token
+    will occupy, whatever slot, batch or arrival it has (the JAX
+    `make_token_sampler` contract). Runs in tensor ops only: it is
+    captured with the decode step."""
     validate_sampling(model.cfg, temperature, top_k, top_p)
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampled decoding (temperature > 0) is not ported yet, see "
-            "ROADMAP; use temperature 0 (greedy)")
 
-    def sample(logits: torch.Tensor, seeds=None, positions=None) -> torch.Tensor:
-        return torch.argmax(_full_vocab_logits(model, logits), dim=-1)
+    def sample(logits: torch.Tensor, seeds=None,
+               positions=None) -> torch.Tensor:
+        return sample_from_full(_full_vocab_logits(model, logits), seeds,
+                                positions, temperature, top_k, top_p)
 
     return sample
+
+
+def host_sample_tokens(model, full_logits, seeds, positions,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 0.0) -> np.ndarray:
+    """The debug host sampler (the JAX `host_sample_tokens`): the same
+    `sample_from_full` on a host copy of the (b, >= vocab) full-vocab
+    logits, on the CPU. The engines take it only behind
+    `debug_host_sampler`, so tests and chip_smoke can hold the fused
+    sampler's tokens against it; it moves b x vocab floats to the host per
+    step where the fused path moves b ids."""
+    full = torch.as_tensor(np.asarray(full_logits),
+                           dtype=torch.float32)[:, :model.cfg.vocab_size]
+    tok = sample_from_full(full, torch.as_tensor(np.asarray(seeds,
+                                                            np.int64)),
+                           torch.as_tensor(np.asarray(positions, np.int64)),
+                           temperature, top_k, top_p)
+    return tok.numpy().astype(np.int32)

@@ -54,12 +54,12 @@ from ..ops.collectives import (all_gather, all_max, all_reduce_sum,
                                gather_from, reduce_from)
 from ..ops.ring_attention import (cp_chunk_index, ring_attention,
                                   ring_schedule, ulysses_attention)
-from ..ops.rope import rope_tables
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.layout import shard_params
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..parallel.norm import RMSNorm
-from .decode import _block, _embed, _logits_tokens, _positions
+from .decode import (_block, _embed, _logits_tokens, _positions,
+                     decode_tables)
 
 
 def validate_cp(cfg: ModelConfig, tp: int, cp_size: int, cp_impl: str,
@@ -173,7 +173,11 @@ class Transformer(nn.Module):
         self.num_local_heads = cfg.num_heads // tp_size
         self.num_local_kv_heads = cfg.kv_heads // tp_size
         self.vocab_padded = cfg.padded_vocab_size(tp_size)
-        tp_mesh = mesh if tp_size > 1 else None
+        self._build(cfg, mesh if tp_size > 1 else None)
+
+    def _build(self, cfg: ModelConfig, tp_mesh) -> None:
+        """The family's modules (`tp_mesh`: the mesh at tp > 1, else
+        None)."""
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh)
         self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
@@ -194,7 +198,7 @@ class Transformer(nn.Module):
         model from seed s."""
         device = self.embedding.weight.device
         if self.tp_size > 1:
-            full = Transformer(self.cfg).init_weights(seed).state_dict()
+            full = type(self)(self.cfg).init_weights(seed).state_dict()
             self.load_state_dict(shard_params(full, self.tp_size,
                                               self.mesh.tp_rank))
             return self
@@ -239,17 +243,17 @@ class Transformer(nn.Module):
         """(b, t) ids and positions -> (b, t, vocab_padded / tp) logits in
         the compute dtype, this tp rank's vocab columns; at cp > 1 this
         rank's chunk in, its chunk's logits out. Positions outside the RoPE
-        table clamp to its last row (JAX mode='clip')."""
+        (or learned position) table clamp to its last row (JAX
+        mode='clip')."""
         if (self.sequence_parallel
                 and input_ids.shape[-1] % self.tp_size != 0):
             raise ValueError(
                 f"sequence_parallel needs the (cp-local) sequence length "
                 f"{input_ids.shape[-1]} divisible by tp_size {self.tp_size}")
         dtype = resolve_dtype_on(self.cfg.compute_dtype, input_ids.device)
-        x = _embed(self, input_ids, dtype)
-        cos_t, sin_t = rope_tables(self.cfg.maxlen, self.cfg.head_dim,
-                                   self.cfg.rope_theta, x.device)
-        cos, sin = _positions(cos_t, sin_t, position_ids)
+        x = _embed(self, input_ids, position_ids, dtype)
+        cos, sin = _positions(*decode_tables(self, self.cfg.maxlen, x.device),
+                              position_ids)
         attend = self._attend(position_ids)
 
         def layer(x, lp):

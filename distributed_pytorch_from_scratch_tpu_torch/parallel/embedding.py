@@ -21,8 +21,10 @@ from ..ops.collectives import reduce_from, reduce_scatter
 
 
 class VocabParallelEmbedding(nn.Module):
-    def __init__(self, vocab_size: int, hdim: int, mesh=None):
+    def __init__(self, vocab_size: int, hdim: int, mesh=None,
+                 init_std: float = 1.0):
         super().__init__()
+        self.init_std = init_std
         tp = 1 if mesh is None else mesh.tp
         self.vocab_size = vocab_size
         self.vocab_padded = padded_vocab_size(vocab_size, tp)
@@ -32,9 +34,10 @@ class VocabParallelEmbedding(nn.Module):
             torch.empty(self.vocab_padded // tp, hdim, dtype=torch.float32))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        # normal(0, 1): nn.Embedding's default, the reference's init
+        # normal(0, init_std): 1 is nn.Embedding's default, the reference's
+        # init; the gpt2 family draws with 0.02
         with torch.no_grad():
-            self.weight.normal_(0.0, 1.0, generator=generator)
+            self.weight.normal_(0.0, self.init_std, generator=generator)
 
     def forward(self, ids: torch.Tensor,
                 output_layout: str = "replicated") -> torch.Tensor:

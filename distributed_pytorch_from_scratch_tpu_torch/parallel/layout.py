@@ -3,8 +3,11 @@
 
 Column weights (JAX P(None, 'tp')) and their biases, the lm_head's included,
 shard on torch dim 0; row weights (JAX P('tp', None)) on torch dim 1; the
-embedding table (JAX P('tp', None)) on dim 0. Norms and row biases are
-replicated over tp. `shard_params` cuts one tp rank's shard from a global
+embedding table (JAX P('tp', None)) on dim 0. Norms, row biases and the
+gpt2 family's learned position table are replicated over tp. The leaves of
+both families: llama's SwiGLU projections, gpt2's `fc` (column) and `proj`
+(row); a tied gpt2 head has no `lm_head` leaves, its vocab dim is the
+embedding's. `shard_params` cuts one tp rank's shard from a global
 state dict, `assemble_params` joins every rank's shard back into it."""
 
 from __future__ import annotations
@@ -17,9 +20,10 @@ from ..config import padded_vocab_size
 
 Tensors = Dict[str, torch.Tensor]
 
-COLUMNS = ("wq", "wk", "wv", "gate_proj", "up_proj")
-ROWS = ("wo", "down_proj")
+COLUMNS = ("wq", "wk", "wv", "gate_proj", "up_proj", "fc")
+ROWS = ("wo", "down_proj", "proj")
 # the leaves with a vocab dim (torch dim 0), padded to a multiple of tp
+# (the lm_head's only in the llama family: gpt2 ties its head)
 VOCAB_KEYS = ("embedding.weight", "lm_head.weight", "lm_head.bias")
 
 
@@ -40,6 +44,8 @@ def pad_vocab(sd: Tensors, vocab_padded: int) -> Tensors:
     """sd with its vocab leaves zero-padded to `vocab_padded` rows."""
     out = dict(sd)
     for key in VOCAB_KEYS:
+        if key not in sd:
+            continue
         x = sd[key]
         if x.shape[0] < vocab_padded:
             pad = x.new_zeros((vocab_padded - x.shape[0],) + x.shape[1:])

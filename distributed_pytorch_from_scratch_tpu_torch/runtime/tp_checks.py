@@ -11,6 +11,8 @@ kwargs)` jobs in one process group, one after the other, each on the mesh
 its axes name over the group's nprocs ranks, and returns their results in
 order.
 Every job takes numpy inputs made by the caller and returns numpy results;
+a model job's family is its JAX tree's (`interop.tree_family`: llama or
+gpt2);
 gradients come back per rank, as that rank's shard, for the caller to
 assemble (`interop.assemble_params`).
 """
@@ -25,11 +27,11 @@ import torch
 
 from ..config import MeshConfig, ModelConfig, OptimizerConfig, resolve_dtype_on
 from ..data.dataset import dp_rows
-from ..interop import params_from_jax
+from ..interop import params_from_jax, tree_family
 from ..models import decode
+from ..models import build_model
 from ..models.transformer import Transformer
 from ..ops import collectives as C
-from ..ops.rope import rope_tables
 from ..serving.engine import ContinuousBatchingEngine, PagedEngine, Request
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
@@ -154,11 +156,11 @@ def layer_cases(mesh, cases: Sequence[Dict]) -> List[Dict]:
 
 
 def _model(mesh, run: Dict, cfg: Dict, tree) -> Transformer:
-    model = Transformer(ModelConfig(**cfg), remat=run.get("remat", True),
-                        cp_size=mesh.cp, cp_impl=run.get("impl", "ring"),
+    model = build_model(tree_family(tree), ModelConfig(**cfg),
+                        remat=run.get("remat", True), cp_size=mesh.cp,
+                        cp_impl=run.get("impl", "ring"),
                         cp_layout=run.get("layout", "contiguous"),
-                        mesh=mesh,
-                        sequence_parallel=run.get("sp", False))
+                        mesh=mesh, sequence_parallel=run.get("sp", False))
     model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank))
     return model.to(mesh.device)
 
@@ -219,13 +221,14 @@ def doc_losses(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     return out
 
 
-def seed_identity(mesh, cfg: Dict, seed: int, batch) -> Dict:
-    """The loss of this tp mesh's model from `seed` (`init_weights` draws
-    the full tree and keeps the rank's slice) and of a tp = 1 model from
-    the same seed, on one batch."""
-    model = Transformer(ModelConfig(**cfg), mesh=mesh,
+def seed_identity(mesh, cfg: Dict, seed: int, batch,
+                  family: str = "llama") -> Dict:
+    """The loss of this tp mesh's `family` model from `seed`
+    (`init_weights` draws the full tree and keeps the rank's slice) and of
+    a tp = 1 model from the same seed, on one batch."""
+    model = build_model(family, ModelConfig(**cfg), mesh=mesh,
                         sequence_parallel=True).init_weights(seed)
-    one = Transformer(ModelConfig(**cfg)).init_weights(seed)
+    one = build_model(family, ModelConfig(**cfg)).init_weights(seed)
     with torch.no_grad():
         loss = model.loss(*_batch(model, mesh, batch)).item()
         loss1 = one.loss(*(_t(x).long() for x in batch)).item()
@@ -234,7 +237,7 @@ def seed_identity(mesh, cfg: Dict, seed: int, batch) -> Dict:
 
 def _serving_model(mesh, cfg: Dict, tree) -> Transformer:
     """This rank's shard of the JAX param tree `tree` on its device."""
-    model = Transformer(ModelConfig(**cfg), mesh=mesh)
+    model = build_model(tree_family(tree), ModelConfig(**cfg), mesh=mesh)
     model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank))
     return model.to(mesh.device)
 
@@ -270,11 +273,11 @@ def drive(eng, requests: Sequence, stagger: int):
 
 def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     """Each run {engine: slot | paged, kw: the engine's kwargs, requests:
-    [(prompt, max_new, tenant, slo_class)], stagger, tick}: one engine on
-    every tp rank of `mesh`, with this rank's shard of `tree`. tp rank 0
-    runs `drive`, the paged engine on a scripted clock that advances
-    `tick` per call, then stops the workers, which serve its dispatches
-    meanwhile.
+    [(prompt, max_new, tenant, slo_class[, seed])], stagger, tick}: one
+    engine on every tp rank of `mesh`, with this rank's shard of `tree`. tp
+    rank 0 runs `drive`, the paged engine on a scripted clock that
+    advances `tick` per call, then stops the workers, which serve its
+    dispatches meanwhile.
     Every rank returns its dispatches by kind and by shape; tp rank 0 also
     {rid: tokens}, the stats and the paged engine's page table after every
     step."""
@@ -290,8 +293,8 @@ def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
         res = {}
         if eng.dispatch.leader:
             reqs = [Request(rid=i, prompt=list(p), max_new=m, tenant=t,
-                            slo_class=c)
-                    for i, (p, m, t, c) in enumerate(run["requests"])]
+                            slo_class=c, seed=seed[0] if seed else 0)
+                    for i, (p, m, t, c, *seed) in enumerate(run["requests"])]
             tokens, tables = drive(eng, reqs, run["stagger"])
             eng.dispatch.stop()
             res = {"tokens": tokens, "stats": eng.stats(), "tables": tables}
@@ -322,8 +325,7 @@ def decode_logits(mesh, cfg: Dict, tree, calls: Sequence[Dict]
         kind, args = call["kind"], call["args"]
         t_len = max(model.cfg.maxlen,
                     args[0].shape[3] if kind == "decode" else 0)
-        cos, sin = rope_tables(t_len, model.cfg.head_dim,
-                               model.cfg.rope_theta, dev)
+        cos, sin = decode.decode_tables(model, t_len, dev)
         with torch.inference_mode():
             if kind == "prefill":
                 logits = decode._prefill(model, _t(args[0], dev),

@@ -25,6 +25,14 @@ stay eager. Both engines send every device dispatch through a
 `tp_dispatch.Dispatcher`: at tp > 1 tp rank 0 runs the host loop and
 broadcasts each dispatch, and the other ranks run it on their shards
 (`engine.dispatch.serve()`) until rank 0's `engine.dispatch.stop()`.
+Sampling (`temperature > 0`, with `top_k` / `top_p`) draws each token from
+the request's seed and the absolute position it will occupy
+(`models/decode.sample_from_full`): the seeds ride in each dispatch's
+packed payload (a uint32 per row, as int32 bits) next to the tokens and
+cursors, so a captured decode step reads this step's seeds, not the ones
+of its capture. `debug_host_sampler` returns the decode step's full-vocab
+logits to the host and samples there (`host_sample_tokens`, the JAX
+ablation path) — the fused sampler's oracle.
 TTFT/TPOT/queue-wait are measured per request; the JAX engine's tracing
 hooks (span tracer, metrics writer, request tracer, flight recorder,
 telemetry, duty profiler, HBM plane) wait for the obs slice (ROADMAP.md).
@@ -42,9 +50,9 @@ import torch
 
 from ..config import resolve_dtype_on
 from ..models.decode import (
-    PAGED_ATTN_IMPLS, _decode_one, _paged_decode_one, _paged_prefill_chunk,
-    _prefill, make_token_sampler)
-from ..ops.rope import rope_tables
+    PAGED_ATTN_IMPLS, _decode_one, _full_vocab_logits, _paged_decode_one,
+    _paged_prefill_chunk, _prefill, decode_tables, host_sample_tokens,
+    sample_from_full, validate_sampling)
 from ..runtime.graphs import CapturedStep, use_decode_graph
 from .kv_manager import KVCachePool, PagedKVPool, PoolExhausted
 from .scheduler import FIFOScheduler, SLOScheduler
@@ -126,10 +134,10 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
 def _capture_decode(engine, mode: str, tp: int,
                     example: np.ndarray) -> Optional[CapturedStep]:
     """The engine's decode step `engine._decode_body(packed) -> (tokens,
-    logits)` captured for the packed dispatch's shape, where `mode` and
-    the rank say so (`use_decode_graph`), else None. The warm-up runs
-    `example` for real: the engines pass one that writes only free rows
-    and the scratch page."""
+    full-vocab logits)` captured for the packed dispatch's shape, where
+    `mode` and the rank say so (`use_decode_graph`), else None. The
+    warm-up runs `example` for real: the engines pass one that writes only
+    free rows and the scratch page."""
     if not use_decode_graph(mode, engine.device, tp):
         return None
     with torch.no_grad():
@@ -137,13 +145,48 @@ def _capture_decode(engine, mode: str, tp: int,
                             [torch.from_numpy(example).to(engine.device)])
 
 
+def _seed_bits(seeds: np.ndarray) -> np.ndarray:
+    """uint32 request seeds as the int32 bits a packed payload carries."""
+    return np.asarray(seeds, np.uint32).view(np.int32)
+
+
+class _Sampling:
+    """The sampling knobs both engines keep (the JAX engines' `_temperature`,
+    `_top_k`, `_top_p`, `_debug_host_sampler`) and their one draw."""
+
+    def _setup_sampling(self, model, temperature: float, top_k: int,
+                        top_p: float, debug_host_sampler: bool) -> None:
+        validate_sampling(model.cfg, temperature, top_k, top_p)
+        self._sampling = (temperature, top_k, top_p)
+        self._debug_host_sampler = debug_host_sampler
+
+    def _sample(self, logits: torch.Tensor, seeds: torch.Tensor,
+                positions: torch.Tensor, host: bool = False):
+        """(tokens, full-vocab f32 logits) of this rank's vocab columns:
+        the fused draw of each row's (seed, position) over the gathered
+        logits (`sample_from_full`, so every tp rank picks the same
+        tokens), or no tokens with `host` (the host samples the logits)."""
+        full = _full_vocab_logits(self.model, logits)
+        if host:
+            return None, full
+        return sample_from_full(full, seeds, positions, *self._sampling), full
+
+
 def _run_decode_step(engine, packed: np.ndarray) -> np.ndarray:
     """The decode dispatch: the captured step's replay, or the eager step;
-    the chosen tokens on the host."""
+    the chosen tokens on the host. The payload opens with the rows'
+    tokens, cursors and seeds (n each); under `debug_host_sampler` the
+    host samples the step's full-vocab logits at cursor + 1."""
     if engine._decode_graph is not None:
-        tok, _ = engine._decode_graph(packed)
+        tok, full = engine._decode_graph(packed)
     else:
-        tok, _ = engine._decode_body(_to_device(packed, engine.device))
+        tok, full = engine._decode_body(_to_device(packed, engine.device))
+    if engine._debug_host_sampler:
+        n = engine._decode_rows
+        return host_sample_tokens(
+            engine.model, full.cpu().numpy(), packed[2 * n:3 * n].view(
+                np.uint32), packed[n:2 * n].astype(np.int64) + 1,
+            *engine._sampling)
     return tok.cpu().numpy()
 
 
@@ -176,21 +219,24 @@ def _chunk_maps(ids, s: int, n: int, cw: int, ps: int, eos_id: int,
     return buf, dstp, dsto
 
 
-class ContinuousBatchingEngine:
+class ContinuousBatchingEngine(_Sampling):
     """Slot-based continuous batching on one device, or across the tp ranks
     of `mesh` (one engine per rank; see `tp_dispatch`: the scheduler lives
-    on tp rank 0 alone).
+    on tp rank 0 alone), for a model of either family.
 
     The JAX engine takes (model, mesh, params, ...); here the model module
     carries its weights (this rank's shard), which must already lie on
     `mesh.device`. `decode_graph` ('auto', 'on', 'off';
     `runtime/graphs.use_decode_graph`) says whether the decode step runs
-    as a CUDA graph."""
+    as a CUDA graph. `temperature`, `top_k`, `top_p` and
+    `debug_host_sampler` as the JAX engine's."""
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
-                 eos_id: int, temperature: float = 0.0,
-                 prefill_bucket: int = 64, max_prefill_batch: int = 4,
-                 max_queue: int = 0, decode_graph: str = "auto"):
+                 eos_id: int, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, prefill_bucket: int = 64,
+                 max_prefill_batch: int = 4, max_queue: int = 0,
+                 decode_graph: str = "auto",
+                 debug_host_sampler: bool = False):
         if max_prefill_batch < 1:
             raise ValueError(f"max_prefill_batch must be >= 1, got "
                              f"{max_prefill_batch}")
@@ -204,10 +250,10 @@ class ContinuousBatchingEngine:
         self.eos_id = int(eos_id)
         self.max_prefill_batch = max_prefill_batch
         self._dtype = resolve_dtype_on(model.cfg.compute_dtype, mesh.device)
-        table_len = max(model.cfg.maxlen, buf_len)
-        self._cos, self._sin = rope_tables(table_len, model.cfg.head_dim,
-                                           model.cfg.rope_theta, self.device)
-        self._sample = make_token_sampler(model, temperature=temperature)
+        self._cos, self._sin = decode_tables(
+            model, max(model.cfg.maxlen, buf_len), self.device)
+        self._setup_sampling(model, temperature, top_k, top_p,
+                             debug_host_sampler)
         self.pool = KVCachePool(model, mesh, num_slots, buf_len)
         self.dispatch = Dispatcher(mesh, {"slot_prefill": self._run_prefill,
                                           "slot_decode": self._run_decode})
@@ -216,8 +262,10 @@ class ContinuousBatchingEngine:
                                         max_queue=max_queue)
                           if self.dispatch.leader else None)
         n = num_slots + 1  # + the scratch row (kv_manager.py)
+        self._decode_rows = n
         self._tokens = np.zeros(n, np.int32)
         self._pos = np.zeros(n, np.int32)
+        self._seeds = np.zeros(n, np.uint32)
         self._slot_req: Dict[int, Request] = {}
         self.completed: List[Request] = []
         # -- aggregate stats ---------------------------------------------
@@ -230,7 +278,7 @@ class ContinuousBatchingEngine:
         self.prefill_dispatches = 0
         # the example: token 0 at cursor 0 in every row, all free now
         self._decode_graph = _capture_decode(self, decode_graph, mesh.tp,
-                                             np.zeros(2 * n, np.int32))
+                                             np.zeros(3 * n, np.int32))
 
     # -- request intake --------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -291,13 +339,16 @@ class ContinuousBatchingEngine:
         buf = np.full((nb, width), self.eos_id, np.int32)
         plens = np.ones(nb, np.int32)          # pad rows: 1-token dummy
         slot_idx = np.full(nb, self.pool.scratch_slot, np.int32)
+        seeds = np.zeros(nb, np.uint32)
         for i, req in enumerate(ready):
             buf[i, : req.prompt_len] = req.prompt
             plens[i] = req.prompt_len
             slot_idx[i] = slots[i]
-        # one copy: the prompt buffer | prompt lengths | target slots
-        tok = self.dispatch("slot_prefill", (nb, width),
-                            np.concatenate([buf.ravel(), plens, slot_idx]))
+            seeds[i] = np.uint32(req.seed)
+        # one copy: the prompt buffer | prompt lengths | target slots |
+        # seeds
+        tok = self.dispatch("slot_prefill", (nb, width), np.concatenate(
+            [buf.ravel(), plens, slot_idx, _seed_bits(seeds)]))
         self.prefill_dispatches += 1
         self.prefill_positions += nb * width
         self.prefill_positions_monolithic += len(ready) * self.buf_len
@@ -314,39 +365,43 @@ class ContinuousBatchingEngine:
             self._slot_req[slot] = req
             self._tokens[slot] = first
             self._pos[slot] = req.prompt_len
+            self._seeds[slot] = np.uint32(req.seed)
 
     def _run_prefill(self, shape, packed: np.ndarray) -> np.ndarray:
         """The prefill dispatch: the causal forward over the (nb, width)
         buffer, its K/V written into the target slots' rows, the first
-        tokens."""
+        tokens (drawn at position prompt_len)."""
         nb, width = shape[:2]
         dev = _to_device(packed, self.device)
         o = nb * width
+        plens = dev[o:o + nb]
         ks, vs, logits = _prefill(self.model, dev[:o].view(nb, width),
-                                  dev[o:o + nb], self._cos, self._sin,
-                                  self._dtype)
+                                  plens, self._cos, self._sin, self._dtype)
         # pad rows all aim at the scratch slot, so `idx` repeats it: which
         # duplicate write lands there does not matter, nothing reads it
-        idx = dev[o + nb:]
+        idx = dev[o + nb:o + 2 * nb]
         self.pool.ks[:, idx, :, :width, :] = ks
         self.pool.vs[:, idx, :, :width, :] = vs
-        return self._sample(logits).cpu().numpy()
+        return self._sample(logits, dev[o + 2 * nb:], plens)[0].cpu().numpy()
 
     def _decode_body(self, dev: torch.Tensor):
         """Every slot row one token on, from the packed dispatch on the card
-        (pending tokens | cursors): (tokens, logits)."""
-        n = dev.shape[0] // 2
+        (pending tokens | cursors | seeds): (tokens, full-vocab logits)."""
+        n = self._decode_rows
         logits = _decode_one(self.model, self.pool.ks, self.pool.vs, dev[:n],
-                             dev[n:], self.buf_len, self._cos, self._sin,
-                             self._dtype)
-        return self._sample(logits), logits
+                             dev[n:2 * n], self.buf_len, self._cos,
+                             self._sin, self._dtype)
+        return self._sample(logits, dev[2 * n:], dev[n:2 * n] + 1,
+                            self._debug_host_sampler)
 
     def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
         return _run_decode_step(self, packed)
 
     def _decode_payload(self) -> np.ndarray:
-        """The decode dispatch, one copy: pending tokens | cursors."""
-        return np.concatenate([self._tokens, self._pos])
+        """The decode dispatch, one copy: pending tokens | cursors |
+        seeds."""
+        return np.concatenate([self._tokens, self._pos,
+                               _seed_bits(self._seeds)])
 
     def _decode(self, done: List[Request]) -> None:
         tok = self.dispatch("slot_decode", (), self._decode_payload())
@@ -409,9 +464,10 @@ class _PrefillState:
     keys: List[object] = field(default_factory=list)
 
 
-class PagedEngine:
+class PagedEngine(_Sampling):
     """Continuous batching over a PAGED KV cache (the JAX `PagedEngine` at
-    cp=1, greedy; at tp > 1 one engine per rank, as the slot engine).
+    cp=1; at tp > 1 one engine per rank, as the slot engine), for a model
+    of either family, greedy or sampled as the slot engine.
 
     The same host-driven loop as `ContinuousBatchingEngine` — admit, pump
     prefill, one decode dispatch — over a pool of fixed-size pages
@@ -431,8 +487,9 @@ class PagedEngine:
     Admission is `scheduler.SLOScheduler`; when an overdue request cannot
     be admitted, or a live slot cannot grow a page, a victim is PREEMPTED:
     its pages are released and it re-enters the queue with its generated
-    prefix re-prefilled through the COW path (greedy decode restarted from
-    prompt + generated gives the same tokens as the uninterrupted run).
+    prefix re-prefilled through the COW path (decode restarted from prompt
+    + generated gives the same tokens as the uninterrupted run, sampled
+    too: a draw depends on the seed and the absolute position only).
 
     Device work per dispatch (a chunk, a decode step, or a copy-on-write
     page copy, each through `self.dispatch`): the page table, cursors and
@@ -443,16 +500,18 @@ class PagedEngine:
     version on the CPU) or 'gather' (the dense page view, the oracle) — and
     the only sync is the host copy of the chosen tokens. The JAX engine's
     tracing hooks, handoff methods (disaggregated serving), speculative
-    decoding, int8 decode weights and sampled decoding are not ported
-    (ROADMAP). `decode_graph` as the slot engine's."""
+    decoding and int8 decode weights are not ported (ROADMAP).
+    `decode_graph` and the sampling knobs as the slot engine's."""
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
                  eos_id: int, page_size: int = 64, num_pages: int = 0,
                  prefill_chunk: int = 128, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0,
                  slo_classes=None, default_class: str = "standard",
                  max_queue: int = 0, kv_dtype=None,
                  paged_attn_impl: str = "kernel", clock=time.monotonic,
-                 decode_graph: str = "auto"):
+                 decode_graph: str = "auto",
+                 debug_host_sampler: bool = False):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if page_size < 1:
@@ -480,10 +539,10 @@ class PagedEngine:
         self.prefill_chunk = prefill_chunk
         self._clock = clock
         self._dtype = resolve_dtype_on(model.cfg.compute_dtype, mesh.device)
-        table_len = max(model.cfg.maxlen, self.buf_len)
-        self._cos, self._sin = rope_tables(table_len, model.cfg.head_dim,
-                                           model.cfg.rope_theta, self.device)
-        self._sample = make_token_sampler(model, temperature=temperature)
+        self._cos, self._sin = decode_tables(
+            model, max(model.cfg.maxlen, self.buf_len), self.device)
+        self._setup_sampling(model, temperature, top_k, top_p,
+                             debug_host_sampler)
         self.paged_attn_impl = paged_attn_impl
         self.kv_dtype = kv_dtype
         self.pool = PagedKVPool(model, mesh, num_pages, page_size,
@@ -499,8 +558,10 @@ class PagedEngine:
         # (slots, max_pages) page table; free rows aim at the scratch page
         self._tbl = np.full((num_slots, self.max_pages),
                             self.pool.scratch_page, np.int32)
+        self._decode_rows = num_slots
         self._tokens = np.zeros(num_slots, np.int32)
         self._pos = np.zeros(num_slots, np.int32)
+        self._seeds = np.zeros(num_slots, np.uint32)
         self._slot_req: Dict[int, Request] = {}
         self._prefilling: Dict[int, _PrefillState] = {}
         self.completed: List[Request] = []
@@ -522,7 +583,7 @@ class PagedEngine:
         # on the scratch page, the only page it writes
         self._decode_graph = _capture_decode(
             self, decode_graph, mesh.tp, np.concatenate([
-                np.zeros(2 * num_slots, np.int32),
+                np.zeros(3 * num_slots, np.int32),
                 np.full(num_slots * self.max_pages, self.pool.scratch_page,
                         np.int32)]))
 
@@ -769,10 +830,11 @@ class PagedEngine:
         buf, dstp, dsto = _chunk_maps(ids, s, n, cw, ps, self.eos_id,
                                       self.pool.scratch_page,
                                       self._tbl[slot])
-        # one copy: tokens | start | qlen | table row | dst pages | offsets
+        # one copy: tokens | start | qlen | table row | dst pages | offsets |
+        # seed
         tok = self.dispatch("paged_chunk", (cw,), np.concatenate([
             buf[0], np.array([s, n], np.int32), self._tbl[slot], dstp[0],
-            dsto[0]]))
+            dsto[0], _seed_bits([st.req.seed])]))
         self.prefill_dispatches += 1
         self.prefill_positions += n
         # register freshly completed prompt pages in the prefix index: full
@@ -790,17 +852,19 @@ class PagedEngine:
             self._finish_prefill(slot, st, int(tok[0]), done)
 
     def _run_chunk(self, shape, packed: np.ndarray) -> np.ndarray:
-        """The chunk dispatch: one row's chunk of width shape[0]."""
+        """The chunk dispatch: one row's chunk of width shape[0]; its token
+        is drawn at position start + qlen."""
         cw, mp = shape[0], self.max_pages
         dev = _to_device(packed, self.device)
         o = cw + 2 + mp
+        start, qlen = dev[cw:cw + 1], dev[cw + 1:cw + 2]
         logits = _paged_prefill_chunk(
-            self.model, self.pool.ks, self.pool.vs, dev[None, :cw],
-            dev[cw:cw + 1], dev[cw + 1:cw + 2], dev[None, cw + 2:o],
-            dev[None, o:o + cw], dev[None, o + cw:], self.page_size,
-            self._cos, self._sin, self._dtype,
-            attn_impl=self.paged_attn_impl)
-        return self._sample(logits).cpu().numpy()
+            self.model, self.pool.ks, self.pool.vs, dev[None, :cw], start,
+            qlen, dev[None, cw + 2:o], dev[None, o:o + cw],
+            dev[None, o + cw:o + 2 * cw], self.page_size, self._cos,
+            self._sin, self._dtype, attn_impl=self.paged_attn_impl)
+        return self._sample(logits, dev[o + 2 * cw:],
+                            start + qlen)[0].cpu().numpy()
 
     def _finish_prefill(self, slot: int, st: _PrefillState, first: int,
                         done: List[Request]) -> None:
@@ -817,6 +881,7 @@ class PagedEngine:
         self._slot_req[slot] = req
         self._tokens[slot] = first
         self._pos[slot] = len(st.ids)
+        self._seeds[slot] = np.uint32(req.seed)
 
     def _decode_payload(self):
         """Make every live slot's write position private, then the decode
@@ -842,8 +907,9 @@ class PagedEngine:
             tbl = self._tbl.copy()
             for slot in self._prefilling:
                 tbl[slot, :] = self.pool.scratch_page
-        # one copy: pending tokens | cursors | page table
-        return np.concatenate([self._tokens, self._pos, tbl.ravel()])
+        # one copy: pending tokens | cursors | seeds | page table
+        return np.concatenate([self._tokens, self._pos,
+                               _seed_bits(self._seeds), tbl.ravel()])
 
     def _decode(self, done: List[Request]) -> None:
         payload = self._decode_payload()
@@ -877,13 +943,15 @@ class PagedEngine:
 
     def _decode_body(self, dev: torch.Tensor):
         """Every slot row one token on, from the packed dispatch on the card
-        (pending tokens | cursors | page table): (tokens, logits)."""
+        (pending tokens | cursors | seeds | page table): (tokens, full-vocab
+        logits)."""
         n = self.num_slots
         logits = _paged_decode_one(
             self.model, self.pool.ks, self.pool.vs, dev[:n], dev[n:2 * n],
-            dev[2 * n:].view(n, self.max_pages), self.page_size, self._cos,
+            dev[3 * n:].view(n, self.max_pages), self.page_size, self._cos,
             self._sin, self._dtype, attn_impl=self.paged_attn_impl)
-        return self._sample(logits), logits
+        return self._sample(logits, dev[2 * n:3 * n], dev[n:2 * n] + 1,
+                            self._debug_host_sampler)
 
     def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
         return _run_decode_step(self, packed)

@@ -30,15 +30,23 @@ loadgen and the engine's host loop and broadcasts each device dispatch
 as tp=1. Rank 0's record is printed, with every rank's tp hops and
 dispatch counts under `ranks` in the returned summary.
 
+`--family llama|gpt2` picks the model (`models/gpt2.py`: LayerNorm,
+tanh-GELU, learned positions, tied head); a gpt2 buffer is clamped to its
+position table, as the JAX CLI clamps it. `--temperature > 0` samples
+(with `--decode_top_k` / `--decode_top_p`), each request drawing from its
+own seed (`--seed` + its index); `--debug_host_sampler` samples on the
+host from the decode step's full-vocab logits (the fused sampler's
+oracle and the JAX ablation).
+
 Weights: `--random_init` (fresh random weights from `--seed`, the same
 model at any tp), or `--ckpt_dir` with a checkpoint written by either
 package's trainer, at any tp. `--dry_run` shrinks everything to a tiny
 smoke run.
 
-Not ported yet, refused with a message: cp > 1, sampled decoding
-(temperature > 0), speculative decoding, int8 decode weights. The JAX
-CLI's gpt2 family, trace replay and observability/control flags do not
-exist here yet (ROADMAP.md).
+Not ported yet, refused with a message naming its ROADMAP item: cp > 1,
+speculative decoding, int8 decode weights. The JAX CLI's tokenizer, trace
+replay and observability/control flags do not exist here yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import torch
 
 from ..cli import add_model_shape_args, build_model_config
 from ..config import MeshConfig, ModelConfig
+from ..models import build_model
 from ..models.transformer import Transformer, validate_tp
 from ..ops import collectives
 from ..ops.cuda import launch_counts
@@ -71,9 +80,11 @@ _DRY_CFG = ModelConfig(attn_dim=64, ffn_dim=128, num_heads=2, num_layers=2,
 # JAX CLI flags kept so its command lines parse: any value but the default
 # is refused, naming what is not ported yet (ROADMAP.md)
 NOT_PORTED = [  # (flag dest, default, what the flag would turn on)
-    ("cp", 1, "the cp-sharded page pool, alone or with --tp_size"),
-    ("speculate", 0, "speculative decoding"),
-    ("decode_weight_dtype", "native", "int8 decode weights"),
+    ("cp", 1, "the cp-sharded page pool, alone or with --tp_size; ROADMAP "
+              "Queue 1 item 6"),
+    ("speculate", 0, "speculative decoding; ROADMAP Queue 1 item 6"),
+    ("decode_weight_dtype", "native",
+     "int8 decode weights; ROADMAP Queue 1 item 5"),
 ]
 
 
@@ -91,6 +102,7 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                    help="serve fresh random weights at the flag shape")
     g.add_argument("--vocab_size", type=int, default=1024,
                    help="vocab size (EOS id is 1, the shipped tokenizer's)")
+    g.add_argument("--family", choices=["llama", "gpt2"], default="llama")
     g.add_argument("--tp_size", type=int, default=1,
                    help="tensor-parallel ranks, one process each")
     add_model_shape_args(g)
@@ -117,7 +129,14 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     g.add_argument("--queue_limit", type=int, default=0,
                    help="backpressure: max waiting requests; 0 = unbounded")
     g.add_argument("--temperature", type=float, default=0.0,
-                   help="0 = greedy (the only mode ported so far)")
+                   help="0 = greedy; > 0 samples with per-request seeds")
+    g.add_argument("--decode_top_k", type=int, default=0)
+    g.add_argument("--decode_top_p", type=float, default=0.0)
+    g.add_argument("--debug_host_sampler", action="store_true",
+                   help="ABLATION: sample on the host from the decode "
+                        "step's full-vocab logits (moves b x vocab floats "
+                        "per step) instead of in the step; the fused "
+                        "sampler's oracle")
     g.add_argument("--decode_weight_dtype", choices=["native", "int8"],
                    default="native", help="native only, so far")
     g.add_argument("--decode_graph", choices=DECODE_GRAPH_MODES,
@@ -192,12 +211,11 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     for dest, default, what in NOT_PORTED:
         if getattr(args, dest) != default:
             p.error(f"--{dest} {getattr(args, dest)}: not ported yet "
-                    f"({what}; see ROADMAP)")
-    if args.temperature > 0:
-        p.error("--temperature > 0: sampled decoding is not ported yet (see "
-                "ROADMAP)")
+                    f"({what})")
     if args.temperature < 0:
         p.error(f"--temperature must be >= 0, got {args.temperature}")
+    if (args.decode_top_k or args.decode_top_p) and not args.temperature:
+        p.error("--decode_top_k/--decode_top_p need --temperature > 0")
     try:
         use_decode_graph(args.decode_graph, args.device, args.tp_size)
     except ValueError as e:
@@ -248,10 +266,10 @@ def _model_config(args: argparse.Namespace) -> ModelConfig:
 
 
 def _load_model(args, cfg: ModelConfig, mesh) -> Transformer:
-    """This rank's shard of the model, on its device: from `--seed` (the
-    full tree drawn, the shard kept: the same model at any tp) or from a
-    checkpoint of any tp."""
-    model = Transformer(cfg, mesh=mesh)
+    """This rank's shard of the `--family` model, on its device: from
+    `--seed` (the full tree drawn, the shard kept: the same model at any
+    tp) or from a checkpoint of any tp."""
+    model = build_model(args.family, cfg, mesh=mesh)
     if args.random_init or args.dry_run or not args.ckpt_dir:
         model.init_weights(args.seed)
     else:
@@ -290,23 +308,35 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
         interleave=args.interleave)
     longest = max(len(r.prompt) for r in requests)
     buf_len = args.buf_len or (longest + args.max_new_tokens + 2)
+    cap = getattr(model, "max_decode_positions", None)
+    if cap is not None and buf_len > cap:
+        if cap < longest + 2:
+            raise SystemExit(f"prompts need {longest + 2} positions but the "
+                             f"model's position table has {cap}")
+        if mesh.rank == 0:
+            print(f"Warning: clamping serve buffer {buf_len} -> {cap} "
+                  f"(learned position table size)", file=sys.stderr)
+        buf_len = cap
+    sampling = dict(temperature=args.temperature, top_k=args.decode_top_k,
+                    top_p=args.decode_top_p,
+                    debug_host_sampler=args.debug_host_sampler)
     if args.paged:
         engine = PagedEngine(
             model, mesh, num_slots=args.slots, buf_len=buf_len,
             eos_id=eos_id, page_size=args.page_size,
             num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
-            temperature=args.temperature,
             slo_classes=parse_slo_classes(args.slo_classes),
             default_class=args.default_class, max_queue=args.queue_limit,
             kv_dtype=None if args.kv_dtype == "native" else args.kv_dtype,
-            paged_attn_impl=args.paged_attn, decode_graph=args.decode_graph)
+            paged_attn_impl=args.paged_attn, decode_graph=args.decode_graph,
+            **sampling)
     else:
         engine = ContinuousBatchingEngine(
             model, mesh, num_slots=args.slots, buf_len=buf_len,
-            eos_id=eos_id, temperature=args.temperature,
-            prefill_bucket=args.prefill_bucket,
+            eos_id=eos_id, prefill_bucket=args.prefill_bucket,
             max_prefill_batch=args.max_prefill_batch,
-            max_queue=args.queue_limit, decode_graph=args.decode_graph)
+            max_queue=args.queue_limit, decode_graph=args.decode_graph,
+            **sampling)
     launches0 = launch_counts()
     kernels0 = dict(paged_attention.launches_by_kernel)
     collectives.reset_stats()
@@ -353,7 +383,7 @@ def _rank_main(rank: int, nprocs: int, init_method: str,
 def _report(args: argparse.Namespace, summary: dict) -> None:
     """The stderr line and the JSON record on stdout."""
     fmt = lambda v: "-" if v is None else f"{v:.1f}"
-    print(f"serve[llama tp{args.tp_size} on {summary['device']}]: "
+    print(f"serve[{args.family} tp{args.tp_size} on {summary['device']}]: "
           f"{summary['completed']}/{summary['requests']} requests "
           f"({summary['rejected']} rejected) in {summary['wall_s']:.1f}s — "
           f"{summary['tokens_per_sec']:.0f} tok/s, occupancy "
@@ -370,8 +400,10 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
              f"{summary['paged_attn']}"
              if "kv_util_mean" in summary else ""), file=sys.stderr)
     rec = {
-        "metric": (f"serving tokens/sec (llama, tp={args.tp_size}, "
+        "metric": (f"serving tokens/sec ({args.family}, tp={args.tp_size}, "
                    + ("paged, " if args.paged else "")
+                   + ("HOST-sampler ablation, "
+                      if args.debug_host_sampler else "")
                    + f"slots={args.slots}, {args.arrival} arrivals"
                    + (f" @{args.rate:g}/s" if args.arrival == "poisson"
                       else "") + ")"),
@@ -391,6 +423,8 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
               "max_interleaved_prefill_positions", "slo_attainment"):
         if k in summary:
             rec[k] = summary[k]
+    if args.debug_host_sampler:
+        rec["debug_host_sampler"] = True
     print(json.dumps(rec))
 
 

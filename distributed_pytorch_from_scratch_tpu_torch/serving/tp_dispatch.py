@@ -8,9 +8,10 @@ scheduler, slots, page tables, refcounts, the prefix index, preemption and
 the clock) and, before each device dispatch, broadcasts it over the tp
 group: a header of HEADER int32s (the kind, the payload's length and up to
 HEADER - 2 shape numbers) and the payload, the dispatch's int32 arrays
-packed into one. The other ranks (workers) run `serve`: receive a
-dispatch, run the same lowering on their own shard of the weights and of
-the KV pool, join its collectives, and wait for the next. A worker holds
+packed into one (uint32 request seeds ride as their int32 bits). The
+other ranks (workers) run `serve`: receive a dispatch, run the same
+lowering on their own shard of the weights and of the KV pool, join its
+collectives, and wait for the next. A worker holds
 no scheduler and reads no clock, so the ranks cannot diverge; a `stop`
 message ends the loop.
 

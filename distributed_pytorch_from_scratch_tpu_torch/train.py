@@ -45,8 +45,14 @@ graph replayed N times on a card), the same training bitwise; logs and
 saves land on dispatch boundaries and the last dispatch shrinks to end on
 `--max_steps`. It takes one rank and no `--grad_accum`.
 
+`--family gpt2` trains the GPT-2 family (`models/gpt2.py`: LayerNorm,
+tanh-GELU MLP, learned positions, a tied vocab-parallel head) on every
+path the llama family runs: any dp x cp x tp, SP, remat and
+`--steps_per_dispatch`; its MFU counts N from the real parameters
+(`training/metrics.model_flops_per_step(..., params)`).
+
 A flag that takes the run off the ported slices (ep/pp > 1, tp overlap,
-ZeRO, the bucketed dp reducer, MoE, the gpt2 family, `--seq_bucket`, the
+ZeRO, the bucketed dp reducer, MoE, `--seq_bucket`, the
 observability/control and multi-host flags) raises NotImplementedError at
 any non-default value, naming its ROADMAP item.
 """
@@ -66,11 +72,11 @@ import torch.distributed as dist
 from .config import (IGNORE_INDEX, MODEL_PRESETS, MeshConfig, ModelConfig,
                      OptimizerConfig, model_preset)
 from .data.dataset import dp_rows, get_dataloader
+from .models import build_model, num_params
 from .models.transformer import Transformer, validate_cp, validate_tp
 from .ops import collectives
 from .ops.cuda import launch_counts
 from .runtime import launch
-from .parallel.layout import tp_dim
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
 from .training.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from .training.memory import hbm_budget_gib, select_remat
@@ -96,7 +102,6 @@ OFF_SLICE = [
     ("pp_remat_steps", False, _LATER), ("pp_schedule", "gpipe", _LATER),
     ("pp_virtual", 2, _LATER), ("num_experts", None, _LATER),
     ("moe_top_k", None, _LATER), ("moe_capacity_factor", None, _LATER),
-    ("family", "llama", "ROADMAP Queue 1 item 5: the gpt2 family"),
     ("seq_bucket", 0, "ROADMAP Queue 1 item 3: --seq_bucket"),
     ("no_trace", False, _OBS), ("no_sentinel", False, _OBS),
     ("sentinel_spike_factor", 3.0, _OBS), ("watchdog_secs", 300.0, _OBS),
@@ -379,11 +384,12 @@ def _check_dist(args: argparse.Namespace) -> None:
 def train(args: argparse.Namespace) -> dict:
     """Run the loop; returns the summary: steps, start_step, final_loss,
     avg_loss, losses (per step of this run), grad_norm (last step),
-    tokens_per_sec and mfu (per card; None without a known peak) over the
-    steps of the dispatches after the one that completes step 2, and their
-    whole time, step_ms_p50 (their median; a dispatch of n steps counts n
-    times its time / n), peak_mem_gib (None on the CPU), device,
-    checkpoints (paths written, every tp rank's), the mesh (dp, cp, tp,
+    tokens_per_sec and mfu (per card; None without a known peak; N from
+    the real parameters for gpt2) over the steps of the dispatches after
+    the one that completes step 2, and their whole time, step_ms_p50
+    (their median; a dispatch of n steps counts n times its time / n),
+    peak_mem_gib (None on the CPU), device, checkpoints (paths written,
+    every tp rank's), family, params (the global count), the mesh (dp, cp, tp,
     sequence_parallel, cp_impl, cp_layout), dist_backend, cards, remat (the
     policy run, `auto` resolved), steps_per_dispatch, and `ranks`: per rank
     its coordinates, kernel launches, peak memory and time in the
@@ -452,8 +458,9 @@ def _train(args: argparse.Namespace, rank: int = 0,
                              world=world, dp=mesh.dp,
                              budget_gib=hbm_budget_gib(device=device),
                              verbose=mesh.rank == 0)
-    model = Transformer(cfg, remat=REMAT_CHOICES[remat], cp_size=cp,
-                        cp_impl=args.cp_impl, cp_layout=args.cp_layout,
+    model = build_model(args.family, cfg, remat=REMAT_CHOICES[remat],
+                        cp_size=cp, cp_impl=args.cp_impl,
+                        cp_layout=args.cp_layout,
                         mesh=mesh if world > 1 else None,
                         sequence_parallel=args.sequence_parallel)
     model.init_weights(args.random_seed).to(device)
@@ -465,16 +472,16 @@ def _train(args: argparse.Namespace, rank: int = 0,
                            cosine_min_ratio=args.cosine_min_ratio)
     params = dict(model.named_parameters())
     # the global count: tp-sharded leaves hold 1/tp of theirs on each rank
-    n_params = sum(p.numel() * (1 if tp_dim(k) is None else tp)
-                   for k, p in params.items())
+    n_params = num_params(model)
     cards = (len({r % torch.cuda.device_count() for r in range(world)})
              if device.type == "cuda" else 0)
     dist_desc = ("" if world == 1 else
                  f", sequence_parallel={model.sequence_parallel}, cp_impl="
                  f"{args.cp_impl}, cp_layout={args.cp_layout}, dist_backend="
                  f"{mesh.backend}, {world} ranks on {cards or 'no'} card(s)")
-    say(f"model[llama]: {n_params / 1e6:.2f}M params, vocab={vocab_size}, "
-        f"mesh=dp{mesh.dp} x pp1 x cp{cp} x ep1 x tp{tp}, compute="
+    say(f"model[{args.family}]: {n_params / 1e6:.2f}M params, "
+        f"vocab={vocab_size}, mesh=dp{mesh.dp} x pp1 x cp{cp} x ep1 x "
+        f"tp{tp}, compute="
         f"{cfg.compute_dtype}, remat={remat}"
         + (" (auto)" if args.remat == "auto" else "") + ", device="
         f"{_device_name(device)}{dist_desc}")
@@ -501,7 +508,11 @@ def _train(args: argparse.Namespace, rank: int = 0,
     build = (build_grad_accum_step if accum > 1 else
              build_train_step_multi if spd > 1 else build_train_step)
     step_fn = build(model, ocfg, args.loss_mode)
-    flops_step = model_flops_per_step(cfg, args.batch_size, maxlen) * accum
+    # gpt2's N from its real parameters (the llama formula overcounts its
+    # two-matmul MLP and counts a head it ties), as the JAX trainer
+    flops_step = model_flops_per_step(
+        cfg, args.batch_size, maxlen,
+        params=n_params if args.family == "gpt2" else None) * accum
     peak_flops = device_peak_flops(device)
     if peak_flops is not None:
         peak_flops *= max(cards, 1)   # MFU per card: against those it uses
@@ -655,6 +666,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
                 if window_s > 0 and peak_flops else None),
         "peak_mem_gib": peak_mem,
         "device": _device_name(device), "checkpoints": saved,
+        "family": args.family, "params": n_params,
         "dp": mesh.dp, "cp": cp, "tp": tp,
         "sequence_parallel": model.sequence_parallel,
         "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,

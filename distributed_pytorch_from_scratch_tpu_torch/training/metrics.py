@@ -142,13 +142,19 @@ def device_peak_flops(device: torch.device) -> Optional[float]:
     return None
 
 
-def model_flops_per_step(cfg, batch: int, seqlen: int) -> float:
+def model_flops_per_step(cfg, batch: int, seqlen: int,
+                         params: Optional[int] = None) -> float:
     """Model FLOPs of one fwd+bwd train step (no remat recompute counted):
     6N per token + the 12*L*h*T^2*hd attention term. Under context
     parallelism the count is the same: the dense T^2 attention term of the
     whole sequence, not the blocks the ring schedule computes (about half
-    of them, the causal ones)."""
-    n = cfg.num_params()
+    of them, the causal ones).
+
+    N is `cfg.num_params()`, the llama formula, unless `params` gives the
+    real parameter count, as the gpt2 family must: its two-matmul MLP and
+    tied head would otherwise be overcounted (the JAX
+    `model_flops_per_step`)."""
+    n = cfg.num_params() if params is None else params
     return (6 * n * batch * seqlen
             + 12 * cfg.num_layers * batch * cfg.num_heads
             * seqlen * seqlen * cfg.head_dim)

@@ -281,8 +281,8 @@ def test_generate_matches_jax(setup, tp):
 # -- (d) refusals ----------------------------------------------------------
 
 @pytest.mark.parametrize("extra,item", [
-    (["--family", "gpt2"], "item 5"),
-    (["--temperature", "0.7"], "item 5"),
+    (["--num_experts", "4"], "item 7"),
+    (["--num_processes", "2"], "item 2"),
     (["--cp_size", "2"], "item 6"),
     (["--coordinator", "host:1234"], "item 2"),
 ])
@@ -308,8 +308,8 @@ def test_evaluate_keeps_jax_refusals(setup):
 
 @pytest.mark.parametrize("extra,item", [
     (["--cp_size", "2"], "item 6"),
-    (["--family", "gpt2"], "item 5"),
-    (["--temperature", "0.7"], "item 5"),
+    (["--num_experts", "4"], "item 7"),
+    (["--family", "gpt2", "--num_experts", "4"], "item 7"),
 ])
 def test_generate_refusals_name_their_item(setup, extra, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -141,8 +141,13 @@ def test_greedy_sampler_first_max_and_refuses_sampling():
     sample = decode.make_token_sampler(model)
     logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, 3.0, 0.0, 3.0]])
     assert sample(logits).tolist() == [1, 0]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        decode.make_token_sampler(model, temperature=0.7)
+    # sampling is ported: a sampled call returns in-vocab tokens (the
+    # sampler's own tests are tests/test_torch_sampling.py)
+    sampled = decode.make_token_sampler(model, temperature=0.7, top_k=5)
+    full = torch.randn(3, model.cfg.vocab_size)
+    tok = sampled(full, torch.tensor([0, 1, 2]), torch.tensor([4, 4, 9]))
+    assert tok.shape == (3,)
+    assert all(0 <= t < model.cfg.vocab_size for t in tok.tolist())
     with pytest.raises(ValueError, match="temperature"):
         decode.make_token_sampler(model, temperature=-1.0)
 

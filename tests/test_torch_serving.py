@@ -144,7 +144,7 @@ def test_serve_refuses_cpu_unless_asked(monkeypatch):
     assert e.value.code not in (0, None)
     assert "--device cpu" in str(e.value.code)
     for flag in (["--speculate", "2"], ["--decode_weight_dtype", "int8"],
-                 ["--temperature", "0.5"]):
+                 ["--cp", "2"]):
         with pytest.raises(SystemExit) as e:
             serve.main(["--dry_run", "--device", "cpu", *flag])
         assert e.value.code == 2
