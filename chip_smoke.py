@@ -120,7 +120,7 @@ result line):
     launches and device time, beside the plain versions, a library
     yardstick (memory-efficient SDPA with a position bias) and the bound;
 20. cp_train: `train.main` at cp=2 (two ranks sharing the card over gloo),
-    the 45m preset, bf16, b 8 x t 1000 with remat: zig-zag 10 steps, a
+    the 45m preset, bf16, b 8 x t 1000 with remat: zig-zag 6 steps, a
     checkpoint and a 2-step `--resume`; contiguous 3 steps; Ulysses 2
     steps — finite losses, falling under zig-zag, the step-1 loss of each
     and of a cp=1 run on the same batch within 1e-2, and each rank's kernel
@@ -138,7 +138,7 @@ result line):
     kernels, the block kernels' share (no SIMT block kernel may run), and
     the time in the ring's hops;
 24. tp_train: `train.main` at tp=2 (two ranks sharing the card over gloo),
-    the 45m preset, bf16, b 8 x t 1000 with remat: 10 steps, one
+    the 45m preset, bf16, b 8 x t 1000 with remat: 6 steps, one
     checkpoint file per tp rank and a 2-step `--resume`, then that
     checkpoint resumed at tp=1 for a step; tp=2 with
     `--sequence_parallel` 3 steps; tp 2 x dp 2 (four ranks) 2 steps —
@@ -248,6 +248,28 @@ result line):
     from one seeded row of 50257 logits at top-k 50, top-p 0.95 against
     the filtered softmax by a chi-square at p = 1e-3; the first 500 draws
     identical on the CPU.
+42. train_async_preempt: the train cell 20 steps with a checkpoint every
+    5 and every 10 steps written in the background (a device snapshot,
+    then a writer thread) and with none: identical losses, the loop's
+    host time per save, the prefetch thread's wait, step p50 of each,
+    beside one synchronous save of the same state timed alone; the idle
+    share of a 10-step loop profiled on the device, with saves every 5
+    and without, from step 3 on; then `python -m ...train` in a process of its own
+    gets SIGTERM after its step-3 line: exit 0, the shutdown line, a
+    checkpoint at the step it reached, and a 2-step `--resume` from it;
+    K1's launches per the schedule in every run of this process;
+43. serve_int8_weights: phase 5's and 15's traffic with
+    `--decode_weight_dtype int8`, the decode step graphed, in turns with
+    native weights (native, int8, int8, native: TPOT, TTFT and tokens/s
+    of each), then once more, checked: weight bytes about a quarter,
+    in-vocab tokens, K1 12 per prefill dispatch, K3 12 per decode step
+    and chunk on its routes; then the 45m widths at 2 layers,
+    f32: both engines' greedy and sampled int8 tokens on the card those of
+    the CPU's plain path;
+44. serve_replay: a seeded poisson trace of 16 slot-cell requests written
+    to the workdir, served with `--tokenizer_path tokenizer/tokenizer.json
+    --arrival replay --replay <trace>`: submitted in arrival order, every
+    request served in-vocab, K1 12 per prefill dispatch.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -1834,35 +1856,16 @@ def phase_paged_serve(torch) -> dict:
     """Returns the bf16 run's launches {fwd, dq, dkv, paged}, the int8 run's
     paged launches and both runs' paged launches by route and by kernel."""
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
-    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
-        paged_attention)
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
-    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
-        PagedEngine)
     layers = model_preset("45m").num_layers
-    dispatch = PagedEngine._dispatch_chunk
-    widths = []
-
-    def seen(self, slot, st, n, done):   # records each chunk's width
-        widths.append(n)
-        return dispatch(self, slot, st, n, done)
-
     n = PAGED_SERVE_ARGS.index("--num_requests") + 1
     runs = {"bf16": PAGED_SERVE_ARGS,
             "int8": PAGED_SERVE_ARGS[:n] + [str(PAGED_INT8_REQUESTS)]
             + PAGED_SERVE_ARGS[n + 1:] + ["--kv_dtype", "int8"]}
     by_kv = {}
     for kv, args in runs.items():
-        _reset_launches()
-        widths.clear()
-        PagedEngine._dispatch_chunk = seen
-        try:
-            out = serve.main(args)
-        finally:
-            PagedEngine._dispatch_chunk = dispatch
-        counts = _read_launches()
-        by_route = dict(paged_attention.launches_by_route)
-        by_kernel = dict(paged_attention.launches_by_kernel)
+        out, counts, by_route, by_kernel, widths = _serve_with_widths(
+            serve, args)
         paged = counts["paged_attention"]
         torch.cuda.synchronize()
         st = out["engine_stats"]
@@ -2379,8 +2382,10 @@ CP_ARGS = ["--model", "45m", "--bf16", "--batch_size", str(CP_B), "--maxlen",
            str(CP_T), "--warmup_steps", "2", "--lr", "1e-3", "--log_interval",
            "5", "--save_interval", "1000", "--device", "cuda"]
 CP2 = ["--cp_size", "2", "--dist_backend", "gloo"]
+# zigzag and tp2 run 6 steps (10 once) to keep the whole script near
+# 1050 s; in 6 the loss still falls by more than 4 nats on the corpus
 CP_RUNS = {  # name: (flags, steps)
-    "zigzag": (["--cp_layout", "zigzag"], 10),
+    "zigzag": (["--cp_layout", "zigzag"], 6),
     "contiguous": (["--cp_layout", "contiguous"], 3),
     "ulysses": (["--cp_impl", "ulysses"], 2),
 }
@@ -2648,8 +2653,8 @@ def phase_cp_profile(torch) -> dict:
 # the tp=2 cell-to-be: the 45m preset at b 8 x t 1000 bf16 with remat, the
 # ranks sharing the one card over gloo, the cp cell's flags and corpus
 TP2 = ["--tp_size", "2", "--dist_backend", "gloo"]
-TP_RUNS = {  # name: (flags, steps)
-    "tp2": ([], 10),
+TP_RUNS = {  # name: (flags, steps; tp2 as CP_RUNS' zigzag)
+    "tp2": ([], 6),
     "tp2_sp": (["--sequence_parallel"], 3),
     "tp2_dp2": (["--dp_size", "2"], 2),
 }
@@ -2677,7 +2682,7 @@ def _rank_hops(r: dict) -> str:
 
 
 def phase_tp_train(torch, workdir: str) -> dict:
-    """train.main at tp=2 (10 steps, a checkpoint and a 2-step --resume),
+    """train.main at tp=2 (6 steps, a checkpoint and a 2-step --resume),
     tp=2 with sequence parallelism (3 steps), tp 2 x dp 2 (2 steps), the tp
     checkpoint resumed at tp=1 (1 step), and a tp=1 step on the same first
     batch; returns each tp run's launches summed over ranks and the tp=2
@@ -4238,6 +4243,394 @@ def phase_sampler_check(torch) -> dict:
     return {"chi2": stat, "critical": crit, "dof": len(obs) - 1}
 
 
+# train_async_preempt: the train cell with a checkpoint every ASYNC_EVERY
+# steps (written in the background), every ASYNC_SPARSE (further apart than
+# one write at 45m) and none; a profiled loop of ASYNC_PROFILE_STEPS with
+# saves and without; then a process of its own that gets SIGTERM after its
+# PREEMPT_AFTER-th step line, and a --resume
+ASYNC_STEPS = 20
+ASYNC_EVERY = 5
+ASYNC_SPARSE = 10
+ASYNC_PROFILE_STEPS = 10
+PREEMPT_AFTER = 3
+# serve_replay: a seeded poisson trace of the slot cell's requests
+REPLAY_REQUESTS = 16
+REPLAY_RATE = 8.0
+TOKENIZER = "tokenizer/tokenizer.json"
+
+
+def _loop_busy(prof, torch, first_fwd: int, steps: int) -> float:
+    """Device busy ms per step of a train loop profiled on the device: the
+    kernels (copies apart: the checkpoint writer's run on a stream of their
+    own) from the start of the `first_fwd`-th flash forward kernel on,
+    over the `steps` steps from there (the snapshot kernels of a save in
+    them included)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e.time_range.start, e.time_range.elapsed_us(), e.name)
+                    for e in prof.events() if e.device_type == cuda)
+    t0 = [s for s, _, name in events
+          if "flash_fwd_sm90_kernel" in name][first_fwd]
+    return sum(us for s, us, name in events if s >= t0
+               and not name.startswith(("Memcpy", "Memset"))) / 1e3 / steps
+
+
+def _preempted_run(args: list, after: int) -> tuple:
+    """`python -m ...train args` in a process of its own, SIGTERM sent once
+    it prints the step `after` line: (exit code, output, seconds from the
+    signal to the exit)."""
+    import signal
+    import threading
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_pytorch_from_scratch_tpu_torch"
+         ".train", *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, bufsize=1, env=env)
+    lines, seen = [], threading.Event()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith(f"step {after}/"):
+                seen.set()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        if not seen.wait(timeout=300):
+            raise AssertionError("train_async_preempt: no step line within "
+                                 "300 s:\n" + "".join(lines[-20:]))
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        react = time.perf_counter() - t0
+    finally:
+        proc.kill()
+        proc.wait()
+    reader.join(timeout=10)
+    return rc, "".join(lines), react
+
+
+def phase_train_async_preempt(torch, workdir: str) -> dict:
+    """The preemption-safe loop on the train cell (45m bf16, b 32 x t 1000,
+    remat): ASYNC_STEPS steps with a checkpoint every ASYNC_EVERY (the
+    writer thread) and with none — identical losses, the loop's host time
+    per save, the prefetch thread's wait, step p50 of both — beside one
+    synchronous save of the same state timed alone; a profiled loop's idle
+    share; then a train process that gets SIGTERM: exit 0, the shutdown
+    line, its checkpoint at the step it reached, and a 2-step --resume from
+    it. K1's launches are held to the schedule in every in-process run.
+    Returns their launches and numbers."""
+    import math
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
+        latest_step, save_checkpoint)
+    from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
+        init_adam_state)
+    layers = model_preset("45m").num_layers
+    base = (_replace_flag(TRAIN_ARGS, "--max_steps", str(ASYNC_STEPS))
+            + ["--data_path", _corpus(workdir)])
+    runs = {}
+    for name, every in (("saves", ASYNC_EVERY), ("sparse", ASYNC_SPARSE),
+                        ("no_saves", 10 ** 6)):
+        _reset_launches()
+        out = train.main(_replace_flag(base, "--save_interval", str(every))
+                         + ["--save_dir", os.path.join(workdir,
+                                                       f"async_{name}")])
+        counts = _read_launches()
+        _only(counts, _flash_want(layers, ASYNC_STEPS),
+              f"train_async_preempt ({name})")
+        runs[name] = (out, counts)
+        log(f"train_async_preempt {name}: step p50 {out['step_ms_p50']:.3f} "
+            f"ms, {out['tokens_per_sec']:.1f} tok/s; loop host ms per save "
+            f"{[round(x, 3) for x in out['save_stall_ms']]}; prefetch wait "
+            f"ms per window: first {out['prefetch_wait_ms'][0]:.3f}, then "
+            f"p50 {np.median(out['prefetch_wait_ms'][1:]):.4f}, max "
+            f"{max(out['prefetch_wait_ms'][1:]):.4f}; "
+            f"checkpoints {len(out['checkpoints'])}; launches {counts}")
+    saves, sparse, none = (runs[k][0] for k in ("saves", "sparse",
+                                                  "no_saves"))
+    if not saves["losses"] == sparse["losses"] == none["losses"]:
+        raise AssertionError("checkpoints written in the background changed "
+                             "the losses")
+    if len(saves["checkpoints"]) != ASYNC_STEPS // ASYNC_EVERY:
+        raise AssertionError(f"{len(saves['checkpoints'])} checkpoints "
+                             f"written, {ASYNC_STEPS // ASYNC_EVERY} due")
+    # one synchronous save of the same state (params and both moments on
+    # the card), timed alone, beside the call that schedules a background
+    # one (the device snapshot) and its join
+    model = Transformer(model_preset("45m"), remat=True).init_weights(1)
+    model.to("cuda")
+    params = dict(model.named_parameters())
+    state = init_adam_state(params)
+    sd = model.state_dict()
+    times = {}
+    for name in ("sync", "async"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = save_checkpoint(os.path.join(workdir, f"save_{name}"), 1, 1.0, sd,
+                            state, async_write=name == "async")
+        times[name] = (time.perf_counter() - t0) * 1e3
+        if name == "async":
+            torch.cuda.synchronize()
+            times["async_snapshot"] = (time.perf_counter() - t0) * 1e3
+            h.join()
+            times["async_join"] = (time.perf_counter() - t0) * 1e3
+    state_gb = 3 * sum(p.numel() * 4 for p in params.values()) / 1e9
+    del model, params, state, sd
+    torch.cuda.empty_cache()
+    log(f"train_async_preempt saves: one synchronous save of the 45m state "
+        f"({state_gb:.3f} GB of params and moments) {times['sync']:.3f} ms; "
+        f"the background save's call {times['async']:.3f} ms (snapshot done "
+        f"{times['async_snapshot']:.3f} ms, written {times['async_join']:.3f}"
+        f" ms); step p50 with a save every {ASYNC_EVERY} steps "
+        f"{saves['step_ms_p50']:.3f} ms, every {ASYNC_SPARSE} "
+        f"{sparse['step_ms_p50']:.3f} ms, none {none['step_ms_p50']:.3f} ms "
+        f"(ratios {saves['step_ms_p50'] / none['step_ms_p50']:.4f}, "
+        f"{sparse['step_ms_p50'] / none['step_ms_p50']:.4f})")
+    # the idle share of the loop, as phase 12's of a step: 1 - device busy
+    # per step (a loop profiled on the device, from step 3 on) / the step
+    # p50 of the same loop unprofiled (above)
+    idle = {}
+    for name, every, p50 in (("saves", ASYNC_EVERY, saves["step_ms_p50"]),
+                             ("no_saves", 10 ** 6, none["step_ms_p50"])):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            train.main(_replace_flag(_replace_flag(
+                base, "--max_steps", str(ASYNC_PROFILE_STEPS)),
+                "--save_interval", str(every))
+                + ["--save_dir", os.path.join(workdir, f"prof_{name}")])
+            torch.cuda.synchronize()
+        busy = _loop_busy(prof, torch, 2 * 2 * layers,
+                          ASYNC_PROFILE_STEPS - 2)
+        idle[name] = 1 - busy / p50
+        log(f"train_async_preempt profile ({name}, {ASYNC_PROFILE_STEPS} "
+            f"steps): device busy {busy:.3f} ms per step from step 3 (the "
+            f"kernels), step p50 {p50:.3f} ms unprofiled: idle share "
+            f"{idle[name]:.4f}")
+        del prof
+    # SIGTERM to a train process of its own, then --resume
+    save = os.path.join(workdir, "preempt")
+    sig_args = (_replace_flag(_replace_flag(_replace_flag(
+        base, "--max_steps", "100000"), "--log_interval", "1"),
+        "--save_interval", "100000") + ["--save_dir", save])
+    rc, text, react = _preempted_run(sig_args, PREEMPT_AFTER)
+    stopped = latest_step(save)
+    line = [x for x in text.splitlines() if x.startswith("shutdown")]
+    log(f"train_async_preempt SIGTERM after the step {PREEMPT_AFTER} line: "
+        f"exit {rc} {react:.3f} s after the signal; {line}; checkpoint at "
+        f"step {stopped}")
+    if (rc != 0 or stopped is None or stopped < PREEMPT_AFTER or line != [
+            f"shutdown requested: checkpointed at step {stopped}; restart "
+            f"with --resume to continue"]):
+        raise AssertionError("SIGTERM did not checkpoint and exit 0:\n"
+                             + "\n".join(text.splitlines()[-20:]))
+    _reset_launches()
+    resumed = train.main(_replace_flag(sig_args, "--max_steps",
+                                       str(stopped + 2)) + ["--resume"])
+    rcounts = _read_launches()
+    log(f"train_async_preempt --resume: from step {resumed['start_step']} "
+        f"to {resumed['steps']}, losses {resumed['losses']}; launches "
+        f"{rcounts}")
+    if (resumed["start_step"] != stopped or resumed["steps"] != stopped + 2
+            or not all(math.isfinite(x) for x in resumed["losses"])):
+        raise AssertionError("--resume did not continue from the SIGTERM "
+                             "checkpoint")
+    _only(rcounts, _flash_want(layers, 2), "train_async_preempt --resume")
+    return {**runs["saves"][1], "resume": rcounts,
+            "save_ms": {"sync": times["sync"], "async": times["async"],
+                        "loop": saves["save_stall_ms"],
+                        "loop_sparse": sparse["save_stall_ms"]},
+            "step_ms_p50": {"saves": saves["step_ms_p50"],
+                            "sparse": sparse["step_ms_p50"],
+                            "no_saves": none["step_ms_p50"]},
+            "prefetch_wait_ms": saves["prefetch_wait_ms"], "idle": idle,
+            "stopped_at": stopped, "exit_s": react}
+
+
+def _serve_with_widths(serve, args: list) -> tuple:
+    """`serve.main(args)` with each paged chunk dispatch's width recorded;
+    returns (summary, launches, paged launches by route, by kernel,
+    widths)."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine)
+    dispatch = PagedEngine._dispatch_chunk
+    widths = []
+
+    def seen(self, slot, st, n, done):
+        widths.append(n)
+        return dispatch(self, slot, st, n, done)
+
+    _reset_launches()
+    PagedEngine._dispatch_chunk = seen
+    try:
+        out = serve.main(args)
+    finally:
+        PagedEngine._dispatch_chunk = dispatch
+    return (out, _read_launches(), dict(paged_attention.launches_by_route),
+            dict(paged_attention.launches_by_kernel), widths)
+
+
+def _int8_line(name: str, out: dict, native: dict, counts: dict) -> None:
+    st, nst = out["engine_stats"], native["engine_stats"]
+    log(f"serve_int8_weights {name}: weight bytes {st['weight_bytes']} vs "
+        f"native {nst['weight_bytes']} (ratio "
+        f"{st['weight_bytes'] / nst['weight_bytes']:.4f}); TPOT p50/p95 "
+        f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms vs "
+        f"{native['tpot_ms_p50']}/{native['tpot_ms_p95']}; TTFT p50/p95 "
+        f"{out['ttft_ms_p50']}/{out['ttft_ms_p95']} ms vs "
+        f"{native['ttft_ms_p50']}/{native['ttft_ms_p95']}; "
+        f"{out['tokens_per_sec']} vs {native['tokens_per_sec']} tok/s; "
+        f"{st['decode_steps']} decode steps, decode graph "
+        f"{out['decode_graph']} ({out['decode_graph_replays']} replays); "
+        f"launches {counts}")
+    if not (out["decode_graph"]
+            and out["decode_graph_replays"] == st["decode_steps"]):
+        raise AssertionError(f"{name}: the int8 decode step did not run as "
+                             f"a graph")
+    if not 0.2 < st["weight_bytes"] / nst["weight_bytes"] < 0.3:
+        raise AssertionError(f"{name}: int8 weights hold "
+                             f"{st['weight_bytes']} bytes against "
+                             f"{nst['weight_bytes']} native")
+
+
+def phase_serve_int8_weights(torch) -> dict:
+    """Phase 5's and phase 15's traffic (bf16 pages) with
+    `--decode_weight_dtype int8`, the decode step graphed, in turns with
+    the native weights (native, int8, int8, native): every request served
+    in-vocab, the
+    resident weights about a quarter of the f32 ones, K1 12 launches per
+    prefill dispatch (slot) and K3 12 per decode step and per chunk, on the
+    routes their widths name (paged); then the 45m widths at 2 layers in
+    f32, both engines greedy and sampled with int8 weights: the card's
+    tokens those of the CPU's plain path. Returns the runs' launches."""
+    import dataclasses
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import tp_checks
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    layers = model_preset("45m").num_layers
+    int8 = ["--decode_weight_dtype", "int8"]
+    # native, int8, int8, native on each cell, warm (phases 5 and 15 ran
+    # first in the process); the checked runs are the first int8 ones
+    native, turns = {}, {}
+    for kind, args in (("slot", SERVE_ARGS), ("paged", PAGED_SERVE_ARGS)):
+        runs = [serve.main(args + extra)
+                for extra in ([], int8, int8, [])]
+        native[kind] = runs[0]
+        turns[kind] = [(("native", "int8")[i in (1, 2)], r["tpot_ms_p50"],
+                        r["ttft_ms_p50"], r["tokens_per_sec"])
+                       for i, r in enumerate(runs)]
+        log(f"serve_int8_weights {kind} turns (weights, TPOT p50 ms, TTFT "
+            f"p50 ms, tok/s): {turns[kind]}")
+    _reset_launches()
+    slot = serve.main(SERVE_ARGS + int8)
+    counts = _read_launches()
+    _int8_line("slot", slot, native["slot"], counts)
+    if slot["completed"] != slot["requests"] or not all(
+            0 <= t < 1024 for ts in slot["outputs"].values() for t in ts):
+        raise AssertionError("int8 slot serving: requests unserved or "
+                             "tokens outside the vocab")
+    _only(counts, {"flash_attention_fwd": layers * slot["prefill_dispatches"]},
+          f"int8 slot serving ({layers} per prefill dispatch)")
+    out, pcounts, by_route, by_kernel, widths = _serve_with_widths(
+        serve, PAGED_SERVE_ARGS + int8)
+    _int8_line("paged", out, native["paged"], pcounts)
+    _check_paged_run(out, out["engine_stats"], pcounts, by_route, by_kernel,
+                     widths, layers, 1024)
+    # the card against the CPU's plain path: 2 layers, f32, int8 weights
+    cfg = model_preset("45m", num_layers=2)
+    tree = params_to_jax(Transformer(cfg).init_weights(4).state_dict())
+    runs = [dict(r, kw=dict(r["kw"], decode_weight_dtype="int8"))
+            for r in _gpt2_serve_cases(cfg, 14)]
+    got = {dev: tp_checks.serve_runs(make_mesh(MeshConfig(), device=dev),
+                                     dataclasses.asdict(cfg), tree, runs)
+           for dev in ("cuda", "cpu")}
+    for i, r in enumerate(runs):
+        what = (f"{r['engine']} "
+                f"{'sampled' if r['kw'].get('temperature') else 'greedy'}")
+        same = got["cuda"][i]["tokens"] == got["cpu"][i]["tokens"]
+        log(f"serve_int8_weights card vs cpu ({what}, 45m widths, 2 layers, "
+            f"f32, 4 requests x 16 new): identical tokens {same}")
+        if not same:
+            raise AssertionError(f"int8 weights, {what}: the card's tokens "
+                                 f"are not the CPU's")
+    return {"slot": counts, "paged": pcounts, "paged_by_route": by_route,
+            "paged_by_kernel": by_kernel,
+            "weight_bytes": {k: (o["engine_stats"]["weight_bytes"],
+                                 native[k]["engine_stats"]["weight_bytes"])
+                             for k, o in (("slot", slot), ("paged", out))},
+            "turns": turns}
+
+
+def phase_serve_replay(torch, workdir: str) -> dict:
+    """A trace of REPLAY_REQUESTS seeded poisson requests of the slot cell
+    (prompts 64-512, 64 new tokens), written to the workdir in reverse
+    arrival order, served with `--tokenizer_path tokenizer/tokenizer.json
+    --arrival replay --replay <trace>`: submitted in arrival order, every
+    request served in-vocab, K1 12 launches per prefill dispatch. Returns
+    the launches."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.loadgen import (
+        synthetic_requests)
+    layers = model_preset("45m").num_layers
+    reqs = synthetic_requests(REPLAY_REQUESTS, 64, 512, 64, 1024, seed=5,
+                              rate=REPLAY_RATE, arrival="poisson")
+    path = os.path.join(workdir, "trace.jsonl")
+    with open(path, "w") as f:
+        for r in reversed(reqs):
+            f.write(json.dumps({"rid": r.rid, "prompt": r.prompt,
+                                "max_new": r.max_new, "seed": r.seed,
+                                "arrival": r.arrival}) + "\n")
+    order = []
+    submit = ContinuousBatchingEngine.submit
+
+    def seen(self, req):
+        order.append(req.rid)
+        return submit(self, req)
+
+    args = (_replace_flag(SERVE_ARGS, "--arrival", "replay")
+            + ["--replay", path, "--tokenizer_path", TOKENIZER])
+    _reset_launches()
+    ContinuousBatchingEngine.submit = seen
+    try:
+        out = serve.main(args)
+    finally:
+        ContinuousBatchingEngine.submit = submit
+    counts = _read_launches()
+    want = [r.rid for r in sorted(reqs, key=lambda r: r.arrival)]
+    log(f"serve_replay: {out['completed']}/{out['requests']} requests of the "
+        f"trace in {out['wall_s']} s, submitted in arrival order "
+        f"{order == want}; {out['tokens_per_sec']} tok/s; TTFT p50/p95 "
+        f"{out['ttft_ms_p50']}/{out['ttft_ms_p95']} ms; TPOT p50/p95 "
+        f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms; queue p50/p95 "
+        f"{out['queue_wait_ms_p50']}/{out['queue_wait_ms_p95']} ms; launches "
+        f"{counts}")
+    if (order != want or out["completed"] != REPLAY_REQUESTS
+            or out["requests"] != REPLAY_REQUESTS):
+        raise AssertionError("the trace was not served whole in arrival "
+                             "order")
+    if not all(0 <= t < 1024 for ts in out["outputs"].values() for t in ts):
+        raise AssertionError("replayed tokens outside the tokenizer's vocab")
+    _only(counts, {"flash_attention_fwd": layers * out["prefill_dispatches"]},
+          f"replayed slot serving ({layers} per prefill dispatch)")
+    return counts
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -4247,7 +4640,8 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "tp_serve_card_vs_cpu", "tp_serve_profile", "graph_check",
           "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
           "gpt2_kernels", "gpt2_train", "gpt2_serve", "gpt2_card_vs_cpu",
-          "sampler_check")
+          "sampler_check", "train_async_preempt", "serve_int8_weights",
+          "serve_replay")
 
 
 def main() -> None:
@@ -4283,7 +4677,7 @@ def run(torch, phases: set, workdir: str) -> list:
     device = phase_device(torch)
     with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
                 "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
-                "gpt2_train")
+                "gpt2_train", "train_async_preempt", "serve_replay")
     res = {}
     for name in PHASES:
         if name not in phases:
@@ -4297,14 +4691,16 @@ def run(torch, phases: set, workdir: str) -> list:
     (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
-     eval_tp, gpt2_times, gpt2_trained, gpt2_served) = (
+     eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
+     replayed) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
              "ring_check", "ring_times", "cp_train", "cp_tiny", "tp_train",
              "tp_tiny", "tp_serve", "train_remat", "train_spd", "eval",
              "eval_pth", "eval_tp", "gpt2_kernels", "gpt2_train",
-             "gpt2_serve"))
+             "gpt2_serve", "train_async_preempt", "serve_int8_weights",
+             "serve_replay"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -4336,7 +4732,13 @@ def run(torch, phases: set, workdir: str) -> list:
                                          for r in eval_tp["ranks"]),
                          "train_gpt2": gpt2_trained[k],
                          **{f"serve_gpt2_{name}": run["launches"].get(k, 0)
-                            for name, run in gpt2_served.items()}}
+                            for name, run in gpt2_served.items()},
+                         "train_async_saves": preempted.get(k, 0),
+                         "train_async_resume": preempted["resume"].get(k, 0),
+                         "serve_int8_weights": int8_served["slot"].get(k, 0),
+                         "serve_paged_int8_weights":
+                             int8_served["paged"].get(k, 0),
+                         "serve_replay": replayed.get(k, 0)}
     at_path, at_gpt2 = bwd_times["errs"], gpt2_times["errs"]
     # K3's launches on the gpt2 paged runs, by C entry point
     gpt2_paged = lambda kernel: {
@@ -4384,7 +4786,10 @@ def run(torch, phases: set, workdir: str) -> list:
                               "serve_paged_int8_by_route":
                                   paged_served["paged_int8_by_route"],
                               "gpt2_paged_decode_kernel":
-                                  gpt2_paged("paged_decode")}},
+                                  gpt2_paged("paged_decode"),
+                              "serve_paged_int8_weights_decode_kernel":
+                                  int8_served["paged_by_kernel"][
+                                      "paged_decode"]}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
@@ -4398,7 +4803,9 @@ def run(torch, phases: set, workdir: str) -> list:
                  "paged_chunk_sm90"],
              **{name: run["launches"]["paged_paged_chunk_sm90"]
                 for name, run in tp_served.items()},
-             **gpt2_paged("paged_chunk_sm90")}},
+             **gpt2_paged("paged_chunk_sm90"),
+             "serve_paged_int8_weights": int8_served["paged_by_kernel"][
+                 "paged_chunk_sm90"]}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

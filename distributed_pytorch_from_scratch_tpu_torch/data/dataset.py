@@ -18,8 +18,7 @@ The collate runs in numpy or in the native C++ library (`data/native.py`,
 over the repo's `csrc/dataloader.cpp`): `backend='native'` takes the C++
 path, 'numpy' the Python one, and 'auto' the C++ one when the library
 builds; both give the same bytes (tests/test_torch_data_pipeline.py).
-
-Not ported: the prefetch thread (`data/prefetch.py`) — ROADMAP Queue 1 (a).
+The train loop collates on a thread of its own (`data/prefetch.py`).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@ reference, run through `runtime.launch.spawn` — by the tests (against the
 JAX package, on the CPU) and by chip_smoke.py (the card's kernels against
 the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
 training (`collective_pairs`, `layer_cases`, `model_runs`,
-`seed_identity`), serving at tp > 1 (`serve_runs`, `decode_logits`) and
-the evaluation loss on any mesh (`doc_losses`).
+`seed_identity`), serving at tp > 1 (`serve_runs`, `decode_logits`,
+`quantized_params`) and the evaluation loss on any mesh (`doc_losses`).
 
 `jobs(rank, nprocs, init_method, todo)` runs a list of `(name, axes,
 kwargs)` jobs in one process group, one after the other, each on the mesh
@@ -32,7 +32,9 @@ from ..models import decode
 from ..models import build_model
 from ..models.transformer import Transformer
 from ..ops import collectives as C
-from ..serving.engine import ContinuousBatchingEngine, PagedEngine, Request
+from ..ops.quant import quantize_decode_params
+from ..serving.engine import (ContinuousBatchingEngine, PagedEngine, Request,
+                              quantize_model)
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..training.optim import init_adam_state
@@ -277,7 +279,9 @@ def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     engine on every tp rank of `mesh`, with this rank's shard of `tree`. tp
     rank 0 runs `drive`, the paged engine on a scripted clock that
     advances `tick` per call, then stops the workers, which serve its
-    dispatches meanwhile.
+    dispatches meanwhile. A run with int8 decode weights
+    (`decode_weight_dtype` in kw) gets a model of its own: its engine
+    quantizes the model in place.
     Every rank returns its dispatches by kind and by shape; tp rank 0 also
     {rid: tokens}, the stats and the paged engine's page table after every
     step."""
@@ -285,11 +289,13 @@ def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     out = []
     for run in runs:
         kw = dict(run["kw"])
+        m = (_serving_model(mesh, cfg, tree)
+             if kw.get("decode_weight_dtype") == "int8" else model)
         if run["engine"] == "paged":
             kw["clock"] = counting_clock(run["tick"])
-            eng = PagedEngine(model, mesh, **kw)
+            eng = PagedEngine(m, mesh, **kw)
         else:
-            eng = ContinuousBatchingEngine(model, mesh, **kw)
+            eng = ContinuousBatchingEngine(m, mesh, **kw)
         res = {}
         if eng.dispatch.leader:
             reqs = [Request(rid=i, prompt=list(p), max_new=m, tenant=t,
@@ -307,16 +313,29 @@ def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     return out
 
 
-def decode_logits(mesh, cfg: Dict, tree, calls: Sequence[Dict]
-                  ) -> List[np.ndarray]:
+def quantized_params(mesh, cfg: Dict, tree) -> Dict:
+    """This rank's `quantize_decode_params` of its shard of `tree`: {state
+    dict key: array, or {"qweight", "scale"} arrays}."""
+    model = _serving_model(mesh, cfg, tree)
+    q = quantize_decode_params(model.state_dict(), mesh)
+    return {k: ({n: v.cpu().numpy() for n, v in leaf.items()}
+                if isinstance(leaf, dict) else _np(leaf))
+            for k, leaf in q.items()}
+
+
+def decode_logits(mesh, cfg: Dict, tree, calls: Sequence[Dict],
+                  decode_weight_dtype=None) -> List[np.ndarray]:
     """Each call {kind, args}: 'prefill' (buf, prompt_len), 'decode'
     (cache_k, cache_v, token, cur) or 'paged_decode' (pool_k, pool_v,
     token, cur, page_tbl, with `page_size`), the caches and pools given
     whole (every kv head: this rank takes a copy of its own), through the
     lowering on this rank's shard of `tree`. Returns
     each call's full-vocab f32 logits after the sampler's gather (the same
-    on every rank)."""
+    on every rank). With `decode_weight_dtype='int8'` the model holds int8
+    decode weights (`serving.engine.quantize_model`)."""
     model = _serving_model(mesh, cfg, tree)
+    if decode_weight_dtype == "int8":
+        quantize_model(model, mesh)
     dev, n, r = mesh.device, mesh.tp, mesh.tp_rank
     dtype = resolve_dtype_on(model.cfg.compute_dtype, dev)
     heads = lambda x: _t(_local(x, 2, n, r), dev)
@@ -353,7 +372,7 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
     fns = {"collective_pairs": collective_pairs, "layer_cases": layer_cases,
            "model_runs": model_runs, "seed_identity": seed_identity,
            "serve_runs": serve_runs, "decode_logits": decode_logits,
-           "doc_losses": doc_losses}
+           "doc_losses": doc_losses, "quantized_params": quantized_params}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

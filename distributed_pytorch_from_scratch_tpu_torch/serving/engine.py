@@ -33,6 +33,18 @@ cursors, so a captured decode step reads this step's seeds, not the ones
 of its capture. `debug_host_sampler` returns the decode step's full-vocab
 logits to the host and samples there (`host_sample_tokens`, the JAX
 ablation path) — the fused sampler's oracle.
+`decode_weight_dtype='int8'` serves int8 decode weights (the JAX engines'
+`_setup_decode_weights`): the engine rewrites the model's weights IN
+PLACE into int8 codes and f32 per-output-channel scales
+(`ops/quant.quantize_decode_params`, at tp > 1 the shards of the JAX
+function's output on the assembled tree), so the f32 masters leave the
+device, and every read of a weight in the lowerings dequantizes it at use
+(`codes * scale` in f32, JAX's order, through a property of the module's
+class: `quantize_model`): per layer, inside the captured decode step too.
+The products stay `torch.matmul` on the dequantized weight, as XLA's
+convert-into-matmul fusion is JAX's. `weight_bytes` counts the weights
+either way (the serve CLI reports it beside `stats()`, which stays the
+JAX engine's).
 TTFT/TPOT/queue-wait are measured per request; the JAX engine's tracing
 hooks (span tracer, metrics writer, request tracer, flight recorder,
 telemetry, duty profiler, HBM plane) wait for the obs slice (ROADMAP.md).
@@ -53,6 +65,8 @@ from ..models.decode import (
     PAGED_ATTN_IMPLS, _decode_one, _full_vocab_logits, _paged_decode_one,
     _paged_prefill_chunk, _prefill, decode_tables, host_sample_tokens,
     sample_from_full, validate_sampling)
+from ..ops.quant import quantize_decode_params
+from ..parallel.layout import tp_dim
 from ..runtime.graphs import CapturedStep, use_decode_graph
 from .kv_manager import KVCachePool, PagedKVPool, PoolExhausted
 from .scheduler import FIFOScheduler, SLOScheduler
@@ -145,6 +159,86 @@ def _capture_decode(engine, mode: str, tp: int,
                             [torch.from_numpy(example).to(engine.device)])
 
 
+_INT8_CLASSES: Dict[tuple, type] = {}
+
+
+def _int8_class(cls: type, names: tuple) -> type:
+    """`cls` with each attribute of `names` a property that dequantizes the
+    module's int8 codes `<name>_q` with its scale `<name>_scale`: one
+    promoting product, `codes * scale` in f32, the JAX `(q.astype(f32) *
+    scale)` bit for bit."""
+    key = (cls, names)
+    if key not in _INT8_CLASSES:
+        def read(name):
+            return property(lambda self: (self._buffers[name + "_q"]
+                                          * self._buffers[name + "_scale"]))
+        _INT8_CLASSES[key] = type(f"Int8{cls.__name__}", (cls,),
+                                  {n: read(n) for n in names})
+    return _INT8_CLASSES[key]
+
+
+def _nbytes(t: torch.Tensor, shards: int) -> int:
+    return t.numel() * t.element_size() * shards
+
+
+def quantize_model(model, mesh=None) -> int:
+    """Rewrite `model`'s weights in place into int8 decode weights: every
+    leaf `quantize_decode_params` quantizes is dropped for two buffers, its
+    int8 codes `<name>_q` and its scale `<name>_scale`, and its module's
+    class becomes one whose `<name>` dequantizes them at every read
+    (`_int8_class`), so the f32 master leaves the device. At tp > 1 every
+    rank of `mesh` calls it (one all-reduce per tp-sharded contraction
+    dim). Returns `weight_bytes` (`_setup_decode_weights`)."""
+    if getattr(model.embedding, "int8_weights", False):
+        raise ValueError("the model already holds int8 decode weights; "
+                         "build a fresh model to quantize")
+    tp = 1 if mesh is None else mesh.tp
+    with torch.no_grad():
+        qparams = quantize_decode_params(model.state_dict(), mesh)
+    nbytes, by_module = 0, {}
+    for key, leaf in qparams.items():
+        dim = tp_dim(key)
+        if not isinstance(leaf, dict):
+            nbytes += _nbytes(leaf, 1 if dim is None else tp)
+            continue
+        q, scale = leaf["qweight"], leaf["scale"]
+        mod_name, attr = key.rsplit(".", 1)
+        mod = model.get_submodule(mod_name)
+        del mod._parameters[attr]
+        mod.register_buffer(attr + "_q", q)
+        mod.register_buffer(attr + "_scale", scale)
+        by_module.setdefault(mod, []).append(attr)
+        # a scale over the tp-sharded dim is replicated on every rank
+        nbytes += _nbytes(q, 1 if dim is None else tp) + _nbytes(
+            scale, 1 if dim is None or scale.shape[dim] != q.shape[dim]
+            else tp)
+    for mod, names in by_module.items():
+        mod.__class__ = _int8_class(type(mod), tuple(names))
+        mod.int8_weights = True
+    return nbytes
+
+
+def _setup_decode_weights(engine, model, mesh, decode_weight_dtype) -> None:
+    """The weight dtype both engines serve (the JAX `_setup_decode_weights`):
+    None/'native' leaves the model as it is; 'int8' quantizes it in place
+    (`quantize_model`). Sets `engine.decode_weight_dtype` and
+    `engine.weight_bytes`: the weights' bytes as the assembled tree holds
+    them (each tp shard counted once, a replicated leaf once), f32 masters
+    or int8 codes + scales, the same at any tp."""
+    if decode_weight_dtype in (None, "native"):
+        tp = getattr(mesh, "tp", 1)
+        engine.decode_weight_dtype = "native"
+        engine.weight_bytes = sum(
+            _nbytes(p, 1 if tp_dim(k) is None else tp)
+            for k, p in model.named_parameters())
+    elif decode_weight_dtype == "int8":
+        engine.decode_weight_dtype = "int8"
+        engine.weight_bytes = quantize_model(model, mesh)
+    else:
+        raise ValueError(f"decode_weight_dtype must be None/'native'/"
+                         f"'int8', got {decode_weight_dtype!r}")
+
+
 def _seed_bits(seeds: np.ndarray) -> np.ndarray:
     """uint32 request seeds as the int32 bits a packed payload carries."""
     return np.asarray(seeds, np.uint32).view(np.int32)
@@ -228,15 +322,17 @@ class ContinuousBatchingEngine(_Sampling):
     carries its weights (this rank's shard), which must already lie on
     `mesh.device`. `decode_graph` ('auto', 'on', 'off';
     `runtime/graphs.use_decode_graph`) says whether the decode step runs
-    as a CUDA graph. `temperature`, `top_k`, `top_p` and
-    `debug_host_sampler` as the JAX engine's."""
+    as a CUDA graph. `temperature`, `top_k`, `top_p`,
+    `debug_host_sampler` and `decode_weight_dtype` (None/'native' or
+    'int8', which quantizes the model in place) as the JAX engine's."""
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
                  eos_id: int, temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 0.0, prefill_bucket: int = 64,
                  max_prefill_batch: int = 4, max_queue: int = 0,
                  decode_graph: str = "auto",
-                 debug_host_sampler: bool = False):
+                 debug_host_sampler: bool = False,
+                 decode_weight_dtype=None):
         if max_prefill_batch < 1:
             raise ValueError(f"max_prefill_batch must be >= 1, got "
                              f"{max_prefill_batch}")
@@ -254,6 +350,7 @@ class ContinuousBatchingEngine(_Sampling):
             model, max(model.cfg.maxlen, buf_len), self.device)
         self._setup_sampling(model, temperature, top_k, top_p,
                              debug_host_sampler)
+        _setup_decode_weights(self, model, mesh, decode_weight_dtype)
         self.pool = KVCachePool(model, mesh, num_slots, buf_len)
         self.dispatch = Dispatcher(mesh, {"slot_prefill": self._run_prefill,
                                           "slot_decode": self._run_decode})
@@ -499,9 +596,10 @@ class PagedEngine(_Sampling):
     `paged_attn_impl` — 'kernel' (the CUDA paged-attention kernel; its plain
     version on the CPU) or 'gather' (the dense page view, the oracle) — and
     the only sync is the host copy of the chosen tokens. The JAX engine's
-    tracing hooks, handoff methods (disaggregated serving), speculative
-    decoding and int8 decode weights are not ported (ROADMAP).
-    `decode_graph` and the sampling knobs as the slot engine's."""
+    tracing hooks, handoff methods (disaggregated serving) and speculative
+    decoding are not ported (ROADMAP).
+    `decode_graph`, the sampling knobs and `decode_weight_dtype` as the slot
+    engine's."""
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
                  eos_id: int, page_size: int = 64, num_pages: int = 0,
@@ -511,7 +609,8 @@ class PagedEngine(_Sampling):
                  max_queue: int = 0, kv_dtype=None,
                  paged_attn_impl: str = "kernel", clock=time.monotonic,
                  decode_graph: str = "auto",
-                 debug_host_sampler: bool = False):
+                 debug_host_sampler: bool = False,
+                 decode_weight_dtype=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if page_size < 1:
@@ -543,6 +642,7 @@ class PagedEngine(_Sampling):
             model, max(model.cfg.maxlen, self.buf_len), self.device)
         self._setup_sampling(model, temperature, top_k, top_p,
                              debug_host_sampler)
+        _setup_decode_weights(self, model, mesh, decode_weight_dtype)
         self.paged_attn_impl = paged_attn_impl
         self.kv_dtype = kv_dtype
         self.pool = PagedKVPool(model, mesh, num_pages, page_size,

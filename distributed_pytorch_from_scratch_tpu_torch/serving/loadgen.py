@@ -1,9 +1,10 @@
-"""Synthetic arrival stream + offline serving benchmark loop (the port's
-copy of the JAX `serving/loadgen.py`, without trace replay and the fleet
+"""Synthetic arrival stream, trace replay and the offline serving benchmark
+loop (the port's copy of the JAX `serving/loadgen.py`, without the fleet
 loop).
 
 `synthetic_requests` is numpy-only and draws exactly as the JAX version
-does, so one seed gives the same requests in both packages. `run_loadgen`
+does, so one seed gives the same requests in both packages;
+`replay_requests` reads a captured trace with the JAX schema. `run_loadgen`
 drives either engine against the wall clock: a request is submitted once
 its arrival offset has elapsed, the engine steps whenever it has live work,
 and the loop sleeps only when idle before the next arrival.
@@ -11,6 +12,7 @@ and the loop sleeps only when idle before the next arrival.
 
 from __future__ import annotations
 
+import json
 import sys
 import time
 from typing import List, Optional
@@ -77,6 +79,25 @@ def synthetic_requests(num: int, prompt_len_min: int, prompt_len_max: int,
                            seed=seed + i, arrival=float(at[i]),
                            tenant=f"t{i % tenants}", slo_class=cls))
     return out
+
+
+def replay_requests(path: str) -> List[Request]:
+    """A captured request trace (jsonl, one record per request: `prompt`,
+    and `rid`, `max_new`, `seed`, `arrival` with the JAX defaults: the
+    line's index, 64, the line's index, 0), sorted by arrival."""
+    out = []
+    with open(path) as f:
+        for i, line in enumerate(f):
+            line = line.strip()
+            if not line:
+                continue
+            rec = json.loads(line)
+            out.append(Request(
+                rid=rec.get("rid", i), prompt=list(rec["prompt"]),
+                max_new=int(rec.get("max_new", 64)),
+                seed=int(rec.get("seed", i)),
+                arrival=float(rec.get("arrival", 0.0))))
+    return sorted(out, key=lambda r: r.arrival)
 
 
 def _pctl(vals: List[Optional[float]], q: float) -> Optional[float]:

@@ -40,13 +40,21 @@ oracle and the JAX ablation).
 
 Weights: `--random_init` (fresh random weights from `--seed`, the same
 model at any tp), or `--ckpt_dir` with a checkpoint written by either
-package's trainer, at any tp. `--dry_run` shrinks everything to a tiny
-smoke run.
+package's trainer, at any tp. `--decode_weight_dtype int8` serves them as
+int8 codes with per-output-channel scales, dequantized at use (both
+engines, any tp; `serving/engine.py`). `--dry_run` shrinks everything to
+a tiny smoke run.
+
+`--tokenizer_path` (a `tokenizer.json`, read by `data/tokenizer
+.load_tokenizer`) sets the vocab size and the EOS id; without it the
+vocab is `--vocab_size` and EOS is 1, the shipped tokenizer's.
+`--arrival replay --replay trace.jsonl` serves a captured trace
+(`loadgen.replay_requests`: one JSON record per line, `prompt` and
+optional `rid`, `max_new`, `seed`, `arrival`) in arrival order.
 
 Not ported yet, refused with a message naming its ROADMAP item: cp > 1,
-speculative decoding, int8 decode weights. The JAX CLI's tokenizer, trace
-replay and observability/control flags do not exist here yet
-(ROADMAP.md).
+speculative decoding. The JAX CLI's observability/control flags do not
+exist here yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ import time
 import torch
 
 from ..cli import add_model_shape_args, build_model_config
-from ..config import MeshConfig, ModelConfig
+from ..config import BOS_TOKEN, EOS_TOKEN, MeshConfig, ModelConfig
 from ..models import build_model
 from ..models.transformer import Transformer, validate_tp
 from ..ops import collectives
@@ -70,7 +78,7 @@ from ..runtime.graphs import DECODE_GRAPH_MODES, use_decode_graph
 from ..runtime.mesh import dist_backend, make_mesh, resolve_device
 from ..training.checkpoint import latest_step, load_checkpoint
 from .engine import ContinuousBatchingEngine, PagedEngine, graph_stats
-from .loadgen import run_loadgen, synthetic_requests
+from .loadgen import replay_requests, run_loadgen, synthetic_requests
 from .scheduler import parse_slo_classes
 
 # head_dim 32, so the dry run also fits the CUDA kernel's head dims
@@ -83,8 +91,6 @@ NOT_PORTED = [  # (flag dest, default, what the flag would turn on)
     ("cp", 1, "the cp-sharded page pool, alone or with --tp_size; ROADMAP "
               "Queue 1 item 6"),
     ("speculate", 0, "speculative decoding; ROADMAP Queue 1 item 6"),
-    ("decode_weight_dtype", "native",
-     "int8 decode weights; ROADMAP Queue 1 item 5"),
 ]
 
 
@@ -100,8 +106,12 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                    help="checkpoint iteration (default: latest)")
     g.add_argument("--random_init", action="store_true",
                    help="serve fresh random weights at the flag shape")
+    g.add_argument("--tokenizer_path", "-t", default=None,
+                   help="supplies vocab_size and the real EOS id; omit to "
+                        "use --vocab_size and EOS id 1 (the shipped "
+                        "tokenizer's convention)")
     g.add_argument("--vocab_size", type=int, default=1024,
-                   help="vocab size (EOS id is 1, the shipped tokenizer's)")
+                   help="vocab for --random_init without a tokenizer")
     g.add_argument("--family", choices=["llama", "gpt2"], default="llama")
     g.add_argument("--tp_size", type=int, default=1,
                    help="tensor-parallel ranks, one process each")
@@ -138,7 +148,10 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                         "per step) instead of in the step; the fused "
                         "sampler's oracle")
     g.add_argument("--decode_weight_dtype", choices=["native", "int8"],
-                   default="native", help="native only, so far")
+                   default="native",
+                   help="'int8' stores every weight of two dims or more as "
+                        "int8 codes + one f32 scale per output channel, "
+                        "dequantized at use in both engines")
     g.add_argument("--decode_graph", choices=DECODE_GRAPH_MODES,
                    default="auto",
                    help="run the decode step as a CUDA graph: 'auto' on a "
@@ -199,8 +212,11 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     g.add_argument("--num_requests", type=int, default=32)
     g.add_argument("--rate", type=float, default=4.0,
                    help="poisson arrival rate, requests/second")
-    g.add_argument("--arrival", choices=["poisson", "burst"],
+    g.add_argument("--arrival", choices=["poisson", "burst", "replay"],
                    default="poisson")
+    g.add_argument("--replay", default=None,
+                   help="jsonl trace for --arrival replay (loadgen.py "
+                        "schema)")
     g.add_argument("--prompt_len_min", type=int, default=8)
     g.add_argument("--prompt_len_max", type=int, default=64)
     g.add_argument("--seed", type=int, default=0)
@@ -216,6 +232,8 @@ def get_serve_args(argv=None) -> argparse.Namespace:
         p.error(f"--temperature must be >= 0, got {args.temperature}")
     if (args.decode_top_k or args.decode_top_p) and not args.temperature:
         p.error("--decode_top_k/--decode_top_p need --temperature > 0")
+    if args.arrival == "replay" and not args.replay and not args.dry_run:
+        p.error("--arrival replay needs --replay PATH")
     try:
         use_decode_graph(args.decode_graph, args.device, args.tp_size)
     except ValueError as e:
@@ -246,8 +264,24 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _read_tokenizer(args: argparse.Namespace) -> None:
+    """`args.eos_id`, and with `--tokenizer_path` the vocab size, from the
+    tokenizer (the JAX CLI's check of its specials)."""
+    args.eos_id = 1  # the shipped tokenizer's EOS (tokenizer/tokenizer.json)
+    if not args.tokenizer_path:
+        return
+    from ..data.tokenizer import load_tokenizer
+    tok = load_tokenizer(args.tokenizer_path, verbose=False)
+    eos_id = tok.token_to_id(EOS_TOKEN)
+    if eos_id is None or tok.token_to_id(BOS_TOKEN) is None:
+        raise SystemExit(f"tokenizer {args.tokenizer_path} lacks the "
+                         f"{BOS_TOKEN}/{EOS_TOKEN} specials")
+    args.eos_id, args.vocab_size = eos_id, tok.get_vocab_size()
+
+
 def _model_config(args: argparse.Namespace) -> ModelConfig:
     """The model shape; `--dry_run` also shrinks the run (in `args`)."""
+    _read_tokenizer(args)
     if not args.dry_run:
         return build_model_config(args, args.vocab_size)
     args.vocab_size = _DRY_CFG.vocab_size
@@ -295,17 +329,20 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
                          init_method=init_method)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"serve: {e}")
-    eos_id = 1  # the shipped tokenizer's EOS (tokenizer/tokenizer.json)
     model = _load_model(args, cfg, mesh)
 
-    mix = parse_slo_classes(args.class_mix) if args.class_mix else None
-    # every rank draws the (seeded) stream: its longest prompt sizes the pool
-    requests = synthetic_requests(
-        args.num_requests, args.prompt_len_min, args.prompt_len_max,
-        args.max_new_tokens, args.vocab_size, seed=args.seed,
-        rate=args.rate, arrival=args.arrival, class_mix=mix,
-        tenants=args.tenants, shared_prefix_len=args.shared_prefix_len,
-        interleave=args.interleave)
+    # every rank reads (or draws, seeded) the stream: its longest prompt
+    # sizes the pool
+    if args.arrival == "replay" and args.replay:
+        requests = replay_requests(args.replay)
+    else:
+        mix = parse_slo_classes(args.class_mix) if args.class_mix else None
+        requests = synthetic_requests(
+            args.num_requests, args.prompt_len_min, args.prompt_len_max,
+            args.max_new_tokens, args.vocab_size, seed=args.seed,
+            rate=args.rate, arrival=args.arrival, class_mix=mix,
+            tenants=args.tenants, shared_prefix_len=args.shared_prefix_len,
+            interleave=args.interleave)
     longest = max(len(r.prompt) for r in requests)
     buf_len = args.buf_len or (longest + args.max_new_tokens + 2)
     cap = getattr(model, "max_decode_positions", None)
@@ -319,11 +356,12 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
         buf_len = cap
     sampling = dict(temperature=args.temperature, top_k=args.decode_top_k,
                     top_p=args.decode_top_p,
-                    debug_host_sampler=args.debug_host_sampler)
+                    debug_host_sampler=args.debug_host_sampler,
+                    decode_weight_dtype=args.decode_weight_dtype)
     if args.paged:
         engine = PagedEngine(
             model, mesh, num_slots=args.slots, buf_len=buf_len,
-            eos_id=eos_id, page_size=args.page_size,
+            eos_id=args.eos_id, page_size=args.page_size,
             num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
             slo_classes=parse_slo_classes(args.slo_classes),
             default_class=args.default_class, max_queue=args.queue_limit,
@@ -333,7 +371,7 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
     else:
         engine = ContinuousBatchingEngine(
             model, mesh, num_slots=args.slots, buf_len=buf_len,
-            eos_id=eos_id, prefill_bucket=args.prefill_bucket,
+            eos_id=args.eos_id, prefill_bucket=args.prefill_bucket,
             max_prefill_batch=args.max_prefill_batch,
             max_queue=args.queue_limit, decode_graph=args.decode_graph,
             **sampling)
@@ -369,7 +407,9 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
                    if mesh.device.type == "cuda" else "cpu")
     return {**out, "device": device_name, **graph_stats(engine),
             "prefill_dispatches": engine.prefill_dispatches,
-            "engine_stats": engine.stats(),
+            "engine_stats": {**engine.stats(),
+                             "decode_weight_dtype": engine.decode_weight_dtype,
+                             "weight_bytes": engine.weight_bytes},
             "outputs": {r.rid: list(r.tokens) for r in engine.completed},
             "ranks": [ranked]}
 
@@ -425,6 +465,8 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
             rec[k] = summary[k]
     if args.debug_host_sampler:
         rec["debug_host_sampler"] = True
+    if args.decode_weight_dtype != "native":
+        rec["decode_weight_dtype"] = args.decode_weight_dtype
     print(json.dumps(rec))
 
 

@@ -19,8 +19,23 @@ JAX trainer's scalars (`train/ce_loss`, `train/lr`, `train/tokens_per_sec`,
 `train/grad_norm`) written to `save_dir/logs` (`training/metrics
 .MetricsWriter`: `metrics.jsonl`, and TensorBoard when `tensorboardX`
 imports) by the ranks at dp = cp = 0, a checkpoint every
-`--save_interval` steps and at the end, in the JAX npz format, and
-`--resume` from the newest checkpoint in `--save_dir` (either package's).
+`--save_interval` steps and at the end, in the JAX npz format with the
+JAX trainer's `__layout__` stamp, and `--resume` from the newest
+checkpoint in `--save_dir` (either package's).
+
+The loop is the JAX trainer's preemption-safe one. A daemon thread
+(`data/prefetch.Prefetcher`) collates and stacks the next window on the
+host while the card runs the current one; the host-to-device copy stays
+on the loop's thread. Checkpoints are written in the background
+(`save_checkpoint(..., async_write=True)`: a device snapshot, then a
+writer thread), at most one in flight. SIGTERM or SIGINT sets a flag that
+the loop reads once per window (at more than one rank: once per
+`--log_interval` steps, as the MAX of every rank's flag, so a signal that
+reaches one rank stops them all): the loop stops, checkpoints the step it
+reached, prints `shutdown requested: checkpointed at step N; restart with
+--resume to continue` and returns, and the process exits 0. A second
+signal kills the process at once. At more than one rank the launching
+process forwards the signals to every rank (`runtime/launch.spawn`).
 
 Parallelism: `--dp_size M --cp_size C --tp_size N` run M·C·N ranks, one
 process each (`runtime/launch.spawn`), rank r on card r % device_count, at
@@ -62,8 +77,10 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import signal
+import threading
 import time
-from typing import Dict, Iterator, List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -72,6 +89,7 @@ import torch.distributed as dist
 from .config import (IGNORE_INDEX, MODEL_PRESETS, MeshConfig, ModelConfig,
                      OptimizerConfig, model_preset)
 from .data.dataset import dp_rows, get_dataloader
+from .data.prefetch import Prefetcher, stack_window, window_stream
 from .models import build_model, num_params
 from .models.transformer import Transformer, validate_cp, validate_tp
 from .ops import collectives
@@ -266,23 +284,30 @@ def refuse_off_slice(args: argparse.Namespace) -> None:
                 f"CUDA graph, and NCCL is unrun, see ROADMAP Queue 1 item 2")
 
 
-def _windows(batches: Iterator[Dict[str, np.ndarray]], size: int,
-             skip: int) -> Iterator[Dict[str, np.ndarray]]:
-    """Batches grouped `size` at a time and stacked on a leading axis
-    (size 1: the batches themselves), after skipping `skip` batches."""
-    buf: List[Dict[str, np.ndarray]] = []
-    for i, batch in enumerate(batches):
-        if i < skip:
-            continue
-        if size == 1:
-            yield batch
-            continue
-        buf.append(batch)
-        if len(buf) == size:
-            yield {k: np.stack([b[k] for b in buf]) for k in buf[0]}
-            buf = []
-    if buf:
-        yield {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+class _ShutdownFlag:
+    """Preemption-safe shutdown (the JAX trainer's): SIGTERM and SIGINT set
+    a flag that the loop polls, so it checkpoints and exits cleanly. The
+    handlers go in on the main thread only (signal.signal raises elsewhere)
+    and the previous ones come back at the first signal, so a second one
+    force-quits, and when the loop ends, so an embedding caller keeps its
+    own."""
+
+    def __init__(self):
+        self.requested = False
+        self._installed = []
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                self._installed.append((sig, signal.signal(sig,
+                                                           self._handle)))
+
+    def _handle(self, signum, frame) -> None:
+        self.requested = True
+        self.restore()
+
+    def restore(self) -> None:
+        while self._installed:
+            sig, prev = self._installed.pop()
+            signal.signal(sig, prev)
 
 
 class _StepClock:
@@ -391,7 +416,12 @@ def train(args: argparse.Namespace) -> dict:
     peak_mem_gib (None on the CPU), device, checkpoints (paths written,
     every tp rank's), family, params (the global count), the mesh (dp, cp, tp,
     sequence_parallel, cp_impl, cp_layout), dist_backend, cards, remat (the
-    policy run, `auto` resolved), steps_per_dispatch, and `ranks`: per rank
+    policy run, `auto` resolved), steps_per_dispatch, shutdown (whether a
+    signal stopped the run), save_stall_ms (the loop's host time per save:
+    the loss sync, the join of the write before and the snapshot),
+    prefetch_wait_ms (the ms the loop waited for each window from the
+    prefetch thread),
+    and `ranks`: per rank
     its coordinates, kernel launches, peak memory and time in the
     collectives per axis.
 
@@ -548,93 +578,175 @@ def _train(args: argparse.Namespace, rank: int = 0,
     writer = (MetricsWriter(os.path.join(args.save_dir, "logs"),
                             process_index=mesh.rank) if is_writer else None)
 
-    def save(step: int) -> None:
-        # parameters are replicated over dp and cp: the ranks at dp = cp = 0
-        # write one file per tp rank, and no rank goes on (or reads them
-        # back) before every file is published
-        nonlocal last_saved
-        avg = float(accum_loss) / max(step - start_step, 1)
-        if world > 1:
+    shutdown = _ShutdownFlag()
+    # the flag's all-reduce runs on the default group: NCCL reduces device
+    # tensors, gloo host ones
+    flag_device = device if mesh.backend == "nccl" else torch.device("cpu")
+    last_poll = None
+    pending = None        # the checkpoint write in flight (at most one)
+    save_stall_ms: List[float] = []   # the loop's host time per save
+    prefetch_wait_ms: List[float] = []   # the loop's wait per window
+
+    def shutdown_agreed(step: int = None) -> bool:
+        """The shutdown decision every rank takes: the MAX of the ranks'
+        flags, so a signal that reaches one rank stops all of them. Inside
+        the loop (`step` given) the all-reduce, a host sync, runs once per
+        --log_interval steps; every rank counts the same steps, so all of
+        them reach it together."""
+        nonlocal last_poll
+        if world == 1:
+            return shutdown.requested
+        if step is not None:
+            if last_poll is not None and step - last_poll < args.log_interval:
+                return False
+            last_poll = step
+        flag = torch.tensor([int(shutdown.requested)], dtype=torch.int32,
+                            device=flag_device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
+    def join_save(barrier: bool = True) -> None:
+        """Wait for the write in flight; with `barrier`, at more than one
+        rank, every rank's file of it is published before any rank goes
+        on."""
+        nonlocal pending
+        if pending is not None:
+            paths = pending.join()
+            saved.extend(paths)
+            say(f"saved checkpoint iter {pending.step}: {paths[0]}")
+            pending = None
+        if barrier and world > 1:
             dist.barrier()
+
+    def schedule_save(step: int) -> None:
+        # parameters are replicated over dp and cp: the ranks at dp = cp = 0
+        # write one file per tp rank, from a snapshot taken now, on a thread
+        nonlocal pending, last_saved
+        t0 = time.perf_counter()
+        avg = float(accum_loss) / max(step - start_step, 1)
+        join_save()
         if is_writer:
-            saved.extend(save_checkpoint(
+            pending = save_checkpoint(
                 args.save_dir, step, avg, model.state_dict(), opt_state,
                 reserve_last_n=args.reserve_last_n_ckpts, tp_size=tp,
-                tp_rank=mesh.tp_rank))
-            say(f"saved checkpoint iter {step}: {saved[-1]}")
-        if world > 1:
-            dist.barrier()
+                tp_rank=mesh.tp_rank, mesh_axes=(("dp", mesh.dp),
+                                                 ("cp", cp), ("tp", tp)),
+                async_write=True)
         last_saved = step
+        save_stall_ms.append((time.perf_counter() - t0) * 1e3)
 
-    done = n >= args.max_steps
-    for epoch in range(start_epoch, max_epoch):
-        if done:
-            break
-        # a window is one dispatch: `accum` microbatches of one step, or
-        # `spd` steps (the epoch's last window may hold fewer: it dispatches
-        # smaller, as the JAX loop's)
-        for window in _windows(dataloader.epoch(epoch), accum * spd,
-                               skip_batches if epoch == start_epoch else 0):
-            if accum > 1 and window["input_ids"].shape[0] < accum:
-                continue  # partial accumulation group at the epoch end
-            if spd > 1 and window["input_ids"].shape[0] > args.max_steps - n:
-                # the last dispatch shrinks to end exactly on max_steps
-                window = {k: v[:args.max_steps - n] for k, v in window.items()}
-            steps_in = window["input_ids"].shape[0] if spd > 1 else 1
-            prev_n = n
-            chunks = model.cp_shard(*(
-                dp_rows(window[k], mesh.dp, mesh.dp_rank)
-                for k in ("input_ids", "target_ids", "position_ids")))
-            ids, tgt, pos = (torch.from_numpy(np.ascontiguousarray(x))
-                             .to(device).long() for x in chunks)
-            loss, gnorm, opt_state = step_fn(opt_state, ids, tgt, pos)
-            clock.tick(steps_in)
-            n += steps_in
-            losses.append(loss.reshape(-1))
-            accum_loss += loss.sum() if spd > 1 else loss
-            tokens_since += window["input_ids"].size
-            useful_since += int((window["target_ids"] != IGNORE_INDEX).sum())
-            if n // args.log_interval > prev_n // args.log_interval:
-                lr, _ = schedule_lr(ocfg, n - 1)
-                cum = float(accum_loss)  # the interval's one host sync
-                dt = time.time() - t_start
-                tps = tokens_since / max(dt, 1e-9)
-                avg = cum / (n - start_step)
-                useful = useful_since / max(tokens_since, 1)
-                mfu = (None if peak_flops is None else
-                       flops_step * (n - last_log_n) / dt / peak_flops)
-                mem = (torch.cuda.max_memory_allocated(device) / 2**30
-                       if device.type == "cuda" else None)
-                say(f"step {n}/{args.max_steps} -> avg loss {avg:.4f}, "
-                    f"interval loss "
-                    f"{(cum - last_cum) / (n - last_log_n):.4f}, lr "
-                    f"{float(lr):.8f}, {tps / 1e3:.1f}k tok/s "
-                    f"({100 * useful:.0f}% useful), MFU "
-                    + ("n/a" if mfu is None else f"{100 * mfu:.1f}%")
-                    + f", grad norm {float(gnorm):.4f}, mem "
-                    + ("n/a (cpu)" if mem is None else f"{mem:.2f} GiB"))
-                if writer is not None:
-                    writer.scalar("train/ce_loss", avg, n)
-                    writer.scalar("train/lr", float(lr), n)
-                    writer.scalar("train/tokens_per_sec", tps, n)
-                    writer.scalar("train/useful_token_frac", useful, n)
-                    if mfu is not None:   # no peak known: no fake number
-                        writer.scalar("train/mfu", mfu, n)
-                    if mem is not None:
-                        writer.scalar("device_memory_gib", mem, n)
-                    writer.scalar("train/grad_norm", float(gnorm), n)
-                last_cum, last_log_n = cum, n
-                t_start, tokens_since, useful_since = time.time(), 0, 0
-            if n // args.save_interval > prev_n // args.save_interval:
-                save(n)
-            if n >= args.max_steps:
-                done = True
+    def shutdown_save(step: int) -> None:
+        if step > last_saved:
+            schedule_save(step)
+        say(f"shutdown requested: checkpointed at step {step}; restart with "
+            f"--resume to continue")
+
+    # one window per dispatch: `accum` microbatches of one step, or `spd`
+    # steps (the epoch's last window may hold fewer: it dispatches smaller,
+    # as the JAX loop's), collated and stacked on the prefetch thread
+    multi = accum > 1 or spd > 1
+    prefetcher = None
+    stopped = False
+    try:
+        done = n >= args.max_steps
+        for epoch in range(start_epoch, max_epoch):
+            if done:
                 break
-        say(f"epoch {epoch + 1}/{max_epoch} finished")
-    if n > last_saved:
-        save(n)
-    if writer is not None:
-        writer.close()
+            prefetcher = Prefetcher(
+                window_stream(dataloader.epoch(epoch), accum * spd,
+                              skip_batches if epoch == start_epoch else 0),
+                depth=2,
+                transform=stack_window if multi else (lambda bufs: bufs[0]))
+            waited = 0.0
+            for window in prefetcher:
+                prefetch_wait_ms.append((prefetcher.wait_time - waited) * 1e3)
+                waited = prefetcher.wait_time
+                # polled once per window: the windows prefetched and not
+                # trained on are read again on --resume
+                if shutdown_agreed(n):
+                    prefetcher.close()
+                    shutdown_save(n)
+                    stopped = done = True
+                    break
+                if accum > 1 and window["input_ids"].shape[0] < accum:
+                    continue  # partial accumulation group at the epoch end
+                if (spd > 1 and window["input_ids"].shape[0]
+                        > args.max_steps - n):
+                    # the last dispatch shrinks to end exactly on max_steps
+                    window = {k: v[:args.max_steps - n]
+                              for k, v in window.items()}
+                steps_in = window["input_ids"].shape[0] if spd > 1 else 1
+                prev_n = n
+                chunks = model.cp_shard(*(
+                    dp_rows(window[k], mesh.dp, mesh.dp_rank)
+                    for k in ("input_ids", "target_ids", "position_ids")))
+                ids, tgt, pos = (torch.from_numpy(np.ascontiguousarray(x))
+                                 .to(device).long() for x in chunks)
+                loss, gnorm, opt_state = step_fn(opt_state, ids, tgt, pos)
+                clock.tick(steps_in)
+                n += steps_in
+                losses.append(loss.reshape(-1))
+                accum_loss += loss.sum() if spd > 1 else loss
+                tokens_since += window["input_ids"].size
+                useful_since += int((window["target_ids"]
+                                     != IGNORE_INDEX).sum())
+                if n // args.log_interval > prev_n // args.log_interval:
+                    lr, _ = schedule_lr(ocfg, n - 1)
+                    cum = float(accum_loss)  # the interval's one host sync
+                    dt = time.time() - t_start
+                    tps = tokens_since / max(dt, 1e-9)
+                    avg = cum / (n - start_step)
+                    useful = useful_since / max(tokens_since, 1)
+                    mfu = (None if peak_flops is None else
+                           flops_step * (n - last_log_n) / dt / peak_flops)
+                    mem = (torch.cuda.max_memory_allocated(device) / 2**30
+                           if device.type == "cuda" else None)
+                    say(f"step {n}/{args.max_steps} -> avg loss {avg:.4f}, "
+                        f"interval loss "
+                        f"{(cum - last_cum) / (n - last_log_n):.4f}, lr "
+                        f"{float(lr):.8f}, {tps / 1e3:.1f}k tok/s "
+                        f"({100 * useful:.0f}% useful), MFU "
+                        + ("n/a" if mfu is None else f"{100 * mfu:.1f}%")
+                        + f", grad norm {float(gnorm):.4f}, mem "
+                        + ("n/a (cpu)" if mem is None else f"{mem:.2f} GiB"))
+                    if writer is not None:
+                        writer.scalar("train/ce_loss", avg, n)
+                        writer.scalar("train/lr", float(lr), n)
+                        writer.scalar("train/tokens_per_sec", tps, n)
+                        writer.scalar("train/useful_token_frac", useful, n)
+                        if mfu is not None:  # no peak known: no fake number
+                            writer.scalar("train/mfu", mfu, n)
+                        if mem is not None:
+                            writer.scalar("device_memory_gib", mem, n)
+                        writer.scalar("train/grad_norm", float(gnorm), n)
+                    last_cum, last_log_n = cum, n
+                    t_start, tokens_since, useful_since = time.time(), 0, 0
+                if n // args.save_interval > prev_n // args.save_interval:
+                    schedule_save(n)
+                if n >= args.max_steps:
+                    done = True
+                    break
+            prefetcher.close()
+            say(f"epoch {epoch + 1}/{max_epoch} finished")
+        if n > last_saved:
+            # a signal during the last dispatch ends the loop on max_steps
+            # without passing the poll: it still reports the shutdown
+            if shutdown_agreed():
+                shutdown_save(n)
+                stopped = True
+            else:
+                schedule_save(n)
+        join_save()
+    finally:
+        # on any exit: stop the prefetch thread, put the signal handlers
+        # back, and let the write in flight finish (no truncated file); no
+        # barrier, which a failed rank would never reach
+        if prefetcher is not None:
+            prefetcher.close()
+        shutdown.restore()
+        join_save(barrier=False)
+        if writer is not None:
+            writer.close()
 
     step_ms = clock.step_ms()
     # the first steps build the kernels and warm the allocator (and, with
@@ -672,6 +784,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
         "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
         "dist_backend": mesh.backend, "cards": cards,
         "remat": remat, "steps_per_dispatch": spd,
+        "shutdown": stopped, "save_stall_ms": save_stall_ms,
+        "prefetch_wait_ms": prefetch_wait_ms,
         "ranks": [{"rank": mesh.rank, **mesh.coords, "device": str(device),
                    "peak_mem_gib": peak_mem, "step_ms_p50": step_ms_p50,
                    "wall_s": sum(step_ms) / 1e3,

@@ -4,7 +4,9 @@ The files are `tprank-{r}_iter-{n}_loss-{avg:.4f}.npz`, one per tp rank,
 each holding flattened `param/<path>` (and `mu/`, `nu/` Adam moment)
 leaves in the JAX tree layout — rank r's slice of every leaf on the dim its
 JAX spec marks as 'tp', the moments sliced like their params — plus
-`__step__`, `__tp_size__`, `__has_opt__` and `__zero_stage__` metadata:
+`__step__`, `__tp_size__`, `__has_opt__`, `__zero_stage__` and the
+`__layout__` stamp (`reshard/layout.py`: the mesh axes and every leaf's
+spec, the string the JAX trainer writes for the same mesh and family):
 the format of the JAX `training/checkpoint.py`, so either package resumes
 or serves the other's files. `save_checkpoint` writes one rank's file from
 that rank's shard; `load_checkpoint` reads every rank file, assembles the
@@ -15,9 +17,12 @@ serving CLI both load this way. Parameters are replicated over dp and cp,
 so the ranks at dp = cp = 0 write, one file per tp rank, and every rank
 reads.
 
-Not ported: the asynchronous writer (writes here are synchronous) and the
-`__layout__` stamp (the JAX reader treats an unstamped file as a legacy
-tp-only layout) — ROADMAP Queue 1 item 4.
+`save_checkpoint(..., async_write=True)` returns an `AsyncSaveHandle`: the
+state is snapshotted on the device at the call (one clone of the params
+and both moments, enqueued on the current stream before any later step can
+update them in place), and a writer thread copies the snapshot to the host
+on a side stream, writes the file, publishes it and prunes; `join()` waits
+for it and returns the paths.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from __future__ import annotations
 import glob
 import os
 import re
+import threading
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +39,8 @@ import torch
 
 from ..interop import params_from_jax, params_to_jax
 from ..parallel.layout import assemble_params, shard_params
+from ..reshard.layout import (Layout, canonical_specs, make_layout,
+                              read_stamp, stamp)
 from .optim import AdamState
 
 CKPT_RE = re.compile(r"tprank-(\d+)_iter-(\d+)_loss-(.+?)\.npz$")
@@ -97,7 +106,27 @@ def _read_rank_files(ckpt_dir: str, step: int
     for r in range(tp_size):
         with np.load(rank_files[r]) as shard:
             files.append({k: shard[k] for k in shard.files})
+    check_layout(read_stamp(files[0]), ckpt_dir, step)
     return tp_size, files
+
+
+# the mesh axes the port runs; a checkpoint stamped with any other (pp, ep)
+# needs the reshard planner
+PORTED_AXES = ("dp", "cp", "tp")
+
+
+def check_layout(layout: Optional[Layout], ckpt_dir: str, step: int) -> None:
+    """Refuse a stamped layout whose mesh has an axis the port does not run;
+    an unstamped file (None) passes, read as before the stamp."""
+    if layout is None:
+        return
+    other = [a for a, _ in layout.mesh_axes if a not in PORTED_AXES]
+    if other:
+        raise ValueError(
+            f"checkpoint iter {step} in {ckpt_dir} was written on a "
+            f"{layout.describe()} mesh; the port runs the axes "
+            f"{PORTED_AXES} only, and loading a {'/'.join(other)}-sharded "
+            f"layout needs the reshard planner, see ROADMAP Queue 1 item 7")
 
 
 def _assemble(files: List[Dict[str, np.ndarray]], prefix: str,
@@ -147,35 +176,128 @@ def _flatten(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     return flat
 
 
+class AsyncSaveHandle:
+    """Join handle of a checkpoint written in the background
+    (`save_checkpoint(..., async_write=True)`, the JAX handle): `step`, and
+    `join()`, which waits for the writer thread and returns the paths it
+    wrote, re-raising its exception."""
+
+    def __init__(self, step: int, write):
+        self.step = step
+        self._paths: List[str] = []
+        self._error: Optional[BaseException] = None
+
+        def run():
+            try:
+                self._paths = write()
+            except BaseException as e:  # surfaced at join()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="checkpoint-writer")
+        self._thread.start()
+
+    def join(self) -> List[str]:
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._paths
+
+
+def _snapshot(state_dict: Dict[str, torch.Tensor],
+              opt_state: Optional[AdamState]):
+    """Device clones of the params and moments, enqueued on the current
+    stream, so no later in-place update reaches them, and the event the
+    writer's copies wait on (None off the card)."""
+    clone = lambda t: {k: v.detach().clone() for k, v in t.items()}
+    snap_opt = (None if opt_state is None else
+                AdamState(step=opt_state.step, mu=clone(opt_state.mu),
+                          nu=clone(opt_state.nu)))
+    snap = clone(state_dict)
+    event = None
+    if next(iter(snap.values())).is_cuda:
+        event = torch.cuda.Event()
+        event.record()
+    return snap, snap_opt, event
+
+
+def _to_host(tree: Dict[str, torch.Tensor], event) -> Dict[str, torch.Tensor]:
+    """A snapshot's host copy. On the card the copies run on a side stream
+    behind `event`, so they overlap the train loop's kernels instead of
+    queueing behind them."""
+    if event is None:
+        return tree
+    side = torch.cuda.Stream(device=next(iter(tree.values())).device)
+    with torch.cuda.stream(side):
+        side.wait_event(event)
+        host = {k: v.to("cpu") for k, v in tree.items()}
+    side.synchronize()
+    return host
+
+
+def _savez(path: str, members: Dict[str, np.ndarray]) -> None:
+    """`np.savez(path, **members)`'s file (a stored zip of `<key>.npy`
+    entries), each array's bytes handed to the zip from a view of the
+    array, where numpy copies them into Python bytes objects 16 MiB at a
+    time: that copy holds the GIL, and in the background writer it stalls
+    the train loop's thread."""
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in members.items():
+            arr = np.asarray(val)
+            if not arr.flags.c_contiguous:
+                arr = np.ascontiguousarray(arr)
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(
+                    f, np.lib.format.header_data_from_array_1_0(arr))
+                f.write(memoryview(arr.reshape(-1).view(np.uint8)))
+
+
 def save_checkpoint(save_dir: str, step: int, avg_loss: float,
                     state_dict: Dict[str, torch.Tensor],
                     opt_state: Optional[AdamState] = None,
                     reserve_last_n: int = -1, tp_size: int = 1,
-                    tp_rank: int = 0) -> List[str]:
+                    tp_rank: int = 0, mesh_axes=None,
+                    async_write: bool = False):
     """Write tp rank tp_rank's npz of iteration `step` from this rank's
-    shard of the params and moments (synchronously); returns the paths
-    written. Every leaf of the shard is that rank's slice of the JAX leaf
-    (`interop.params_to_jax`), the JAX `_shard_slice`. The file is
+    shard of the params and moments; returns the paths written, or with
+    `async_write` an `AsyncSaveHandle` whose `join()` returns them. Every
+    leaf of the shard is that rank's slice of the JAX leaf
+    (`interop.params_to_jax`), the JAX `_shard_slice`. `mesh_axes` ((axis,
+    size) pairs; default the tp-only mesh the file names imply) goes into
+    the `__layout__` stamp, the same string on every rank. The file is
     published with an atomic rename, so a kill mid-write never leaves a
     truncated file under a checkpoint name."""
     os.makedirs(save_dir, exist_ok=True)
-    shard = _flatten(params_to_jax(state_dict), "param")
-    if opt_state is not None:
-        shard.update(_flatten(params_to_jax(opt_state.mu), "mu"))
-        shard.update(_flatten(params_to_jax(opt_state.nu), "nu"))
-    shard["__step__"] = np.asarray(step, np.int64)
-    shard["__tp_size__"] = np.asarray(tp_size, np.int64)
-    shard["__has_opt__"] = np.asarray(opt_state is not None)
-    shard["__zero_stage__"] = np.asarray(0, np.int64)
-    path = os.path.join(
-        save_dir, f"tprank-{tp_rank}_iter-{step}_loss-{avg_loss:.4f}.npz")
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **shard)
-    os.replace(tmp, path)
-    if reserve_last_n > 0:
-        prune_checkpoints(save_dir, reserve_last_n, tp_rank)
-    return [path]
+    layout = make_layout(
+        mesh_axes if mesh_axes is not None else (("tp", tp_size),),
+        canonical_specs({k: v.shape for k, v in state_dict.items()}))
+
+    def write(params, opt, event=None) -> List[str]:
+        shard = _flatten(params_to_jax(_to_host(params, event)), "param")
+        if opt is not None:
+            shard.update(_flatten(params_to_jax(_to_host(opt.mu, event)),
+                                  "mu"))
+            shard.update(_flatten(params_to_jax(_to_host(opt.nu, event)),
+                                  "nu"))
+        shard["__step__"] = np.asarray(step, np.int64)
+        shard["__tp_size__"] = np.asarray(tp_size, np.int64)
+        shard["__has_opt__"] = np.asarray(opt is not None)
+        shard["__zero_stage__"] = np.asarray(0, np.int64)
+        stamp(shard, layout)
+        path = os.path.join(
+            save_dir, f"tprank-{tp_rank}_iter-{step}_loss-{avg_loss:.4f}.npz")
+        tmp = path + ".tmp"
+        _savez(tmp, shard)
+        os.replace(tmp, path)
+        if reserve_last_n > 0:
+            prune_checkpoints(save_dir, reserve_last_n, tp_rank)
+        return [path]
+
+    if not async_write:
+        return write(state_dict, opt_state)
+    snap, snap_opt, event = _snapshot(state_dict, opt_state)
+    return AsyncSaveHandle(step, lambda: write(snap, snap_opt, event))
 
 
 def prune_checkpoints(save_dir: str, reserve_last_n: int,

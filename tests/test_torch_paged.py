@@ -786,8 +786,7 @@ def test_serve_paged_dry_run_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--paged", "--cp", "2"], ["--paged", "--speculate", "2"],
-    ["--paged_attn", "gather"], ["--paged", "--decode_weight_dtype", "int8"],
-    ["--kv_dtype", "int8"]])
+    ["--paged_attn", "gather"], ["--kv_dtype", "int8"]])
 def test_serve_paged_refusals(flags):
     with pytest.raises(SystemExit) as e:
         serve.main(["--dry_run", "--device", "cpu", *flags])
@@ -800,3 +799,28 @@ def test_serve_paged_needs_a_card_unless_asked(monkeypatch):
         serve.main(["--paged", "--dry_run"])
     assert e.value.code not in (0, None)
     assert "--device cpu" in str(e.value.code)
+
+
+def _int8_dry_run(capsys, extra):
+    """`serve --dry_run --decode_weight_dtype int8` against the native dry
+    run: every request served, about a quarter of the resident weight
+    bytes, the dtype in the JSON record."""
+    capsys.readouterr()
+    out = serve.main(["--dry_run", "--device", "cpu", "--decode_weight_dtype",
+                      "int8", *extra])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    native = serve.main(["--dry_run", "--device", "cpu", *extra])
+    assert out["completed"] == out["requests"] == 6
+    assert rec["decode_weight_dtype"] == "int8"
+    st, ref = out["engine_stats"], native["engine_stats"]
+    assert (st["decode_weight_dtype"], ref["decode_weight_dtype"]) == (
+        "int8", "native")
+    assert 0.25 < st["weight_bytes"] / ref["weight_bytes"] < 0.3
+    return out
+
+
+def test_serve_paged_int8_decode_weights_cpu(capsys):
+    """--paged --decode_weight_dtype int8, once refused, serves the paged
+    engine."""
+    out = _int8_dry_run(capsys, ["--paged"])
+    assert out["engine_stats"]["pages_in_use"] == 0

@@ -143,8 +143,7 @@ def test_serve_refuses_cpu_unless_asked(monkeypatch):
         serve.main(["--dry_run"])
     assert e.value.code not in (0, None)
     assert "--device cpu" in str(e.value.code)
-    for flag in (["--speculate", "2"], ["--decode_weight_dtype", "int8"],
-                 ["--cp", "2"]):
+    for flag in (["--speculate", "2"], ["--cp", "2"]):
         with pytest.raises(SystemExit) as e:
             serve.main(["--dry_run", "--device", "cpu", *flag])
         assert e.value.code == 2
@@ -166,3 +165,26 @@ def test_serve_jax_checkpoint(jax_run, tmp_path):
     out = serve.main(["--device", "cpu", "--ckpt_dir", str(tmp_path / "tp2"),
                       *flags])
     assert out["outputs"] == ref
+
+
+def _int8_dry_run(capsys, extra):
+    """`serve --dry_run --decode_weight_dtype int8` against the native dry
+    run: every request served, about a quarter of the resident weight
+    bytes, the dtype in the JSON record."""
+    capsys.readouterr()
+    out = serve.main(["--dry_run", "--device", "cpu", "--decode_weight_dtype",
+                      "int8", *extra])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    native = serve.main(["--dry_run", "--device", "cpu", *extra])
+    assert out["completed"] == out["requests"] == 6
+    assert rec["decode_weight_dtype"] == "int8"
+    st, ref = out["engine_stats"], native["engine_stats"]
+    assert (st["decode_weight_dtype"], ref["decode_weight_dtype"]) == (
+        "int8", "native")
+    assert 0.25 < st["weight_bytes"] / ref["weight_bytes"] < 0.3
+    return out
+
+
+def test_serve_int8_decode_weights_cpu(capsys):
+    """--decode_weight_dtype int8, once refused, serves the slot engine."""
+    _int8_dry_run(capsys, [])
