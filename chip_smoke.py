@@ -120,8 +120,8 @@ result line):
     launches and device time, beside the plain versions, a library
     yardstick (memory-efficient SDPA with a position bias) and the bound;
 20. cp_train: `train.main` at cp=2 (two ranks sharing the card over gloo),
-    the 45m preset, bf16, b 8 x t 1000 with remat: zig-zag 6 steps, a
-    checkpoint and a 2-step `--resume`; contiguous 3 steps; Ulysses 2
+    the 45m preset, bf16, b 8 x t 1000 with remat: zig-zag 4 steps, a
+    checkpoint and a 2-step `--resume`; contiguous 2 steps; Ulysses 2
     steps — finite losses, falling under zig-zag, the step-1 loss of each
     and of a cp=1 run on the same batch within 1e-2, and each rank's kernel
     launches equal to the ring schedule's (read from the counters);
@@ -138,10 +138,10 @@ result line):
     kernels, the block kernels' share (no SIMT block kernel may run), and
     the time in the ring's hops;
 24. tp_train: `train.main` at tp=2 (two ranks sharing the card over gloo),
-    the 45m preset, bf16, b 8 x t 1000 with remat: 6 steps, one
+    the 45m preset, bf16, b 8 x t 1000 with remat: 4 steps, one
     checkpoint file per tp rank and a 2-step `--resume`, then that
     checkpoint resumed at tp=1 for a step; tp=2 with
-    `--sequence_parallel` 3 steps; tp 2 x dp 2 (four ranks) 2 steps —
+    `--sequence_parallel` 2 steps; tp 2 x dp 2 (four ranks) 2 steps —
     finite losses, falling at tp=2, the step-1 loss of each and of a tp=1
     run on the same batch within 1e-2, each rank's flash launches 2 x 12
     (forward) and 12 (dq, dk/dv) per step and no other attention kernel;
@@ -159,8 +159,8 @@ result line):
     SIMT flash kernel may run), and the tp hops' host time and bytes;
 28. tp_serve: `serve.main --tp_size 2 --dist_backend gloo` (two ranks on
     the card; rank 0 decides each dispatch and broadcasts it) at the 45m
-    preset, bf16: the slot engine on 8 requests (prompts 64-512, 32 new
-    tokens, 8 slots), then the paged engine on 8 requests behind a
+    preset, bf16: the slot engine on 4 requests (prompts 64-512, 16 new
+    tokens, 8 slots), then the paged engine on 4 requests behind a
     96-token shared prefix (page 64, chunk 128, COW, no preemption), bf16
     and int8 pages — every request served in-vocab, both ranks' dispatches
     equal by kind and shape, on each rank K1 forward 12 times per prefill
@@ -180,7 +180,8 @@ result line):
 31. graph_check: both engines at the phase-5 and phase-15 traffic (its
     deadlines x 1000, so the schedule does not follow the clock) with
     the decode step graphed (`--decode_graph auto`) and eager (`off`), at
-    bf16 and f32: identical tokens, the graph run on every decode step;
+    bf16 and (the first 8 requests) f32: identical tokens, the graph run
+    on every decode step;
     a replayed decode step's logits and tokens bitwise the eager step's
     on the live rows (bf16 and f32, both engines); per engine (bf16, 8 and
     16 live) the decode step's wall, device busy and idle share both ways;
@@ -195,7 +196,7 @@ result line):
     from device scalars bitwise the host-float one on the card; a profiled
     dispatch of 4 steps against 4 eager steps (wall, busy, idle share);
 34. eval: the source repo's workflow after training — 20 steps of the
-    train cell on a seeded bigram corpus with 64 validation documents of
+    train cell on a seeded bigram corpus with 32 validation documents of
     200-999 tokens (checkpoints at 10 and 20), then `python -m
     ...evaluate --batch_size 8` with the shipped tokenizer as a CLI in its
     own process: bf16 with the slot engine's KV decoder (its decode step
@@ -233,7 +234,7 @@ result line):
 39. gpt2_serve: `serve --family gpt2 --random_init --vocab_size 50257`
     at that width, bf16, the decode step graphed: the slot engine on
     phase 5's traffic, the paged engine on phase 15's (bf16, then int8
-    pages), each greedy and sampled (temperature 0.8, top-k 50, top-p
+    pages), 32 new tokens per request, each greedy and sampled (temperature 0.8, top-k 50, top-p
     0.95): in-vocab tokens, exact launches (K1 12 per prefill dispatch;
     K3 12 per decode step and per chunk), a drained pool; sampled slot
     tokens identical with the decode step eager and with
@@ -269,7 +270,22 @@ result line):
 44. serve_replay: a seeded poisson trace of 16 slot-cell requests written
     to the workdir, served with `--tokenizer_path tokenizer/tokenizer.json
     --arrival replay --replay <trace>`: submitted in arrival order, every
-    request served in-vocab, K1 12 per prefill dispatch.
+    request served in-vocab, K1 12 per prefill dispatch;
+45. spec_check: K3 at the speculative path's shapes against its plain
+    version under phase 13's limits — the verify's chunk launches over 16
+    slot rows (8 heads, hd 64, cw 2, 3, 5, 9; per-row start over several
+    pages, qlen 0..cw) and the tiny drafter's decode steps (hd 32), bf16
+    and f32, native and int8 pools, one launch each on its route, two
+    verify calls bit-equal; then the verify shape q (16, 8, 5, 64): kernel,
+    plain, SDPA over the gathered view, bound;
+46. spec_serve: `serve --paged --speculate 4` at 45m bf16 on phase 15's
+    mix with the tiny drafter, greedy and sampled (the sampled one beside
+    the plain paged engine): every request served in-vocab, both pools
+    drained, K3's launches exactly the rounds' and chunks' per route
+    (counted through the draft and verify graphs' replays); at f32 the
+    speculative greedy tokens of an 8-request burst the plain engine's;
+    drafter = target accepting >= 0.95 of its drafts at f32 (bf16
+    reported); one captured round bitwise the eager round.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -383,6 +399,10 @@ GPT2_PAGED_ARGS = (GPT2_MODEL + ["--vocab_size", str(GPT2_VOCAB)]
                                       PAGED_SERVE_ARGS.index("--vocab_size")]
                    + PAGED_SERVE_ARGS[PAGED_SERVE_ARGS.index("--vocab_size")
                                       + 2:])
+# with 32 new tokens each (64, as phases 5 and 15, until the speculative
+# phases needed the room)
+for _args in (GPT2_SERVE_ARGS, GPT2_PAGED_ARGS):
+    _args[_args.index("--max_new_tokens") + 1] = "32"
 SAMPLED_ARGS = ["--temperature", "0.8", "--decode_top_k", "50",
                 "--decode_top_p", "0.95"]
 SAMPLER_DRAWS = 20000    # sampler_check: seeds 0..19999 on one row
@@ -2382,11 +2402,11 @@ CP_ARGS = ["--model", "45m", "--bf16", "--batch_size", str(CP_B), "--maxlen",
            str(CP_T), "--warmup_steps", "2", "--lr", "1e-3", "--log_interval",
            "5", "--save_interval", "1000", "--device", "cuda"]
 CP2 = ["--cp_size", "2", "--dist_backend", "gloo"]
-# zigzag and tp2 run 6 steps (10 once) to keep the whole script near
-# 1050 s; in 6 the loss still falls by more than 4 nats on the corpus
+# zigzag and tp2 run 4 steps (10 once, then 6) to keep the whole script
+# near its budget; in 4 the loss still falls by about 3 nats on the corpus
 CP_RUNS = {  # name: (flags, steps)
-    "zigzag": (["--cp_layout", "zigzag"], 6),
-    "contiguous": (["--cp_layout", "contiguous"], 3),
+    "zigzag": (["--cp_layout", "zigzag"], 4),
+    "contiguous": (["--cp_layout", "contiguous"], 2),
     "ulysses": (["--cp_impl", "ulysses"], 2),
 }
 
@@ -2654,8 +2674,8 @@ def phase_cp_profile(torch) -> dict:
 # ranks sharing the one card over gloo, the cp cell's flags and corpus
 TP2 = ["--tp_size", "2", "--dist_backend", "gloo"]
 TP_RUNS = {  # name: (flags, steps; tp2 as CP_RUNS' zigzag)
-    "tp2": ([], 6),
-    "tp2_sp": (["--sequence_parallel"], 3),
+    "tp2": ([], 4),
+    "tp2_sp": (["--sequence_parallel"], 2),
     "tp2_dp2": (["--dp_size", "2"], 2),
 }
 
@@ -2682,8 +2702,8 @@ def _rank_hops(r: dict) -> str:
 
 
 def phase_tp_train(torch, workdir: str) -> dict:
-    """train.main at tp=2 (6 steps, a checkpoint and a 2-step --resume),
-    tp=2 with sequence parallelism (3 steps), tp 2 x dp 2 (2 steps), the tp
+    """train.main at tp=2 (4 steps, a checkpoint and a 2-step --resume),
+    tp=2 with sequence parallelism (2 steps), tp 2 x dp 2 (2 steps), the tp
     checkpoint resumed at tp=1 (1 step), and a tp=1 step on the same first
     batch; returns each tp run's launches summed over ranks and the tp=2
     run's summary."""
@@ -2952,15 +2972,17 @@ def phase_tp_profile(torch) -> dict:
 # ---- slice 11: serving at tp > 1 ----
 
 # the tp=2 serve runs: the 45m preset, bf16, two ranks sharing the one card
-# over gloo. The slot engine takes a burst of 8 prompts of 64-512 tokens;
-# the paged engine 8 behind a 96-token shared prefix (it ends mid-page, so
+# over gloo. The slot engine takes a burst of 4 prompts of 64-512 tokens;
+# the paged engine 4 behind a 96-token shared prefix (it ends mid-page, so
 # sharers copy that page: COW) on the default pool, slots x pages per
-# slot, so no request is preempted; then the same with int8 pages
+# slot, so no request is preempted; then the same with int8 pages. 16 new
+# tokens each (8 requests of 32 until the speculative phases needed the
+# room)
 TP_SERVE_BASE = ["--model", "45m", "--random_init", "--vocab_size", "1024",
                  "--tp_size", "2", "--dist_backend", "gloo",
-                 "--num_requests", "8", "--arrival", "burst",
+                 "--num_requests", "4", "--arrival", "burst",
                  "--prompt_len_min", "64", "--prompt_len_max", "512",
-                 "--max_new_tokens", "32", "--slots", "8"]
+                 "--max_new_tokens", "16", "--slots", "8"]
 TP_SERVE_RUNS = {  # name: flags
     "serve_tp2": ["--max_prefill_batch", "4"],
     "serve_paged_tp2": ["--paged", "--page_size", "64", "--prefill_chunk",
@@ -3518,6 +3540,9 @@ def _replay_vs_eager(torch, eng) -> tuple:
 # re-prefilled by the chunk kernel, whose bf16 roundings are not the decode
 # step's: the two runs would serve other schedules, not the same requests.
 GRAPH_CHECK_SLO = ["--slo_classes", "interactive=250,standard=1000,batch=8000"]
+# graph_check's f32 runs take the first 8 requests of each mix (the whole
+# mix until the speculative phases needed the room)
+GRAPH_CHECK_F32 = 8
 
 
 def phase_graph_check(torch) -> dict:
@@ -3538,6 +3563,9 @@ def phase_graph_check(torch) -> dict:
     for kind, args in (("slot", SERVE_ARGS),
                        ("paged", PAGED_SERVE_ARGS + GRAPH_CHECK_SLO)):
         for dtype, flag in (("bfloat16", "--bf16"), ("float32", "--no-bf16")):
+            if dtype == "float32":
+                args = _replace_flag(args, "--num_requests",
+                                     str(GRAPH_CHECK_F32))
             outs = {m: serve.main(args + [flag, "--decode_graph", m])
                     for m in ("off", "auto")}
             for m, out in outs.items():
@@ -3593,8 +3621,10 @@ def phase_graph_check(torch) -> dict:
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TOKENIZER = os.path.join(ROOT, "tokenizer", "tokenizer.json")
 EVAL_STEPS = 20        # eval: 20 steps of the train cell, a checkpoint every 10
-EVAL_VAL_DOCS = 64     # the validation split: 8 batches of 8 at t <= 1000
-EVAL_F32_LEN = 64      # the f32 decodes' --max_decode_len (token checks)
+EVAL_VAL_DOCS = 32     # the validation split: 4 batches of 8 at t <= 1000
+                       # (64 until the speculative phases needed the room)
+EVAL_F32_LEN = 32      # the f32 decodes' --max_decode_len (token checks;
+                       # 64 until the speculative phases needed the room)
 EVAL_LOSS_TOL = 1e-2   # bf16 sweep vs one document at a time (absolute)
 EVAL_TP_TOL = 1e-4     # f32 tp=2 sweep vs tp=1 (absolute)
 # evaluate.DECODE_PROMPTS (stripped, as evaluate encodes them) under the
@@ -4065,15 +4095,16 @@ def phase_gpt2_serve(torch) -> dict:
 
 def _gpt2_serve_cases(cfg, seed: int) -> list:
     """serve_runs' runs for the card-vs-CPU and tp checks: 4 requests of
-    64-200 tokens, 16 new tokens, through each engine, greedy and sampled
-    (request seeds 40..43)."""
+    64-200 tokens, 8 new tokens (16 until the speculative phases needed
+    the room), through each engine, greedy and sampled (request seeds
+    40..43)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     lens = [64, 200, 131, 97]
     prompts = [[int(x) for x in rng.integers(3, cfg.vocab_size, n)]
                for n in lens]
-    reqs = [(p, 16, "default", None, 40 + i) for i, p in enumerate(prompts)]
-    buf = max(lens) + 18
+    reqs = [(p, 8, "default", None, 40 + i) for i, p in enumerate(prompts)]
+    buf = max(lens) + 10
     slot = dict(num_slots=4, buf_len=buf, eos_id=1, prefill_bucket=64,
                 max_prefill_batch=2)
     paged = dict(num_slots=4, buf_len=buf, eos_id=1, page_size=64,
@@ -4178,7 +4209,7 @@ def phase_gpt2_card_vs_cpu(torch) -> None:
                 "tp2": toks == tp2[0][1][i]["tokens"],
                 "ranks": (tp2[0][1][i]["dispatches"]
                           == tp2[1][1][i]["dispatches"])}
-        log(f"gpt2 card vs cpu tokens ({what}, {len(toks)} requests x 16 "
+        log(f"gpt2 card vs cpu tokens ({what}, {len(toks)} requests x 8 "
             f"new): card tp=1 == cpu {same['cpu']}, == card tp=2 "
             f"{same['tp2']}; the tp=2 ranks' dispatches equal "
             f"{same['ranks']}")
@@ -4562,7 +4593,7 @@ def phase_serve_int8_weights(torch) -> dict:
                 f"{'sampled' if r['kw'].get('temperature') else 'greedy'}")
         same = got["cuda"][i]["tokens"] == got["cpu"][i]["tokens"]
         log(f"serve_int8_weights card vs cpu ({what}, 45m widths, 2 layers, "
-            f"f32, 4 requests x 16 new): identical tokens {same}")
+            f"f32, 4 requests x 8 new): identical tokens {same}")
         if not same:
             raise AssertionError(f"int8 weights, {what}: the card's tokens "
                                  f"are not the CPU's")
@@ -4631,6 +4662,415 @@ def phase_serve_replay(torch, workdir: str) -> dict:
     return counts
 
 
+# speculative decoding (slice 16): k = 4 drafts per round, so the verify
+# launches K3's chunk route at (16 slot rows, 8 heads, k + 1 = 5, 64) with
+# each row's own start and valid length (0 for a row not decoding); the
+# drafter is the `tiny` preset (head_dim 32) reshaped to the target's vocab
+SPEC_K = 4
+SPEC_WIDTHS = (2, 3, 5, 9)           # k + 1 for k = 1, 2, 4, 8
+SPEC_SERVE_ARGS = PAGED_SERVE_ARGS + ["--speculate", str(SPEC_K)]
+SPEC_F32_REQUESTS = 8                # spec_serve's f32 identity burst
+SPEC_MIN_SELF_ACCEPT = 0.95          # drafter = target, f32
+
+
+def _spec_cases(torch) -> list:
+    """(what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens): the verify's
+    launches at every width of SPEC_WIDTHS, each row's window anywhere in
+    its 11-page table (several pages in) and qlen cycling 0..cw over the 16
+    rows, native and int8 pools; then the drafter's decode steps at head_dim
+    32 (4 heads), 16 rows."""
+    import numpy as np
+    rng = np.random.default_rng(16)
+    cases = []
+    for cw in SPEC_WIDTHS:
+        for int8 in (False, True):
+            starts = [int(x) for x in rng.integers(0, 11 * 64 - cw + 1, 16)]
+            cases.append((f"verify cw {cw}, qlen 0..{cw} by row", 16, 8, 8,
+                          cw, 64, 64, 11, int8, starts,
+                          [r % (cw + 1) for r in range(16)]))
+    for int8 in (False, True):
+        starts = [int(x) for x in rng.integers(0, 11 * 64, 16)]
+        cases.append(("drafter decode, head_dim 32", 16, 4, 4, 1, 32, 64, 11,
+                      int8, starts, None))
+    return cases
+
+
+def _spec_verify_times(torch, int8: bool) -> dict:
+    """K3 at the verify's shape q (16, 8, 5, 64) bf16, every row live at
+    qlen 5 from a cursor in [64, 576): bare launches (events), device
+    time, the plain version, SDPA over the gathered view with the mask
+    (device time) and the bound; held against the plain version first."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
+        _gather_page_view)
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        _prepare, paged_attention, paged_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, cw, hd, ps, mp = 16, 8, SPEC_K + 1, 64, 64, 11
+    starts = [int(x) for x in np.random.default_rng(11).integers(64, 576, b)]
+    qlens = [cw] * b
+    q, kp, vp, tbl = _paged_inputs(torch, b, h, h, cw, hd, ps, mp,
+                                   torch.bfloat16, int8, 316)
+    start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    kw = dict(page_size=ps, qlen=torch.tensor(qlens, dtype=torch.int32,
+                                              device="cuda"))
+    o = paged_attention(q, kp, vp, tbl, start, **kw)
+    ro = paged_attention_plain(q, kp, vp, tbl, start, **kw)
+    err, ratio = _paged_err(torch, o, ro, qlens, "bfloat16")
+    if not ratio <= 1.0:
+        raise AssertionError(f"paged kernel disagrees with its plain version "
+                             f"at the verify shape (int8 {int8})")
+    pos = start[:, None] + torch.arange(cw, device="cuda")[None, :]
+    kview = _gather_page_view(kp, tbl, torch.bfloat16)
+    vview = _gather_page_view(vp, tbl, torch.bfloat16)
+    mask = (torch.arange(mp * ps, device="cuda")[None, None, :]
+            <= pos[:, :, None])[:, None]
+    _, _, launch = _prepare(q, kp, vp, tbl, start, **kw)
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel_ms = _time_ms(torch, lambda: launch(stream))
+    plain_ms = _time_ms(torch, lambda: paged_attention_plain(
+        q, kp, vp, tbl, start, **kw), iters=20)
+    (device_ms, library_ms), how = _device_ms(
+        torch, [lambda: launch(stream),
+                lambda: sdpa(q, kview, vview, attn_mask=mask)])
+    work = (b, h, h, cw, hd, ps, mp, starts, qlens, 2, int8)
+    bound_ms, bound_by = bound_paged(*work)
+    tflops = paged_work(*work)[1] / (device_ms * 1e-3) / 1e12
+    log(f"spec_check verify shape q({b}, {h}, {cw}, {hd}) bf16, "
+        f"{'int8' if int8 else 'bf16'} pool, every row qlen {cw}: kernel_ms "
+        f"{kernel_ms:.5f} (bare launches, CUDA events over 100), device_ms "
+        f"{device_ms:.5f} ({how}), {tflops:.2f} TFLOP/s of the visible "
+        f"pairs, plain_ms {plain_ms:.5f} (events over 20), library_ms "
+        f"{library_ms:.5f} (scaled_dot_product_attention over the "
+        f"pre-gathered view with the mask, {how}), bound_us "
+        f"{bound_ms * 1e3:.3f} ({bound_by}); max abs err vs plain {err:.3e}; "
+        f"cursors {starts}")
+    return {"ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err,
+            "shape": f"verify q ({b}, {h}, {cw}, {hd}), page_size {ps}, "
+                     f"bf16, {'int8' if int8 else 'bf16'} pool"}
+
+
+def phase_spec_check(torch) -> dict:
+    """K3 at the speculative path's shapes against its plain version: the
+    verify's multi-row chunk launches (16 rows, 8 heads, hd 64, cw 2, 3, 5
+    and 9, per-row start over several pages and qlen 0..cw) and the tiny
+    drafter's decode steps (hd 32), bf16 and f32, native and int8 pools,
+    under phase 13's limits (rows of qlen 0: finite, not compared); one
+    launch per call on the route and kernel `kernel_route` names; two bf16
+    verify calls bit-equal; then the verify shape's times. Returns the
+    largest bf16 error per route and the times."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        kernel_route, paged_attention, paged_attention_plain)
+    by_route = paged_attention.launches_by_route
+    by_kernel = paged_attention.launches_by_kernel
+    worst = {"decode": 0.0, "chunk": 0.0}
+    for i, (what, b, h, kvh, cw, hd, ps, mp, int8, starts,
+            qlens) in enumerate(_spec_cases(torch)):
+        for name in ("bfloat16", "float32"):
+            q, kp, vp, tbl = _paged_inputs(torch, b, h, kvh, cw, hd, ps, mp,
+                                           getattr(torch, name), int8, 400 + i)
+            start = torch.tensor(starts, dtype=torch.int32, device="cuda")
+            kw = dict(page_size=ps, return_lse=True,
+                      qlen=None if qlens is None else torch.tensor(
+                          qlens, dtype=torch.int32, device="cuda"))
+            route = "decode" if cw == 1 else "chunk"
+            entry = kernel_route(cw, q.dtype, hd)[1]
+            n, n_route, n_entry = (paged_attention.launches, by_route[route],
+                                   by_kernel[entry])
+            o, lse = paged_attention(q, kp, vp, tbl, start, **kw)
+            torch.cuda.synchronize()
+            launched = (paged_attention.launches - n, by_route[route] - n_route,
+                        by_kernel[entry] - n_entry)
+            ro, rlse = paged_attention_plain(q, kp, vp, tbl, start, **kw)
+            valid = [cw if qlens is None else qlens[r] for r in range(b)]
+            rows = [r for r in range(b) if valid[r]]
+            err, ratio = _paged_err(torch, o[rows], ro[rows],
+                                    [valid[r] for r in rows], name)
+            lse_err = max((lse[r, :, :valid[r]] - rlse[r, :, :valid[r]])
+                          .abs().max().item() for r in rows)
+            finite = bool(torch.isfinite(o.float()).all())
+            log(f"spec_check: {what}: q({b}, {h}, {cw}, {hd}) kvh {kvh} "
+                f"{name}, {'int8' if int8 else 'native'} pool: o max abs err "
+                f"{err:.3e}, worst err/limit {ratio:.3e} (limit "
+                f"{PAGED_LIMIT[name]}), lse {lse_err:.3e} (limit 1e-4) over "
+                f"{len(rows)} rows with columns; finite {finite}; launches "
+                f"{launched[0]}, {launched[1]} on the {route} route, "
+                f"{launched[2]} of {entry}")
+            if not (ratio <= 1.0 and lse_err <= 1e-4 and finite
+                    and launched == (1, 1, 1)):
+                raise AssertionError(f"paged kernel disagrees with its plain "
+                                     f"version at the speculative shape: "
+                                     f"{what} {name} int8 {int8}")
+            if name == "bfloat16":
+                worst[route] = max(worst[route], err)
+    # a captured verify replays the same launch: two calls, the same bits
+    what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens = _spec_cases(
+        torch)[2 * SPEC_WIDTHS.index(SPEC_K + 1)]
+    q, kp, vp, tbl = _paged_inputs(torch, b, h, kvh, cw, hd, ps, mp,
+                                   torch.bfloat16, int8, 450)
+    args = (q, kp, vp, tbl, torch.tensor(starts, dtype=torch.int32,
+                                         device="cuda"))
+    kw = dict(page_size=ps, return_lse=True, qlen=torch.tensor(
+        qlens, dtype=torch.int32, device="cuda"))
+    first, again = paged_attention(*args, **kw), paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(first, again))
+    log(f"spec_check: verify twice, q({b}, {h}, {cw}, {hd}) bf16: bit-equal "
+        f"{same}")
+    if not same:
+        raise AssertionError("two verify-shape chunk calls differ")
+    return {"worst": worst, "verify": _spec_verify_times(torch, False),
+            "verify_int8": _spec_verify_times(torch, True)}
+
+
+def _spec_launches(out: dict, layers: int, dlayers: int) -> dict:
+    """K3's launches a speculative run implies, by route, from its
+    dispatches: per round (k+1) drafter decode steps (decode route) and one
+    verify (chunk route, width k+1); per chunk dispatch, target or drafter,
+    its layers on the route its width names (a one-position chunk is
+    decode-shaped)."""
+    shapes = out["ranks"][0]["dispatch_shapes"]
+    count = lambda kind, one: sum(n for k, s, n in shapes
+                                  if k == kind and (s[0] == 1) == one)
+    rounds = out["engine_stats"]["spec_rounds"]
+    return {"decode": (dlayers * (SPEC_K + 1) * rounds
+                       + dlayers * count("drafter_chunk", True)
+                       + layers * count("paged_chunk", True)),
+            "chunk": (layers * rounds
+                      + dlayers * count("drafter_chunk", False)
+                      + layers * count("paged_chunk", False))}
+
+
+def _spec_line(name: str, out: dict, by_route: dict) -> None:
+    st = out["engine_stats"]
+    log(f"spec_serve {name}: {out['completed']}/{out['requests']} requests, "
+        f"{out['generated_tokens']} tokens in {out['wall_s']} s -> "
+        f"{out['tokens_per_sec']} tok/s; TTFT p50/p95 {out['ttft_ms_p50']}/"
+        f"{out['ttft_ms_p95']} ms; TPOT p50/p95 {out['tpot_ms_p50']}/"
+        f"{out['tpot_ms_p95']} ms; "
+        + (f"k {st['speculate_k']}, {st['spec_rounds']} rounds, accepted "
+           f"tokens per dispatch {st['accepted_tokens_per_dispatch']}, "
+           f"acceptance {st['acceptance_rate']} by position "
+           f"{st['acceptance_rate_by_position']}, drafter/target ms "
+           f"{st['drafter_ms_total']}/{st['target_ms_total']}, drafter pages "
+           f"{st['drafter_num_pages']} (in use after the drain "
+           f"{st['drafter_pages_in_use']}); " if "speculate_k" in st else
+           f"{st['decode_steps']} decode steps; ")
+        + f"preemptions {st['preemptions']}, COW copies {st['cow_copies']}, "
+        f"pages in use after the drain {st['pages_in_use']}; decode graph "
+        f"{out['decode_graph']} ({out['decode_graph_replays']} replays); K3 "
+        f"launches by route {by_route}")
+
+
+def _check_spec_run(name, out, counts, by_route, by_kernel, layers,
+                    dlayers) -> None:
+    """A speculative serve run: every request served in-vocab, both pools
+    drained, prefix hits and COW, no plain decode step, the round's two
+    graphs replayed once per round, and K3's launches exactly
+    `_spec_launches`' on the routes and kernels they name (bf16: the wgmma
+    chunk kernel, never the SIMT one), no other kernel."""
+    st, disp = out["engine_stats"], out["ranks"][0]["dispatches"]
+    toks = [t for ts in out["outputs"].values() for t in ts]
+    if (out["completed"] != out["requests"] or not toks
+            or not all(0 <= t < 1024 for t in toks)):
+        raise AssertionError(f"spec {name}: requests unserved or tokens "
+                             f"outside the vocab")
+    if (st["pages_in_use"] or st["drafter_pages_in_use"]
+            or st["prefix_hit_tokens"] <= 0 or st["cow_copies"] <= 0):
+        raise AssertionError(f"spec {name}: pools not drained or no prefix "
+                             f"sharing: {st}")
+    if (disp["paged_decode"] or disp["spec_draft"] != st["spec_rounds"]
+            or disp["spec_verify"] != st["spec_rounds"]
+            or not out["decode_graph"]
+            or out["decode_graph_replays"] != st["spec_rounds"]):
+        raise AssertionError(f"spec {name}: dispatches {disp}, graph "
+                             f"{out['decode_graph']} x "
+                             f"{out['decode_graph_replays']}, rounds "
+                             f"{st['spec_rounds']}")
+    want = _spec_launches(out, layers, dlayers)
+    if by_route != want or by_kernel != {
+            "paged_decode": want["decode"], "paged_chunk_sm90": want["chunk"],
+            "paged_attn": 0}:
+        raise AssertionError(f"spec {name}: K3 launches by route {by_route}, "
+                             f"by kernel {by_kernel}, expected {want}")
+    _only(counts, {"paged_attention": want["decode"] + want["chunk"]},
+          f"speculative serving {name}")
+
+
+def _spec_engine_run(torch, model, drafter, argv: list) -> tuple:
+    """The serve CLI's `--speculate 4` run of `argv` at tp = 1 with the
+    given target and drafter modules: the same requests, buffer and engine
+    knobs, through the loadgen. Returns (summary, engine)."""
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.config import MeshConfig
+    from distributed_pytorch_from_scratch_tpu_torch.serving import (
+        loadgen, serve)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.scheduler import (
+        parse_slo_classes)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.speculative import (
+        SpeculativeEngine)
+    args = serve.get_serve_args(argv)
+    requests = loadgen.synthetic_requests(
+        args.num_requests, args.prompt_len_min, args.prompt_len_max,
+        args.max_new_tokens, args.vocab_size, seed=args.seed,
+        arrival=args.arrival, class_mix=parse_slo_classes(args.class_mix)
+        if args.class_mix else None, tenants=args.tenants,
+        shared_prefix_len=args.shared_prefix_len, interleave=args.interleave)
+    eng = SpeculativeEngine(
+        model, make_mesh(MeshConfig(), device="cuda"), drafter,
+        speculate_k=SPEC_K, num_slots=args.slots,
+        buf_len=max(len(r.prompt) for r in requests) + args.max_new_tokens
+        + 2, eos_id=1, page_size=args.page_size, num_pages=args.num_pages,
+        prefill_chunk=args.prefill_chunk,
+        slo_classes=parse_slo_classes(args.slo_classes))
+    return loadgen.run_loadgen(eng, requests), eng
+
+
+def _live_spec_engine(torch, model, drafter, sampled: bool):
+    """A speculative engine at phase 15's engine shape (16 slots, page 64,
+    chunk 128, k 4), its round graphed, every slot live on a 512-token
+    prompt that EOS never ends, a few rounds in."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import MeshConfig
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        Request)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.speculative import (
+        SpeculativeEngine)
+    vocab = model.cfg.vocab_size
+    eng = SpeculativeEngine(
+        model, make_mesh(MeshConfig(), device="cuda"), drafter,
+        num_slots=16, buf_len=642, eos_id=vocab, page_size=64,
+        prefill_chunk=128, speculate_k=SPEC_K,
+        **(dict(temperature=0.8, top_k=50, top_p=0.95) if sampled else {}))
+    rng = np.random.default_rng(1)
+    for i in range(16):
+        eng.submit(Request(rid=i, prompt=[int(x) for x in rng.integers(
+            3, vocab, 512)], max_new=120, seed=i))
+    while eng.scheduler.pending or eng._prefilling:
+        eng.step()
+    for _ in range(3):
+        eng.step()
+    return eng
+
+
+def _round_vs_eager(torch, eng) -> tuple:
+    """The next round run eagerly and by the two graphs' replays (a round
+    writes the same K/V at the same places each time, so both see the same
+    pools): ({drafts, q, verdicts: bitwise equal on the live rows}, live
+    rows)."""
+    draft, verify, _ = eng._round_payloads()
+    live = sorted(eng._slot_req)
+    dev = lambda a: torch.from_numpy(a).to(eng.device)
+    graphed = eng._draft_out
+    with torch.inference_mode():
+        eng._draft_out = [x.clone() for x in eng._draft_body(dev(draft))]
+        eager = eng._draft_out + [eng._verify_body(dev(verify)).clone()]
+        eng._draft_out = graphed
+        eng._round_graphs[0](draft)
+        got = [x.clone() for x in graphed] + [eng._round_graphs[1](
+            verify).clone()]
+    names = ("drafts", "q", "verdicts") if len(got) == 3 else ("drafts",
+                                                               "verdicts")
+    return ({n: torch.equal(a[live], b[live])
+             for n, a, b in zip(names, eager, got)}, len(live))
+
+
+def phase_spec_serve(torch) -> dict:
+    """`serve --paged --speculate 4` at the 45m preset, bf16, on phase 15's
+    mix with the `tiny` drafter (random, vocab 1024), greedy and then
+    sampled (`_check_spec_run`; K3 launches counted per route), the
+    sampled one beside the plain paged engine on the same mix (phase 15
+    serves it greedy); at f32 the speculative and plain paged greedy tokens
+    of an 8-request burst identical; then, engine level on the card:
+    drafter = target at f32 accepting >= 0.95 of its drafts (bf16
+    reported, with its TPOT on the mix); one round of a live engine,
+    greedy and sampled, by the draft and verify graphs bitwise the eager
+    round. Returns the runs' K3 launches and numbers."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    layers = model_preset("45m").num_layers
+    dlayers = model_preset("tiny").num_layers
+    res = {}
+    for name, extra in (("greedy", []), ("sampled", SAMPLED_ARGS)):
+        if extra:      # the plain greedy run is phase 15's
+            plain = serve.main(PAGED_SERVE_ARGS + extra)
+            _spec_line(f"plain paged {name}", plain,
+                       plain["ranks"][0]["paged_launches_by_kernel"])
+        _reset_launches()
+        out = serve.main(SPEC_SERVE_ARGS + extra)
+        counts = _read_launches()
+        by_route = dict(paged_attention.launches_by_route)
+        by_kernel = dict(paged_attention.launches_by_kernel)
+        _spec_line(name, out, by_route)
+        _check_spec_run(name, out, counts, by_route, by_kernel, layers,
+                        dlayers)
+        res[name] = {"by_route": by_route, "by_kernel": by_kernel,
+                     "launches": counts["paged_attention"],
+                     "stats": out["engine_stats"],
+                     "tpot_ms_p50": out["tpot_ms_p50"]}
+    # f32: the speculative engine's greedy tokens are the plain engine's
+    f32 = (_replace_flag(PAGED_SERVE_ARGS, "--num_requests",
+                         str(SPEC_F32_REQUESTS)) + ["--no-bf16"])
+    outs = {n: serve.main(f32 + extra)
+            for n, extra in (("plain", []), ("spec", ["--speculate",
+                                                      str(SPEC_K)]))}
+    same = outs["spec"]["outputs"] == outs["plain"]["outputs"]
+    log(f"spec_serve f32 burst of {SPEC_F32_REQUESTS}: speculative tokens "
+        f"identical to the plain paged engine's {same} (acceptance "
+        f"{outs['spec']['engine_stats']['acceptance_rate']})")
+    if not same:
+        raise AssertionError("f32 speculative tokens differ from the plain "
+                             "paged engine's")
+    # drafter = target: f32 (checked) and bf16 (reported, on the mix)
+    for dtype, argv in (("float32", f32), ("bfloat16", SPEC_SERVE_ARGS)):
+        model = Transformer(model_preset("45m", compute_dtype=dtype)
+                            ).init_weights(seed=0).cuda()
+        out, eng = _spec_engine_run(torch, model, model, argv)
+        st = eng.stats()
+        log(f"spec_serve drafter = target ({dtype}, {out['requests']} "
+            f"requests): acceptance {st['acceptance_rate']} by position "
+            f"{st['acceptance_rate_by_position']}, accepted tokens per "
+            f"dispatch {st['accepted_tokens_per_dispatch']}, TPOT p50/p95 "
+            f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms, TTFT p50 "
+            f"{out['ttft_ms_p50']} ms, drafter/target ms "
+            f"{st['drafter_ms_total']}/{st['target_ms_total']}")
+        if out["completed"] != out["requests"]:
+            raise AssertionError(f"drafter = target {dtype}: requests "
+                                 f"unserved")
+        if dtype == "float32" and st["acceptance_rate"] < SPEC_MIN_SELF_ACCEPT:
+            raise AssertionError(f"drafter = target at f32 accepted "
+                                 f"{st['acceptance_rate']} of its drafts, "
+                                 f"under {SPEC_MIN_SELF_ACCEPT}")
+        res[f"self_{dtype}"] = {"acceptance_rate": st["acceptance_rate"],
+                                "tpot_ms_p50": out["tpot_ms_p50"]}
+        del model, eng
+    # the round's two graphs against the eager round: one round of a live
+    # engine both ways, greedy and sampled
+    model = Transformer(model_preset("45m", compute_dtype="bfloat16")
+                        ).init_weights(seed=0).cuda()
+    drafter = Transformer(model_preset("tiny", compute_dtype="bfloat16")
+                          ).init_weights(seed=1).cuda()
+    for sampled in (False, True):
+        same, live = _round_vs_eager(torch, _live_spec_engine(
+            torch, model, drafter, sampled))
+        log(f"spec_serve one round ({'sampled' if sampled else 'greedy'}, "
+            f"bf16, {live} live rows): the graphs' drafts, q and verdicts "
+            f"bitwise the eager round's {same}")
+        if not all(same.values()):
+            raise AssertionError(f"the captured round differs from the "
+                                 f"eager round: {same}")
+    return res
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -4641,7 +5081,7 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
           "gpt2_kernels", "gpt2_train", "gpt2_serve", "gpt2_card_vs_cpu",
           "sampler_check", "train_async_preempt", "serve_int8_weights",
-          "serve_replay")
+          "serve_replay", "spec_check", "spec_serve")
 
 
 def main() -> None:
@@ -4692,7 +5132,7 @@ def run(torch, phases: set, workdir: str) -> list:
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
-     replayed) = (
+     replayed, spec_err, spec_served) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -4700,7 +5140,7 @@ def run(torch, phases: set, workdir: str) -> list:
              "tp_tiny", "tp_serve", "train_remat", "train_spd", "eval",
              "eval_pth", "eval_tp", "gpt2_kernels", "gpt2_train",
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
-             "serve_replay"))
+             "serve_replay", "spec_check", "spec_serve"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -4744,6 +5184,10 @@ def run(torch, phases: set, workdir: str) -> list:
     gpt2_paged = lambda kernel: {
         f"serve_gpt2_{name}": run["paged_by_kernel"][kernel]
         for name, run in gpt2_served.items() if name.startswith("paged")}
+    # K3's launches on the speculative runs, by C entry point
+    spec_paged = lambda kernel: {
+        f"serve_paged_spec_{name}": spec_served[name]["by_kernel"][kernel]
+        for name in ("greedy", "sampled")}
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": served["flash_attention_fwd"],
@@ -4779,7 +5223,8 @@ def run(torch, phases: set, workdir: str) -> list:
          "launches": paged_served["paged_by_kernel"]["paged_decode"],
          "launches_by_route": paged_served["paged_by_route"],
          "max_abs_err": max(paged_err["decode"], paged_times["decode"][
-             "by_shape"]["decode_bf16"]["max_abs_err"]),
+             "by_shape"]["decode_bf16"]["max_abs_err"],
+                            spec_err["worst"]["decode"]),
          **paged_times["decode"],
          "launches_by_path": {**by_path("paged_attention"),
                               "serve_paged_int8": paged_served["paged_int8"],
@@ -4789,13 +5234,19 @@ def run(torch, phases: set, workdir: str) -> list:
                                   gpt2_paged("paged_decode"),
                               "serve_paged_int8_weights_decode_kernel":
                                   int8_served["paged_by_kernel"][
-                                      "paged_decode"]}},
+                                      "paged_decode"],
+                              **{f"{k}_decode_kernel": v for k, v in
+                                 spec_paged("paged_decode").items()}}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
          "max_abs_err": max(paged_err["chunk"], paged_times["decode"][
-             "by_shape"]["chunk_bf16"]["max_abs_err"]),
+             "by_shape"]["chunk_bf16"]["max_abs_err"],
+                            spec_err["worst"]["chunk"],
+                            spec_err["verify"]["max_abs_err"]),
          **paged_times["chunk"],
+         "verify_shape": spec_err["verify"],
+         "verify_shape_int8": spec_err["verify_int8"],
          "launches_by_path": {
              "serve_paged": paged_served["paged_by_kernel"][
                  "paged_chunk_sm90"],
@@ -4805,7 +5256,8 @@ def run(torch, phases: set, workdir: str) -> list:
                 for name, run in tp_served.items()},
              **gpt2_paged("paged_chunk_sm90"),
              "serve_paged_int8_weights": int8_served["paged_by_kernel"][
-                 "paged_chunk_sm90"]}},
+                 "paged_chunk_sm90"],
+             **spec_paged("paged_chunk_sm90")}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

@@ -29,6 +29,8 @@ JAX mask) and a Gumbel-max draw whose noise is a counter-based hash of
 (`gumbel_noise`): a request's tokens depend on nothing else, every tp rank
 draws the same token from the gathered logits, the draw runs inside a
 captured CUDA graph, and the fused and host samplers agree bit for bit.
+The hash takes a stream number, so the speculative engine's proposal,
+accept and resample draws (`hash_uniform`) are streams of their own.
 """
 
 from __future__ import annotations
@@ -486,23 +488,45 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
-    """(b, vocab) float64 Gumbel noise, a pure function of each row's
-    (seed, absolute position) and the column: a counter-based hash (two
-    MurmurHash3 finalizer rounds over a per-row key) gives 32 bits per
-    entry, u = (h + 1/2) / 2^32 lies in (0, 1), and the noise is
-    -log(-log u). Seeds are the requests' uint32 seeds (any int dtype; the
-    low 32 bits count), positions int. The counterpart of JAX's
-    `fold_in(fold_in(key(0), seed), pos)` stream, not its bits."""
+def _row_keys(seeds: torch.Tensor, positions: torch.Tensor,
+              stream: int = 0) -> torch.Tensor:
+    """The hash's per-row key of (seed, absolute position) in stream
+    `stream` (seeds and positions broadcast together): stream 0 is the
+    plain sampler's, and any other stream mixes its number in through one
+    more finalizer round, so the streams are independent of each other."""
     seed = seeds.long() & _M32
     pos = positions.long() & _M32
-    key = _fmix32(_fmix32((seed + 0x9E3779B9) & _M32) ^ pos)[:, None]
-    col = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    key = _fmix32(_fmix32((seed + 0x9E3779B9) & _M32) ^ pos)
+    if stream:
+        key = _fmix32(key ^ ((stream * 0x2545F491) & _M32))
+    return key
+
+
+def hash_uniform(seeds: torch.Tensor, positions: torch.Tensor, cols: int,
+                 stream: int = 0) -> torch.Tensor:
+    """(..., cols) float64 uniforms in (0, 1), a pure function of each
+    row's (seed, absolute position), the stream and the column: a
+    counter-based hash (two MurmurHash3 finalizer rounds over the row's
+    key, `_row_keys`) gives 32 bits per entry and u = (h + 1/2) / 2^32.
+    Seeds are the requests' uint32 seeds (any int dtype; the low 32 bits
+    count), positions int; the two broadcast together."""
+    key = _row_keys(seeds, positions, stream)[..., None]
+    col = torch.arange(cols, device=key.device, dtype=torch.int64)
     h = _fmix32(key ^ _mul32(col + 1, 0x27D4EB2F))
     h = _fmix32((h + _fmix32(key ^ 0x165667B1)) & _M32)
-    u = (h.double() + 0.5) * 2.0 ** -32
-    return -torch.log(-torch.log(u))
+    return (h.double() + 0.5) * 2.0 ** -32
+
+
+def gumbel_noise(seeds: torch.Tensor, positions: torch.Tensor,
+                 vocab: int, stream: int = 0) -> torch.Tensor:
+    """(b, vocab) float64 Gumbel noise -log(-log u) of `hash_uniform`'s u:
+    a pure function of each row's (seed, absolute position), the stream
+    and the column. Stream 0 is the plain sampler's; the speculative
+    engine draws its proposals and resamples in streams of their own
+    (`serving/speculative.py`). The counterpart of JAX's
+    `fold_in(fold_in(key(0), seed), pos)` stream, not its bits."""
+    return -torch.log(-torch.log(hash_uniform(seeds, positions, vocab,
+                                              stream)))
 
 
 def sample_from_full(full: torch.Tensor, seeds: torch.Tensor,

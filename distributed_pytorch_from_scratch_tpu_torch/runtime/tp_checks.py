@@ -35,6 +35,7 @@ from ..ops import collectives as C
 from ..ops.quant import quantize_decode_params
 from ..serving.engine import (ContinuousBatchingEngine, PagedEngine, Request,
                               quantize_model)
+from ..serving.speculative import SpeculativeEngine
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..training.optim import init_adam_state
@@ -273,37 +274,62 @@ def drive(eng, requests: Sequence, stagger: int):
     return {r.rid: list(r.tokens) for r in eng.completed}, tables
 
 
+def _drained(eng) -> bool:
+    """Every page of a paged engine's pool (and of a speculative engine's
+    drafter pool, its table back on the scratch page) on its free list, no
+    reference left."""
+    pools = [eng.pool] + ([eng.dpool] if hasattr(eng, "dpool") else [])
+    tables = ([eng._dtbl == eng.dpool.scratch_page]
+              if hasattr(eng, "dpool") else [])
+    return (all(p.free_pages == p.num_pages and not p.refcount.any()
+                for p in pools) and all(t.all() for t in tables))
+
+
 def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
-    """Each run {engine: slot | paged, kw: the engine's kwargs, requests:
-    [(prompt, max_new, tenant, slo_class[, seed])], stagger, tick}: one
-    engine on every tp rank of `mesh`, with this rank's shard of `tree`. tp
-    rank 0 runs `drive`, the paged engine on a scripted clock that
-    advances `tick` per call, then stops the workers, which serve its
-    dispatches meanwhile. A run with int8 decode weights
+    """Each run {engine: slot | paged | speculative, kw: the engine's
+    kwargs, requests: [(prompt, max_new, tenant, slo_class[, seed])],
+    stagger, tick}: one engine on every tp rank of `mesh`, with this rank's
+    shard of `tree` (a speculative run's `drafter`: (its ModelConfig
+    fields, its JAX tree)). tp rank 0 runs `drive`, the paged engines on a
+    scripted clock that advances `tick` per call, then stops the workers,
+    which serve its dispatches meanwhile. A run with int8 decode weights
     (`decode_weight_dtype` in kw) gets a model of its own: its engine
     quantizes the model in place.
-    Every rank returns its dispatches by kind and by shape; tp rank 0 also
-    {rid: tokens}, the stats and the paged engine's page table after every
-    step."""
+    Every rank returns its dispatches by kind and by shape (a speculative
+    run also each verify's (n_acc, out) as this rank computed it); tp rank
+    0 also {rid: tokens}, the stats, the paged engine's page table after
+    every step and whether its pools drained."""
     model = _serving_model(mesh, cfg, tree)
     out = []
     for run in runs:
         kw = dict(run["kw"])
         m = (_serving_model(mesh, cfg, tree)
              if kw.get("decode_weight_dtype") == "int8" else model)
-        if run["engine"] == "paged":
+        rounds = []
+        if run["engine"] == "speculative":
+            kw["clock"] = counting_clock(run["tick"])
+            eng = SpeculativeEngine(m, mesh,
+                                    _serving_model(mesh, *run["drafter"]),
+                                    **kw)
+            verify = eng.dispatch.lowerings["spec_verify"]
+            eng.dispatch.lowerings["spec_verify"] = (
+                lambda shape, p: rounds.append(verify(shape, p))
+                or rounds[-1])
+        elif run["engine"] == "paged":
             kw["clock"] = counting_clock(run["tick"])
             eng = PagedEngine(m, mesh, **kw)
         else:
             eng = ContinuousBatchingEngine(m, mesh, **kw)
-        res = {}
+        res = {"rounds": rounds} if run["engine"] == "speculative" else {}
         if eng.dispatch.leader:
             reqs = [Request(rid=i, prompt=list(p), max_new=m, tenant=t,
                             slo_class=c, seed=seed[0] if seed else 0)
                     for i, (p, m, t, c, *seed) in enumerate(run["requests"])]
             tokens, tables = drive(eng, reqs, run["stagger"])
             eng.dispatch.stop()
-            res = {"tokens": tokens, "stats": eng.stats(), "tables": tables}
+            res.update(tokens=tokens, stats=eng.stats(), tables=tables)
+            if run["engine"] != "slot":
+                res["drained"] = _drained(eng)
         else:
             eng.dispatch.serve()
         res.update(dispatches=eng.dispatch.counts,

@@ -53,7 +53,7 @@ telemetry, duty profiler, HBM plane) wait for the obs slice (ROADMAP.md).
 from __future__ import annotations
 
 import time
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -285,12 +285,18 @@ def _run_decode_step(engine, packed: np.ndarray) -> np.ndarray:
 
 
 def graph_stats(engine) -> dict:
-    """Whether the engine's decode step runs as a graph, its replays, and
-    the kernel launches one replay holds, by kernel."""
-    graph = engine._decode_graph
-    return {"decode_graph": graph is not None,
-            "decode_graph_replays": graph.replays if graph else 0,
-            "decode_graph_launches": graph.kernel_launches if graph else {}}
+    """Whether the engine's decode step runs as graphs (one, or the
+    speculative engine's round: its draft and verify graphs,
+    `_round_graphs`), the step's replays and the kernel launches one
+    step's replays hold, by kernel."""
+    graphs = [g for g in getattr(engine, "_round_graphs",
+                                 (engine._decode_graph,)) if g is not None]
+    launches = Counter()
+    for g in graphs:
+        launches.update(g.kernel_launches)
+    return {"decode_graph": bool(graphs),
+            "decode_graph_replays": graphs[0].replays if graphs else 0,
+            "decode_graph_launches": dict(launches)}
 
 
 def _chunk_maps(ids, s: int, n: int, cw: int, ps: int, eos_id: int,
@@ -595,11 +601,16 @@ class PagedEngine(_Sampling):
     `_paged_prefill_chunk`) writes the pool in place and attends through
     `paged_attn_impl` — 'kernel' (the CUDA paged-attention kernel; its plain
     version on the CPU) or 'gather' (the dense page view, the oracle) — and
-    the only sync is the host copy of the chosen tokens. The JAX engine's
-    tracing hooks, handoff methods (disaggregated serving) and speculative
-    decoding are not ported (ROADMAP).
+    the only sync is the host copy of the chosen tokens. Speculative
+    decoding subclasses it (`serving/speculative.py`); the JAX engine's
+    tracing hooks and handoff methods (disaggregated serving) are not
+    ported (ROADMAP).
     `decode_graph`, the sampling knobs and `decode_weight_dtype` as the slot
     engine's."""
+
+    # whether __init__ captures the one-token decode step (a subclass that
+    # never runs it, the speculative engine, captures its own steps)
+    _CAPTURES_DECODE_STEP = True
 
     def __init__(self, model, mesh, num_slots: int, buf_len: int,
                  eos_id: int, page_size: int = 64, num_pages: int = 0,
@@ -685,7 +696,7 @@ class PagedEngine(_Sampling):
             self, decode_graph, mesh.tp, np.concatenate([
                 np.zeros(3 * num_slots, np.int32),
                 np.full(num_slots * self.max_pages, self.pool.scratch_page,
-                        np.int32)]))
+                        np.int32)])) if self._CAPTURES_DECODE_STEP else None
 
     # -- request intake ---------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -851,17 +862,21 @@ class PagedEngine(_Sampling):
         self.preemptions += 1
         self.scheduler.requeue(req)
 
-    def _release_slot(self, slot: int) -> None:
+    def _release_slot(self, slot: int) -> int:
         """Drop the slot's page references; its table row goes back to the
         scratch page and its cursor to 0, so a dense dispatch over every
-        slot row keeps the free row in range and writing only scratch."""
+        slot row keeps the free row in range and writing only scratch.
+        Returns the number of page references dropped."""
         scratch = self.pool.scratch_page
+        freed = 0
         for j in range(self.max_pages):
             if self._tbl[slot, j] != scratch:
                 self.pool.unref(int(self._tbl[slot, j]))
                 self._tbl[slot, j] = scratch
+                freed += 1
         self._pos[slot] = 0
         self._free_slots.append(slot)
+        return freed
 
     def _alloc_page(self, needy_slot: int) -> int:
         """A free page, evicting victims while the pool is dry (never the

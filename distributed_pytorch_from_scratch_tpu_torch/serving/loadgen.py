@@ -167,6 +167,11 @@ def run_loadgen(engine, requests: List[Request]) -> dict:
             "kv_util_mean", "kv_fragmentation_mean", "pages_in_use_mean",
             "prefix_hit_rate", "cow_copies", "preemptions", "max_live",
             "max_interleaved_prefill_positions")})
+    if "speculate_k" in stats:         # the speculative engine's telemetry
+        summary.update({k: stats[k] for k in (
+            "speculate_k", "spec_rounds", "accepted_tokens_per_dispatch",
+            "acceptance_rate", "acceptance_rate_by_position",
+            "rounds_per_request", "drafter_ms_total", "target_ms_total")})
     att = slo_attainment(engine, done)
     if att is not None:
         summary["slo_attainment"] = att

@@ -52,14 +52,26 @@ vocab is `--vocab_size` and EOS is 1, the shipped tokenizer's.
 (`loadgen.replay_requests`: one JSON record per line, `prompt` and
 optional `rid`, `max_new`, `seed`, `arrival`) in arrival order.
 
-Not ported yet, refused with a message naming its ROADMAP item: cp > 1,
-speculative decoding. The JAX CLI's observability/control flags do not
-exist here yet (ROADMAP.md).
+`--paged --speculate K` serves through the speculative engine
+(`serving/speculative.py`): a drafter (`--drafter_model`, the `tiny`
+preset by default, reshaped to the target's vocab and family, in bf16
+unless the run is f32 or a dry run) proposes K tokens per round over its
+own page pool (`--drafter_pages`) and the target verifies K+1 positions of
+every live row in one dispatch, greedy tokens identical to `--paged`'s,
+sampled ones distributed as its. The drafter's weights come from
+`--drafter_ckpt_dir` (`--drafter_iter`; either package's checkpoint, any
+tp) or from a random init at `--seed` + 1. The report adds the engine's
+acceptance numbers and the drafter/target wall split.
+
+Not ported yet, refused with a message naming its ROADMAP item: cp > 1.
+The JAX CLI's observability/control flags do not exist here yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -67,7 +79,8 @@ import time
 import torch
 
 from ..cli import add_model_shape_args, build_model_config
-from ..config import BOS_TOKEN, EOS_TOKEN, MeshConfig, ModelConfig
+from ..config import (BOS_TOKEN, EOS_TOKEN, MODEL_PRESETS, MeshConfig,
+                      ModelConfig, model_preset)
 from ..models import build_model
 from ..models.transformer import Transformer, validate_tp
 from ..ops import collectives
@@ -80,17 +93,22 @@ from ..training.checkpoint import latest_step, load_checkpoint
 from .engine import ContinuousBatchingEngine, PagedEngine, graph_stats
 from .loadgen import replay_requests, run_loadgen, synthetic_requests
 from .scheduler import parse_slo_classes
+from .speculative import SpeculativeEngine
 
 # head_dim 32, so the dry run also fits the CUDA kernel's head dims
 _DRY_CFG = ModelConfig(attn_dim=64, ffn_dim=128, num_heads=2, num_layers=2,
                        vocab_size=64, maxlen=64)
+# the dry run's drafter: smaller than the dry target in every dimension but
+# head_dim (32, which the kernels are built for); at tp > 1 it takes one
+# head per rank (`_drafter_config`)
+_DRY_DRAFTER_CFG = ModelConfig(attn_dim=32, ffn_dim=64, num_heads=1,
+                               num_layers=1, vocab_size=64, maxlen=64)
 
 # JAX CLI flags kept so its command lines parse: any value but the default
 # is refused, naming what is not ported yet (ROADMAP.md)
 NOT_PORTED = [  # (flag dest, default, what the flag would turn on)
     ("cp", 1, "the cp-sharded page pool, alone or with --tp_size; ROADMAP "
               "Queue 1 item 6"),
-    ("speculate", 0, "speculative decoding; ROADMAP Queue 1 item 6"),
 ]
 
 
@@ -193,8 +211,26 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                         "pairs (scheduler.parse_slo_classes)")
     g.add_argument("--default_class", default="standard",
                    help="--paged: class for requests that name none")
+
+    g = p.add_argument_group("speculative decoding (--paged only)")
     g.add_argument("--speculate", type=int, default=0, metavar="K",
-                   help="0 only, so far")
+                   help="draft K tokens per round with the drafter model "
+                        "and verify them in ONE target dispatch (exact "
+                        "rejection sampling: greedy output is token-"
+                        "identical to the plain paged engine); 0 = off")
+    g.add_argument("--drafter_model", choices=sorted(MODEL_PRESETS),
+                   default="tiny",
+                   help="drafter shape preset (its vocab and family are "
+                        "the target's)")
+    g.add_argument("--drafter_ckpt_dir", default=None,
+                   help="load drafter weights from this checkpoint (either "
+                        "trainer's, any tp; default: random init at --seed "
+                        "+ 1)")
+    g.add_argument("--drafter_iter", type=int, default=None,
+                   help="drafter checkpoint iteration (default: latest)")
+    g.add_argument("--drafter_pages", type=int, default=0,
+                   help="drafter page-pool budget in pages (0 = every slot "
+                        "can hold its whole drafter row)")
 
     g = p.add_argument_group("loadgen")
     g.add_argument("--class_mix", default="",
@@ -228,6 +264,20 @@ def get_serve_args(argv=None) -> argparse.Namespace:
         if getattr(args, dest) != default:
             p.error(f"--{dest} {getattr(args, dest)}: not ported yet "
                     f"({what})")
+    if args.speculate:
+        if not args.paged:
+            p.error("--speculate runs over the paged cache; add --paged")
+        if args.debug_host_sampler:
+            p.error("--debug_host_sampler is the NON-speculative ablation "
+                    "knob (a speculative round never materialises host "
+                    "logits); drop --speculate to measure it")
+        if args.drafter_iter is not None and not args.drafter_ckpt_dir:
+            p.error("--drafter_iter needs --drafter_ckpt_dir (without one "
+                    "the drafter is random-init and the iter is ignored)")
+    elif (args.drafter_ckpt_dir or args.drafter_pages
+          or args.drafter_iter is not None):
+        p.error("--drafter_ckpt_dir/--drafter_iter/--drafter_pages need "
+                "--speculate K")
     if args.temperature < 0:
         p.error(f"--temperature must be >= 0, got {args.temperature}")
     if (args.decode_top_k or args.decode_top_p) and not args.temperature:
@@ -299,24 +349,59 @@ def _model_config(args: argparse.Namespace) -> ModelConfig:
     return _DRY_CFG
 
 
-def _load_model(args, cfg: ModelConfig, mesh) -> Transformer:
-    """This rank's shard of the `--family` model, on its device: from
-    `--seed` (the full tree drawn, the shard kept: the same model at any
-    tp) or from a checkpoint of any tp."""
-    model = build_model(args.family, cfg, mesh=mesh)
-    if args.random_init or args.dry_run or not args.ckpt_dir:
-        model.init_weights(args.seed)
+def _load_weights(model, mesh, seed: int, ckpt_dir, step, what: str):
+    """`model` (this rank's shard of the `what` model) on its device, its
+    weights drawn from `seed` (the full tree drawn, the shard kept: the
+    same model at any tp) or, with `ckpt_dir`, read from a checkpoint of
+    any tp at `step` (default: the latest)."""
+    if not ckpt_dir:
+        model.init_weights(seed)
     else:
-        step = args.iter if args.iter is not None else latest_step(args.ckpt_dir)
+        step = step if step is not None else latest_step(ckpt_dir)
         if step is None:
-            raise SystemExit(f"no checkpoints found in {args.ckpt_dir}")
-        state, _, _ = load_checkpoint(args.ckpt_dir, step, tp_size=mesh.tp,
+            raise SystemExit(f"no {what} checkpoints found in {ckpt_dir}")
+        state, _, _ = load_checkpoint(ckpt_dir, step, tp_size=mesh.tp,
                                       tp_rank=mesh.tp_rank)
         model.load_state_dict(state)
         if mesh.rank == 0:
-            print(f"serving checkpoint iter {step} from {args.ckpt_dir}",
+            print(f"{what}: checkpoint iter {step} from {ckpt_dir}",
                   file=sys.stderr)
     return model.to(mesh.device)
+
+
+def _load_model(args, cfg: ModelConfig, mesh) -> Transformer:
+    """This rank's shard of the `--family` model, on its device, from
+    `--seed` or `--ckpt_dir`."""
+    fresh = args.random_init or args.dry_run
+    return _load_weights(build_model(args.family, cfg, mesh=mesh), mesh,
+                         args.seed, None if fresh else args.ckpt_dir,
+                         args.iter, "target")
+
+
+def _drafter_config(args, cfg: ModelConfig) -> ModelConfig:
+    """The `--speculate` drafter's shape: the `--drafter_model` preset (the
+    dry run's own under `--dry_run`, one head of 32 per tp rank) with the
+    target's vocab, in bf16 unless the run is f32 or a dry run."""
+    if args.dry_run:
+        dcfg = dataclasses.replace(_DRY_DRAFTER_CFG,
+                                   num_heads=args.tp_size,
+                                   attn_dim=32 * args.tp_size)
+    else:
+        dcfg = model_preset(args.drafter_model)
+    return dataclasses.replace(
+        dcfg, vocab_size=cfg.vocab_size,
+        compute_dtype="bfloat16" if args.bf16 and not args.dry_run
+        else "float32")
+
+
+def _build_drafter(args, cfg: ModelConfig, mesh) -> Transformer:
+    """This rank's shard of the drafter (`_drafter_config`, the target's
+    family), weights from `--drafter_ckpt_dir` or drawn from `--seed` +
+    1."""
+    return _load_weights(
+        build_model(args.family, _drafter_config(args, cfg), mesh=mesh),
+        mesh, args.seed + 1, args.drafter_ckpt_dir, args.drafter_iter,
+        "drafter")
 
 
 def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
@@ -359,8 +444,8 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
                     debug_host_sampler=args.debug_host_sampler,
                     decode_weight_dtype=args.decode_weight_dtype)
     if args.paged:
-        engine = PagedEngine(
-            model, mesh, num_slots=args.slots, buf_len=buf_len,
+        paged_kw = dict(
+            num_slots=args.slots, buf_len=buf_len,
             eos_id=args.eos_id, page_size=args.page_size,
             num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
             slo_classes=parse_slo_classes(args.slo_classes),
@@ -368,6 +453,13 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
             kv_dtype=None if args.kv_dtype == "native" else args.kv_dtype,
             paged_attn_impl=args.paged_attn, decode_graph=args.decode_graph,
             **sampling)
+        if args.speculate:
+            engine = SpeculativeEngine(
+                model, mesh, _build_drafter(args, cfg, mesh),
+                speculate_k=args.speculate, drafter_pages=args.drafter_pages,
+                **paged_kw)
+        else:
+            engine = PagedEngine(model, mesh, **paged_kw)
     else:
         engine = ContinuousBatchingEngine(
             model, mesh, num_slots=args.slots, buf_len=buf_len,
@@ -438,10 +530,17 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
              f"{100 * summary['prefix_hit_rate']:.0f}%, "
              f"{summary['preemptions']} preempted, paged attn "
              f"{summary['paged_attn']}"
-             if "kv_util_mean" in summary else ""), file=sys.stderr)
+             if "kv_util_mean" in summary else "")
+          + (f"; spec k={summary['speculate_k']}: "
+             f"{summary['accepted_tokens_per_dispatch']:.2f} tok/dispatch, "
+             f"acceptance {100 * summary['acceptance_rate']:.0f}%"
+             if "speculate_k" in summary else ""), file=sys.stderr)
     rec = {
         "metric": (f"serving tokens/sec ({args.family}, tp={args.tp_size}, "
                    + ("paged, " if args.paged else "")
+                   + (f"speculate k={args.speculate} "
+                      f"({args.drafter_model} drafter), "
+                      if args.speculate else "")
                    + ("HOST-sampler ablation, "
                       if args.debug_host_sampler else "")
                    + f"slots={args.slots}, {args.arrival} arrivals"
@@ -460,7 +559,10 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
     for k in ("kv_dtype", "paged_attn", "cp", "pages_per_rank", "num_pages",
               "kv_util_mean", "kv_fragmentation_mean", "prefix_hit_rate",
               "cow_copies", "preemptions", "max_live",
-              "max_interleaved_prefill_positions", "slo_attainment"):
+              "max_interleaved_prefill_positions", "slo_attainment",
+              "speculate_k", "spec_rounds", "accepted_tokens_per_dispatch",
+              "acceptance_rate", "acceptance_rate_by_position",
+              "rounds_per_request", "drafter_ms_total", "target_ms_total"):
         if k in summary:
             rec[k] = summary[k]
     if args.debug_host_sampler:
@@ -488,6 +590,8 @@ def serve(args: argparse.Namespace) -> dict:
             dist_backend(args.dist_backend, resolve_device(args.device),
                          args.tp_size)
             validate_tp(cfg, args.tp_size)
+            if args.speculate:
+                validate_tp(_drafter_config(args, cfg), args.tp_size)
         except (RuntimeError, ValueError) as e:
             raise SystemExit(f"serve: {e}")
         outs = launch.spawn(_rank_main, args.tp_size, args, cfg)

@@ -15,9 +15,14 @@ collectives, and wait for the next. A worker holds
 no scheduler and reads no clock, so the ranks cannot diverge; a `stop`
 message ends the loop.
 
-Every device-side effect of an engine is a dispatch of one of `KINDS`, so
-each worker's pool stays identical to the leader's in layout. At tp = 1
-`__call__` runs the lowering directly: no broadcast, no copy.
+Every device-side effect of an engine is a dispatch of one of its kinds
+(the engines' `slot_prefill`, `slot_decode`, `paged_chunk`,
+`paged_decode` and `cow_copy`, and the kinds a subclass `register`s, as
+the speculative engine's draft, verify and drafter chunks), so each
+worker's pool stays identical to the leader's in layout. A kind goes on
+the wire as its index in registration order, which every rank shares:
+each builds the same engine. At tp = 1 `__call__` runs the lowering
+directly: no broadcast, no copy.
 """
 
 from __future__ import annotations
@@ -30,9 +35,7 @@ import torch
 
 from ..ops.collectives import broadcast_ints
 
-KINDS = ("slot_prefill", "slot_decode", "paged_chunk", "paged_decode",
-         "cow_copy")
-STOP = len(KINDS)          # the header kind that ends a worker's loop
+STOP = -1                  # the header kind that ends a worker's loop
 HEADER = 8
 
 
@@ -47,12 +50,19 @@ class Dispatcher:
         self.tp = mesh.tp
         self.mesh = mesh
         self.leader = mesh.tp_rank == 0
-        self.lowerings = lowerings
+        self.lowerings = dict(lowerings)
         self.shapes: Counter = Counter()
+
+    def register(self, kind: str, lowering: Callable) -> None:
+        """Adds a dispatch kind after construction (every rank registers
+        the same kinds in the same order)."""
+        if kind in self.lowerings:
+            raise ValueError(f"dispatch kind {kind!r} is already registered")
+        self.lowerings[kind] = lowering
 
     @property
     def counts(self) -> Dict[str, int]:
-        out = {k: 0 for k in KINDS if k in self.lowerings}
+        out = {k: 0 for k in self.lowerings}
         for (kind, _), n in self.shapes.items():
             out[kind] += n
         return out
@@ -78,7 +88,7 @@ class Dispatcher:
         shape = tuple(shape) + (0,) * (HEADER - 2 - len(shape))
         payload = np.ascontiguousarray(payload, np.int32).ravel()
         if self.tp > 1:
-            self._send(KINDS.index(kind), shape, payload)
+            self._send(list(self.lowerings).index(kind), shape, payload)
         return self._run(kind, shape, payload)
 
     def stop(self) -> None:
@@ -103,6 +113,7 @@ class Dispatcher:
             if n:
                 payload = broadcast_ints(torch.from_numpy(payload),
                                          self.mesh).numpy()
-            self._run(KINDS[kind], tuple(int(x) for x in head[2:]), payload)
+            self._run(list(self.lowerings)[kind],
+                      tuple(int(x) for x in head[2:]), payload)
             done += 1
         return self.counts

@@ -694,3 +694,38 @@ def test_adam_device_scalars_bitwise_host_on_card(cuda_device):
             assert torch.equal(dev[k], host[k])
             assert torch.equal(sd.mu[k], sh.mu[k])
             assert torch.equal(sd.nu[k], sh.nu[k])
+
+
+@pytest.mark.cuda
+def test_speculative_round_graphed_is_the_eager_round(cuda_device):
+    """The speculative engine's draft and verify replayed as graphs give
+    the eager round's sampled tokens, bit for bit (kernels, bf16)."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, ModelConfig)
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        Request)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.speculative import (
+        SpeculativeEngine)
+    shape = dict(ffn_dim=64, num_layers=2, vocab_size=96, maxlen=64,
+                 compute_dtype="bfloat16")
+    prompts = [[0, 5, 17, 33, 60], [0, 95], [0, 2, 4, 6, 8, 10, 12, 14]]
+    out = {}
+    for mode in ("on", "off"):
+        model = build_model("llama", ModelConfig(
+            attn_dim=128, num_heads=2, **shape)).init_weights(1)
+        drafter = build_model("llama", ModelConfig(
+            attn_dim=32, num_heads=1, **shape)).init_weights(2)
+        eng = SpeculativeEngine(
+            model.to(cuda_device), make_mesh(MeshConfig(), device="cuda"),
+            drafter.to(cuda_device), num_slots=2, buf_len=32, eos_id=1,
+            speculate_k=3, page_size=8, prefill_chunk=4, decode_graph=mode,
+            temperature=1.0, top_k=8)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new=10, seed=i))
+        eng.run_to_completion()
+        assert bool(eng._round_graphs) == (mode == "on")
+        out[mode] = {r.rid: r.tokens for r in eng.completed}
+    assert out["on"] == out["off"]

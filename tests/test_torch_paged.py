@@ -785,7 +785,7 @@ def test_serve_paged_dry_run_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--paged", "--cp", "2"], ["--paged", "--speculate", "2"],
+    ["--paged", "--cp", "2"], ["--speculate", "2"],
     ["--paged_attn", "gather"], ["--kv_dtype", "int8"]])
 def test_serve_paged_refusals(flags):
     with pytest.raises(SystemExit) as e:
