@@ -125,9 +125,9 @@ result line):
     steps — finite losses, falling under zig-zag, the step-1 loss of each
     and of a cp=1 run on the same batch within 1e-2, and each rank's kernel
     launches equal to the ring schedule's (read from the counters);
-21. cp_tiny: `train.main --model tiny --cp_size 2 --cp_impl ring`, 2 steps
-    on the card at f32 (the CLI default) and with --bf16: head_dim 32 on
-    both routes of the block kernels, finite losses, launches per the ring
+21. cp_tiny: `train --model tiny --cp_size 2 --cp_impl ring`, 2 steps
+    on the card at f32 (the CLI default) and with --bf16: head_dim 32 on both
+    routes of the block kernels, finite losses, launches per the ring
     schedule;
 22. cp_card_vs_cpu: cp=2 zig-zag at the 45m widths, 2 layers, f32, b 2 x t
     256: loss and every gradient, the kernels on the card against the plain
@@ -145,10 +145,10 @@ result line):
     finite losses, falling at tp=2, the step-1 loss of each and of a tp=1
     run on the same batch within 1e-2, each rank's flash launches 2 x 12
     (forward) and 12 (dq, dk/dv) per step and no other attention kernel;
-25. tp_tiny: `train.main --model tiny --tp_size 2 --cp_size 2 --cp_impl
-    ring`, four ranks, 2 steps at f32 and with --bf16: head_dim 32 with 2
-    local heads on both routes of the block kernels, launches per the
-    ring schedule of each rank's cp index;
+25. tp_tiny: `train --model tiny --tp_size 2 --cp_size 2 --cp_impl
+    ring`, four ranks, 2 steps at f32 and with --bf16: head_dim
+    32 with 2 local heads on both routes of the block kernels, launches
+    per the ring schedule of each rank's cp index;
 26. tp_card_vs_cpu: tp=2 with sequence parallelism at the 45m widths, 2
     layers, f32, b 2 x t 256: the loss and every rank's gradient shard,
     the kernels on the card against the plain versions on the CPU, one
@@ -157,8 +157,9 @@ result line):
     each rank: wall, device busy (the kernels apart from the hops'
     copies), the card's idle share, kernels, the flash kernels' share (no
     SIMT flash kernel may run), and the tp hops' host time and bytes;
-28. tp_serve: `serve.main --tp_size 2 --dist_backend gloo` (two ranks on
-    the card; rank 0 decides each dispatch and broadcasts it) at the 45m
+28. tp_serve: the serve CLI at `--tp_size 2 --dist_backend gloo` (two
+    ranks on the card; rank 0 decides each dispatch and broadcasts it) at
+    the 45m
     preset, bf16: the slot engine on 4 requests (prompts 64-512, 16 new
     tokens, 8 slots), then the paged engine on 4 requests behind a
     96-token shared prefix (page 64, chunk 128, COW, no preemption), bf16
@@ -285,13 +286,36 @@ result line):
     (counted through the draft and verify graphs' replays); at f32 the
     speculative greedy tokens of an 8-request burst the plain engine's;
     drafter = target accepting >= 0.95 of its drafts at f32 (bf16
-    reported); one captured round bitwise the eager round.
+    reported); one captured round bitwise the eager round;
+47. cp_serve_check: K3 at the cp engine's shapes against its plain version
+    under phase 13's limits — cp rank 1's local slab of a 45m buffer
+    (pos_offset 512, return_lse): decode over 8 slots, the chunk at cw
+    128 and the verify width 6 (k 4), rows that see nothing there (o
+    exactly 0, lse exactly -1e30) and rows that see part of it, native and
+    int8 pools, bf16 and f32; then the 45m widths at 2 layers, f32, in one
+    gloo group of two ranks on the card and then on the CPU: the paged
+    engine at cp 2 gives the greedy tokens of cp 1 on the card and of cp 2
+    on the CPU's plain path, and a chunk dispatch's logits at every
+    position are within 1e-4 of cp 1's;
+48. cp_serve: `serve --paged --cp 2 --dist_backend gloo` (two ranks on the
+    card, each holding half the KV pages) at the 45m preset, bf16: 8
+    burst requests of
+    512-880 tokens behind a 96-token shared prefix, 16 new tokens, with
+    bf16 and int8 pages — every request served in-vocab, the ranks in
+    lockstep, COW copies and prefix hits, the pool drained, each rank's
+    pool bytes those of its slab, K3 exactly 12 per decode step (decode
+    kernel) and per chunk (the wgmma chunk kernel) and 12 cp hops per
+    dispatch on each rank; TTFT, TPOT and the hops' host time printed; and
+    a request of 880 + 16 tokens (14 pages of 64) refused at submit by cp 1
+    over 12 pages and served by cp 2 over 24 (12 per rank).
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
-a subset prints no result lines). The cp and tp phases start their ranks
-as processes of their own (`runtime/launch.spawn`); the build phase has
-built every kernel before they start.
+a subset prints no result lines). The cp and tp phases run their ranks
+as processes of their own (`runtime/launch.spawn`), on one kept group of
+each size for the whole script (`launch.kept_groups`: each rank process
+starts, imports and reaches the card once, not once per run); the build
+phase has built every kernel before they start.
 """
 
 import argparse
@@ -1520,6 +1544,8 @@ def _paged_err(torch, o, ro, valid, name) -> tuple:
     ro over each batch row's first `valid[r]` columns; a ratio <= 1 passes."""
     err = worst = 0.0
     for r, n in enumerate(valid):
+        if not n:                        # a row with no valid column
+            continue
         a, x = o[r, :, :n].float(), ro[r, :, :n].float()
         d = (a - x).abs()
         if name == "float32":
@@ -1622,19 +1648,23 @@ PAGED_CASES = [  # (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens, off)
 ]
 
 
-def phase_paged_check(torch) -> dict:
-    """Returns the largest bf16 output error (the served dtype) of each
-    route, {"decode": x, "chunk": y}."""
+def _paged_cases(torch, cases, seed: int) -> dict:
+    """Each case of `cases` (PAGED_CASES' tuples) at bf16 and f32: the
+    kernel's o and lse against the plain version's under PAGED_LIMIT, dead
+    rows exactly 0 and -1e30, one launch on the route its width names and
+    the entry `kernel_route` names. Returns the largest bf16 output error
+    (the served dtype) of each route, {"decode": x, "chunk": y}."""
     from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
         MASK, kernel_route, paged_attention, paged_attention_plain)
     by_route = paged_attention.launches_by_route
     by_kernel = paged_attention.launches_by_kernel
     worst = {"decode": 0.0, "chunk": 0.0}
     for i, (what, b, h, kvh, cw, hd, ps, mp, int8, starts, qlens,
-            off) in enumerate(PAGED_CASES):
+            off) in enumerate(cases):
         for name in ("bfloat16", "float32"):
             q, kp, vp, tbl = _paged_inputs(torch, b, h, kvh, cw, hd, ps, mp,
-                                           getattr(torch, name), int8, 200 + i)
+                                           getattr(torch, name), int8,
+                                           seed + i)
             start = torch.tensor(starts, dtype=torch.int32, device="cuda")
             kw = dict(page_size=ps, pos_offset=off, return_lse=True,
                       qlen=None if qlens is None else torch.tensor(
@@ -1652,7 +1682,7 @@ def phase_paged_check(torch) -> dict:
             valid = [cw if qlens is None else qlens[r] for r in range(b)]
             err, ratio = _paged_err(torch, o, ro, valid, name)
             lse_err = max((lse[r, :, :n] - rlse[r, :, :n]).abs().max().item()
-                          for r, n in enumerate(valid))
+                          for r, n in enumerate(valid) if n)
             dead = [r for r in range(b) if starts[r] + cw - 1 < off]
             dead_ok = all(bool((o[r] == 0).all()) and bool((lse[r] == MASK)
                                                            .all())
@@ -1670,6 +1700,15 @@ def phase_paged_check(torch) -> dict:
                                      f"version: {what} {name}")
             if name == "bfloat16":
                 worst[route] = max(worst[route], err)
+    return worst
+
+
+def phase_paged_check(torch) -> dict:
+    """Returns the largest bf16 output error (the served dtype) of each
+    route, {"decode": x, "chunk": y}."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
+    worst = _paged_cases(torch, PAGED_CASES, 200)
     # no atomics, a fixed combine order: two decode calls, the same bits
     for name in ("bfloat16", "float32"):
         q, kp, vp, tbl = _paged_inputs(torch, 16, 8, 8, 1, 64, 64, 11,
@@ -2512,9 +2551,10 @@ def phase_cp_tiny(torch, workdir: str) -> dict:
             "--device", "cuda", "--data_path", _corpus(workdir)]
     want = _cp_want(cfg.num_layers, steps, "contiguous", cfg.maxlen, b)
     out = {}
-    for name, flags in (("float32", []), ("bfloat16", ["--bf16"])):
-        res = train.main(base + flags + ["--save_dir", os.path.join(
-            workdir, f"cp_tiny_{name}")])
+    runs = (("float32", []), ("bfloat16", ["--bf16"]))
+    results = [train.main(base + flags + ["--save_dir", os.path.join(
+        workdir, f"cp_tiny_{name}")]) for name, flags in runs]
+    for (name, _), res in zip(runs, results):
         summed = {}
         for rank, w in zip(res["ranks"], want):
             _only(rank["launches"], w, f"cp_tiny {name} rank {rank['rank']}")
@@ -2798,9 +2838,10 @@ def phase_tp_tiny(torch, workdir: str) -> dict:
             _corpus(workdir)]
     want = _cp_want(cfg.num_layers, steps, "contiguous", cfg.maxlen, b)
     out = {}
-    for name, flags in (("float32", []), ("bfloat16", ["--bf16"])):
-        res = train.main(base + flags + ["--save_dir", os.path.join(
-            workdir, f"tp_tiny_{name}")])
+    runs = (("float32", []), ("bfloat16", ["--bf16"]))
+    results = [train.main(base + flags + ["--save_dir", os.path.join(
+        workdir, f"tp_tiny_{name}")]) for name, flags in runs]
+    for (name, _), res in zip(runs, results):
         summed = {}
         for rank in res["ranks"]:
             _only(rank["launches"], want[rank["cp"]],
@@ -3026,19 +3067,19 @@ def _check_tp_serve_rank(name, r, layers) -> None:
 
 
 def phase_tp_serve(torch) -> dict:
-    """serve.main at tp=2 over gloo on the one card, the slot engine and the
-    paged engine (bf16 and int8 pages): every request served with in-vocab
+    """The serve CLI at tp=2 over gloo on the one card, the slot engine and
+    the paged engine (bf16 and int8 pages): every request served with in-vocab
     tokens, both ranks in lockstep, K1 forward 12 times per prefill
     dispatch and K3 12 times per decode step (decode kernel) and per chunk
     (the wgmma chunk kernel above one position) on each rank, 2L + 2 tp
-    hops per dispatch. Returns each run's launches summed over the ranks
-    and its summary."""
+    hops per dispatch. Returns each run's launches summed over the ranks and
+    its summary."""
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
     layers = model_preset("45m").num_layers
     res = {}
-    for name, flags in TP_SERVE_RUNS.items():
-        out = serve.main(TP_SERVE_BASE + flags)
+    outs = [serve.main(TP_SERVE_BASE + f) for f in TP_SERVE_RUNS.values()]
+    for name, out in zip(TP_SERVE_RUNS, outs):
         ranks, st = out["ranks"], out["engine_stats"]
         if out["completed"] != out["requests"]:
             raise AssertionError(f"{name}: served {out['completed']} of "
@@ -4730,9 +4771,12 @@ def _spec_verify_times(torch, int8: bool) -> dict:
     kernel_ms = _time_ms(torch, lambda: launch(stream))
     plain_ms = _time_ms(torch, lambda: paged_attention_plain(
         q, kp, vp, tbl, start, **kw), iters=20)
+    library = lambda: sdpa(q, kview, vview, attn_mask=mask)
     (device_ms, library_ms), how = _device_ms(
-        torch, [lambda: launch(stream),
-                lambda: sdpa(q, kview, vview, attn_mask=mask)])
+        torch, [lambda: launch(stream), library])
+    # the library call by events too (host included): a second reading of
+    # its time that no profiler session can miss
+    library_events_ms = _time_ms(torch, library)
     work = (b, h, h, cw, hd, ps, mp, starts, qlens, 2, int8)
     bound_ms, bound_by = bound_paged(*work)
     tflops = paged_work(*work)[1] / (device_ms * 1e-3) / 1e12
@@ -4742,12 +4786,13 @@ def _spec_verify_times(torch, int8: bool) -> dict:
         f"{device_ms:.5f} ({how}), {tflops:.2f} TFLOP/s of the visible "
         f"pairs, plain_ms {plain_ms:.5f} (events over 20), library_ms "
         f"{library_ms:.5f} (scaled_dot_product_attention over the "
-        f"pre-gathered view with the mask, {how}), bound_us "
+        f"pre-gathered view with the mask, {how}; by CUDA events over 100 "
+        f"calls {library_events_ms:.5f}), bound_us "
         f"{bound_ms * 1e3:.3f} ({bound_by}); max abs err vs plain {err:.3e}; "
         f"cursors {starts}")
     return {"ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err,
+            "library_ms": library_ms, "library_events_ms": library_events_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
             "shape": f"verify q ({b}, {h}, {cw}, {hd}), page_size {ps}, "
                      f"bf16, {'int8' if int8 else 'bf16'} pool"}
 
@@ -5071,6 +5116,268 @@ def phase_spec_serve(torch) -> dict:
     return res
 
 
+# K3 at the cp engine's shapes (phase 13's tuple): cp rank 1 of a 45m
+# buffer of ~1000 positions, a 16-column table of 64-position pages, so its
+# 8 local columns start at position 512 (`pos_offset`); the ranks before it
+# (rows 0-2) see nothing there and must give o = 0 and lse = -1e30 exactly
+CP_PAGED_CASES = [
+    ("cp 2 rank 1 decode, 8 slots: rows dead before 512, partly visible "
+     "past it", 8, 8, 8, 1, 64, 64, 8, False,
+     [0, 300, 511, 512, 513, 700, 900, 1023], None, 512),
+    ("cp 2 rank 1 decode, int8 pools", 8, 8, 8, 1, 64, 64, 8, True,
+     [0, 300, 511, 512, 513, 700, 900, 1023], None, 512),
+    ("cp 2 rank 1 chunk cw 128: a dead row, a row across 512, a visible "
+     "row", 3, 8, 8, 128, 64, 64, 8, False, [384, 448, 600], None, 512),
+    ("cp 2 rank 1 chunk cw 128, int8 pools", 3, 8, 8, 128, 64, 64, 8, True,
+     [384, 448, 600], None, 512),
+    ("cp 2 rank 1 verify width 6 (k 4), 8 slots, qlen 0..5", 8, 8, 8, 6, 64,
+     64, 8, False, [0, 100, 505, 509, 512, 700, 890, 1017],
+     [5, 5, 5, 5, 3, 5, 0, 5], 512),
+    ("cp 2 rank 1 verify width 6, int8 pools", 8, 8, 8, 6, 64, 64, 8, True,
+     [0, 100, 505, 509, 512, 700, 890, 1017], [5, 5, 5, 5, 3, 5, 0, 5],
+     512),
+]
+CP_ONE_BASE = ["--model", "45m", "--random_init", "--vocab_size", "1024",
+               "--bf16", "--paged", "--page_size", "64", "--prefill_chunk",
+               "128"]
+CP_SERVE_BASE = CP_ONE_BASE + ["--cp", "2", "--dist_backend", "gloo"]
+# 8 burst requests of 512-880 tokens (a 96-token shared prefix ending
+# mid-page + 416-784 of their own), 16 new tokens each, 8 slots
+CP_SERVE_RUNS = {
+    "serve_paged_cp2": ["--shared_prefix_len", "96", "--num_requests", "8",
+                        "--arrival", "burst", "--prompt_len_min", "416",
+                        "--prompt_len_max", "784", "--max_new_tokens", "16",
+                        "--slots", "8"],
+}
+CP_SERVE_RUNS["serve_paged_cp2_int8"] = (CP_SERVE_RUNS["serve_paged_cp2"]
+                                         + ["--kv_dtype", "int8"])
+# the equal-bytes request: 880 + 16 tokens = 14 pages of 64. cp 1 holding
+# 12 pages refuses it at submit; cp 2 holding 24 (12 per rank: the same
+# bytes per rank) serves it
+CP_EQUAL = ["--num_requests", "1", "--arrival", "burst", "--prompt_len_min",
+            "880", "--prompt_len_max", "880", "--max_new_tokens", "16",
+            "--slots", "1"]
+
+
+def _cp_card_vs_cpu_calls(cfg, seed: int) -> list:
+    """decode_logits' calls: one chunk dispatch of two rows over a whole
+    pool of 8 random pages — the first chunk of a prompt (positions
+    0-127) and a chunk at 128-227 that crosses into cp rank 1's columns
+    over a random 128-position prefix on rank 0's — every position's
+    logits."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    L, ps, pages = cfg.num_layers, 64, 8
+    shape = (L, pages + 1, cfg.kv_heads, ps, cfg.head_dim)
+    pool = lambda: rng.standard_normal(shape).astype(np.float32)
+    # columns 0-1 belong to rank 0 (pages 0-3), 2-3 to rank 1 (pages 4-7)
+    tbl = np.array([[0, 1, 4, 5], [2, 3, 6, 7]], np.int32)
+    start = np.array([0, 128], np.int32)
+    qlen = np.array([128, 100], np.int32)
+    dstp = np.full((2, 128), pages, np.int32)
+    dsto = np.tile(np.arange(128, dtype=np.int32) % ps, (2, 1))
+    for r in range(2):
+        for i in range(qlen[r]):
+            dstp[r, i] = tbl[r, (start[r] + i) // ps]
+            dsto[r, i] = (start[r] + i) % ps
+    chunk = rng.integers(3, cfg.vocab_size, (2, 128)).astype(np.int32)
+    return [dict(kind="paged_chunk", page_size=ps, all_logits=True,
+                 args=(pool(), pool(), chunk, start, qlen, tbl, dstp, dsto))]
+
+
+def phase_cp_serve_check(torch) -> dict:
+    """K3 at the cp engine's shapes (CP_PAGED_CASES: rank 1's local slab
+    at pos_offset 512 with return_lse, dead and partly visible rows,
+    int8 pools, the verify width 6) against its plain version under phase
+    13's limits; then the 45m widths at 2 layers, f32, in one gloo group
+    of two ranks on the card and on the CPU: the paged engine at cp 2 on
+    the card gives the greedy tokens of cp 1 on the card and of cp 2 on
+    the CPU's plain path, and a chunk dispatch's logits at every position
+    (the first chunk of a prompt, and one across the ranks' columns) are
+    within 1e-4 (of the largest |logit|, at least 1) of cp 1's on the
+    card. Returns the worst bf16 K3 error per route."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
+    worst = _paged_cases(torch, CP_PAGED_CASES, 300)
+    cfg = model_preset("45m", num_layers=2, compute_dtype="float32")
+    tree = params_to_jax(Transformer(cfg).init_weights(seed=9).state_dict())
+    runs = [_tp_serve_cases(cfg, 9)[1]]          # the paged engine's run
+    calls = _cp_card_vs_cpu_calls(cfg, 9)
+    kw = dict(cfg=dataclasses.asdict(cfg), tree=tree)
+    todo = [("serve_runs", {"cp": 2}, dict(kw, runs=runs)),
+            ("decode_logits", {"cp": 2}, dict(kw, calls=calls))]
+    cp2 = launch.spawn(tp_checks.jobs, 2, todo, ("cuda", "cpu"), "gloo")
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    one = (tp_checks.serve_runs(mesh, kw["cfg"], tree, runs),
+           tp_checks.decode_logits(mesh, kw["cfg"], tree, calls))
+    card, cpu = (cp2[0][0][0], cp2[1][0][0]), (cp2[0][2][0], cp2[1][2][0])
+    toks = card[0]["tokens"]
+    same = lambda other: sum(toks[r] == other[r] for r in toks)
+    keys = ("cp", "pages_per_rank", "cow_copies", "prefix_hit_tokens",
+            "preemptions")
+    log(f"cp serve card vs cpu (paged engine, 45m widths, 2 layers, f32, "
+        f"{len(toks)} requests of 160-296 tokens x 16 new, pages of 64 over "
+        f"cp 2): cp=2 on the card token-identical to cp=1 on the card for "
+        f"{same(one[0][0]['tokens'])}, to cp=2 on the CPU for "
+        f"{same(cpu[0]['tokens'])} of {len(toks)} requests; stats "
+        f"{ {k: card[0]['stats'][k] for k in keys} }; "
+        f"rank dispatches {card[0]['dispatches']} / {card[1]['dispatches']}"
+        f", cp hops per rank {card[0]['cp_hops']} / {card[1]['cp_hops']}")
+    if not toks == one[0][0]["tokens"] == cpu[0]["tokens"]:
+        raise AssertionError("cp=2 paged tokens differ from cp=1's or the "
+                             "CPU's")
+    if not (card[0]["dispatches"] == card[1]["dispatches"]
+            and card[0]["drained"] and card[0]["stats"]["cp"] == 2):
+        raise AssertionError("the cp=2 ranks ran different dispatches or "
+                             "the pool did not drain")
+    lg2, lg1 = cp2[0][1][0], one[1][0]
+    lgc, valid = cp2[0][3][0], calls[0]["args"][4]
+    scale = max(1.0, float(np.abs(lg1).max()))
+    diff = lambda a: max(float(np.abs(a[r, :n] - lg1[r, :n]).max())
+                         for r, n in enumerate(valid))
+    equal = bool(np.array_equal(lg2, cp2[1][1][0]))
+    log(f"cp serve card vs cpu: a chunk dispatch's logits at every position "
+        f"(the first chunk, 128 positions; one of 100 across the ranks' "
+        f"columns) at cp=2 vs cp=1 on the card: max abs diff "
+        f"{diff(lg2):.3e} (limit 1e-4 x {scale:.3f}); cp=2 on the CPU vs "
+        f"cp=1 on the card {diff(lgc):.3e}; the ranks' logits equal: "
+        f"{equal}")
+    if not (diff(lg2) <= 1e-4 * scale and diff(lgc) <= 1e-4 * scale
+            and equal):
+        raise AssertionError("cp=2 chunk logits disagree with cp=1's")
+    return worst
+
+
+def _check_cp_serve_rank(name, r, layers) -> None:
+    """One rank of a cp=2 serve run: K3 exactly L per decode step on the
+    decode kernel and L per chunk dispatch on the wgmma chunk kernel (at cp
+    2 every chunk is at least 2 wide), nothing else; L cp hops per model
+    dispatch, no tp hop; two dispatch broadcasts per dispatch and the
+    stop."""
+    d, what = r["dispatches"], f"{name} rank {r['rank']}"
+    steps, chunks = d["paged_decode"], d["paged_chunk"]
+    _only(r["launches"], {"paged_attention": layers * (steps + chunks)},
+          f"{what} ({layers} x (decode steps + chunks))")
+    want = {"paged_decode": layers * steps,
+            "paged_chunk_sm90": layers * chunks, "paged_attn": 0}
+    if r["paged_launches_by_kernel"] != want:
+        raise AssertionError(f"{what}: paged launches by kernel "
+                             f"{r['paged_launches_by_kernel']}, expected "
+                             f"{want}")
+    if (r["cp_hops"]["calls"], r["tp_hops"]["calls"]) != (
+            layers * (steps + chunks), 0):
+        raise AssertionError(f"{what}: {r['cp_hops']['calls']} cp hops and "
+                             f"{r['tp_hops']['calls']} tp hops over "
+                             f"{steps + chunks} model dispatches, expected "
+                             f"{layers} cp hops each and no tp hop")
+    if r["dispatch_broadcasts"]["calls"] != 2 * sum(d.values()) + 1:
+        raise AssertionError(f"{what}: {r['dispatch_broadcasts']['calls']} "
+                             f"dispatch broadcasts for {sum(d.values())} "
+                             f"dispatches")
+
+
+def phase_cp_serve(torch) -> dict:
+    """`serve --paged --cp 2 --dist_backend gloo` at the 45m preset, bf16,
+    two ranks on the card, each holding half the KV pages: 8 burst
+    requests of 512-880 tokens behind a 96-token shared prefix, 16 new
+    tokens, with bf16 and with int8 pages; then the equal-bytes request
+    (880 + 16 tokens, 14 pages of 64) refused at submit by cp=1 over 12
+    pages and served by cp=2 over 24 (12 per rank). Checks: every request served in-vocab, the ranks in
+    lockstep (dispatches by kind and shape), COW copies and prefix hits,
+    no page left in use, each rank's pool bytes (page bytes x (pages per
+    rank + its scratch page)), exact K3 launches and cp hops per rank
+    (`_check_cp_serve_rank`). Returns each run's launches summed over the
+    ranks."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    from distributed_pytorch_from_scratch_tpu_torch.serving.kv_manager import (
+        page_bytes)
+    cfg = model_preset("45m", compute_dtype="bfloat16")
+    layers = cfg.num_layers
+    one = serve.main(CP_ONE_BASE + CP_EQUAL + ["--num_pages", "12"])
+    if (one["completed"], one["invalid"]) != (0, 1):
+        raise AssertionError(f"cp=1 over 12 pages: {one['completed']} "
+                             f"served, {one['invalid']} refused; expected "
+                             f"the 14-page request refused")
+    names = list(CP_SERVE_RUNS) + ["serve_paged_cp2_equal_bytes"]
+    argvs = [CP_SERVE_BASE + f for f in CP_SERVE_RUNS.values()] + [
+        CP_SERVE_BASE + CP_EQUAL + ["--num_pages", "24"]]
+    res = {}
+    for name, out in zip(names, [serve.main(a) for a in argvs]):
+        ranks, st = out["ranks"], out["engine_stats"]
+        toks = [t for ts in out["outputs"].values() for t in ts]
+        if out["completed"] != out["requests"] or not toks or not all(
+                0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"{name}: served {out['completed']} of "
+                                 f"{out['requests']}, tokens in the vocab "
+                                 f"{bool(toks)}")
+        if not all(r["dispatches"] == ranks[0]["dispatches"] and
+                   r["dispatch_shapes"] == ranks[0]["dispatch_shapes"]
+                   for r in ranks):
+            raise AssertionError(f"{name}: the ranks ran different "
+                                 f"dispatches")
+        for r in ranks:
+            _check_cp_serve_rank(name, r, layers)
+        kv = st["kv_dtype"]
+        each = page_bytes(cfg, 64, None if kv == "native" else kv)
+        want_bytes = each * (st["pages_per_rank"] + 1)
+        if any(r["pool_bytes"] != want_bytes for r in ranks) or (
+                st["cp"], st["pages_per_rank"] * 2) != (2, st["num_pages"]):
+            raise AssertionError(f"{name}: pool bytes "
+                                 f"{[r['pool_bytes'] for r in ranks]}, "
+                                 f"expected {want_bytes} on each rank")
+        if st["pages_in_use"] or st["preemptions"] or (
+                "equal" not in name and (st["cow_copies"] <= 0
+                                         or st["prefix_hit_tokens"] <= 0)):
+            raise AssertionError(f"{name}: COW copies {st['cow_copies']}, "
+                                 f"prefix hits {st['prefix_hit_tokens']}, "
+                                 f"preemptions {st['preemptions']}, pages "
+                                 f"in use {st['pages_in_use']}")
+        d = ranks[0]["dispatches"]
+        hops = ranks[0]["cp_hops"]
+        host_s = hops["wait_s"] + hops["hop_s"]
+        log(f"cp serve {name} (45m bf16, {kv} pages, cp=2 over gloo on one "
+            f"card): {out['completed']}/{out['requests']} requests, "
+            f"{out['generated_tokens']} tokens in {out['wall_s']} s -> "
+            f"{out['tokens_per_sec']} tok/s; TTFT p50/p95 "
+            f"{out['ttft_ms_p50']}/{out['ttft_ms_p95']} ms; TPOT p50/p95 "
+            f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms; dispatches per "
+            f"rank {d} (lockstep checked); pages_per_rank "
+            f"{st['pages_per_rank']} of {st['num_pages']}; pool bytes per "
+            f"rank {[r['pool_bytes'] for r in ranks]} (one pool of "
+            f"{st['num_pages']} pages: {each * (st['num_pages'] + 1)}); cp "
+            f"hops per model "
+            f"dispatch {layers} (checked), rank 0 {hops['calls']} hops, "
+            f"{hops['bytes'] / max(hops['calls'], 1) / 1e3:.3f} KB each on "
+            f"average, host {host_s:.3f} s (wait {hops['wait_s']:.3f} + hop "
+            f"{hops['hop_s']:.3f}) = "
+            f"{host_s / max(hops['calls'], 1) * 1e3:.3f} ms per hop, "
+            f"{host_s / ranks[0]['wall_s']:.3f} of rank 0's "
+            f"{ranks[0]['wall_s']:.3f} s; COW copies {st['cow_copies']}, "
+            f"prefix hit tokens {st['prefix_hit_tokens']}; K3 launches per "
+            f"rank by kernel {ranks[0]['paged_launches_by_kernel']}")
+        summed = {}
+        for r in ranks:
+            for k, v in r["paged_launches_by_kernel"].items():
+                summed[k] = summed.get(k, 0) + v
+        res[name] = {"paged_by_kernel": summed, "summary": out}
+    log(f"cp serve equal bytes: a request of 880 + 16 tokens (14 pages of "
+        f"64) refused at submit by cp=1 over 12 pages, served by cp=2 over "
+        f"24 (12 per rank, the same page bytes per rank): "
+        f"{res['serve_paged_cp2_equal_bytes']['summary']['completed']} "
+        f"completed")
+    return res
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -5081,7 +5388,8 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
           "gpt2_kernels", "gpt2_train", "gpt2_serve", "gpt2_card_vs_cpu",
           "sampler_check", "train_async_preempt", "serve_int8_weights",
-          "serve_replay", "spec_check", "spec_serve")
+          "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
+          "cp_serve")
 
 
 def main() -> None:
@@ -5119,20 +5427,22 @@ def run(torch, phases: set, workdir: str) -> list:
                 "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
                 "gpt2_train", "train_async_preempt", "serve_replay")
     res = {}
-    for name in PHASES:
-        if name not in phases:
-            continue
-        t1 = time.perf_counter()
-        fn = globals()[f"phase_{name}"]
-        res[name] = (fn() if name == "build" else
-                     fn(torch, workdir) if name in with_dir else fn(torch))
-        log(f"chip_smoke: phase {name} took "
-            f"{time.perf_counter() - t1:.1f} s")
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
+    with launch.kept_groups():
+        for name in PHASES:
+            if name not in phases:
+                continue
+            t1 = time.perf_counter()
+            fn = globals()[f"phase_{name}"]
+            res[name] = (fn() if name == "build" else
+                         fn(torch, workdir) if name in with_dir else fn(torch))
+            log(f"chip_smoke: phase {name} took "
+                f"{time.perf_counter() - t1:.1f} s")
     (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
-     replayed, spec_err, spec_served) = (
+     replayed, spec_err, spec_served, cp_err, cp_served) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -5140,7 +5450,8 @@ def run(torch, phases: set, workdir: str) -> list:
              "tp_tiny", "tp_serve", "train_remat", "train_spd", "eval",
              "eval_pth", "eval_tp", "gpt2_kernels", "gpt2_train",
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
-             "serve_replay", "spec_check", "spec_serve"))
+             "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
+             "cp_serve"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -5188,6 +5499,10 @@ def run(torch, phases: set, workdir: str) -> list:
     spec_paged = lambda kernel: {
         f"serve_paged_spec_{name}": spec_served[name]["by_kernel"][kernel]
         for name in ("greedy", "sampled")}
+    # K3's launches on the cp=2 runs (summed over the ranks), by C entry
+    cp_paged = lambda kernel: {
+        name: run["paged_by_kernel"][kernel]
+        for name, run in cp_served.items()}
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": served["flash_attention_fwd"],
@@ -5224,7 +5539,7 @@ def run(torch, phases: set, workdir: str) -> list:
          "launches_by_route": paged_served["paged_by_route"],
          "max_abs_err": max(paged_err["decode"], paged_times["decode"][
              "by_shape"]["decode_bf16"]["max_abs_err"],
-                            spec_err["worst"]["decode"]),
+                            spec_err["worst"]["decode"], cp_err["decode"]),
          **paged_times["decode"],
          "launches_by_path": {**by_path("paged_attention"),
                               "serve_paged_int8": paged_served["paged_int8"],
@@ -5236,14 +5551,17 @@ def run(torch, phases: set, workdir: str) -> list:
                                   int8_served["paged_by_kernel"][
                                       "paged_decode"],
                               **{f"{k}_decode_kernel": v for k, v in
-                                 spec_paged("paged_decode").items()}}},
+                                 spec_paged("paged_decode").items()},
+                              **{f"{k}_decode_kernel": v for k, v in
+                                 cp_paged("paged_decode").items()}}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
          "max_abs_err": max(paged_err["chunk"], paged_times["decode"][
              "by_shape"]["chunk_bf16"]["max_abs_err"],
                             spec_err["worst"]["chunk"],
-                            spec_err["verify"]["max_abs_err"]),
+                            spec_err["verify"]["max_abs_err"],
+                            cp_err["chunk"]),
          **paged_times["chunk"],
          "verify_shape": spec_err["verify"],
          "verify_shape_int8": spec_err["verify_int8"],
@@ -5257,7 +5575,8 @@ def run(torch, phases: set, workdir: str) -> list:
              **gpt2_paged("paged_chunk_sm90"),
              "serve_paged_int8_weights": int8_served["paged_by_kernel"][
                  "paged_chunk_sm90"],
-             **spec_paged("paged_chunk_sm90")}},
+             **spec_paged("paged_chunk_sm90"),
+             **cp_paged("paged_chunk_sm90")}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

@@ -26,12 +26,15 @@ the run's numbers: losses, decoded ids, times, kernel launches per rank).
   block kernels), tp the weights.
 * **Decoding.** The newest checkpoint decodes the prompts through the
   slot engine (`ContinuousBatchingEngine` + `decode_prompts`), its decode
-  step a CUDA graph on a card at tp = 1 and broadcast by tp rank 0 at
-  tp > 1 (`serving/tp_dispatch.py`); `--no_kv_cache` instead runs the
-  full forward over a buffer padded with EOS once per token (the source
-  repo's decoder), eager. At cp > 1 the zig-zag layout and
-  `--no_kv_cache` decode on the cp = 1 path, as in JAX; every dp and cp
-  replica decodes the same prompts.
+  step a CUDA graph on a card at tp = 1 and broadcast by rank 0 on more
+  than one rank (`serving/tp_dispatch.py`); `--no_kv_cache` instead runs
+  the full forward over a buffer padded with EOS once per token (the
+  source repo's decoder), eager. At cp > 1 with the contiguous layout the
+  KV decoder is the paged engine with its pages sharded over cp
+  (`PagedEngine`: each cp rank holds 1/cp of them), as JAX's; the zig-zag
+  layout and `--no_kv_cache` decode on the cp = 1 path, as in JAX. Every
+  rank follows rank 0's dispatches: the dp replicas (and, on the cp = 1
+  path, the cp ones) decode the same prompts.
 * **Output.** Global rank 0 alone prints and writes: `val/val.txt` and
   the `val/loss` scalars (`training/metrics.MetricsWriter`) under
   `--ckpt_dir`.
@@ -42,10 +45,9 @@ CLI's warning, and its refusal when the prompts do not fit).
 `--temperature > 0` (with `--decode_top_k` / `--decode_top_p`) samples
 through the slot engine, prompt i drawing from seed `--random_seed` + i.
 
-Refused with NotImplementedError, naming the ROADMAP item: KV decoding at
-`--cp_size > 1` with the contiguous layout (item 6: JAX routes it to the
-cp-sharded paged engine), `--num_experts` (item 7), the multi-host flags
-(item 2). The JAX CLI's own refusals stay,
+Refused with NotImplementedError, naming the ROADMAP item:
+`--num_experts` (item 7), the multi-host flags (item 2). The JAX CLI's
+own refusals stay,
 with its messages. Not ported: the JAX CLI's span tracer (`val/trace.json`,
 ROADMAP item 8).
 """
@@ -73,8 +75,8 @@ from .ops.collectives import all_gather
 from .ops.cuda import launch_counts
 from .runtime import launch
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
-from .serving.engine import (ContinuousBatchingEngine, decode_prompts,
-                             graph_stats)
+from .serving.engine import (ContinuousBatchingEngine, PagedEngine,
+                             decode_prompts, graph_stats)
 from .training.checkpoint import list_checkpoints, load_checkpoint
 from .training.metrics import MetricsWriter
 
@@ -92,8 +94,6 @@ DECODE_PROMPTS = [
 
 _MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
 _MOE = "ROADMAP Queue 1 item 7 (d): MoE"
-_CP_KV = ("ROADMAP Queue 1 item 6: serve --paged --cp, the cp-sharded "
-          "page pool")
 
 
 def get_eval_args(argv=None) -> argparse.Namespace:
@@ -109,9 +109,10 @@ def get_eval_args(argv=None) -> argparse.Namespace:
     g.add_argument("--cp_size", type=int, default=1,
                    help="context-parallel ranks: the validation forward "
                         "shards the sequence over cp (ring or Ulysses); "
-                        "decoding runs on the cp=1 path with the zig-zag "
-                        "layout or --no_kv_cache (KV decoding at cp>1 "
-                        "with the contiguous layout is not ported yet)")
+                        "KV decoding with the contiguous layout runs the "
+                        "paged engine with its pages sharded over cp; "
+                        "the zig-zag layout and --no_kv_cache decode on "
+                        "the cp=1 path")
     g.add_argument("--cp_layout", choices=["contiguous", "zigzag"],
                    default="contiguous",
                    help="sequence layout over the cp ring (see train.py)")
@@ -261,8 +262,9 @@ def greedy_decode(model: Transformer, mesh, tokenizer, prompts: List[str],
     a model with learned positions (gpt2) is clamped to its table, with
     the JAX warning, or refused when the prompts do not fit. At
     `temperature > 0` the KV path samples, prompt i from seed `seed` + i.
-    The KV path decodes through the slot engine: tp rank 0
-    drives it and returns the pairs, the other tp ranks serve its
+    The KV path decodes through the slot engine, or at a model's cp_size >
+    1 through the paged engine over its cp-sharded pages (JAX's choice):
+    rank 0 drives it and returns the pairs, the other ranks serve its
     dispatches and return None. The full-recompute path runs on every tp
     rank in lockstep (the gathered logits agree) and returns the pairs
     everywhere. `stats`, when given, receives the generated ids, the
@@ -291,7 +293,9 @@ def greedy_decode(model: Transformer, mesh, tokenizer, prompts: List[str],
     t0 = time.perf_counter()
     if use_kv_cache:
         prompt_ids = [[bos_id] + encoded[t] for t in texts]
-        engine = ContinuousBatchingEngine(
+        engine_cls = (PagedEngine if getattr(model, "cp_size", 1) > 1
+                      else ContinuousBatchingEngine)
+        engine = engine_cls(
             model, mesh, num_slots=min(len(prompt_ids), 8), buf_len=buf_len,
             eos_id=eos_id, temperature=temperature, top_k=top_k,
             top_p=top_p)
@@ -381,13 +385,6 @@ def _check(args: argparse.Namespace) -> int:
             f"one — cp_impl only changes the attention schedule — so rerun "
             f"with --cp_impl ring, or --no_kv_cache, or --cp_size 1 (got "
             f"--cp_size {args.cp_size})")
-    if (args.cp_size > 1 and args.cp_layout == "contiguous"
-            and not args.no_kv_cache):
-        raise NotImplementedError(
-            f"KV decoding at --cp_size {args.cp_size} with the contiguous "
-            f"layout runs on the cp-sharded paged engine in JAX: not ported "
-            f"yet, see {_CP_KV}; pass --cp_layout zigzag or --no_kv_cache "
-            f"to decode on the cp=1 path")
     return maxlen
 
 
@@ -442,8 +439,12 @@ def _evaluate(args: argparse.Namespace, maxlen: int, rank: int = 0,
                             cp_impl=args.cp_impl, cp_layout=args.cp_layout,
                             mesh=mesh)
     model_val.to(mesh.device)
-    # decoding runs on the cp = 1 path (the contiguous KV case is refused)
-    model = (model_val if args.cp_size == 1 else
+    # KV decoding with the contiguous layout runs the cp-sharded paged
+    # engine on the sweep's model; the zig-zag layout and the
+    # full-recompute path decode on the cp = 1 path, as JAX's
+    dec_cp = (args.cp_size if args.cp_layout == "contiguous"
+              and not args.no_kv_cache else 1)
+    model = (model_val if dec_cp == args.cp_size else
              build_model(args.family, cfg, mesh=mesh).to(mesh.device))
     ckpts = list_checkpoints(args.ckpt_dir, rank=0)
     if not ckpts:

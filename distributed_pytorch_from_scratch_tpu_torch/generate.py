@@ -13,16 +13,18 @@ every `--prompt` through the slot engine (`ContinuousBatchingEngine` +
 sampled (`--decode_top_k`, `--decode_top_p`), prompt i drawing from seed
 `--seed` + i. A gpt2 buffer is clamped to its learned position table. On a
 card at tp = 1 the decode step is a CUDA graph; at `--tp_size N` one
-process per tp rank (`runtime/launch.spawn`), tp rank 0 drives the engine
-and broadcasts each dispatch (`serving/tp_dispatch.py`). The tokenizer is
+process per tp rank (`runtime/launch.spawn`), rank 0 drives the engine
+and broadcasts each dispatch (`serving/tp_dispatch.py`). At `--cp_size C`
+(times `--tp_size`, one process per rank) the prompts decode through the
+paged engine with its pages sharded over the cp ranks (`PagedEngine`), as
+JAX's CLI does: its greedy tokens are cp = 1's. The tokenizer is
 `data/tokenizer.load_tokenizer` (`--tokenizer_backend auto | hf |
 native`). Runs on the card unless `--device cpu` is given; with no card it
 exits non-zero.
 
 Refused with NotImplementedError, naming the ROADMAP item, as evaluate.py
-refuses them: `--cp_size > 1` (item 6: the cp-sharded paged engine) and
-`--num_experts` (item 7). The JAX CLI's ulysses refusal stays, with its
-message.
+refuses it: `--num_experts` (item 7). The JAX CLI's ulysses refusal stays,
+with its message.
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ import argparse
 from .cli import add_model_shape_args, build_model_config
 from .config import BOS_TOKEN, EOS_TOKEN, MeshConfig
 from .data.tokenizer import BACKENDS, load_tokenizer
-from .evaluate import _CP_KV, _MOE
+from .evaluate import _MOE
 from .models import build_model
 from .models.transformer import validate_tp
 from .runtime import launch
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
-from .serving.engine import ContinuousBatchingEngine, decode_prompts
+from .serving.engine import (ContinuousBatchingEngine, PagedEngine,
+                             decode_prompts)
 from .training.checkpoint import latest_step, load_checkpoint
 
 
@@ -56,8 +59,9 @@ def get_generate_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_new_tokens", type=int, default=128)
     p.add_argument("--tp_size", type=int, default=1)
     p.add_argument("--cp_size", type=int, default=1,
-                   help="1 only, so far (the cp-sharded paged engine is "
-                        "not ported)")
+                   help="context-parallel ranks, one process each: the "
+                        "prompts decode through the paged engine with its "
+                        "pages sharded over cp")
     p.add_argument("--cp_impl", choices=["ring", "ulysses"], default="ring")
     p.add_argument("--family", choices=["llama", "gpt2"], default="llama")
     add_model_shape_args(p.add_argument_group("model shape"))
@@ -71,8 +75,8 @@ def get_generate_args(argv=None) -> argparse.Namespace:
                         "prefills over a buffer padded to a multiple of "
                         "this (identical tokens); 0 pads to the full buffer")
     p.add_argument("--slots", type=int, default=8,
-                   help="slot-engine KV slots (concurrent decodes); prompts "
-                        "beyond this queue FIFO")
+                   help="KV slots (concurrent decodes; the paged engine's "
+                        "at --cp_size > 1); prompts beyond this queue FIFO")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
@@ -96,10 +100,6 @@ def _refuse(args: argparse.Namespace) -> None:
             f"— cp_impl only changes the attention schedule, not the "
             f"weights — so rerun with --cp_impl ring or --cp_size 1 (got "
             f"--cp_size {args.cp_size})")
-    if args.cp_size > 1:
-        raise NotImplementedError(
-            f"--cp_size {args.cp_size}: decoding over cp ranks is not "
-            f"ported yet, see {_CP_KV}; rerun with --cp_size 1")
     if args.num_experts:
         raise NotImplementedError(f"--num_experts {args.num_experts}: not "
                                   f"ported yet, see {_MOE}")
@@ -109,26 +109,27 @@ def generate(args: argparse.Namespace) -> list:
     """The decoded texts (prompt + completion, stripped), in prompt
     order."""
     _refuse(args)
-    if args.tp_size == 1:
+    world = args.tp_size * args.cp_size
+    if world == 1:
         return _generate(args)
     try:
-        dist_backend(args.dist_backend, resolve_device(args.device),
-                     args.tp_size)
+        dist_backend(args.dist_backend, resolve_device(args.device), world)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"generate: {e}")
-    return launch.spawn(_rank_main, args.tp_size, args)[0]
+    return launch.spawn(_rank_main, world, args)[0]
 
 
 def _rank_main(rank: int, nprocs: int, init_method: str,
                args: argparse.Namespace) -> list:
-    """One tp rank (`runtime/launch.spawn`)."""
+    """One rank (`runtime/launch.spawn`)."""
     return _generate(args, rank, init_method)
 
 
 def _generate(args: argparse.Namespace, rank: int = 0,
               init_method: str = None) -> list:
     try:
-        mesh = make_mesh(MeshConfig(tp=args.tp_size), device=args.device,
+        mesh = make_mesh(MeshConfig(tp=args.tp_size, cp=args.cp_size),
+                         device=args.device,
                          rank=rank, backend=args.dist_backend,
                          init_method=init_method)
     except (RuntimeError, ValueError) as e:
@@ -149,7 +150,7 @@ def _generate(args: argparse.Namespace, rank: int = 0,
     step = args.iter if args.iter is not None else latest_step(args.ckpt_dir)
     if step is None:
         raise SystemExit(f"no checkpoints found in {args.ckpt_dir}")
-    model = build_model(args.family, cfg, mesh=mesh)
+    model = build_model(args.family, cfg, cp_size=args.cp_size, mesh=mesh)
     state, _, _ = load_checkpoint(args.ckpt_dir, step, tp_size=mesh.tp,
                                   tp_rank=mesh.tp_rank)
     model.load_state_dict(state)
@@ -166,18 +167,25 @@ def _generate(args: argparse.Namespace, rank: int = 0,
             raise SystemExit(f"prompt needs {longest + 2} positions but the "
                              f"model's position table has {cap}")
     prompts = [[bos_id] + e for e in encoded]
-    engine = ContinuousBatchingEngine(
-        model, mesh, num_slots=min(len(prompts), args.slots),
-        buf_len=buf_len, eos_id=eos_id, temperature=args.temperature,
-        top_k=args.decode_top_k, top_p=args.decode_top_p,
-        prefill_bucket=args.prefill_bucket)
+    if args.cp_size > 1:
+        # the long-context path: the paged engine's cp-sharded page pool
+        engine = PagedEngine(
+            model, mesh, num_slots=min(len(prompts), args.slots),
+            buf_len=buf_len, eos_id=eos_id, temperature=args.temperature,
+            top_k=args.decode_top_k, top_p=args.decode_top_p)
+    else:
+        engine = ContinuousBatchingEngine(
+            model, mesh, num_slots=min(len(prompts), args.slots),
+            buf_len=buf_len, eos_id=eos_id, temperature=args.temperature,
+            top_k=args.decode_top_k, top_p=args.decode_top_p,
+            prefill_bucket=args.prefill_bucket)
     if not engine.dispatch.leader:
         engine.dispatch.serve()
         return []
     gens = decode_prompts(engine, prompts, args.max_new_tokens,
                           base_seed=args.seed)
     engine.dispatch.stop()
-    waste = engine.stats()["prefill_pad_waste_eliminated"]
+    waste = engine.stats().get("prefill_pad_waste_eliminated", 0)
     if waste > 0:
         say(f"prefill pad waste eliminated by length bucketing: "
             f"{100 * waste:.0f}% ({engine.prefill_positions} bucketed "

@@ -5,8 +5,10 @@ of the JAX `models/decode.py` (`_prefill`, `_decode_one`, the paged
 Slot caches are (num_layers, b, kv_heads, buf_len, head_dim) in the compute
 dtype. Paged pools are (num_layers, num_pages + 1, kv_heads, page_size,
 head_dim), or (codes int8, scales f32 (num_layers, num_pages + 1, kv_heads,
-page_size)) tuples for int8 pages (serving/kv_manager.py). Under
-grouped-query attention they hold kv_heads entries and query head i reads kv
+page_size)) tuples for int8 pages (serving/kv_manager.py); at cp > 1 a
+rank's pool holds its slab of num_pages / cp pages + its own scratch page,
+and the paged lowerings combine the ranks' partial attention
+(`_cp_attend`). Under grouped-query attention they hold kv_heads entries and query head i reads kv
 head i // (num_heads / kv_heads). At tp > 1 a rank's caches hold its
 kv_heads / tp local heads, its q its num_heads / tp, and the lowerings
 return its vocab columns of the logits; the sampler gathers them.
@@ -41,10 +43,12 @@ import numpy as np
 import torch
 
 from ..ops.attention import MASK_VALUE, causal_attention
-from ..ops.collectives import copy_to, gather_from
+from ..ops.collectives import all_gather, copy_to, gather_from
+from ..ops.cuda.block_attention import block_attention_plain
 from ..ops.cuda.paged_attention import paged_attention
 from ..ops.quant import quantize_rows
 from ..ops.rope import apply_rotary, rope_tables
+from ..serving.kv_manager import local_page_ids
 
 # the paged attends: the dense page view + einsum block (the oracle), or
 # `paged_attention` (the CUDA kernel on the card, its plain version on CPU)
@@ -270,11 +274,7 @@ def _decode_one(model, cache_k: torch.Tensor, cache_v: torch.Tensor,
     return _logits_last(model, x, dtype)
 
 
-def _check_paged(attn_impl: str, cp: int) -> None:
-    if cp > 1:
-        raise NotImplementedError(
-            f"cp={cp}: the cp-sharded page pool is not ported yet, see "
-            f"ROADMAP Queue 1 (d); the port serves pages at cp=1")
+def _check_paged(attn_impl: str) -> None:
     if attn_impl not in PAGED_ATTN_IMPLS:
         raise ValueError(f"paged attn impl must be one of "
                          f"{PAGED_ATTN_IMPLS}, got {attn_impl!r}")
@@ -358,6 +358,68 @@ def _paged_attend(q, k_cache, v_cache, page_tbl, start, pos, page_size: int,
     return _gather_attend(q, k_cache, v_cache, page_tbl, pos, dtype)
 
 
+def _cp_pool_view(model, pool_k, page_tbl: torch.Tensor, page_size: int,
+                  cp: int):
+    """This cp rank's slice of the paged world (the JAX `_cp_pool_view`):
+    its max_pages / cp page-table columns translated to LOCAL pool indices,
+    the global position of its first column (`pos_offset`), and the
+    global -> local translation for write destinations. Column j belongs
+    to rank j // (max_pages / cp), and rank r's slab holds global pages [r
+    * ppr, (r + 1) * ppr) plus one local scratch page at index ppr; an id
+    the rank does not own translates to that scratch."""
+    mpp = page_tbl.shape[1] // cp          # page-table columns per rank
+    ppr = (pool_k[0] if isinstance(pool_k, tuple)
+           else pool_k).shape[1] - 1        # local real pages (+1 scratch)
+    r = model.mesh.cp_rank
+    to_local = lambda ids: local_page_ids(ids, ppr, r)
+    return (to_local(page_tbl[:, r * mpp:(r + 1) * mpp]), r * mpp * page_size,
+            to_local)
+
+
+def cp_combine(o: torch.Tensor, lse: torch.Tensor, mesh) -> torch.Tensor:
+    """Merge the cp ranks' partial attention (o f32, normalised within the
+    rank; lse over the rank's visible scores, -1e30 where it sees nothing)
+    into the exact softmax over every rank's keys, the value of the JAX
+    `_cp_combine` (one pmax and two psums) through ONE collective: o and
+    lse packed into one f32 buffer, all-gathered over cp, and combined the
+    same way on every rank, in rank order: m = max lse, w = exp(lse - m),
+    o = sum o w / sum w. A dead rank's weight underflows to exactly 0; a
+    row dead on every rank (a free row) gets w = 1 everywhere and o = 0, as
+    at cp = 1. Every rank gets the same bits."""
+    packed = torch.cat([o.float(), lse.float()[..., None]], dim=-1)
+    every = all_gather(packed, mesh, "cp")          # (cp, ..., hd + 1)
+    lses = every[..., -1]
+    w = torch.exp(lses - lses.amax(dim=0))
+    num, den = every[0, ..., :-1] * w[0, ..., None], w[0]
+    for r in range(1, every.shape[0]):
+        num = num + every[r, ..., :-1] * w[r, ..., None]
+        den = den + w[r]
+    return num / den[..., None]
+
+
+def _cp_attend(model, q, k_cache, v_cache, tbl_cp, base: int, start, pos,
+               page_size: int, dtype, attn_impl: str,
+               qlen=None) -> torch.Tensor:
+    """One layer's attend at cp > 1: every query of the dispatch over this
+    rank's local pages, positioned at `base` — K3 with `pos_offset` and
+    `return_lse` ('kernel'), or the dense local view through the block
+    attend (`block_attention_plain` in f32, the JAX gather arm's
+    `_block_attn_xla`) — then `cp_combine`: one cp hop per layer."""
+    if attn_impl == "kernel":
+        o, lse = paged_attention(q.contiguous(), k_cache, v_cache, tbl_cp,
+                                 start, page_size=page_size, qlen=qlen,
+                                 pos_offset=base, return_lse=True)
+    else:
+        k_view = _gather_page_view(k_cache, tbl_cp, dtype)
+        v_view = _gather_page_view(v_cache, tbl_cp, dtype)
+        t = k_view.shape[2]
+        kv_pos = (base + torch.arange(t, device=q.device))[None, :].expand(
+            q.shape[0], t)
+        o, lse = block_attention_plain(q.float(), k_view.float(),
+                                       v_view.float(), pos, kv_pos)
+    return cp_combine(o, lse, model.mesh).to(dtype)
+
+
 def _paged_decode_one(model, pool_k, pool_v, token: torch.Tensor,
                       cur: torch.Tensor, page_tbl: torch.Tensor,
                       page_size: int, cos_t, sin_t, dtype,
@@ -370,8 +432,14 @@ def _paged_decode_one(model, pool_k, pool_v, token: torch.Tensor,
     token, cur (b,) and page_tbl (b, max_pages) hold int32 ids; free rows'
     tables aim every entry at the scratch page, so their position-0 write
     lands there. `attn_impl`: 'gather' (the dense page view, the oracle) or
-    'kernel' (`ops.cuda.paged_attention`)."""
-    _check_paged(attn_impl, cp)
+    'kernel' (`ops.cuda.paged_attention`).
+
+    At `cp > 1` the pool is this rank's slab: a row writes its token's K/V
+    only on the rank that owns the cursor's page (the others write their
+    local scratch), attends over the rank's own page-table columns and the
+    ranks' partials merge in `cp_combine` — the step's one cp hop per
+    layer; pages never move."""
+    _check_paged(attn_impl)
     b = token.shape[0]
     p1 = cur[:, None]
     x = _embed(model, token[:, None], p1, dtype)
@@ -379,6 +447,10 @@ def _paged_decode_one(model, pool_k, pool_v, token: torch.Tensor,
     rows = torch.arange(b, device=token.device)
     dst_page = page_tbl[rows, cur // page_size]        # (b,)
     dst_off = cur % page_size                          # (b,)
+    if cp > 1:
+        tbl_cp, base, to_local = _cp_pool_view(model, pool_k, page_tbl,
+                                               page_size, cp)
+        dst_page = to_local(dst_page)
     for li, lp in enumerate(model.layers):
         y = lp[model.attn_norm_key](x)
         q, k, v = _qkv(model, lp, y, dtype)       # q: (b, h, 1, hd); kv: kvh
@@ -387,8 +459,12 @@ def _paged_decode_one(model, pool_k, pool_v, token: torch.Tensor,
         v_cache = _layer_pool(pool_v, li)
         _paged_cache_write(k_cache, k[:, :, 0, :], dst_page, dst_off)
         _paged_cache_write(v_cache, v[:, :, 0, :], dst_page, dst_off)
-        o = _paged_attend(q, k_cache, v_cache, page_tbl, cur, p1, page_size,
-                          dtype, attn_impl)
+        if cp > 1:
+            o = _cp_attend(model, q, k_cache, v_cache, tbl_cp, base, cur, p1,
+                           page_size, dtype, attn_impl)
+        else:
+            o = _paged_attend(q, k_cache, v_cache, page_tbl, cur, p1,
+                              page_size, dtype, attn_impl)
         x = _finish_block(model, lp, x, o, dtype)
     return _logits_last(model, x, dtype)
 
@@ -408,13 +484,24 @@ def _paged_prefill_chunk(model, pool_k, pool_v, chunk: torch.Tensor,
     prefilled, and the chunk's own earlier positions. Returns the logits at
     the last real position qlen-1, (b, vocab), or with `all_logits` at every
     chunk position, (b, cw, vocab). Causality makes chunked prefill
-    value-identical to the whole-buffer `_prefill`."""
-    _check_paged(attn_impl, cp)
+    value-identical to the whole-buffer `_prefill`.
+
+    At `cp > 1` the pool is this rank's slab: every rank runs the chunk's
+    projections and MLP (replicated), writes the K/V of the columns whose
+    pages it owns (the rest aim at its local scratch), attends EVERY chunk
+    query over its own pages and the ranks' partials merge in `cp_combine`
+    (one cp hop per layer, where the JAX ring of queries takes cp); each
+    rank's attend covers cw queries x T / cp keys, as over the ring."""
+    _check_paged(attn_impl)
     b, cw = chunk.shape
     pos = start[:, None] + torch.arange(cw, device=chunk.device,
                                         dtype=start.dtype)[None, :]
     x = _embed(model, chunk, pos, dtype)
     cos, sin = _positions(cos_t, sin_t, pos)
+    if cp > 1:
+        tbl_cp, base, to_local = _cp_pool_view(model, pool_k, page_tbl,
+                                               page_size, cp)
+        dst_page = to_local(dst_page)       # non-owned columns -> scratch
     for li, lp in enumerate(model.layers):
         y = lp[model.attn_norm_key](x)
         q, k, v = _qkv(model, lp, y, dtype)       # q: (b, h, cw, hd)
@@ -423,8 +510,12 @@ def _paged_prefill_chunk(model, pool_k, pool_v, chunk: torch.Tensor,
         v_cache = _layer_pool(pool_v, li)
         _paged_cache_write(k_cache, k.transpose(1, 2), dst_page, dst_off)
         _paged_cache_write(v_cache, v.transpose(1, 2), dst_page, dst_off)
-        o = _paged_attend(q, k_cache, v_cache, page_tbl, start, pos,
-                          page_size, dtype, attn_impl, qlen=qlen)
+        if cp > 1:
+            o = _cp_attend(model, q, k_cache, v_cache, tbl_cp, base, start,
+                           pos, page_size, dtype, attn_impl, qlen=qlen)
+        else:
+            o = _paged_attend(q, k_cache, v_cache, page_tbl, start, pos,
+                              page_size, dtype, attn_impl, qlen=qlen)
         x = _finish_block(model, lp, x, o, dtype)
     if all_logits:
         return _logits_tokens(model, x, dtype)

@@ -32,10 +32,11 @@ Context parallelism's:
 * `all_gather(x, mesh)`: every rank's x, stacked (positions, logits; no
   autograd).
 
-Serving's: `broadcast_ints(x, mesh)` sends a host int tensor from tp index
-0 to the other tp ranks (a serving engine's dispatch: rank 0 decides, every
-rank computes; `serving/tp_dispatch.py`). It is no autograd Function and
-is counted apart from the model's hops, under `stats["dispatch"]`.
+Serving's: `broadcast_ints(x, mesh, axis)` sends a host int tensor from
+index 0 of `axis` to its other ranks (a serving engine's dispatch, over the
+'world' axis of every rank: rank 0 decides, every rank computes;
+`serving/tp_dispatch.py`). It is no autograd Function and is counted apart
+from the model's hops, under `stats["dispatch"]`.
 
 Transport: under gloo a CUDA tensor is copied to the host, sent, received
 and copied back, in these functions and nowhere else — gloo takes CPU

@@ -46,24 +46,24 @@ from ..ops.cuda import (add_to_counters, counter_delta, counter_state,
 DECODE_GRAPH_MODES = ("auto", "on", "off")
 
 
-def use_decode_graph(mode: str, device, tp: int) -> bool:
+def use_decode_graph(mode: str, device, tp: int, cp: int = 1) -> bool:
     """Whether a serving engine captures its decode step: 'auto' on a card
-    at tp = 1 (eager on the CPU and at tp > 1), 'off' never (the eager
-    step, the graph's oracle), 'on' always, refused where it cannot run:
-    on the CPU there is no graph, and at tp > 1 the gloo hops inside the
-    step are staged through host memory, which a capture cannot hold
-    (NCCL hops could be captured, but no machine here runs NCCL: ROADMAP
-    Queue 1 items 2 and 3)."""
+    at tp = 1 and cp = 1 (eager on the CPU and at tp or cp > 1), 'off'
+    never (the eager step, the graph's oracle), 'on' always, refused where
+    it cannot run: on the CPU there is no graph, and at tp > 1 or on a
+    cp-sharded page pool the gloo hops inside the step are staged through
+    host memory, which a capture cannot hold (NCCL hops could be captured,
+    but no machine here runs NCCL: ROADMAP Queue 1 items 2 and 3)."""
     if mode not in DECODE_GRAPH_MODES:
         raise ValueError(f"decode_graph must be one of {DECODE_GRAPH_MODES}, "
                          f"got {mode!r}")
-    capturable = torch.device(device).type == "cuda" and tp == 1
+    capturable = torch.device(device).type == "cuda" and tp == 1 and cp == 1
     if mode == "on" and not capturable:
         raise ValueError(
-            f"decode_graph 'on' needs tp=1 on a CUDA card (got device "
-            f"{device}, tp {tp}): no graph on the CPU, and at tp > 1 the "
-            f"host-staged hops cannot be captured, see ROADMAP Queue 1 "
-            f"items 2 and 3")
+            f"decode_graph 'on' needs tp=1 on a CUDA card and cp=1 (got "
+            f"device {device}, tp {tp}, cp {cp}): no graph on the CPU, and "
+            f"at tp > 1 or cp > 1 the host-staged hops cannot be captured, "
+            f"see ROADMAP Queue 1 items 2 and 3")
     return mode != "off" and capturable
 
 

@@ -12,6 +12,15 @@ pickled through a file in the temporary directory). `fn` must be importable
 by name from a fresh interpreter, so the workers live in this package: a
 group started from a test imports no jax.
 
+Kept groups: inside `with kept_groups():`, `spawn` starts a group of each
+size once and runs every later call of that size on the same processes,
+one call after another (a script that runs many groups pays each
+process's start, its imports and its card's first use once). The process
+group stays joined between calls; a call's rank function finds it through
+`make_mesh`, which joins only where none exists. A rank that raises, or
+dies, stops its whole kept group and the error is raised in the caller; the
+next call of that size starts a new one. Leaving the block stops them all.
+
 Signals: while the group runs, the launching process (from its main
 thread) forwards SIGTERM and SIGINT to every rank and waits for them; ranks
 that exit cleanly (the trainer checkpoints and returns) make a clean
@@ -23,12 +32,15 @@ is killed when the launcher dies.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+import queue
 import signal
 import tempfile
 import threading
-from typing import Any, Callable, List
+import traceback
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -89,9 +101,137 @@ class _Forward:
             signal.signal(sig, prev)
 
 
+def _serve_calls(rank: int, nprocs: int, workdir: str, calls,
+                 done) -> None:
+    """A kept group's rank: runs each (index, fn, args) of `calls` until
+    None, saving fn's return value as `_run` does and reporting (index,
+    rank, None) or (index, rank, traceback) on `done`; a call that raises
+    ends the rank."""
+    _detach()
+    init_method = f"file://{os.path.join(workdir, 'rendezvous')}"
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    try:
+        while True:
+            call = calls.get()
+            if call is None:
+                return
+            index, fn, args = call
+            if torch.cuda.is_initialized():
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                out = fn(rank, nprocs, init_method, *args)
+                torch.save(out, os.path.join(workdir,
+                                             f"call-{index}-rank-{rank}.pt"))
+            except BaseException:
+                done.put((index, rank, traceback.format_exc()))
+                return
+            del out
+            if torch.cuda.is_initialized():
+                torch.cuda.empty_cache()
+            done.put((index, rank, None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class _KeptGroup:
+    """nprocs rank processes that run one call after another (see the
+    module docstring)."""
+
+    def __init__(self, nprocs: int):
+        self.nprocs = nprocs
+        self._dir = tempfile.TemporaryDirectory(prefix="mesh-group-")
+        ctx = mp.get_context("spawn")
+        self._calls = [ctx.Queue() for _ in range(nprocs)]
+        self._done = ctx.Queue()
+        self._procs = [ctx.Process(target=_serve_calls,
+                                   args=(r, nprocs, self._dir.name,
+                                         self._calls[r], self._done))
+                       for r in range(nprocs)]
+        for p in self._procs:
+            p.start()
+        self._index = 0
+        self.alive = True
+
+    def run(self, fn: Callable, args: tuple) -> List[Any]:
+        index, self._index = self._index, self._index + 1
+        for q in self._calls:
+            q.put((index, fn, args))
+        pending = set(range(self.nprocs))
+        with _Forward([p.pid for p in self._procs]):
+            while pending:
+                try:
+                    got, rank, err = self._done.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [r for r in pending
+                            if not self._procs[r].is_alive()]
+                    if dead:
+                        self.close(clean=False)
+                        raise RuntimeError(
+                            f"rank {dead[0]} of a kept group of "
+                            f"{self.nprocs} died (exit code "
+                            f"{self._procs[dead[0]].exitcode})")
+                    continue
+                if err is not None:
+                    self.close(clean=False)
+                    raise RuntimeError(f"rank {rank} of a kept group of "
+                                       f"{self.nprocs} raised:\n{err}")
+                if got == index:
+                    pending.discard(rank)
+        outs = []
+        for r in range(self.nprocs):
+            path = os.path.join(self._dir.name, f"call-{index}-rank-{r}.pt")
+            outs.append(torch.load(path, weights_only=False))
+            os.remove(path)
+        return outs
+
+    def close(self, clean: bool = True) -> None:
+        """Stops the ranks: a clean end between calls, SIGKILL after a
+        failed call (a rank may wait in a collective for the one that
+        failed)."""
+        if not self.alive:
+            return
+        self.alive = False
+        for q in self._calls:
+            q.put(None)
+        for p in self._procs:
+            p.join(timeout=30 if clean else 0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self._dir.cleanup()
+
+
+_KEPT: Optional[Dict[int, _KeptGroup]] = None
+_KEPT_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def kept_groups():
+    """Inside this block `spawn` keeps one group of each size and reuses it
+    (see the module docstring); on leaving, every kept rank is stopped."""
+    global _KEPT
+    if _KEPT is not None:
+        raise RuntimeError("kept_groups() is already active")
+    _KEPT = {}
+    try:
+        yield
+    finally:
+        groups, _KEPT = _KEPT, None
+        for group in groups.values():
+            group.close()
+
+
 def spawn(fn: Callable, nprocs: int, *args: Any) -> List[Any]:
     """[fn(rank, nprocs, init_method, *args) for each rank], each run in a
-    process of its own; see the module docstring."""
+    process of its own (on a kept group's inside `kept_groups()`); see the
+    module docstring."""
+    if _KEPT is not None:
+        with _KEPT_LOCK:
+            group = _KEPT.get(nprocs)
+            if group is None or not group.alive:
+                group = _KEPT[nprocs] = _KeptGroup(nprocs)
+            return group.run(fn, args)
     with tempfile.TemporaryDirectory(prefix="mesh-group-") as workdir:
         ctx = mp.start_processes(_run, args=(fn, nprocs, workdir, args),
                                  nprocs=nprocs, join=False,

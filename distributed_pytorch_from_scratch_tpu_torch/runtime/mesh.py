@@ -186,6 +186,9 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=world, rank=rank,
                                 timeout=COLLECTIVE_TIMEOUT)
+    elif dist.get_backend() != backend:
+        raise RuntimeError(f"the process group runs {dist.get_backend()}, "
+                           f"not {backend}")
     if dist.get_world_size() != world or dist.get_rank() != rank:
         raise RuntimeError(f"the process group holds rank "
                            f"{dist.get_rank()} of {dist.get_world_size()}, "
@@ -202,4 +205,8 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
             if rank in members:
                 axes[name] = Axis(name, sizes[name], members.index(rank),
                                   tuple(members), group)
+    # every rank of the mesh, over the default group (no group to create):
+    # a serving engine's dispatch broadcasts (serving/tp_dispatch.py)
+    axes["world"] = Axis("world", world, rank, tuple(range(world)),
+                         dist.group.WORLD)
     return Mesh(dev, cfg.dp, cfg.cp, cfg.tp, rank, backend, axes)

@@ -3,8 +3,9 @@ reference, run through `runtime.launch.spawn` — by the tests (against the
 JAX package, on the CPU) and by chip_smoke.py (the card's kernels against
 the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
 training (`collective_pairs`, `layer_cases`, `model_runs`,
-`seed_identity`), serving at tp > 1 (`serve_runs`, `decode_logits`,
-`quantized_params`) and the evaluation loss on any mesh (`doc_losses`).
+`seed_identity`), serving at tp > 1 and on cp-sharded pages at cp or cp
+x tp (`serve_runs`, `decode_logits`, `quantized_params`, `combine`) and
+the evaluation loss on any mesh (`doc_losses`).
 
 `jobs(rank, nprocs, init_method, todo)` runs a list of `(name, axes,
 kwargs)` jobs in one process group, one after the other, each on the mesh
@@ -238,9 +239,13 @@ def seed_identity(mesh, cfg: Dict, seed: int, batch,
     return {"tp": loss, "tp1": loss1}
 
 
-def _serving_model(mesh, cfg: Dict, tree) -> Transformer:
-    """This rank's shard of the JAX param tree `tree` on its device."""
-    model = build_model(tree_family(tree), ModelConfig(**cfg), mesh=mesh)
+def _serving_model(mesh, cfg: Dict, tree,
+                   cp_size: int = None) -> Transformer:
+    """This rank's shard of the JAX param tree `tree` on its device, the
+    model at cp `cp_size` (default: the mesh's; a paged engine's pages
+    shard over it)."""
+    model = build_model(tree_family(tree), ModelConfig(**cfg), mesh=mesh,
+                        cp_size=mesh.cp if cp_size is None else cp_size)
     model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank))
     return model.to(mesh.device)
 
@@ -288,17 +293,18 @@ def _drained(eng) -> bool:
 def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     """Each run {engine: slot | paged | speculative, kw: the engine's
     kwargs, requests: [(prompt, max_new, tenant, slo_class[, seed])],
-    stagger, tick}: one engine on every tp rank of `mesh`, with this rank's
-    shard of `tree` (a speculative run's `drafter`: (its ModelConfig
-    fields, its JAX tree)). tp rank 0 runs `drive`, the paged engines on a
-    scripted clock that advances `tick` per call, then stops the workers,
-    which serve its dispatches meanwhile. A run with int8 decode weights
-    (`decode_weight_dtype` in kw) gets a model of its own: its engine
-    quantizes the model in place.
-    Every rank returns its dispatches by kind and by shape (a speculative
-    run also each verify's (n_acc, out) as this rank computed it); tp rank
-    0 also {rid: tokens}, the stats, the paged engine's page table after
-    every step and whether its pools drained."""
+    stagger, tick}: one engine on every rank of `mesh`, with this rank's
+    shard of `tree` (the model at the mesh's cp: a paged engine's pages
+    shard over it; a speculative run's `drafter`: (its ModelConfig
+    fields, its JAX tree), at cp 1). Rank 0 runs `drive`, the paged
+    engines on a scripted clock that advances `tick` per call, then stops
+    the workers, which serve its dispatches meanwhile. A run with int8
+    decode weights (`decode_weight_dtype` in kw) gets a model of its own:
+    its engine quantizes the model in place.
+    Every rank returns its dispatches by kind and by shape, its cp hops
+    (a speculative run also each verify's (n_acc, out) as this rank
+    computed it); rank 0 also {rid: tokens}, the stats, the paged engine's
+    page table after every step and whether its pools drained."""
     model = _serving_model(mesh, cfg, tree)
     out = []
     for run in runs:
@@ -309,8 +315,8 @@ def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
         if run["engine"] == "speculative":
             kw["clock"] = counting_clock(run["tick"])
             eng = SpeculativeEngine(m, mesh,
-                                    _serving_model(mesh, *run["drafter"]),
-                                    **kw)
+                                    _serving_model(mesh, *run["drafter"],
+                                                   cp_size=1), **kw)
             verify = eng.dispatch.lowerings["spec_verify"]
             eng.dispatch.lowerings["spec_verify"] = (
                 lambda shape, p: rounds.append(verify(shape, p))
@@ -321,6 +327,7 @@ def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
         else:
             eng = ContinuousBatchingEngine(m, mesh, **kw)
         res = {"rounds": rounds} if run["engine"] == "speculative" else {}
+        C.reset_stats()
         if eng.dispatch.leader:
             reqs = [Request(rid=i, prompt=list(p), max_new=m, tenant=t,
                             slo_class=c, seed=seed[0] if seed else 0)
@@ -332,7 +339,8 @@ def serve_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
                 res["drained"] = _drained(eng)
         else:
             eng.dispatch.serve()
-        res.update(dispatches=eng.dispatch.counts,
+        res.update(cp_hops=C.stats["cp"]["calls"],
+                   dispatches=eng.dispatch.counts,
                    shapes=sorted((k, list(s), n) for (k, s), n in
                                  eng.dispatch.shapes.items()))
         out.append(res)
@@ -349,16 +357,32 @@ def quantized_params(mesh, cfg: Dict, tree) -> Dict:
             for k, leaf in q.items()}
 
 
+def _rank_pool(x, mesh, dev):
+    """This rank's part of a whole page pool array (layers, P + 1, kv heads,
+    page_size[, hd]), or of an int8 (codes, scales) pair: its tp heads and,
+    at cp > 1, its slab of P / cp pages followed by the scratch page."""
+    if isinstance(x, tuple):
+        return tuple(_rank_pool(a, mesh, dev) for a in x)
+    x = _local(x, 2, mesh.tp, mesh.tp_rank)
+    if mesh.cp > 1:
+        ppr, r = (x.shape[1] - 1) // mesh.cp, mesh.cp_rank
+        x = np.concatenate([x[:, r * ppr:(r + 1) * ppr], x[:, -1:]], axis=1)
+    return _t(x, dev)
+
+
 def decode_logits(mesh, cfg: Dict, tree, calls: Sequence[Dict],
                   decode_weight_dtype=None) -> List[np.ndarray]:
     """Each call {kind, args}: 'prefill' (buf, prompt_len), 'decode'
-    (cache_k, cache_v, token, cur) or 'paged_decode' (pool_k, pool_v,
-    token, cur, page_tbl, with `page_size`), the caches and pools given
-    whole (every kv head: this rank takes a copy of its own), through the
-    lowering on this rank's shard of `tree`. Returns
-    each call's full-vocab f32 logits after the sampler's gather (the same
-    on every rank). With `decode_weight_dtype='int8'` the model holds int8
-    decode weights (`serving.engine.quantize_model`)."""
+    (cache_k, cache_v, token, cur), 'paged_decode' (pool_k, pool_v, token,
+    cur, page_tbl) or 'paged_chunk' (pool_k, pool_v, chunk, start, qlen,
+    page_tbl, dst_page, dst_off), the paged ones with `page_size` and
+    optionally `attn_impl` (default 'kernel') and `all_logits`; the
+    caches and pools given whole (every kv head and, for a paged pool,
+    every page: this rank takes its heads and, at cp > 1, its slab),
+    through the lowering on this rank's shard of `tree` at the mesh's cp.
+    Returns each call's full-vocab f32 logits after the sampler's gather
+    (the same on every rank). With `decode_weight_dtype='int8'` the model
+    holds int8 decode weights (`serving.engine.quantize_model`)."""
     model = _serving_model(mesh, cfg, tree)
     if decode_weight_dtype == "int8":
         quantize_model(model, mesh)
@@ -371,6 +395,7 @@ def decode_logits(mesh, cfg: Dict, tree, calls: Sequence[Dict],
         t_len = max(model.cfg.maxlen,
                     args[0].shape[3] if kind == "decode" else 0)
         cos, sin = decode.decode_tables(model, t_len, dev)
+        paged = dict(attn_impl=call.get("attn_impl", "kernel"), cp=mesh.cp)
         with torch.inference_mode():
             if kind == "prefill":
                 logits = decode._prefill(model, _t(args[0], dev),
@@ -380,13 +405,30 @@ def decode_logits(mesh, cfg: Dict, tree, calls: Sequence[Dict],
                 logits = decode._decode_one(
                     model, heads(args[0]), heads(args[1]), _t(args[2], dev),
                     _t(args[3], dev), args[0].shape[3], cos, sin, dtype)
-            else:
+            elif kind == "paged_decode":
                 logits = decode._paged_decode_one(
-                    model, heads(args[0]), heads(args[1]),
+                    model, _rank_pool(args[0], mesh, dev),
+                    _rank_pool(args[1], mesh, dev),
                     *(_t(a, dev) for a in args[2:]), call["page_size"], cos,
-                    sin, dtype, attn_impl="kernel")
+                    sin, dtype, **paged)
+            else:
+                logits = decode._paged_prefill_chunk(
+                    model, _rank_pool(args[0], mesh, dev),
+                    _rank_pool(args[1], mesh, dev),
+                    *(_t(a, dev) for a in args[2:]), call["page_size"], cos,
+                    sin, dtype, all_logits=call.get("all_logits", False),
+                    **paged)
             out.append(_np(decode._full_vocab_logits(model, logits)))
     return out
+
+
+def combine(mesh, o: np.ndarray, lse: np.ndarray) -> np.ndarray:
+    """`models/decode.cp_combine` on this cp rank's partial: o (cp, ...,
+    hd) and lse (cp, ...) stacked over the cp ranks, each rank taking its
+    own entry."""
+    r = mesh.cp_rank
+    return _np(decode.cp_combine(_t(o[r], mesh.device),
+                                 _t(lse[r], mesh.device), mesh))
 
 
 def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
@@ -398,7 +440,8 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
     fns = {"collective_pairs": collective_pairs, "layer_cases": layer_cases,
            "model_runs": model_runs, "seed_identity": seed_identity,
            "serve_runs": serve_runs, "decode_logits": decode_logits,
-           "doc_losses": doc_losses, "quantized_params": quantized_params}
+           "doc_losses": doc_losses, "quantized_params": quantized_params,
+           "combine": combine}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

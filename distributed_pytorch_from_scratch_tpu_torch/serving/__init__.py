@@ -1,5 +1,7 @@
-"""Continuous-batching serving over a slot-granular KV pool — the port of
-the JAX package's slot engine: `kv_manager.KVCachePool`,
-`scheduler.FIFOScheduler`, `engine.ContinuousBatchingEngine`,
-`loadgen` and the `serve` CLI. The paged engine, the SLO scheduler,
-speculative decoding and the fleet are not ported yet (ROADMAP.md)."""
+"""Serving — the port of the JAX package's `serving/`: the KV pools
+(`kv_manager`), the FIFO and SLO schedulers, the slot engine
+`ContinuousBatchingEngine` and the paged engine `PagedEngine` (its pages
+cp-sharded at cp > 1) in `engine`, the speculative engine, the dispatch
+broadcast of a multi-rank engine (`tp_dispatch`), `loadgen` and the `serve`
+CLI. The router, the page transfer and the fleet controller are not ported
+yet (ROADMAP.md)."""

@@ -22,8 +22,9 @@ captured once as a CUDA graph and replayed (`decode_graph`,
 step is ~900, the JAX step's one compiled dispatch. The prefill and chunk
 dispatches, whose widths vary by bucket, and the copy-on-write page copies
 stay eager. Both engines send every device dispatch through a
-`tp_dispatch.Dispatcher`: at tp > 1 tp rank 0 runs the host loop and
-broadcasts each dispatch, and the other ranks run it on their shards
+`tp_dispatch.Dispatcher`: on more than one rank (tp, or the paged
+engine's cp-sharded pages) rank 0 runs the host loop and broadcasts each
+dispatch, and the other ranks run it on their shards
 (`engine.dispatch.serve()`) until rank 0's `engine.dispatch.stop()`.
 Sampling (`temperature > 0`, with `top_k` / `top_p`) draws each token from
 the request's seed and the absolute position it will occupy
@@ -145,14 +146,14 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device, non_blocking=True)
 
 
-def _capture_decode(engine, mode: str, tp: int,
-                    example: np.ndarray) -> Optional[CapturedStep]:
+def _capture_decode(engine, mode: str, tp: int, example: np.ndarray,
+                    cp: int = 1) -> Optional[CapturedStep]:
     """The engine's decode step `engine._decode_body(packed) -> (tokens,
     full-vocab logits)` captured for the packed dispatch's shape, where
-    `mode` and the rank say so (`use_decode_graph`), else None. The
+    `mode` and the mesh say so (`use_decode_graph`), else None. The
     warm-up runs `example` for real: the engines pass one that writes only
     free rows and the scratch page."""
-    if not use_decode_graph(mode, engine.device, tp):
+    if not use_decode_graph(mode, engine.device, tp, cp):
         return None
     with torch.no_grad():
         return CapturedStep(engine._decode_body,
@@ -339,6 +340,12 @@ class ContinuousBatchingEngine(_Sampling):
                  decode_graph: str = "auto",
                  debug_host_sampler: bool = False,
                  decode_weight_dtype=None):
+        if getattr(model, "cp_size", 1) > 1:
+            raise ValueError(
+                "the slot engine's per-slot caches are replicated over cp; "
+                "long-context cp serving is the PAGED engine's job "
+                f"(--paged with --cp {model.cp_size}) — use PagedEngine, or "
+                "rebuild the model at cp=1")
         if max_prefill_batch < 1:
             raise ValueError(f"max_prefill_batch must be >= 1, got "
                              f"{max_prefill_batch}")
@@ -568,8 +575,8 @@ class _PrefillState:
 
 
 class PagedEngine(_Sampling):
-    """Continuous batching over a PAGED KV cache (the JAX `PagedEngine` at
-    cp=1; at tp > 1 one engine per rank, as the slot engine), for a model
+    """Continuous batching over a PAGED KV cache (the JAX `PagedEngine`; at
+    tp > 1 or cp > 1 one engine per rank, as the slot engine), for a model
     of either family, greedy or sampled as the slot engine.
 
     The same host-driven loop as `ContinuousBatchingEngine` — admit, pump
@@ -586,6 +593,15 @@ class PagedEngine(_Sampling):
     * **chunked prefill**: a prompt prefills `prefill_chunk` positions at a
       time, interleaved with the decode loop, so a live stream's TPOT never
       stalls by more than one chunk.
+    * **cp-sharded pages** (a model at `cp_size` > 1): each cp rank holds
+      1 / cp of the pages (`kv_manager.PagedKVPool`), so per-rank KV bytes
+      shrink ~1 / cp at equal context. The host keeps ONE global page table;
+      column j belongs to rank j // (max_pages / cp), so `max_pages` and
+      `num_pages` round up to cp multiples, each column's page is leased
+      from its owner's slab, and a request's need is checked against one
+      slab. Chunk widths round up to a cp multiple, as JAX's. The lowerings
+      attend each rank's slab and combine the partials
+      (`models/decode.cp_combine`); the tokens are cp = 1's.
 
     Admission is `scheduler.SLOScheduler`; when an overdue request cannot
     be admitted, or a live slot cannot grow a page, a victim is PREEMPTED:
@@ -636,12 +652,23 @@ class PagedEngine(_Sampling):
         if weights_on != mesh.device:
             raise ValueError(f"model weights lie on {weights_on}, the mesh "
                              f"on {mesh.device}")
+        # cp-sharded pages: column j of the page table belongs to cp rank j
+        # // (max_pages / cp), so max_pages rounds up to a cp multiple
+        self.cp = max(1, int(getattr(model, "cp_size", 1)))
+        if self.cp > 1 and mesh.cp != self.cp:
+            raise ValueError(f"a model at cp {self.cp} shards its pages over "
+                             f"the mesh's cp ranks; got a mesh at cp "
+                             f"{mesh.cp}")
         # the logical per-request buffer rounds UP to whole pages
         self.page_size = page_size
-        self.max_pages = -(-buf_len // page_size)
+        pages = -(-buf_len // page_size)
+        self.max_pages = self.cp * -(-pages // self.cp)
         self.buf_len = self.max_pages * page_size
+        self._mpp = self.max_pages // self.cp  # page-table columns per rank
         if not num_pages:
             num_pages = num_slots * self.max_pages  # no oversubscription
+        # the pool splits its pages into equal per-rank slabs (cp=1: one)
+        num_pages = self.cp * -(-num_pages // self.cp)
         self.model = model
         self.device = mesh.device
         self.num_slots = num_slots
@@ -696,7 +723,8 @@ class PagedEngine(_Sampling):
             self, decode_graph, mesh.tp, np.concatenate([
                 np.zeros(3 * num_slots, np.int32),
                 np.full(num_slots * self.max_pages, self.pool.scratch_page,
-                        np.int32)])) if self._CAPTURES_DECODE_STEP else None
+                        np.int32)]),
+            self.cp) if self._CAPTURES_DECODE_STEP else None
 
     # -- request intake ---------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -712,6 +740,15 @@ class PagedEngine(_Sampling):
                 f"({len(req.prompt)}+{req.max_new} tokens / page_size "
                 f"{self.page_size}) but the pool has {self.pool.num_pages} "
                 f"— raise --num_pages or lower the budget")
+        # cp > 1: ownership is positional (column j -> rank j // mpp), so
+        # the worst case drawn from ONE rank's slab is min(need, mpp) pages
+        if min(need, self._mpp) > self.pool.pages_per_rank:
+            raise ValueError(
+                f"request {req.rid}: needs up to {min(need, self._mpp)} "
+                f"pages from one cp rank's slab ({need} total over cp="
+                f"{self.cp}) but each slab holds "
+                f"{self.pool.pages_per_rank} — raise --num_pages or lower "
+                f"the budget")
         self.scheduler.submit(req)
 
     def has_work(self) -> bool:
@@ -802,7 +839,7 @@ class PagedEngine(_Sampling):
             # gate on the pages the FIRST chunk needs (prefix sharing,
             # resolved at chunk time, can only reduce it)
             need = -(-min(len(ids), self.prefill_chunk) // self.page_size)
-            if not need <= self.pool.free_pages:
+            if not self._fits_free(need):
                 if not (overdue and self._preempt_for(req)):
                     break
                 continue
@@ -878,13 +915,24 @@ class PagedEngine(_Sampling):
         self._free_slots.append(slot)
         return freed
 
-    def _alloc_page(self, needy_slot: int) -> int:
-        """A free page, evicting victims while the pool is dry (never the
-        needy slot itself). Submit-time validation guarantees a sole live
-        request fits, so exhaustion with no victim cannot happen."""
+    def _fits_free(self, need: int) -> bool:
+        """Can `need` pages for page-table columns [0, need) be leased now?
+        At cp > 1 every rank's span of `mpp` columns must fit its own slab:
+        ownership is positional, pages cannot migrate."""
+        for o in range(self.cp):
+            cols = max(0, min(need, (o + 1) * self._mpp) - o * self._mpp)
+            if cols > self.pool.free_pages_of(o):
+                return False
+        return True
+
+    def _alloc_page(self, needy_slot: int, owner: int = 0) -> int:
+        """A free page from cp rank `owner`'s slab (cp = 1: the pool),
+        evicting victims while the slab is dry (never the needy slot
+        itself). Submit-time validation guarantees a sole live request
+        fits, so exhaustion with no victim cannot happen."""
         while True:
             try:
-                return self.pool.alloc()
+                return self.pool.alloc(owner)
             except PoolExhausted:
                 cands = self._candidates(exclude_slot=needy_slot)
                 if not cands:
@@ -901,11 +949,13 @@ class PagedEngine(_Sampling):
         ps, scratch = self.page_size, self.pool.scratch_page
         pairs = []
         for j in range(lo // ps, -(-hi // ps)):
+            owner = j // self._mpp     # the cp rank whose slab backs column j
             pid = int(self._tbl[slot, j])
             if pid == scratch:
-                self._tbl[slot, j] = self._alloc_page(slot)
+                self._tbl[slot, j] = self._alloc_page(slot, owner)
             elif self.pool.refcount[pid] > 1:
-                new = self._alloc_page(slot)
+                # same-column COW: source and copy share the owner
+                new = self._alloc_page(slot, owner)
                 pairs.append((pid, new))
                 self.pool.unref(pid)
                 self._tbl[slot, j] = new
@@ -942,6 +992,10 @@ class PagedEngine(_Sampling):
         s, ids = st.s, st.ids
         self._ensure_writable(slot, s, s + n)
         cw = _pow2_at_most(n, self.prefill_chunk)
+        # JAX's cp query ring splits the chunk into cp sub-blocks: its
+        # widths round up to a cp multiple (pads are scratch-aimed), and so
+        # do these, so the two engines dispatch the same shapes
+        cw = self.cp * -(-cw // self.cp)
         buf, dstp, dsto = _chunk_maps(ids, s, n, cw, ps, self.eos_id,
                                       self.pool.scratch_page,
                                       self._tbl[slot])
@@ -977,7 +1031,8 @@ class PagedEngine(_Sampling):
             self.model, self.pool.ks, self.pool.vs, dev[None, :cw], start,
             qlen, dev[None, cw + 2:o], dev[None, o:o + cw],
             dev[None, o + cw:o + 2 * cw], self.page_size, self._cos,
-            self._sin, self._dtype, attn_impl=self.paged_attn_impl)
+            self._sin, self._dtype, attn_impl=self.paged_attn_impl,
+            cp=self.cp)
         return self._sample(logits, dev[o + 2 * cw:],
                             start + qlen)[0].cpu().numpy()
 
@@ -1064,7 +1119,8 @@ class PagedEngine(_Sampling):
         logits = _paged_decode_one(
             self.model, self.pool.ks, self.pool.vs, dev[:n], dev[n:2 * n],
             dev[3 * n:].view(n, self.max_pages), self.page_size, self._cos,
-            self._sin, self._dtype, attn_impl=self.paged_attn_impl)
+            self._sin, self._dtype, attn_impl=self.paged_attn_impl,
+            cp=self.cp)
         return self._sample(logits, dev[2 * n:3 * n], dev[n:2 * n] + 1,
                             self._debug_host_sampler)
 
@@ -1092,8 +1148,8 @@ class PagedEngine(_Sampling):
             "page_size": self.page_size,
             "kv_dtype": self.kv_dtype or "native",
             "paged_attn": self.paged_attn_impl,
-            "cp": 1,
-            "pages_per_rank": self.pool.num_pages,
+            "cp": self.cp,
+            "pages_per_rank": self.pool.pages_per_rank,
             "num_pages": self.pool.num_pages,
             "pages_in_use": self.pool.pages_in_use,
             "pages_in_use_mean": round(mean(self._pages_used_sum), 2),

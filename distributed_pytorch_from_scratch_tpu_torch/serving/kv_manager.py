@@ -1,6 +1,7 @@
 """KV-cache pools: the slot-granular `KVCachePool` of the continuous-
-batching engine and the page pool `PagedKVPool` of the paged engine
-(counterparts of both in the JAX `serving/kv_manager.py`, at cp=1).
+batching engine and the page pool `PagedKVPool` of the paged engine, whose
+pages shard over the cp ranks at cp > 1 (counterparts of both and of
+`local_page_ids` in the JAX `serving/kv_manager.py`).
 
 One device tensor per K/V with a `slots` axis,
 
@@ -30,6 +31,19 @@ import torch
 from ..config import resolve_dtype
 
 
+def local_page_ids(ids: torch.Tensor, ppr: int, rank: int) -> torch.Tensor:
+    """GLOBAL page ids -> cp rank `rank`'s LOCAL pool indices (the JAX
+    `local_page_ids`): rank r's slab holds global pages [r * ppr, (r + 1) *
+    ppr) at local [0, ppr) and its scratch page at local ppr. Any id the
+    rank does not own (another rank's page, or the global scratch
+    sentinel) maps to that local scratch: reads there are masked, writes
+    quarantined. At cp = 1 (ppr = num_pages) it is the identity on every
+    valid id."""
+    lo = rank * ppr
+    owned = (ids >= lo) & (ids < lo + ppr)
+    return torch.where(owned, ids - lo, torch.full_like(ids, ppr))
+
+
 def kv_token_bytes(cfg, kv_dtype=None) -> int:
     """K+V cache bytes per TOKEN POSITION at a model shape (all layers, all
     kv heads — every tp rank's together, as JAX counts them — K and V). An
@@ -47,6 +61,14 @@ def kv_token_bytes(cfg, kv_dtype=None) -> int:
 def page_bytes(cfg, page_size: int, kv_dtype=None) -> int:
     """K+V bytes of ONE page at a model shape (scratch page excluded)."""
     return kv_token_bytes(cfg, kv_dtype) * page_size
+
+
+def device_bytes(pool) -> int:
+    """The bytes this rank's pool tensors hold (K and V, int8 scales
+    included, the scratch entry too)."""
+    parts = [t for x in (pool.ks, pool.vs)
+             for t in (x if isinstance(x, tuple) else (x,))]
+    return sum(t.numel() * t.element_size() for t in parts)
 
 
 class KVCachePool:
@@ -129,10 +151,21 @@ class PagedKVPool:
     scale per stored head-vector (scales start at ones, as in JAX), so
     append-only writes never requantize a page's earlier positions.
 
+    At cp > 1 (the model's `cp_size`) the pages shard over the cp ranks:
+    rank r holds only its own slab, global pages [r * ppr, (r + 1) * ppr)
+    at local indices [0, ppr) plus a LOCAL scratch page at index ppr
+    (pages_per_rank = ppr = num_pages / cp), so each rank's tensors are
+
+        (num_layers, pages_per_rank + 1, kv_heads / tp, page_size, head_dim)
+
+    The host keeps the global view: page ids are global, one free list per
+    owning rank (`alloc(owner)`: page-table column j belongs to rank j //
+    (max_pages / cp)), and the device side translates with
+    `local_page_ids`. At cp = 1 the one slab is the whole pool.
+
     The pool tensors are written in place by the decode lowerings, which
     takes the place of the JAX engine's buffer donation. Exporting and
-    importing pages (disaggregated serving) and the cp-sharded layout are
-    not ported (ROADMAP)."""
+    importing pages (disaggregated serving) are not ported (ROADMAP)."""
 
     def __init__(self, model, mesh, num_pages: int, page_size: int,
                  kv_dtype=None):
@@ -144,12 +177,21 @@ class PagedKVPool:
             raise ValueError(f"kv_dtype must be None/'native'/'int8', got "
                              f"{kv_dtype!r}")
         cfg = model.cfg
+        self.cp = max(1, int(getattr(model, "cp_size", 1)))
+        if num_pages % self.cp:
+            raise ValueError(
+                f"num_pages {num_pages} must be divisible by cp "
+                f"{self.cp} (each cp rank owns an equal page slab; the "
+                f"engine rounds up before building the pool)")
         self.num_pages = num_pages
+        self.pages_per_rank = num_pages // self.cp
+        # this process's slab: global pages [lo, lo + pages_per_rank)
+        self.cp_rank = mesh.cp_rank if self.cp > 1 else 0
         self.page_size = page_size
         self.scratch_page = num_pages          # never leased; pad target
         self.kv_dtype = "int8" if kv_dtype == "int8" else None
-        shape = (cfg.num_layers, num_pages + 1, model.num_local_kv_heads,
-                 page_size, cfg.head_dim)
+        shape = (cfg.num_layers, self.pages_per_rank + 1,
+                 model.num_local_kv_heads, page_size, cfg.head_dim)
         dev = mesh.device
         if self.kv_dtype:
             self.dtype = torch.int8
@@ -162,7 +204,10 @@ class PagedKVPool:
         self.device = dev
         self.ks = alloc()
         self.vs = alloc()
-        self._free = deque(range(num_pages))
+        # one free list per owning cp rank (cp = 1: one)
+        ppr = self.pages_per_rank
+        self._free = [deque(range(r * ppr, (r + 1) * ppr))
+                      for r in range(self.cp)]
         self.refcount = np.zeros(num_pages, np.int32)
         self._children = {}     # chain_key -> [(page_id, tokens_tuple)]
         self._page_keys = {}    # page_id -> parent chain_key (for dereg)
@@ -171,18 +216,23 @@ class PagedKVPool:
     # -- page leasing -----------------------------------------------------
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
+
+    def free_pages_of(self, owner: int) -> int:
+        return len(self._free[owner])
 
     @property
     def pages_in_use(self) -> int:
         return self.num_pages - self.free_pages
 
-    def alloc(self) -> int:
-        if not self._free:
+    def alloc(self, owner: int = 0) -> int:
+        """A free page from cp rank `owner`'s slab (cp = 1: the pool)."""
+        if not self._free[owner]:
             raise PoolExhausted(
-                f"page pool exhausted ({self.num_pages} pages fully leased) "
-                f"— the engine preempts or the scheduler gates admission")
-        page = self._free.popleft()
+                f"page pool exhausted (rank {owner}'s slab of "
+                f"{self.pages_per_rank} pages fully leased) — the engine "
+                f"preempts or the scheduler gates admission")
+        page = self._free[owner].popleft()
         self.refcount[page] = 1
         return page
 
@@ -198,7 +248,7 @@ class PagedKVPool:
         self.refcount[page] -= 1
         if self.refcount[page] == 0:
             self._deregister(page)
-            self._free.append(page)
+            self._free[page // self.pages_per_rank].append(page)
 
     # -- prefix index -----------------------------------------------------
     @staticmethod
@@ -237,14 +287,25 @@ class PagedKVPool:
     # -- copy-on-write ----------------------------------------------------
     def copy_pages(self, pairs) -> None:
         """Materialise private copies: pairs of (src_page, dst_page) in one
-        gather + scatter per pool tensor. (The JAX pool pads the pairs to a
-        power of two to bound its recompiles; eager torch has none.)"""
+        gather + scatter per pool tensor, each rank copying the pairs its
+        slab holds. (The JAX pool pads the pairs to a power of two to bound
+        its recompiles; eager torch has none.)"""
         if not pairs:
             return
-        idx = np.array(pairs, np.int64).T
+        ppr = self.pages_per_rank
+        for s, d in pairs:
+            if s // ppr != d // ppr:
+                raise ValueError(
+                    f"COW pair ({s} -> {d}) crosses cp slabs (owners "
+                    f"{s // ppr} -> {d // ppr}); a page-table column's "
+                    f"replacement must stay with its owning rank")
+        mine = [(s, d) for s, d in pairs if s // ppr == self.cp_rank]
+        self.cow_copies += len(pairs)
+        if not mine:
+            return
+        idx = np.array(mine, np.int64).T - self.cp_rank * ppr
         src, dst = torch.from_numpy(idx).to(self.device, non_blocking=True)
         for pool in (self.ks, self.vs):
             # dim 1 is the page dim of codes (5-D) and scales (4-D) alike
             for a in (pool if isinstance(pool, tuple) else (pool,)):
                 a[:, dst] = a[:, src]
-        self.cow_copies += len(pairs)

@@ -30,6 +30,16 @@ loadgen and the engine's host loop and broadcasts each device dispatch
 as tp=1. Rank 0's record is printed, with every rank's tp hops and
 dispatch counts under `ranks` in the returned summary.
 
+`--paged --cp N` shards the page pool over N context-parallel ranks (one
+process each, alone or times `--tp_size`; mesh order tp innermost, as
+JAX's `MeshConfig(tp, cp)`): each rank holds 1/N of the KV pages, so a
+request N times longer fits the same per-rank page bytes; every layer
+attends each rank's own pages and combines the ranks' partials in one cp
+hop (`models/decode.cp_combine`), with the tokens of cp = 1. Global rank 0
+runs the loadgen and the host loop for every rank. The record adds `cp`,
+`pages_per_rank` and `num_pages`, and `ranks` each rank's cp hops. The
+speculative drafter stays at cp = 1.
+
 `--family llama|gpt2` picks the model (`models/gpt2.py`: LayerNorm,
 tanh-GELU, learned positions, tied head); a gpt2 buffer is clamped to its
 position table, as the JAX CLI clamps it. `--temperature > 0` samples
@@ -63,7 +73,6 @@ sampled ones distributed as its. The drafter's weights come from
 tp) or from a random init at `--seed` + 1. The report adds the engine's
 acceptance numbers and the drafter/target wall split.
 
-Not ported yet, refused with a message naming its ROADMAP item: cp > 1.
 The JAX CLI's observability/control flags do not exist here yet
 (ROADMAP.md).
 """
@@ -91,6 +100,7 @@ from ..runtime.graphs import DECODE_GRAPH_MODES, use_decode_graph
 from ..runtime.mesh import dist_backend, make_mesh, resolve_device
 from ..training.checkpoint import latest_step, load_checkpoint
 from .engine import ContinuousBatchingEngine, PagedEngine, graph_stats
+from .kv_manager import device_bytes
 from .loadgen import replay_requests, run_loadgen, synthetic_requests
 from .scheduler import parse_slo_classes
 from .speculative import SpeculativeEngine
@@ -103,13 +113,6 @@ _DRY_CFG = ModelConfig(attn_dim=64, ffn_dim=128, num_heads=2, num_layers=2,
 # head per rank (`_drafter_config`)
 _DRY_DRAFTER_CFG = ModelConfig(attn_dim=32, ffn_dim=64, num_heads=1,
                                num_layers=1, vocab_size=64, maxlen=64)
-
-# JAX CLI flags kept so its command lines parse: any value but the default
-# is refused, naming what is not ported yet (ROADMAP.md)
-NOT_PORTED = [  # (flag dest, default, what the flag would turn on)
-    ("cp", 1, "the cp-sharded page pool, alone or with --tp_size; ROADMAP "
-              "Queue 1 item 6"),
-]
 
 
 def get_serve_args(argv=None) -> argparse.Namespace:
@@ -139,7 +142,8 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     g.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     g.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
-                   help="--tp_size > 1: the ranks' transport (default: "
+                   help="more than one rank (--tp_size, --cp): the "
+                        "ranks' transport (default: "
                         "nccl on cuda, gloo on cpu); nccl needs one card "
                         "per rank, gloo stages a card's tensors through "
                         "host memory")
@@ -200,7 +204,13 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     g.add_argument("--num_pages", type=int, default=0,
                    help="--paged: page-pool budget in pages (0 = slots x "
                         "ceil(buf_len/page_size), no oversubscription)")
-    g.add_argument("--cp", type=int, default=1, help="1 only, so far")
+    g.add_argument("--cp", type=int, default=1,
+                   help="--paged: context-parallel ranks, one process each "
+                        "(times --tp_size): the page pool shards over cp "
+                        "(each rank holds 1/cp of the pages) and every "
+                        "layer combines the ranks' partial attention; "
+                        "token-identical to cp=1. The speculative drafter "
+                        "stays cp=1")
     g.add_argument("--prefill_chunk", type=int, default=128,
                    help="--paged: prefill positions per chunk; a live "
                         "stream's decode never stalls by more than one "
@@ -260,10 +270,8 @@ def get_serve_args(argv=None) -> argparse.Namespace:
                    help="tiny random-init model + a 6-request burst; "
                         "ignores --ckpt_dir")
     args = p.parse_args(argv)
-    for dest, default, what in NOT_PORTED:
-        if getattr(args, dest) != default:
-            p.error(f"--{dest} {getattr(args, dest)}: not ported yet "
-                    f"({what})")
+    if args.cp < 1:
+        p.error(f"--cp must be >= 1, got {args.cp}")
     if args.speculate:
         if not args.paged:
             p.error("--speculate runs over the paged cache; add --paged")
@@ -285,7 +293,8 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     if args.arrival == "replay" and not args.replay and not args.dry_run:
         p.error("--arrival replay needs --replay PATH")
     try:
-        use_decode_graph(args.decode_graph, args.device, args.tp_size)
+        use_decode_graph(args.decode_graph, args.device, args.tp_size,
+                         args.cp)
     except ValueError as e:
         p.error(f"--decode_graph: {e}")
     # the page and SLO knobs only matter to the paged engine; a silent
@@ -299,6 +308,10 @@ def get_serve_args(argv=None) -> argparse.Namespace:
         if args.kv_dtype != "native":
             p.error("--kv_dtype is a --paged knob (the slot pool stores "
                     "the compute dtype; only the page pool quantizes)")
+        if args.cp != 1:
+            p.error("--cp is a --paged knob (only the page pool shards "
+                    "over cp; the slot engine replicates its caches — "
+                    "add --paged for long-context cp serving)")
         if args.class_mix:
             p.error("--class_mix needs --paged (the FIFO engine has no "
                     "SLO classes)")
@@ -370,10 +383,11 @@ def _load_weights(model, mesh, seed: int, ckpt_dir, step, what: str):
 
 
 def _load_model(args, cfg: ModelConfig, mesh) -> Transformer:
-    """This rank's shard of the `--family` model, on its device, from
-    `--seed` or `--ckpt_dir`."""
+    """This rank's shard of the `--family` model at cp `--cp`, on its
+    device, from `--seed` or `--ckpt_dir`."""
     fresh = args.random_init or args.dry_run
-    return _load_weights(build_model(args.family, cfg, mesh=mesh), mesh,
+    return _load_weights(build_model(args.family, cfg, cp_size=args.cp,
+                                     mesh=mesh), mesh,
                          args.seed, None if fresh else args.ckpt_dir,
                          args.iter, "target")
 
@@ -396,8 +410,8 @@ def _drafter_config(args, cfg: ModelConfig) -> ModelConfig:
 
 def _build_drafter(args, cfg: ModelConfig, mesh) -> Transformer:
     """This rank's shard of the drafter (`_drafter_config`, the target's
-    family), weights from `--drafter_ckpt_dir` or drawn from `--seed` +
-    1."""
+    family, at cp = 1: its pool whole on every cp rank), weights from
+    `--drafter_ckpt_dir` or drawn from `--seed` + 1."""
     return _load_weights(
         build_model(args.family, _drafter_config(args, cfg), mesh=mesh),
         mesh, args.seed + 1, args.drafter_ckpt_dir, args.drafter_iter,
@@ -406,10 +420,11 @@ def _build_drafter(args, cfg: ModelConfig, mesh) -> Transformer:
 
 def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
            init_method: str = None) -> dict:
-    """One rank's run: tp rank 0 drives the loadgen and returns its summary,
+    """One rank's run: rank 0 drives the loadgen and returns its summary,
     the other ranks serve its dispatches; each adds its `ranks` entry."""
     try:
-        mesh = make_mesh(MeshConfig(tp=args.tp_size), device=args.device,
+        mesh = make_mesh(MeshConfig(tp=args.tp_size, cp=args.cp),
+                         device=args.device,
                          rank=rank, backend=args.dist_backend,
                          init_method=init_method)
     except (RuntimeError, ValueError) as e:
@@ -480,13 +495,17 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
     wall = time.perf_counter() - t0
     delta = lambda now, then: {k: v - then[k] for k, v in now.items()}
     ranked = {
-        "rank": mesh.rank, "tp": mesh.tp_rank, "device": str(mesh.device),
+        "rank": mesh.rank, "tp": mesh.tp_rank, "cp": mesh.cp_rank,
+        "device": str(mesh.device),
         "wall_s": wall,
         "dispatches": engine.dispatch.counts,
         "dispatch_shapes": sorted([kind, list(shape), n] for (kind, shape), n
                                   in engine.dispatch.shapes.items()),
         # host seconds: wait_s (for the device) + hop_s (copies, transfer)
         "tp_hops": dict(collectives.stats["tp"]),
+        "cp_hops": dict(collectives.stats["cp"]),
+        # this rank's KV pool on the device (at cp > 1: its slab)
+        "pool_bytes": device_bytes(engine.pool),
         "dispatch_broadcasts": dict(collectives.stats["dispatch"]),
         "launches": delta(launch_counts(), launches0),
         "paged_launches_by_kernel": delta(paged_attention.launches_by_kernel,
@@ -508,14 +527,22 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
 
 def _rank_main(rank: int, nprocs: int, init_method: str,
                args: argparse.Namespace, cfg: ModelConfig) -> dict:
-    """One tp rank of a run (`runtime/launch.spawn` calls it)."""
+    """One rank of a run (`runtime/launch.spawn` calls it)."""
     return _serve(args, cfg, rank, init_method)
+
+
+def merge_ranks(outs: list) -> dict:
+    """The run's summary from every rank's `_serve` result, in rank order:
+    rank 0's, with every rank's `ranks` entry."""
+    return dict(outs[0], ranks=[o["ranks"][0] for o in outs])
 
 
 def _report(args: argparse.Namespace, summary: dict) -> None:
     """The stderr line and the JSON record on stdout."""
     fmt = lambda v: "-" if v is None else f"{v:.1f}"
-    print(f"serve[{args.family} tp{args.tp_size} on {summary['device']}]: "
+    print(f"serve[{args.family} tp{args.tp_size}"
+          + (f" cp{args.cp}" if args.cp > 1 else "")
+          + f" on {summary['device']}]: "
           f"{summary['completed']}/{summary['requests']} requests "
           f"({summary['rejected']} rejected) in {summary['wall_s']:.1f}s — "
           f"{summary['tokens_per_sec']:.0f} tok/s, occupancy "
@@ -537,6 +564,7 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
              if "speculate_k" in summary else ""), file=sys.stderr)
     rec = {
         "metric": (f"serving tokens/sec ({args.family}, tp={args.tp_size}, "
+                   + (f"cp={args.cp}, " if args.cp > 1 else "")
                    + ("paged, " if args.paged else "")
                    + (f"speculate k={args.speculate} "
                       f"({args.drafter_model} drafter), "
@@ -578,24 +606,25 @@ def serve(args: argparse.Namespace) -> dict:
     a graph), `decode_graph_replays`, `decode_graph_launches` (the kernel
     launches one replay holds), `prefill_dispatches` (prefill or chunk
     dispatches), `engine_stats` (the engine's `stats()` after the drain),
-    `outputs` ({rid: generated ids}) and `ranks`: per tp rank its tp hops
-    (calls, bytes, host seconds), its dispatch broadcasts, its dispatches
-    by kind (and by shape) and its kernel launches. At tp > 1 the ranks run
-    in processes of their own and the summary is tp rank 0's."""
+    `outputs` ({rid: generated ids}) and `ranks`: per rank its tp and cp
+    hops (calls, bytes, host seconds), its dispatch broadcasts, its
+    dispatches by kind (and by shape) and its kernel launches. At tp or cp
+    > 1 the ranks run in processes of their own and the summary is rank
+    0's."""
     cfg = _model_config(args)
-    if args.tp_size == 1:
+    world = args.tp_size * args.cp
+    if world == 1:
         out = _serve(args, cfg)
     else:
         try:
             dist_backend(args.dist_backend, resolve_device(args.device),
-                         args.tp_size)
+                         world)
             validate_tp(cfg, args.tp_size)
             if args.speculate:
                 validate_tp(_drafter_config(args, cfg), args.tp_size)
         except (RuntimeError, ValueError) as e:
             raise SystemExit(f"serve: {e}")
-        outs = launch.spawn(_rank_main, args.tp_size, args, cfg)
-        out = dict(outs[0], ranks=[o["ranks"][0] for o in outs])
+        out = merge_ranks(launch.spawn(_rank_main, world, args, cfg))
     _report(args, out)
     return out
 

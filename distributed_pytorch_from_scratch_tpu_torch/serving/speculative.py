@@ -53,7 +53,10 @@ never runs, so never captures, the paged engine's one-token step.
 
 The drafter keeps its own `PagedKVPool` (the target's `kv_dtype`), never
 shares pages copy-on-write, and is freed with the target's pages when a
-request retires or is preempted. int8 decode weights quantize the target
+request retires or is preempted. A target at cp > 1 shards its pages over
+the cp ranks (`PagedEngine`) and its verify width rounds up to a cp
+multiple, as JAX's; the drafter stays at cp = 1, its whole pool on every
+rank. int8 decode weights quantize the target
 only. The JAX engine's observability hooks (spans, request tracer, flight
 recorder, telemetry, controller) wait for the obs slice (ROADMAP).
 """
@@ -114,14 +117,11 @@ class SpeculativeEngine(PagedEngine):
                 f"with the target's vocab_size (serve.py does)")
         if getattr(drafter_model, "cp_size", 1) > 1:
             raise ValueError(
-                f"speculative serving runs the drafter at cp=1 (got "
-                f"{drafter_model.cp_size}); its pool is small enough to "
-                f"replicate")
-        if getattr(model, "cp_size", 1) > 1:
-            raise NotImplementedError(
-                f"cp={model.cp_size}: the cp-sharded page pool is not "
-                f"ported yet (ROADMAP Queue 1 item 6); speculative serving "
-                f"runs at cp=1")
+                "speculative serving shards only the TARGET's pages over "
+                "cp (supported shape: target cp>=1, drafter cp=1) — the "
+                "drafter's pool is small enough to replicate, so build the "
+                f"drafter preset with cp_size=1 (got "
+                f"{drafter_model.cp_size})")
         weights_on = drafter_model.embedding.weight.device
         if weights_on != mesh.device:
             raise ValueError(f"drafter weights lie on {weights_on}, the mesh "
@@ -150,6 +150,10 @@ class SpeculativeEngine(PagedEngine):
                                  kv_dtype=self.kv_dtype)
         self._dtbl = np.full((num_slots, self._d_max_pages),
                              self.dpool.scratch_page, np.int32)
+        # the verify's width: k + 1 positions padded up to a cp multiple
+        # (JAX's query ring splits it over cp; pads aim at the scratch
+        # page and are never scored)
+        self._vw = self.cp * -(-(k + 1) // self.cp)
         for kind, fn in (("spec_draft", self._run_draft),
                          ("spec_verify", self._run_verify),
                          ("drafter_chunk", self._run_drafter_chunk)):
@@ -167,7 +171,7 @@ class SpeculativeEngine(PagedEngine):
         self._draft_out = None
         self._round_graphs = ()
         if use_decode_graph(kw.get("decode_graph", "auto"), self.device,
-                            mesh.tp):
+                            mesh.tp, self.cp):
             self._capture_round()
 
     # -- the round's device programs --------------------------------------
@@ -175,7 +179,7 @@ class SpeculativeEngine(PagedEngine):
         """The draft and the verify captured once each. Their examples write
         only the scratch pages: every table entry and destination on the
         scratch page, cursors 0, no valid verify column."""
-        n, mp, cw = self.num_slots, self.max_pages, self.k + 1
+        n, mp, cw = self.num_slots, self.max_pages, self._vw
         draft = np.concatenate([
             np.zeros(3 * n, np.int32),
             np.full(n * self._d_max_pages, self.dpool.scratch_page,
@@ -234,24 +238,28 @@ class SpeculativeEngine(PagedEngine):
     def _verify_body(self, dev: torch.Tensor) -> torch.Tensor:
         """The target over each row's (k+1)-position block from the packed
         dispatch (pending tokens | cursors | qlen | seeds | page table |
-        destination pages | offsets) and the draft's outputs, then the
-        accept rule: (b, k+2) int32, each row's accepted count and its
-        k+1 tokens (the accepted drafts, then the new pending token)."""
-        n, k, mp = self.num_slots, self.k, self.max_pages
+        destination pages | offsets, the last two at the verify width) and
+        the draft's outputs, then the accept rule: (b, k+2) int32, each
+        row's accepted count and its k+1 tokens (the accepted drafts, then
+        the new pending token)."""
+        n, k, mp, vw = self.num_slots, self.k, self.max_pages, self._vw
         cw = k + 1
         tok, pos = dev[:n], dev[n:2 * n]
         qlen, seeds = dev[2 * n:3 * n], dev[3 * n:4 * n]
         o = 4 * n + n * mp
         tbl = dev[4 * n:o].view(n, mp)
-        dstp = dev[o:o + n * cw].view(n, cw)
-        dsto = dev[o + n * cw:o + 2 * n * cw].view(n, cw)
+        dstp = dev[o:o + n * vw].view(n, vw)
+        dsto = dev[o + n * vw:o + 2 * n * vw].view(n, vw)
         draft = self._draft_out[0]
         block = torch.cat([tok[:, None], draft], dim=1)      # (n, cw)
+        if vw > cw:                       # pad columns: past every qlen
+            block = torch.cat([block, torch.full_like(block[:, :vw - cw],
+                                                      self.eos_id)], dim=1)
         logits = _paged_prefill_chunk(
             self.model, self.pool.ks, self.pool.vs, block, pos, qlen, tbl,
             dstp, dsto, self.page_size, self._cos, self._sin, self._dtype,
-            all_logits=True, attn_impl=self.paged_attn_impl)
-        full = _full_vocab_logits(self.model, logits)        # (n, cw, V)
+            all_logits=True, attn_impl=self.paged_attn_impl, cp=self.cp)
+        full = _full_vocab_logits(self.model, logits[:, :cw])  # (n, cw, V)
         d = draft.long()
         ks = torch.arange(k, device=dev.device)
         valid = (ks[None, :] + 1) < qlen[:, None]            # (n, k)
@@ -405,7 +413,7 @@ class SpeculativeEngine(PagedEngine):
         """Make every live row's window writable in both pools, then the
         round's two dispatches: (draft payload, verify payload, qlen), or
         None when no slot is left live."""
-        k, ps = self.k, self.page_size
+        k, ps, vw = self.k, self.page_size, self._vw
         cw = k + 1
         # target pages for [pos, pos + qlen) (growth and copy-on-write),
         # drafter pages for [pos, pos + k + 1). Either may preempt, so
@@ -424,8 +432,8 @@ class SpeculativeEngine(PagedEngine):
         if not self._slot_req:
             return None
         b = self.num_slots
-        dstp = np.full((b, cw), self.pool.scratch_page, np.int32)
-        dsto = np.tile(np.arange(cw, dtype=np.int32)[None, :] % ps, (b, 1))
+        dstp = np.full((b, vw), self.pool.scratch_page, np.int32)
+        dsto = np.tile(np.arange(vw, dtype=np.int32)[None, :] % ps, (b, 1))
         qlen = np.zeros(b, np.int32)          # rows not decoding: none
         for slot in self._slot_req:
             pos = int(self._pos[slot])

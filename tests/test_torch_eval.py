@@ -12,8 +12,11 @@ the tiny preset (d 128, 4 heads, 2 layers, the shipped tokenizer's vocab
     losses within 1e-5, the decoded pairs identical with the KV and the
     `--no_kv_cache` decoders, the same `val.txt` lines and `val/loss`
     scalars; the port at tp 2 (gloo ranks), at dp 2 and at cp 2
-    (zig-zag) gives tp 1's losses and tokens;
-(c) `generate.main` strings equal JAX's, at tp 1 and tp 2;
+    (zig-zag) gives tp 1's losses and tokens; at cp 2 with the contiguous
+    layout (KV decoding through the cp-sharded paged engine) JAX's
+    `evaluate --cp_size 2` losses, pairs and `val.txt` lines;
+(c) `generate.main` strings equal JAX's, at tp 1 and tp 2, and at cp 2
+    (the paged engine over cp-sharded pages on both sides);
 (d) each refusal raises and names its ROADMAP item (the JAX CLI's own
     refusals keep its messages); without `--device cpu` and with no card
     both CLIs exit non-zero;
@@ -162,6 +165,10 @@ def setup(tmp_path_factory):
         "--device", "cpu", "--dp_size", "2"])
     bg["cp2"] = pool.submit(_eval_port, base("port_cp2") + [
         "--device", "cpu", "--cp_size", "2", "--cp_layout", "zigzag"])
+    bg["cp2_kv"] = pool.submit(_eval_port, base("port_cp2_kv") + [
+        "--device", "cpu", "--cp_size", "2", "--dist_backend", "gloo"])
+    runs["jax_cp2_kv"] = jevaluate.evaluate(jevaluate.get_eval_args(
+        base("jax_cp2_kv") + ["--cp_size", "2"]))
     runs["bg"] = bg
     yield runs
     pool.shutdown(wait=True)
@@ -264,6 +271,21 @@ def test_evaluate_on_a_mesh_gives_tp1(setup, mesh):
     assert len(out["ranks"]) == 2
 
 
+def test_evaluate_cp2_kv_decode_matches_jax(setup):
+    """`evaluate --cp_size 2` (contiguous): the sweep at cp 2 and the KV
+    decode through the paged engine with its pages sharded over the two
+    ranks, as JAX's evaluate does: JAX's losses, pairs and val.txt lines,
+    and tp 1's tokens."""
+    ours, theirs = setup["bg"]["cp2_kv"].result(), setup["jax_cp2_kv"]
+    for it in ITERS:
+        assert abs(ours["val_losses"][it] - theirs["val_losses"][it]) < 1e-5
+    assert ours["decoded"] == [tuple(p) for p in theirs["decoded"]]
+    assert ours["generated_ids"] == setup["port_kv"]["generated_ids"]
+    assert ours["prefill_dispatches"] >= 1 and len(ours["ranks"]) == 2
+    d = str(setup["dir"])
+    assert _val_lines(f"{d}/port_cp2_kv") == _val_lines(f"{d}/jax_cp2_kv")
+
+
 # -- (c) generate.main -----------------------------------------------------
 
 @pytest.mark.parametrize("tp", [1, 2])
@@ -278,12 +300,25 @@ def test_generate_matches_jax(setup, tp):
     assert all(o.startswith(p) for o, p in zip(ours, PROMPTS))
 
 
+def test_generate_cp2_matches_jax(setup):
+    """`generate --cp_size 2`: the paged engine over pages sharded on the
+    two cp ranks, JAX's strings (its paged engine at cp 2)."""
+    args = ["--ckpt_dir", str(setup["src"]), "-t", SHIPPED,
+            "--max_new_tokens", "12", "--cp_size", "2"] + MODEL
+    for p in PROMPTS:
+        args += ["--prompt", p]
+    theirs = jgenerate.main(args)
+    ours = generate.main(args + ["--device", "cpu", "--dist_backend",
+                                 "gloo"])
+    assert ours == theirs
+    assert all(o.startswith(p) for o, p in zip(ours, PROMPTS))
+
+
 # -- (d) refusals ----------------------------------------------------------
 
 @pytest.mark.parametrize("extra,item", [
     (["--num_experts", "4"], "item 7"),
     (["--num_processes", "2"], "item 2"),
-    (["--cp_size", "2"], "item 6"),
     (["--coordinator", "host:1234"], "item 2"),
 ])
 def test_evaluate_refusals_name_their_item(setup, extra, item):
@@ -307,7 +342,6 @@ def test_evaluate_keeps_jax_refusals(setup):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--cp_size", "2"], "item 6"),
     (["--num_experts", "4"], "item 7"),
     (["--family", "gpt2", "--num_experts", "4"], "item 7"),
 ])

@@ -24,6 +24,8 @@ tiny shape of tests/test_paged_kernel.py (d 32, 8 heads, 2 layers, vocab
 import itertools
 import json
 import math
+import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -562,7 +564,7 @@ def _pool_diff(a, b) -> float:
 
 
 @pytest.mark.parametrize("impl", ["gather", "kernel"])
-def test_paged_lowerings_match_jax(lowering_case, impl):
+def test_paged_lowerings_match_jax(lowering_case, impl, monkeypatch):
     """Logits and the pools (written in place) after every call against
     the JAX gather lowering, within 1e-5; int8 codes exactly."""
     tree, init, calls = lowering_case
@@ -595,10 +597,100 @@ def test_paged_lowerings_match_jax(lowering_case, impl):
         assert np.abs(log.numpy() - jlog).max() < 1e-5
         got = _to(lambda p: _to(lambda x: x.numpy(), p), tpools)
         assert _pool_diff(got, jpools) < 1e-5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decode._paged_decode_one(model, *tpools, *(torch.from_numpy(a)
-                                 for a in args), 8, cos, sin,
-                                 torch.float32, attn_impl=impl, cp=2)
+    _cp2_lowerings_match(tree, init, calls, impl, cos, sin, monkeypatch)
+
+
+class _Exchange:
+    """`decode.all_gather` for cp ranks simulated as threads of one
+    process: each rank posts its tensor, and every rank gets them all,
+    stacked in rank order."""
+
+    def __init__(self, n: int):
+        self.barrier = threading.Barrier(n, timeout=60)
+        self.posted = [None] * n
+
+    def __call__(self, x, mesh, axis="cp"):
+        self.posted[mesh.cp_rank] = x
+        self.barrier.wait()
+        out = torch.stack(self.posted)
+        self.barrier.wait()
+        return out
+
+
+def _cp2_lowerings_match(tree, init, calls, impl, cos, sin, monkeypatch):
+    """The same calls at cp 2, its two ranks as threads: each holds its
+    slab of the pool (pages renumbered so that each page-table column's
+    page lies in the slab of the rank that owns the column, as the engine
+    leases them), writes the K/V of its own pages and combines its partial
+    attention with the other's (`decode.cp_combine`): the JAX logits and
+    pools within 1e-5."""
+    pages, ppr, mpp = 10, 5, 2
+    tbl = calls[0][1][-1] if not calls[0][0] else calls[0][1][3]
+    # column j belongs to rank j // 2: rank 0 takes the first two
+    # columns' pages, rank 1 the rest
+    own = [sorted({int(p) for p in tbl[:, r * mpp:(r + 1) * mpp].ravel()
+                   if p != pages}) for r in range(2)]
+    perm = np.full(pages + 1, pages)
+    for r in range(2):
+        perm[own[r]] = r * ppr + np.arange(len(own[r]))
+    rest = [p for p in range(pages) if perm[p] == pages]
+    perm[rest] = sorted(set(range(pages)) - set(perm[:pages]))
+    inv = np.argsort(perm)                  # new id -> old id
+    # each of K and V: a tensor, or int8 (codes, scales)
+    each = lambda fn, pools: tuple(_to(fn, p) for p in pools)
+    slab = lambda r: lambda a: np.concatenate(
+        [a[:, inv][:, r * ppr:(r + 1) * ppr], a[:, -1:]], axis=1)
+    monkeypatch.setattr(decode, "all_gather", _Exchange(2))
+    out, errors = [None, None], []
+
+    def rank(r):
+        try:
+            out[r] = run(r)
+        except BaseException as e:   # re-raised below
+            errors.append(e)
+
+    def run(r):
+        model = Transformer(ModelConfig(**SHAPE))
+        model.load_state_dict(params_from_jax(tree))
+        model.mesh = SimpleNamespace(cp=2, cp_rank=r)
+        pools = each(lambda a: torch.from_numpy(slab(r)(a).copy()), init)
+        logits = []
+        with torch.inference_mode():
+            for chunk, args, _, _ in calls:
+                targs = [torch.from_numpy(perm[a] if i in (
+                    (3, 4) if chunk else (2,)) else a).to(torch.int32)
+                    for i, a in enumerate(args)]
+                if chunk:
+                    logits.append(decode._paged_prefill_chunk(
+                        model, *pools, *targs, 8, cos, sin, torch.float32,
+                        all_logits=True, attn_impl=impl, cp=2).numpy())
+                else:
+                    logits.append(decode._paged_decode_one(
+                        model, *pools, *targs, 8, cos, sin, torch.float32,
+                        attn_impl=impl, cp=2).numpy())
+        return logits, each(lambda x: x.numpy(), pools)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for i, (chunk, args, jpools, jlog) in enumerate(calls):
+        got = out[0][0][i]
+        np.testing.assert_array_equal(got, out[1][0][i])
+        if chunk:
+            for r, n in enumerate(args[2]):
+                assert np.abs(got[r, :n] - jlog[r, :n]).max() < 1e-5
+        else:
+            assert np.abs(got - jlog).max() < 1e-5
+    # each slab's real pages against JAX's final pools, renumbered
+    for r in range(2):
+        real = lambda a: a[:, :ppr]
+        assert _pool_diff(each(real, out[r][1]),
+                          each(lambda a: real(slab(r)(a)), calls[-1][2])) \
+            < 1e-5
 
 
 # ---------------------------------------------- (d) engine identity ----
@@ -785,7 +877,7 @@ def test_serve_paged_dry_run_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--paged", "--cp", "2"], ["--speculate", "2"],
+    ["--paged", "--cp", "0"], ["--speculate", "2"],
     ["--paged_attn", "gather"], ["--kv_dtype", "int8"]])
 def test_serve_paged_refusals(flags):
     with pytest.raises(SystemExit) as e:

@@ -471,8 +471,10 @@ def test_engine_refusals(runs):
     with pytest.raises(ValueError, match="cp=1"):
         SpeculativeEngine(model, CPU, dmodel, speculate_k=2, **kw)
     dmodel.cp_size = 1
+    # a cp target shards its pages over the mesh's cp ranks (served at cp
+    # 2 in test_torch_cp_serving.py): a one-rank mesh is refused
     model.cp_size = 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="mesh at cp 1"):
         SpeculativeEngine(model, CPU, dmodel, speculate_k=2, **kw)
     model.cp_size = 1
     # a gpt2 drafter whose learned position table the buffer outgrows
