@@ -307,7 +307,28 @@ result line):
     kernel) and per chunk (the wgmma chunk kernel) and 12 cp hops per
     dispatch on each rank; TTFT, TPOT and the hops' host time printed; and
     a request of 880 + 16 tokens (14 pages of 64) refused at submit by cp 1
-    over 12 pages and served by cp 2 over 24 (12 per rank).
+    over 12 pages and served by cp 2 over 24 (12 per rank);
+49. fleet_check: the 45m widths at 2 layers, f32, on the card and then on
+    the CPU's plain path: a 2-replica `FleetRouter` fleet gives the greedy
+    tokens of one paged engine, and `run_disaggregated` (a prefill-only
+    engine in a thread of its own, the KV page stream, a decode engine)
+    the tokens of the colocated engine with native and with int8 pages;
+    the card's tokens are the CPU's; `export_pages` -> `import_pages` ->
+    `export_pages` bitwise on bf16 and int8 pools on the card, and a bf16
+    frame read back bitwise;
+50. fleet_serve: `serve_fleet` at the 45m preset, bf16, random weights,
+    phase 15's mix (32 burst requests, 64/512-token prompts behind the
+    96-token shared prefix, two tenants, three classes, page 64, chunk
+    128): `--replicas 2` with 8 slots on 40 pages each, then `--disagg`
+    with 8 + 8 slots on 40 + 40 pages, native and int8 pages — every
+    request served in-vocab, every pool drained, each tenant on one
+    replica, the router's predicted hits at least the first admissions'
+    actual hits (both printed with the resumes' hits), the pages and bytes
+    transferred those of the handoffs' prompts, K3 exactly 12 per decode
+    step (decode kernel) and per chunk (the wgmma chunk kernel) over the
+    engines and never on the decode route in the prefill-only engine;
+    fleet tokens/s, TTFT, TPOT, dispatch and transfer ms printed beside
+    phase 15's one engine.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -1913,7 +1934,8 @@ def _check_paged_run(out, stats, counts, by_route, by_kernel, widths, layers,
 
 def phase_paged_serve(torch) -> dict:
     """Returns the bf16 run's launches {fwd, dq, dkv, paged}, the int8 run's
-    paged launches and both runs' paged launches by route and by kernel."""
+    paged launches, both runs' paged launches by route and by kernel, and
+    the bf16 run's tokens/s, TTFT and TPOT (`one_engine`)."""
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
     layers = model_preset("45m").num_layers
@@ -1948,7 +1970,10 @@ def phase_paged_serve(torch) -> dict:
         _check_paged_run(out, st, counts, by_route, by_kernel, widths, layers,
                          1024)
         by_kv[kv] = {**counts, "paged_by_route": by_route,
-                     "paged_by_kernel": by_kernel}
+                     "paged_by_kernel": by_kernel,
+                     "one_engine": {k: out[k] for k in (
+                         "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95",
+                         "tpot_ms_p50", "tpot_ms_p95")}}
     return {**by_kv["bf16"], "paged_int8": by_kv["int8"]["paged_attention"],
             "paged_int8_by_route": by_kv["int8"]["paged_by_route"],
             "paged_int8_by_kernel": by_kv["int8"]["paged_by_kernel"]}
@@ -5378,6 +5403,348 @@ def phase_cp_serve(torch) -> dict:
     return res
 
 
+FLEET_SEED = 17
+FLEET_NEW = 12            # fleet_check: new tokens per request
+FLEET_TAILS = (40, 150, 7, 90, 64, 130)   # fleet_check: prompt tails
+# phase 15's mix over two replicas of half its slots and pages each; the
+# router's prefix weight at 0.5 (the JAX fleet test's): at the default 4 a
+# burst behind one shared prefix goes wholly to the replica that took the
+# first request, and the second replica would idle
+FLEET_ARGS = (PAGED_SERVE_ARGS[:PAGED_SERVE_ARGS.index("--slots")]
+              + ["--slots", "8", "--num_pages", "40", "--prefix_weight",
+                 "0.5"])
+FLEET_ARGS.remove("--paged")
+FLEET_RUNS = {"fleet_x2": ["--replicas", "2"], "disagg": ["--disagg"],
+              "disagg_int8": ["--disagg", "--kv_dtype", "int8"]}
+
+
+class _Tape:
+    """A socket stand-in for one frame: `sendall` appends, `recv` reads
+    back in order."""
+
+    def __init__(self):
+        self.buf, self.pos = bytearray(), 0
+
+    def sendall(self, b):
+        self.buf.extend(bytes(b))
+
+    def recv(self, n):
+        out = bytes(self.buf[self.pos:self.pos + n])
+        self.pos += len(out)
+        return out
+
+
+def _drained(eng, name: str) -> None:
+    pool = eng.pool
+    if (pool.free_pages != pool.num_pages or (pool.refcount != 0).any()
+            or pool._children or pool._page_keys
+            or getattr(eng, "handoffs", None)):
+        raise AssertionError(f"{name}: pool not drained ({pool.free_pages} "
+                             f"of {pool.num_pages} pages free, refcounts "
+                             f"{int(pool.refcount.sum())}, index "
+                             f"{len(pool._page_keys)} pages)")
+
+
+def _fleet_tokens(torch, device: str) -> dict:
+    """fleet_check's runs on `device`: {run: {rid: tokens}}."""
+    import dataclasses
+
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine, Request)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.router import (
+        FleetRouter)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.transfer import (
+        run_disaggregated)
+    cfg = dataclasses.replace(model_preset("45m"), num_layers=2,
+                              compute_dtype="float32")
+    mesh = make_mesh(MeshConfig(), device=device)
+    model = build_model("llama", cfg).init_weights(FLEET_SEED).to(
+        mesh.device)
+    rng = np.random.default_rng(FLEET_SEED)
+    prefix = rng.integers(3, cfg.vocab_size, 96).tolist()
+    prompts = [prefix + rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in FLEET_TAILS]
+    buf = max(map(len, prompts)) + FLEET_NEW + 2
+    reqs = lambda: [Request(rid=i, prompt=list(p), max_new=FLEET_NEW)
+                    for i, p in enumerate(prompts)]
+    eng = lambda **kw: PagedEngine(model, mesh, buf_len=buf, eos_id=1,
+                                   page_size=64, prefill_chunk=128,
+                                   **{"num_slots": 4, **kw})
+    toks = lambda done: {r.rid: list(r.tokens) for r in done}
+    out = {}
+    for kv in (None, "int8"):
+        single = eng(kv_dtype=kv)
+        for r in reqs():
+            single.submit(r)
+        out[f"single_{kv}"] = toks(single.run_to_completion())
+        pre, dec = eng(kv_dtype=kv, prefill_only=True), eng(kv_dtype=kv)
+        res = run_disaggregated(pre, dec, reqs())
+        out[f"disagg_{kv}"] = toks(res["completed"])
+        for name, e in (("single", single), ("prefill", pre),
+                        ("decode", dec)):
+            _drained(e, f"fleet_check {device} {kv} {name}")
+    router = FleetRouter([eng(num_slots=2), eng(num_slots=2)],
+                         prefix_weight=0.5)
+    for r in reqs():
+        router.submit(r)
+    out["fleet"] = toks(router.run_to_completion())
+    if min(router.dispatched.values()) < 1:
+        raise AssertionError(f"fleet_check: a replica took nothing "
+                             f"{router.dispatched}")
+    for name, e in router.replicas:
+        _drained(e, f"fleet_check {device} {name}")
+    return out
+
+
+def _pool_roundtrip(torch) -> None:
+    """export -> import -> export bitwise on bf16 and int8 pools on the
+    card, and a bf16 frame read back bitwise."""
+    import dataclasses
+    from types import SimpleNamespace
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.kv_manager import (
+        PagedKVPool)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.transfer import (
+        _NAMES, recv_frame, send_frame)
+    cfg = dataclasses.replace(model_preset("45m"), compute_dtype="bfloat16")
+    ns = SimpleNamespace(cfg=cfg, cp_size=1, num_local_kv_heads=cfg.kv_heads)
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    g = torch.Generator().manual_seed(FLEET_SEED)
+    shape = (cfg.num_layers, 3, cfg.kv_heads, 64, cfg.head_dim)
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    for kv in (None, "int8"):
+        if kv:
+            one = lambda: (torch.randint(-127, 128, shape, generator=g,
+                                         dtype=torch.int8),
+                           torch.rand(shape[:-1], generator=g) + 0.01)
+        else:
+            one = lambda: torch.randn(shape, generator=g).to(torch.bfloat16)
+        k, v = one(), one()
+        flat = lambda a, b: [t for x in (a, b)
+                             for t in (x if isinstance(x, tuple) else (x,))]
+        a = PagedKVPool(ns, mesh, 8, 64, kv_dtype=kv)
+        b = PagedKVPool(ns, mesh, 8, 64, kv_dtype=kv)
+        got = a.export_pages(a.import_pages(k, v))
+        again = b.export_pages(b.import_pages(*got))
+        for x, y, z in zip(flat(k, v), flat(*got), flat(*again)):
+            if not (torch.equal(bits(x), bits(y))
+                    and torch.equal(bits(x), bits(z))):
+                raise AssertionError(f"fleet_check: {kv or 'bf16'} pages "
+                                     f"changed across export/import")
+        if kv is None:
+            tape = _Tape()
+            send_frame(tape, {"blobs": [{"dtype": _NAMES[t.dtype],
+                                         "shape": list(t.shape)}
+                                        for t in got]}, list(got))
+            _, blobs = recv_frame(tape)
+            if not all(torch.equal(bits(x), bits(y))
+                       for x, y in zip(blobs, got)):
+                raise AssertionError("fleet_check: a bf16 frame read back "
+                                     "differs from what was sent")
+    log(f"fleet_check: export -> import -> export bitwise on bf16 and int8 "
+        f"pools on the card ({shape[1]} pages of the 45m shape), a bf16 "
+        f"frame of {2 * shape[1]} pages read back bitwise")
+
+
+def phase_fleet_check(torch) -> None:
+    card = _fleet_tokens(torch, "cuda")
+    torch.cuda.synchronize()
+    cpu = _fleet_tokens(torch, "cpu")
+    for kv in (None, "int8"):
+        for run in ("disagg", "single"):
+            if card[f"{run}_{kv}"] != card[f"single_{kv}"]:
+                raise AssertionError(f"fleet_check: {run} {kv} tokens "
+                                     f"differ from the single engine's")
+    if card["fleet"] != card["single_None"]:
+        raise AssertionError("fleet_check: the 2-replica fleet's tokens "
+                             "differ from one engine's")
+    if card != cpu:
+        bad = [k for k in card if card[k] != cpu[k]]
+        raise AssertionError(f"fleet_check: card tokens differ from the "
+                             f"CPU's in {bad}")
+    if not any(card["single_None"].values()):
+        raise AssertionError("fleet_check: no tokens generated")
+    log(f"fleet_check: 45m widths, 2 layers, f32, {len(FLEET_TAILS)} "
+        f"requests behind a 96-token prefix: the 2-replica fleet, "
+        f"disaggregated native and int8 (prefill thread -> page stream -> "
+        f"decode) equal the single engine's greedy tokens on the card, and "
+        f"every run's tokens the CPU's")
+    _pool_roundtrip(torch)
+
+
+def _fleet_want(engines, layers: int) -> dict:
+    """K3's launches by route over `engines`: 12 per decode step and per
+    one-position chunk (decode-shaped) on the decode route, 12 per other
+    chunk on the chunk route."""
+    steps = sum(e.decode_steps for e in engines)
+    one = sum(n for e in engines for (kind, shape), n
+              in e.dispatch.shapes.items() if kind == "paged_chunk"
+              and shape[0] == 1)
+    chunks = sum(e.prefill_dispatches for e in engines)
+    return {"decode": layers * (steps + one),
+            "chunk": layers * (chunks - one)}
+
+
+def phase_fleet_serve(torch, workdir: str, one_engine) -> dict:
+    """`serve_fleet` at the 45m preset, bf16, on phase 15's mix: the router
+    fleet, then disaggregated with native and int8 pages. Returns each
+    run's K3 launches by kernel."""
+    import dataclasses
+
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve_fleet
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine, graph_stats)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.kv_manager import (
+        page_bytes)
+    cfg = model_preset("45m")
+    layers = cfg.num_layers
+    share = PagedEngine._try_share
+    first_hits = {}          # id(engine) -> hits at first admissions
+
+    def counted(self, slot, st):
+        before = self.prefix_hit_tokens
+        share(self, slot, st)
+        if st.req.preemptions == 0:
+            first_hits[id(self)] = (first_hits.get(id(self), 0)
+                                    + self.prefix_hit_tokens - before)
+
+    res = {}
+    for name, extra in FLEET_RUNS.items():
+        args = serve_fleet.parse_args(
+            FLEET_ARGS + extra + ["--log_dir", os.path.join(workdir, name)])
+        _reset_launches()
+        PagedEngine._try_share = counted
+        try:
+            out, fleet = serve_fleet.run(args)
+        finally:
+            PagedEngine._try_share = share
+        torch.cuda.synchronize()
+        counts = _read_launches()
+        by_route = dict(paged_attention.launches_by_route)
+        by_kernel = dict(paged_attention.launches_by_kernel)
+        engines = {k: e for k, e in fleet.items() if isinstance(e, PagedEngine)}
+        done = ([r for e in engines.values() for r in e.completed]
+                if "router" in fleet else fleet["done"])
+        if not (out["completed"] == len(done) == args.num_requests):
+            raise AssertionError(f"fleet_serve {name}: served "
+                                 f"{out['completed']} of "
+                                 f"{args.num_requests}")
+        toks = [t for r in done for t in r.tokens]
+        if not toks or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"fleet_serve {name}: tokens missing or "
+                                 f"outside the vocab")
+        for ename, e in engines.items():
+            _drained(e, f"fleet_serve {name} {ename}")
+        want = _fleet_want(engines.values(), layers)
+        total = want["decode"] + want["chunk"]
+        _only(counts, {"paged_attention": total},
+              f"fleet_serve {name} ({layers} x (decode steps + chunks))")
+        kern = {"paged_decode": want["decode"],
+                "paged_chunk_sm90": want["chunk"], "paged_attn": 0}
+        if by_route != want or by_kernel != kern:
+            raise AssertionError(f"fleet_serve {name}: K3 launches by route "
+                                 f"{by_route}, by kernel {by_kernel}; "
+                                 f"expected {want}, {kern}")
+        st = {k: e.stats() for k, e in engines.items()}
+        steps = {k: s["decode_steps"] for k, s in st.items()}
+        preempt = {k: s["preemptions"] for k, s in st.items()}
+        graphs = {k: graph_stats(e)["decode_graph_replays"]
+                  for k, e in engines.items()}
+        line = (f"fleet_serve {name}: {out['completed']}/"
+                f"{args.num_requests} requests, "
+                f"{out['generated_tokens']} tokens; TTFT p50/p95 "
+                f"{out['ttft_ms_p50']}/{out['ttft_ms_p95']} ms; TPOT "
+                f"p50/p95 {out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms; "
+                f"decode steps {steps}, graph replays {graphs}, "
+                f"preemptions {preempt}; K3 by route {by_route}, by kernel "
+                f"{by_kernel}")
+        if "router" in fleet:
+            router = fleet["router"]
+            if min(router.dispatched.values()) < 1:
+                raise AssertionError(f"fleet_serve {name}: a replica took "
+                                     f"nothing {router.dispatched}")
+            tenants = {}
+            for ename, e in engines.items():
+                for r in e.completed:
+                    tenants.setdefault(r.tenant, set()).add(ename)
+            if any(len(v) != 1 for v in tenants.values()) or out[
+                    "session_spills"]:
+                raise AssertionError(f"fleet_serve {name}: tenants on "
+                                     f"replicas {tenants}, spills "
+                                     f"{out['session_spills']}")
+            predicted = {}
+            for ename, hit in router.predicted.values():
+                predicted[ename] = predicted.get(ename, 0) + hit
+            hits = {k: s["prefix_hit_tokens"] for k, s in st.items()}
+            first = {k: first_hits.get(id(e), 0) for k, e in engines.items()}
+            for k in engines:
+                if predicted.get(k, 0) < first[k] or (
+                        not preempt[k] and predicted.get(k, 0) < hits[k]):
+                    raise AssertionError(
+                        f"fleet_serve {name}: {k} predicted "
+                        f"{predicted.get(k, 0)} hit tokens, its first "
+                        f"admissions hit {first[k]} (all {hits[k]})")
+            line += (f"; fleet {out['fleet_tokens_per_sec']} tok/s, "
+                     f"dispatched {router.dispatched}, tenants {tenants}, "
+                     f"dispatch ms p50/p95 {out['dispatch_ms_p50']}/"
+                     f"{out['dispatch_ms_p95']}; predicted hit tokens "
+                     f"{sum(predicted.values())} {predicted} >= first "
+                     f"admissions' {sum(first.values())} {first}; all "
+                     f"prefix_hit_tokens {sum(hits.values())} {hits} "
+                     f"(resumes' {sum(hits.values()) - sum(first.values())})"
+                     f"; SLO {out.get('fleet_slo_attainment')}")
+        else:
+            pre = fleet["prefill"]
+            if any(kind == "paged_decode" or shape[0] == 1
+                   for kind, shape in pre.dispatch.shapes):
+                raise AssertionError(f"fleet_serve {name}: the prefill-only "
+                                     f"engine ran the decode route "
+                                     f"{dict(pre.dispatch.shapes)}")
+            kv = "int8" if "int8" in name else None
+            pb = page_bytes(dataclasses.replace(
+                cfg, compute_dtype="bfloat16"), 64, kv)
+            want_pb = 835_584 if kv else 1_572_864
+            pages = sum(-(-len(r.prompt) // 64) for r in done)
+            heads = [t["bytes"] - t["pages"] * pb for t in out["transfers"]]
+            if not (pb == out["page_bytes"] == want_pb
+                    and out["transferred_pages"] == pages
+                    == st["prefill"]["pages_exported"]
+                    == st["decode"]["pages_imported"]
+                    and len(heads) == len(done) and 0 < min(heads)
+                    and max(heads) < 16384):
+                raise AssertionError(
+                    f"fleet_serve {name}: {out['transferred_pages']} pages "
+                    f"({pages} from the prompts), page bytes {pb} (want "
+                    f"{want_pb}), headers {min(heads)}..{max(heads)} B")
+            line += (f"; {out['transferred_pages']} pages, "
+                     f"{out['transferred_bytes']} B ({pb} B a page + a "
+                     f"{min(heads)}..{max(heads)} B header), "
+                     f"{out['bytes_per_request']:.1f} B per request; "
+                     f"transfer ms p50/p95 {out['transfer_ms_p50']}/"
+                     f"{out['transfer_ms_p95']}; wall {out['wall_s']:.3f} s "
+                     f"-> {out['generated_tokens'] / out['wall_s']:.2f} tok/s")
+        log(line + f"; device {out['device']}")
+        res[name] = by_kernel
+    if one_engine:
+        log(f"fleet_serve: phase 15's one engine (16 slots, 80 pages) in "
+            f"this run: {one_engine['one_engine']}")
+    else:
+        log("fleet_serve: phase 15 did not run in this call")
+    return res
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -5389,7 +5756,7 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "gpt2_kernels", "gpt2_train", "gpt2_serve", "gpt2_card_vs_cpu",
           "sampler_check", "train_async_preempt", "serve_int8_weights",
           "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
-          "cp_serve")
+          "cp_serve", "fleet_check", "fleet_serve")
 
 
 def main() -> None:
@@ -5435,6 +5802,8 @@ def run(torch, phases: set, workdir: str) -> list:
             t1 = time.perf_counter()
             fn = globals()[f"phase_{name}"]
             res[name] = (fn() if name == "build" else
+                         fn(torch, workdir, res.get("paged_serve"))
+                         if name == "fleet_serve" else
                          fn(torch, workdir) if name in with_dir else fn(torch))
             log(f"chip_smoke: phase {name} took "
                 f"{time.perf_counter() - t1:.1f} s")
@@ -5442,7 +5811,7 @@ def run(torch, phases: set, workdir: str) -> list:
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
-     replayed, spec_err, spec_served, cp_err, cp_served) = (
+     replayed, spec_err, spec_served, cp_err, cp_served, fleet_served) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -5451,7 +5820,7 @@ def run(torch, phases: set, workdir: str) -> list:
              "eval_pth", "eval_tp", "gpt2_kernels", "gpt2_train",
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
              "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
-             "cp_serve"))
+             "cp_serve", "fleet_serve"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -5503,6 +5872,10 @@ def run(torch, phases: set, workdir: str) -> list:
     cp_paged = lambda kernel: {
         name: run["paged_by_kernel"][kernel]
         for name, run in cp_served.items()}
+    # K3's launches on the serve_fleet runs (every engine), by C entry
+    fleet_paged = lambda kernel: {
+        f"serve_{name}": by_kernel[kernel]
+        for name, by_kernel in fleet_served.items()}
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": served["flash_attention_fwd"],
@@ -5553,7 +5926,9 @@ def run(torch, phases: set, workdir: str) -> list:
                               **{f"{k}_decode_kernel": v for k, v in
                                  spec_paged("paged_decode").items()},
                               **{f"{k}_decode_kernel": v for k, v in
-                                 cp_paged("paged_decode").items()}}},
+                                 cp_paged("paged_decode").items()},
+                              **{f"{k}_decode_kernel": v for k, v in
+                                 fleet_paged("paged_decode").items()}}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
@@ -5576,7 +5951,8 @@ def run(torch, phases: set, workdir: str) -> list:
              "serve_paged_int8_weights": int8_served["paged_by_kernel"][
                  "paged_chunk_sm90"],
              **spec_paged("paged_chunk_sm90"),
-             **cp_paged("paged_chunk_sm90")}},
+             **cp_paged("paged_chunk_sm90"),
+             **fleet_paged("paged_chunk_sm90")}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

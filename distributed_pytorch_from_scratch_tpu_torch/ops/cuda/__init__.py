@@ -1,4 +1,13 @@
-"""The port's hand-written CUDA kernels, their plain versions and wrappers."""
+"""The port's hand-written CUDA kernels, their plain versions and wrappers.
+
+`counter_lock` guards the paged-attention wrapper's increments and
+`add_to_counters`: the disaggregated prefill thread launches K3 beside the
+decode loop's graph replays, and an increment lost between them would
+break the exact counts."""
+
+import threading
+
+counter_lock = threading.Lock()
 
 
 def _counters() -> list:
@@ -56,10 +65,11 @@ def add_to_counters(delta: list, times: int = 1) -> None:
     """Raise every launch counter by `times` x `delta` (a `counter_delta`),
     in the counters that are current (a dict counter replaced since the
     delta was taken is updated, not put back)."""
-    for (fn, attr), d in zip(_counters(), delta):
-        if isinstance(d, dict):
-            cur = getattr(fn, attr)
-            for k, n in d.items():
-                cur[k] = cur.get(k, 0) + times * n
-        else:
-            setattr(fn, attr, getattr(fn, attr) + times * d)
+    with counter_lock:
+        for (fn, attr), d in zip(_counters(), delta):
+            if isinstance(d, dict):
+                cur = getattr(fn, attr)
+                for k, n in d.items():
+                    cur[k] = cur.get(k, 0) + times * n
+            else:
+                setattr(fn, attr, getattr(fn, attr) + times * d)

@@ -8,6 +8,8 @@ flags, so an edited source or header rebuilds and an unchanged one is
 reused. A failed build raises; nothing falls back.
 `-Xptxas -v` makes nvcc report each kernel's registers, shared memory and
 spills; `build()` returns that report (chip_smoke.py prints it).
+`load` holds a lock, so threads that launch kernels (the disaggregated
+prefill thread beside the decode loop) build and load each source once.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -28,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 @dataclass
@@ -87,10 +91,11 @@ def build(names: Sequence[str]) -> List[BuildResult]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/{name}.cu`, built first if needed."""
-    if name not in _LOADED:
-        (res,) = build([name])
-        _LOADED[name] = ctypes.CDLL(str(res.path))
-    return _LOADED[name]
+    with _LOAD_LOCK:
+        if name not in _LOADED:
+            (res,) = build([name])
+            _LOADED[name] = ctypes.CDLL(str(res.path))
+        return _LOADED[name]
 
 
 def all_sources() -> List[str]:

@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import counter_lock
 from .flash_attention import _c_function
 
 MASK = -1e30  # hard mask and dead-row lse, as the TPU kernel's
@@ -263,11 +264,12 @@ def paged_attention(q: torch.Tensor, k_pool, v_pool, page_tbl: torch.Tensor,
                               pos_offset=pos_offset, return_lse=return_lse)
     with torch.cuda.device(q.device):
         launch(torch.cuda.current_stream(q.device).cuda_stream)
-    paged_attention.launches += 1
-    paged_attention.launches_by_route["decode" if q.shape[2] == 1
-                                      else "chunk"] += 1
-    paged_attention.launches_by_kernel[
-        kernel_route(q.shape[2], q.dtype, q.shape[3])[1]] += 1
+    with counter_lock:
+        paged_attention.launches += 1
+        paged_attention.launches_by_route["decode" if q.shape[2] == 1
+                                          else "chunk"] += 1
+        paged_attention.launches_by_kernel[
+            kernel_route(q.shape[2], q.dtype, q.shape[3])[1]] += 1
     return (o, lse) if return_lse else o
 
 

@@ -619,10 +619,17 @@ class PagedEngine(_Sampling):
     version on the CPU) or 'gather' (the dense page view, the oracle) — and
     the only sync is the host copy of the chosen tokens. Speculative
     decoding subclasses it (`serving/speculative.py`); the JAX engine's
-    tracing hooks and handoff methods (disaggregated serving) are not
-    ported (ROADMAP).
+    tracing hooks are not ported (ROADMAP).
     `decode_graph`, the sampling knobs and `decode_weight_dtype` as the slot
-    engine's."""
+    engine's.
+
+    Disaggregated serving (`serving/transfer.py`), at tp = cp = 1: a
+    `prefill_only` engine never decodes (and captures no decode step) —
+    each finished prefill parks in `handoffs` with its page references
+    until the caller streams it out (`export_handoff`) and drops them
+    (`finish_handoff`); a decode engine takes it in through
+    `admit_prefilled`, which imports the pages and installs the slot as
+    `_finish_prefill` would, so decoding continues token for token."""
 
     # whether __init__ captures the one-token decode step (a subclass that
     # never runs it, the speculative engine, captures its own steps)
@@ -637,7 +644,7 @@ class PagedEngine(_Sampling):
                  paged_attn_impl: str = "kernel", clock=time.monotonic,
                  decode_graph: str = "auto",
                  debug_host_sampler: bool = False,
-                 decode_weight_dtype=None):
+                 decode_weight_dtype=None, prefill_only: bool = False):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if page_size < 1:
@@ -703,6 +710,16 @@ class PagedEngine(_Sampling):
         self._slot_req: Dict[int, Request] = {}
         self._prefilling: Dict[int, _PrefillState] = {}
         self.completed: List[Request] = []
+        # disaggregated serving: finished prefills of a prefill_only engine
+        # wait here, page references held, until the caller streams them
+        self.prefill_only = bool(prefill_only)
+        self.handoffs: deque = deque()
+        self.handoffs_staged = 0
+        self.pages_exported = 0
+        self.pages_imported = 0
+        # live per-class TTFT attainment, {class: [completed, hit]}, folded
+        # by the fleet summary (`loadgen.fleet_slo_attainment`)
+        self._slo_counts: Dict[str, list] = {}
         # -- aggregate stats ---------------------------------------------
         self.decode_steps = 0
         self.prefill_dispatches = 0         # chunk dispatches
@@ -724,7 +741,8 @@ class PagedEngine(_Sampling):
                 np.zeros(3 * num_slots, np.int32),
                 np.full(num_slots * self.max_pages, self.pool.scratch_page,
                         np.int32)]),
-            self.cp) if self._CAPTURES_DECODE_STEP else None
+            self.cp) if self._CAPTURES_DECODE_STEP and not prefill_only \
+            else None
 
     # -- request intake ---------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -969,7 +987,11 @@ class PagedEngine(_Sampling):
     def _pump_prefill(self, done: List[Request]) -> None:
         """Advance prefills chunk by chunk. While ANY stream is live
         decoding, at most `prefill_chunk` positions are dispatched per
-        engine step (`max_interleaved_prefill` records the realised max)."""
+        engine step (`max_interleaved_prefill` records the realised max).
+        A prefill_only engine returns once a prefill is staged: its pages
+        stay leased until the caller streams it out, so a burst prefilled
+        in one step would hold every prompt's pages at once (and the first
+        handoff would wait for the last prefill)."""
         interleaved = 0
         while self._prefilling:
             live_before = bool(self._slot_req)
@@ -983,6 +1005,8 @@ class PagedEngine(_Sampling):
             self._dispatch_chunk(slot, st, n, done)
             if live_before:
                 interleaved += n
+            if self.handoffs:
+                break
         self.max_interleaved_prefill = max(self.max_interleaved_prefill,
                                            interleaved)
 
@@ -1043,15 +1067,109 @@ class PagedEngine(_Sampling):
         now = self._clock()
         if req.first_token_t is None:
             req.first_token_t = now
+        if self.prefill_only:
+            self._stage_handoff(slot, st, first)
+            return
         if first == self.eos_id:              # 0 (more) generated tokens
             req.finish_t = now
             self._release_slot(slot)
             self._complete(req, done)
             return
+        self._install(slot, req, first, len(st.ids))
+
+    def _install(self, slot: int, req: Request, first: int, pos: int) -> None:
+        """Make `slot` a decoding row: pending token `first` at cursor
+        `pos`."""
         self._slot_req[slot] = req
         self._tokens[slot] = first
-        self._pos[slot] = len(st.ids)
+        self._pos[slot] = pos
         self._seeds[slot] = np.uint32(req.seed)
+
+    # -- disaggregated prefill -> decode handoff ---------------------------
+    def _stage_handoff(self, slot: int, st: _PrefillState, first: int) -> None:
+        """Park a finished prefill for stream-out instead of decoding: the
+        page-table row detaches into the handoff WITH its references (the
+        pages, and their prefix-index entries, stay live for export and for
+        sharing with later prefills) until `finish_handoff`. The slot frees
+        at once, so the slots bound concurrent prefills, not handoffs in
+        flight."""
+        n_pages = -(-len(st.ids) // self.page_size)
+        pages = [int(self._tbl[slot, j]) for j in range(n_pages)]
+        self._tbl[slot, :] = self.pool.scratch_page
+        self._pos[slot] = 0
+        self._free_slots.append(slot)
+        self.handoffs.append({"req": st.req, "pages": pages,
+                              "first": first, "n_tokens": len(st.ids)})
+        self.handoffs_staged += 1
+
+    def export_handoff(self, h) -> tuple:
+        """The host payload (k, v) of one staged handoff's pages
+        (`PagedKVPool.export_pages`)."""
+        k, v = self.pool.export_pages(h["pages"])
+        self.pages_exported += len(h["pages"])
+        return k, v
+
+    def finish_handoff(self, h) -> None:
+        """Drop the handoff's page references once the receiving pool holds
+        its own copies (shared prefix pages live on for their sharers)."""
+        for p in h["pages"]:
+            self.pool.unref(p)
+
+    def admit_prefilled(self, req: Request, k, v, first: int) -> int:
+        """Take in an ALREADY-PREFILLED request: import its pages (the
+        payload of another pool's `export_pages`), register them in the
+        prefix index as a local donor's, and install the slot as
+        `_finish_prefill` would, so decoding continues token for token.
+        Returns the slot, or -1 when the request completes at admission
+        (`first` is EOS, or its budget is spent). RuntimeError (no free
+        slot) and PoolExhausted (no pages) are the caller's backpressure:
+        nothing is admitted then."""
+        ids = req.prompt + req.tokens
+        n_pages = -(-len(ids) // self.page_size)
+        if n_pages > self.max_pages:
+            raise ValueError(
+                f"handoff {req.rid}: {len(ids)} prefilled tokens need "
+                f"{n_pages} page-table columns but the row has "
+                f"{self.max_pages} (buf_len {self.buf_len})")
+        need = -(-min(len(ids) + req.max_new, self.buf_len)
+                 // self.page_size)
+        if need > self.pool.num_pages:
+            raise ValueError(
+                f"handoff {req.rid}: worst case {need} pages exceeds the "
+                f"pool's {self.pool.num_pages} — raise --num_pages")
+        if not self._free_slots:
+            raise RuntimeError(
+                f"no free slot for handoff {req.rid} "
+                f"({self.num_slots} slots busy)")
+        now = self._clock()
+        if req.submit_t is None:
+            req.submit_t = now
+        req.admit_t = now
+        req.prompt_len = len(req.prompt)
+        req.limit = min(req.prompt_len + req.max_new, self.buf_len)
+        with torch.inference_mode():
+            pages = self.pool.import_pages(
+                k, v, owners=[j // self._mpp for j in range(n_pages)])
+        self.prompt_tokens += req.prompt_len
+        self.pages_imported += len(pages)
+        slot = self._free_slots.popleft()
+        self._tbl[slot, :n_pages] = pages
+        # later LOCAL arrivals share the imported pages as a donor's
+        keys = self._chain_keys(ids)
+        ps = self.page_size
+        for j in range(n_pages):
+            self.pool.register_prefix(keys[j - 1] if j else None, pages[j],
+                                      ids[j * ps:(j + 1) * ps])
+        if req.first_token_t is None:
+            req.first_token_t = self._clock()
+        if int(first) == self.eos_id or req.limit <= len(ids):
+            req.finish_t = self._clock()
+            self._release_slot(slot)
+            self._complete(req, [])
+            return -1
+        self._install(slot, req, int(first), len(ids))
+        self.max_live = max(self.max_live, self.live_requests)
+        return slot
 
     def _decode_payload(self):
         """Make every live slot's write position private, then the decode
@@ -1130,6 +1248,13 @@ class PagedEngine(_Sampling):
     def _complete(self, req: Request, done: List[Request]) -> None:
         self.completed.append(req)
         done.append(req)
+        cls = req.slo_class or self.scheduler.default_class
+        deadline = self.scheduler.classes.get(cls)
+        if deadline is not None:
+            c = self._slo_counts.setdefault(cls, [0, 0])
+            c[0] += 1
+            if req.ttft_s is not None and req.ttft_s <= deadline:
+                c[1] += 1
 
     # -- aggregate view ---------------------------------------------------
     def stats(self) -> dict:
@@ -1167,4 +1292,9 @@ class PagedEngine(_Sampling):
             "preemptions": self.preemptions,
             "max_live": self.max_live,
             "max_interleaved_prefill_positions": self.max_interleaved_prefill,
+            # -- disaggregated handoff ------------------------------------
+            "prefill_only": self.prefill_only,
+            "handoffs_staged": self.handoffs_staged,
+            "pages_exported": self.pages_exported,
+            "pages_imported": self.pages_imported,
         }

@@ -63,12 +63,18 @@ def page_bytes(cfg, page_size: int, kv_dtype=None) -> int:
     return kv_token_bytes(cfg, kv_dtype) * page_size
 
 
+def kv_leaves(k, v) -> list:
+    """[k, v] as tensors: native pools' two, int8 pools' (codes, scales)
+    pairs flattened to [k codes, k scales, v codes, v scales] (the JAX
+    tree order, which the page stream's blobs follow too)."""
+    return [t for x in (k, v) for t in (x if isinstance(x, tuple) else (x,))]
+
+
 def device_bytes(pool) -> int:
     """The bytes this rank's pool tensors hold (K and V, int8 scales
     included, the scratch entry too)."""
-    parts = [t for x in (pool.ks, pool.vs)
-             for t in (x if isinstance(x, tuple) else (x,))]
-    return sum(t.numel() * t.element_size() for t in parts)
+    return sum(t.numel() * t.element_size()
+               for t in kv_leaves(pool.ks, pool.vs))
 
 
 class KVCachePool:
@@ -164,8 +170,10 @@ class PagedKVPool:
     `local_page_ids`. At cp = 1 the one slab is the whole pool.
 
     The pool tensors are written in place by the decode lowerings, which
-    takes the place of the JAX engine's buffer donation. Exporting and
-    importing pages (disaggregated serving) are not ported (ROADMAP)."""
+    takes the place of the JAX engine's buffer donation. `export_pages` /
+    `import_pages` move whole pages between pools through the host (the
+    disaggregated prefill -> decode handoff, `serving/transfer.py`), at
+    tp = cp = 1."""
 
     def __init__(self, model, mesh, num_pages: int, page_size: int,
                  kv_dtype=None):
@@ -187,6 +195,7 @@ class PagedKVPool:
         self.pages_per_rank = num_pages // self.cp
         # this process's slab: global pages [lo, lo + pages_per_rank)
         self.cp_rank = mesh.cp_rank if self.cp > 1 else 0
+        self.tp = getattr(mesh, "tp", 1)
         self.page_size = page_size
         self.scratch_page = num_pages          # never leased; pad target
         self.kv_dtype = "int8" if kv_dtype == "int8" else None
@@ -305,7 +314,85 @@ class PagedKVPool:
             return
         idx = np.array(mine, np.int64).T - self.cp_rank * ppr
         src, dst = torch.from_numpy(idx).to(self.device, non_blocking=True)
-        for pool in (self.ks, self.vs):
-            # dim 1 is the page dim of codes (5-D) and scales (4-D) alike
-            for a in (pool if isinstance(pool, tuple) else (pool,)):
-                a[:, dst] = a[:, src]
+        # dim 1 is the page dim of codes (5-D) and scales (4-D) alike
+        for a in kv_leaves(self.ks, self.vs):
+            a[:, dst] = a[:, src]
+
+    # -- host-side page transfer (disaggregated serving) -----------------
+    def _check_transfer(self, what: str) -> None:
+        if self.tp > 1 or self.cp > 1:
+            raise NotImplementedError(
+                f"{what} at tp {self.tp}, cp {self.cp}: a pool sharded over "
+                f"ranks would send the global-head payload from every rank; "
+                f"not ported yet, see ROADMAP Queue 1 item 6")
+
+    def export_pages(self, pages):
+        """A host copy of `pages` (global ids, any order), for streaming to
+        another pool: (k, v), each a CPU tensor of shape (layers,
+        len(pages), kv_heads, page_size, head_dim) in the pool's dtype, or
+        for int8 pools a (codes, scales) pair with scales (layers,
+        len(pages), kv_heads, page_size) — the JAX `export_pages`
+        payload. One gather and one device-to-host copy per pool tensor.
+        Pages stay leased: refcounts do not change."""
+        self._check_transfer("export_pages")
+        for p in pages:
+            if not 0 <= int(p) < self.num_pages:
+                raise ValueError(f"page {p} out of range [0, "
+                                 f"{self.num_pages})")
+        idx = torch.tensor([int(p) for p in pages], dtype=torch.long,
+                           device=self.device)
+        out = [t[:, idx].cpu() for t in kv_leaves(self.ks, self.vs)]
+        if self.kv_dtype:
+            return (out[0], out[1]), (out[2], out[3])
+        return out[0], out[1]
+
+    def import_pages(self, k, v, owners=None) -> List[int]:
+        """Lease one page per payload entry (refcount 1: the caller's page
+        table row owns them) and write the payload of another pool's
+        `export_pages` into them, one index-put per pool tensor; returns
+        the page ids in payload order. Tensors or numpy arrays, cast to
+        the pool's dtype. `owners[i]` names the slab page i comes from
+        (cp = 1: slab 0). On PoolExhausted every page leased so far is
+        returned before the raise, so no partial lease leaks. Refuses a
+        payload of the other kind, another page_size or head_dim, and an
+        `owners` of the wrong length, as JAX's does."""
+        self._check_transfer("import_pages")
+        if self.kv_dtype:
+            if not (isinstance(k, tuple) and isinstance(v, tuple)):
+                raise ValueError("int8 pool import needs (codes, scales) "
+                                 "payload tuples (export_pages on an int8 "
+                                 "pool produces them)")
+            head = k[0]
+        else:
+            if isinstance(k, tuple) or isinstance(v, tuple):
+                raise ValueError("native pool cannot import an int8 "
+                                 "(codes, scales) payload — kv_dtype must "
+                                 "match across the transfer")
+            head = k
+        n, ps, hd = head.shape[1], head.shape[3], head.shape[4]
+        if ps != self.page_size:
+            raise ValueError(f"payload page_size {ps} != pool page_size "
+                             f"{self.page_size} (pages are the transfer "
+                             f"unit; both sides must agree)")
+        want_hd = kv_leaves(self.ks, self.vs)[0].shape[4]
+        if hd != want_hd:
+            raise ValueError(f"payload head_dim {hd} != pool head_dim "
+                             f"{want_hd} (different model shapes)")
+        if owners is not None and len(owners) != n:
+            raise ValueError(f"owners has {len(owners)} entries for {n} "
+                             f"payload pages")
+        pages: List[int] = []
+        try:
+            for i in range(n):
+                pages.append(self.alloc(owners[i] if owners else 0))
+        except PoolExhausted:
+            for p in pages:
+                self.unref(p)
+            raise
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        with torch.no_grad():
+            for dst, src in zip(kv_leaves(self.ks, self.vs),
+                                kv_leaves(k, v)):
+                # dim 1 is the page dim of codes (5-D) and scales (4-D)
+                dst[:, idx] = torch.as_tensor(src).to(self.device, dst.dtype)
+        return pages

@@ -1,6 +1,6 @@
 """Synthetic arrival stream, trace replay and the offline serving benchmark
-loop (the port's copy of the JAX `serving/loadgen.py`, without the fleet
-loop).
+loops (the port's copy of the JAX `serving/loadgen.py`, and of the pure
+`fleet_slo_attainment` of the JAX `obs/telemetry.py`).
 
 `synthetic_requests` is numpy-only and draws exactly as the JAX version
 does, so one seed gives the same requests in both packages;
@@ -8,6 +8,7 @@ does, so one seed gives the same requests in both packages;
 drives either engine against the wall clock: a request is submitted once
 its arrival offset has elapsed, the engine steps whenever it has live work,
 and the loop sleeps only when idle before the next arrival.
+`run_fleet_loadgen` drives a `router.FleetRouter` the same way.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import json
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -98,6 +99,12 @@ def replay_requests(path: str) -> List[Request]:
                 seed=int(rec.get("seed", i)),
                 arrival=float(rec.get("arrival", 0.0))))
     return sorted(out, key=lambda r: r.arrival)
+
+
+def nearest_rank(vals: List[float], q: float) -> float:
+    """The JAX fleet's percentile of a SORTED list: the element at rank
+    int(q * (n - 1)), 0.0 when empty (router dispatch and transfer ms)."""
+    return vals[min(len(vals) - 1, int(q * (len(vals) - 1)))] if vals else 0.0
 
 
 def _pctl(vals: List[Optional[float]], q: float) -> Optional[float]:
@@ -196,3 +203,103 @@ def slo_attainment(engine, done) -> Optional[dict]:
         out[name] = {"deadline_s": deadline, "completed": len(reqs),
                      "attained": round(hit / len(reqs), 4)}
     return out or None
+
+
+def fleet_slo_attainment(per_proc_counts) -> dict:
+    """Fold per-replica SLO counters into FLEET attainment: from an iterable
+    of `{class: (completed, hit)}` dicts (one per replica), the
+    completion-weighted attainment per class, so 100% of 2 requests on one
+    replica cannot mask 40% of 2000 on another."""
+    agg: Dict[str, list] = {}
+    for proc in per_proc_counts:
+        for cls, (completed, hit) in proc.items():
+            a = agg.setdefault(cls, [0, 0])
+            a[0] += int(completed)
+            a[1] += int(hit)
+    return {cls: {"completed": c, "attained": round(h / c, 4) if c else 0.0}
+            for cls, (c, h) in sorted(agg.items())}
+
+
+def run_fleet_loadgen(router, requests: List[Request],
+                      session_key=None) -> dict:
+    """`run_loadgen` over a `router.FleetRouter`: each arrival submits
+    through the router (scored dispatch, session affinity keyed by
+    `session_key(req)`, the request's tenant by default) and every step
+    advances the whole fleet. The summary is the fleet's: throughput sums
+    the replicas, the latency percentiles pool every completion,
+    `fleet_slo_attainment` folds the replicas' live per-class counters,
+    and `per_replica` holds each engine's dispatched, completed and
+    prefix-hit numbers, so a skewed router shows in one read. The router's
+    dispatch time rides along (`dispatch_ms_p50` / `_p95`)."""
+    if session_key is None:
+        session_key = lambda r: r.tenant
+    pending = sorted(requests, key=lambda r: r.arrival)
+    t0 = time.monotonic()
+    i = 0
+    invalid = 0
+    done: List[Request] = []
+    while i < len(pending) or router.has_work():
+        now = time.monotonic() - t0
+        while i < len(pending) and pending[i].arrival <= now:
+            try:
+                pending[i].submit_t = t0 + pending[i].arrival
+                router.submit(pending[i], session=session_key(pending[i]))
+            except QueueFull:
+                pass  # counted by the router (a fleet-wide refusal)
+            except ValueError as e:
+                invalid += 1
+                print(f"fleet loadgen: request {pending[i].rid} invalid: "
+                      f"{e}", file=sys.stderr)
+            i += 1
+        if router.has_work():
+            done.extend(router.step())
+        elif i < len(pending):
+            wait = pending[i].arrival - (time.monotonic() - t0)
+            time.sleep(min(0.05, max(0.0, wait)))
+    wall = max(time.monotonic() - t0, 1e-9)
+    ms = 1e3
+    rstats = router.stats()
+    engines = list(router.replicas)
+    generated = sum(e.generated_tokens for _, e in engines)
+    per_replica = {}
+    for name, eng in engines:
+        st = eng.stats()
+        per_replica[name] = {
+            "dispatched": rstats["dispatched"].get(name, 0),
+            "completed": st["completed"],
+            "generated_tokens": st["generated_tokens"],
+            "rejected": st["rejected"],
+            "prefix_hit_rate": st.get("prefix_hit_rate", 0.0),
+            "preemptions": st.get("preemptions", 0),
+            "num_pages": st.get("num_pages"),
+            "pages_in_use_mean": st.get("pages_in_use_mean"),
+        }
+    summary = {
+        "requests": len(requests),
+        "completed": len(done),
+        "rejected": rstats["rejected"],
+        "invalid": invalid,
+        "wall_s": round(wall, 4),
+        "generated_tokens": generated,
+        "fleet_tokens_per_sec": round(generated / wall, 2),
+        "replicas": rstats["replicas"],
+        "dispatch_ms_p50": rstats["dispatch_ms_p50"],
+        "dispatch_ms_p95": rstats["dispatch_ms_p95"],
+        "session_spills": rstats["spills"],
+        "ttft_ms_p50": _pctl([r.ttft_s and r.ttft_s * ms for r in done], 50),
+        "ttft_ms_p95": _pctl([r.ttft_s and r.ttft_s * ms for r in done], 95),
+        "tpot_ms_p50": _pctl([r.tpot_s and r.tpot_s * ms for r in done], 50),
+        "tpot_ms_p95": _pctl([r.tpot_s and r.tpot_s * ms for r in done], 95),
+        "queue_wait_ms_p50": _pctl(
+            [r.queue_wait_s and r.queue_wait_s * ms for r in done], 50),
+        "queue_wait_ms_p95": _pctl(
+            [r.queue_wait_s and r.queue_wait_s * ms for r in done], 95),
+        "per_replica": per_replica,
+    }
+    slo_inputs = [{cls: (c[0], c[1]) for cls, c in eng._slo_counts.items()}
+                  for _, eng in engines if eng._slo_counts]
+    if slo_inputs:
+        summary["fleet_slo_attainment"] = fleet_slo_attainment(slo_inputs)
+    if router.writer is not None:
+        router.writer.event("fleet_serving_summary", **summary)
+    return summary

@@ -189,7 +189,15 @@ def _decode_calls(rng):
     return calls
 
 
-def _jax_decode_logits(jm, mesh, params, kind, args, ps):
+def _jax_decode_logits(jm, mesh, params, kind, args, ps, fns):
+    """JAX's logits of one call; `fns` keeps one jitted program per kind
+    and page size, so calls of one shape compile once."""
+    if (kind, ps) not in fns:
+        fns[kind, ps] = _jax_decode_fn(jm, mesh, kind, ps, len(args))
+    return np.asarray(fns[kind, ps](params, *(jnp.asarray(a) for a in args)))
+
+
+def _jax_decode_fn(jm, mesh, kind, ps, n_args):
     def fn(params, *a):
         if kind == "prefill":
             return jdecode._prefill(jm, params, *a, None, None,
@@ -201,11 +209,10 @@ def _jax_decode_logits(jm, mesh, params, kind, args, ps):
                                          jnp.float32)[2]
 
     cache = 0 if kind == "prefill" else 2
-    specs = (POOL_SPEC,) * cache + (P(),) * (len(args) - cache)
-    run = jax.jit(jax.shard_map(fn, mesh=mesh,
-                                in_specs=(jm.specs(),) + specs,
-                                out_specs=P(None, "tp")))
-    return np.asarray(run(params, *(jnp.asarray(a) for a in args)))
+    specs = (POOL_SPEC,) * cache + (P(),) * (n_args - cache)
+    return jax.jit(jax.shard_map(fn, mesh=mesh,
+                                 in_specs=(jm.specs(),) + specs,
+                                 out_specs=P(None, "tp")))
 
 
 def _requests(seed0=0):
@@ -264,13 +271,14 @@ def runs():
         mesh = jmake_mesh(JMeshConfig())
         params = jax.device_put(jax.tree.map(jnp.asarray, trees["tiny"]),
                                 jm.shardings(mesh))
+        fns = {}
         refs = {
             "loss": {n: _jax_loss(n, trees[MESHES[n][0]],
                                   batches[MESHES[n][0]]) for n in MESHES},
             "logits": np.asarray(jm.make_forward(mesh)(
                 params, *(jnp.asarray(batches["tiny"][i]) for i in (0, 2)))),
             "trajectory": _jax_trajectory(trees["tiny"], steps),
-            "decode": [_jax_decode_logits(jm, mesh, params, *c)
+            "decode": [_jax_decode_logits(jm, mesh, params, *c, fns)
                        for c in calls],
             "engines": {k: _jax_engine_tokens(jm, mesh, params, k)
                         for k in ("slot", "paged")},

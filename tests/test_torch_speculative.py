@@ -196,20 +196,27 @@ def runs():
             ("serve_runs", {"tp": 2}, dict(cfg=CFG, tree=preempt_tree, runs=[
                 spec(PREEMPT_KW, requests=reqs(PREEMPT_PROMPTS, 12),
                      stagger=0)]))]
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    # JAX's engines and decoders are independent of one another: two
+    # threads build and drive them (its compiles run outside the GIL)
+    with ThreadPoolExecutor(max_workers=1) as pool, \
+            ThreadPoolExecutor(max_workers=2) as jpool:
         group = pool.submit(launch.spawn, tp_checks.jobs, 2, todo)
-        jax_spec = {name: _jax_spec(GREEDY[name][0], 1,
-                                    *trees[GREEDY[name][0]],
-                                    _greedy_kw(name)) for name in GREEDY}
-        jax_spec["tp2"] = _jax_spec("llama", 2, tree, dtree,
-                                    _greedy_kw("k2_ps8"))
-        jax_spec["preempt"] = _jax_spec("llama", 2, preempt_tree, dtree,
-                                        PREEMPT_KW, PREEMPT_PROMPTS, 12, 0)
-        greedy = {"llama": _jax_greedy("llama", 1, tree),
-                  "gpt2": _jax_greedy("gpt2", 1, trees["gpt2"][0]),
-                  "tp2": _jax_greedy("llama", 2, tree),
-                  "preempt": _jax_greedy("llama", 2, preempt_tree,
-                                         PREEMPT_PROMPTS, 12)}
+        spec = {name: jpool.submit(_jax_spec, GREEDY[name][0], 1,
+                                   *trees[GREEDY[name][0]], _greedy_kw(name))
+                for name in GREEDY}
+        spec["tp2"] = jpool.submit(_jax_spec, "llama", 2, tree, dtree,
+                                   _greedy_kw("k2_ps8"))
+        spec["preempt"] = jpool.submit(_jax_spec, "llama", 2, preempt_tree,
+                                       dtree, PREEMPT_KW, PREEMPT_PROMPTS,
+                                       12, 0)
+        greedy = {"llama": jpool.submit(_jax_greedy, "llama", 1, tree),
+                  "gpt2": jpool.submit(_jax_greedy, "gpt2", 1,
+                                       trees["gpt2"][0]),
+                  "tp2": jpool.submit(_jax_greedy, "llama", 2, tree),
+                  "preempt": jpool.submit(_jax_greedy, "llama", 2,
+                                          preempt_tree, PREEMPT_PROMPTS, 12)}
+        jax_spec = {k: f.result() for k, f in spec.items()}
+        greedy = {k: f.result() for k, f in greedy.items()}
         ranks = group.result()
     return dict(trees=trees, jax_spec=jax_spec, greedy=greedy,
                 group=[[r[0][i] for r in ranks] for i in range(2)]

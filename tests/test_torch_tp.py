@@ -220,8 +220,10 @@ def _spec(dim, ndim=3):
     return P(*spec)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_layer(name):
-    """The JAX layer of case `name`, its params, and its per-shard apply."""
+    """The JAX layer of case `name`, its params, and its per-shard apply
+    (made once per case: the fixture and the reference share them)."""
     kind, opts, _, _ = LAYERS[name]
     key = jax.random.key(len(name))
     if kind == "embedding":
@@ -264,8 +266,10 @@ def _layer_inputs(name):
 
 def _jax_layer_ref(name, x, w):
     """JAX's output and the global gradients of sum(out * w) in the params
-    and x. A replicated output that a gather made is the mean of the tp
-    copies, inside the shard_map (as `tp_checks.layer_cases` takes it)."""
+    and x, in one jitted program (one compile per case: the eager
+    shard_map and its gradient compiled several). A replicated output that
+    a gather made is the mean of the tp copies, inside the shard_map (as
+    `tp_checks.layer_cases` takes it)."""
     kind, opts, x_dim, w_dim = LAYERS[name]
     layer, params, apply = _jax_layer(name)
     mesh = jmake_mesh(JMeshConfig(tp=LAYER_TP))
@@ -278,16 +282,16 @@ def _jax_layer_ref(name, x, w):
         fn = jax.shard_map(shard, mesh=mesh, in_specs=in_specs,
                            out_specs=(P(), P("tp")))
         loss = lambda p, x: fn(p, x)[0]
-        y = fn(params, x)[1][0]
+        out = lambda p, x: fn(p, x)[1][0]
     else:
         fn = jax.shard_map(apply, mesh=mesh, in_specs=in_specs,
                            out_specs=_spec(w_dim))
         loss = lambda p, x: jnp.sum(fn(p, x) * w)
-        y = fn(params, x)
-    if kind == "embedding":
-        grads, dx = jax.grad(loss)(params, x), None
-    else:
-        grads, dx = jax.grad(loss, argnums=(0, 1))(params, x)
+        out = fn
+    argnums = 0 if kind == "embedding" else (0, 1)
+    y, grads = jax.jit(lambda p, x: (out(p, x), jax.grad(
+        loss, argnums=argnums)(p, x)))(params, x)
+    grads, dx = (grads, None) if kind == "embedding" else grads
     return (jax.tree.map(np.asarray, params), np.asarray(y),
             jax.tree.map(np.asarray, grads),
             None if dx is None else np.asarray(dx))
