@@ -328,7 +328,40 @@ result line):
     step (decode kernel) and per chunk (the wgmma chunk kernel) over the
     engines and never on the decode route in the prefill-only engine;
     fleet tokens/s, TTFT, TPOT, dispatch and transfer ms printed beside
-    phase 15's one engine.
+    phase 15's one engine;
+51. moe_check: the MoE family at the tiny widths (d 128, 4 heads of 32,
+    2 layers, vocab 1024) with 4 SwiGLU experts, top 2, capacity factor
+    1.0 (choices drop) and a seeded normal router, f32: the router's
+    choices under all-tied logits (the zero router's) equal on the card
+    and the CPU; the logits, the loss, the routing's drops and every
+    gradient of one batch, the kernels on the card against the plain path
+    on the CPU; both engines' greedy tokens for 8 seeded requests (the
+    decode step graphed on the card) identical on the card and the CPU;
+52. moe_train: `train --model 45m-moe8` (the 45m widths with 8 experts of
+    ffn 2048, top 2, capacity factor 2.0) at b 32 x t 1000, bf16, remat,
+    10 steps on the bigram corpus and a 2-step `--resume`: finite, falling
+    losses, K1 forward 2 x 12 and dq, dk/dv 12 launches per step and
+    nothing else; step p50, tokens/s, MFU by active parameters, peak
+    memory, the share of dropped routings and the expert load (max over
+    mean); then one step of the same cell profiled beside one MoE layer's
+    forward and backward at its input shape: the MoE layers' share of
+    device busy;
+53. moe_serve: the slot engine at 45m-moe8 on phase 5's traffic, then the
+    paged engine on 16 requests of phase 15's mix, bf16, the decode step
+    graphed: every request in-vocab, K1 12 per prefill dispatch, K3 12
+    per decode step and per chunk on its routes, a drained pool; TTFT,
+    TPOT and tokens/s beside the dense 45m figures of phases 5 and 15;
+    then phase 17's profile of a decode step and a chunk dispatch at
+    45m-moe8, beside phase 17's;
+54. moe_ep2_train: `train --model 45m-moe8 --ep_size 2 --dist_backend
+    gloo` (two ranks on the card, 4 experts each) at b 8 x t 1000, bf16,
+    3 steps: finite losses, the step-1 loss within 1e-2 of an ep 1
+    model's on the same batch from the same seed, each rank's K1 launches
+    per step as at ep 1, and its ep
+    hops: 6 all_to_alls per layer per step (forward, the remat replay,
+    backward) and one all-reduce of the experts' squares, then the
+    checkpoint's expert gathers; step p50 and the hops' calls, bytes and
+    host ms per step printed.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -773,7 +806,8 @@ def phase_times(torch) -> dict:
 
 
 def phase_serve(torch) -> dict:
-    """Returns the served run's launches {fwd, dq, dkv}."""
+    """Returns the served run's launches {fwd, dq, dkv} and its tokens/s,
+    TTFT and TPOT (`one_engine`)."""
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
     _reset_launches()
@@ -799,7 +833,9 @@ def phase_serve(torch) -> dict:
         raise AssertionError("slot serving launched no flash kernel")
     _only(counts, {"flash_attention_fwd": layers * out["prefill_dispatches"]},
           f"slot serving ({layers} per prefill dispatch)")
-    return counts
+    return {**counts, "one_engine": {k: out[k] for k in (
+        "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95", "tpot_ms_p50",
+        "tpot_ms_p95")}}
 
 
 def phase_card_vs_cpu(torch) -> None:
@@ -2062,6 +2098,11 @@ def phase_paged_profile(torch) -> dict:
     of the paged engine at the paged_serve shape (45m bf16, page_size 64,
     prefill_chunk 128), host wall from the clock around each (they end in
     the token copy), device busy from a profiled repeat."""
+    return _paged_profile(torch, "45m")
+
+
+def _paged_profile(torch, preset: str) -> dict:
+    """`phase_paged_profile` on the model of `preset`."""
     import numpy as np
     from distributed_pytorch_from_scratch_tpu_torch.config import (
         MeshConfig, model_preset)
@@ -2070,7 +2111,7 @@ def phase_paged_profile(torch) -> dict:
     from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
     from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
         PagedEngine, Request)
-    cfg = model_preset("45m", compute_dtype="bfloat16")
+    cfg = model_preset(preset, compute_dtype="bfloat16")
     mesh = make_mesh(MeshConfig(), device="cuda")
     model = Transformer(cfg).init_weights(seed=1).to(mesh.device)
     rng = np.random.default_rng(1)
@@ -2129,7 +2170,8 @@ def phase_paged_profile(torch) -> dict:
     for what, wall, (busy, n, paged, n_paged, by_route) in (
             ("decode step, 16 live", decode_ms, d),
             ("chunk dispatch, 128 positions", chunk_ms, c)):
-        log(f"paged profile (45m bf16, ps 64): {what}: wall {wall:.3f} ms, "
+        log(f"paged profile ({preset} bf16, ps 64): {what}: wall {wall:.3f} "
+            f"ms, "
             f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
             f"{n} kernels; paged kernel {paged:.3f} ms over {n_paged} "
             f"launches ({paged / busy:.3f} of busy), by route {by_route}")
@@ -5745,6 +5787,370 @@ def phase_fleet_serve(torch, workdir: str, one_engine) -> dict:
     return res
 
 
+# the MoE family at 45m-moe8's widths: d 512, 8 heads of 64, 12 layers,
+# vocab 1024, 8 SwiGLU experts of ffn 2048, top 2, capacity factor 2.0
+MOE = "45m-moe8"
+MOE_STEPS = 10
+MOE_TRAIN_ARGS = _replace_flag(_replace_flag(_replace_flag(
+    TRAIN_ARGS, "--model", MOE), "--max_steps", str(MOE_STEPS)),
+    "--save_interval", str(MOE_STEPS))
+MOE_SERVE_ARGS = _replace_flag(SERVE_ARGS, "--model", MOE)
+MOE_PAGED_ARGS = _replace_flag(_replace_flag(
+    PAGED_SERVE_ARGS, "--model", MOE), "--num_requests", "16")
+MOE_EP2_STEPS = 3
+MOE_EP2_ARGS = _replace_flag(CP_ARGS, "--model", MOE) + [
+    "--max_steps", str(MOE_EP2_STEPS)]
+# moe_check: the tiny widths with 4 experts and a capacity that drops
+MOE_TINY = dict(num_experts=4, moe_capacity_factor=1.0,
+                compute_dtype="float32")
+MOE_PROMPT_LENS = (5, 40, 17, 3, 28, 9, 33, 12)
+
+
+def _moe_tiny(torch, seed: int):
+    """The moe_check model on the CPU: the tiny preset with MOE_TINY, its
+    zero router replaced by a seeded normal one (the init's routes every
+    token alike)."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    cfg = model_preset("tiny", **MOE_TINY)
+    model = build_model("llama", cfg, remat=False).init_weights(seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for lp in model.layers:
+            lp["moe"].router.normal_(0.0, 1.0, generator=gen)
+    return cfg, model
+
+
+def _moe_engine_tokens(torch, model, device: str, kind: str) -> dict:
+    """Greedy tokens of the 8 seeded moe_check requests through one engine
+    of `kind` (slot or paged) on `device`, the decode step graphed on the
+    card."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import MeshConfig
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine, PagedEngine, Request)
+    mesh = make_mesh(MeshConfig(), device=device)
+    kw = dict(num_slots=6, buf_len=64, eos_id=1)
+    eng = (ContinuousBatchingEngine(model, mesh, prefill_bucket=16,
+                                    max_prefill_batch=2, **kw)
+           if kind == "slot" else
+           PagedEngine(model, mesh, page_size=16, prefill_chunk=16, **kw))
+    rng = np.random.default_rng(21)
+    for i, n in enumerate(MOE_PROMPT_LENS):
+        eng.submit(Request(rid=i, prompt=rng.integers(
+            3, model.cfg.vocab_size, size=n).tolist(), max_new=16))
+    eng.run_to_completion()
+    return {r.rid: list(r.tokens) for r in eng.completed}
+
+
+def phase_moe_check(torch) -> dict:
+    """Card against CPU at the tiny MoE shape (phase 51)."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import IGNORE_INDEX
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    from distributed_pytorch_from_scratch_tpu_torch.parallel.moe import route
+    # every expert ties (the zero router's logits), and ties on half of
+    # them: the stable sort gives both devices the lowest index first
+    ties = torch.zeros(1000, 8)
+    ties[::2, 5:] = 1.0
+    got = [route(ties.to(dev), 2, 1.0) for dev in ("cuda", "cpu")]
+    if not (torch.equal(got[0][0].cpu(), got[1][0])
+            and torch.equal(got[0][1].cpu(), got[1][1])):
+        raise AssertionError("the router's choices under tied logits "
+                             "differ between the card and the CPU")
+    cfg, cpu = _moe_tiny(torch, seed=11)
+    card = build_model("llama", cfg, remat=True)
+    card.load_state_dict(cpu.state_dict())
+    card.to("cuda")
+    rng = np.random.default_rng(11)
+    b, t = 4, 256
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t + 1))
+    tgt = ids[:, 1:].copy()
+    tgt[1, 200:] = IGNORE_INDEX
+    batch = [torch.from_numpy(a) for a in
+             (ids[:, :-1], tgt, np.tile(np.arange(t), (b, 1)))]
+    res = {}
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        ids_d, tgt_d, pos_d = (x.to(dev) for x in batch)
+        with torch.no_grad():
+            logits = model(ids_d, pos_d).float().cpu()
+        loss = model.loss(ids_d, tgt_d, pos_d)
+        loss.backward()
+        res[dev] = (logits, loss.item(), model.moe_summary(),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()})
+    (lg_card, l_card, moe_card, g_card) = res["cuda"]
+    (lg_cpu, l_cpu, moe_cpu, g_cpu) = res["cpu"]
+    lg_diff = ((lg_card - lg_cpu).abs().max() / lg_cpu.abs().max()).item()
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst, worst_key = 0.0, None
+    for k, gc in g_cpu.items():
+        ratio = ((g_card[k] - gc).abs().max()
+                 / gc.abs().max().clamp(min=1e-12)).item()
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    log(f"moe_check: tiny x 4 experts (cf 1.0) f32 b{b} x t{t}: logits max "
+        f"abs diff {lg_diff:.3e} of max |logit| (tol 1e-3); loss "
+        f"{l_card:.7f} (card) vs {l_cpu:.7f} (cpu), rel diff {rel:.3e} (tol "
+        f"1e-5); routing card {moe_card} vs cpu {moe_cpu}; worst grad leaf "
+        f"{worst_key}: {worst:.3e} of its max |grad| (tol 1e-3)")
+    if not (lg_diff <= 1e-3 and rel <= 1e-5 and worst <= 1e-3):
+        raise AssertionError("card and CPU disagree on the MoE model")
+    if moe_card != moe_cpu or not moe_cpu["dropped_frac"] > 0:
+        raise AssertionError(f"routing differs or nothing dropped: "
+                             f"{moe_card} vs {moe_cpu}")
+    out = {}
+    for kind in ("slot", "paged"):
+        on_card = _moe_engine_tokens(torch, card, "cuda", kind)
+        on_cpu = _moe_engine_tokens(torch, cpu, "cpu", kind)
+        log(f"moe_check {kind} engine: {sum(map(len, on_card.values()))} "
+            f"greedy tokens on the card, identical on the CPU: "
+            f"{on_card == on_cpu}")
+        if on_card != on_cpu:
+            raise AssertionError(f"moe {kind} engine tokens differ between "
+                                 f"the card and the CPU")
+        out[kind] = on_card
+    return {"logits_rel": lg_diff, "loss_rel": rel, "grad_worst": worst}
+
+
+def _moe_layer_ms(torch, layer, x) -> tuple:
+    """Device ms of one MoE layer's forward, and of its forward and
+    backward, at x's shape (torch.profiler, after a warm-up); the
+    forward and backward's kernels are logged by name, the costliest
+    first."""
+    dtype = x.dtype
+
+    def fwd():
+        with torch.no_grad():
+            layer(x, dtype)
+
+    def fwd_bwd():
+        y, aux = layer(x, dtype)
+        (y.float().sum() + aux["z_sum"]).backward()
+
+    fwd_bwd()
+    ms = []
+    for fn in (fwd, fwd_bwd):
+        by_name = {}
+        for name, us in _profiled(torch, fn, "moe layer"):
+            n, t = by_name.get(name[:90], (0, 0.0))
+            by_name[name[:90]] = (n + 1, t + us)
+        ms.append(sum(t for _, t in by_name.values()) / 1e3)
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[
+            :12]:
+        log(f"  moe layer fwd+bwd: {us / 1e3:.3f} ms over {n} launches: "
+            f"{name}")
+    return tuple(ms)
+
+
+def phase_moe_train(torch, workdir: str) -> dict:
+    """45m-moe8 train (phase 52); returns the launches and the summary."""
+    import math
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        OptimizerConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
+        init_adam_state)
+    from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
+        build_train_step)
+    save_dir = os.path.join(workdir, "moe")
+    args = MOE_TRAIN_ARGS + ["--data_path", _corpus(workdir), "--save_dir",
+                             save_dir]
+    _reset_launches()
+    out = train.main(args)
+    counts = _read_launches()
+    cfg = model_preset(MOE, compute_dtype="bfloat16")
+    layers = cfg.num_layers
+    losses = out["losses"]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    log(f"moe_train: {out['steps']} steps of {MOE} b32 x t1000 bf16 on "
+        f"{out['device']} ({out['params'] / 1e6:.2f}M params): losses "
+        f"{[round(x, 4) for x in losses]}; step p50 "
+        f"{out['step_ms_p50']:.3f} ms, {out['tokens_per_sec']:.1f} tok/s, "
+        f"MFU {out['mfu']:.4f} (active parameters), peak memory "
+        f"{out['peak_mem_gib']:.3f} GiB; last step's routing {out['moe']}; "
+        f"launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or len(losses) != MOE_STEPS:
+        raise AssertionError(f"moe losses not finite or not {MOE_STEPS}")
+    # a b32 batch holds ~20k valid tokens: its mean CE varies by ~0.01, so
+    # a drop of 0.1 is learning, not noise
+    if not last <= first - 0.1:
+        raise AssertionError(f"moe train loss did not fall: {losses}")
+    _only(counts, _flash_want(layers, MOE_STEPS), "moe train (remat)")
+    resumed = train.main(_replace_flag(args, "--max_steps",
+                                       str(MOE_STEPS + 2)) + ["--resume"])
+    log(f"moe_train --resume: started at step {resumed['start_step']}, ran "
+        f"to {resumed['steps']}, losses {resumed['losses']}")
+    if (resumed["start_step"] != MOE_STEPS
+            or resumed["steps"] != MOE_STEPS + 2
+            or not all(math.isfinite(x) for x in resumed["losses"])):
+        raise AssertionError("moe resume did not continue from the "
+                             "checkpoint")
+    # where the step's device time goes: one profiled step of the cell,
+    # beside one MoE layer's forward and forward + backward at its input
+    # (static shapes: the work does not depend on the routing); under remat
+    # a layer runs its forward twice and its backward once
+    # the weights drawn on the card (the timing needs shapes, not a seed's
+    # init: the shapes are static, whatever the routing)
+    model = build_model("llama", cfg, remat=True).to("cuda")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02)
+    step = build_train_step(model, OptimizerConfig(lr=1e-4))
+    state = init_adam_state(dict(model.named_parameters()))
+    b, t = TRAIN_SHAPE[0], TRAIN_SHAPE[2]
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (b, t))).cuda()
+    pos = torch.arange(t, device="cuda").expand(b, t)
+    for _ in range(2):
+        _, _, state = step(state, ids, ids, pos)
+
+    def one_step():
+        nonlocal state
+        _, _, state = step(state, ids, ids, pos)
+
+    busy = sum(us for _, us in _profiled(torch, one_step, "moe train step"))
+    busy /= 1e3
+    x = torch.randn(b, t, cfg.attn_dim, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    fwd_ms, fwd_bwd_ms = _moe_layer_ms(torch, model.layers[0]["moe"], x)
+    moe_ms = layers * (fwd_ms + fwd_bwd_ms)
+    log(f"moe_train profile: one step's device busy {busy:.3f} ms; one MoE "
+        f"layer's forward {fwd_ms:.3f} ms, forward + backward "
+        f"{fwd_bwd_ms:.3f} ms at ({b}, {t}, {cfg.attn_dim}) bf16; the "
+        f"{layers} MoE layers (2 forwards + 1 backward each) "
+        f"{moe_ms:.3f} ms = {moe_ms / busy:.3f} of device busy")
+    del model, step, state
+    torch.cuda.empty_cache()
+    return {**counts, "summary": out, "moe_share": moe_ms / busy}
+
+
+def phase_moe_serve(torch, dense_slot: dict, dense_paged: dict,
+                    dense_profile: dict) -> dict:
+    """45m-moe8 in both engines (phase 53); returns each run's launches."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    layers = model_preset(MOE).num_layers
+    fmt = lambda o: (f"{o['tokens_per_sec']} tok/s, TTFT p50/p95 "
+                     f"{o['ttft_ms_p50']}/{o['ttft_ms_p95']} ms, TPOT "
+                     f"p50/p95 {o['tpot_ms_p50']}/{o['tpot_ms_p95']} ms")
+    _reset_launches()
+    out = serve.main(MOE_SERVE_ARGS)
+    counts = _read_launches()
+    torch.cuda.synchronize()
+    dense = (dense_slot or {}).get("one_engine")
+    log(f"moe_serve slot: {out['completed']}/{out['requests']} requests, "
+        f"{out['generated_tokens']} tokens in {out['wall_s']} s: "
+        f"{fmt(out)}; {out['decode_steps']} decode steps "
+        f"(graph {out['decode_graph']}), {out['prefill_dispatches']} "
+        f"prefill dispatches; launches {counts}"
+        + (f"; dense 45m, phase 5 of this run: {fmt(dense)}" if dense
+           else ""))
+    toks = [t for ts in out["outputs"].values() for t in ts]
+    if out["completed"] != out["requests"] or not toks or not all(
+            0 <= t < 1024 for t in toks):
+        raise AssertionError("moe slot serving: requests or tokens wrong")
+    _only(counts, {"flash_attention_fwd": layers * out["prefill_dispatches"]},
+          f"moe slot serving ({layers} per prefill dispatch)")
+    slot = counts
+    out, counts, by_route, by_kernel, widths = _serve_with_widths(
+        serve, MOE_PAGED_ARGS)
+    torch.cuda.synchronize()
+    st = out["engine_stats"]
+    dense = (dense_paged or {}).get("one_engine")
+    log(f"moe_serve paged: {out['completed']}/{out['requests']} requests, "
+        f"{out['generated_tokens']} tokens in {out['wall_s']} s: "
+        f"{fmt(out)}; {st['decode_steps']} decode steps, "
+        f"{out['prefill_dispatches']} chunk dispatches, preemptions "
+        f"{st['preemptions']}, COW copies {st['cow_copies']}, prefix hit "
+        f"tokens {st['prefix_hit_tokens']}; paged launches by route "
+        f"{by_route}, by kernel {by_kernel}; all {counts}"
+        + (f"; dense 45m, phase 15 of this run (32 requests): {fmt(dense)}"
+           if dense else ""))
+    _check_paged_run(out, st, counts, by_route, by_kernel, widths, layers,
+                     1024)
+    prof = _paged_profile(torch, MOE)
+    if dense_profile:
+        log(f"moe_serve: a paged decode step's wall / device busy "
+            f"{prof['decode_wall_ms']:.3f} / {prof['decode'][0]:.3f} ms and "
+            f"a 128-position chunk's {prof['chunk_wall_ms']:.3f} / "
+            f"{prof['chunk'][0]:.3f} ms; dense 45m, phase 17 of this run: "
+            f"{dense_profile['decode_wall_ms']:.3f} / "
+            f"{dense_profile['decode'][0]:.3f} and "
+            f"{dense_profile['chunk_wall_ms']:.3f} / "
+            f"{dense_profile['chunk'][0]:.3f} ms")
+    return {"slot": slot, "paged": counts, "paged_by_route": by_route,
+            "paged_by_kernel": by_kernel, "profile": prof}
+
+
+def phase_moe_ep2_train(torch, workdir: str) -> dict:
+    """45m-moe8 at ep 2 over gloo (phase 54); returns the launches summed
+    over the ranks."""
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        IGNORE_INDEX, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.data.dataset import (
+        get_dataloader)
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    cfg = model_preset(MOE, compute_dtype="bfloat16")
+    layers = cfg.num_layers
+    steps = MOE_EP2_STEPS
+    data = _corpus(workdir)
+    base = MOE_EP2_ARGS + ["--data_path", data]
+    res = train.main(base + ["--ep_size", "2", "--dist_backend", "gloo",
+                             "--save_dir", os.path.join(workdir, "moe_ep2")])
+    # ep 1's loss on the CLI's first batch (its seeded loader's first, the
+    # CLI's random_seed 0), the same weights, in this process
+    loader = get_dataloader(data, CP_B, IGNORE_INDEX, split="train",
+                            maxlen=CP_T, shuffle=True, seed=0)
+    first = next(iter(loader.epoch(0)))
+    model = build_model("llama", cfg).init_weights(0).to("cuda")
+    with torch.no_grad():
+        one = model.loss(*(torch.from_numpy(first[k]).cuda().long() for k in
+                           ("input_ids", "target_ids", "position_ids")))
+    one = one.item()
+    del model
+    torch.cuda.empty_cache()
+    losses = res["losses"]
+    summed = {}
+    # per step: 2 all_to_alls per layer forward, 2 in the remat replay, 2
+    # backward, and the norm's all-reduce of the experts' squares; then the
+    # checkpoint's 3 expert gathers (params and both moments)
+    want_ep = steps * (6 * layers + 1) + 3
+    for rank in res["ranks"]:
+        _only(rank["launches"], _flash_want(layers, steps),
+              f"moe ep2 rank {rank['rank']} ({steps} steps)")
+        ep = rank["collectives"]["ep"]
+        if ep["calls"] != want_ep:
+            raise AssertionError(f"moe ep2 rank {rank['rank']}: {ep['calls']}"
+                                 f" ep hops, expected {want_ep}")
+        for k, v in rank["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    hops = lambda r: r["collectives_steps"]["ep"]
+    log(f"moe_ep2_train: {res['steps']} steps of {MOE} b{CP_B} x t{CP_T} "
+        f"bf16, ep {res['ep']} over {res['dist_backend']} on {res['cards']} "
+        f"card(s): losses {[round(x, 4) for x in losses]} (ep 1 on the "
+        f"first batch {one:.4f}); step p50 {res['step_ms_p50']:.3f} ms, "
+        f"{res['tokens_per_sec']:.1f} tok/s; routing {res['moe']}; "
+        + "; ".join(_rank_hops(r) for r in res["ranks"])
+        + "; the steps' ep hops per step: " + "; ".join(
+            f"rank {r['rank']} {hops(r)['calls'] / steps:.0f} calls, "
+            f"{hops(r)['bytes'] / steps / 1e9:.4f} GB, host "
+            f"{1e3 * (hops(r)['wait_s'] + hops(r)['hop_s']) / steps:.1f} ms "
+            f"({1e3 * hops(r)['hop_s'] / steps:.1f} in the hops)"
+            for r in res["ranks"]))
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe ep2: losses not finite or not {steps}")
+    if not abs(losses[0] - one) <= 1e-2:
+        raise AssertionError(f"moe ep2 step-1 loss {losses[0]} vs ep 1 "
+                             f"{one}")
+    return summed
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -5756,7 +6162,8 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "gpt2_kernels", "gpt2_train", "gpt2_serve", "gpt2_card_vs_cpu",
           "sampler_check", "train_async_preempt", "serve_int8_weights",
           "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
-          "cp_serve", "fleet_check", "fleet_serve")
+          "cp_serve", "fleet_check", "fleet_serve", "moe_check",
+          "moe_train", "moe_serve", "moe_ep2_train")
 
 
 def main() -> None:
@@ -5792,7 +6199,8 @@ def run(torch, phases: set, workdir: str) -> list:
     device = phase_device(torch)
     with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
                 "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
-                "gpt2_train", "train_async_preempt", "serve_replay")
+                "gpt2_train", "train_async_preempt", "serve_replay",
+                "moe_train", "moe_ep2_train")
     res = {}
     from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
     with launch.kept_groups():
@@ -5804,6 +6212,9 @@ def run(torch, phases: set, workdir: str) -> list:
             res[name] = (fn() if name == "build" else
                          fn(torch, workdir, res.get("paged_serve"))
                          if name == "fleet_serve" else
+                         fn(torch, res.get("serve"), res.get("paged_serve"),
+                            res.get("paged_profile"))
+                         if name == "moe_serve" else
                          fn(torch, workdir) if name in with_dir else fn(torch))
             log(f"chip_smoke: phase {name} took "
                 f"{time.perf_counter() - t1:.1f} s")
@@ -5811,7 +6222,8 @@ def run(torch, phases: set, workdir: str) -> list:
      paged_times, paged_served, ring_err, ring_times, cp_runs, cp_tiny,
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
-     replayed, spec_err, spec_served, cp_err, cp_served, fleet_served) = (
+     replayed, spec_err, spec_served, cp_err, cp_served, fleet_served,
+     moe_trained, moe_served, moe_ep2) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -5820,7 +6232,8 @@ def run(torch, phases: set, workdir: str) -> list:
              "eval_pth", "eval_tp", "gpt2_kernels", "gpt2_train",
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
              "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
-             "cp_serve", "fleet_serve"))
+             "cp_serve", "fleet_serve", "moe_train", "moe_serve",
+             "moe_ep2_train"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -5858,7 +6271,11 @@ def run(torch, phases: set, workdir: str) -> list:
                          "serve_int8_weights": int8_served["slot"].get(k, 0),
                          "serve_paged_int8_weights":
                              int8_served["paged"].get(k, 0),
-                         "serve_replay": replayed.get(k, 0)}
+                         "serve_replay": replayed.get(k, 0),
+                         "train_moe": moe_trained[k],
+                         "train_moe_ep2": moe_ep2.get(k, 0),
+                         "serve_moe": moe_served["slot"].get(k, 0),
+                         "serve_moe_paged": moe_served["paged"].get(k, 0)}
     at_path, at_gpt2 = bwd_times["errs"], gpt2_times["errs"]
     # K3's launches on the gpt2 paged runs, by C entry point
     gpt2_paged = lambda kernel: {
@@ -5928,7 +6345,10 @@ def run(torch, phases: set, workdir: str) -> list:
                               **{f"{k}_decode_kernel": v for k, v in
                                  cp_paged("paged_decode").items()},
                               **{f"{k}_decode_kernel": v for k, v in
-                                 fleet_paged("paged_decode").items()}}},
+                                 fleet_paged("paged_decode").items()},
+                              "serve_moe_paged_decode_kernel":
+                                  moe_served["paged_by_kernel"][
+                                      "paged_decode"]}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
@@ -5952,7 +6372,9 @@ def run(torch, phases: set, workdir: str) -> list:
                  "paged_chunk_sm90"],
              **spec_paged("paged_chunk_sm90"),
              **cp_paged("paged_chunk_sm90"),
-             **fleet_paged("paged_chunk_sm90")}},
+             **fleet_paged("paged_chunk_sm90"),
+             "serve_moe_paged": moe_served["paged_by_kernel"][
+                 "paged_chunk_sm90"]}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

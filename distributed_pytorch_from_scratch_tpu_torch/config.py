@@ -72,11 +72,14 @@ class ModelConfig:
     num_kv_heads: "int | None" = None
     # Dtype of matmuls/activations in the forward pass; parameters stay f32.
     compute_dtype: str = "float32"
-    # Mixture-of-Experts shape fields (kept so checkpoint-consuming CLIs
-    # parse the same flags; the port refuses num_experts > 0 for now).
+    # Mixture-of-Experts: 0 = the dense SwiGLU FFN; > 0 swaps every layer's
+    # FFN for top-k routed SwiGLU experts (parallel/moe.py), sharded over
+    # the mesh axis 'ep' in training.
     num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
+    moe_aux_coef: float = 0.01   # load-balance loss weight (Switch: 0.01)
+    moe_z_coef: float = 1e-3     # router z-loss weight (ST-MoE: 1e-3)
 
     @property
     def head_dim(self) -> int:
@@ -120,6 +123,20 @@ MODEL_PRESETS = {
 }
 
 
+# the ROADMAP item of the MoE paths not held against the JAX package yet
+MOE_LATER = "ROADMAP Queue 1 item 7"
+
+
+def refuse_moe(cfg: ModelConfig, path: str) -> None:
+    """NotImplementedError for a MoE model (`cfg.num_experts > 0`) on a
+    serving or decoding `path` the port has not held against the JAX
+    package with MoE yet."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{path} with a MoE model ({cfg.num_experts} experts): not "
+            f"ported yet, see {MOE_LATER}")
+
+
 def model_preset(name: str, **overrides) -> ModelConfig:
     if name not in MODEL_PRESETS:
         raise ValueError(
@@ -130,8 +147,8 @@ def model_preset(name: str, **overrides) -> ModelConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'); the port runs dp, cp and
-    tp through torch.distributed and refuses pp and ep > 1
+    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'); the port runs dp, cp, ep
+    and tp through torch.distributed and refuses pp > 1
     (runtime/mesh.py)."""
 
     dp: int = 1

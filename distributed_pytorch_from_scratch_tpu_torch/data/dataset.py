@@ -303,7 +303,8 @@ def dp_rows(x: np.ndarray, dp: int, dp_rank: int) -> np.ndarray:
     """Data-parallel rank dp_rank's rows of a batch array (..., b, t): rows
     [dp_rank * b/dp, (dp_rank + 1) * b/dp) of the one seeded batch every
     rank draws — the JAX `batch_feeder`'s P(('dp', 'ep'), 'cp') split of
-    the batch dim."""
+    the batch dim, when `dp` is dp * ep and `dp_rank` dp_rank * ep +
+    ep_rank (`runtime.mesh.Mesh.row_shard`)."""
     b = x.shape[-2]
     if b % dp:
         raise ValueError(f"batch size {b} is not divisible by dp_size {dp} "

@@ -45,8 +45,10 @@ CLI's warning, and its refusal when the prompts do not fit).
 `--temperature > 0` (with `--decode_top_k` / `--decode_top_p`) samples
 through the slot engine, prompt i drawing from seed `--random_seed` + i.
 
-Refused with NotImplementedError, naming the ROADMAP item:
-`--num_experts` (item 7), the multi-host flags (item 2). The JAX CLI's
+A MoE model (`--model 45m-moe8`, or `--num_experts`) runs the sweep and
+the KV decoder at ep = 1 (every rank holds every expert) and any dp and
+tp. Refused with NotImplementedError, naming the ROADMAP item: a MoE model
+at `--cp_size > 1` (item 7), the multi-host flags (item 2). The JAX CLI's
 own refusals stay,
 with its messages. Not ported: the JAX CLI's span tracer (`val/trace.json`,
 ROADMAP item 8).
@@ -65,7 +67,7 @@ import torch
 
 from .cli import add_model_shape_args, build_model_config
 from .config import (BOS_TOKEN, EOS_TOKEN, IGNORE_INDEX, MeshConfig,
-                     ModelConfig, model_preset)
+                     ModelConfig, model_preset, refuse_moe)
 from .data.dataset import dp_rows, get_dataloader
 from .data.tokenizer import BACKENDS, load_tokenizer
 from .models.decode import _full_vocab_logits
@@ -93,7 +95,6 @@ DECODE_PROMPTS = [
 ]
 
 _MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
-_MOE = "ROADMAP Queue 1 item 7 (d): MoE"
 
 
 def get_eval_args(argv=None) -> argparse.Namespace:
@@ -186,9 +187,8 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if getattr(args, dest) is not None:
             raise NotImplementedError(
                 f"--{dest} {getattr(args, dest)}: not ported yet, see {item}")
-    if args.num_experts:
-        raise NotImplementedError(f"--num_experts {args.num_experts}: not "
-                                  f"ported yet, see {_MOE}")
+    if args.cp_size > 1:
+        refuse_moe(build_model_config(args, 0), "--cp_size > 1")
 
 
 def _pad_batch(batch, rows: int):

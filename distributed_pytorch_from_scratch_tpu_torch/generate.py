@@ -22,9 +22,11 @@ JAX's CLI does: its greedy tokens are cp = 1's. The tokenizer is
 native`). Runs on the card unless `--device cpu` is given; with no card it
 exits non-zero.
 
-Refused with NotImplementedError, naming the ROADMAP item, as evaluate.py
-refuses it: `--num_experts` (item 7). The JAX CLI's ulysses refusal stays,
-with its message.
+A MoE model (`--model 45m-moe8`, or `--num_experts`) decodes through the
+slot engine at ep = 1 (every rank holds every expert) and any tp; at
+`--cp_size > 1` it is refused with NotImplementedError naming ROADMAP
+Queue 1 item 7, as evaluate.py refuses it. The JAX CLI's ulysses refusal
+stays, with its message.
 """
 
 from __future__ import annotations
@@ -32,9 +34,8 @@ from __future__ import annotations
 import argparse
 
 from .cli import add_model_shape_args, build_model_config
-from .config import BOS_TOKEN, EOS_TOKEN, MeshConfig
+from .config import BOS_TOKEN, EOS_TOKEN, MeshConfig, refuse_moe
 from .data.tokenizer import BACKENDS, load_tokenizer
-from .evaluate import _MOE
 from .models import build_model
 from .models.transformer import validate_tp
 from .runtime import launch
@@ -100,9 +101,8 @@ def _refuse(args: argparse.Namespace) -> None:
             f"— cp_impl only changes the attention schedule, not the "
             f"weights — so rerun with --cp_impl ring or --cp_size 1 (got "
             f"--cp_size {args.cp_size})")
-    if args.num_experts:
-        raise NotImplementedError(f"--num_experts {args.num_experts}: not "
-                                  f"ported yet, see {_MOE}")
+    if args.cp_size > 1:
+        refuse_moe(build_model_config(args, 0), "--cp_size > 1")
 
 
 def generate(args: argparse.Namespace) -> list:

@@ -82,9 +82,12 @@ def tree_family(tree: Dict[str, Any]) -> str:
 
 
 def params_from_jax(tree: Dict[str, Any], tp_size: int = 1,
-                    tp_rank: int = 0) -> Tensors:
+                    tp_rank: int = 0, ep_size: int = 1,
+                    ep_rank: int = 0) -> Tensors:
     """JAX param tree (nested dicts of numpy arrays) -> torch state_dict:
-    the whole of it at tp_size 1, else rank tp_rank's shard."""
+    the whole of it at tp_size = ep_size = 1, else the shard of rank
+    (tp_rank, ep_rank). A MoE layer's `moe` subtree (the JAX stacked (L, E,
+    ...) leaves) maps leaf for leaf, untransposed."""
     t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
     sd = {"embedding.weight": t(tree["embedding"]["weight"])}
     if "pos_embedding" in tree:
@@ -102,7 +105,7 @@ def params_from_jax(tree: Dict[str, Any], tp_size: int = 1,
                 if name in _LINEARS and leaf == "weight":
                     val = val.T.contiguous()
                 sd[f"layers.{i}.{name}.{leaf}"] = val
-    return shard_params(sd, tp_size, tp_rank)
+    return shard_params(sd, tp_size, tp_rank, ep_size, ep_rank)
 
 
 def params_to_jax(state_dict: Tensors) -> Dict[str, Any]:
@@ -139,9 +142,11 @@ def params_to_jax(state_dict: Tensors) -> Dict[str, Any]:
     return tree
 
 
-def shards_to_jax(shards: List[Tensors]) -> Dict[str, Any]:
-    """Every tp rank's shard, in rank order -> the global JAX param tree."""
-    return params_to_jax(assemble_params(shards))
+def shards_to_jax(shards: List[Tensors], ep_size: int = 1
+                  ) -> Dict[str, Any]:
+    """Every rank's shard, in rank order (ep major, tp minor) -> the global
+    JAX param tree."""
+    return params_to_jax(assemble_params(shards, ep_size))
 
 
 def adam_state_from_jax(state: Any) -> AdamState:

@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 from ..config import ModelConfig
-from ..parallel.layout import tp_dim
+from ..parallel.layout import is_expert, tp_dim
 from .gpt2 import GPT2Transformer
 from .transformer import Transformer
 
@@ -21,8 +21,9 @@ def build_model(family: str, cfg: ModelConfig, **kw) -> Transformer:
 
 
 def num_params(model: Transformer) -> int:
-    """The model's global parameter count, the tp-sharded leaves counted
-    whole (with the vocab padded to a multiple of tp, as the JAX tree
-    holds it)."""
+    """The model's global parameter count, the tp- and ep-sharded leaves
+    counted whole (with the vocab padded to a multiple of tp, as the JAX
+    tree holds it)."""
     return sum(p.numel() * (1 if tp_dim(k) is None else model.tp_size)
+               * (model.ep_size if is_expert(k) else 1)
                for k, p in model.named_parameters())

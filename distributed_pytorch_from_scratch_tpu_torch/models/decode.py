@@ -108,14 +108,46 @@ def _embed(model, ids: torch.Tensor, pos: torch.Tensor,
     return x.to(dtype)
 
 
-def _finish_block(model, lp, x: torch.Tensor, o: torch.Tensor,
-                  dtype) -> torch.Tensor:
-    """Residual + wo, then the FFN sublayer (shared by prefill and decode):
-    gpt2's tanh-GELU MLP where the layer has an `fc`, else SwiGLU."""
+def _moe_ffn(model, lp, x: torch.Tensor, dtype):
+    """x + the routed experts of norm(x), and the layer's aux sums (the JAX
+    MoE branch of `_layer_body`, and of the decoder's `_finish_block`,
+    where the aux sums go unused). Under sequence parallelism the router
+    and the experts see the tp-gathered sequence (the same routing on
+    every tp rank) and each rank keeps its chunk of the output."""
+    y = lp[model.ffn_norm_key](x)
+    sp = model.sequence_parallel
+    if sp:
+        y = gather_from(y, model.mesh, dim=-2)
+    ff, aux = lp["moe"](y, dtype, sequence_parallel=sp)
+    if sp:
+        tl = ff.shape[1] // model.tp_size
+        ff = ff[:, model.mesh.tp_rank * tl:(model.mesh.tp_rank + 1) * tl]
+    return x + ff, aux
+
+
+def _finish_block_aux(model, lp, x: torch.Tensor, o: torch.Tensor, dtype):
+    """`_finish_block`, and the aux sums of a MoE layer (None for a dense
+    one)."""
     b, t = o.shape[0], o.shape[2]
     o = o.transpose(1, 2).reshape(b, t,
                                   model.num_local_heads * model.cfg.head_dim)
     x = x + lp["wo"](o, dtype, _act_layout(model))
+    if "moe" in lp:
+        return _moe_ffn(model, lp, x, dtype)
+    return _dense_ffn(model, lp, x, dtype), None
+
+
+def _finish_block(model, lp, x: torch.Tensor, o: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """Residual + wo, then the FFN sublayer (shared by prefill and decode):
+    the routed experts where the layer has a `moe` (inference runs them at
+    ep = 1: every rank holds every expert), else the dense FFN."""
+    return _finish_block_aux(model, lp, x, o, dtype)[0]
+
+
+def _dense_ffn(model, lp, x: torch.Tensor, dtype) -> torch.Tensor:
+    """x + the dense FFN of norm(x): gpt2's tanh-GELU MLP where the layer
+    has an `fc`, else SwiGLU."""
     y = _tp_in(model, lp[model.ffn_norm_key](x))
     if "fc" in lp:
         h = torch.nn.functional.gelu(lp["fc"](y, dtype, "gathered"),
@@ -130,7 +162,8 @@ def _finish_block(model, lp, x: torch.Tensor, o: torch.Tensor,
 def _block(model, lp, x: torch.Tensor, cos, sin, dtype,
            attend=causal_attention):
     """One full-sequence decoder layer (the JAX `_layer_body`): returns (x',
-    k, v), the layer's output and its post-RoPE k and v (local heads). The
+    k, v, aux), the layer's output, its post-RoPE k and v (local heads) and
+    a MoE layer's aux sums (None for a dense layer). The
     attention is `attend(q, k, v)`: by default `causal_attention`, the flash
     kernels on the card; the cp training forward passes the ring or Ulysses
     attention over its chunk. Under sequence parallelism x and x' are this
@@ -139,7 +172,8 @@ def _block(model, lp, x: torch.Tensor, cos, sin, dtype,
     q, k, v = _qkv(model, lp, y, dtype)
     q, k = _rotate(model, q, k, cos, sin)
     o = attend(q, k, v)
-    return _finish_block(model, lp, x, o, dtype), k, v
+    x, aux = _finish_block_aux(model, lp, x, o, dtype)
+    return x, k, v, aux
 
 
 def _logits_tokens(model, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -221,7 +255,7 @@ def _prefill(model, buf: torch.Tensor, prompt_len: torch.Tensor,
     cos, sin = _positions(cos_t, sin_t, pos)
     ks, vs = [], []
     for lp in model.layers:
-        x, k, v = _block(model, lp, x, cos, sin, dtype)
+        x, k, v, _ = _block(model, lp, x, cos, sin, dtype)
         ks.append(k)
         vs.append(v)
     idx = (prompt_len.long() - 1)[:, None, None].expand(b, 1, x.shape[-1])

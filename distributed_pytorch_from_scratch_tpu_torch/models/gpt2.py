@@ -25,9 +25,13 @@ same function at any tp). So:
   vocab-parallel CE consumes — and the embedding weight takes both its
   gradients (lookup and head) through autograd.
 
+With `cfg.num_experts > 0` each layer's `fc`/`proj` MLP is the llama
+family's routed-expert `moe` module instead (SwiGLU experts, as in the JAX
+family: the trunk stays GPT-2), with its aux losses and expert
+parallelism.
+
 The JAX family's MHA-only rule stands (num_kv_heads must equal
-num_heads). Not ported: gpt2 x MoE, pipeline and tp overlap (ROADMAP
-Queue 1 item 7).
+num_heads). Not ported: pipeline and tp overlap (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from ..config import ModelConfig
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..parallel.norm import LayerNorm
-from .transformer import Transformer
+from .transformer import Transformer, moe_ffn
 
 INIT_STD = 0.02  # GPT-2's embedding and position-table init scale
 
@@ -58,18 +62,22 @@ class PositionTable(nn.Module):
             self.weight.normal_(0.0, INIT_STD, generator=generator)
 
 
-def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
+def _layer(cfg: ModelConfig, mesh, ep_size: int = 1) -> nn.ModuleDict:
     d, f = cfg.attn_dim, cfg.ffn_dim
-    return nn.ModuleDict({
+    mods = {
         "ln1": LayerNorm(d),
         "wq": ColumnParallelLinear(d, d, mesh),
         "wk": ColumnParallelLinear(d, d, mesh),
         "wv": ColumnParallelLinear(d, d, mesh),
         "wo": RowParallelLinear(d, d, mesh),
         "ln2": LayerNorm(d),
-        "fc": ColumnParallelLinear(d, f, mesh),
-        "proj": RowParallelLinear(f, d, mesh),
-    })
+    }
+    if cfg.num_experts:
+        mods["moe"] = moe_ffn(cfg, mesh, ep_size)
+    else:
+        mods.update({"fc": ColumnParallelLinear(d, f, mesh),
+                     "proj": RowParallelLinear(f, d, mesh)})
+    return nn.ModuleDict(mods)
 
 
 class GPT2Transformer(Transformer):
@@ -81,24 +89,22 @@ class GPT2Transformer(Transformer):
 
     def __init__(self, cfg: ModelConfig, remat=True, cp_size: int = 1,
                  cp_impl: str = "ring", cp_layout: str = "contiguous",
-                 mesh=None, sequence_parallel: bool = False):
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "num_experts > 0 with the gpt2 family: MoE is not ported "
-                "yet, see ROADMAP Queue 1 item 7")
+                 mesh=None, sequence_parallel: bool = False,
+                 ep_size: int = None):
         if cfg.kv_heads != cfg.num_heads:
             raise ValueError("grouped-query attention (num_kv_heads) is a "
                              "llama-family feature; the gpt2 family is MHA "
                              "(real GPT-2 has none — documented choice)")
         super().__init__(cfg, remat=remat, cp_size=cp_size, cp_impl=cp_impl,
                          cp_layout=cp_layout, mesh=mesh,
-                         sequence_parallel=sequence_parallel)
+                         sequence_parallel=sequence_parallel,
+                         ep_size=ep_size)
 
     def _build(self, cfg: ModelConfig, tp_mesh) -> None:
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh, init_std=INIT_STD)
         self.pos_embedding = PositionTable(cfg.maxlen, cfg.attn_dim)
-        self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
+        self.layers = nn.ModuleList(_layer(cfg, tp_mesh, self.ep_size)
                                     for _ in range(cfg.num_layers))
         self.norm = LayerNorm(cfg.attn_dim)
 

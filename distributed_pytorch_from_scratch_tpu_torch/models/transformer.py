@@ -4,8 +4,11 @@ parallelism.
 
 The module holds its weights (float32, like the JAX param tree): per layer
 `wq/wk/wv/wo/norm1/norm2/gate_proj/up_proj/down_proj`, then the final
-`norm` and a biased `lm_head`. `interop.params_from_jax` maps a JAX param
-tree onto this module's `state_dict` (one tp rank's shard of it at tp > 1).
+`norm` and a biased `lm_head`. With `cfg.num_experts > 0` each layer's
+SwiGLU projections are one `moe` module instead (`parallel/moe.MoEFFN`:
+a float32 router and E top-k routed SwiGLU experts). `interop
+.params_from_jax` maps a JAX param tree onto this module's `state_dict`
+(one rank's shard of it at tp or ep > 1).
 
 `forward` is the full-sequence training forward (the JAX `_layer_body`
 stack), `loss` the f32 masked-mean cross-entropy of `loss_shard` and
@@ -33,10 +36,19 @@ The model runs on one rank of a `runtime.mesh.Mesh`:
   under `cp_layout='zigzag'`, then the rank's contiguous slice), and
   attention is `ring_attention` or `ulysses_attention` over the cp group;
 * the dp axis takes rows of the batch (the train loop cuts them);
-* the loss sums its numerator and count over the batch group (dp x cp)
-  before it divides; the train step sums the gradients over it.
+* at `ep_size > 1` (a MoE model; the mesh's ep) the ep axis takes rows of
+  the batch too, dp major, and each ep rank holds E/ep experts: every MoE
+  layer sends its dispatched tokens to the experts' ranks and back with
+  two `all_to_all`s over ep;
+* the loss sums its numerator and count over the batch group (dp x cp x
+  ep) before it divides; the train step sums the gradients over it (the
+  experts' over dp x cp).
 
-Not ported: MoE, pipeline and tp overlap.
+A MoE model's loss adds the router's auxiliary losses, `moe_aux_coef *
+load_balance + moe_z_coef * z`, from the layers' aux sums summed over the
+batch group (the JAX `loss_shard`).
+
+Not ported: pipeline and tp overlap.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from ..ops.ring_attention import (cp_chunk_index, ring_attention,
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.layout import shard_params
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
+from ..parallel.moe import AUX_KEYS, MoEFFN, add_aux, aux_losses, aux_zeros
 from ..parallel.norm import RMSNorm
 from .decode import (_block, _embed, _logits_tokens, _positions,
                      decode_tables)
@@ -123,19 +136,53 @@ def _remat_kwargs(remat) -> dict:
     return kw
 
 
-def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
+def moe_ffn(cfg: ModelConfig, mesh, ep_size: int) -> MoEFFN:
+    """A layer's routed-expert FFN of `cfg`'s MoE shape (both families)."""
+    return MoEFFN(cfg.attn_dim, cfg.ffn_dim, cfg.num_experts,
+                  top_k=cfg.moe_top_k,
+                  capacity_factor=cfg.moe_capacity_factor, mesh=mesh,
+                  ep_size=ep_size)
+
+
+def validate_ep(cfg: ModelConfig, ep_size: int) -> None:
+    """The JAX model's ep checks, with its messages (the experts' own
+    divisibility is `MoEFFN`'s)."""
+    if not cfg.num_experts and ep_size > 1:
+        raise ValueError("ep_size > 1 requires cfg.num_experts > 0 "
+                         "(a dense model has nothing to shard over 'ep'; "
+                         "use dp for a pure data axis)")
+
+
+def _layer(cfg: ModelConfig, mesh, ep_size: int = 1) -> nn.ModuleDict:
     d, f, kd = cfg.attn_dim, cfg.ffn_dim, cfg.kv_dim
-    return nn.ModuleDict({
+    mods = {
         "wq": ColumnParallelLinear(d, d, mesh),
         "wk": ColumnParallelLinear(d, kd, mesh),
         "wv": ColumnParallelLinear(d, kd, mesh),
         "wo": RowParallelLinear(d, d, mesh),
         "norm1": RMSNorm(d),
         "norm2": RMSNorm(d),
-        "gate_proj": ColumnParallelLinear(d, f, mesh),
-        "up_proj": ColumnParallelLinear(d, f, mesh),
-        "down_proj": RowParallelLinear(f, d, mesh),
-    })
+    }
+    if cfg.num_experts:
+        mods["moe"] = moe_ffn(cfg, mesh, ep_size)
+    else:
+        mods.update({"gate_proj": ColumnParallelLinear(d, f, mesh),
+                     "up_proj": ColumnParallelLinear(d, f, mesh),
+                     "down_proj": RowParallelLinear(f, d, mesh)})
+    return nn.ModuleDict(mods)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the cotangent times `scale` backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
 
 
 class Transformer(nn.Module):
@@ -147,23 +194,27 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, remat: bool = True,
                  cp_size: int = 1, cp_impl: str = "ring",
                  cp_layout: str = "contiguous", mesh=None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, ep_size: int = None):
         super().__init__()
         if remat not in (True, False, "dots"):
             raise ValueError(
                 f"remat must be True, False or 'dots', got {remat!r}")
-        if cfg.num_experts:
-            raise NotImplementedError(
-                "num_experts > 0: MoE is not ported yet, see ROADMAP")
         if mesh is not None:    # the device is known: refuse before weights
             resolve_dtype_on(cfg.compute_dtype, mesh.device)
         tp_size = 1 if mesh is None else mesh.tp
+        mesh_ep = 1 if mesh is None else mesh.ep
+        ep_size = mesh_ep if ep_size is None else ep_size
         validate_tp(cfg, tp_size)
         validate_cp(cfg, tp_size, cp_size, cp_impl, cp_layout)
+        validate_ep(cfg, ep_size)
         if cp_size > 1 and (mesh is None or mesh.cp != cp_size):
             raise ValueError(f"cp_size {cp_size} needs the Mesh of its "
                              f"group (runtime.mesh.make_mesh), got {mesh}")
+        if ep_size != mesh_ep:
+            raise ValueError(f"ep_size {ep_size} needs the Mesh of its "
+                             f"group (runtime.mesh.make_mesh), got {mesh}")
         self.cfg = cfg
+        self.ep_size = ep_size
         self.remat = remat
         self.cp_size = cp_size
         self.cp_impl, self.cp_layout = cp_impl, cp_layout
@@ -173,14 +224,18 @@ class Transformer(nn.Module):
         self.num_local_heads = cfg.num_heads // tp_size
         self.num_local_kv_heads = cfg.kv_heads // tp_size
         self.vocab_padded = cfg.padded_vocab_size(tp_size)
-        self._build(cfg, mesh if tp_size > 1 else None)
+        self._build(cfg, mesh if tp_size > 1 or ep_size > 1 else None)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.cfg.num_experts > 0
 
     def _build(self, cfg: ModelConfig, tp_mesh) -> None:
-        """The family's modules (`tp_mesh`: the mesh at tp > 1, else
+        """The family's modules (`tp_mesh`: the mesh at tp or ep > 1, else
         None)."""
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh)
-        self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
+        self.layers = nn.ModuleList(_layer(cfg, tp_mesh, self.ep_size)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.attn_dim)
         self.lm_head = ColumnParallelLinear(cfg.attn_dim, self.vocab_padded,
@@ -192,15 +247,16 @@ class Transformer(nn.Module):
         uniform(+-1/sqrt(idim)) linear weights, zero biases, unit norms.
         Draws on the CPU, so a seed gives the same weights on any device.
 
-        At tp > 1 the full tree is drawn exactly as at tp = 1 and this rank
-        keeps its slice; the padded embedding rows and head columns are
-        zero. So a tp model from seed s is the same function as a tp = 1
-        model from seed s."""
+        At tp or ep > 1 the full tree is drawn exactly as at tp = ep = 1
+        and this rank keeps its slice; the padded embedding rows and head
+        columns are zero. So a tp or ep model from seed s is the same
+        function as a one-rank model from seed s."""
         device = self.embedding.weight.device
-        if self.tp_size > 1:
+        if self.tp_size > 1 or self.ep_size > 1:
             full = type(self)(self.cfg).init_weights(seed).state_dict()
-            self.load_state_dict(shard_params(full, self.tp_size,
-                                              self.mesh.tp_rank))
+            self.load_state_dict(shard_params(
+                full, self.tp_size, self.mesh.tp_rank, self.ep_size,
+                self.mesh.ep_rank))
             return self
         gen = torch.Generator(device="cpu").manual_seed(seed)
         self.to("cpu")
@@ -245,6 +301,13 @@ class Transformer(nn.Module):
         rank's chunk in, its chunk's logits out. Positions outside the RoPE
         (or learned position) table clamp to its last row (JAX
         mode='clip')."""
+        return self.forward_with_aux(input_ids, position_ids)[0]
+
+    def forward_with_aux(self, input_ids: torch.Tensor,
+                         position_ids: torch.Tensor):
+        """`forward`'s logits and, for a MoE model, the layers' aux sums
+        summed over the layers (this rank's local sums; None for a dense
+        model)."""
         if (self.sequence_parallel
                 and input_ids.shape[-1] % self.tp_size != 0):
             raise ValueError(
@@ -257,14 +320,22 @@ class Transformer(nn.Module):
         attend = self._attend(position_ids)
 
         def layer(x, lp):
-            return _block(self, lp, x, cos, sin, dtype, attend)[0]
+            x, _, _, aux = _block(self, lp, x, cos, sin, dtype, attend)
+            return x if aux is None else (x, aux)
 
+        aux = (aux_zeros(self.cfg.num_experts, x.device) if self.is_moe
+               else None)
         for lp in self.layers:
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, lp, **_remat_kwargs(self.remat))
+                out = checkpoint(layer, x, lp, **_remat_kwargs(self.remat))
             else:
-                x = layer(x, lp)
-        return _logits_tokens(self, x, dtype)
+                out = layer(x, lp)
+            if self.is_moe:
+                x, layer_aux = out
+                aux = add_aux(aux, layer_aux)
+            else:
+                x = out
+        return _logits_tokens(self, x, dtype), aux
 
     @torch.no_grad()
     def full_logits(self, input_ids: torch.Tensor,
@@ -328,26 +399,64 @@ class Transformer(nn.Module):
         """Mean f32 cross-entropy over the targets that are not
         IGNORE_INDEX (denominator max(count, 1)), the JAX `loss_shard`, in
         either of its modes (`_token_ce`; at tp = 1 they compute the same
-        value).
+        value), plus a MoE model's auxiliary losses.
 
         On a mesh the arguments are this rank's rows and chunk; the masked
-        sum and the count are summed over the batch group (dp x cp) first,
+        sum and the count (and the aux sums) are summed over the batch
+        group (dp x cp x ep) first, in one all-reduce,
         so every rank returns the global loss. The sum's backward passes
         its cotangent through, so a rank's gradient is that of local_sum /
         global_count, and the batch group's sum of the ranks' gradients
         (the train step) is the global loss's."""
         if mode not in ("vocab_parallel", "gather"):
             raise ValueError(f"unknown loss mode {mode!r}")
-        logits = self.forward(input_ids, position_ids).float()
+        logits, aux = self.forward_with_aux(input_ids, position_ids)
+        logits = logits.float()
         valid = target_ids != IGNORE_INDEX
         tgt = torch.where(valid, target_ids, 0).long()
         token_loss = self._token_ce(logits, tgt, mode)
-        loss_sum = torch.where(valid, token_loss, 0.0).sum()
-        count = valid.float().sum()
-        if self.mesh is not None and self.mesh.dp * self.mesh.cp > 1:
-            loss_sum, count = all_reduce_sum(torch.stack([loss_sum, count]),
-                                             self.mesh, "batch").unbind()
-        return loss_sum / torch.clamp(count, min=1.0)
+        sums = [torch.where(valid, token_loss, 0.0).sum()[None],
+                valid.float().sum()[None]]
+        if self.is_moe:
+            if self.sequence_parallel:
+                # the router saw the tp-gathered tokens: every tp rank holds
+                # the same sums, and each takes 1/tp of their cotangent
+                # (JAX's pmean over tp), which the tp sum of the router's
+                # gradient adds back up
+                aux = {k: _ScaleGrad.apply(v, 1.0 / self.tp_size)
+                       for k, v in aux.items()}
+            sums += [aux[k].reshape(-1) for k in AUX_KEYS]
+        flat = torch.cat(sums)
+        if self.mesh is not None and self.mesh.axis("batch").size > 1:
+            flat = all_reduce_sum(flat, self.mesh, "batch")
+        loss = flat[0] / torch.clamp(flat[1], min=1.0)
+        if self.is_moe:
+            E = self.cfg.num_experts
+            self._moe_sums = flat[2:].detach()   # read by `moe_summary`
+            parts = flat[2:].split([E, E, 1, 1, 1])
+            lb, z = aux_losses({k: p.reshape(()) if p.numel() == 1 else p
+                                for k, p in zip(AUX_KEYS, parts)},
+                               E, self.cfg.moe_top_k)
+            loss = (loss + self.cfg.moe_aux_coef * lb
+                    + self.cfg.moe_z_coef * z)
+        return loss
+
+    def moe_summary(self):
+        """The routing of the last `loss` call (global over the batch
+        group, summed over the layers): the share of the routed choices
+        that were dropped for capacity, and the busiest expert's routed
+        choices over the mean expert's. None for a dense model or before a
+        loss; reads the card once."""
+        sums = getattr(self, "_moe_sums", None)
+        if sums is None:
+            return None
+        E, k = self.cfg.num_experts, self.cfg.moe_top_k
+        per_expert, rest = sums[:E].cpu(), sums[2 * E:].cpu()
+        tokens, dropped = float(rest[1]), float(rest[2])
+        return {"dropped_frac": dropped / max(tokens * k, 1.0),
+                "load_max_over_mean": float(per_expert.max()
+                                            / per_expert.mean().clamp(
+                                                min=1e-12))}
 
     @torch.no_grad()
     def doc_loss(self, input_ids: torch.Tensor, target_ids: torch.Tensor,

@@ -1,8 +1,9 @@
 """Collectives over one axis of the mesh — the port of the JAX
 `ops/collectives.py`, as `torch.autograd.Function` conjugate pairs. Every
 op takes the `Mesh` and the name of the axis it runs over ('tp', 'cp',
-'dp' or 'batch', the dp x cp ranks that share a tp index); at axis size 1
-each is the identity.
+'ep', 'dp', 'batch' — the dp x cp x ep ranks that share a tp index — or
+'expert_batch', the dp x cp ranks that share an (ep, tp) pair); at axis
+size 1 each is the identity.
 
 Megatron's tensor-parallel pairs (the JAX primitive in brackets):
 
@@ -22,8 +23,9 @@ Context parallelism's:
 * `ring_permute(x, mesh, shift)`: send to rank+shift, receive from
   rank-shift, in one `batch_isend_irecv`; its backward permutes the
   cotangent the other way (the transpose of JAX's `ppermute`);
-* `all_to_all(x, mesh, split_axis, concat_axis)` (JAX's tiled
-  `lax.all_to_all`); its backward is the inverse all-to-all;
+* `all_to_all(x, mesh, split_axis, concat_axis, axis)` (JAX's tiled
+  `lax.all_to_all`), over cp (Ulysses) or ep (the MoE dispatch and
+  combine); its backward is the inverse all-to-all;
 * `all_reduce_sum(x, mesh, axis)`: the loss's sum and count. Its backward
   passes the cotangent through: the sum is replicated, every rank
   differentiates its own copy of the one global loss, and the train step
@@ -57,7 +59,7 @@ from typing import Dict, List
 import torch
 import torch.distributed as dist
 
-STAT_AXES = ("tp", "cp", "dp", "batch")
+STAT_AXES = ("tp", "cp", "ep", "dp", "batch", "expert_batch")
 # the serving dispatch broadcasts' entry in `stats`, apart from the axes
 DISPATCH = "dispatch"
 
@@ -306,9 +308,9 @@ def ring_permute(x: torch.Tensor, mesh, shift: int = 1) -> torch.Tensor:
     return _RingPermute.apply(x, mesh, shift)
 
 
-def _a2a(x: torch.Tensor, mesh, split_axis: int, concat_axis: int
-         ) -> torch.Tensor:
-    ax = mesh.axis("cp")
+def _a2a(x: torch.Tensor, mesh, axis: str, split_axis: int,
+         concat_axis: int) -> torch.Tensor:
+    ax = mesh.axis(axis)
     parts = torch.stack(torch.chunk(x, ax.size, dim=split_axis))
 
     def run(send):
@@ -316,30 +318,36 @@ def _a2a(x: torch.Tensor, mesh, split_axis: int, concat_axis: int
         dist.all_to_all_single(recv, send, group=ax.group)
         return recv
 
-    return torch.cat(_collective(mesh, "cp", parts, run).unbind(0),
+    return torch.cat(_collective(mesh, axis, parts, run).unbind(0),
                      dim=concat_axis)
 
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, split_axis, concat_axis):
-        ctx.args = (mesh, concat_axis, split_axis)
-        return _a2a(x, mesh, split_axis, concat_axis)
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, concat_axis, split_axis)
+        return _a2a(x, mesh, axis, split_axis, concat_axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _a2a(g, *ctx.args), None, None, None
+        return _a2a(g, *ctx.args), None, None, None, None
 
 
-def all_to_all(x: torch.Tensor, mesh, split_axis: int, concat_axis: int
-               ) -> torch.Tensor:
-    """JAX's tiled `all_to_all` over the cp axis: x splits into cp equal
+def all_to_all(x: torch.Tensor, mesh, split_axis: int, concat_axis: int,
+               axis: str = "cp") -> torch.Tensor:
+    """JAX's tiled `all_to_all` over `axis`: x splits into size equal
     chunks along `split_axis`, chunk j goes to rank j, and the chunks
-    received are concatenated along `concat_axis` in rank order."""
-    if x.shape[split_axis] % mesh.cp:
+    received are concatenated along `concat_axis` in rank order. Over ep,
+    (E, C, d) with split 0 / concat 1 becomes (E/ep, ep*C, d): each rank
+    gets its own experts' slots from every peer, in peer order; split 1 /
+    concat 0 takes them back."""
+    size = mesh.axis(axis).size
+    if size == 1:
+        return x
+    if x.shape[split_axis] % size:
         raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
-                         f"does not split over {mesh.cp} ranks")
-    return _AllToAll.apply(x, mesh, split_axis, concat_axis)
+                         f"does not split over {size} ranks")
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
 
 
 class _AllReduceSum(torch.autograd.Function):

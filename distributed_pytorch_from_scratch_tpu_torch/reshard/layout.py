@@ -24,7 +24,7 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
-from ..parallel.layout import tp_dim
+from ..parallel.layout import is_expert, tp_dim
 
 LAYOUT_KEY = "__layout__"
 LAYOUT_VERSION = 1
@@ -60,7 +60,7 @@ def canonical_specs(shapes: Dict[str, Iterable[int]]) -> Dict[str, Spec]:
     their shapes): the JAX `canonical_specs()` flattened. Each leaf takes
     'tp' on the dim `parallel.layout.tp_dim` names, seen in the JAX layout
     (transposed weights swap their dims; stacked leaves gain a leading
-    None), and None elsewhere."""
+    None), an expert leaf 'ep' on its expert dim, and None elsewhere."""
     specs: Dict[str, Spec] = {}
     for key, shape in shapes.items():
         ndim = len(tuple(shape))
@@ -68,6 +68,8 @@ def canonical_specs(shapes: Dict[str, Iterable[int]]) -> Dict[str, Spec]:
         dim = tp_dim(key)
         if dim is not None:
             spec[ndim - 1 - dim if transposed(key) else dim] = "tp"
+        if is_expert(key):
+            spec[0] = "ep"
         jkey, stacked = jax_key(key)
         specs[jkey] = (None, *spec) if stacked else tuple(spec)
     return specs

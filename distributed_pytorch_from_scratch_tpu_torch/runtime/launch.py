@@ -21,6 +21,10 @@ group stays joined between calls; a call's rank function finds it through
 dies, stops its whole kept group and the error is raised in the caller; the
 next call of that size starts a new one. Leaving the block stops them all.
 
+Threads: each rank runs torch on its share of the host's cores (cores /
+nprocs), and on no more threads than the launching process has
+(`torch_threads` caps a launcher that shares its host).
+
 Signals: while the group runs, the launching process (from its main
 thread) forwards SIGTERM and SIGINT to every rank and waits for them; ranks
 that exit cleanly (the trainer checkpoints and returns) make a clean
@@ -61,12 +65,19 @@ def _detach() -> None:
         pass
 
 
+def _rank_threads(nprocs: int, threads: int) -> None:
+    """A rank's torch threads: its share of the host's cores (the ranks
+    share them: more threads than cores would spin), at most the
+    launcher's own `threads`."""
+    torch.set_num_threads(max(1, min(threads,
+                                     (os.cpu_count() or 1) // nprocs)))
+
+
 def _run(rank: int, fn: Callable, nprocs: int, workdir: str,
-         args: tuple) -> None:
+         args: tuple, threads: int) -> None:
     _detach()
     init_method = f"file://{os.path.join(workdir, 'rendezvous')}"
-    # the ranks share the host's cores: more threads than cores would spin
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    _rank_threads(nprocs, threads)
     try:
         out = fn(rank, nprocs, init_method, *args)
     finally:
@@ -101,15 +112,15 @@ class _Forward:
             signal.signal(sig, prev)
 
 
-def _serve_calls(rank: int, nprocs: int, workdir: str, calls,
-                 done) -> None:
+def _serve_calls(rank: int, nprocs: int, workdir: str, calls, done,
+                 threads: int) -> None:
     """A kept group's rank: runs each (index, fn, args) of `calls` until
     None, saving fn's return value as `_run` does and reporting (index,
     rank, None) or (index, rank, traceback) on `done`; a call that raises
     ends the rank."""
     _detach()
     init_method = f"file://{os.path.join(workdir, 'rendezvous')}"
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    _rank_threads(nprocs, threads)
     try:
         while True:
             call = calls.get()
@@ -146,7 +157,8 @@ class _KeptGroup:
         self._done = ctx.Queue()
         self._procs = [ctx.Process(target=_serve_calls,
                                    args=(r, nprocs, self._dir.name,
-                                         self._calls[r], self._done))
+                                         self._calls[r], self._done,
+                                         torch.get_num_threads()))
                        for r in range(nprocs)]
         for p in self._procs:
             p.start()
@@ -202,6 +214,19 @@ class _KeptGroup:
         self._dir.cleanup()
 
 
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads in this process capped at `n` inside the
+    block and restored on leaving (for callers that share the host's
+    cores with other busy processes: more threads than cores spin)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, min(n, before)))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
 _KEPT: Optional[Dict[int, _KeptGroup]] = None
 _KEPT_LOCK = threading.Lock()
 
@@ -233,7 +258,8 @@ def spawn(fn: Callable, nprocs: int, *args: Any) -> List[Any]:
                 group = _KEPT[nprocs] = _KeptGroup(nprocs)
             return group.run(fn, args)
     with tempfile.TemporaryDirectory(prefix="mesh-group-") as workdir:
-        ctx = mp.start_processes(_run, args=(fn, nprocs, workdir, args),
+        ctx = mp.start_processes(_run, args=(fn, nprocs, workdir, args,
+                                             torch.get_num_threads()),
                                  nprocs=nprocs, join=False,
                                  start_method="spawn")
         with _Forward(ctx.pids()):

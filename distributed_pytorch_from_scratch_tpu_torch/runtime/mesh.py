@@ -1,19 +1,23 @@
 """The port's counterpart of the JAX package's `runtime/mesh.py`.
 
 The JAX mesh names five axes ('dp', 'pp', 'cp', 'ep', 'tp') over the devices
-of one program. The port runs the dp, cp and tp axes as `torch.distributed`
-processes, one per rank, as the reference ran its ranks (`mp.spawn` + NCCL).
-Ranks take their coordinates in the JAX device order: the grid (dp, pp, cp,
-ep, tp) with tp innermost, so global rank r sits at tp index r % tp, cp
-index (r // tp) % cp and dp index r // (tp * cp). pp and ep > 1 are refused
-until their slice lands (ROADMAP Queue 1 item 7).
+of one program. The port runs the dp, cp, ep and tp axes as
+`torch.distributed` processes, one per rank, as the reference ran its ranks
+(`mp.spawn` + NCCL). Ranks take their coordinates in the JAX device order:
+the grid (dp, pp, cp, ep, tp) with tp innermost, so global rank r sits at
+tp index r % tp, ep index (r // tp) % ep, cp index (r // (tp * ep)) % cp
+and dp index r // (tp * ep * cp). pp > 1 is refused until its slice lands
+(ROADMAP Queue 1 item 7).
 
 A `Mesh` is this process's device plus its place on each axis: the axis
 size, this process's index on it and the process group of the ranks that
-differ from it on that axis alone. One more group, the batch group, holds
-the dp x cp ranks that share this process's tp index: the loss sums its
-numerator and count over it and the train step sums the gradients over it
-(the JAX `batch_axes`). An axis of size 1 has no group.
+differ from it on that axis alone. Two more groups hold the batch axes
+(the JAX `batch_axes`): 'batch', the dp x cp x ep ranks that share this
+process's tp index (the loss sums its numerator and count over it, and
+the train step every gradient but the experts'), and, at ep > 1,
+'expert_batch', the dp x cp ranks that share its ep and tp indices (the
+experts' gradients: each ep rank holds its own experts). An axis of size 1
+has no group.
 
 Transport: NCCL (one card per rank) or gloo. NCCL refuses two ranks on one
 card, so a group on a machine with fewer cards than ranks runs over gloo;
@@ -35,7 +39,7 @@ from ..config import MeshConfig
 
 AXIS_NAMES = ("dp", "pp", "cp", "ep", "tp")
 # the axes the port runs, and the order every rank creates their groups in
-GROUP_AXES = ("dp", "cp", "tp", "batch")
+GROUP_AXES = ("dp", "cp", "ep", "tp", "batch", "expert_batch")
 BACKENDS = ("nccl", "gloo")
 # a collective that waits longer than this fails the run instead of
 # hanging it (no step of this port waits on a peer for minutes)
@@ -79,21 +83,28 @@ def dist_backend(backend: Optional[str], device: torch.device,
     return backend
 
 
-def coords(rank: int, dp: int, cp: int, tp: int) -> Dict[str, int]:
-    """Global rank -> {dp, cp, tp} indices, tp innermost (JAX device order)."""
-    return {"dp": rank // (tp * cp), "cp": (rank // tp) % cp, "tp": rank % tp}
+def coords(rank: int, dp: int, cp: int, tp: int,
+           ep: int = 1) -> Dict[str, int]:
+    """Global rank -> {dp, cp, ep, tp} indices, tp innermost (JAX device
+    order)."""
+    return {"dp": rank // (tp * ep * cp), "cp": (rank // (tp * ep)) % cp,
+            "ep": (rank // tp) % ep, "tp": rank % tp}
 
 
-def axis_groups(axis: str, dp: int, cp: int, tp: int) -> List[List[int]]:
+def axis_groups(axis: str, dp: int, cp: int, tp: int,
+                ep: int = 1) -> List[List[int]]:
     """Every group of `axis` as its ascending global ranks, in one fixed
-    order. 'batch' groups the dp x cp ranks of each tp index."""
-    world = dp * cp * tp
+    order. 'batch' groups the dp x cp x ep ranks of each tp index,
+    'expert_batch' the dp x cp ranks of each (ep, tp) pair."""
+    world = dp * cp * ep * tp
+    at = lambda r: coords(r, dp, cp, tp, ep)
     if axis == "batch":
-        key = lambda r: coords(r, dp, cp, tp)["tp"]
+        key = lambda r: at(r)["tp"]
+    elif axis == "expert_batch":
+        key = lambda r: (at(r)["ep"], at(r)["tp"])
     else:
         # the ranks that agree on every other axis form one group
-        key = lambda r: tuple(v for a, v in coords(r, dp, cp, tp).items()
-                              if a != axis)
+        key = lambda r: tuple(v for a, v in at(r).items() if a != axis)
     groups: Dict[Any, List[int]] = {}
     for r in range(world):
         groups.setdefault(key(r), []).append(r)
@@ -115,7 +126,7 @@ class Axis:
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's device and its place on the dp, cp, tp and batch
+    """This process's device and its place on the dp, cp, ep, tp and batch
     axes."""
 
     device: torch.device
@@ -125,10 +136,11 @@ class Mesh:
     rank: int = 0                  # global rank
     backend: Optional[str] = None  # "nccl" or "gloo"; None on one rank
     axes: Dict[str, Axis] = field(default_factory=dict)
+    ep: int = 1
 
     @property
     def world(self) -> int:
-        return self.dp * self.cp * self.tp
+        return self.dp * self.cp * self.ep * self.tp
 
     def axis(self, name: str) -> Axis:
         return self.axes.get(name) or Axis(name)
@@ -142,18 +154,30 @@ class Mesh:
         return self.axis("cp").rank
 
     @property
+    def ep_rank(self) -> int:
+        return self.axis("ep").rank
+
+    @property
     def tp_rank(self) -> int:
         return self.axis("tp").rank
 
     @property
     def coords(self) -> Dict[str, int]:
-        return {"dp": self.dp_rank, "cp": self.cp_rank, "tp": self.tp_rank}
+        return {"dp": self.dp_rank, "cp": self.cp_rank, "ep": self.ep_rank,
+                "tp": self.tp_rank}
+
+    @property
+    def row_shard(self) -> Tuple[int, int]:
+        """(blocks, this rank's block) of a batch's rows: the batch shards
+        over ('dp', 'ep'), dp major (the JAX P(('dp', 'ep'), 'cp'))."""
+        return self.dp * self.ep, self.dp_rank * self.ep + self.ep_rank
 
 
 def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
               backend: Optional[str] = None,
               init_method: Optional[str] = None) -> Mesh:
-    """The mesh of this process: global rank `rank` of dp * cp * tp. With
+    """The mesh of this process: global rank `rank` of dp * cp * ep * tp.
+    With
     more than one rank it takes card `rank % device_count` on a card, joins
     the process group through `init_method` (e.g. `file://<dir>/rendezvous`)
     unless one exists, and creates every axis's groups — every rank creates
@@ -163,21 +187,20 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
 
     Also pins float32 matmuls to full float32 on the card (no TF32), so a
     float32 run here computes what the float32 reference computes."""
-    for axis in ("pp", "ep"):
-        n = getattr(cfg, axis)
-        if n > 1:
-            raise NotImplementedError(
-                f"{axis}={n}: not ported yet, see ROADMAP Queue 1 item 7 "
-                f"(the port runs dp, cp and tp through torch.distributed)")
+    if cfg.pp > 1:
+        raise NotImplementedError(
+            f"pp={cfg.pp}: not ported yet, see ROADMAP Queue 1 item 7 (the "
+            f"port runs dp, cp, ep and tp through torch.distributed)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(device)
-    world = cfg.dp * cfg.cp * cfg.tp
+    world = cfg.dp * cfg.cp * cfg.ep * cfg.tp
+    shape = f"dp {cfg.dp} x cp {cfg.cp} x ep {cfg.ep} x tp {cfg.tp}"
     if world == 1:
         return Mesh(dev)
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside the mesh of {world} ranks "
-                         f"(dp {cfg.dp} x cp {cfg.cp} x tp {cfg.tp})")
+                         f"({shape})")
     backend = dist_backend(backend, dev, world)
     if dev.type == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
@@ -192,15 +215,16 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
     if dist.get_world_size() != world or dist.get_rank() != rank:
         raise RuntimeError(f"the process group holds rank "
                            f"{dist.get_rank()} of {dist.get_world_size()}, "
-                           f"not rank {rank} of dp {cfg.dp} x cp {cfg.cp} x "
-                           f"tp {cfg.tp}")
-    sizes = {"dp": cfg.dp, "cp": cfg.cp, "tp": cfg.tp,
-             "batch": cfg.dp * cfg.cp}
+                           f"not rank {rank} of {shape}")
+    sizes = {"dp": cfg.dp, "cp": cfg.cp, "ep": cfg.ep, "tp": cfg.tp,
+             "batch": cfg.dp * cfg.cp * cfg.ep,
+             # at ep = 1 the experts' group is 'batch' itself
+             "expert_batch": cfg.dp * cfg.cp if cfg.ep > 1 else 1}
     axes = {}
     for name in GROUP_AXES:
         if sizes[name] == 1:
             continue
-        for members in axis_groups(name, cfg.dp, cfg.cp, cfg.tp):
+        for members in axis_groups(name, cfg.dp, cfg.cp, cfg.tp, cfg.ep):
             group = dist.new_group(members, timeout=COLLECTIVE_TIMEOUT)
             if rank in members:
                 axes[name] = Axis(name, sizes[name], members.index(rank),
@@ -209,4 +233,4 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
     # a serving engine's dispatch broadcasts (serving/tp_dispatch.py)
     axes["world"] = Axis("world", world, rank, tuple(range(world)),
                          dist.group.WORLD)
-    return Mesh(dev, cfg.dp, cfg.cp, cfg.tp, rank, backend, axes)
+    return Mesh(dev, cfg.dp, cfg.cp, cfg.tp, rank, backend, axes, cfg.ep)

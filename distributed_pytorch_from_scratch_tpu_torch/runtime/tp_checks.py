@@ -3,7 +3,7 @@ reference, run through `runtime.launch.spawn` — by the tests (against the
 JAX package, on the CPU) and by chip_smoke.py (the card's kernels against
 the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
 training (`collective_pairs`, `layer_cases`, `model_runs`,
-`seed_identity`), serving at tp > 1 and on cp-sharded pages at cp or cp
+`seed_identity`, `checkpoint_steps`), serving at tp > 1 and on cp-sharded pages at cp or cp
 x tp (`serve_runs`, `decode_logits`, `quantized_params`, `combine`) and
 the evaluation loss on any mesh (`doc_losses`).
 
@@ -39,7 +39,9 @@ from ..serving.engine import (ContinuousBatchingEngine, PagedEngine, Request,
 from ..serving.speculative import SpeculativeEngine
 from ..parallel.embedding import VocabParallelEmbedding
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
-from ..training.optim import init_adam_state
+from ..training.checkpoint import (gather_experts, load_checkpoint,
+                                   save_checkpoint)
+from ..training.optim import AdamState, init_adam_state
 from ..training.train_step import build_train_step, reduce_grads
 from .mesh import make_mesh
 
@@ -165,14 +167,15 @@ def _model(mesh, run: Dict, cfg: Dict, tree) -> Transformer:
                         cp_impl=run.get("impl", "ring"),
                         cp_layout=run.get("layout", "contiguous"),
                         mesh=mesh, sequence_parallel=run.get("sp", False))
-    model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank))
+    model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank,
+                                          mesh.ep, mesh.ep_rank))
     return model.to(mesh.device)
 
 
 def _batch(model, mesh, arrays) -> List[torch.Tensor]:
-    """This rank's rows (dp) and sequence chunk (cp) of full (..., b, t)
-    arrays, on its device."""
-    rows = [dp_rows(np.asarray(x), mesh.dp, mesh.dp_rank) for x in arrays]
+    """This rank's rows (dp x ep) and sequence chunk (cp) of full (..., b,
+    t) arrays, on its device."""
+    rows = [dp_rows(np.asarray(x), *mesh.row_shard) for x in arrays]
     return [_t(x, mesh.device).long() for x in model.cp_shard(*rows)]
 
 
@@ -180,10 +183,13 @@ def model_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     """The model on this rank from the JAX param tree `tree` (ModelConfig
     fields `cfg`), for each run {sp, mode, impl, layout, remat, batch:
     (ids, targets, positions) (b, t)}: the loss and this rank's gradient
-    shard after the train step's reductions (`reduce_grads`); a run with
-    `steps` and `optim` (OptimizerConfig fields) and batches stacked
-    (steps, b, t) returns each train step's loss and grad norm instead.
-    Every result carries the rank's coordinates."""
+    shard after the train step's reductions (`reduce_grads`) and a MoE
+    model's routing (`moe_summary`), and with
+    `logits` the forward's logits of this rank's rows and chunk, every
+    vocab column (the tp shards gathered); a run with `steps` and `optim`
+    (OptimizerConfig fields) and batches stacked (steps, b, t) returns each
+    train step's loss and grad norm instead. Every result carries the
+    rank's coordinates."""
     out = []
     for run in runs:
         model = _model(mesh, run, cfg, tree)
@@ -201,14 +207,50 @@ def model_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
                 res["gnorms"].append(gnorm.item())
             out.append(res)
             continue
+        if run.get("logits"):
+            with torch.no_grad():
+                lg = model(batch[0], batch[2])
+                res["logits"] = _np(torch.cat(
+                    C.all_gather(lg, mesh, "tp").unbind(0), dim=-1))
         loss = model.loss(*batch, mode=mode)
         loss.backward()
         params = dict(model.named_parameters())
         reduce_grads(model, {k: p.grad for k, p in params.items()})
-        res.update(loss=loss.item(),
+        res.update(loss=loss.item(), moe=model.moe_summary(),
                    grads={k: _np(p.grad) for k, p in params.items()})
         out.append(res)
     return out
+
+
+def checkpoint_steps(mesh, cfg: Dict, family: str, load_dir: str, step: int,
+                     save_dir: str, batches, optim: Dict) -> Dict:
+    """Resume iteration `step` of `load_dir` (params and moments, either
+    package's files) at this rank's (tp, ep) shard, take one train step on
+    `batches[0]`, save the state as iteration step + 1 in `save_dir` as
+    the trainer does (the experts gathered over ep, the ranks at dp = cp =
+    ep = 0 writing, the mesh in the stamp), then take one more on
+    `batches[1]`: the two losses, with the rank's coordinates."""
+    model = build_model(family, ModelConfig(**cfg), mesh=mesh)
+    sd, opt, _ = load_checkpoint(load_dir, step, with_opt=True,
+                                 tp_size=mesh.tp, tp_rank=mesh.tp_rank,
+                                 ep_size=mesh.ep, ep_rank=mesh.ep_rank)
+    model.load_state_dict(sd)
+    model.to(mesh.device)
+    state = AdamState(step=opt.step, mu=opt.mu, nu=opt.nu)
+    train = build_train_step(model, OptimizerConfig(**optim))
+    batch = lambda i: _batch(model, mesh, [x[i] for x in batches])
+    loss1, _, state = train(state, *batch(0))
+    params = gather_experts(model.state_dict(), mesh)
+    moments = AdamState(step=state.step,
+                        mu=gather_experts(state.mu, mesh),
+                        nu=gather_experts(state.nu, mesh))
+    if mesh.dp_rank == mesh.cp_rank == mesh.ep_rank == 0:
+        save_checkpoint(save_dir, step + 1, float(loss1), params, moments,
+                        tp_size=mesh.tp, tp_rank=mesh.tp_rank,
+                        mesh_axes=(("dp", mesh.dp), ("cp", mesh.cp),
+                                   ("ep", mesh.ep), ("tp", mesh.tp)))
+    loss2, _, _ = train(state, *batch(1))
+    return {"coords": mesh.coords, "losses": [loss1.item(), loss2.item()]}
 
 
 def doc_losses(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
@@ -433,7 +475,7 @@ def combine(mesh, o: np.ndarray, lse: np.ndarray) -> np.ndarray:
 
 def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
          devices: Sequence[str] = ("cpu",), backend: str = "gloo") -> List:
-    """Run `todo`, a list of (job name, mesh axes {dp, cp, tp}, kwargs), on
+    """Run `todo`, a list of (job name, mesh axes {dp, cp, ep, tp}, kwargs), on
     this rank of an nprocs group: each job on the mesh its axes name (their
     product is nprocs), on each of `devices` in turn, one group for all.
     Returns the jobs' results, device by device, each in `todo`'s order."""
@@ -441,7 +483,7 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
            "model_runs": model_runs, "seed_identity": seed_identity,
            "serve_runs": serve_runs, "decode_logits": decode_logits,
            "doc_losses": doc_losses, "quantized_params": quantized_params,
-           "combine": combine}
+           "combine": combine, "checkpoint_steps": checkpoint_steps}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

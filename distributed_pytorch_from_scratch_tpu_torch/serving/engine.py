@@ -61,7 +61,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import resolve_dtype_on
+from ..config import refuse_moe, resolve_dtype_on
 from ..models.decode import (
     PAGED_ATTN_IMPLS, _decode_one, _full_vocab_logits, _paged_decode_one,
     _paged_prefill_chunk, _prefill, decode_tables, host_sample_tokens,
@@ -193,6 +193,8 @@ def quantize_model(model, mesh=None) -> int:
     if getattr(model.embedding, "int8_weights", False):
         raise ValueError("the model already holds int8 decode weights; "
                          "build a fresh model to quantize")
+    # ops/quant knows the 2-D linear leaves and the per-layer 1-D ones only
+    refuse_moe(model.cfg, "int8 decode weights")
     tp = 1 if mesh is None else mesh.tp
     with torch.no_grad():
         qparams = quantize_decode_params(model.state_dict(), mesh)
@@ -662,6 +664,8 @@ class PagedEngine(_Sampling):
         # cp-sharded pages: column j of the page table belongs to cp rank j
         # // (max_pages / cp), so max_pages rounds up to a cp multiple
         self.cp = max(1, int(getattr(model, "cp_size", 1)))
+        if self.cp > 1:
+            refuse_moe(model.cfg, "cp-sharded pages")
         if self.cp > 1 and mesh.cp != self.cp:
             raise ValueError(f"a model at cp {self.cp} shards its pages over "
                              f"the mesh's cp ranks; got a mesh at cp "

@@ -55,6 +55,12 @@ int8 codes with per-output-channel scales, dequantized at use (both
 engines, any tp; `serving/engine.py`). `--dry_run` shrinks everything to
 a tiny smoke run.
 
+A MoE model (`--model 45m-moe8`, or `--num_experts`) serves in both
+engines at ep = 1 (every rank holds every expert) and any tp, its decode
+step a CUDA graph at tp = 1; `--dry_run` keeps its experts on the dry
+shape. Refused for it, naming ROADMAP Queue 1 item 7: int8 decode weights,
+`--speculate` and `--paged --cp`.
+
 `--tokenizer_path` (a `tokenizer.json`, read by `data/tokenizer
 .load_tokenizer`) sets the vocab size and the EOS id; without it the
 vocab is `--vocab_size` and EOS is 1, the shipped tokenizer's.
@@ -89,7 +95,7 @@ import torch
 
 from ..cli import add_model_shape_args, build_model_config
 from ..config import (BOS_TOKEN, EOS_TOKEN, MODEL_PRESETS, MeshConfig,
-                      ModelConfig, model_preset)
+                      ModelConfig, model_preset, refuse_moe)
 from ..models import build_model
 from ..models.transformer import Transformer, validate_tp
 from ..ops import collectives
@@ -359,7 +365,12 @@ def _model_config(args: argparse.Namespace) -> ModelConfig:
         if not args.class_mix:
             args.class_mix = "interactive=1,standard=1"
         args.shared_prefix_len = max(args.shared_prefix_len, 4)
-    return _DRY_CFG
+    # a MoE model (its preset or --num_experts) keeps its routing, on the
+    # dry run's shape
+    moe = build_model_config(args, args.vocab_size)
+    return dataclasses.replace(_DRY_CFG, num_experts=moe.num_experts,
+                               moe_top_k=moe.moe_top_k,
+                               moe_capacity_factor=moe.moe_capacity_factor)
 
 
 def _load_weights(model, mesh, seed: int, ckpt_dir, step, what: str):
@@ -600,6 +611,18 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
     print(json.dumps(rec))
 
 
+def _refuse_moe_paths(args: argparse.Namespace, cfg: ModelConfig) -> None:
+    """The serving paths a MoE model does not take yet (each names ROADMAP
+    Queue 1 item 7): int8 decode weights, speculative decoding and
+    cp-sharded pages. MoE serves in both engines at any tp."""
+    if args.decode_weight_dtype == "int8":
+        refuse_moe(cfg, "--decode_weight_dtype int8")
+    if args.speculate:
+        refuse_moe(cfg, "--speculate")
+    if args.cp > 1:
+        refuse_moe(cfg, "--paged --cp")
+
+
 def serve(args: argparse.Namespace) -> dict:
     """Run the benchmark; prints the JSON record and returns the loadgen
     summary plus `device`, `decode_graph` (whether the decode step ran as
@@ -612,6 +635,7 @@ def serve(args: argparse.Namespace) -> dict:
     > 1 the ranks run in processes of their own and the summary is rank
     0's."""
     cfg = _model_config(args)
+    _refuse_moe_paths(args, cfg)
     world = args.tp_size * args.cp
     if world == 1:
         out = _serve(args, cfg)

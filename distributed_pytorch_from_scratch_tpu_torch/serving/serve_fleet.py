@@ -49,6 +49,7 @@ from typing import Tuple
 import torch
 
 from ..cli import add_model_shape_args
+from ..config import refuse_moe
 from ..config import MeshConfig
 from ..runtime.mesh import make_mesh
 from ..training.metrics import MetricsWriter
@@ -196,6 +197,7 @@ def run(args: argparse.Namespace) -> Tuple[dict, dict]:
     `fleet` holds the engines by name and, for the router fleet, the
     router; for `--disagg`, `done` (every completed request)."""
     cfg = _model_config(args)
+    refuse_moe(cfg, "serve_fleet")
     if args.dry_run:
         args.replicas = min(args.replicas, 2)
         args.num_requests, args.arrival = 8, "burst"

@@ -69,7 +69,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..config import resolve_dtype_on
+from ..config import refuse_moe, resolve_dtype_on
 from ..models.decode import (_filter_logits, _full_vocab_logits,
                              _paged_decode_one, _paged_prefill_chunk,
                              decode_tables, gumbel_noise, hash_uniform)
@@ -105,6 +105,8 @@ class SpeculativeEngine(PagedEngine):
                  drafter_pages: int = 0, **kw):
         if speculate_k < 1:
             raise ValueError(f"speculate_k must be >= 1, got {speculate_k}")
+        refuse_moe(model.cfg, "speculative decoding")
+        refuse_moe(drafter_model.cfg, "speculative decoding")
         if kw.get("debug_host_sampler"):
             raise ValueError(
                 "debug_host_sampler is the NON-speculative engines' "

@@ -4,6 +4,7 @@
         --model 45m --bf16 --data_path tokens.json --save_dir ckpt \\
         [--tp_size 2 [--sequence_parallel]] [--dp_size 2] \\
         [--cp_size 2 [--cp_impl ring|ulysses] [--cp_layout contiguous|zigzag]]
+        [--model 45m-moe8 [--ep_size 2]]
 
 Parses the same flags as the JAX CLI, plus two of its own: `--device`
 (default `cuda`; with no card the CLI exits non-zero rather than run on the
@@ -37,20 +38,31 @@ reached, prints `shutdown requested: checkpointed at step N; restart with
 signal kills the process at once. At more than one rank the launching
 process forwards the signals to every rank (`runtime/launch.spawn`).
 
-Parallelism: `--dp_size M --cp_size C --tp_size N` run M·C·N ranks, one
-process each (`runtime/launch.spawn`), rank r on card r % device_count, at
-the coordinates of the JAX device order (`runtime/mesh.py`, tp innermost).
-Every rank draws the same seeded batch; its dp index takes b/M of the rows,
-its cp index its chunk of the sequence (zig-zag order first under
+Parallelism: `--dp_size M --cp_size C --ep_size E --tp_size N` run
+M·C·E·N ranks, one process each (`runtime/launch.spawn`), rank r on card
+r % device_count, at the coordinates of the JAX device order
+(`runtime/mesh.py`, tp innermost). Every rank draws the same seeded batch;
+its (dp, ep) index takes b/(M·E) of the rows (dp major), its cp index its
+chunk of the sequence (zig-zag order first under
 `--cp_layout zigzag`), and its tp index its shard of every tp-sharded
 weight (Megatron's column/row layers, the vocab-parallel embedding and
 head; `--sequence_parallel` shards the activations between sublayers over
 the sequence too). Attention is the flash kernels on the rank's local
 heads, or at cp > 1 the ring (the block kernels) or Ulysses over the cp
-group. Global rank 0 alone prints. The ranks at dp = cp = 0 write one
-checkpoint file per tp rank, in the JAX shard format, between barriers;
-every rank loads on `--resume`, from files written at any tp its vocab
-divides. A rank that fails fails the run.
+group. Global rank 0 alone prints. The ranks at dp = cp = ep = 0 write
+one checkpoint file per tp rank, in the JAX shard format, between
+barriers (at ep > 1 every rank first gathers the experts over its ep
+group: the files hold all of them); every rank loads on `--resume`, from
+files written at any tp its vocab divides. A rank that fails fails the
+run.
+
+`--num_experts E` (or `--model 45m-moe8`) trains the MoE family: every
+layer's FFN is E top-k routed SwiGLU experts (`parallel/moe.py`,
+`--moe_top_k`, `--moe_capacity_factor`), in either family, with the
+router's aux losses in the loss; `--ep_size` shards the experts over the
+ep axis (E/ep per rank, two `all_to_all`s per layer over ep, staged
+through host memory under gloo). Its MFU counts the active parameters
+(the top-k experts of each token).
 
 `--remat` takes the JAX policies: true, false, dots, and auto, which
 `training/memory.select_remat` resolves against the card's memory (printed
@@ -66,10 +78,11 @@ path the llama family runs: any dp x cp x tp, SP, remat and
 `--steps_per_dispatch`; its MFU counts N from the real parameters
 (`training/metrics.model_flops_per_step(..., params)`).
 
-A flag that takes the run off the ported slices (ep/pp > 1, tp overlap,
-ZeRO, the bucketed dp reducer, MoE, `--seq_bucket`, the
-observability/control and multi-host flags) raises NotImplementedError at
-any non-default value, naming its ROADMAP item.
+A flag that takes the run off the ported slices (pp > 1, tp overlap,
+ZeRO, the bucketed dp reducer, `--seq_bucket`, the observability/control
+and multi-host flags) raises NotImplementedError at any non-default value,
+naming its ROADMAP item; for a MoE model they stay refused with the rest
+(the JAX CLI refuses each of them with MoE too).
 """
 
 from __future__ import annotations
@@ -91,12 +104,15 @@ from .config import (IGNORE_INDEX, MODEL_PRESETS, MeshConfig, ModelConfig,
 from .data.dataset import dp_rows, get_dataloader
 from .data.prefetch import Prefetcher, stack_window, window_stream
 from .models import build_model, num_params
-from .models.transformer import Transformer, validate_cp, validate_tp
+from .models.transformer import (Transformer, validate_cp, validate_ep,
+                                 validate_tp)
 from .ops import collectives
 from .ops.cuda import launch_counts
 from .runtime import launch
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
-from .training.checkpoint import latest_step, load_checkpoint, save_checkpoint
+from .parallel.moe import validate_moe
+from .training.checkpoint import (gather_experts, latest_step,
+                                  load_checkpoint, save_checkpoint)
 from .training.memory import hbm_budget_gib, select_remat
 from .training.metrics import (MetricsWriter, device_peak_flops,
                                model_flops_per_step)
@@ -108,18 +124,16 @@ from .training.train_step import (build_grad_accum_step, build_train_step,
 REMAT_CHOICES = {"true": True, "dots": "dots", "false": False}
 
 _MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
-_LATER = "ROADMAP Queue 1 item 7 (d): pipeline, MoE, perf layers"
+_LATER = "ROADMAP Queue 1 item 7 (d): pipeline, perf layers"
 _OBS = "ROADMAP Queue 1 item 5: the obs hooks of train.py"
 # (flag dest, default, the ROADMAP item that brings it)
 OFF_SLICE = [
     ("zero", None, _LATER),
     ("zero1", False, _LATER), ("dp_reduce_bucket_mb", 0.0, _LATER),
     ("dp_reduce_dtype", "f32", _LATER), ("tp_overlap", "off", _LATER),
-    ("ep_size", 1, _LATER),
     ("pp_size", 1, _LATER), ("pp_microbatches", 0, _LATER),
     ("pp_remat_steps", False, _LATER), ("pp_schedule", "gpipe", _LATER),
-    ("pp_virtual", 2, _LATER), ("num_experts", None, _LATER),
-    ("moe_top_k", None, _LATER), ("moe_capacity_factor", None, _LATER),
+    ("pp_virtual", 2, _LATER),
     ("seq_bucket", 0, "ROADMAP Queue 1 item 3: --seq_bucket"),
     ("no_trace", False, _OBS), ("no_sentinel", False, _OBS),
     ("sentinel_spike_factor", 3.0, _OBS), ("watchdog_secs", 300.0, _OBS),
@@ -138,9 +152,9 @@ def get_train_args(argv=None) -> argparse.Namespace:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
 
-    g = p.add_argument_group("distributed (dp, cp and tp through "
-                             "torch.distributed; ep and pp at 1 in this port "
-                             "so far)")
+    g = p.add_argument_group("distributed (dp, cp, ep and tp through "
+                             "torch.distributed; pp at 1 in this port so "
+                             "far)")
     g.add_argument("--tp_size", type=int, default=1)
     g.add_argument("--dp_size", type=int, default=1)
     g.add_argument("--cp_size", type=int, default=1)
@@ -155,7 +169,10 @@ def get_train_args(argv=None) -> argparse.Namespace:
     g.add_argument("--dp_reduce_bucket_mb", type=float, default=0.0)
     g.add_argument("--dp_reduce_dtype", choices=["f32", "bf16", "int8"],
                    default="f32")
-    g.add_argument("--ep_size", type=int, default=1)
+    g.add_argument("--ep_size", type=int, default=1,
+                   help="expert-parallel axis size (MoE: experts shard over "
+                        "'ep'; requires --num_experts; 'ep' also shards the "
+                        "batch, like dp)")
     g.add_argument("--pp_size", type=int, default=1)
     g.add_argument("--pp_microbatches", type=int, default=0)
     g.add_argument("--pp_remat_steps", action="store_true")
@@ -212,9 +229,15 @@ def get_train_args(argv=None) -> argparse.Namespace:
                    help="grouped-query attention: K/V heads")
     g.add_argument("--num_layers", type=int, default=None)
     g.add_argument("--maxlen", type=int, default=None)
-    g.add_argument("--num_experts", type=int, default=None)
-    g.add_argument("--moe_top_k", type=int, default=None)
-    g.add_argument("--moe_capacity_factor", type=float, default=None)
+    g.add_argument("--num_experts", type=int, default=None,
+                   help="MoE: swap every layer's FFN for this many top-k "
+                        "routed experts (both families; default 0 = dense "
+                        "FFN)")
+    g.add_argument("--moe_top_k", type=int, default=None,
+                   help="experts activated per token (default 2)")
+    g.add_argument("--moe_capacity_factor", type=float, default=None,
+                   help="per-expert slot headroom; overflow tokens fall "
+                        "through the residual (default 2.0)")
     g.add_argument("--remat", choices=["auto", "dots", "false", "true"],
                    default="true",
                    help="per-layer rematerialisation: 'true' recomputes "
@@ -369,11 +392,15 @@ def _model_config(args: argparse.Namespace, vocab_size: int) -> ModelConfig:
                        num_layers=pick(args.num_layers, preset.num_layers),
                        vocab_size=vocab_size,
                        maxlen=pick(args.maxlen, preset.maxlen),
+                       num_experts=pick(args.num_experts, preset.num_experts),
+                       moe_top_k=pick(args.moe_top_k, preset.moe_top_k),
+                       moe_capacity_factor=pick(args.moe_capacity_factor,
+                                                preset.moe_capacity_factor),
                        compute_dtype="bfloat16" if args.bf16 else "float32")
 
 
 def _world(args: argparse.Namespace) -> int:
-    return args.dp_size * args.cp_size * args.tp_size
+    return args.dp_size * args.cp_size * args.ep_size * args.tp_size
 
 
 def _check_dist(args: argparse.Namespace) -> None:
@@ -389,6 +416,10 @@ def _check_dist(args: argparse.Namespace) -> None:
     validate_tp(cfg, args.tp_size)
     validate_cp(cfg, args.tp_size, args.cp_size, args.cp_impl,
                 args.cp_layout)
+    validate_ep(cfg, args.ep_size)
+    if cfg.num_experts:
+        validate_moe(cfg.ffn_dim, cfg.num_experts, cfg.moe_top_k,
+                     args.ep_size, args.tp_size)
     if cfg.maxlen % args.cp_size != 0:
         raise SystemExit(f"--maxlen {cfg.maxlen} must be divisible by "
                          f"--cp_size {args.cp_size} (sequence is sharded "
@@ -400,6 +431,11 @@ def _check_dist(args: argparse.Namespace) -> None:
         raise SystemExit(f"--sequence_parallel needs the cp-local sequence "
                          f"length {cfg.maxlen // args.cp_size} divisible by "
                          f"--tp_size {args.tp_size}")
+    if args.ep_size > 1 and args.batch_size % (args.dp_size * args.ep_size):
+        raise SystemExit(f"--batch_size {args.batch_size} must be divisible "
+                         f"by dp_size*ep_size "
+                         f"{args.dp_size * args.ep_size} (the batch shards "
+                         f"over both axes)")
     if args.batch_size % args.dp_size:
         raise SystemExit(f"--batch_size {args.batch_size} must be divisible "
                          f"by --dp_size {args.dp_size} (each dp rank takes "
@@ -414,8 +450,10 @@ def train(args: argparse.Namespace) -> dict:
     the one that completes step 2, and their whole time, step_ms_p50
     (their median; a dispatch of n steps counts n times its time / n),
     peak_mem_gib (None on the CPU), device, checkpoints (paths written,
-    every tp rank's), family, params (the global count), the mesh (dp, cp, tp,
-    sequence_parallel, cp_impl, cp_layout), dist_backend, cards, remat (the
+    every tp rank's), family, params (the global count), the mesh (dp, cp, ep,
+    tp, sequence_parallel, cp_impl, cp_layout), moe (a MoE model's last
+    step's routing: `Transformer.moe_summary`; None for a dense one),
+    dist_backend, cards, remat (the
     policy run, `auto` resolved), steps_per_dispatch, shutdown (whether a
     signal stopped the run), save_stall_ms (the loop's host time per save:
     the loss sync, the join of the write before and the snapshot),
@@ -423,7 +461,8 @@ def train(args: argparse.Namespace) -> dict:
     prefetch thread),
     and `ranks`: per rank
     its coordinates, kernel launches, peak memory and time in the
-    collectives per axis.
+    collectives per axis (`collectives`, the whole run's;
+    `collectives_steps`, before the last save's).
 
     With more than one rank the ranks run in processes of their own; the
     summary is global rank 0's (the loss is global, so every rank's
@@ -466,15 +505,16 @@ def _train(args: argparse.Namespace, rank: int = 0,
     """The loop on one rank; see `train`."""
     try:
         mesh = make_mesh(MeshConfig(dp=args.dp_size, cp=args.cp_size,
-                                    tp=args.tp_size),
+                                    ep=args.ep_size, tp=args.tp_size),
                          device=args.device, rank=rank,
                          backend=args.dist_backend, init_method=init_method)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"train: {e}")
     device, cp, tp, world = mesh.device, mesh.cp, mesh.tp, mesh.world
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
-    # the ranks at dp = cp = 0 write the checkpoint, one file per tp rank
-    is_writer = mesh.dp_rank == 0 and mesh.cp_rank == 0
+    # the ranks at dp = cp = ep = 0 write the checkpoint, one file per tp
+    # rank
+    is_writer = mesh.dp_rank == 0 and mesh.cp_rank == 0 and mesh.ep_rank == 0
     maxlen = _model_config(args, 0).maxlen
     dataloader = get_dataloader(args.data_path, args.batch_size,
                                 IGNORE_INDEX, split="train", maxlen=maxlen,
@@ -509,9 +549,11 @@ def _train(args: argparse.Namespace, rank: int = 0,
                  f", sequence_parallel={model.sequence_parallel}, cp_impl="
                  f"{args.cp_impl}, cp_layout={args.cp_layout}, dist_backend="
                  f"{mesh.backend}, {world} ranks on {cards or 'no'} card(s)")
-    say(f"model[{args.family}]: {n_params / 1e6:.2f}M params, "
-        f"vocab={vocab_size}, mesh=dp{mesh.dp} x pp1 x cp{cp} x ep1 x "
-        f"tp{tp}, compute="
+    moe_note = (f", {cfg.num_experts} experts (top-{cfg.moe_top_k})"
+                if cfg.num_experts else "")
+    say(f"model[{args.family}]: {n_params / 1e6:.2f}M params{moe_note}, "
+        f"vocab={vocab_size}, mesh=dp{mesh.dp} x pp1 x cp{cp} x "
+        f"ep{mesh.ep} x tp{tp}, compute="
         f"{cfg.compute_dtype}, remat={remat}"
         + (" (auto)" if args.remat == "auto" else "") + ", device="
         f"{_device_name(device)}{dist_desc}")
@@ -523,7 +565,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
             try:
                 state_dict, ck_opt, start_step = load_checkpoint(
                     args.save_dir, last, with_opt=True, tp_size=tp,
-                    tp_rank=mesh.tp_rank)
+                    tp_rank=mesh.tp_rank, ep_size=mesh.ep,
+                    ep_rank=mesh.ep_rank)
             except ValueError as e:
                 raise SystemExit(f"train: {e}")
             _load_into(model, state_dict, args.save_dir)
@@ -619,18 +662,27 @@ def _train(args: argparse.Namespace, rank: int = 0,
             dist.barrier()
 
     def schedule_save(step: int) -> None:
-        # parameters are replicated over dp and cp: the ranks at dp = cp = 0
-        # write one file per tp rank, from a snapshot taken now, on a thread
+        # parameters are replicated over dp and cp (and, but for the
+        # experts, ep): the ranks at dp = cp = ep = 0 write one file per tp
+        # rank, from a snapshot taken now, on a thread; at ep > 1 every
+        # rank gathers the experts first (a collective)
         nonlocal pending, last_saved
         t0 = time.perf_counter()
         avg = float(accum_loss) / max(step - start_step, 1)
         join_save()
+        params_sd = gather_experts(model.state_dict(), mesh)
+        opt_sd = opt_state
+        if mesh.ep > 1:
+            opt_sd = AdamState(step=opt_state.step,
+                               mu=gather_experts(opt_state.mu, mesh),
+                               nu=gather_experts(opt_state.nu, mesh))
         if is_writer:
             pending = save_checkpoint(
-                args.save_dir, step, avg, model.state_dict(), opt_state,
+                args.save_dir, step, avg, params_sd, opt_sd,
                 reserve_last_n=args.reserve_last_n_ckpts, tp_size=tp,
-                tp_rank=mesh.tp_rank, mesh_axes=(("dp", mesh.dp),
-                                                 ("cp", cp), ("tp", tp)),
+                tp_rank=mesh.tp_rank, mesh_axes=(
+                    ("dp", mesh.dp), ("cp", cp), ("ep", mesh.ep),
+                    ("tp", tp)),
                 async_write=True)
         last_saved = step
         save_stall_ms.append((time.perf_counter() - t0) * 1e3)
@@ -678,7 +730,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
                 steps_in = window["input_ids"].shape[0] if spd > 1 else 1
                 prev_n = n
                 chunks = model.cp_shard(*(
-                    dp_rows(window[k], mesh.dp, mesh.dp_rank)
+                    dp_rows(window[k], *mesh.row_shard)
                     for k in ("input_ids", "target_ids", "position_ids")))
                 ids, tgt, pos = (torch.from_numpy(np.ascontiguousarray(x))
                                  .to(device).long() for x in chunks)
@@ -728,6 +780,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
                     break
             prefetcher.close()
             say(f"epoch {epoch + 1}/{max_epoch} finished")
+        # the hops of the steps alone, before the last save's
+        loop_hops = {a: dict(v) for a, v in collectives.stats.items()}
         if n > last_saved:
             # a signal during the last dispatch ends the loop on max_steps
             # without passing the poll: it still reports the shutdown
@@ -779,7 +833,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
         "peak_mem_gib": peak_mem,
         "device": _device_name(device), "checkpoints": saved,
         "family": args.family, "params": n_params,
-        "dp": mesh.dp, "cp": cp, "tp": tp,
+        "dp": mesh.dp, "cp": cp, "ep": mesh.ep, "tp": tp,
+        "moe": model.moe_summary(),
         "sequence_parallel": model.sequence_parallel,
         "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
         "dist_backend": mesh.backend, "cards": cards,
@@ -792,7 +847,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
                    "launches": {k: v - launches0[k]
                                 for k, v in launches.items()},
                    "collectives": {a: dict(v) for a, v in
-                                   collectives.stats.items()}}],
+                                   collectives.stats.items()},
+                   "collectives_steps": loop_hops}],
     }
 
 

@@ -17,6 +17,13 @@ serving CLI both load this way. Parameters are replicated over dp and cp,
 so the ranks at dp = cp = 0 write, one file per tp rank, and every rank
 reads.
 
+A MoE model's experts are sharded over ep as well, but the files keep
+JAX's tp-only format: each `tprank-*` file holds all E experts, sliced on
+the tp dim. Before a save at ep > 1 every rank gathers the experts over
+its ep group (`gather_experts`) and the ranks at dp = cp = ep = 0 write;
+a load cuts this rank's E/ep experts (`load_checkpoint(..., ep_size,
+ep_rank)`), so a file written at one ep loads at any ep that divides E.
+
 `save_checkpoint(..., async_write=True)` returns an `AsyncSaveHandle`: the
 state is snapshotted on the device at the call (one clone of the params
 and both moments, enqueued on the current stream before any later step can
@@ -38,7 +45,8 @@ import numpy as np
 import torch
 
 from ..interop import params_from_jax, params_to_jax
-from ..parallel.layout import assemble_params, shard_params
+from ..ops.collectives import all_gather
+from ..parallel.layout import assemble_params, is_expert, shard_params
 from ..reshard.layout import (Layout, canonical_specs, make_layout,
                               read_stamp, stamp)
 from .optim import AdamState
@@ -110,9 +118,9 @@ def _read_rank_files(ckpt_dir: str, step: int
     return tp_size, files
 
 
-# the mesh axes the port runs; a checkpoint stamped with any other (pp, ep)
+# the mesh axes the port runs; a checkpoint stamped with any other (pp)
 # needs the reshard planner
-PORTED_AXES = ("dp", "cp", "tp")
+PORTED_AXES = ("dp", "cp", "ep", "tp")
 
 
 def check_layout(layout: Optional[Layout], ckpt_dir: str, step: int) -> None:
@@ -130,9 +138,11 @@ def check_layout(layout: Optional[Layout], ckpt_dir: str, step: int) -> None:
 
 
 def _assemble(files: List[Dict[str, np.ndarray]], prefix: str,
-              tp_size: int, tp_rank: int) -> Dict[str, torch.Tensor]:
+              tp_size: int, tp_rank: int, ep_size: int = 1,
+              ep_rank: int = 0) -> Dict[str, torch.Tensor]:
     """The `prefix` tree of every rank file, assembled on the tp dims into
-    the global state dict, then sliced for rank tp_rank of tp_size."""
+    the global state dict, then sliced for rank (tp_rank of tp_size,
+    ep_rank of ep_size)."""
     full = assemble_params([params_from_jax(_unflatten(f, prefix))
                             for f in files])
     rows = full["embedding.weight"].shape[0]
@@ -141,28 +151,49 @@ def _assemble(files: List[Dict[str, np.ndarray]], prefix: str,
             f"the checkpoint's vocab leaves hold {rows} rows (padded for "
             f"tp={len(files)}), which do not shard over tp={tp_size}; "
             f"resume at a tp that divides {rows}")
-    return shard_params(full, tp_size, tp_rank)
+    return shard_params(full, tp_size, tp_rank, ep_size, ep_rank)
 
 
 def load_checkpoint(ckpt_dir: str, step: int, with_opt: bool = False,
-                    tp_size: int = 1, tp_rank: int = 0
+                    tp_size: int = 1, tp_rank: int = 0, ep_size: int = 1,
+                    ep_rank: int = 0
                     ) -> Tuple[Dict[str, torch.Tensor], Optional[AdamState],
                                int]:
     """(state_dict, AdamState or None, step) of iteration `step`, for rank
-    tp_rank of tp_size: every rank file is read and assembled into the
-    global arrays (the JAX `load_checkpoint`), then this rank's slice is
-    cut, so a checkpoint written at any tp loads at any tp its vocab rows
-    divide. The moments only with `with_opt` and when the files hold
-    them."""
+    (tp_rank of tp_size, ep_rank of ep_size): every rank file is read and
+    assembled into the global arrays (the JAX `load_checkpoint`), then
+    this rank's slice is cut (its tp slice, and its E/ep experts), so a
+    checkpoint written at any tp loads at any tp its vocab rows divide.
+    The moments only with `with_opt` and when the files hold them."""
     _, files = _read_rank_files(ckpt_dir, step)
     saved_step = int(files[0]["__step__"])
+    cut = (tp_size, tp_rank, ep_size, ep_rank)
     opt_state = None
     if with_opt and bool(files[0].get("__has_opt__", False)):
         opt_state = AdamState(step=saved_step,
-                              mu=_assemble(files, "mu", tp_size, tp_rank),
-                              nu=_assemble(files, "nu", tp_size, tp_rank))
-    return (_assemble(files, "param", tp_size, tp_rank), opt_state,
-            saved_step)
+                              mu=_assemble(files, "mu", *cut),
+                              nu=_assemble(files, "nu", *cut))
+    return _assemble(files, "param", *cut), opt_state, saved_step
+
+
+@torch.no_grad()
+def gather_experts(tree: Dict[str, torch.Tensor], mesh
+                   ) -> Dict[str, torch.Tensor]:
+    """`tree` (a state dict, or a moment tree keyed like it) with its
+    expert leaves gathered over the ep group: every rank's E/ep experts in
+    ep order, all E of them, through one all-gather. Every rank of the
+    group must call it; at ep = 1 (or with no mesh) `tree` itself."""
+    keys = [k for k in tree if is_expert(k)]
+    if mesh is None or mesh.ep == 1 or not keys:
+        return tree
+    flat = torch.cat([tree[k].reshape(-1) for k in keys])
+    parts = all_gather(flat, mesh, "ep").split(
+        [tree[k].numel() for k in keys], dim=1)
+    out = dict(tree)
+    for k, part in zip(keys, parts):
+        local = tree[k].shape
+        out[k] = part.reshape((mesh.ep * local[0],) + tuple(local[1:]))
+    return out
 
 
 def _flatten(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:

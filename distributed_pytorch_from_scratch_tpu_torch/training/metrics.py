@@ -145,7 +145,10 @@ def device_peak_flops(device: torch.device) -> Optional[float]:
 def model_flops_per_step(cfg, batch: int, seqlen: int,
                          params: Optional[int] = None) -> float:
     """Model FLOPs of one fwd+bwd train step (no remat recompute counted):
-    6N per token + the 12*L*h*T^2*hd attention term. Under context
+    6N per token + the 12*L*h*T^2*hd attention term. For a MoE model N is
+    the ACTIVE parameters: the (num_experts - top_k) experts a token is not
+    routed through are taken out (the JAX convention; dropped routings are
+    not counted). Under context
     parallelism the count is the same: the dense T^2 attention term of the
     whole sequence, not the blocks the ring schedule computes (about half
     of them, the causal ones).
@@ -155,6 +158,10 @@ def model_flops_per_step(cfg, batch: int, seqlen: int,
     tied head would otherwise be overcounted (the JAX
     `model_flops_per_step`)."""
     n = cfg.num_params() if params is None else params
+    if cfg.num_experts:
+        inactive = ((cfg.num_experts - cfg.moe_top_k)
+                    * 3 * cfg.attn_dim * cfg.ffn_dim)
+        n -= cfg.num_layers * max(0, inactive)
     return (6 * n * batch * seqlen
             + 12 * cfg.num_layers * batch * cfg.num_heads
             * seqlen * seqlen * cfg.head_dim)

@@ -28,7 +28,7 @@ import torch
 
 from ..config import OptimizerConfig
 from ..ops.collectives import all_reduce_sum
-from ..parallel.layout import tp_dim
+from ..parallel.layout import is_expert, tp_dim
 
 Tensors = Dict[str, torch.Tensor]
 _f32 = np.float32
@@ -117,18 +117,28 @@ def global_norm(grads: Tensors, mesh=None) -> torch.Tensor:
     the clipper and the train step's logged grad norm. A device tensor: no
     host sync.
 
-    At tp > 1 (`mesh`) each rank holds its shard of the tp-sharded
-    gradients and a whole copy of the replicated ones: the squares of the
-    sharded ones are summed over the tp group, the replicated ones counted
-    once."""
-    sq = lambda keys: sum(torch.sum(torch.square(grads[k].float()))
-                          for k in keys)
-    if mesh is None or mesh.tp == 1:
+    On a mesh each rank holds its shard of the tp-sharded gradients, its
+    ep rank's experts and a whole copy of the replicated ones: the squares
+    of the experts are summed over the ep group, those of every tp-sharded
+    leaf (the experts' included) over the tp group, and the replicated
+    ones are counted once."""
+    def sq(keys):
+        out = torch.zeros((), dtype=torch.float32,
+                          device=next(iter(grads.values())).device)
+        for k in keys:
+            out = out + torch.sum(torch.square(grads[k].float()))
+        return out
+
+    if mesh is None or (mesh.tp == 1 and mesh.ep == 1):
         return torch.sqrt(sq(grads))
-    sharded = [k for k in grads if tp_dim(k) is not None]
+    experts = [k for k in grads if is_expert(k)]
+    sharded = [k for k in grads
+               if tp_dim(k) is not None and not is_expert(k)]
     replicated = [k for k in grads if tp_dim(k) is None]
-    return torch.sqrt(all_reduce_sum(sq(sharded), mesh, "tp")
-                      + sq(replicated))
+    local = sq(sharded)
+    if experts:
+        local = local + all_reduce_sum(sq(experts), mesh, "ep")
+    return torch.sqrt(all_reduce_sum(local, mesh, "tp") + sq(replicated))
 
 
 def clip_by_global_norm(grads: Tensors, max_norm: float, mesh=None,

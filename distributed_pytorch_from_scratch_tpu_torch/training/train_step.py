@@ -17,11 +17,17 @@ backward:
     sequence (Megatron SP's rule; JAX's shard_map transpose does it
     implicitly). Without SP those gradients are already the same on every
     tp rank and are not summed;
-(b) every gradient is summed over the batch group (the dp x cp ranks of
-    this tp index) in one flat buffer: each rank's loss is its local sum
-    over the global count, so the sum is the global loss's gradient;
-(c) then the norm (the tp-sharded squares summed over tp), the clip and
-    Adam — every rank of a tp index then holds the same parameters.
+(b) every gradient is summed over the batch group (the dp x cp x ep
+    ranks of this tp index) in one flat buffer: each rank's loss is its
+    local sum over the global count, so the sum is the global loss's
+    gradient. At ep > 1 the experts' gradients are the exception: each ep
+    rank holds its own experts, whose gradient already counts every ep
+    rank's tokens (the all_to_all's backward brought their cotangents
+    back), so they are summed over the dp x cp ranks of this (ep, tp)
+    pair, the 'expert_batch' group, in a second buffer;
+(c) then the norm (the tp-sharded squares summed over tp, the experts'
+    over ep too), the clip and Adam — every rank of a (tp, ep) index then
+    holds the same parameters.
 
 `build_train_step_multi` runs N steps per host dispatch, the JAX
 `lax.scan` variant. On a card it captures the ONE-step body once as a CUDA
@@ -46,7 +52,7 @@ import torch
 
 from ..config import OptimizerConfig
 from ..ops.collectives import all_reduce_sum_
-from ..parallel.layout import tp_dim
+from ..parallel.layout import is_expert, tp_dim
 from ..runtime.graphs import CapturedStep
 from .optim import AdamState, adam_scalars, adam_update, global_norm
 
@@ -58,14 +64,21 @@ def reduce_grads(model, grads) -> None:
     """Steps (a) and (b) of the module docstring, in place on `grads`
     (keyed like the model's parameters): the tp sum of the replicated
     parameters' gradients under sequence parallelism, then the batch
-    group's sum of every gradient."""
+    group's sum of every gradient (at ep > 1 the experts' over the expert
+    batch group)."""
     mesh = model.mesh
     if mesh is None:
         return
     if model.sequence_parallel:
         all_reduce_sum_([g for k, g in grads.items() if tp_dim(k) is None],
                         mesh, "tp")
-    all_reduce_sum_(list(grads.values()), mesh, "batch")
+    if mesh.ep == 1:
+        all_reduce_sum_(list(grads.values()), mesh, "batch")
+        return
+    all_reduce_sum_([g for k, g in grads.items() if not is_expert(k)],
+                    mesh, "batch")
+    all_reduce_sum_([g for k, g in grads.items() if is_expert(k)], mesh,
+                    "expert_batch")
 
 
 def build_train_step(model, ocfg: OptimizerConfig,

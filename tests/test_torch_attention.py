@@ -24,6 +24,17 @@ from distributed_pytorch_from_scratch_tpu_torch.ops.attention import (
     causal_attention, causal_attention_plain)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
     MASK, flash_attention_fwd, flash_attention_fwd_plain)
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 # (b, h, hkv, t, d, t_real): MHA, GQA with padding rows, t not a multiple of 64
 CASES = [(2, 4, 4, 128, 32, None), (1, 4, 2, 200, 32, 150),

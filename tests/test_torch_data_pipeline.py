@@ -41,6 +41,17 @@ from distributed_pytorch_from_scratch_tpu_torch.data.preprocess import (
     preprocess)
 from distributed_pytorch_from_scratch_tpu_torch.evaluate import (
     DECODE_PROMPTS)
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "tokenizer", "tokenizer.json")

@@ -52,6 +52,17 @@ from distributed_pytorch_from_scratch_tpu_torch.runtime import (
 from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
 from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
     ContinuousBatchingEngine, PagedEngine, Request)
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 TINY = {k: getattr(model_preset("tiny"), k)
         for k in ("attn_dim", "ffn_dim", "num_heads", "num_layers",

@@ -62,6 +62,17 @@ from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
     save_checkpoint)
 from distributed_pytorch_from_scratch_tpu_torch.training.metrics import (
     MetricsWriter)
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "tokenizer", "tokenizer.json")
@@ -317,7 +328,9 @@ def test_generate_cp2_matches_jax(setup):
 # -- (d) refusals ----------------------------------------------------------
 
 @pytest.mark.parametrize("extra,item", [
-    (["--num_experts", "4"], "item 7"),
+    # a MoE model runs at cp 1; at cp > 1 it is refused, before any rank
+    (["--num_experts", "4", "--cp_size", "2", "--dist_backend", "gloo"],
+     "item 7"),
     (["--num_processes", "2"], "item 2"),
     (["--coordinator", "host:1234"], "item 2"),
 ])
@@ -342,8 +355,10 @@ def test_evaluate_keeps_jax_refusals(setup):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--num_experts", "4"], "item 7"),
-    (["--family", "gpt2", "--num_experts", "4"], "item 7"),
+    (["--num_experts", "4", "--cp_size", "2", "--dist_backend", "gloo"],
+     "item 7"),
+    (["--family", "gpt2", "--num_experts", "4", "--cp_size", "2",
+      "--dist_backend", "gloo"], "item 7"),
 ])
 def test_generate_refusals_name_their_item(setup, extra, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -85,6 +85,17 @@ from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
     init_adam_state)
 from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
     build_train_step)
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "tokenizer", "tokenizer.json")
@@ -346,8 +357,11 @@ def test_module_tree_and_hooks():
     assert flat(params_to_jax(model.state_dict())) == flat(jtree)
     with pytest.raises(ValueError, match="the gpt2 family is MHA"):
         GPT2Transformer(ModelConfig(**dict(TINY, num_kv_heads=2)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        GPT2Transformer(ModelConfig(**dict(TINY, num_experts=4)))
+    # gpt2 x MoE: the routed SwiGLU experts in place of fc/proj, as JAX's
+    moe = GPT2Transformer(ModelConfig(**dict(TINY, num_experts=4)))
+    assert "moe" in moe.layers[0] and "fc" not in moe.layers[0]
+    assert flat(params_to_jax(moe.state_dict())) == flat(
+        _tree(dict(TINY, num_experts=4), 1))
     with pytest.raises(ValueError, match="unknown model family"):
         build_model("bert", ModelConfig(**TINY))
 

@@ -14,6 +14,7 @@ port's.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from distributed_pytorch_from_scratch_tpu.config import (
@@ -35,6 +36,17 @@ from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
     init_adam_state)
 from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
     build_train_step)
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 VOCAB = 50257
 CFG = dict(attn_dim=64, ffn_dim=256, num_heads=2, num_layers=2,

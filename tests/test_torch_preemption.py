@@ -26,6 +26,17 @@ import torch
 
 from distributed_pytorch_from_scratch_tpu_torch import train as train_cli
 from distributed_pytorch_from_scratch_tpu_torch.training import checkpoint
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGS = ["--model", "tiny", "--num_kv_heads", "2", "--maxlen", "64",

@@ -80,6 +80,17 @@ from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
     axis_groups, coords, make_mesh)
 from distributed_pytorch_from_scratch_tpu_torch.serving import serve
 from distributed_pytorch_from_scratch_tpu_torch.training import checkpoint
+from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
+    torch_threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """Two torch threads for this module's tests: the test run's workers
+    share the host's cores, and more threads than cores spin."""
+    with torch_threads(2):
+        yield
+
 
 # ---- shapes and inputs ----
 
@@ -702,9 +713,15 @@ def _cli(tmp_path, flags):
 def test_tp_cli_refusals_and_divisibility_errors(tmp_path):
     # still refused, each naming its ROADMAP item
     for flags in (["--tp_overlap", "ring"], ["--coordinator", "h:1"],
-                  ["--pp_size", "2"], ["--ep_size", "2"]):
+                  ["--pp_size", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _cli(tmp_path, TP2 + flags)
+    # ep > 1 runs a MoE model; a dense one is refused with JAX's message
+    with pytest.raises(ValueError) as theirs:
+        JTransformer(JModelConfig(**TINY), ep_size=2)
+    with pytest.raises(ValueError) as ours:
+        _cli(tmp_path, TP2 + ["--tp_size", "1", "--ep_size", "2"])
+    assert str(ours.value) == str(theirs.value)
     with pytest.raises(SystemExit) as e:   # serving at tp>1 has no cp yet
         serve.main(["--dry_run", "--device", "cpu", "--tp_size", "2",
                     "--cp", "2"])
