@@ -341,7 +341,7 @@ result line):
     ffn 2048, top 2, capacity factor 2.0) at b 32 x t 1000, bf16, remat,
     10 steps on the bigram corpus and a 2-step `--resume`: finite, falling
     losses, K1 forward 2 x 12 and dq, dk/dv 12 launches per step and
-    nothing else; step p50, tokens/s, MFU by active parameters, peak
+    nothing else, in both runs; step p50, tokens/s, MFU by active parameters, peak
     memory, the share of dropped routings and the expert load (max over
     mean); then one step of the same cell profiled beside one MoE layer's
     forward and backward at its input shape: the MoE layers' share of
@@ -353,9 +353,14 @@ result line):
     TPOT and tokens/s beside the dense 45m figures of phases 5 and 15;
     then phase 17's profile of a decode step and a chunk dispatch at
     45m-moe8, beside phase 17's;
-54. moe_ep2_train: `train --model 45m-moe8 --ep_size 2 --dist_backend
-    gloo` (two ranks on the card, 4 experts each) at b 8 x t 1000, bf16,
-    3 steps: finite losses, the step-1 loss within 1e-2 of an ep 1
+54. moe_ep2_train: first the exchange at moe_check's tiny MoE shape, f32,
+    two gloo ranks at ep 2: on the card against the same ranks on the CPU
+    at cf 1.0 (tokens drop; logits, loss, routing and every rank's
+    gradient shard) and against one card at ep 1 at cf 2.0, where nothing
+    drops at either and the two agree to f32 rounding (both: loss and
+    logits 1e-5, gradients 1e-4 of their max); then `train --model 45m-moe8
+    --ep_size 2 --dist_backend gloo` (two ranks on the card, 4 experts
+    each) at b 8 x t 1000, bf16, 3 steps: finite losses, the step-1 loss within 1e-2 of an ep 1
     model's on the same batch from the same seed, each rank's K1 launches
     per step as at ep 1, and its ep
     hops: 6 all_to_alls per layer per step (forward, the remat replay,
@@ -2803,7 +2808,8 @@ def _rank_hops(r: dict) -> str:
         f"{s['wait_s']:.3f} s + hop {s['hop_s']:.3f} s"
         for a, s in r["collectives"].items() if s["calls"])
     hop = sum(s["hop_s"] for s in r["collectives"].values())
-    return (f"rank {r['rank']} (dp {r['dp']}, cp {r['cp']}, tp {r['tp']}): "
+    return (f"rank {r['rank']} (dp {r['dp']}, cp {r['cp']}, ep "
+            f"{r.get('ep', 0)}, tp {r['tp']}): "
             f"peak {r['peak_mem_gib']:.3f} GiB, {axes} of {r['wall_s']:.3f} "
             f"s wall (hop share {hop / r['wall_s']:.3f})")
 
@@ -5980,10 +5986,15 @@ def phase_moe_train(torch, workdir: str) -> dict:
     if not last <= first - 0.1:
         raise AssertionError(f"moe train loss did not fall: {losses}")
     _only(counts, _flash_want(layers, MOE_STEPS), "moe train (remat)")
+    _reset_launches()
     resumed = train.main(_replace_flag(args, "--max_steps",
                                        str(MOE_STEPS + 2)) + ["--resume"])
+    resumed_counts = _read_launches()
     log(f"moe_train --resume: started at step {resumed['start_step']}, ran "
-        f"to {resumed['steps']}, losses {resumed['losses']}")
+        f"to {resumed['steps']}, losses {resumed['losses']}; launches "
+        f"{resumed_counts}")
+    _only(resumed_counts, _flash_want(layers, 2), "moe train --resume "
+          "(2 steps, remat)")
     if (resumed["start_step"] != MOE_STEPS
             or resumed["steps"] != MOE_STEPS + 2
             or not all(math.isfinite(x) for x in resumed["losses"])):
@@ -6025,7 +6036,8 @@ def phase_moe_train(torch, workdir: str) -> dict:
         f"{moe_ms:.3f} ms = {moe_ms / busy:.3f} of device busy")
     del model, step, state
     torch.cuda.empty_cache()
-    return {**counts, "summary": out, "moe_share": moe_ms / busy}
+    return {**counts, "summary": out, "moe_share": moe_ms / busy,
+            "resume": resumed_counts}
 
 
 def phase_moe_serve(torch, dense_slot: dict, dense_paged: dict,
@@ -6086,9 +6098,109 @@ def phase_moe_serve(torch, dense_slot: dict, dense_paged: dict,
             "paged_by_kernel": by_kernel, "profile": prof}
 
 
+def _grad_ratio(got: dict, want: dict) -> tuple:
+    """(worst max |got - want| over max |want| of any leaf, its key)."""
+    import numpy as np
+    worst, key = 0.0, None
+    for k, w in want.items():
+        ratio = float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-30))
+        if ratio > worst:
+            worst, key = ratio, k
+    return worst, key
+
+
+def _moe_ep2_exchange(torch) -> dict:
+    """The ep 2 exchange itself at moe_check's tiny MoE shape (f32, a
+    seeded normal router): two gloo ranks on the card against the same two
+    ranks on the CPU at cf 1.0, where tokens drop (logits, loss, routing
+    and every rank's gradient shard), and against one card at ep 1 at cf
+    2.0, where nothing drops at either (C = S at ep 1 and S/2 at ep 2, as
+    each token picks an expert once), so the two must agree to f32
+    rounding: a wrong peer order, a wrong backward of the all_to_all or a
+    wrong sum of the expert gradients fails either."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        IGNORE_INDEX, MeshConfig)
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.parallel.layout import (
+        is_expert)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    drops, model = _moe_tiny(torch, seed=13)
+    tree = params_to_jax(model.state_dict())
+    ample = dataclasses.replace(drops, moe_capacity_factor=2.0)
+    rng = np.random.default_rng(13)
+    b, t = 4, 256
+    ids = rng.integers(3, drops.vocab_size, size=(b, t + 1))
+    tgt = ids[:, 1:].copy()
+    tgt[2, 150:] = IGNORE_INDEX
+    run = dict(logits=True, batch=(ids[:, :-1], tgt,
+                                   np.tile(np.arange(t), (b, 1))))
+    job = lambda cfg: ("model_runs", {"ep": 2}, dict(
+        cfg=dataclasses.asdict(cfg), tree=tree, runs=[run]))
+    # per rank: [card cf 1.0, card cf 2.0, cpu cf 1.0, cpu cf 2.0]
+    ranks = launch.spawn(tp_checks.jobs, 2, [job(drops), job(ample)],
+                         ("cuda", "cpu"), "gloo")
+    one = tp_checks.model_runs(make_mesh(MeshConfig(), device="cuda"),
+                               dataclasses.asdict(ample), tree, [run])[0]
+    half = b // 2
+    out = {"cpu_loss": 0.0, "cpu_logits": 0.0, "cpu_grad": 0.0,
+           "ep1_loss": 0.0, "ep1_logits": 0.0, "ep1_grad": 0.0}
+    worst_keys = {}
+    for r, (card_d, card_a, cpu_d, cpu_a) in enumerate(ranks):
+        card_d, card_a, cpu_d, cpu_a = (x[0] for x in (card_d, card_a,
+                                                        cpu_d, cpu_a))
+        if card_d["moe"] != cpu_d["moe"] or not cpu_d["moe"]["dropped_frac"]:
+            raise AssertionError(f"moe ep2 rank {r}: routing differs between"
+                                 f" the card and the CPU or nothing dropped:"
+                                 f" {card_d['moe']} vs {cpu_d['moe']}")
+        if card_a["moe"]["dropped_frac"] or one["moe"]["dropped_frac"]:
+            raise AssertionError(f"moe ep2 rank {r}: tokens dropped at cf "
+                                 f"2.0: {card_a['moe']}, ep 1 {one['moe']}")
+        out["cpu_loss"] = max(out["cpu_loss"], abs(
+            card_d["loss"] - cpu_d["loss"]) / abs(cpu_d["loss"]))
+        out["cpu_logits"] = max(out["cpu_logits"], float(
+            np.abs(card_d["logits"] - cpu_d["logits"]).max()
+            / np.abs(cpu_d["logits"]).max()))
+        ratio, key = _grad_ratio(card_d["grads"], cpu_d["grads"])
+        if ratio >= out["cpu_grad"]:
+            out["cpu_grad"], worst_keys["cpu"] = ratio, f"rank {r} {key}"
+        # ep 1 at cf 2.0: this rank's rows of its logits, its experts'
+        # gradients (dim 0 chunk r), every other gradient whole
+        out["ep1_loss"] = max(out["ep1_loss"], abs(
+            card_a["loss"] - one["loss"]) / abs(one["loss"]))
+        mine = one["logits"][r * half:(r + 1) * half]
+        out["ep1_logits"] = max(out["ep1_logits"], float(
+            np.abs(card_a["logits"] - mine).max() / np.abs(mine).max()))
+        want = {k: (np.split(g, 2, axis=0)[r] if is_expert(k) else g)
+                for k, g in one["grads"].items()}
+        ratio, key = _grad_ratio(card_a["grads"], want)
+        if ratio >= out["ep1_grad"]:
+            out["ep1_grad"], worst_keys["ep1"] = ratio, f"rank {r} {key}"
+    log(f"moe_ep2_train exchange: tiny x 4 experts f32 b{b} x t{t}, ep 2 "
+        f"over gloo; card vs CPU at cf 1.0 (dropped "
+        f"{ranks[0][0][0]['moe']['dropped_frac']:.4f}): loss rel "
+        f"{out['cpu_loss']:.3e} (tol 1e-5), logits {out['cpu_logits']:.3e} "
+        f"of max (tol 1e-5), worst grad {worst_keys['cpu']} "
+        f"{out['cpu_grad']:.3e} of its max (tol 1e-4); against ep 1 on the "
+        f"card at cf 2.0 (nothing dropped): loss rel {out['ep1_loss']:.3e} "
+        f"(tol 1e-5), logits {out['ep1_logits']:.3e} of max (tol 1e-5), "
+        f"worst grad {worst_keys['ep1']} {out['ep1_grad']:.3e} of its max "
+        f"(tol 1e-4)")
+    if not (max(out["cpu_loss"], out["cpu_logits"], out["ep1_loss"],
+                out["ep1_logits"]) <= 1e-5
+            and max(out["cpu_grad"], out["ep1_grad"]) <= 1e-4):
+        raise AssertionError(f"moe ep2 exchange disagrees: {out}")
+    return out
+
+
 def phase_moe_ep2_train(torch, workdir: str) -> dict:
-    """45m-moe8 at ep 2 over gloo (phase 54); returns the launches summed
-    over the ranks."""
+    """45m-moe8 at ep 2 over gloo (phase 54), after the exchange's checks
+    at the tiny shape; returns the launches summed over the ranks."""
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
     from distributed_pytorch_from_scratch_tpu_torch.config import (
@@ -6099,6 +6211,7 @@ def phase_moe_ep2_train(torch, workdir: str) -> dict:
     cfg = model_preset(MOE, compute_dtype="bfloat16")
     layers = cfg.num_layers
     steps = MOE_EP2_STEPS
+    _moe_ep2_exchange(torch)
     data = _corpus(workdir)
     base = MOE_EP2_ARGS + ["--data_path", data]
     res = train.main(base + ["--ep_size", "2", "--dist_backend", "gloo",
@@ -6273,6 +6386,7 @@ def run(torch, phases: set, workdir: str) -> list:
                              int8_served["paged"].get(k, 0),
                          "serve_replay": replayed.get(k, 0),
                          "train_moe": moe_trained[k],
+                         "train_moe_resume": moe_trained["resume"].get(k, 0),
                          "train_moe_ep2": moe_ep2.get(k, 0),
                          "serve_moe": moe_served["slot"].get(k, 0),
                          "serve_moe_paged": moe_served["paged"].get(k, 0)}

@@ -62,7 +62,7 @@ class PositionTable(nn.Module):
             self.weight.normal_(0.0, INIT_STD, generator=generator)
 
 
-def _layer(cfg: ModelConfig, mesh, ep_size: int = 1) -> nn.ModuleDict:
+def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
     d, f = cfg.attn_dim, cfg.ffn_dim
     mods = {
         "ln1": LayerNorm(d),
@@ -73,7 +73,7 @@ def _layer(cfg: ModelConfig, mesh, ep_size: int = 1) -> nn.ModuleDict:
         "ln2": LayerNorm(d),
     }
     if cfg.num_experts:
-        mods["moe"] = moe_ffn(cfg, mesh, ep_size)
+        mods["moe"] = moe_ffn(cfg, mesh)
     else:
         mods.update({"fc": ColumnParallelLinear(d, f, mesh),
                      "proj": RowParallelLinear(f, d, mesh)})
@@ -89,22 +89,20 @@ class GPT2Transformer(Transformer):
 
     def __init__(self, cfg: ModelConfig, remat=True, cp_size: int = 1,
                  cp_impl: str = "ring", cp_layout: str = "contiguous",
-                 mesh=None, sequence_parallel: bool = False,
-                 ep_size: int = None):
+                 mesh=None, sequence_parallel: bool = False):
         if cfg.kv_heads != cfg.num_heads:
             raise ValueError("grouped-query attention (num_kv_heads) is a "
                              "llama-family feature; the gpt2 family is MHA "
                              "(real GPT-2 has none — documented choice)")
         super().__init__(cfg, remat=remat, cp_size=cp_size, cp_impl=cp_impl,
                          cp_layout=cp_layout, mesh=mesh,
-                         sequence_parallel=sequence_parallel,
-                         ep_size=ep_size)
+                         sequence_parallel=sequence_parallel)
 
     def _build(self, cfg: ModelConfig, tp_mesh) -> None:
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh, init_std=INIT_STD)
         self.pos_embedding = PositionTable(cfg.maxlen, cfg.attn_dim)
-        self.layers = nn.ModuleList(_layer(cfg, tp_mesh, self.ep_size)
+        self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
                                     for _ in range(cfg.num_layers))
         self.norm = LayerNorm(cfg.attn_dim)
 

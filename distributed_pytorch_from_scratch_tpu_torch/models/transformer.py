@@ -136,12 +136,11 @@ def _remat_kwargs(remat) -> dict:
     return kw
 
 
-def moe_ffn(cfg: ModelConfig, mesh, ep_size: int) -> MoEFFN:
+def moe_ffn(cfg: ModelConfig, mesh) -> MoEFFN:
     """A layer's routed-expert FFN of `cfg`'s MoE shape (both families)."""
     return MoEFFN(cfg.attn_dim, cfg.ffn_dim, cfg.num_experts,
                   top_k=cfg.moe_top_k,
-                  capacity_factor=cfg.moe_capacity_factor, mesh=mesh,
-                  ep_size=ep_size)
+                  capacity_factor=cfg.moe_capacity_factor, mesh=mesh)
 
 
 def validate_ep(cfg: ModelConfig, ep_size: int) -> None:
@@ -153,7 +152,7 @@ def validate_ep(cfg: ModelConfig, ep_size: int) -> None:
                          "use dp for a pure data axis)")
 
 
-def _layer(cfg: ModelConfig, mesh, ep_size: int = 1) -> nn.ModuleDict:
+def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
     d, f, kd = cfg.attn_dim, cfg.ffn_dim, cfg.kv_dim
     mods = {
         "wq": ColumnParallelLinear(d, d, mesh),
@@ -164,7 +163,7 @@ def _layer(cfg: ModelConfig, mesh, ep_size: int = 1) -> nn.ModuleDict:
         "norm2": RMSNorm(d),
     }
     if cfg.num_experts:
-        mods["moe"] = moe_ffn(cfg, mesh, ep_size)
+        mods["moe"] = moe_ffn(cfg, mesh)
     else:
         mods.update({"gate_proj": ColumnParallelLinear(d, f, mesh),
                      "up_proj": ColumnParallelLinear(d, f, mesh),
@@ -194,7 +193,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, remat: bool = True,
                  cp_size: int = 1, cp_impl: str = "ring",
                  cp_layout: str = "contiguous", mesh=None,
-                 sequence_parallel: bool = False, ep_size: int = None):
+                 sequence_parallel: bool = False):
         super().__init__()
         if remat not in (True, False, "dots"):
             raise ValueError(
@@ -202,16 +201,12 @@ class Transformer(nn.Module):
         if mesh is not None:    # the device is known: refuse before weights
             resolve_dtype_on(cfg.compute_dtype, mesh.device)
         tp_size = 1 if mesh is None else mesh.tp
-        mesh_ep = 1 if mesh is None else mesh.ep
-        ep_size = mesh_ep if ep_size is None else ep_size
+        ep_size = 1 if mesh is None else mesh.ep
         validate_tp(cfg, tp_size)
         validate_cp(cfg, tp_size, cp_size, cp_impl, cp_layout)
         validate_ep(cfg, ep_size)
         if cp_size > 1 and (mesh is None or mesh.cp != cp_size):
             raise ValueError(f"cp_size {cp_size} needs the Mesh of its "
-                             f"group (runtime.mesh.make_mesh), got {mesh}")
-        if ep_size != mesh_ep:
-            raise ValueError(f"ep_size {ep_size} needs the Mesh of its "
                              f"group (runtime.mesh.make_mesh), got {mesh}")
         self.cfg = cfg
         self.ep_size = ep_size
@@ -235,7 +230,7 @@ class Transformer(nn.Module):
         None)."""
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh)
-        self.layers = nn.ModuleList(_layer(cfg, tp_mesh, self.ep_size)
+        self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
                                     for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.attn_dim)
         self.lm_head = ColumnParallelLinear(cfg.attn_dim, self.vocab_padded,

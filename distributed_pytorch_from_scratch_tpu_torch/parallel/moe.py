@@ -85,20 +85,19 @@ def capacity(tokens: int, num_experts: int, top_k: int,
     return max(4, math.ceil(capacity_factor * tokens * top_k / num_experts))
 
 
-def route(logits: torch.Tensor, top_k: int, capacity_factor: float,
-          renormalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor,
-                                              Aux]:
+def route(logits: torch.Tensor, top_k: int, capacity_factor: float
+          ) -> Tuple[torch.Tensor, torch.Tensor, Aux]:
     """(S, E) float32 router logits -> (slots (S, k) int64 flat ids into
-    the (E * C) buffer, E * C for a drop; weights (S, k) float32, 0 for a
-    drop; the aux local sums) — the JAX `_route`."""
+    the (E * C) buffer, E * C for a drop; weights (S, k) float32, the top k
+    probabilities renormalised to sum to 1, 0 for a drop; the aux local
+    sums) — the JAX `_route`."""
     S, E = logits.shape
     C = capacity(S, E, top_k, capacity_factor)
     probs = torch.softmax(logits, dim=-1)
     # stable: equal probabilities keep index order (lax.top_k's ties)
     topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :top_k], topi[:, :top_k]
-    if renormalize:
-        topv = topv / topv.sum(dim=-1, keepdim=True)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
     # (S, k, E) one-hots by comparison (F.one_hot may read the card)
     onehot = (topi[..., None] == torch.arange(E, device=topi.device)).to(
         torch.int32)
@@ -153,15 +152,13 @@ class MoEFFN(nn.Module):
     JAX leaves' layout, no transpose."""
 
     def __init__(self, d: int, f: int, num_experts: int, top_k: int = 2,
-                 capacity_factor: float = 2.0, mesh=None,
-                 ep_size: int = 1, renormalize: bool = True):
+                 capacity_factor: float = 2.0, mesh=None):
         super().__init__()
-        tp = 1 if mesh is None else mesh.tp
+        tp, ep_size = (1, 1) if mesh is None else (mesh.tp, mesh.ep)
         validate_moe(f, num_experts, top_k, ep_size, tp)
         self.d, self.f = d, f
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor = capacity_factor
-        self.renormalize = renormalize
         self.mesh, self.ep_size, self.tp_size = mesh, ep_size, tp
         e, fl = num_experts // ep_size, f // tp
         w = lambda *s: nn.Parameter(torch.empty(*s, dtype=torch.float32))
@@ -188,8 +185,7 @@ class MoEFFN(nn.Module):
         S, E, k = b * t, self.num_experts, self.top_k
         xf = x.reshape(S, d)
         logits = xf.float() @ self.router
-        slots, weights, aux = route(logits, k, self.capacity_factor,
-                                    self.renormalize)
+        slots, weights, aux = route(logits, k, self.capacity_factor)
         C = capacity(S, E, k, self.capacity_factor)
         xk = xf.to(dtype).repeat_interleave(k, dim=0)          # (S*k, d)
         buf = torch.zeros(E * C + 1, d, dtype=dtype, device=x.device)

@@ -24,16 +24,7 @@ from distributed_pytorch_from_scratch_tpu_torch.ops.attention import (
     causal_attention, causal_attention_plain)
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.flash_attention import (
     MASK, flash_attention_fwd, flash_attention_fwd_plain)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 # (b, h, hkv, t, d, t_real): MHA, GQA with padding rows, t not a multiple of 64

@@ -44,16 +44,7 @@ from distributed_pytorch_from_scratch_tpu_torch.reshard import layout
 from distributed_pytorch_from_scratch_tpu_torch.training import checkpoint
 from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
     AdamState, adam_update)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 TINY = {k: getattr(model_preset("tiny"), k)

@@ -69,16 +69,7 @@ from distributed_pytorch_from_scratch_tpu_torch.serving.kv_manager import (
     PagedKVPool, local_page_ids)
 from distributed_pytorch_from_scratch_tpu_torch.serving.speculative import (
     SpeculativeEngine)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 TINY = dict(attn_dim=128, ffn_dim=512, num_heads=4, num_layers=2,

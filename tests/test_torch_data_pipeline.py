@@ -41,16 +41,7 @@ from distributed_pytorch_from_scratch_tpu_torch.data.preprocess import (
     preprocess)
 from distributed_pytorch_from_scratch_tpu_torch.evaluate import (
     DECODE_PROMPTS)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -52,16 +52,7 @@ from distributed_pytorch_from_scratch_tpu_torch.runtime import (
 from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
 from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
     ContinuousBatchingEngine, PagedEngine, Request)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 TINY = {k: getattr(model_preset("tiny"), k)

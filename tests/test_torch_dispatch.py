@@ -63,16 +63,7 @@ from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
     adam_scalars, adam_update, init_adam_state)
 from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
     build_train_step, build_train_step_multi)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 SHAPE = dict(dataclasses.asdict(model_preset("tiny")), num_kv_heads=2,

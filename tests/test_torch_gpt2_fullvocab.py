@@ -14,7 +14,6 @@ port's.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from distributed_pytorch_from_scratch_tpu.config import (
@@ -36,16 +35,7 @@ from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
     init_adam_state)
 from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
     build_train_step)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 VOCAB = 50257

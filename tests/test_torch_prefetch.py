@@ -15,16 +15,7 @@ import pytest
 from distributed_pytorch_from_scratch_tpu.data import prefetch as jprefetch
 from distributed_pytorch_from_scratch_tpu_torch.data.prefetch import (
     Prefetcher, stack_window, window_stream)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 

@@ -36,16 +36,7 @@ from distributed_pytorch_from_scratch_tpu_torch.models import build_model
 from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
 from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
     ContinuousBatchingEngine, PagedEngine, Request)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 CFG = ModelConfig(attn_dim=64, ffn_dim=128, num_heads=2, num_layers=2,

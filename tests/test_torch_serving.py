@@ -43,16 +43,7 @@ from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
     ContinuousBatchingEngine, decode_prompts)
 from distributed_pytorch_from_scratch_tpu_torch.serving.loadgen import (
     synthetic_requests)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 SHAPE = dict(attn_dim=64, ffn_dim=128, num_heads=4, num_kv_heads=2,

@@ -64,16 +64,7 @@ from distributed_pytorch_from_scratch_tpu_torch.serving.speculative import (
     TAG_ACCEPT, TAG_DRAFT, TAG_RESAMPLE, SpeculativeEngine)
 from distributed_pytorch_from_scratch_tpu_torch.serving.tp_dispatch import (
     Dispatcher)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 CFG = dict(attn_dim=32, ffn_dim=64, num_heads=8, num_layers=2,

@@ -70,16 +70,7 @@ from distributed_pytorch_from_scratch_tpu_torch.training.optim import (
     adam_update, init_adam_state)
 from distributed_pytorch_from_scratch_tpu_torch.training.train_step import (
     build_grad_accum_step, build_train_step)
-from distributed_pytorch_from_scratch_tpu_torch.runtime.launch import (
-    torch_threads)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _torch_threads():
-    """Two torch threads for this module's tests: the test run's workers
-    share the host's cores, and more threads than cores spin."""
-    with torch_threads(2):
-        yield
+from _torch_threads import two_torch_threads  # noqa: F401
 
 
 # the tiny preset with grouped-query attention (2 kv heads), so the
