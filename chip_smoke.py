@@ -120,7 +120,8 @@ result line):
     launches and device time, beside the plain versions, a library
     yardstick (memory-efficient SDPA with a position bias) and the bound;
 20. cp_train: `train.main` at cp=2 (two ranks sharing the card over gloo),
-    the 45m preset, bf16, b 8 x t 1000 with remat: zig-zag 4 steps, a
+    the 45m widths at 6 of its 12 layers (`CP_LAYERS`), bf16, b 8 x t
+    1000 with remat: zig-zag 4 steps, a
     checkpoint and a 2-step `--resume`; contiguous 2 steps; Ulysses 2
     steps — finite losses, falling under zig-zag, the step-1 loss of each
     and of a cp=1 run on the same batch within 1e-2, and each rank's kernel
@@ -138,13 +139,14 @@ result line):
     kernels, the block kernels' share (no SIMT block kernel may run), and
     the time in the ring's hops;
 24. tp_train: `train.main` at tp=2 (two ranks sharing the card over gloo),
-    the 45m preset, bf16, b 8 x t 1000 with remat: 4 steps, one
+    the 45m widths at 6 layers (`CP_LAYERS`), bf16, b 8 x t 1000 with
+    remat: 4 steps, one
     checkpoint file per tp rank and a 2-step `--resume`, then that
     checkpoint resumed at tp=1 for a step; tp=2 with
     `--sequence_parallel` 2 steps; tp 2 x dp 2 (four ranks) 2 steps —
     finite losses, falling at tp=2, the step-1 loss of each and of a tp=1
-    run on the same batch within 1e-2, each rank's flash launches 2 x 12
-    (forward) and 12 (dq, dk/dv) per step and no other attention kernel;
+    run on the same batch within 1e-2, each rank's flash launches 2 x 6
+    (forward) and 6 (dq, dk/dv) per step and no other attention kernel;
 25. tp_tiny: `train --model tiny --tp_size 2 --cp_size 2 --cp_impl
     ring`, four ranks, 2 steps at f32 and with --bf16: head_dim
     32 with 2 local heads on both routes of the block kernels, launches
@@ -186,13 +188,13 @@ result line):
     a replayed decode step's logits and tokens bitwise the eager step's
     on the live rows (bf16 and f32, both engines); per engine (bf16, 8 and
     16 live) the decode step's wall, device busy and idle share both ways;
-32. train_remat: the train cell (45m bf16, b 32 x t 1000) 10 steps at
+32. train_remat: the train cell (45m bf16, b 32 x t 1000) 6 steps at
     `--remat true`, `dots`, `false` and `auto` (its pick printed): losses
     equal true's within 1e-6 relative, K1's forward 12 launches per step
     under dots and false (24 under true), dq and dk/dv 12; step p50,
     tokens/s, MFU and peak memory;
-33. train_spd: the train cell 10 steps at `--steps_per_dispatch 4`
-    (dispatches of 4, 4 and 2) against 1: identical losses, final
+33. train_spd: the train cell 6 steps at `--steps_per_dispatch 4`
+    (dispatches of 4 and 2) against 1: identical losses, final
     parameters and moments (max abs diff 0) and launches; the Adam update
     from device scalars bitwise the host-float one on the card; a profiled
     dispatch of 4 steps against 4 eager steps (wall, busy, idle share);
@@ -250,12 +252,12 @@ result line):
     from one seeded row of 50257 logits at top-k 50, top-p 0.95 against
     the filtered softmax by a chi-square at p = 1e-3; the first 500 draws
     identical on the CPU.
-42. train_async_preempt: the train cell 20 steps with a checkpoint every
-    5 and every 10 steps written in the background (a device snapshot,
+42. train_async_preempt: the train cell 12 steps with a checkpoint every
+    4 and every 8 steps written in the background (a device snapshot,
     then a writer thread) and with none: identical losses, the loop's
     host time per save, the prefetch thread's wait, step p50 of each,
     beside one synchronous save of the same state timed alone; the idle
-    share of a 10-step loop profiled on the device, with saves every 5
+    share of a 6-step loop profiled on the device, with saves every 4
     and without, from step 3 on; then `python -m ...train` in a process of its own
     gets SIGTERM after its step-3 line: exit 0, the shutdown line, a
     checkpoint at the step it reached, and a 2-step `--resume` from it;
@@ -367,6 +369,25 @@ result line):
     backward) and one all-reduce of the experts' squares, then the
     checkpoint's expert gathers; step p50 and the hops' calls, bytes and
     host ms per step printed.
+55. zero_train: `train --dp_size 2 --dist_backend gloo` (two ranks on the
+    card) at the 45m preset, b 8 x t 1000, bf16, remat, 4 steps each at
+    `--zero 0, 1, 2, 3`, `--zero 1 --dp_reduce_bucket_mb 25` and `--zero 2
+    --dp_reduce_dtype bf16 | int8`: finite losses, every run's step-1 loss
+    within 1e-3 relative of stage 0's, each rank's K1 launches exactly 2 x
+    12 forward and 12 + 12 backward per step and nothing else, each rank's
+    held bytes of params, grads and moments those
+    `memory.zero_state_bytes_per_param` counts (leaf by leaf), lower stage
+    by stage; peak memory, step p50, the dp and batch hops per step with
+    their calls, bytes and ring bytes printed beside the card's name and
+    power limit; the stage-2 checkpoint resumed at stage 0 for one step
+    (K1's launches checked there too);
+    then at the tiny widths, f32, in the kept group of four ranks on the
+    card and then on the CPU: dp 2 x tp 2 with SP at stage 3 (loss within
+    1e-5, every reduced gradient within 1e-4 of its leaf's max) and at
+    stage 2 with the int8 wire (loss within 1e-5, gradients within the
+    wire's 2^-4 of their max: a code can flip where card and CPU round
+    the same value on either side of a half step), and the int8 ring over
+    dp 4 on the same inputs bitwise on both.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -2145,15 +2166,28 @@ def _paged_profile(torch, preset: str) -> dict:
         if eng.prefill_dispatches - before != 1:
             raise AssertionError("a pump did not dispatch exactly one chunk")
 
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
     kernels = {**PAGED_KERNELS, "chunk_f32": PAGED_SIMT_KERNEL}
 
     def profiled(fn, what):
-        """(busy ms, kernels, paged ms, paged launches, {route: launches})
-        over every route's kernel, matched by name"""
+        """(busy ms, kernels, paged ms, paged events, {route: events}, the
+        wrapper's launches by C entry point in the profiled run): the
+        events over every route's kernel, matched by name; the launches
+        from the wrapper's counters (a profile of ~1400 kernels has
+        recorded one event fewer than the kernels launched)"""
+        launched = []
+
+        def counted():
+            before = dict(paged_attention.launches_by_kernel)
+            fn()
+            launched.append({k: v - before[k] for k, v in
+                             paged_attention.launches_by_kernel.items()})
+
         busy = paged = 0.0
         n = n_paged = 0
         by_route = {route: 0 for route in kernels}
-        for name, us in _profiled(torch, fn, f"paged profile, {what}"):
+        for name, us in _profiled(torch, counted, f"paged profile, {what}"):
             busy += us
             n += 1
             for route, kernel in kernels.items():
@@ -2161,7 +2195,7 @@ def _paged_profile(torch, preset: str) -> dict:
                     paged += us
                     n_paged += 1
                     by_route[route] += 1
-        return busy / 1e3, n, paged / 1e3, n_paged, by_route
+        return busy / 1e3, n, paged / 1e3, n_paged, by_route, launched[-1]
 
     decode_ms = timed(eng.step)
     d = profiled(eng.step, "decode step")
@@ -2172,22 +2206,28 @@ def _paged_profile(torch, preset: str) -> dict:
         eng._admit([])
     chunk_ms = timed(pump)
     c = profiled(pump, "chunk dispatch")
-    for what, wall, (busy, n, paged, n_paged, by_route) in (
+    for what, wall, (busy, n, paged, n_paged, by_route, launched) in (
             ("decode step, 16 live", decode_ms, d),
             ("chunk dispatch, 128 positions", chunk_ms, c)):
         log(f"paged profile ({preset} bf16, ps 64): {what}: wall {wall:.3f} "
             f"ms, "
             f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
             f"{n} kernels; paged kernel {paged:.3f} ms over {n_paged} "
-            f"launches ({paged / busy:.3f} of busy), by route {by_route}")
+            f"recorded events ({paged / busy:.3f} of busy), by route "
+            f"{by_route}; launched {launched}")
     layers = cfg.num_layers
-    if d[4] != {"decode": layers, "chunk": 0, "chunk_f32": 0}:
-        raise AssertionError(f"a decode step ran paged kernels {d[4]}, "
-                             f"expected the decode kernel {layers} times "
-                             f"and no chunk kernel")
-    if c[4]["decode"] != 0 or c[4]["chunk"] == 0 or c[4]["chunk_f32"] != 0:
-        raise AssertionError(f"a chunk dispatch ran paged kernels {c[4]}, "
-                             f"expected the wgmma chunk kernel and no other")
+    if (d[5] != {"paged_decode": layers, "paged_chunk_sm90": 0,
+                 "paged_attn": 0} or d[4]["chunk"] or d[4]["chunk_f32"]
+            or not d[4]["decode"]):
+        raise AssertionError(f"a decode step launched paged kernels {d[5]} "
+                             f"(recorded {d[4]}), expected the decode "
+                             f"kernel {layers} times and no chunk kernel")
+    if (c[5]["paged_decode"] or c[5]["paged_attn"]
+            or not c[5]["paged_chunk_sm90"] or c[4]["decode"]
+            or c[4]["chunk_f32"] or not c[4]["chunk"]):
+        raise AssertionError(f"a chunk dispatch launched paged kernels "
+                             f"{c[5]} (recorded {c[4]}), expected the wgmma "
+                             f"chunk kernel and no other")
     return {"decode_wall_ms": decode_ms, "decode": d, "chunk_wall_ms":
             chunk_ms, "chunk": c}
 
@@ -2514,7 +2554,11 @@ CP_ARGS = ["--model", "45m", "--bf16", "--batch_size", str(CP_B), "--maxlen",
            "5", "--save_interval", "1000", "--device", "cuda"]
 CP2 = ["--cp_size", "2", "--dist_backend", "gloo"]
 # zigzag and tp2 run 4 steps (10 once, then 6) to keep the whole script
-# near its budget; in 4 the loss still falls by about 3 nats on the corpus
+# near its budget; in 4 the loss still falls by about 3 nats on the corpus.
+# cp_train and tp_train run the 45m widths at 6 of its 12 layers (all 12
+# until the ZeRO phase needed the room: a run's fixed cost, its model
+# init and final checkpoint, and its hops all scale with depth)
+CP_LAYERS = 6
 CP_RUNS = {  # name: (flags, steps)
     "zigzag": (["--cp_layout", "zigzag"], 4),
     "contiguous": (["--cp_layout", "contiguous"], 2),
@@ -2548,10 +2592,9 @@ def phase_cp_train(torch, workdir: str) -> dict:
     run's summary."""
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
-    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
     data = _corpus(workdir)
-    layers = model_preset("45m").num_layers
-    base = CP_ARGS + ["--data_path", data]
+    layers = CP_LAYERS
+    base = CP_ARGS + ["--num_layers", str(layers), "--data_path", data]
     cp1 = train.main(base + ["--max_steps", "1", "--save_dir",
                              os.path.join(workdir, "cp1")])
     first = {"cp1": cp1["losses"][0]}
@@ -2572,7 +2615,7 @@ def phase_cp_train(torch, workdir: str) -> dict:
         per_step = [{k: v // steps for k, v in w.items()} for w in want]
         ranks = "; ".join(_rank_hops(r) for r in res["ranks"])
         log(f"cp_train {name}: {res['steps']} steps of b{CP_B} x t{CP_T} "
-            f"bf16, cp {res['cp']} ({res['cp_impl']}, {res['cp_layout']}) over "
+            f"bf16 at {layers} layers, cp {res['cp']} ({res['cp_impl']}, {res['cp_layout']}) over "
             f"{res['dist_backend']} on {res['cards']} card(s): losses "
             f"{[round(x, 4) for x in losses]}; step p50 "
             f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_sec']:.1f} "
@@ -2823,10 +2866,9 @@ def phase_tp_train(torch, workdir: str) -> dict:
     import glob
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
-    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
     data = _corpus(workdir)
-    layers = model_preset("45m").num_layers
-    base = CP_ARGS + ["--data_path", data]
+    layers = CP_LAYERS
+    base = CP_ARGS + ["--num_layers", str(layers), "--data_path", data]
     first = {"tp1": train.main(base + ["--max_steps", "1", "--save_dir",
                                        os.path.join(workdir, "tp1")])[
         "losses"][0]}
@@ -2844,7 +2886,7 @@ def phase_tp_train(torch, workdir: str) -> dict:
             for k, v in rank["launches"].items():
                 summed[k] = summed.get(k, 0) + v
         log(f"tp_train {name}: {res['steps']} steps of b{CP_B} x t{CP_T} "
-            f"bf16, dp {res['dp']} x cp {res['cp']} x tp {res['tp']} "
+            f"bf16 at {layers} layers, dp {res['dp']} x cp {res['cp']} x tp {res['tp']} "
             f"(sequence_parallel={res['sequence_parallel']}) over "
             f"{res['dist_backend']} on {res['cards']} card(s): losses "
             f"{[round(x, 4) for x in losses]}; step p50 "
@@ -3420,8 +3462,9 @@ def phase_tp_serve_profile(torch) -> dict:
 
 # ---- slice 12: one dispatch per step (CUDA graphs), the remat policies ----
 
-REMAT_STEPS = 10       # train_remat and train_spd: 10 steps of the train cell
-SPD = 4                # train_spd: dispatches of 4, 4 and 2 steps
+REMAT_STEPS = 6        # train_remat and train_spd: 6 steps of the train cell
+                       # (10 until the ZeRO phase needed the room)
+SPD = 4                # train_spd: dispatches of 4 and 2 steps
 
 
 def _replace_flag(args: list, flag: str, value: str) -> list:
@@ -3485,7 +3528,7 @@ def phase_train_remat(torch, workdir: str) -> dict:
 
 def phase_train_spd(torch, workdir: str) -> dict:
     """--steps_per_dispatch 4 on the train cell for REMAT_STEPS steps
-    (dispatches of 4, 4 and 2) against 1: identical losses, identical final
+    (dispatches of 4 and 2) against 1: identical losses, identical final
     parameters and moments (max abs diff 0), identical kernel launches; the
     Adam update from device scalars bitwise the host-scalar one on the
     card; then a profiled dispatch of 4 steps beside 4 eager steps."""
@@ -4393,10 +4436,11 @@ def phase_sampler_check(torch) -> dict:
 # one write at 45m) and none; a profiled loop of ASYNC_PROFILE_STEPS with
 # saves and without; then a process of its own that gets SIGTERM after its
 # PREEMPT_AFTER-th step line, and a --resume
-ASYNC_STEPS = 20
-ASYNC_EVERY = 5
-ASYNC_SPARSE = 10
-ASYNC_PROFILE_STEPS = 10
+# (20, 5, 10 and 10 until the ZeRO phase needed the room)
+ASYNC_STEPS = 12
+ASYNC_EVERY = 4
+ASYNC_SPARSE = 8
+ASYNC_PROFILE_STEPS = 6
 PREEMPT_AFTER = 3
 # serve_replay: a seeded poisson trace of the slot cell's requests
 REPLAY_REQUESTS = 16
@@ -6264,6 +6308,187 @@ def phase_moe_ep2_train(torch, workdir: str) -> dict:
     return summed
 
 
+ZERO_STEPS = 4
+ZERO_ARGS = CP_ARGS + ["--dp_size", "2", "--dist_backend", "gloo",
+                       "--max_steps", str(ZERO_STEPS)]
+ZERO_RUNS = {  # name: flags
+    "zero0": ["--zero", "0"], "zero1": ["--zero", "1"],
+    "zero2": ["--zero", "2"], "zero3": ["--zero", "3"],
+    "zero1_bucket25": ["--zero", "1", "--dp_reduce_bucket_mb", "25"],
+    "zero2_bf16": ["--zero", "2", "--dp_reduce_dtype", "bf16"],
+    "zero2_int8": ["--zero", "2", "--dp_reduce_dtype", "int8"],
+}
+ZERO_STATE = ("params", "grads", "moments")
+
+
+def _smi() -> str:
+    """nvidia-smi's name and power limit of card 0."""
+    return subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def _zero_rank_line(r: dict) -> str:
+    """One rank's held bytes, peak and dp/batch hops per step."""
+    held = r["state_bytes"]
+    hops = "; ".join(
+        f"{a} {h['calls']:g} calls, {h['bytes'] / 1e6:.1f} MB, ring "
+        f"{h['ring_bytes'] / 1e6:.1f} MB" for a, h in
+        r["hops_per_step"].items() if a in ("dp", "batch"))
+    return (f"rank {r['rank']}: held params {held['params'] / 1e9:.4f} GB, "
+            f"grads {held['grads'] / 1e9:.4f} GB, moments "
+            f"{held['moments'] / 1e9:.4f} GB (sum "
+            f"{sum(held.values()) / 1e9:.4f}, by the count "
+            f"{r['expected_state_bytes'] / 1e9:.4f}); peak of the steps "
+            f"{r['peak_mem_steps_gib']:.3f} GiB (with the final save "
+            f"{r['peak_mem_gib']:.3f}); per step {hops}")
+
+
+def _zero_card_vs_cpu(torch) -> None:
+    """Tiny widths, f32, dp 2 x tp 2 with SP in the kept group of four: the
+    stage-3 and the int8-wired stage-2 gradients on the card against the
+    CPU, and the int8 ring over dp 4 on the same inputs."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        IGNORE_INDEX, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    cfg = model_preset("tiny", maxlen=128, compute_dtype="float32")
+    tree = params_to_jax(Transformer(cfg).init_weights(seed=9).state_dict())
+    rng = np.random.default_rng(9)
+    b, t = 4, 128
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t + 1))
+    tgt = ids[:, 1:].copy()
+    tgt[1, 90:] = IGNORE_INDEX
+    batch = (ids[:, :-1], tgt, np.tile(np.arange(t), (b, 1)))
+    runs = [dict(stage=3, sp=True, batch=batch, grads=True),
+            dict(stage=2, wire="int8", bucket_mb=0.25, sp=True, batch=batch,
+                 grads=True)]
+    x = rng.standard_normal((4, 5000)).astype(np.float32)
+    blocks = rng.standard_normal((4, 4, 2048)).astype(np.float32)
+    todo = [("zero_runs", {"dp": 2, "tp": 2},
+             dict(cfg=dataclasses.asdict(cfg), tree=tree, runs=runs)),
+            ("int8_ring", {"dp": 4}, dict(x=x, blocks=blocks))]
+    res = launch.spawn(tp_checks.jobs, 4, todo, ("cuda", "cpu"), "gloo")
+    for i, (what, bound) in enumerate((("stage 3", 1e-4),
+                                       ("stage 2, int8 wire", 2.0 ** -4))):
+        rel, worst, worst_key, off = 0.0, 0.0, None, 0
+        for r, (card_z, _, cpu_z, _) in enumerate(res):
+            card, cpu = card_z[i], cpu_z[i]
+            rel = max(rel, abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]))
+            for k, g in cpu["grads"].items():
+                top = max(float(np.abs(g).max()), 1e-30)
+                diff = np.abs(card["grads"][k] - g)
+                off += int((diff > 1e-4 * top).sum())
+                if diff.max() / top > worst:
+                    worst, worst_key = float(diff.max() / top), f"rank {r} {k}"
+        log(f"zero card vs cpu, {what}: tiny widths, f32, dp 2 x tp 2 with "
+            f"SP, b{b} x t{t}: loss rel diff {rel:.3e} (tol 1e-5); worst "
+            f"reduced gradient {worst_key}: {worst:.3e} of its max (tol "
+            f"{bound:g}); {off} elements beyond 1e-4 of their leaf's max")
+        if not (rel <= 1e-5 and worst <= bound):
+            raise AssertionError(f"zero {what}: the card and the CPU "
+                                 f"disagree")
+    for r, (_, card, _, cpu) in enumerate(res):
+        for k in ("allreduce", "reduce_scatter"):
+            if card[k].tobytes() != cpu[k].tobytes():
+                raise AssertionError(f"int8 ring {k} on rank {r}: the card "
+                                     f"and the CPU differ")
+    log("zero card vs cpu: the int8 ring over dp 4 (all-reduce of 5000 "
+        "and reduce-scatter of 4 x 2048 values) bitwise the same on the "
+        "card and the CPU, every rank")
+
+
+def phase_zero_train(torch, workdir: str) -> dict:
+    """ZeRO 0-3 and the dp wires at 45m dp 2 (phase 55); returns each run's
+    K1 launches summed over its ranks."""
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    layers = model_preset("45m").num_layers
+    base = ZERO_ARGS + ["--data_path", _corpus(workdir)]
+    card = _smi()
+    out, held, first = {}, {}, None
+    for name, flags in ZERO_RUNS.items():
+        save = os.path.join(workdir, f"zero_{name}")
+        t0 = time.perf_counter()
+        res = train.main(base + flags + ["--save_dir", save])
+        wall = time.perf_counter() - t0
+        losses = res["losses"]
+        if len(losses) != ZERO_STEPS or not all(math.isfinite(x)
+                                                for x in losses):
+            raise AssertionError(f"zero {name}: losses not finite or not "
+                                 f"{ZERO_STEPS}: {losses}")
+        first = losses[0] if first is None else first
+        if not abs(losses[0] - first) <= 1e-3 * abs(first):
+            raise AssertionError(f"zero {name}: step-1 loss {losses[0]} vs "
+                                 f"stage 0's {first}")
+        summed = {}
+        for r in res["ranks"]:
+            _only(r["launches"], _flash_want(layers, ZERO_STEPS),
+                  f"zero {name} rank {r['rank']} ({ZERO_STEPS} steps)")
+            for k, v in r["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+            got = sum(r["state_bytes"].values())
+            want = r["expected_state_bytes"]
+            if got != want:
+                raise AssertionError(f"zero {name} rank {r['rank']}: holds "
+                                     f"{r['state_bytes']}, the count is "
+                                     f"{want}")
+        held[name] = res["ranks"][0]["state_bytes"]
+        out[name] = summed
+        log(f"zero_train {name} ({card}): {ZERO_STEPS} steps of 45m b{CP_B} x "
+            f"t{CP_T} bf16 at dp {res['dp']} over {res['dist_backend']} on "
+            f"{res['cards']} card(s), stage {res['zero_stage']}, wire "
+            f"{res['dp_reduce_dtype']}, {res['buckets']} bucket(s) of <= "
+            f"{res['dp_reduce_bucket_mb']:g} MiB, {wall:.1f} s of run, "
+            f"{sum(r['wall_s'] for r in res['ranks'][:1]):.1f} of steps: "
+            f"losses {[round(x, 4) for x in losses]}; step p50 "
+            f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_sec']:.1f} "
+            f"tok/s; " + "; ".join(_zero_rank_line(r) for r in res["ranks"])
+            + f"; K1 per rank per step fwd {2 * layers}, dq {layers}, dk/dv "
+            f"{layers} (checked)")
+    total = {k: sum(v.values()) for k, v in held.items()}
+    if not total["zero0"] > total["zero1"] > total["zero2"] > total["zero3"]:
+        raise AssertionError(f"zero: held bytes do not fall stage by stage: "
+                             f"{total}")
+    if total["zero0"] - total["zero1"] != (held["zero0"]["moments"]
+                                          - held["zero1"]["moments"]):
+        raise AssertionError("zero 1 saved more than moments")
+    log(f"zero_train: rank 0's held bytes by stage {total}: stage 1 saves "
+        f"{(total['zero0'] - total['zero1']) / 1e9:.4f} GB (of moments "
+        f"{held['zero0']['moments'] / 1e9:.4f}), stage 2 "
+        f"{(total['zero1'] - total['zero2']) / 1e9:.4f} more, stage 3 "
+        f"{(total['zero2'] - total['zero3']) / 1e9:.4f} more")
+    save = os.path.join(workdir, "zero_zero2")
+    resumed = train.main(_replace_flag(base, "--max_steps",
+                                       str(ZERO_STEPS + 1))
+                         + ["--zero", "0", "--resume", "--save_dir", save])
+    summed = {}
+    for r in resumed["ranks"]:
+        _only(r["launches"], _flash_want(layers, 1),
+              f"zero2 resumed at stage 0, rank {r['rank']} (1 step)")
+        for k, v in r["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    out["zero2_resumed_zero0"] = summed
+    log(f"zero_train: the stage-2 checkpoint resumed at stage 0 from step "
+        f"{resumed['start_step']}: losses {resumed['losses']}; K1 launches "
+        f"summed over the ranks {summed} (checked per rank)")
+    if (resumed["start_step"] != ZERO_STEPS
+            or resumed["steps"] != ZERO_STEPS + 1
+            or not all(math.isfinite(x) for x in resumed["losses"])):
+        raise AssertionError("the stage-2 checkpoint did not resume at "
+                             "stage 0")
+    _zero_card_vs_cpu(torch)
+    return out
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -6276,7 +6501,7 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "sampler_check", "train_async_preempt", "serve_int8_weights",
           "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
           "cp_serve", "fleet_check", "fleet_serve", "moe_check",
-          "moe_train", "moe_serve", "moe_ep2_train")
+          "moe_train", "moe_serve", "moe_ep2_train", "zero_train")
 
 
 def main() -> None:
@@ -6313,7 +6538,7 @@ def run(torch, phases: set, workdir: str) -> list:
     with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
                 "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
                 "gpt2_train", "train_async_preempt", "serve_replay",
-                "moe_train", "moe_ep2_train")
+                "moe_train", "moe_ep2_train", "zero_train")
     res = {}
     from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
     with launch.kept_groups():
@@ -6336,7 +6561,7 @@ def run(torch, phases: set, workdir: str) -> list:
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
      replayed, spec_err, spec_served, cp_err, cp_served, fleet_served,
-     moe_trained, moe_served, moe_ep2) = (
+     moe_trained, moe_served, moe_ep2, zero_runs) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -6346,7 +6571,7 @@ def run(torch, phases: set, workdir: str) -> list:
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
              "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
              "cp_serve", "fleet_serve", "moe_train", "moe_serve",
-             "moe_ep2_train"))
+             "moe_ep2_train", "zero_train"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -6389,7 +6614,9 @@ def run(torch, phases: set, workdir: str) -> list:
                          "train_moe_resume": moe_trained["resume"].get(k, 0),
                          "train_moe_ep2": moe_ep2.get(k, 0),
                          "serve_moe": moe_served["slot"].get(k, 0),
-                         "serve_moe_paged": moe_served["paged"].get(k, 0)}
+                         "serve_moe_paged": moe_served["paged"].get(k, 0),
+                         **{f"train_dp2_{name}": run.get(k, 0)
+                            for name, run in zero_runs.items()}}
     at_path, at_gpt2 = bwd_times["errs"], gpt2_times["errs"]
     # K3's launches on the gpt2 paged runs, by C entry point
     gpt2_paged = lambda kernel: {

@@ -42,7 +42,14 @@ The model runs on one rank of a `runtime.mesh.Mesh`:
   two `all_to_all`s over ep;
 * the loss sums its numerator and count over the batch group (dp x cp x
   ep) before it divides; the train step sums the gradients over it (the
-  experts' over dp x cp).
+  experts' over dp x cp);
+* under ZeRO-3 (`training/zero.py`) the dp-sharded parameters rest as
+  this rank's shards: the forward gathers the non-layer ones once (the
+  JAX `build_zero3_grad_fn`'s use-site gathers) and each layer's inside
+  the function `torch.utils.checkpoint` wraps, from the shards passed in
+  as its inputs (the JAX `_layer_body` hook), so remat replays the gather
+  instead of saving the whole weights; the gathers' backward
+  reduce-scatters the gradients over dp.
 
 A MoE model's loss adds the router's auxiliary losses, `moe_aux_coef *
 load_balance + moe_z_coef * z`, from the layers' aux sums summed over the
@@ -52,6 +59,8 @@ Not ported: pipeline and tp overlap.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -189,6 +198,9 @@ class Transformer(nn.Module):
     uses_rope = True
     attn_norm_key = "norm1"
     ffn_norm_key = "norm2"
+    # ZeRO-3 (`training/zero.ZeroPlan.install`): the plan whose dp shards
+    # the sharded parameters are; the forward gathers them
+    zero3 = None
 
     def __init__(self, cfg: ModelConfig, remat: bool = True,
                  cp_size: int = 1, cp_impl: str = "ring",
@@ -308,29 +320,41 @@ class Transformer(nn.Module):
             raise ValueError(
                 f"sequence_parallel needs the (cp-local) sequence length "
                 f"{input_ids.shape[-1]} divisible by tp_size {self.tp_size}")
-        dtype = resolve_dtype_on(self.cfg.compute_dtype, input_ids.device)
-        x = _embed(self, input_ids, position_ids, dtype)
-        cos, sin = _positions(*decode_tables(self, self.cfg.maxlen, x.device),
-                              position_ids)
-        attend = self._attend(position_ids)
+        z3 = self.zero3
+        with z3.bind_top(self) if z3 else contextlib.nullcontext():
+            dtype = resolve_dtype_on(self.cfg.compute_dtype,
+                                     input_ids.device)
+            x = _embed(self, input_ids, position_ids, dtype)
+            cos, sin = _positions(*decode_tables(self, self.cfg.maxlen,
+                                                 x.device), position_ids)
+            attend = self._attend(position_ids)
 
-        def layer(x, lp):
-            x, _, _, aux = _block(self, lp, x, cos, sin, dtype, attend)
-            return x if aux is None else (x, aux)
+            def layer(x, i, lp, *shards):
+                # ZeRO-3: the layer's weights are gathered HERE, inside
+                # the checkpointed function, from its resting shards: the
+                # gathered weights are not saved, the backward's replay
+                # gathers them again
+                with (z3.bind_layer(i, lp, shards) if z3
+                      else contextlib.nullcontext()):
+                    x, _, _, aux = _block(self, lp, x, cos, sin, dtype,
+                                          attend)
+                return x if aux is None else (x, aux)
 
-        aux = (aux_zeros(self.cfg.num_experts, x.device) if self.is_moe
-               else None)
-        for lp in self.layers:
-            if self.remat and torch.is_grad_enabled():
-                out = checkpoint(layer, x, lp, **_remat_kwargs(self.remat))
-            else:
-                out = layer(x, lp)
-            if self.is_moe:
-                x, layer_aux = out
-                aux = add_aux(aux, layer_aux)
-            else:
-                x = out
-        return _logits_tokens(self, x, dtype), aux
+            aux = (aux_zeros(self.cfg.num_experts, x.device) if self.is_moe
+                   else None)
+            for i, lp in enumerate(self.layers):
+                shards = z3.layer_shards(i, lp) if z3 else ()
+                if self.remat and torch.is_grad_enabled():
+                    out = checkpoint(layer, x, i, lp, *shards,
+                                     **_remat_kwargs(self.remat))
+                else:
+                    out = layer(x, i, lp, *shards)
+                if self.is_moe:
+                    x, layer_aux = out
+                    aux = add_aux(aux, layer_aux)
+                else:
+                    x = out
+            return _logits_tokens(self, x, dtype), aux
 
     @torch.no_grad()
     def full_logits(self, input_ids: torch.Tensor,

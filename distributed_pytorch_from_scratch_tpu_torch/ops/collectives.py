@@ -48,7 +48,12 @@ counts per axis what the staging costs on the host: `wait_s`, the wait for
 the device work queued before a staged call (the copy to the host must see
 it finished), and `hop_s`, the copies and the transfer themselves (a
 host tensor's transfer alone; NCCL's enqueue is not timed); `calls` and
-`bytes` count every call.
+`bytes` count every call, `bytes` the payload handed to it, and
+`ring_bytes` what one rank sends for it under a ring schedule (n ranks, B
+the payload: all-reduce 2(n-1)/n B, reduce-scatter and all-to-all
+(n-1)/n B, all-gather (n-1) B of its shard, a permute or a broadcast B),
+the measure of a wire that does not depend on how the transport moves
+it.
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ DISPATCH = "dispatch"
 
 
 def _zero() -> Dict[str, float]:
-    return {"calls": 0, "bytes": 0, "wait_s": 0.0, "hop_s": 0.0}
+    return {"calls": 0, "bytes": 0, "ring_bytes": 0.0, "wait_s": 0.0,
+            "hop_s": 0.0}
 
 
 stats: Dict[str, Dict[str, float]] = {a: _zero()
@@ -88,13 +94,16 @@ def total_stats() -> Dict[str, float]:
 
 
 def _collective(mesh, axis: str, x: torch.Tensor, run,
-                stat: str = None) -> torch.Tensor:
+                stat: str = None, ring: float = 1.0) -> torch.Tensor:
     """`run(x_on_the_wire) -> result on the wire` over `axis`, with x staged
     through the host under gloo and the result copied back to x's device;
-    counted under `stat` (default: the axis)."""
+    counted under `stat` (default: the axis), `ring` times x's bytes as
+    its ring bytes."""
     st = stats[stat or axis]
     st["calls"] += 1
-    st["bytes"] += x.numel() * x.element_size()
+    nbytes = x.numel() * x.element_size()
+    st["bytes"] += nbytes
+    st["ring_bytes"] += ring * nbytes
     if x.is_cuda and mesh.backend != "gloo":
         return run(x.contiguous())      # NCCL: enqueued, not timed here
     t0 = time.perf_counter()
@@ -114,14 +123,15 @@ def _all_reduce(x: torch.Tensor, mesh, axis: str, op=dist.ReduceOp.SUM,
                 owned: bool = False) -> torch.Tensor:
     """The reduction of x over `axis`: in a new tensor, or written into x
     where the caller `owned` it and it was not staged."""
-    group = mesh.axis(axis).group
+    ax = mesh.axis(axis)
 
     def run(buf):
         buf = buf if owned or buf.data_ptr() != x.data_ptr() else buf.clone()
-        dist.all_reduce(buf, op=op, group=group)
+        dist.all_reduce(buf, op=op, group=ax.group)
         return buf
 
-    return _collective(mesh, axis, x, run)
+    return _collective(mesh, axis, x, run,
+                       ring=2 * (ax.size - 1) / ax.size)
 
 
 def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -134,7 +144,8 @@ def _gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
         dist.all_gather_into_tensor(recv, send, group=ax.group)
         return recv
 
-    return _collective(mesh, axis, moved, run).movedim(0, dim)
+    return _collective(mesh, axis, moved, run,
+                       ring=ax.size - 1).movedim(0, dim)
 
 
 def _scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -150,7 +161,8 @@ def _scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
         dist.reduce_scatter_tensor(recv, send, group=ax.group)
         return recv
 
-    return _collective(mesh, axis, moved, run).movedim(0, dim)
+    return _collective(mesh, axis, moved, run,
+                       ring=(ax.size - 1) / ax.size).movedim(0, dim)
 
 
 def _slice(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
@@ -268,8 +280,11 @@ def all_max(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
     return _all_reduce(x.detach(), mesh, axis, op=dist.ReduceOp.MAX)
 
 
-def _permute(x: torch.Tensor, mesh, shift: int) -> torch.Tensor:
-    ax = mesh.axis("cp")
+def _permute(x: torch.Tensor, mesh, shift: int,
+             axis: str = "cp") -> torch.Tensor:
+    """x sent to the rank `shift` places on along `axis`, what the rank
+    `shift` places back sent returned (no autograd)."""
+    ax = mesh.axis(axis)
     n, r = ax.size, ax.rank
 
     def run(send):
@@ -282,7 +297,7 @@ def _permute(x: torch.Tensor, mesh, shift: int) -> torch.Tensor:
             req.wait()
         return recv
 
-    return _collective(mesh, "cp", x, run)
+    return _collective(mesh, axis, x, run)
 
 
 class _RingPermute(torch.autograd.Function):
@@ -318,7 +333,8 @@ def _a2a(x: torch.Tensor, mesh, axis: str, split_axis: int,
         dist.all_to_all_single(recv, send, group=ax.group)
         return recv
 
-    return torch.cat(_collective(mesh, axis, parts, run).unbind(0),
+    return torch.cat(_collective(mesh, axis, parts, run,
+                                 ring=(ax.size - 1) / ax.size).unbind(0),
                      dim=concat_axis)
 
 
@@ -393,7 +409,7 @@ def all_gather(x: torch.Tensor, mesh, axis: str = "cp") -> torch.Tensor:
         dist.all_gather(recv, send, group=ax.group)
         return torch.stack(recv)
 
-    return _collective(mesh, axis, x, run)
+    return _collective(mesh, axis, x, run, ring=ax.size - 1)
 
 
 @torch.no_grad()

@@ -1,6 +1,8 @@
 """Symmetric int8 quantization: the port's copy of the JAX `ops/quant.py`
 row rule (`QMAX`, `_safe_scale`, `quantize_rows`, `dequantize_rows`), used
-by the int8 KV pages, and of its decode-weight rule (`quantize_weight`,
+by the int8 KV pages, of its wire rule (`WIRE_GROUP`, `quantize_groups`,
+`dequantize_groups`), used by the int8 dp gradient wire
+(`ops/overlap.py`), and of its decode-weight rule (`quantize_weight`,
 `dequantize_weight`, `quantize_decode_params`,
 `dequantize_decode_params`), used by the engines' int8 decode weights.
 
@@ -37,8 +39,11 @@ QMAX = 127.0
 
 
 def _safe_scale(amax: torch.Tensor) -> torch.Tensor:
-    """amax -> f32 scale; all-zero rows take 1.0 (q = 0 exactly)."""
-    return torch.where(amax > 0, amax / QMAX,
+    """amax -> f32 scale; all-zero rows take 1.0 (q = 0 exactly). The
+    divisor is a tensor: on a card PyTorch divides by a Python float as a
+    product with its reciprocal, which can differ from the quotient in the
+    last bit, and the codes would then differ from the CPU's and JAX's."""
+    return torch.where(amax > 0, amax / torch.full_like(amax, QMAX),
                        torch.ones_like(amax)).to(torch.float32)
 
 
@@ -55,6 +60,30 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
                     dtype: torch.dtype) -> torch.Tensor:
     """Inverse of `quantize_rows`."""
     return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+# elements per scale on the int8 dp gradient wire: one outlier spoils at
+# most 512 elements, and the f32 scales add 4/512 < 1% to the codes
+WIRE_GROUP = 512
+
+
+def quantize_groups(x: torch.Tensor, group: int = WIRE_GROUP
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat 1-D x -> (codes int8 (n,), scales f32 (ceil(n / group),)): one
+    scale per `group` consecutive elements, the last group zero-padded
+    (the caller keeps n)."""
+    n = x.shape[0]
+    xp = torch.nn.functional.pad(x.to(torch.float32), (0, (-n) % group))
+    q, scale = quantize_rows(xp.reshape(-1, group))
+    return q.reshape(-1)[:n], scale
+
+
+def dequantize_groups(q: torch.Tensor, scale: torch.Tensor, n: int,
+                      group: int = WIRE_GROUP,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of `quantize_groups` (n: the original length)."""
+    qp = torch.nn.functional.pad(q, (0, (-q.shape[0]) % group))
+    return dequantize_rows(qp.reshape(-1, group), scale, dtype).reshape(-1)[:n]
 
 
 # ------------------------------------------------- decode-weight quant --

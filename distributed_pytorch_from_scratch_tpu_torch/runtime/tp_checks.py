@@ -3,7 +3,8 @@ reference, run through `runtime.launch.spawn` — by the tests (against the
 JAX package, on the CPU) and by chip_smoke.py (the card's kernels against
 the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
 training (`collective_pairs`, `layer_cases`, `model_runs`,
-`seed_identity`, `checkpoint_steps`), serving at tp > 1 and on cp-sharded pages at cp or cp
+`seed_identity`, `checkpoint_steps`; the ZeRO stages' `zero_runs` and
+`int8_ring` live in `runtime/zero_checks.py`), serving at tp > 1 and on cp-sharded pages at cp or cp
 x tp (`serve_runs`, `decode_logits`, `quantized_params`, `combine`) and
 the evaluation loss on any mesh (`doc_losses`).
 
@@ -479,11 +480,13 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
     this rank of an nprocs group: each job on the mesh its axes name (their
     product is nprocs), on each of `devices` in turn, one group for all.
     Returns the jobs' results, device by device, each in `todo`'s order."""
+    from .zero_checks import int8_ring, zero_runs
     fns = {"collective_pairs": collective_pairs, "layer_cases": layer_cases,
            "model_runs": model_runs, "seed_identity": seed_identity,
            "serve_runs": serve_runs, "decode_logits": decode_logits,
            "doc_losses": doc_losses, "quantized_params": quantized_params,
-           "combine": combine, "checkpoint_steps": checkpoint_steps}
+           "combine": combine, "checkpoint_steps": checkpoint_steps,
+           "zero_runs": zero_runs, "int8_ring": int8_ring}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

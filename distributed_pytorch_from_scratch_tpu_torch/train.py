@@ -78,8 +78,19 @@ path the llama family runs: any dp x cp x tp, SP, remat and
 `--steps_per_dispatch`; its MFU counts N from the real parameters
 (`training/metrics.model_flops_per_step(..., params)`).
 
+`--zero N` (`--zero1`: stage 1) shards the weight-update state over the
+dp axis (`training/zero.py`): 1 the Adam moments, 2 the grads too (a
+bucketed reduce-scatter, then one all-gather of the fresh params), 3 the
+params too (gathered per layer in the forward and its remat replay).
+`--dp_reduce_bucket_mb M` sends the dp gradient sum in buckets of <= M
+MiB, `--dp_reduce_dtype bf16|int8` compresses their wire (int8: the
+block-scaled ring); the JAX CLI's refusals of these flags come first, in
+its words (`refuse_zero`). The first rank prints the stage, the wire and
+the buckets once; the summary holds each rank's held bytes and its hops
+per step.
+
 A flag that takes the run off the ported slices (pp > 1, tp overlap,
-ZeRO, the bucketed dp reducer, `--seq_bucket`, the observability/control
+`--seq_bucket`, the observability/control
 and multi-host flags) raises NotImplementedError at any non-default value,
 naming its ROADMAP item; for a MoE model they stay refused with the rest
 (the JAX CLI refuses each of them with MoE too).
@@ -119,6 +130,8 @@ from .training.metrics import (MetricsWriter, device_peak_flops,
 from .training.optim import AdamState, init_adam_state, schedule_lr
 from .training.train_step import (build_grad_accum_step, build_train_step,
                                   build_train_step_multi)
+from .training.zero import (build_plan, expected_state_bytes,
+                             resolve_zero_stage)
 
 # CLI flag-string -> Transformer.remat value ('auto' resolves to a key)
 REMAT_CHOICES = {"true": True, "dots": "dots", "false": False}
@@ -128,9 +141,7 @@ _LATER = "ROADMAP Queue 1 item 7 (d): pipeline, perf layers"
 _OBS = "ROADMAP Queue 1 item 5: the obs hooks of train.py"
 # (flag dest, default, the ROADMAP item that brings it)
 OFF_SLICE = [
-    ("zero", None, _LATER),
-    ("zero1", False, _LATER), ("dp_reduce_bucket_mb", 0.0, _LATER),
-    ("dp_reduce_dtype", "f32", _LATER), ("tp_overlap", "off", _LATER),
+    ("tp_overlap", "off", _LATER),
     ("pp_size", 1, _LATER), ("pp_microbatches", 0, _LATER),
     ("pp_remat_steps", False, _LATER), ("pp_schedule", "gpipe", _LATER),
     ("pp_virtual", 2, _LATER),
@@ -164,11 +175,28 @@ def get_train_args(argv=None) -> argparse.Namespace:
     g.add_argument("--sequence_parallel", action="store_true")
     g.add_argument("--tp_overlap", choices=["off", "ring", "ring_q"],
                    default="off")
-    g.add_argument("--zero", type=int, choices=[0, 1, 2, 3], default=None)
-    g.add_argument("--zero1", action="store_true")
-    g.add_argument("--dp_reduce_bucket_mb", type=float, default=0.0)
+    g.add_argument("--zero", type=int, choices=[0, 1, 2, 3], default=None,
+                   help="ZeRO stage over the dp axis (training/zero.py): 1 "
+                        "shards the Adam moments, 2 also reduce-scatters "
+                        "the grads in buckets (25 MiB unless "
+                        "--dp_reduce_bucket_mb) and all-gathers the fresh "
+                        "params, 3 also shards the params, gathered per "
+                        "layer in the forward and its replay. Stages 2/3: "
+                        "dense models and --sequence_parallel whenever tp "
+                        "> 1; stage 3 needs remat and an f32 wire")
+    g.add_argument("--zero1", action="store_true",
+                   help="alias for --zero 1")
+    g.add_argument("--dp_reduce_bucket_mb", type=float, default=0.0,
+                   help="bucketed dp gradient reduction: one collective per "
+                        "<= N-MiB bucket instead of one flat buffer; 0 = "
+                        "off. Dense models")
     g.add_argument("--dp_reduce_dtype", choices=["f32", "bf16", "int8"],
-                   default="f32")
+                   default="f32",
+                   help="wire dtype of the bucketed dp reduction: bf16 "
+                        "halves the bytes, int8 quarters them through the "
+                        "block-scaled int8 ring (f32 accumulate either "
+                        "way). Needs --dp_reduce_bucket_mb > 0, or --zero "
+                        "2")
     g.add_argument("--ep_size", type=int, default=1,
                    help="expert-parallel axis size (MoE: experts shard over "
                         "'ep'; requires --num_experts; 'ep' also shards the "
@@ -286,10 +314,67 @@ def get_train_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def refuse_zero(args: argparse.Namespace) -> None:
+    """The JAX CLI's refusals of the ZeRO and dp-reducer flags, in its
+    order and its words (SystemExit)."""
+    zero_stage = resolve_zero_stage(args.zero, args.zero1)
+    num_experts = _model_config(args, ModelConfig().vocab_size).num_experts
+    if zero_stage == 3 and args.dp_reduce_dtype != "f32":
+        raise SystemExit(
+            f"--dp_reduce_dtype {args.dp_reduce_dtype} with --zero 3: "
+            f"the ZeRO-3 grad reduce-scatter rides the parameter "
+            f"all-gather's transpose (an f32 ppermute ring), so the "
+            f"compressed wire would silently not apply — use it with "
+            f"--zero 2, whose bucketed reduce-scatter carries the "
+            f"{args.dp_reduce_dtype} payload")
+    if (args.dp_reduce_dtype != "f32" and not args.dp_reduce_bucket_mb
+            and zero_stage != 2):
+        raise SystemExit(f"--dp_reduce_dtype {args.dp_reduce_dtype} "
+                         f"needs --dp_reduce_bucket_mb > 0 (the "
+                         f"compressed wire is a property of the "
+                         f"bucketed reducer; --zero 2 implies it)")
+    if args.dp_reduce_bucket_mb and args.pp_size > 1:
+        raise SystemExit("--dp_reduce_bucket_mb needs --pp_size 1 "
+                         "(pp-replicated leaves' reduction axes depend "
+                         "on the pipeline head layout)")
+    if args.dp_reduce_bucket_mb and num_experts:
+        raise SystemExit("--dp_reduce_bucket_mb does not compose with "
+                         "MoE (expert grads are ep-sharded, not "
+                         "batch-replicated)")
+    if zero_stage >= 2:
+        if num_experts:
+            raise SystemExit(
+                f"--zero {zero_stage} does not compose with MoE: expert "
+                f"grads are ep-sharded, not batch-replicated — use "
+                f"--zero 1 (moment sharding only) for MoE runs")
+        if args.pp_size > 1:
+            raise SystemExit(
+                f"--zero {zero_stage} needs --pp_size 1: non-layer "
+                f"params are pp-replicated and their reduction axes "
+                f"depend on the pipeline head layout — use --zero 1 "
+                f"under pp")
+        if args.tp_size > 1 and not args.sequence_parallel:
+            raise SystemExit(
+                f"--zero {zero_stage} with --tp_size {args.tp_size} "
+                f"needs --sequence_parallel: the non-SP path "
+                f"all-reduces inside every row-parallel layer, so "
+                f"per-shard cotangent bookkeeping is depth-dependent "
+                f"(turn SP on, or drop to --zero 1)")
+    # 'auto' never resolves to 'false' at stage 3 (`select_remat`)
+    if zero_stage == 3 and args.remat == "false":
+        raise SystemExit(
+            "--zero 3 needs rematerialisation (--remat dots/true/"
+            "auto): without remat, autodiff saves every layer's "
+            "GATHERED weights as backward residuals, recreating the "
+            "full param replica the stage exists to eliminate")
+
+
 def refuse_off_slice(args: argparse.Namespace) -> None:
-    """NotImplementedError for any flag at a value this slice cannot run;
+    """The JAX CLI's ZeRO refusals first (`refuse_zero`), then
+    NotImplementedError for any flag at a value this slice cannot run;
     SystemExit for --grad_accum with several steps per dispatch (the JAX
     CLI's refusal)."""
+    refuse_zero(args)
     for dest, default, item in OFF_SLICE:
         val = getattr(args, dest)
         if val != default:
@@ -454,15 +539,22 @@ def train(args: argparse.Namespace) -> dict:
     tp, sequence_parallel, cp_impl, cp_layout), moe (a MoE model's last
     step's routing: `Transformer.moe_summary`; None for a dense one),
     dist_backend, cards, remat (the
-    policy run, `auto` resolved), steps_per_dispatch, shutdown (whether a
+    policy run, `auto` resolved), steps_per_dispatch, zero_stage,
+    dp_reduce_dtype, dp_reduce_bucket_mb and buckets (the dp reducer's
+    buckets per step; 0 for the flat buffer), shutdown (whether a
     signal stopped the run), save_stall_ms (the loop's host time per save:
     the loss sync, the join of the write before and the snapshot),
     prefetch_wait_ms (the ms the loop waited for each window from the
     prefetch thread),
     and `ranks`: per rank
-    its coordinates, kernel launches, peak memory and time in the
+    its coordinates, kernel launches, peak memory (and `peak_mem_steps_gib`,
+    the steps' before the last save; None on the CPU) and time in the
     collectives per axis (`collectives`, the whole run's;
-    `collectives_steps`, before the last save's).
+    `collectives_steps`, before the last save's; `hops_per_step`, those
+    over the steps run, per axis: calls, bytes and ring bytes),
+    `state_bytes` (the params, the grads Adam took and the moments as the
+    rank holds them after its last step) and `expected_state_bytes` (their
+    sum by `memory.zero_state_bytes_per_param`, leaf by leaf).
 
     With more than one rank the ranks run in processes of their own; the
     summary is global rank 0's (the loss is global, so every rank's
@@ -522,12 +614,16 @@ def _train(args: argparse.Namespace, rank: int = 0,
                                 data_mode=args.data_mode)
     vocab_size = dataloader.dataset.vocab_size
     cfg = _model_config(args, vocab_size)
+    zero_stage = resolve_zero_stage(args.zero, args.zero1)
     remat = args.remat
     if remat == "auto":      # the JAX train.py's resolution
         remat = select_remat(cfg, args.batch_size, maxlen, tp=tp,
-                             world=world, dp=mesh.dp,
+                             world=world, zero_stage=zero_stage, dp=mesh.dp,
                              budget_gib=hbm_budget_gib(device=device),
                              verbose=mesh.rank == 0)
+    if zero_stage == 2 and not args.dp_reduce_bucket_mb:
+        say("zero 2: grads reduce-scatter in 25 MiB buckets "
+            "(--dp_reduce_bucket_mb to tune)")
     model = build_model(args.family, cfg, remat=REMAT_CHOICES[remat],
                         cp_size=cp, cp_impl=args.cp_impl,
                         cp_layout=args.cp_layout,
@@ -557,7 +653,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
         f"{cfg.compute_dtype}, remat={remat}"
         + (" (auto)" if args.remat == "auto" else "") + ", device="
         f"{_device_name(device)}{dist_desc}")
-    opt_state = init_adam_state(params)
+    ck_opt = None
     start_step = 0
     if args.resume:
         last = latest_step(args.save_dir)
@@ -570,17 +666,42 @@ def _train(args: argparse.Namespace, rank: int = 0,
             except ValueError as e:
                 raise SystemExit(f"train: {e}")
             _load_into(model, state_dict, args.save_dir)
-            if ck_opt is not None:
-                to_dev = lambda t: {k: v.to(device) for k, v in t.items()}
-                opt_state = AdamState(step=ck_opt.step, mu=to_dev(ck_opt.mu),
-                                      nu=to_dev(ck_opt.nu))
             say(f"resumed from iter {start_step} in {args.save_dir}")
+    # ZeRO: the plan of the whole model (None: stage 0's flat reducer); at
+    # stage 3 the parameters then rest as this rank's dp shards
+    shapes = {k: tuple(p.shape) for k, p in params.items()}
+    try:
+        plan = build_plan(model, zero_stage, args.dp_reduce_bucket_mb,
+                          args.dp_reduce_dtype)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}")
+    n_buckets = 0 if plan is None else plan.buckets(shapes)
+    if plan is not None:
+        plan.install(model)
+        params = dict(model.named_parameters())
+        say(f"zero: stage {zero_stage} over dp {mesh.dp}, wire "
+            f"{args.dp_reduce_dtype}, "
+            + (f"{n_buckets} bucket(s) of <= {plan.bucket_mb:g} MiB"
+               if plan.bucket_mb else "one flat buffer")
+            + (", each layer gathered in its forward and its replay"
+               if zero_stage == 3 else "")
+            + f"; {sum(plan.sharded(k) for k in shapes)} of {len(shapes)} "
+            f"leaves dp-sharded")
+    if ck_opt is not None:
+        to_dev = lambda t: {k: v.to(device) for k, v in t.items()}
+        opt_state = AdamState(step=ck_opt.step, mu=to_dev(ck_opt.mu),
+                              nu=to_dev(ck_opt.nu))
+        if plan is not None:
+            opt_state = plan.shard_state(opt_state)
+    else:
+        opt_state = (init_adam_state(params) if plan is None
+                     else plan.init_state(params))
 
     accum = max(1, args.grad_accum)
     spd = max(1, args.steps_per_dispatch)
     build = (build_grad_accum_step if accum > 1 else
              build_train_step_multi if spd > 1 else build_train_step)
-    step_fn = build(model, ocfg, args.loss_mode)
+    step_fn = build(model, ocfg, args.loss_mode, plan)
     # gpt2's N from its real parameters (the llama formula overcounts its
     # two-matmul MLP and counts a head it ties), as the JAX trainer
     flops_step = model_flops_per_step(
@@ -672,10 +793,15 @@ def _train(args: argparse.Namespace, rank: int = 0,
         join_save()
         params_sd = gather_experts(model.state_dict(), mesh)
         opt_sd = opt_state
+        if plan is not None:
+            # whole leaves in the files: every dp rank gathers its shards
+            # here, on the loop's thread, before the writer thread starts
+            params_sd = plan.full_params(params_sd)
+            opt_sd = plan.full_state(opt_sd)
         if mesh.ep > 1:
-            opt_sd = AdamState(step=opt_state.step,
-                               mu=gather_experts(opt_state.mu, mesh),
-                               nu=gather_experts(opt_state.nu, mesh))
+            opt_sd = AdamState(step=opt_sd.step,
+                               mu=gather_experts(opt_sd.mu, mesh),
+                               nu=gather_experts(opt_sd.nu, mesh))
         if is_writer:
             pending = save_checkpoint(
                 args.save_dir, step, avg, params_sd, opt_sd,
@@ -683,7 +809,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
                 tp_rank=mesh.tp_rank, mesh_axes=(
                     ("dp", mesh.dp), ("cp", cp), ("ep", mesh.ep),
                     ("tp", tp)),
-                async_write=True)
+                async_write=True, zero_stage=zero_stage)
         last_saved = step
         save_stall_ms.append((time.perf_counter() - t0) * 1e3)
 
@@ -780,8 +906,10 @@ def _train(args: argparse.Namespace, rank: int = 0,
                     break
             prefetcher.close()
             say(f"epoch {epoch + 1}/{max_epoch} finished")
-        # the hops of the steps alone, before the last save's
+        # the hops and the peak of the steps alone, before the last save's
         loop_hops = {a: dict(v) for a, v in collectives.stats.items()}
+        steps_peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                      if device.type == "cuda" else None)
         if n > last_saved:
             # a signal during the last dispatch ends the loop on max_steps
             # without passing the poll: it still reports the shutdown
@@ -839,16 +967,28 @@ def _train(args: argparse.Namespace, rank: int = 0,
         "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
         "dist_backend": mesh.backend, "cards": cards,
         "remat": remat, "steps_per_dispatch": spd,
+        "zero_stage": zero_stage, "dp_reduce_dtype": args.dp_reduce_dtype,
+        "dp_reduce_bucket_mb": 0.0 if plan is None else plan.bucket_mb,
+        "buckets": n_buckets,
         "shutdown": stopped, "save_stall_ms": save_stall_ms,
         "prefetch_wait_ms": prefetch_wait_ms,
         "ranks": [{"rank": mesh.rank, **mesh.coords, "device": str(device),
-                   "peak_mem_gib": peak_mem, "step_ms_p50": step_ms_p50,
+                   "peak_mem_gib": peak_mem,
+                   "peak_mem_steps_gib": steps_peak,
+                   "step_ms_p50": step_ms_p50,
                    "wall_s": sum(step_ms) / 1e3,
                    "launches": {k: v - launches0[k]
                                 for k, v in launches.items()},
                    "collectives": {a: dict(v) for a, v in
                                    collectives.stats.items()},
-                   "collectives_steps": loop_hops}],
+                   "collectives_steps": loop_hops,
+                   "hops_per_step": {
+                       a: {k: v[k] / max(n - start_step, 1)
+                           for k in ("calls", "bytes", "ring_bytes")}
+                       for a, v in loop_hops.items() if v["calls"]},
+                   "state_bytes": dict(getattr(step_fn, "held_bytes", {})),
+                   "expected_state_bytes": expected_state_bytes(shapes,
+                                                                plan)}],
     }
 
 

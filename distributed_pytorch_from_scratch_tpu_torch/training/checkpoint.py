@@ -15,7 +15,11 @@ tp loads at another (the vocab leaves are padded to a multiple of the
 writing tp: they must divide by the reading tp too); the trainer and the
 serving CLI both load this way. Parameters are replicated over dp and cp,
 so the ranks at dp = cp = 0 write, one file per tp rank, and every rank
-reads.
+reads. Under ZeRO the moments (and at stage 3 the params) are dp-sharded
+on the ranks, but the files hold them whole, as JAX's do: every dp rank
+gathers before a save, and a load is cut to this rank's dp shard by the
+trainer (`training/zero.py`), so a checkpoint written at any stage
+resumes at any other.
 
 A MoE model's experts are sharded over ep as well, but the files keep
 JAX's tp-only format: each `tprank-*` file holds all E experts, sliced on
@@ -289,20 +293,27 @@ def save_checkpoint(save_dir: str, step: int, avg_loss: float,
                     opt_state: Optional[AdamState] = None,
                     reserve_last_n: int = -1, tp_size: int = 1,
                     tp_rank: int = 0, mesh_axes=None,
-                    async_write: bool = False):
+                    async_write: bool = False, zero_stage: int = 0):
     """Write tp rank tp_rank's npz of iteration `step` from this rank's
     shard of the params and moments; returns the paths written, or with
     `async_write` an `AsyncSaveHandle` whose `join()` returns them. Every
     leaf of the shard is that rank's slice of the JAX leaf
     (`interop.params_to_jax`), the JAX `_shard_slice`. `mesh_axes` ((axis,
     size) pairs; default the tp-only mesh the file names imply) goes into
-    the `__layout__` stamp, the same string on every rank. The file is
-    published with an atomic rename, so a kill mid-write never leaves a
-    truncated file under a checkpoint name."""
+    the `__layout__` stamp, the same string on every rank, with
+    `zero_stage`, which `__zero_stage__` records too (JAX's metadata: the
+    files hold whole leaves at every stage, so a reader ignores it). The
+    file is published with an atomic rename, so a kill mid-write never
+    leaves a truncated file under a checkpoint name.
+
+    Under ZeRO the caller passes the whole tensors: every dp rank gathers
+    its shards first (`zero.ZeroPlan.full_params` / `full_state`, a
+    collective), on the main thread, before the writer thread starts."""
     os.makedirs(save_dir, exist_ok=True)
     layout = make_layout(
         mesh_axes if mesh_axes is not None else (("tp", tp_size),),
-        canonical_specs({k: v.shape for k, v in state_dict.items()}))
+        canonical_specs({k: v.shape for k, v in state_dict.items()}),
+        zero_stage=zero_stage)
 
     def write(params, opt, event=None) -> List[str]:
         shard = _flatten(params_to_jax(_to_host(params, event)), "param")
@@ -314,7 +325,7 @@ def save_checkpoint(save_dir: str, step: int, avg_loss: float,
         shard["__step__"] = np.asarray(step, np.int64)
         shard["__tp_size__"] = np.asarray(tp_size, np.int64)
         shard["__has_opt__"] = np.asarray(opt is not None)
-        shard["__zero_stage__"] = np.asarray(0, np.int64)
+        shard["__zero_stage__"] = np.asarray(zero_stage, np.int64)
         stamp(shard, layout)
         path = os.path.join(
             save_dir, f"tprank-{tp_rank}_iter-{step}_loss-{avg_loss:.4f}.npz")

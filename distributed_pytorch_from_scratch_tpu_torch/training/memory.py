@@ -38,8 +38,8 @@ _LAYER_UNITS = {
 def zero_state_bytes_per_param(zero_stage: int, dp: int,
                                cfg=None) -> float:
     """f32 bytes of RESIDENT train-state per parameter per dp rank under
-    the ZeRO ladder (params + grads + 2 Adam moments; the JAX package's
-    training/zero.py, not ported yet: the port runs stage 0):
+    the ZeRO ladder (params + grads + 2 Adam moments; training/zero.py, the
+    JAX package's ladder):
 
         stage 0:  4 + 4 + 8            = 16
         stage 1:  4 + 4 + 8/dp         (moments dp-sharded)
@@ -50,7 +50,8 @@ def zero_state_bytes_per_param(zero_stage: int, dp: int,
     leaves that live through the step) needs `cfg` for the layer split;
     it is charged as 4 bytes x (per-layer params + embed/head params) on
     top of the 16/dp resident floor. tests/test_torch_dispatch.py holds
-    this copy to the JAX one.
+    this copy to the JAX one; `zero.expected_state_bytes` counts a
+    rank's resident bytes with it, leaf by leaf (without `cfg`).
     """
     dp = max(dp, 1)
     if zero_stage <= 0 or dp == 1:

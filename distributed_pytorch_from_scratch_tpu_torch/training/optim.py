@@ -112,7 +112,7 @@ def schedule_lr(cfg: OptimizerConfig, step: int) -> Tuple[np.float32,
     return onecycle_lr(cfg, step)
 
 
-def global_norm(grads: Tensors, mesh=None) -> torch.Tensor:
+def global_norm(grads: Tensors, mesh=None, dp_sharded=()) -> torch.Tensor:
     """Global L2 norm over every gradient, reduced in float32 — shared by
     the clipper and the train step's logged grad norm. A device tensor: no
     host sync.
@@ -121,7 +121,9 @@ def global_norm(grads: Tensors, mesh=None) -> torch.Tensor:
     ep rank's experts and a whole copy of the replicated ones: the squares
     of the experts are summed over the ep group, those of every tp-sharded
     leaf (the experts' included) over the tp group, and the replicated
-    ones are counted once."""
+    ones are counted once. Under ZeRO 2 and 3 the leaves `dp_sharded`
+    names are this rank's dp shards: their squares are summed over dp too
+    (no MoE there)."""
     def sq(keys):
         out = torch.zeros((), dtype=torch.float32,
                           device=next(iter(grads.values())).device)
@@ -129,6 +131,17 @@ def global_norm(grads: Tensors, mesh=None) -> torch.Tensor:
             out = out + torch.sum(torch.square(grads[k].float()))
         return out
 
+    if mesh is not None and mesh.dp > 1 and dp_sharded:
+        on_dp = set(dp_sharded)
+        by = lambda tp_sh, dp_sh: [k for k in grads
+                                   if (tp_dim(k) is not None) == tp_sh
+                                   and (k in on_dp) == dp_sh]
+        over_dp = all_reduce_sum(torch.stack([sq(by(True, True)),
+                                              sq(by(False, True))]),
+                                 mesh, "dp")
+        tp_sum = all_reduce_sum(over_dp[0] + sq(by(True, False)), mesh,
+                                "tp")
+        return torch.sqrt(tp_sum + over_dp[1] + sq(by(False, False)))
     if mesh is None or (mesh.tp == 1 and mesh.ep == 1):
         return torch.sqrt(sq(grads))
     experts = [k for k in grads if is_expert(k)]
