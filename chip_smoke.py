@@ -183,7 +183,8 @@ result line):
 31. graph_check: both engines at the phase-5 and phase-15 traffic (its
     deadlines x 1000, so the schedule does not follow the clock) with
     the decode step graphed (`--decode_graph auto`) and eager (`off`), at
-    bf16 and (the first 8 requests) f32: identical tokens, the graph run
+    bf16 (the paged mix's first 16 requests) and (the first 8 requests)
+    f32: identical tokens, the graph run
     on every decode step;
     a replayed decode step's logits and tokens bitwise the eager step's
     on the live rows (bf16 and f32, both engines); per engine (bf16, 8 and
@@ -200,9 +201,9 @@ result line):
     dispatch of 4 steps against 4 eager steps (wall, busy, idle share);
 34. eval: the source repo's workflow after training — 20 steps of the
     train cell on a seeded bigram corpus with 32 validation documents of
-    200-999 tokens (checkpoints at 10 and 20), then `python -m
-    ...evaluate --batch_size 8` with the shipped tokenizer as a CLI in its
-    own process: bf16 with the slot engine's KV decoder (its decode step
+    200-999 tokens (checkpoints at 10 and 20), then `evaluate.main
+    --batch_size 8` with the shipped tokenizer in this process: bf16 with
+    the slot engine's KV decoder (its decode step
     graphed), f32 with it and f32 with `--no_kv_cache` — every val loss
     finite, the newest bf16 one within EVAL_LOSS_TOL of a
     one-document-at-a-time mean of `Transformer.loss`, the tokenizer
@@ -227,12 +228,12 @@ result line):
 38. gpt2_train: `train --family gpt2 --model gpt2-124m` (d 768, 12 heads,
     ffn 3072, 12 layers, maxlen 1024) at b 8 x t 1024, bf16, remat, on a
     seeded bigram corpus at vocab 50257 (the tied head at GPT-2's width;
-    the rule over ids < 1024), 60 steps at lr 6e-4 and a 2-step
-    `--resume`: finite losses, the last 5's mean 1 nat below the first 5's
-    and 0.5 nat below the unigram floor ln 1021 (the bigram learned
-    through the blocks), K1 forward 2 x 12 x 60 and dq, dk/dv 12 x 60
-    launches, nothing else; step p50, tokens/s, MFU (N from the real
-    parameters) and peak memory; the 60 steps again at
+    the rule over ids < 1024), 60 steps at lr 6e-4: finite losses, the
+    last 5's mean 1 nat below the first 5's and 0.5 nat below the unigram
+    floor ln 1021 (the bigram learned through the blocks), K1 forward 2 x
+    12 x 60 and dq, dk/dv 12 x 60 launches, nothing else; step p50,
+    tokens/s, MFU (N from the real parameters) and peak memory; then an
+    8-step `--resume` from step 60, and the same resume at
     `--steps_per_dispatch 4`: bitwise the same losses and launches;
 39. gpt2_serve: `serve --family gpt2 --random_init --vocab_size 50257`
     at that width, bf16, the decode step graphed: the slot engine on
@@ -253,19 +254,19 @@ result line):
     the filtered softmax by a chi-square at p = 1e-3; the first 500 draws
     identical on the CPU.
 42. train_async_preempt: the train cell 12 steps with a checkpoint every
-    4 and every 8 steps written in the background (a device snapshot,
-    then a writer thread) and with none: identical losses, the loop's
-    host time per save, the prefetch thread's wait, step p50 of each,
-    beside one synchronous save of the same state timed alone; the idle
-    share of a 6-step loop profiled on the device, with saves every 4
-    and without, from step 3 on; then `python -m ...train` in a process of its own
+    4 steps written in the background (a device snapshot, then a writer
+    thread) and with none: identical losses, the loop's host time per
+    save, the prefetch thread's wait, step p50 of each, beside one
+    synchronous save of the same state timed alone; the idle share of a
+    6-step loop with saves every 4, profiled on the device, from step 3
+    on; then `python -m ...train` in a process of its own
     gets SIGTERM after its step-3 line: exit 0, the shutdown line, a
     checkpoint at the step it reached, and a 2-step `--resume` from it;
     K1's launches per the schedule in every run of this process;
 43. serve_int8_weights: phase 5's and 15's traffic with
-    `--decode_weight_dtype int8`, the decode step graphed, in turns with
-    native weights (native, int8, int8, native: TPOT, TTFT and tokens/s
-    of each), then once more, checked: weight bytes about a quarter,
+    `--decode_weight_dtype int8`, the decode step graphed, each after a
+    run with native weights (TPOT, TTFT and tokens/s of both), checked:
+    weight bytes about a quarter,
     in-vocab tokens, K1 12 per prefill dispatch, K3 12 per decode step
     and chunk on its routes; then the 45m widths at 2 layers,
     f32: both engines' greedy and sampled int8 tokens on the card those of
@@ -282,13 +283,13 @@ result line):
     verify calls bit-equal; then the verify shape q (16, 8, 5, 64): kernel,
     plain, SDPA over the gathered view, bound;
 46. spec_serve: `serve --paged --speculate 4` at 45m bf16 on phase 15's
-    mix with the tiny drafter, greedy and sampled (the sampled one beside
-    the plain paged engine): every request served in-vocab, both pools
+    mix with the tiny drafter, greedy and sampled: every request served
+    in-vocab, both pools
     drained, K3's launches exactly the rounds' and chunks' per route
     (counted through the draft and verify graphs' replays); at f32 the
     speculative greedy tokens of an 8-request burst the plain engine's;
-    drafter = target accepting >= 0.95 of its drafts at f32 (bf16
-    reported); one captured round bitwise the eager round;
+    drafter = target accepting >= 0.95 of its drafts at f32; one
+    captured round bitwise the eager round;
 47. cp_serve_check: K3 at the cp engine's shapes against its plain version
     under phase 13's limits — cp rank 1's local slab of a 45m buffer
     (pos_offset 512, return_lse): decode over 8 slots, the chunk at cw
@@ -322,8 +323,8 @@ result line):
     phase 15's mix (32 burst requests, 64/512-token prompts behind the
     96-token shared prefix, two tenants, three classes, page 64, chunk
     128): `--replicas 2` with 8 slots on 40 pages each, then `--disagg`
-    with 8 + 8 slots on 40 + 40 pages, native and int8 pages — every
-    request served in-vocab, every pool drained, each tenant on one
+    with 8 + 8 slots on 40 + 40 pages, native pages and (16 requests) int8
+    pages — every request served in-vocab, every pool drained, each tenant on one
     replica, the router's predicted hits at least the first admissions'
     actual hits (both printed with the resumes' hits), the pages and bytes
     transferred those of the handoffs' prompts, K3 exactly 12 per decode
@@ -371,7 +372,7 @@ result line):
     host ms per step printed.
 55. zero_train: `train --dp_size 2 --dist_backend gloo` (two ranks on the
     card) at the 45m preset, b 8 x t 1000, bf16, remat, 4 steps each at
-    `--zero 0, 1, 2, 3`, `--zero 1 --dp_reduce_bucket_mb 25` and `--zero 2
+    `--zero 0, 1 --dp_reduce_bucket_mb 25, 2, 3` and `--zero 2
     --dp_reduce_dtype bf16 | int8`: finite losses, every run's step-1 loss
     within 1e-3 relative of stage 0's, each rank's K1 launches exactly 2 x
     12 forward and 12 + 12 backward per step and nothing else, each rank's
@@ -388,6 +389,31 @@ result line):
     wire's 2^-4 of their max: a code can flip where card and CPU round
     the same value on either side of a half step), and the int8 ring over
     dp 4 on the same inputs bitwise on both.
+56. moe_paths: 45m-moe8 on the paths phase 53 does not take. First
+    moe_check's tiny MoE shape (f32, cf 1.0), card against CPU: the int8
+    codes and scales of the router and the experts byte for byte, the
+    speculative engine's greedy tokens (drafter = target, the round
+    graphed on the card) and the cp 2 paged engine's (two gloo ranks)
+    identical. Then at full width, bf16, random weights with a seeded
+    normal router (`_moe_routed`; the init's zero router ties every
+    token on two experts): (a)
+    phase 5's traffic with `--decode_weight_dtype int8`, the decode step
+    graphed: weight bytes about a quarter of phase 53's native run, K1 12
+    per prefill dispatch; (b) `--paged --speculate 4` with the tiny
+    drafter on phase 53's paged mix (`_check_spec_run`); (c) the router
+    fleet of two replicas of 8 slots on 40 pages over 8 of phase 50's
+    requests: every pool drained, K3 per decode step and chunk on its
+    routes, tokens/s, dispatch ms, prefix hits and the dropped share; (d)
+    `--paged --cp 2 --dist_backend gloo` at 6 of the 12 layers, 4 of
+    phase 48's long requests: each rank's K3, cp hops and pool bytes
+    (`_check_cp_serve_rank`); (e) `evaluate --cp_size 2` on phase 52's
+    newest checkpoint (each rank's K2 launches those of the ring schedule of the
+    sweep, K3 12 per decode step and chunk) and `generate --cp_size 2`.
+
+Every phase also prints, for each call it made on a kept group of rank
+processes, each rank's card memory allocated before the call, at its
+return and the call's peak, and fails when a call leaves more than
+KEPT_LIMIT_GIB allocated at its return.
 
 The last two lines are a `{"kernels": [...]}` record and
 `{"ok": true, "device": {...}}`. `--phases` runs a subset (for debugging;
@@ -486,7 +512,8 @@ GPT2_DOCS = 1200         # 60 steps of b 8 use 480 documents; the resume 16
 GPT2_RULE_VOCAB = 1024
 GPT2_LEARNED = 0.5       # gpt2_train: the last 5 losses' mean this far
                          # (nats) below ln(GPT2_RULE_VOCAB - 3)
-GPT2_SPD = 4             # gpt2_train: its steps again, 4 per dispatch
+GPT2_SPD = 4             # gpt2_train: its resume again, 4 steps per dispatch
+GPT2_RESUME = 8          # gpt2_train: the resume's steps
 GPT2_MODEL = ["--family", "gpt2", "--model", "gpt2-124m"]
 GPT2_TRAIN_ARGS = GPT2_MODEL + [
     "--bf16", "--batch_size", "8", "--maxlen", "1024", "--max_steps",
@@ -503,8 +530,7 @@ GPT2_PAGED_ARGS = (GPT2_MODEL + ["--vocab_size", str(GPT2_VOCAB)]
                                       PAGED_SERVE_ARGS.index("--vocab_size")]
                    + PAGED_SERVE_ARGS[PAGED_SERVE_ARGS.index("--vocab_size")
                                       + 2:])
-# with 32 new tokens each (64, as phases 5 and 15, until the speculative
-# phases needed the room)
+# with 32 new tokens each
 for _args in (GPT2_SERVE_ARGS, GPT2_PAGED_ARGS):
     _args[_args.index("--max_new_tokens") + 1] = "32"
 SAMPLED_ARGS = ["--temperature", "0.8", "--decode_top_k", "50",
@@ -2553,11 +2579,10 @@ CP_ARGS = ["--model", "45m", "--bf16", "--batch_size", str(CP_B), "--maxlen",
            str(CP_T), "--warmup_steps", "2", "--lr", "1e-3", "--log_interval",
            "5", "--save_interval", "1000", "--device", "cuda"]
 CP2 = ["--cp_size", "2", "--dist_backend", "gloo"]
-# zigzag and tp2 run 4 steps (10 once, then 6) to keep the whole script
-# near its budget; in 4 the loss still falls by about 3 nats on the corpus.
-# cp_train and tp_train run the 45m widths at 6 of its 12 layers (all 12
-# until the ZeRO phase needed the room: a run's fixed cost, its model
-# init and final checkpoint, and its hops all scale with depth)
+# zigzag and tp2 run 4 steps to keep the whole script near its budget; in
+# 4 the loss still falls by about 3 nats on the corpus. cp_train and
+# tp_train run the 45m widths at 6 of its 12 layers (a run's fixed cost,
+# its model init and final checkpoint, and its hops all scale with depth)
 CP_LAYERS = 6
 CP_RUNS = {  # name: (flags, steps)
     "zigzag": (["--cp_layout", "zigzag"], 4),
@@ -3463,7 +3488,6 @@ def phase_tp_serve_profile(torch) -> dict:
 # ---- slice 12: one dispatch per step (CUDA graphs), the remat policies ----
 
 REMAT_STEPS = 6        # train_remat and train_spd: 6 steps of the train cell
-                       # (10 until the ZeRO phase needed the room)
 SPD = 4                # train_spd: dispatches of 4 and 2 steps
 
 
@@ -3697,9 +3721,10 @@ def _replay_vs_eager(torch, eng) -> tuple:
 # re-prefilled by the chunk kernel, whose bf16 roundings are not the decode
 # step's: the two runs would serve other schedules, not the same requests.
 GRAPH_CHECK_SLO = ["--slo_classes", "interactive=250,standard=1000,batch=8000"]
-# graph_check's f32 runs take the first 8 requests of each mix (the whole
-# mix until the speculative phases needed the room)
+# graph_check's f32 runs take the first 8 requests of each mix, its bf16
+# paged runs the first 16
 GRAPH_CHECK_F32 = 8
+GRAPH_CHECK_PAGED = 16
 
 
 def phase_graph_check(torch) -> dict:
@@ -3718,7 +3743,9 @@ def phase_graph_check(torch) -> dict:
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
     res = {}
     for kind, args in (("slot", SERVE_ARGS),
-                       ("paged", PAGED_SERVE_ARGS + GRAPH_CHECK_SLO)):
+                       ("paged", _replace_flag(
+                           PAGED_SERVE_ARGS, "--num_requests",
+                           str(GRAPH_CHECK_PAGED)) + GRAPH_CHECK_SLO)):
         for dtype, flag in (("bfloat16", "--bf16"), ("float32", "--no-bf16")):
             if dtype == "float32":
                 args = _replace_flag(args, "--num_requests",
@@ -3779,9 +3806,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOKENIZER = os.path.join(ROOT, "tokenizer", "tokenizer.json")
 EVAL_STEPS = 20        # eval: 20 steps of the train cell, a checkpoint every 10
 EVAL_VAL_DOCS = 32     # the validation split: 4 batches of 8 at t <= 1000
-                       # (64 until the speculative phases needed the room)
-EVAL_F32_LEN = 32      # the f32 decodes' --max_decode_len (token checks;
-                       # 64 until the speculative phases needed the room)
+EVAL_F32_LEN = 32      # the f32 decodes' --max_decode_len (token checks)
 EVAL_LOSS_TOL = 1e-2   # bf16 sweep vs one document at a time (absolute)
 EVAL_TP_TOL = 1e-4     # f32 tp=2 sweep vs tp=1 (absolute)
 # evaluate.DECODE_PROMPTS (stripped, as evaluate encodes them) under the
@@ -3805,39 +3830,22 @@ def _eval_files(workdir: str) -> tuple:
             os.path.join(workdir, "eval_ckpt"))
 
 
-def _eval_run(workdir: str, name: str, ckpt_dir: str, extra: list,
-              own_process: bool = False) -> dict:
-    """`evaluate` at the 45m preset, batch 8, the shipped tokenizer, as
-    `python -m ...evaluate` in a process of its own or through its `main`
-    in this one (warm: no process start, no first-use cost of the card's
-    libraries); returns its --summary_json plus the wall `run_s`."""
+def _eval_run(workdir: str, name: str, ckpt_dir: str, extra: list) -> dict:
+    """`evaluate` at the 45m preset, batch 8, the shipped tokenizer, through
+    its `main` in this process; returns its --summary_json plus the wall
+    `run_s`."""
     from distributed_pytorch_from_scratch_tpu_torch import evaluate
     data, _ = _eval_files(workdir)
     out = os.path.join(workdir, f"{name}.json")
-    args = ["--model", "45m", "--batch_size", "8", "--data_path", data,
-            "--tokenizer_path", TOKENIZER, "--ckpt_dir", ckpt_dir,
-            "--summary_json", out] + extra
     t0 = time.perf_counter()
-    if own_process:
-        proc = subprocess.run(
-            [sys.executable, "-m",
-             "distributed_pytorch_from_scratch_tpu_torch.evaluate"] + args,
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        lines = proc.stdout.strip().splitlines()
-        log(f"{name}: evaluate CLI {' '.join(extra)} -> rc "
-            f"{proc.returncode}; stdout ({len(lines)} lines): "
-            + " | ".join(lines[:3] + ["..."] + lines[-9:]))
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: evaluate failed: "
-                               f"{proc.stderr.strip()[-3000:]}")
-    else:
-        evaluate.main(args)
+    evaluate.main(["--model", "45m", "--batch_size", "8", "--data_path", data,
+                   "--tokenizer_path", TOKENIZER, "--ckpt_dir", ckpt_dir,
+                   "--summary_json", out] + extra)
     wall = time.perf_counter() - t0
     with open(out) as f:
         summary = json.load(f)
     summary["run_s"] = wall
-    log(f"{name}: evaluate {' '.join(extra)} took {wall:.1f} s"
-        + (" in its own process" if own_process else " in this process"))
+    log(f"{name}: evaluate {' '.join(extra)} took {wall:.1f} s")
     return summary
 
 
@@ -3884,8 +3892,8 @@ def _check_eval_run(name: str, s: dict, layers: int, ckpts: int) -> dict:
 def phase_eval(torch, workdir: str) -> dict:
     """The reference's workflow after training: 20 steps of the train cell
     into a fresh save dir (checkpoints at 10 and 20), then `evaluate` on
-    them: bf16 with the KV decoder as a CLI in its own process, then in
-    this process f32 with it and f32 with --no_kv_cache. Checks the losses (finite; the newest bf16 one against
+    them in this process: bf16 with the KV decoder, f32 with it and f32
+    with --no_kv_cache. Checks the losses (finite; the newest bf16 one against
     a one-document-at-a-time mean of `Transformer.loss`), the prompts'
     ids, the launches, and identical f32 tokens from both decoders.
     Returns each run's summary."""
@@ -3916,8 +3924,7 @@ def phase_eval(torch, workdir: str) -> dict:
         f"{[round(x, 4) for x in trained['losses']]}; checkpoints "
         f"{trained['checkpoints']}")
     layers = model_preset("45m").num_layers
-    runs = {"bf16": _eval_run(workdir, "eval_bf16", ckpt, [],
-                              own_process=True),
+    runs = {"bf16": _eval_run(workdir, "eval_bf16", ckpt, []),
             "kv_f32": _eval_run(workdir, "eval_kv_f32", ckpt,
                                 ["--no-bf16", "--max_decode_len",
                                  str(EVAL_F32_LEN)]),
@@ -4064,14 +4071,14 @@ def _gpt2_corpus(workdir: str) -> str:
 def phase_gpt2_train(torch, workdir: str) -> dict:
     """`train --family gpt2 --model gpt2-124m` at b 8 x t 1024 bf16 with
     remat, 60 steps on the seeded bigram corpus at vocab 50257 (its rule
-    over ids below 1024), then a 2-step `--resume`: finite, falling losses
-    (the mean of the last 5 at least 1 nat below the first 5's and
-    GPT2_LEARNED below the unigram floor ln 1021), K1 forward 2 x 12 x 60
-    and dq, dk/dv 12 x 60 launches and no other kernel; step p50,
-    tokens/s, MFU (N counted from the real parameters) and peak memory
-    printed; then the 60 steps at `--steps_per_dispatch 4`: bitwise the
-    same losses and launches.
-    Returns the launches and the summary."""
+    over ids below 1024): finite, falling losses (the mean of the last 5
+    at least 1 nat below the first 5's and GPT2_LEARNED below the unigram
+    floor ln 1021), K1 forward 2 x 12 x 60 and dq, dk/dv 12 x 60 launches
+    and no other kernel; step p50, tokens/s, MFU (N counted from the real
+    parameters) and peak memory printed. Then a GPT2_RESUME-step
+    `--resume` from step 60, and the same resume at `--steps_per_dispatch
+    GPT2_SPD` from the same checkpoint: bitwise the same losses and
+    launches. Returns the launches and the summary."""
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
@@ -4107,28 +4114,46 @@ def phase_gpt2_train(torch, workdir: str) -> dict:
                    "flash_attention_bwd_dq": layers * GPT2_STEPS,
                    "flash_attention_bwd_dkv": layers * GPT2_STEPS}
     _only(counts, counts_want, "gpt2 train (remat: forward twice per layer)")
-    resumed = train.main(_replace_flag(args, "--max_steps",
-                                       str(GPT2_STEPS + 2)) + ["--resume"])
+    # the step-60 checkpoint, linked alone into the captured resume's dir
+    # (the eager resume writes its own final one beside it)
+    from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
+        list_checkpoints)
+    spd_dir = save_dir + "_spd"
+    os.makedirs(spd_dir, exist_ok=True)
+    for _, path in list_checkpoints(save_dir):
+        os.link(path, os.path.join(spd_dir, os.path.basename(path)))
+    resume = _replace_flag(args, "--max_steps",
+                           str(GPT2_STEPS + GPT2_RESUME)) + ["--resume"]
+    _reset_launches()
+    resumed = train.main(resume)
+    rcounts = _read_launches()
     log(f"gpt2_train --resume: started at step {resumed['start_step']}, ran "
-        f"to {resumed['steps']}, losses {resumed['losses']}")
+        f"to {resumed['steps']}, losses {resumed['losses']}; launches "
+        f"{rcounts}")
     if (resumed["start_step"] != GPT2_STEPS
-            or resumed["steps"] != GPT2_STEPS + 2
+            or resumed["steps"] != GPT2_STEPS + GPT2_RESUME
             or not all(math.isfinite(x) for x in resumed["losses"])):
         raise AssertionError("gpt2 resume did not continue from the "
                              "checkpoint")
-    # the same steps, GPT2_SPD to each captured dispatch: bitwise the
-    # same losses, the launches counted through the replays
+    # the same resume, GPT2_SPD steps to each captured dispatch: bitwise
+    # the same losses, the launches counted through the replays
     _reset_launches()
-    spd = train.main(_replace_flag(args, "--save_dir", save_dir + "_spd")
+    spd = train.main(_replace_flag(resume, "--save_dir", spd_dir)
                      + ["--steps_per_dispatch", str(GPT2_SPD)])
     spd_counts = _read_launches()
-    log(f"gpt2_train --steps_per_dispatch {GPT2_SPD}: step p50 "
-        f"{spd['step_ms_p50']:.3f} ms, losses bitwise the one-step run's: "
-        f"{spd['losses'] == losses}; launches {spd_counts}")
-    if spd["losses"] != losses:
+    log(f"gpt2_train --resume --steps_per_dispatch {GPT2_SPD}: step p50 "
+        f"{spd['step_ms_p50']:.3f} ms (one step a dispatch "
+        f"{resumed['step_ms_p50']:.3f}), losses bitwise the one-step "
+        f"resume's: {spd['losses'] == resumed['losses']}; launches "
+        f"{spd_counts}")
+    if spd["start_step"] != GPT2_STEPS or spd["losses"] != resumed["losses"]:
         raise AssertionError("gpt2 --steps_per_dispatch changed the losses")
-    _only(spd_counts, counts_want, f"gpt2 train, {GPT2_SPD} steps per "
-                                   f"dispatch")
+    _only(spd_counts, {k: v * GPT2_RESUME // GPT2_STEPS
+                       for k, v in counts_want.items()},
+          f"gpt2 train, {GPT2_SPD} steps per dispatch")
+    if spd_counts != rcounts:
+        raise AssertionError(f"gpt2 --steps_per_dispatch launches "
+                             f"{spd_counts}, one step a dispatch {rcounts}")
     return {**counts, "summary": out, "spd": spd_counts}
 
 
@@ -4432,14 +4457,11 @@ def phase_sampler_check(torch) -> dict:
 
 
 # train_async_preempt: the train cell with a checkpoint every ASYNC_EVERY
-# steps (written in the background), every ASYNC_SPARSE (further apart than
-# one write at 45m) and none; a profiled loop of ASYNC_PROFILE_STEPS with
-# saves and without; then a process of its own that gets SIGTERM after its
-# PREEMPT_AFTER-th step line, and a --resume
-# (20, 5, 10 and 10 until the ZeRO phase needed the room)
+# steps (written in the background) and with none; a profiled loop of
+# ASYNC_PROFILE_STEPS with saves; then a process of its own that gets
+# SIGTERM after its PREEMPT_AFTER-th step line, and a --resume
 ASYNC_STEPS = 12
 ASYNC_EVERY = 4
-ASYNC_SPARSE = 8
 ASYNC_PROFILE_STEPS = 6
 PREEMPT_AFTER = 3
 # serve_replay: a seeded poisson trace of the slot cell's requests
@@ -4524,8 +4546,7 @@ def phase_train_async_preempt(torch, workdir: str) -> dict:
     base = (_replace_flag(TRAIN_ARGS, "--max_steps", str(ASYNC_STEPS))
             + ["--data_path", _corpus(workdir)])
     runs = {}
-    for name, every in (("saves", ASYNC_EVERY), ("sparse", ASYNC_SPARSE),
-                        ("no_saves", 10 ** 6)):
+    for name, every in (("saves", ASYNC_EVERY), ("no_saves", 10 ** 6)):
         _reset_launches()
         out = train.main(_replace_flag(base, "--save_interval", str(every))
                          + ["--save_dir", os.path.join(workdir,
@@ -4541,9 +4562,8 @@ def phase_train_async_preempt(torch, workdir: str) -> dict:
             f"p50 {np.median(out['prefetch_wait_ms'][1:]):.4f}, max "
             f"{max(out['prefetch_wait_ms'][1:]):.4f}; "
             f"checkpoints {len(out['checkpoints'])}; launches {counts}")
-    saves, sparse, none = (runs[k][0] for k in ("saves", "sparse",
-                                                  "no_saves"))
-    if not saves["losses"] == sparse["losses"] == none["losses"]:
+    saves, none = (runs[k][0] for k in ("saves", "no_saves"))
+    if not saves["losses"] == none["losses"]:
         raise AssertionError("checkpoints written in the background changed "
                              "the losses")
     if len(saves["checkpoints"]) != ASYNC_STEPS // ASYNC_EVERY:
@@ -4577,30 +4597,24 @@ def phase_train_async_preempt(torch, workdir: str) -> dict:
         f"the background save's call {times['async']:.3f} ms (snapshot done "
         f"{times['async_snapshot']:.3f} ms, written {times['async_join']:.3f}"
         f" ms); step p50 with a save every {ASYNC_EVERY} steps "
-        f"{saves['step_ms_p50']:.3f} ms, every {ASYNC_SPARSE} "
-        f"{sparse['step_ms_p50']:.3f} ms, none {none['step_ms_p50']:.3f} ms "
-        f"(ratios {saves['step_ms_p50'] / none['step_ms_p50']:.4f}, "
-        f"{sparse['step_ms_p50'] / none['step_ms_p50']:.4f})")
-    # the idle share of the loop, as phase 12's of a step: 1 - device busy
-    # per step (a loop profiled on the device, from step 3 on) / the step
-    # p50 of the same loop unprofiled (above)
-    idle = {}
-    for name, every, p50 in (("saves", ASYNC_EVERY, saves["step_ms_p50"]),
-                             ("no_saves", 10 ** 6, none["step_ms_p50"])):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            train.main(_replace_flag(_replace_flag(
-                base, "--max_steps", str(ASYNC_PROFILE_STEPS)),
-                "--save_interval", str(every))
-                + ["--save_dir", os.path.join(workdir, f"prof_{name}")])
-            torch.cuda.synchronize()
-        busy = _loop_busy(prof, torch, 2 * 2 * layers,
-                          ASYNC_PROFILE_STEPS - 2)
-        idle[name] = 1 - busy / p50
-        log(f"train_async_preempt profile ({name}, {ASYNC_PROFILE_STEPS} "
-            f"steps): device busy {busy:.3f} ms per step from step 3 (the "
-            f"kernels), step p50 {p50:.3f} ms unprofiled: idle share "
-            f"{idle[name]:.4f}")
-        del prof
+        f"{saves['step_ms_p50']:.3f} ms, none {none['step_ms_p50']:.3f} ms "
+        f"(ratio {saves['step_ms_p50'] / none['step_ms_p50']:.4f})")
+    # the idle share of the loop with saves, as phase 12's of a step: 1 -
+    # device busy per step (a loop profiled on the device, from step 3 on)
+    # / the step p50 of the same loop unprofiled (above)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        train.main(_replace_flag(_replace_flag(
+            base, "--max_steps", str(ASYNC_PROFILE_STEPS)),
+            "--save_interval", str(ASYNC_EVERY))
+            + ["--save_dir", os.path.join(workdir, "prof_saves")])
+        torch.cuda.synchronize()
+    busy = _loop_busy(prof, torch, 2 * 2 * layers, ASYNC_PROFILE_STEPS - 2)
+    idle = 1 - busy / saves["step_ms_p50"]
+    log(f"train_async_preempt profile (saves, {ASYNC_PROFILE_STEPS} steps): "
+        f"device busy {busy:.3f} ms per step from step 3 (the kernels), "
+        f"step p50 {saves['step_ms_p50']:.3f} ms unprofiled: idle share "
+        f"{idle:.4f}")
+    del prof
     # SIGTERM to a train process of its own, then --resume
     save = os.path.join(workdir, "preempt")
     sig_args = (_replace_flag(_replace_flag(_replace_flag(
@@ -4631,10 +4645,8 @@ def phase_train_async_preempt(torch, workdir: str) -> dict:
     _only(rcounts, _flash_want(layers, 2), "train_async_preempt --resume")
     return {**runs["saves"][1], "resume": rcounts,
             "save_ms": {"sync": times["sync"], "async": times["async"],
-                        "loop": saves["save_stall_ms"],
-                        "loop_sparse": sparse["save_stall_ms"]},
+                        "loop": saves["save_stall_ms"]},
             "step_ms_p50": {"saves": saves["step_ms_p50"],
-                            "sparse": sparse["step_ms_p50"],
                             "no_saves": none["step_ms_p50"]},
             "prefetch_wait_ms": saves["prefetch_wait_ms"], "idle": idle,
             "stopped_at": stopped, "exit_s": react}
@@ -4690,9 +4702,8 @@ def _int8_line(name: str, out: dict, native: dict, counts: dict) -> None:
 
 def phase_serve_int8_weights(torch) -> dict:
     """Phase 5's and phase 15's traffic (bf16 pages) with
-    `--decode_weight_dtype int8`, the decode step graphed, in turns with
-    the native weights (native, int8, int8, native): every request served
-    in-vocab, the
+    `--decode_weight_dtype int8`, the decode step graphed, each after a
+    run with the native weights: every request served in-vocab, the
     resident weights about a quarter of the f32 ones, K1 12 launches per
     prefill dispatch (slot) and K3 12 per decode step and per chunk, on the
     routes their widths name (paged); then the 45m widths at 2 layers in
@@ -4711,18 +4722,10 @@ def phase_serve_int8_weights(torch) -> dict:
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
     layers = model_preset("45m").num_layers
     int8 = ["--decode_weight_dtype", "int8"]
-    # native, int8, int8, native on each cell, warm (phases 5 and 15 ran
-    # first in the process); the checked runs are the first int8 ones
-    native, turns = {}, {}
-    for kind, args in (("slot", SERVE_ARGS), ("paged", PAGED_SERVE_ARGS)):
-        runs = [serve.main(args + extra)
-                for extra in ([], int8, int8, [])]
-        native[kind] = runs[0]
-        turns[kind] = [(("native", "int8")[i in (1, 2)], r["tpot_ms_p50"],
-                        r["ttft_ms_p50"], r["tokens_per_sec"])
-                       for i, r in enumerate(runs)]
-        log(f"serve_int8_weights {kind} turns (weights, TPOT p50 ms, TTFT "
-            f"p50 ms, tok/s): {turns[kind]}")
+    # one native run of each cell beside the int8 one, warm (phases 5 and
+    # 15 ran first in the process)
+    native = {kind: serve.main(args) for kind, args in (
+        ("slot", SERVE_ARGS), ("paged", PAGED_SERVE_ARGS))}
     _reset_launches()
     slot = serve.main(SERVE_ARGS + int8)
     counts = _read_launches()
@@ -4759,8 +4762,7 @@ def phase_serve_int8_weights(torch) -> dict:
             "paged_by_kernel": by_kernel,
             "weight_bytes": {k: (o["engine_stats"]["weight_bytes"],
                                  native[k]["engine_stats"]["weight_bytes"])
-                             for k, o in (("slot", slot), ("paged", out))},
-            "turns": turns}
+                             for k, o in (("slot", slot), ("paged", out))}}
 
 
 def phase_serve_replay(torch, workdir: str) -> dict:
@@ -5145,12 +5147,11 @@ def _round_vs_eager(torch, eng) -> tuple:
 def phase_spec_serve(torch) -> dict:
     """`serve --paged --speculate 4` at the 45m preset, bf16, on phase 15's
     mix with the `tiny` drafter (random, vocab 1024), greedy and then
-    sampled (`_check_spec_run`; K3 launches counted per route), the
-    sampled one beside the plain paged engine on the same mix (phase 15
-    serves it greedy); at f32 the speculative and plain paged greedy tokens
+    sampled (`_check_spec_run`; K3 launches counted per route); at f32
+    the speculative and plain paged greedy tokens
     of an 8-request burst identical; then, engine level on the card:
-    drafter = target at f32 accepting >= 0.95 of its drafts (bf16
-    reported, with its TPOT on the mix); one round of a live engine,
+    drafter = target at f32 accepting >= 0.95 of its drafts; one round of
+    a live engine,
     greedy and sampled, by the draft and verify graphs bitwise the eager
     round. Returns the runs' K3 launches and numbers."""
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
@@ -5163,10 +5164,6 @@ def phase_spec_serve(torch) -> dict:
     dlayers = model_preset("tiny").num_layers
     res = {}
     for name, extra in (("greedy", []), ("sampled", SAMPLED_ARGS)):
-        if extra:      # the plain greedy run is phase 15's
-            plain = serve.main(PAGED_SERVE_ARGS + extra)
-            _spec_line(f"plain paged {name}", plain,
-                       plain["ranks"][0]["paged_launches_by_kernel"])
         _reset_launches()
         out = serve.main(SPEC_SERVE_ARGS + extra)
         counts = _read_launches()
@@ -5192,29 +5189,27 @@ def phase_spec_serve(torch) -> dict:
     if not same:
         raise AssertionError("f32 speculative tokens differ from the plain "
                              "paged engine's")
-    # drafter = target: f32 (checked) and bf16 (reported, on the mix)
-    for dtype, argv in (("float32", f32), ("bfloat16", SPEC_SERVE_ARGS)):
-        model = Transformer(model_preset("45m", compute_dtype=dtype)
-                            ).init_weights(seed=0).cuda()
-        out, eng = _spec_engine_run(torch, model, model, argv)
-        st = eng.stats()
-        log(f"spec_serve drafter = target ({dtype}, {out['requests']} "
-            f"requests): acceptance {st['acceptance_rate']} by position "
-            f"{st['acceptance_rate_by_position']}, accepted tokens per "
-            f"dispatch {st['accepted_tokens_per_dispatch']}, TPOT p50/p95 "
-            f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms, TTFT p50 "
-            f"{out['ttft_ms_p50']} ms, drafter/target ms "
-            f"{st['drafter_ms_total']}/{st['target_ms_total']}")
-        if out["completed"] != out["requests"]:
-            raise AssertionError(f"drafter = target {dtype}: requests "
-                                 f"unserved")
-        if dtype == "float32" and st["acceptance_rate"] < SPEC_MIN_SELF_ACCEPT:
-            raise AssertionError(f"drafter = target at f32 accepted "
-                                 f"{st['acceptance_rate']} of its drafts, "
-                                 f"under {SPEC_MIN_SELF_ACCEPT}")
-        res[f"self_{dtype}"] = {"acceptance_rate": st["acceptance_rate"],
-                                "tpot_ms_p50": out["tpot_ms_p50"]}
-        del model, eng
+    # drafter = target at f32
+    model = Transformer(model_preset("45m", compute_dtype="float32")
+                        ).init_weights(seed=0).cuda()
+    out, eng = _spec_engine_run(torch, model, model, f32)
+    st = eng.stats()
+    log(f"spec_serve drafter = target (float32, {out['requests']} "
+        f"requests): acceptance {st['acceptance_rate']} by position "
+        f"{st['acceptance_rate_by_position']}, accepted tokens per dispatch "
+        f"{st['accepted_tokens_per_dispatch']}, TPOT p50/p95 "
+        f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms, TTFT p50 "
+        f"{out['ttft_ms_p50']} ms, drafter/target ms "
+        f"{st['drafter_ms_total']}/{st['target_ms_total']}")
+    if out["completed"] != out["requests"]:
+        raise AssertionError("drafter = target f32: requests unserved")
+    if st["acceptance_rate"] < SPEC_MIN_SELF_ACCEPT:
+        raise AssertionError(f"drafter = target at f32 accepted "
+                             f"{st['acceptance_rate']} of its drafts, under "
+                             f"{SPEC_MIN_SELF_ACCEPT}")
+    res["self_float32"] = {"acceptance_rate": st["acceptance_rate"],
+                           "tpot_ms_p50": out["tpot_ms_p50"]}
+    del model, eng
     # the round's two graphs against the eager round: one round of a live
     # engine both ways, greedy and sampled
     model = Transformer(model_preset("45m", compute_dtype="bfloat16")
@@ -5506,8 +5501,10 @@ FLEET_ARGS = (PAGED_SERVE_ARGS[:PAGED_SERVE_ARGS.index("--slots")]
               + ["--slots", "8", "--num_pages", "40", "--prefix_weight",
                  "0.5"])
 FLEET_ARGS.remove("--paged")
+# --disagg with int8 pages serves the mix's first 16 requests
 FLEET_RUNS = {"fleet_x2": ["--replicas", "2"], "disagg": ["--disagg"],
-              "disagg_int8": ["--disagg", "--kv_dtype", "int8"]}
+              "disagg_int8": ["--disagg", "--kv_dtype", "int8",
+                              "--num_requests", "16"]}
 
 
 class _Tape:
@@ -6112,6 +6109,8 @@ def phase_moe_serve(torch, dense_slot: dict, dense_paged: dict,
     _only(counts, {"flash_attention_fwd": layers * out["prefill_dispatches"]},
           f"moe slot serving ({layers} per prefill dispatch)")
     slot = counts
+    slot_out = {k: out[k] for k in ("ttft_ms_p50", "tpot_ms_p50")}
+    slot_out["weight_bytes"] = out["engine_stats"]["weight_bytes"]
     out, counts, by_route, by_kernel, widths = _serve_with_widths(
         serve, MOE_PAGED_ARGS)
     torch.cuda.synchronize()
@@ -6139,7 +6138,8 @@ def phase_moe_serve(torch, dense_slot: dict, dense_paged: dict,
             f"{dense_profile['chunk_wall_ms']:.3f} / "
             f"{dense_profile['chunk'][0]:.3f} ms")
     return {"slot": slot, "paged": counts, "paged_by_route": by_route,
-            "paged_by_kernel": by_kernel, "profile": prof}
+            "paged_by_kernel": by_kernel, "profile": prof,
+            "slot_out": slot_out}
 
 
 def _grad_ratio(got: dict, want: dict) -> tuple:
@@ -6308,13 +6308,360 @@ def phase_moe_ep2_train(torch, workdir: str) -> dict:
     return summed
 
 
+# moe_paths: the serving and evaluation paths at 45m-moe8 beyond the two
+# engines of phase 53. (d) phase 48's long requests cut to 4 and the
+# model to CP_LAYERS, as phases 20 and 24 are cut
+MOE_INT8 = ["--decode_weight_dtype", "int8"]
+MOE_SPEC_ARGS = MOE_PAGED_ARGS + ["--speculate", str(SPEC_K)]
+MOE_FLEET_ARGS = _replace_flag(_replace_flag(FLEET_ARGS, "--model", MOE),
+                               "--num_requests", "8") + ["--replicas", "2"]
+MOE_CP_ARGS = (_replace_flag(CP_SERVE_BASE, "--model", MOE)
+               + ["--num_layers", str(CP_LAYERS)]
+               + _replace_flag(_replace_flag(
+                   CP_SERVE_RUNS["serve_paged_cp2"], "--num_requests", "4"),
+                   "--slots", "4"))
+MOE_EVAL_ARGS = ["--model", MOE, "--batch_size", "8", "--tokenizer_path",
+                 TOKENIZER, "--max_decode_len", "32", "--cp_size", "2",
+                 "--dist_backend", "gloo"]
+MOE_GEN_PROMPTS = ["Nice to meet you", "The brave man"]
+# (a)-(d) serve the init's weights (seed 0) with its zero router, which
+# ties every token on experts 0 and 1, replaced by a normal one of std
+# d^-1/2 drawn from MOE_ROUTER_SEED, through a checkpoint the phase writes
+MOE_ROUTER_SEED = 7
+MOE_ROUTED_DROPS = 0.1   # the most of the choices a routed run may drop
+                         # (the zero router drops about half at cf 2.0)
+
+
+def _routed_drops(name: str, share: float) -> None:
+    if not 0 <= share < MOE_ROUTED_DROPS:
+        raise AssertionError(f"{name}: dropped share {share}, not under "
+                             f"{MOE_ROUTED_DROPS}: the router routes every "
+                             f"token alike")
+
+
+def _moe_routed(torch, workdir: str, layers: int) -> str:
+    """A checkpoint dir of 45m-moe8 at `layers` layers: the init's weights
+    from seed 0, each layer's router drawn N(0, 1/d) from
+    MOE_ROUTER_SEED."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
+        save_checkpoint)
+    cfg = model_preset(MOE, num_layers=layers)
+    model = build_model("llama", cfg).init_weights(0)
+    gen = torch.Generator().manual_seed(MOE_ROUTER_SEED)
+    with torch.no_grad():
+        for lp in model.layers:
+            lp["moe"].router.normal_(0.0, cfg.attn_dim ** -0.5,
+                                     generator=gen)
+    path = os.path.join(workdir, f"moe_routed_{layers}")
+    save_checkpoint(path, 0, 0.0, model.state_dict())
+    return path
+
+
+def _from_ckpt(args: list, ckpt: str) -> list:
+    """`args` with `--random_init` swapped for `--ckpt_dir ckpt`."""
+    return [a for a in args if a != "--random_init"] + ["--ckpt_dir", ckpt]
+
+
+def _moe_paths_card_vs_cpu(torch) -> None:
+    """Card against CPU at moe_check's tiny MoE shape (f32, cf 1.0: choices
+    drop): the int8 codes and scales of the router and the experts byte
+    for byte, the speculative engine's greedy tokens (a MoE target and
+    drafter, its round graphed on the card) and the cp 2 paged engine's
+    (two gloo ranks) identical."""
+    import dataclasses
+    from distributed_pytorch_from_scratch_tpu_torch.config import MeshConfig
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.ops.quant import (
+        quantize_decode_params)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    cfg, model = _moe_tiny(torch, seed=23)
+    sd = model.state_dict()
+    q = {dev: quantize_decode_params({k: v.to(dev) for k, v in sd.items()})
+         for dev in ("cuda", "cpu")}
+    moe_keys = [k for k in sd if ".moe." in k]
+    same = all(torch.equal(q["cuda"][k][part].cpu(), q["cpu"][k][part])
+               for k in moe_keys for part in ("qweight", "scale"))
+    log(f"moe_paths card vs cpu: int8 codes and scales of {len(moe_keys)} "
+        f"router and expert leaves byte-equal {same}")
+    if not same:
+        raise AssertionError("the int8 expert codes or scales differ "
+                             "between the card and the CPU")
+    tree, cfgd = params_to_jax(sd), dataclasses.asdict(cfg)
+    reqs = [(list(range(3, 3 + n)), 12, "default", None)
+            for n in MOE_PROMPT_LENS]
+    kw = dict(num_slots=6, buf_len=64, eos_id=1, page_size=16,
+              prefill_chunk=16, paged_attn_impl="kernel")
+    spec = dict(engine="speculative", kw=dict(kw, speculate_k=SPEC_K),
+                drafter=(cfgd, tree), requests=reqs, stagger=2, tick=0.02)
+    paged = dict(engine="paged", kw=kw, requests=reqs, stagger=2, tick=0.02)
+    got = {dev: tp_checks.serve_runs(make_mesh(MeshConfig(), device=dev),
+                                     cfgd, tree, [spec])[0]
+           for dev in ("cuda", "cpu")}
+    cp2 = launch.spawn(tp_checks.jobs, 2, [("serve_runs", {"cp": 2}, dict(
+        cfg=cfgd, tree=tree, runs=[paged]))], ("cuda", "cpu"), "gloo")
+    for what, card, cpu in (
+            ("speculative (k 4, drafter = target)", got["cuda"],
+             got["cpu"]),
+            ("cp 2 paged", cp2[0][0][0], cp2[0][1][0])):
+        n = sum(map(len, card["tokens"].values()))
+        # the dropped share counts the free rows too, which all write the
+        # scratch page, in no fixed order: it may differ where tokens agree
+        counts = lambda st: {k: v for k, v in st.items()
+                             if "_ms" not in k and k != "moe_dropped_share"}
+        log(f"moe_paths card vs cpu: {what} greedy, {n} tokens, identical "
+            f"{card['tokens'] == cpu['tokens']}, stats (times and the "
+            f"dropped share aside) identical "
+            f"{counts(card['stats']) == counts(cpu['stats'])}; dropped share "
+            f"card {card['stats']['moe_dropped_share']:.4f}, cpu "
+            f"{cpu['stats']['moe_dropped_share']:.4f}")
+        if card["tokens"] != cpu["tokens"] or not n:
+            raise AssertionError(f"{what}: the card's tokens are not the "
+                                 f"CPU's")
+
+
+def _moe_eval_want(layers: int, s: dict) -> list:
+    """Per rank, evaluate --cp_size 2's launches: the sweep's ring blocks
+    (`block_schedule` over 0..t-1 cut contiguously, one forward per layer
+    per batch per checkpoint) and K3 per decode step and prefill chunk of
+    the cp paged engine."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.ops.ring_attention import (
+        block_schedule, cp_chunk_index)
+    pos = np.stack([np.tile(cp_chunk_index(CP_T, 2, r, "contiguous"),
+                            (8, 1)) for r in range(2)])
+    blocks = [sum(len(x) for x in rank) for rank in block_schedule(pos)]
+    batches = sum(n // (8 * CP_T) for n in s["sweep_tokens"].values())
+    decode = s["decode_steps"] + s["prefill_dispatches"]
+    return [{"block_attention_fwd": layers * batches * n,
+             "paged_attention": layers * decode} for n in blocks]
+
+
+def phase_moe_paths(torch, workdir: str, moe_served: dict) -> dict:
+    """45m-moe8 on the paths phase 53 does not take: card
+    against CPU at the tiny MoE shape (`_moe_paths_card_vs_cpu`), then at
+    full width, bf16, from `_moe_routed`'s checkpoints (a seeded normal
+    router): (a) phase 5's traffic with int8 decode weights, the
+    decode step graphed (weight bytes against phase 53's native run, K1
+    12 per prefill dispatch); (b) `--paged --speculate 4` with the tiny
+    drafter on phase 53's paged mix (`_check_spec_run`: K3 per round split
+    into drafter steps and verifies); (c) the router fleet of two replicas
+    (8 slots, 40 pages each) on phase 50's traffic, its dropped share; (d)
+    `--paged --cp 2` over gloo at CP_LAYERS, 4 long requests
+    (`_check_cp_serve_rank`); (e) evaluate and generate at --cp_size 2 on
+    phase 52's newest checkpoint (K2 and K3 per rank exactly
+    `_moe_eval_want`).
+    Returns each run's launches."""
+    import dataclasses
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import (evaluate,
+                                                            generate, train)
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention)
+    from distributed_pytorch_from_scratch_tpu_torch.serving import (
+        serve, serve_fleet)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.kv_manager import (
+        page_bytes)
+    cfg = model_preset(MOE, compute_dtype="bfloat16")
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    in_vocab = lambda outs: bool(outs) and all(
+        0 <= t < vocab for ts in outs for t in ts)
+    _moe_paths_card_vs_cpu(torch)
+    res = {}
+    t0 = time.perf_counter()
+    routed = {n: _moe_routed(torch, workdir, n) for n in (layers, CP_LAYERS)}
+    log(f"moe_paths: the routed checkpoints at {layers} and {CP_LAYERS} "
+        f"layers written in {time.perf_counter() - t0:.1f} s")
+
+    # (a) int8 decode weights, slot engine
+    _reset_launches()
+    out = serve.main(_from_ckpt(MOE_SERVE_ARGS, routed[layers]) + MOE_INT8)
+    counts = _read_launches()
+    st = out["engine_stats"]
+    native = (moe_served or {}).get("slot_out")
+    experts = layers * cfg.num_experts * 3 * cfg.attn_dim * cfg.ffn_dim
+    log(f"moe_paths a (slot, int8 weights): {out['completed']}/"
+        f"{out['requests']} requests, {out['generated_tokens']} tokens: "
+        f"TTFT p50 {out['ttft_ms_p50']} ms, TPOT p50 {out['tpot_ms_p50']} "
+        f"ms, {out['tokens_per_sec']} tok/s; weight bytes "
+        f"{st['weight_bytes']} ({experts} expert parameters at 1 B + "
+        f"scales + the rest)"
+        + (f" vs native {native['weight_bytes']} (ratio "
+           f"{st['weight_bytes'] / native['weight_bytes']:.4f}), native "
+           f"TTFT p50 {native['ttft_ms_p50']} ms, TPOT p50 "
+           f"{native['tpot_ms_p50']} ms (phase 53 of this run)" if native
+           else "; phase 53 did not run in this call")
+        + f"; dropped share {st['moe_dropped_share']:.4f}; decode graph "
+        f"{out['decode_graph']} ({out['decode_graph_replays']} replays); "
+        f"launches {counts}")
+    if out["completed"] != out["requests"] or not in_vocab(
+            out["outputs"].values()):
+        raise AssertionError("moe int8 slot serving: requests or tokens "
+                             "wrong")
+    _routed_drops("moe int8 slot serving", st["moe_dropped_share"])
+    if not (out["decode_graph"]
+            and out["decode_graph_replays"] == st["decode_steps"]):
+        raise AssertionError("moe int8: the decode step did not run as a "
+                             "graph")
+    if native and not 0.2 < st["weight_bytes"] / native["weight_bytes"] < 0.3:
+        raise AssertionError(f"moe int8 weights hold {st['weight_bytes']} "
+                             f"bytes against {native['weight_bytes']}")
+    _only(counts, {"flash_attention_fwd": layers * out["prefill_dispatches"]},
+          f"moe int8 slot serving ({layers} per prefill dispatch)")
+    res["int8"] = counts
+
+    # (b) speculative decoding, the tiny drafter
+    _reset_launches()
+    out = serve.main(_from_ckpt(MOE_SPEC_ARGS, routed[layers]))
+    counts = _read_launches()
+    by_route = dict(paged_attention.launches_by_route)
+    by_kernel = dict(paged_attention.launches_by_kernel)
+    dlayers = model_preset("tiny").num_layers
+    _check_spec_run("moe", out, counts, by_route, by_kernel, layers, dlayers)
+    st = out["engine_stats"]
+    _routed_drops("moe speculative", st["moe_dropped_share"])
+    rounds = st["spec_rounds"]
+    log(f"moe_paths b (--paged --speculate {SPEC_K}, tiny drafter): "
+        f"{out['completed']}/{out['requests']} requests, TTFT p50 "
+        f"{out['ttft_ms_p50']} ms, TPOT p50/p95 {out['tpot_ms_p50']}/"
+        f"{out['tpot_ms_p95']} ms; {rounds} rounds, accepted tokens per "
+        f"dispatch {st['accepted_tokens_per_dispatch']}, acceptance "
+        f"{st['acceptance_rate']}; dropped share "
+        f"{st['moe_dropped_share']:.4f}; K3 per round: drafter steps "
+        f"{dlayers * (SPEC_K + 1)} (decode route), verify {layers} (chunk "
+        f"route), over the rounds {dlayers * (SPEC_K + 1) * rounds} + "
+        f"{layers * rounds}; K3 in all by route {by_route}, by kernel "
+        f"{by_kernel} (checked); graph replays {out['decode_graph_replays']}")
+    res["spec"] = by_kernel
+
+    # (c) the router fleet
+    args = serve_fleet.parse_args(_from_ckpt(MOE_FLEET_ARGS, routed[layers])
+                                  + ["--log_dir",
+                                     os.path.join(workdir, "moe_fleet")])
+    _reset_launches()
+    out, fleet = serve_fleet.run(args)
+    torch.cuda.synchronize()
+    counts = _read_launches()
+    by_route = dict(paged_attention.launches_by_route)
+    by_kernel = dict(paged_attention.launches_by_kernel)
+    engines = [e for e in fleet.values() if isinstance(e, PagedEngine)]
+    if out["completed"] != args.num_requests or not in_vocab(
+            [r.tokens for e in engines for r in e.completed]):
+        raise AssertionError(f"moe fleet: served {out['completed']} of "
+                             f"{args.num_requests}, or tokens wrong")
+    for i, e in enumerate(engines):
+        _drained(e, f"moe fleet r{i}")
+    _routed_drops("moe fleet", out["moe_dropped_share"])
+    want = _fleet_want(engines, layers)
+    _only(counts, {"paged_attention": want["decode"] + want["chunk"]},
+          "moe fleet")
+    if by_route != want:
+        raise AssertionError(f"moe fleet: K3 by route {by_route}, expected "
+                             f"{want}")
+    hits = [e.stats()["prefix_hit_tokens"] for e in engines]
+    log(f"moe_paths c (fleet of 2 x 8 slots, 40 pages): {out['completed']}/"
+        f"{args.num_requests} requests, {out['fleet_tokens_per_sec']} tok/s, "
+        f"dispatch ms p50/p95 {out['dispatch_ms_p50']}/"
+        f"{out['dispatch_ms_p95']}, TPOT p50 {out['tpot_ms_p50']} ms, "
+        f"dispatched {fleet['router'].dispatched}, prefix hit tokens {hits}; "
+        f"dropped share {out['moe_dropped_share']:.4f}; K3 by route "
+        f"{by_route}, by kernel {by_kernel} (checked)")
+    res["fleet"] = by_kernel
+    del fleet, engines
+
+    # (d) cp-sharded pages over two gloo ranks
+    out = serve.main(_from_ckpt(MOE_CP_ARGS, routed[CP_LAYERS]))
+    ranks, st = out["ranks"], out["engine_stats"]
+    if out["completed"] != out["requests"] or not in_vocab(
+            out["outputs"].values()):
+        raise AssertionError("moe cp 2 serving: requests or tokens wrong")
+    _routed_drops("moe cp 2", st["moe_dropped_share"])
+    each = page_bytes(dataclasses.replace(cfg, num_layers=CP_LAYERS), 64)
+    for r in ranks:
+        if (r["dispatches"], r["dispatch_shapes"]) != (
+                ranks[0]["dispatches"], ranks[0]["dispatch_shapes"]):
+            raise AssertionError("moe cp 2: the ranks ran different "
+                                 "dispatches")
+        _check_cp_serve_rank("moe cp 2", r, CP_LAYERS)
+        if r["pool_bytes"] != each * (st["pages_per_rank"] + 1):
+            raise AssertionError(f"moe cp 2: rank {r['rank']} pool bytes "
+                                 f"{r['pool_bytes']}")
+    log(f"moe_paths d (--paged --cp 2, {CP_LAYERS} layers, gloo): "
+        f"{out['completed']}/{out['requests']} requests, TTFT p50 "
+        f"{out['ttft_ms_p50']} ms, TPOT p50/p95 {out['tpot_ms_p50']}/"
+        f"{out['tpot_ms_p95']} ms; pool bytes per rank "
+        f"{[r['pool_bytes'] for r in ranks]} ({st['pages_per_rank']} pages "
+        f"+ scratch each); dropped share {st['moe_dropped_share']:.4f}; K3 "
+        f"per rank {[r['paged_launches_by_kernel'] for r in ranks]} "
+        f"(checked)")
+    res["cp2"] = [r["paged_launches_by_kernel"] for r in ranks]
+
+    # (e) evaluate and generate at --cp_size 2 on phase 52's newest
+    # checkpoint (linked alone into a directory of its own)
+    from distributed_pytorch_from_scratch_tpu_torch.training.checkpoint import (
+        latest_step, list_checkpoints)
+    src = os.path.join(workdir, "moe")
+    ckpt = os.path.join(workdir, "moe_newest")
+    os.makedirs(ckpt, exist_ok=True)
+    if latest_step(src) is None:
+        log("moe_paths e: phase 52 did not run in this call; 2 steps of its "
+            "cell write the checkpoint")
+        train.main(_replace_flag(_replace_flag(
+            MOE_TRAIN_ARGS, "--max_steps", "2"), "--save_interval", "2")
+            + ["--data_path", _corpus(workdir), "--save_dir", src])
+    newest = latest_step(src)
+    for it, path in list_checkpoints(src):
+        if it == newest:
+            os.link(path, os.path.join(ckpt, os.path.basename(path)))
+    summary = os.path.join(workdir, "moe_eval_cp2.json")
+    t0 = time.perf_counter()
+    evaluate.main(MOE_EVAL_ARGS + ["--data_path", _corpus(workdir),
+                                   "--ckpt_dir", ckpt, "--summary_json",
+                                   summary])
+    wall = time.perf_counter() - t0
+    with open(summary) as f:
+        s = json.load(f)
+    want = _moe_eval_want(layers, s)
+    for r, w in zip(s["ranks"], want):
+        _only(r["launches"], w, f"moe evaluate cp 2 rank {r['rank']}")
+    losses = s["val_losses"]
+    if not losses or not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"moe evaluate cp 2: losses {losses}")
+    texts = generate.main(["--ckpt_dir", ckpt, "-t", TOKENIZER, "--model",
+                           MOE, "--max_new_tokens", "16", "--cp_size", "2",
+                           "--dist_backend", "gloo"]
+                          + [a for p in MOE_GEN_PROMPTS
+                             for a in ("--prompt", p)])
+    if len(texts) != len(MOE_GEN_PROMPTS) or not all(
+            t.startswith(p) for t, p in zip(texts, MOE_GEN_PROMPTS)):
+        raise AssertionError(f"moe generate cp 2: {texts}")
+    log(f"moe_paths e (evaluate --cp_size 2 on phase 52's iteration "
+        f"{newest}, "
+        f"{wall:.1f} s): val losses {losses}; sweep tokens/s "
+        + ", ".join(f"iter {it}: {s['sweep_tokens'][it] / s['sweep_s'][it]:.1f}"
+                    for it in sorted(losses, key=int))
+        + f"; decode {s['prefill_dispatches']} chunks + {s['decode_steps']} "
+        f"steps; K2 and K3 per rank {[r['launches'] for r in s['ranks']]} "
+        f"(checked); generate --cp_size 2: {texts}")
+    res["eval_cp2"] = [r["launches"] for r in s["ranks"]]
+    return res
+
+
 ZERO_STEPS = 4
 ZERO_ARGS = CP_ARGS + ["--dp_size", "2", "--dist_backend", "gloo",
                        "--max_steps", str(ZERO_STEPS)]
 ZERO_RUNS = {  # name: flags
-    "zero0": ["--zero", "0"], "zero1": ["--zero", "1"],
+    "zero0": ["--zero", "0"],
+    "zero1": ["--zero", "1", "--dp_reduce_bucket_mb", "25"],
     "zero2": ["--zero", "2"], "zero3": ["--zero", "3"],
-    "zero1_bucket25": ["--zero", "1", "--dp_reduce_bucket_mb", "25"],
     "zero2_bf16": ["--zero", "2", "--dp_reduce_dtype", "bf16"],
     "zero2_int8": ["--zero", "2", "--dp_reduce_dtype", "int8"],
 }
@@ -6501,7 +6848,8 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "sampler_check", "train_async_preempt", "serve_int8_weights",
           "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
           "cp_serve", "fleet_check", "fleet_serve", "moe_check",
-          "moe_train", "moe_serve", "moe_ep2_train", "zero_train")
+          "moe_train", "moe_serve", "moe_ep2_train", "zero_train",
+          "moe_paths")
 
 
 def main() -> None:
@@ -6530,6 +6878,28 @@ def main() -> None:
         print(json.dumps(line))
 
 
+KEPT_LIMIT_GIB = 0.5   # card memory a kept rank may hold between calls
+
+
+def _kept_calls(name: str, calls: list) -> None:
+    """Log the card memory of each kept-group call `calls` of phase `name`
+    made, per rank: allocated at the call's start, at its return (what the
+    rank keeps into the next call) and the call's peak; fails the phase
+    when a call left more than KEPT_LIMIT_GIB allocated."""
+    gib = lambda b: f"{b / 2**30:.3f}"
+    bad = []
+    for c in calls:
+        for r, m in enumerate(c["ranks"]):
+            log(f"{name}: kept call {c['fn']} ({c['nprocs']} ranks) rank "
+                f"{r}: allocated {gib(m['before'])} GiB before, "
+                f"{gib(m['live'])} at return, peak {gib(m['peak'])} GiB")
+            if m["live"] > KEPT_LIMIT_GIB * 2**30:
+                bad.append(f"{c['fn']} rank {r} ({gib(m['live'])} GiB)")
+    if bad:
+        raise AssertionError(f"{name}: kept calls left more than "
+                             f"{KEPT_LIMIT_GIB} GiB allocated: {bad}")
+
+
 def run(torch, phases: set, workdir: str) -> list:
     """Run the phases in order; returns the result lines (none for a subset
     of the phases)."""
@@ -6546,6 +6916,7 @@ def run(torch, phases: set, workdir: str) -> list:
             if name not in phases:
                 continue
             t1 = time.perf_counter()
+            kept = len(launch.calls)
             fn = globals()[f"phase_{name}"]
             res[name] = (fn() if name == "build" else
                          fn(torch, workdir, res.get("paged_serve"))
@@ -6553,7 +6924,10 @@ def run(torch, phases: set, workdir: str) -> list:
                          fn(torch, res.get("serve"), res.get("paged_serve"),
                             res.get("paged_profile"))
                          if name == "moe_serve" else
+                         fn(torch, workdir, res.get("moe_serve"))
+                         if name == "moe_paths" else
                          fn(torch, workdir) if name in with_dir else fn(torch))
+            _kept_calls(name, launch.calls[kept:])
             log(f"chip_smoke: phase {name} took "
                 f"{time.perf_counter() - t1:.1f} s")
     (max_err, times, served, bwd_err, bwd_times, trained, paged_err,
@@ -6561,7 +6935,7 @@ def run(torch, phases: set, workdir: str) -> list:
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
      replayed, spec_err, spec_served, cp_err, cp_served, fleet_served,
-     moe_trained, moe_served, moe_ep2, zero_runs) = (
+     moe_trained, moe_served, moe_ep2, moe_paths, zero_runs) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -6571,7 +6945,7 @@ def run(torch, phases: set, workdir: str) -> list:
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
              "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
              "cp_serve", "fleet_serve", "moe_train", "moe_serve",
-             "moe_ep2_train", "zero_train"))
+             "moe_ep2_train", "moe_paths", "zero_train"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -6615,6 +6989,10 @@ def run(torch, phases: set, workdir: str) -> list:
                          "train_moe_ep2": moe_ep2.get(k, 0),
                          "serve_moe": moe_served["slot"].get(k, 0),
                          "serve_moe_paged": moe_served["paged"].get(k, 0),
+                         "serve_moe_int8_weights": moe_paths["int8"].get(
+                             k, 0),
+                         "eval_moe_cp2": sum(r.get(k, 0) for r in
+                                             moe_paths["eval_cp2"]),
                          **{f"train_dp2_{name}": run.get(k, 0)
                             for name, run in zero_runs.items()}}
     at_path, at_gpt2 = bwd_times["errs"], gpt2_times["errs"]
@@ -6634,6 +7012,11 @@ def run(torch, phases: set, workdir: str) -> list:
     fleet_paged = lambda kernel: {
         f"serve_{name}": by_kernel[kernel]
         for name, by_kernel in fleet_served.items()}
+    # K3's launches on moe_paths' paged runs (cp 2: summed over the ranks)
+    moe_paged = lambda kernel: {
+        "serve_moe_paged_spec": moe_paths["spec"][kernel],
+        "serve_moe_fleet_x2": moe_paths["fleet"][kernel],
+        "serve_moe_paged_cp2": sum(r[kernel] for r in moe_paths["cp2"])}
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES, "launches": served["flash_attention_fwd"],
@@ -6689,7 +7072,9 @@ def run(torch, phases: set, workdir: str) -> list:
                                  fleet_paged("paged_decode").items()},
                               "serve_moe_paged_decode_kernel":
                                   moe_served["paged_by_kernel"][
-                                      "paged_decode"]}},
+                                      "paged_decode"],
+                              **{f"{k}_decode_kernel": v for k, v in
+                                 moe_paged("paged_decode").items()}}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
@@ -6715,7 +7100,8 @@ def run(torch, phases: set, workdir: str) -> list:
              **cp_paged("paged_chunk_sm90"),
              **fleet_paged("paged_chunk_sm90"),
              "serve_moe_paged": moe_served["paged_by_kernel"][
-                 "paged_chunk_sm90"]}},
+                 "paged_chunk_sm90"],
+             **moe_paged("paged_chunk_sm90")}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

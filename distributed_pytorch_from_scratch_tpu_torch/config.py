@@ -123,20 +123,6 @@ MODEL_PRESETS = {
 }
 
 
-# the ROADMAP item of the MoE paths not held against the JAX package yet
-MOE_LATER = "ROADMAP Queue 1 item 7"
-
-
-def refuse_moe(cfg: ModelConfig, path: str) -> None:
-    """NotImplementedError for a MoE model (`cfg.num_experts > 0`) on a
-    serving or decoding `path` the port has not held against the JAX
-    package with MoE yet."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{path} with a MoE model ({cfg.num_experts} experts): not "
-            f"ported yet, see {MOE_LATER}")
-
-
 def model_preset(name: str, **overrides) -> ModelConfig:
     if name not in MODEL_PRESETS:
         raise ValueError(

@@ -67,7 +67,7 @@ import torch
 
 from .cli import add_model_shape_args, build_model_config
 from .config import (BOS_TOKEN, EOS_TOKEN, IGNORE_INDEX, MeshConfig,
-                     ModelConfig, model_preset, refuse_moe)
+                     ModelConfig, model_preset)
 from .data.dataset import dp_rows, get_dataloader
 from .data.tokenizer import BACKENDS, load_tokenizer
 from .models.decode import _full_vocab_logits
@@ -187,8 +187,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
         if getattr(args, dest) is not None:
             raise NotImplementedError(
                 f"--{dest} {getattr(args, dest)}: not ported yet, see {item}")
-    if args.cp_size > 1:
-        refuse_moe(build_model_config(args, 0), "--cp_size > 1")
 
 
 def _pad_batch(batch, rows: int):

@@ -34,7 +34,7 @@ from __future__ import annotations
 import argparse
 
 from .cli import add_model_shape_args, build_model_config
-from .config import BOS_TOKEN, EOS_TOKEN, MeshConfig, refuse_moe
+from .config import BOS_TOKEN, EOS_TOKEN, MeshConfig
 from .data.tokenizer import BACKENDS, load_tokenizer
 from .models import build_model
 from .models.transformer import validate_tp
@@ -101,8 +101,6 @@ def _refuse(args: argparse.Namespace) -> None:
             f"— cp_impl only changes the attention schedule, not the "
             f"weights — so rerun with --cp_impl ring or --cp_size 1 (got "
             f"--cp_size {args.cp_size})")
-    if args.cp_size > 1:
-        refuse_moe(build_model_config(args, 0), "--cp_size > 1")
 
 
 def generate(args: argparse.Namespace) -> list:

@@ -21,8 +21,11 @@ per-layer leaf on a leading num_layers axis and keeps linear weights as
 the llama head) reduces over torch dim -1, the token and position tables
 over dim -2 (vocab, position), and a per-layer bias or norm gain, 1-D here
 but (num_layers, d) in JAX, over the LAYERS: one scale per column shared
-by every layer. Only the top-level 1-D leaves (the final norm, the head's
-bias) stay f32.
+by every layer. A MoE layer's leaves keep the JAX layout with the
+layers' axis dropped, so their axis -2 is torch dim -2 too: the router (d,
+E) and the experts' `gate`/`up` (E, d, f) reduce over d, `down` (E, f, d)
+over f, whose tp shards take the all-reduce MAX as a row weight's do. Only
+the top-level 1-D leaves (the final norm, the head's bias) stay f32.
 """
 
 from __future__ import annotations
@@ -109,8 +112,8 @@ def dequantize_weight(leaf: Dict[str, torch.Tensor],
 
 
 def _reduce_dim(key: str, ndim: int) -> int:
-    """The torch dim of leaf `key` that the JAX axis -2 is, for a 2-D
-    leaf."""
+    """The torch dim of leaf `key` (of two dims or more) that the JAX axis
+    -2 is."""
     return ndim - 1 if transposed(key) else ndim - 2
 
 

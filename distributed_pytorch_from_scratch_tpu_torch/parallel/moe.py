@@ -47,12 +47,18 @@ count per expert, the router's probability mass per expert, the sum of
 squared logsumexps, the token count and the dropped choices); the model's
 loss sums them over the batch group and `aux_losses` turns them into the
 Switch load-balance loss and the router z-loss.
+
+Serving discards aux; there `count_drops` gives each layer a device tally
+of (dropped choices, choices) that every forward adds to, inside a
+captured decode step too, and `dropped_share` reads it: the share of
+(token, choice) copies the capacity limit dropped, over every row of the
+dispatches (padded and free rows included, as the capacity counts them).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -165,6 +171,7 @@ class MoEFFN(nn.Module):
         self.router = nn.Parameter(torch.zeros(d, num_experts,
                                                dtype=torch.float32))
         self.gate, self.up, self.down = w(e, d, fl), w(e, d, fl), w(e, fl, d)
+        self.drop_tally: Optional[torch.Tensor] = None   # `count_drops`
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         # the JAX init's distributions: a zero router (uniform routing at
@@ -186,6 +193,9 @@ class MoEFFN(nn.Module):
         xf = x.reshape(S, d)
         logits = xf.float() @ self.router
         slots, weights, aux = route(logits, k, self.capacity_factor)
+        if self.drop_tally is not None:
+            self.drop_tally += torch.stack((aux["dropped"],
+                                            aux["tokens"] * k))
         C = capacity(S, E, k, self.capacity_factor)
         xk = xf.to(dtype).repeat_interleave(k, dim=0)          # (S*k, d)
         buf = torch.zeros(E * C + 1, d, dtype=dtype, device=x.device)
@@ -211,3 +221,31 @@ class MoEFFN(nn.Module):
         picked = out_flat.index_select(0, slots.reshape(-1)).reshape(S, k, d)
         y = (picked * weights[..., None].to(dtype)).sum(dim=1)
         return y.reshape(b, t, d), aux
+
+
+def count_drops(model: nn.Module, device) -> None:
+    """Start (or restart, from zero) the drop tally of every MoE layer of
+    `model` on `device`. A tally is zeroed in place, so a captured step
+    that adds to it goes on doing so."""
+    for m in model.modules():
+        if isinstance(m, MoEFFN):
+            if m.drop_tally is None:
+                # a normal tensor, so an engine built under inference mode
+                # still adds to it under no_grad (a graph's capture)
+                with torch.inference_mode(False):
+                    m.drop_tally = torch.zeros(2, dtype=torch.float32,
+                                               device=device)
+            else:
+                m.drop_tally.zero_()
+
+
+def dropped_share(models: Iterable[nn.Module]) -> Optional[float]:
+    """The share of routed choices the capacity limit dropped since
+    `count_drops`, over every MoE layer of `models` (one host copy); None
+    where no layer counts."""
+    tallies = [m.drop_tally for model in models for m in model.modules()
+               if isinstance(m, MoEFFN) and m.drop_tally is not None]
+    if not tallies:
+        return None
+    dropped, choices = torch.stack(tallies).sum(dim=0).tolist()
+    return dropped / choices if choices else 0.0

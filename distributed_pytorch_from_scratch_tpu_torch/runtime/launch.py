@@ -20,6 +20,8 @@ group stays joined between calls; a call's rank function finds it through
 `make_mesh`, which joins only where none exists. A rank that raises, or
 dies, stops its whole kept group and the error is raised in the caller; the
 next call of that size starts a new one. Leaving the block stops them all.
+Each call's card memory per rank (allocated before it, at its return,
+and its peak) goes to `calls`.
 
 Threads: each rank runs torch on its share of the host's cores (cores /
 nprocs), and on no more threads than the launching process has
@@ -116,8 +118,8 @@ def _serve_calls(rank: int, nprocs: int, workdir: str, calls, done,
                  threads: int) -> None:
     """A kept group's rank: runs each (index, fn, args) of `calls` until
     None, saving fn's return value as `_run` does and reporting (index,
-    rank, None) or (index, rank, traceback) on `done`; a call that raises
-    ends the rank."""
+    rank, None, its card memory) or (index, rank, traceback, None) on
+    `done`; a call that raises ends the rank."""
     _detach()
     init_method = f"file://{os.path.join(workdir, 'rendezvous')}"
     _rank_threads(nprocs, threads)
@@ -129,20 +131,35 @@ def _serve_calls(rank: int, nprocs: int, workdir: str, calls, done,
             index, fn, args = call
             if torch.cuda.is_initialized():
                 torch.cuda.reset_peak_memory_stats()
+            before = _allocated()
             try:
                 out = fn(rank, nprocs, init_method, *args)
                 torch.save(out, os.path.join(workdir,
                                              f"call-{index}-rank-{rank}.pt"))
             except BaseException:
-                done.put((index, rank, traceback.format_exc()))
+                done.put((index, rank, traceback.format_exc(), None))
                 return
             del out
+            mem = {"before": before, "live": _allocated(),
+                   "peak": (torch.cuda.max_memory_allocated()
+                            if torch.cuda.is_initialized() else 0)}
             if torch.cuda.is_initialized():
                 torch.cuda.empty_cache()
-            done.put((index, rank, None))
+            done.put((index, rank, None, mem))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# each kept-group call's card memory per rank, in call order: {"nprocs",
+# "fn", "ranks": [{"before", "live", "peak"}]} (bytes allocated at the
+# call's start, at its return, and the call's peak)
+calls: List[Dict[str, Any]] = []
+
+
+def _allocated() -> int:
+    return (torch.cuda.memory_allocated() if torch.cuda.is_initialized()
+            else 0)
 
 
 class _KeptGroup:
@@ -170,10 +187,11 @@ class _KeptGroup:
         for q in self._calls:
             q.put((index, fn, args))
         pending = set(range(self.nprocs))
+        mems = [None] * self.nprocs
         with _Forward([p.pid for p in self._procs]):
             while pending:
                 try:
-                    got, rank, err = self._done.get(timeout=1.0)
+                    got, rank, err, mem = self._done.get(timeout=1.0)
                 except queue.Empty:
                     dead = [r for r in pending
                             if not self._procs[r].is_alive()]
@@ -190,6 +208,9 @@ class _KeptGroup:
                                        f"{self.nprocs} raised:\n{err}")
                 if got == index:
                     pending.discard(rank)
+                    mems[rank] = mem
+        calls.append({"nprocs": self.nprocs,
+                      "fn": getattr(fn, "__name__", str(fn)), "ranks": mems})
         outs = []
         for r in range(self.nprocs):
             path = os.path.join(self._dir.name, f"call-{index}-rank-{r}.pt")

@@ -5,8 +5,10 @@ the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
 training (`collective_pairs`, `layer_cases`, `model_runs`,
 `seed_identity`, `checkpoint_steps`; the ZeRO stages' `zero_runs` and
 `int8_ring` live in `runtime/zero_checks.py`), serving at tp > 1 and on cp-sharded pages at cp or cp
-x tp (`serve_runs`, `decode_logits`, `quantized_params`, `combine`) and
-the evaluation loss on any mesh (`doc_losses`).
+x tp (`serve_runs`, `decode_logits`, `quantized_params`, `combine`),
+the evaluation loss on any mesh (`doc_losses`) and the tensors a rank
+process still holds after its earlier calls (`hold_garbage`,
+`live_tensors`).
 
 `jobs(rank, nprocs, init_method, todo)` runs a list of `(name, axes,
 kwargs)` jobs in one process group, one after the other, each on the mesh
@@ -21,6 +23,7 @@ assemble (`interop.assemble_params`).
 
 from __future__ import annotations
 
+import gc
 import itertools
 from typing import Dict, List, Sequence
 
@@ -474,6 +477,24 @@ def combine(mesh, o: np.ndarray, lse: np.ndarray) -> np.ndarray:
                                  _t(lse[r], mesh.device), mesh))
 
 
+def hold_garbage(mesh) -> int:
+    """Collect garbage once, then stop the collector in this rank's
+    process, so that a later `live_tensors` also counts the tensors that
+    only a reference cycle keeps."""
+    gc.collect()
+    gc.disable()
+    return 0
+
+
+def live_tensors(mesh) -> int:
+    """How many tensors this rank's process holds, those of uncollected
+    reference cycles included (a kept rank should hold none between
+    calls); starts the collector again."""
+    n = sum(issubclass(type(o), torch.Tensor) for o in gc.get_objects())
+    gc.enable()
+    return n
+
+
 def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
          devices: Sequence[str] = ("cpu",), backend: str = "gloo") -> List:
     """Run `todo`, a list of (job name, mesh axes {dp, cp, ep, tp}, kwargs), on
@@ -486,7 +507,8 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
            "serve_runs": serve_runs, "decode_logits": decode_logits,
            "doc_losses": doc_losses, "quantized_params": quantized_params,
            "combine": combine, "checkpoint_steps": checkpoint_steps,
-           "zero_runs": zero_runs, "int8_ring": int8_ring}
+           "zero_runs": zero_runs, "int8_ring": int8_ring,
+           "hold_garbage": hold_garbage, "live_tensors": live_tensors}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

@@ -61,12 +61,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import refuse_moe, resolve_dtype_on
+from ..config import resolve_dtype_on
 from ..models.decode import (
     PAGED_ATTN_IMPLS, _decode_one, _full_vocab_logits, _paged_decode_one,
     _paged_prefill_chunk, _prefill, decode_tables, host_sample_tokens,
     sample_from_full, validate_sampling)
 from ..ops.quant import quantize_decode_params
+from ..parallel.moe import count_drops, dropped_share
 from ..parallel.layout import tp_dim
 from ..runtime.graphs import CapturedStep, use_decode_graph
 from .kv_manager import KVCachePool, PagedKVPool, PoolExhausted
@@ -193,8 +194,6 @@ def quantize_model(model, mesh=None) -> int:
     if getattr(model.embedding, "int8_weights", False):
         raise ValueError("the model already holds int8 decode weights; "
                          "build a fresh model to quantize")
-    # ops/quant knows the 2-D linear leaves and the per-layer 1-D ones only
-    refuse_moe(model.cfg, "int8 decode weights")
     tp = 1 if mesh is None else mesh.tp
     with torch.no_grad():
         qparams = quantize_decode_params(model.state_dict(), mesh)
@@ -256,6 +255,17 @@ class _Sampling:
         validate_sampling(model.cfg, temperature, top_k, top_p)
         self._sampling = (temperature, top_k, top_p)
         self._debug_host_sampler = debug_host_sampler
+
+    def reset_drop_tally(self) -> None:
+        """Restart the MoE model's drop tally (`parallel/moe.count_drops`)
+        from zero; the constructors call it once their decode step's
+        capture has run its warm-ups. `stats()` reports the tally as
+        `moe_dropped_share`."""
+        count_drops(self.model, self.device)
+
+    def _drop_stats(self) -> dict:
+        share = dropped_share([self.model])
+        return {} if share is None else {"moe_dropped_share": share}
 
     def _sample(self, logits: torch.Tensor, seeds: torch.Tensor,
                 positions: torch.Tensor, host: bool = False):
@@ -366,6 +376,7 @@ class ContinuousBatchingEngine(_Sampling):
         self._setup_sampling(model, temperature, top_k, top_p,
                              debug_host_sampler)
         _setup_decode_weights(self, model, mesh, decode_weight_dtype)
+        count_drops(model, self.device)     # before a capture adds to it
         self.pool = KVCachePool(model, mesh, num_slots, buf_len)
         self.dispatch = Dispatcher(mesh, {"slot_prefill": self._run_prefill,
                                           "slot_decode": self._run_decode})
@@ -391,6 +402,7 @@ class ContinuousBatchingEngine(_Sampling):
         # the example: token 0 at cursor 0 in every row, all free now
         self._decode_graph = _capture_decode(self, decode_graph, mesh.tp,
                                              np.zeros(3 * n, np.int32))
+        self.reset_drop_tally()
 
     # -- request intake --------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -559,6 +571,7 @@ class ContinuousBatchingEngine(_Sampling):
             "prefill_pad_waste_eliminated": round(
                 1.0 - self.prefill_positions / mono, 4)
             if self.prefill_positions_monolithic else 0.0,
+            **self._drop_stats(),
         }
 
 
@@ -664,8 +677,6 @@ class PagedEngine(_Sampling):
         # cp-sharded pages: column j of the page table belongs to cp rank j
         # // (max_pages / cp), so max_pages rounds up to a cp multiple
         self.cp = max(1, int(getattr(model, "cp_size", 1)))
-        if self.cp > 1:
-            refuse_moe(model.cfg, "cp-sharded pages")
         if self.cp > 1 and mesh.cp != self.cp:
             raise ValueError(f"a model at cp {self.cp} shards its pages over "
                              f"the mesh's cp ranks; got a mesh at cp "
@@ -692,6 +703,7 @@ class PagedEngine(_Sampling):
         self._setup_sampling(model, temperature, top_k, top_p,
                              debug_host_sampler)
         _setup_decode_weights(self, model, mesh, decode_weight_dtype)
+        count_drops(model, self.device)     # before a capture adds to it
         self.paged_attn_impl = paged_attn_impl
         self.kv_dtype = kv_dtype
         self.pool = PagedKVPool(model, mesh, num_pages, page_size,
@@ -747,6 +759,7 @@ class PagedEngine(_Sampling):
                         np.int32)]),
             self.cp) if self._CAPTURES_DECODE_STEP and not prefill_only \
             else None
+        self.reset_drop_tally()
 
     # -- request intake ---------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -1301,4 +1314,5 @@ class PagedEngine(_Sampling):
             "handoffs_staged": self.handoffs_staged,
             "pages_exported": self.pages_exported,
             "pages_imported": self.pages_imported,
+            **self._drop_stats(),
         }

@@ -58,8 +58,9 @@ a tiny smoke run.
 A MoE model (`--model 45m-moe8`, or `--num_experts`) serves in both
 engines at ep = 1 (every rank holds every expert) and any tp, its decode
 step a CUDA graph at tp = 1; `--dry_run` keeps its experts on the dry
-shape. Refused for it, naming ROADMAP Queue 1 item 7: int8 decode weights,
-`--speculate` and `--paged --cp`.
+shape. It takes every serving path a dense model takes: int8 decode
+weights (its router and experts quantized per output channel too),
+`--speculate` (a dense or MoE drafter) and `--paged --cp`.
 
 `--tokenizer_path` (a `tokenizer.json`, read by `data/tokenizer
 .load_tokenizer`) sets the vocab size and the EOS id; without it the
@@ -95,7 +96,7 @@ import torch
 
 from ..cli import add_model_shape_args, build_model_config
 from ..config import (BOS_TOKEN, EOS_TOKEN, MODEL_PRESETS, MeshConfig,
-                      ModelConfig, model_preset, refuse_moe)
+                      ModelConfig, model_preset)
 from ..models import build_model
 from ..models.transformer import Transformer, validate_tp
 from ..ops import collectives
@@ -608,19 +609,9 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
         rec["debug_host_sampler"] = True
     if args.decode_weight_dtype != "native":
         rec["decode_weight_dtype"] = args.decode_weight_dtype
+    if "moe_dropped_share" in summary["engine_stats"]:
+        rec["moe_dropped_share"] = summary["engine_stats"]["moe_dropped_share"]
     print(json.dumps(rec))
-
-
-def _refuse_moe_paths(args: argparse.Namespace, cfg: ModelConfig) -> None:
-    """The serving paths a MoE model does not take yet (each names ROADMAP
-    Queue 1 item 7): int8 decode weights, speculative decoding and
-    cp-sharded pages. MoE serves in both engines at any tp."""
-    if args.decode_weight_dtype == "int8":
-        refuse_moe(cfg, "--decode_weight_dtype int8")
-    if args.speculate:
-        refuse_moe(cfg, "--speculate")
-    if args.cp > 1:
-        refuse_moe(cfg, "--paged --cp")
 
 
 def serve(args: argparse.Namespace) -> dict:
@@ -635,7 +626,6 @@ def serve(args: argparse.Namespace) -> dict:
     > 1 the ranks run in processes of their own and the summary is rank
     0's."""
     cfg = _model_config(args)
-    _refuse_moe_paths(args, cfg)
     world = args.tp_size * args.cp
     if world == 1:
         out = _serve(args, cfg)

@@ -49,8 +49,8 @@ from typing import Tuple
 import torch
 
 from ..cli import add_model_shape_args
-from ..config import refuse_moe
 from ..config import MeshConfig
+from ..parallel.moe import dropped_share
 from ..runtime.mesh import make_mesh
 from ..training.metrics import MetricsWriter
 from .engine import PagedEngine
@@ -197,7 +197,6 @@ def run(args: argparse.Namespace) -> Tuple[dict, dict]:
     `fleet` holds the engines by name and, for the router fleet, the
     router; for `--disagg`, `done` (every completed request)."""
     cfg = _model_config(args)
-    refuse_moe(cfg, "serve_fleet")
     if args.dry_run:
         args.replicas = min(args.replicas, 2)
         args.num_requests, args.arrival = 8, "burst"
@@ -226,6 +225,7 @@ def run(args: argparse.Namespace) -> Tuple[dict, dict]:
     if args.disagg:
         pre = _engine(args, cfg, mesh, buf_len, prefill_only=True)
         dec = _engine(args, cfg, mesh, buf_len)
+        engines = [pre, dec]
         summary = run_disaggregated(pre, dec, requests)
         done = summary.pop("completed")
         ms = lambda vals, q: _pctl([v and v * 1e3 for v in vals], q)
@@ -245,6 +245,7 @@ def run(args: argparse.Namespace) -> Tuple[dict, dict]:
     else:
         replicas = [(f"r{i}", _engine(args, cfg, mesh, buf_len))
                     for i in range(args.replicas)]
+        engines = [e for _, e in replicas]
         with MetricsWriter(args.log_dir, process_index=0) as writer:
             router = FleetRouter(replicas, prefix_weight=args.prefix_weight,
                                  load_weight=args.load_weight,
@@ -253,6 +254,9 @@ def run(args: argparse.Namespace) -> Tuple[dict, dict]:
         summary["mode"] = "fleet"
         fleet = {**dict(replicas), "router": router}
     summary["device"] = device
+    share = dropped_share(e.model for e in engines)
+    if share is not None:
+        summary["moe_dropped_share"] = share
     return summary, fleet
 
 

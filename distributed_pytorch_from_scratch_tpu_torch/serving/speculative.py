@@ -69,7 +69,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..config import refuse_moe, resolve_dtype_on
+from ..config import resolve_dtype_on
 from ..models.decode import (_filter_logits, _full_vocab_logits,
                              _paged_decode_one, _paged_prefill_chunk,
                              decode_tables, gumbel_noise, hash_uniform)
@@ -105,8 +105,6 @@ class SpeculativeEngine(PagedEngine):
                  drafter_pages: int = 0, **kw):
         if speculate_k < 1:
             raise ValueError(f"speculate_k must be >= 1, got {speculate_k}")
-        refuse_moe(model.cfg, "speculative decoding")
-        refuse_moe(drafter_model.cfg, "speculative decoding")
         if kw.get("debug_host_sampler"):
             raise ValueError(
                 "debug_host_sampler is the NON-speculative engines' "
@@ -175,6 +173,7 @@ class SpeculativeEngine(PagedEngine):
         if use_decode_graph(kw.get("decode_graph", "auto"), self.device,
                             mesh.tp, self.cp):
             self._capture_round()
+        self.reset_drop_tally()
 
     # -- the round's device programs --------------------------------------
     def _capture_round(self) -> None:

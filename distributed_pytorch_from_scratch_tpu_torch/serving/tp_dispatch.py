@@ -26,10 +26,17 @@ worker's pool stays identical to the leader's in layout. A kind goes on
 the wire as its index in registration order, which every rank shares:
 each builds the same engine. On one rank `__call__` runs the lowering
 directly: no broadcast, no copy.
+
+The dispatcher holds an engine's bound lowerings weakly: the engine holds
+the dispatcher, so strong references would make a cycle that keeps the
+engine (its KV pool and weights on the card) alive after its last user
+drops it, until Python's collector happens to run.
 """
 
 from __future__ import annotations
 
+import inspect
+import weakref
 from collections import Counter
 from typing import Callable, Dict, Sequence
 
@@ -40,6 +47,24 @@ from ..ops.collectives import broadcast_ints
 
 STOP = -1                  # the header kind that ends a worker's loop
 HEADER = 8
+
+
+class _WeakLowering:
+    """A bound method held through a `weakref.WeakMethod` (see the module
+    docstring), called as the method is."""
+
+    __slots__ = ("_ref",)
+
+    def __init__(self, method: Callable):
+        self._ref = weakref.WeakMethod(method)
+
+    def __call__(self, *args):
+        return self._ref()(*args)
+
+
+def _weak(fn: Callable) -> Callable:
+    """A bound method as a `_WeakLowering`; any other callable as it is."""
+    return _WeakLowering(fn) if inspect.ismethod(fn) else fn
 
 
 class Dispatcher:
@@ -53,7 +78,7 @@ class Dispatcher:
         self.world = mesh.world
         self.mesh = mesh
         self.leader = mesh.rank == 0
-        self.lowerings = dict(lowerings)
+        self.lowerings = {k: _weak(fn) for k, fn in lowerings.items()}
         self.shapes: Counter = Counter()
 
     def register(self, kind: str, lowering: Callable) -> None:
@@ -61,7 +86,7 @@ class Dispatcher:
         the same kinds in the same order)."""
         if kind in self.lowerings:
             raise ValueError(f"dispatch kind {kind!r} is already registered")
-        self.lowerings[kind] = lowering
+        self.lowerings[kind] = _weak(lowering)
 
     @property
     def counts(self) -> Dict[str, int]:
@@ -72,7 +97,12 @@ class Dispatcher:
 
     def _run(self, kind: str, shape: tuple, payload: np.ndarray):
         self.shapes[(kind, shape)] += 1
-        return self.lowerings[kind](shape, payload)
+        # the leader's engine steps run under inference mode, and so must
+        # a worker's: with autograd on, a lowering's in-place cache writes
+        # tie the caches and the weights into a graph that Python's garbage
+        # collector cannot see, so a worker kept every engine it ran
+        with torch.inference_mode():
+            return self.lowerings[kind](shape, payload)
 
     def _send(self, kind: int, shape: tuple, payload: np.ndarray) -> None:
         head = np.array([kind, payload.size, *shape], np.int32)

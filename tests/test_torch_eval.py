@@ -319,9 +319,6 @@ def test_generate_cp2_matches_jax(setup):
 # -- (d) refusals ----------------------------------------------------------
 
 @pytest.mark.parametrize("extra,item", [
-    # a MoE model runs at cp 1; at cp > 1 it is refused, before any rank
-    (["--num_experts", "4", "--cp_size", "2", "--dist_backend", "gloo"],
-     "item 7"),
     (["--num_processes", "2"], "item 2"),
     (["--coordinator", "host:1234"], "item 2"),
 ])
@@ -343,18 +340,6 @@ def test_evaluate_keeps_jax_refusals(setup):
                 ["--decode_top_k", "5"], ["--decode_top_p", "2"]):
         with pytest.raises(SystemExit):
             evaluate.get_eval_args(base + EVAL + bad)
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--num_experts", "4", "--cp_size", "2", "--dist_backend", "gloo"],
-     "item 7"),
-    (["--family", "gpt2", "--num_experts", "4", "--cp_size", "2",
-      "--dist_backend", "gloo"], "item 7"),
-])
-def test_generate_refusals_name_their_item(setup, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        generate.main(["--ckpt_dir", str(setup["src"]), "-t", SHIPPED,
-                       "--prompt", "hi", "--device", "cpu"] + MODEL + extra)
 
 
 def test_clis_without_a_card_exit_nonzero(setup):

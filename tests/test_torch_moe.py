@@ -34,7 +34,9 @@ JAX computes.
 (f) `doc_loss` (the evaluation sweep's per-document losses) within 1e-5 of
     JAX `make_doc_loss`; `model_flops_per_step` of `45m-moe8` equals
     JAX's; the MoE train CLI at ep 2 over gloo, then evaluate and generate
-    on its checkpoint; every MoE refusal names ROADMAP Queue 1 item 7.
+    on its checkpoint; the library keeps JAX's ep checks. (The MoE serving
+    paths beyond the two engines, and evaluate / generate at cp 2, are
+    `tests/test_torch_moe_paths.py`'s.)
 """
 
 import dataclasses
@@ -82,12 +84,8 @@ from distributed_pytorch_from_scratch_tpu_torch.reshard import layout
 from distributed_pytorch_from_scratch_tpu_torch.runtime import (
     launch, tp_checks)
 from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
-from distributed_pytorch_from_scratch_tpu_torch.serving import (serve,
-                                                                serve_fleet)
 from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
-    ContinuousBatchingEngine, PagedEngine, Request, quantize_model)
-from distributed_pytorch_from_scratch_tpu_torch.serving.speculative import (
-    SpeculativeEngine)
+    ContinuousBatchingEngine, PagedEngine, Request)
 from distributed_pytorch_from_scratch_tpu_torch.training import (
     checkpoint, metrics)
 from _torch_threads import two_torch_threads  # noqa: F401
@@ -100,7 +98,6 @@ TIGHT = dict(CFG, moe_capacity_factor=1.0)      # choices drop at ep 2
 SERVE = dict(CFG, moe_capacity_factor=0.5)      # ... in every dispatch
 B, T = 4, 32
 ADAM = dict(lr=1e-2, warmup_steps=2, max_steps=20)
-ITEM7 = "ROADMAP Queue 1 item 7"
 SHIPPED = "tokenizer/tokenizer.json"
 
 # name: (port mesh axes, sp, cfg, the JAX mesh of the reference)
@@ -554,35 +551,7 @@ def test_train_cli_at_ep2_then_evaluate_and_generate(runs):
     assert texts[0].startswith("hi")
 
 
-@pytest.mark.parametrize("case", ["int8", "speculate", "paged_cp", "fleet",
-                                  "evaluate_cp", "generate_cp"])
-def test_unported_moe_paths_name_item7(case):
-    dry = ["--dry_run", "--device", "cpu", "--model", "45m-moe8"]
-    gloo = ["--dist_backend", "gloo"]
-    ck = ["--ckpt_dir", "none", "-t", SHIPPED, "--device", "cpu"] + CLI_MODEL
-    run = {
-        "int8": lambda: serve.main(dry + ["--decode_weight_dtype", "int8"]),
-        "speculate": lambda: serve.main(dry + ["--paged", "--speculate", "2"]),
-        "paged_cp": lambda: serve.main(dry + ["--paged", "--cp", "2"] + gloo),
-        "fleet": lambda: serve_fleet.main(dry),
-        "evaluate_cp": lambda: evaluate.evaluate(evaluate.get_eval_args(
-            ck + ["--data_path", "x", "--cp_size", "2"] + gloo)),
-        "generate_cp": lambda: generate.main(
-            ck + ["--prompt", "hi", "--cp_size", "2"] + gloo),
-    }[case]
-    with pytest.raises(NotImplementedError, match=ITEM7):
-        run()
-
-
 def test_library_refusals_and_train_checks(tmp_path):
-    cfg = ModelConfig(**CFG)
-    mesh = make_mesh(MeshConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match=ITEM7):
-        quantize_model(build_model("llama", cfg), mesh)
-    with pytest.raises(NotImplementedError, match=ITEM7):
-        SpeculativeEngine(build_model("llama", cfg), mesh,
-                          build_model("llama", cfg), num_slots=2,
-                          buf_len=BUF, eos_id=EOS)
     # the JAX checks, with its messages: experts over ep, dense ep
     for experts, jax_fn in (
             (3, lambda: JMoEFFN(128, 512, 3, ep_size=2)),
