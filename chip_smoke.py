@@ -120,7 +120,7 @@ result line):
     launches and device time, beside the plain versions, a library
     yardstick (memory-efficient SDPA with a position bias) and the bound;
 20. cp_train: `train.main` at cp=2 (two ranks sharing the card over gloo),
-    the 45m widths at 6 of its 12 layers (`CP_LAYERS`), bf16, b 8 x t
+    the 45m widths at 4 of its 12 layers (`CP_LAYERS`), bf16, b 8 x t
     1000 with remat: zig-zag 4 steps, a
     checkpoint and a 2-step `--resume`; contiguous 2 steps; Ulysses 2
     steps — finite losses, falling under zig-zag, the step-1 loss of each
@@ -139,14 +139,14 @@ result line):
     kernels, the block kernels' share (no SIMT block kernel may run), and
     the time in the ring's hops;
 24. tp_train: `train.main` at tp=2 (two ranks sharing the card over gloo),
-    the 45m widths at 6 layers (`CP_LAYERS`), bf16, b 8 x t 1000 with
+    the 45m widths at 4 layers (`CP_LAYERS`), bf16, b 8 x t 1000 with
     remat: 4 steps, one
     checkpoint file per tp rank and a 2-step `--resume`, then that
     checkpoint resumed at tp=1 for a step; tp=2 with
     `--sequence_parallel` 2 steps; tp 2 x dp 2 (four ranks) 2 steps —
     finite losses, falling at tp=2, the step-1 loss of each and of a tp=1
-    run on the same batch within 1e-2, each rank's flash launches 2 x 6
-    (forward) and 6 (dq, dk/dv) per step and no other attention kernel;
+    run on the same batch within 1e-2, each rank's flash launches 2 x 4
+    (forward) and 4 (dq, dk/dv) per step and no other attention kernel;
 25. tp_tiny: `train --model tiny --tp_size 2 --cp_size 2 --cp_impl
     ring`, four ranks, 2 steps at f32 and with --bf16: head_dim
     32 with 2 local heads on both routes of the block kernels, launches
@@ -183,8 +183,8 @@ result line):
 31. graph_check: both engines at the phase-5 and phase-15 traffic (its
     deadlines x 1000, so the schedule does not follow the clock) with
     the decode step graphed (`--decode_graph auto`) and eager (`off`), at
-    bf16 (the paged mix's first 16 requests) and (the first 8 requests)
-    f32: identical tokens, the graph run
+    bf16 and f32 (the first 8 requests of each mix): identical tokens,
+    the graph run
     on every decode step;
     a replayed decode step's logits and tokens bitwise the eager step's
     on the live rows (bf16 and f32, both engines); per engine (bf16, 8 and
@@ -237,8 +237,8 @@ result line):
     `--steps_per_dispatch 4`: bitwise the same losses and launches;
 39. gpt2_serve: `serve --family gpt2 --random_init --vocab_size 50257`
     at that width, bf16, the decode step graphed: the slot engine on
-    phase 5's traffic, the paged engine on phase 15's (bf16, then int8
-    pages), 32 new tokens per request, each greedy and sampled (temperature 0.8, top-k 50, top-p
+    phase 5's traffic, the paged engine on the first 16 requests of phase
+    15's (bf16, then int8 pages), 32 new tokens per request, each greedy and sampled (temperature 0.8, top-k 50, top-p
     0.95): in-vocab tokens, exact launches (K1 12 per prefill dispatch;
     K3 12 per decode step and per chunk), a drained pool; sampled slot
     tokens identical with the decode step eager and with
@@ -253,7 +253,7 @@ result line):
     from one seeded row of 50257 logits at top-k 50, top-p 0.95 against
     the filtered softmax by a chi-square at p = 1e-3; the first 500 draws
     identical on the CPU.
-42. train_async_preempt: the train cell 12 steps with a checkpoint every
+42. train_async_preempt: the train cell 8 steps with a checkpoint every
     4 steps written in the background (a device snapshot, then a writer
     thread) and with none: identical losses, the loop's host time per
     save, the prefetch thread's wait, step p50 of each, beside one
@@ -282,8 +282,8 @@ result line):
     and f32, native and int8 pools, one launch each on its route, two
     verify calls bit-equal; then the verify shape q (16, 8, 5, 64): kernel,
     plain, SDPA over the gathered view, bound;
-46. spec_serve: `serve --paged --speculate 4` at 45m bf16 on phase 15's
-    mix with the tiny drafter, greedy and sampled: every request served
+46. spec_serve: `serve --paged --speculate 4` at 45m bf16 on the first 16
+    requests of phase 15's mix with the tiny drafter, greedy and sampled: every request served
     in-vocab, both pools
     drained, K3's launches exactly the rounds' and chunks' per route
     (counted through the draft and verify graphs' replays); at f32 the
@@ -301,7 +301,7 @@ result line):
     on the CPU's plain path, and a chunk dispatch's logits at every
     position are within 1e-4 of cp 1's;
 48. cp_serve: `serve --paged --cp 2 --dist_backend gloo` (two ranks on the
-    card, each holding half the KV pages) at the 45m preset, bf16: 8
+    card, each holding half the KV pages) at the 45m preset, bf16: 4
     burst requests of
     512-880 tokens behind a 96-token shared prefix, 16 new tokens, with
     bf16 and int8 pages — every request served in-vocab, the ranks in
@@ -323,8 +323,8 @@ result line):
     phase 15's mix (32 burst requests, 64/512-token prompts behind the
     96-token shared prefix, two tenants, three classes, page 64, chunk
     128): `--replicas 2` with 8 slots on 40 pages each, then `--disagg`
-    with 8 + 8 slots on 40 + 40 pages, native pages and (16 requests) int8
-    pages — every request served in-vocab, every pool drained, each tenant on one
+    with 8 + 8 slots on 40 + 40 pages on the first 16 requests, native
+    and int8 pages — every request served in-vocab, every pool drained, each tenant on one
     replica, the router's predicted hits at least the first admissions'
     actual hits (both printed with the resumes' hits), the pages and bytes
     transferred those of the handoffs' prompts, K3 exactly 12 per decode
@@ -363,7 +363,8 @@ result line):
     drops at either and the two agree to f32 rounding (both: loss and
     logits 1e-5, gradients 1e-4 of their max); then `train --model 45m-moe8
     --ep_size 2 --dist_backend gloo` (two ranks on the card, 4 experts
-    each) at b 8 x t 1000, bf16, 3 steps: finite losses, the step-1 loss within 1e-2 of an ep 1
+    each) at 4 of its 12 layers (`CP_LAYERS`), b 8 x t 1000, bf16, 3
+    steps: finite losses, the step-1 loss within 1e-2 of an ep 1
     model's on the same batch from the same seed, each rank's K1 launches
     per step as at ep 1, and its ep
     hops: 6 all_to_alls per layer per step (forward, the remat replay,
@@ -371,7 +372,8 @@ result line):
     checkpoint's expert gathers; step p50 and the hops' calls, bytes and
     host ms per step printed.
 55. zero_train: `train --dp_size 2 --dist_backend gloo` (two ranks on the
-    card) at the 45m preset, b 8 x t 1000, bf16, remat, 4 steps each at
+    card) at the 45m widths at 4 of its 12 layers (`CP_LAYERS`), b 8 x t
+    1000, bf16, remat, 3 steps each at
     `--zero 0, 1 --dp_reduce_bucket_mb 25, 2, 3` and `--zero 2
     --dp_reduce_dtype bf16 | int8`: finite losses, every run's step-1 loss
     within 1e-3 relative of stage 0's, each rank's K1 launches exactly 2 x
@@ -404,11 +406,31 @@ result line):
     fleet of two replicas of 8 slots on 40 pages over 8 of phase 50's
     requests: every pool drained, K3 per decode step and chunk on its
     routes, tokens/s, dispatch ms, prefix hits and the dropped share; (d)
-    `--paged --cp 2 --dist_backend gloo` at 6 of the 12 layers, 4 of
+    `--paged --cp 2 --dist_backend gloo` at 4 of the 12 layers, 4 of
     phase 48's long requests: each rank's K3, cp hops and pool bytes
     (`_check_cp_serve_rank`); (e) `evaluate --cp_size 2` on phase 52's
     newest checkpoint (each rank's K2 launches those of the ring schedule of the
     sweep, K3 12 per decode step and chunk) and `generate --cp_size 2`.
+57. pp_train: `train --pp_size 2 --pp_microbatches 4 --dist_backend gloo`
+    (two ranks on the card, 6 layers each) at the 45m preset, full depth,
+    b 8 x t 1000, bf16, remat, 4 steps with the gpipe schedule, 4 with
+    `--pp_schedule interleaved --pp_virtual 2` (blocks of 3 layers) and 2
+    with `--pp_remat_steps`, against 4 steps of pp 1 on the same batches:
+    finite losses, every step's loss within 1e-2 of pp 1's, each rank's
+    K1 launches exactly 2 x 6 x 4 forward (under `--pp_remat_steps` (2 x
+    6 + 5) x 4: the stage step's replay runs all but its last layer) and
+    6 x 4 dq and dk/dv per step and nothing else; step p50, tokens/s, the
+    pp hops per step (calls, bytes, host ms) and each rank's peak and held
+    bytes printed beside the card's name and power limit. Then at the tiny widths (4 layers), f32,
+    b 4 x t 64: pp 2 gpipe and interleaved (the kept group of two) and pp
+    2 x tp 2 (the group of four) on the card against the same ranks on
+    the CPU and against pp 1 on the card: losses within 1e-5, every
+    gradient within 1e-4 of its leaf's max. Then the pp 2 checkpoint
+    resumed at pp 1 for 2 steps through the reshard planner (its
+    `reshard_event` printed, the metered staging peak within the largest
+    leaf, K1 per the schedule) and resharded by the offline CLI
+    (`reshard/reshard_ckpt.py`) into a tp 2 set: two files, bytes moved,
+    the metered staging peak within the largest leaf.
 
 Every phase also prints, for each call it made on a kept group of rank
 processes, each rank's card memory allocated before the call, at its
@@ -530,9 +552,11 @@ GPT2_PAGED_ARGS = (GPT2_MODEL + ["--vocab_size", str(GPT2_VOCAB)]
                                       PAGED_SERVE_ARGS.index("--vocab_size")]
                    + PAGED_SERVE_ARGS[PAGED_SERVE_ARGS.index("--vocab_size")
                                       + 2:])
-# with 32 new tokens each
+# with 32 new tokens each; the paged runs serve the mix's first 16
+# requests
 for _args in (GPT2_SERVE_ARGS, GPT2_PAGED_ARGS):
     _args[_args.index("--max_new_tokens") + 1] = "32"
+GPT2_PAGED_ARGS[GPT2_PAGED_ARGS.index("--num_requests") + 1] = "16"
 SAMPLED_ARGS = ["--temperature", "0.8", "--decode_top_k", "50",
                 "--decode_top_p", "0.95"]
 SAMPLER_DRAWS = 20000    # sampler_check: seeds 0..19999 on one row
@@ -2581,9 +2605,9 @@ CP_ARGS = ["--model", "45m", "--bf16", "--batch_size", str(CP_B), "--maxlen",
 CP2 = ["--cp_size", "2", "--dist_backend", "gloo"]
 # zigzag and tp2 run 4 steps to keep the whole script near its budget; in
 # 4 the loss still falls by about 3 nats on the corpus. cp_train and
-# tp_train run the 45m widths at 6 of its 12 layers (a run's fixed cost,
+# tp_train run the 45m widths at 4 of its 12 layers (a run's fixed cost,
 # its model init and final checkpoint, and its hops all scale with depth)
-CP_LAYERS = 6
+CP_LAYERS = 4
 CP_RUNS = {  # name: (flags, steps)
     "zigzag": (["--cp_layout", "zigzag"], 4),
     "contiguous": (["--cp_layout", "contiguous"], 2),
@@ -3721,10 +3745,10 @@ def _replay_vs_eager(torch, eng) -> tuple:
 # re-prefilled by the chunk kernel, whose bf16 roundings are not the decode
 # step's: the two runs would serve other schedules, not the same requests.
 GRAPH_CHECK_SLO = ["--slo_classes", "interactive=250,standard=1000,batch=8000"]
-# graph_check's f32 runs take the first 8 requests of each mix, its bf16
-# paged runs the first 16
+# graph_check's f32 runs and its bf16 paged runs take the first 8 requests
+# of each mix
 GRAPH_CHECK_F32 = 8
-GRAPH_CHECK_PAGED = 16
+GRAPH_CHECK_PAGED = 8
 
 
 def phase_graph_check(torch) -> dict:
@@ -4460,7 +4484,7 @@ def phase_sampler_check(torch) -> dict:
 # steps (written in the background) and with none; a profiled loop of
 # ASYNC_PROFILE_STEPS with saves; then a process of its own that gets
 # SIGTERM after its PREEMPT_AFTER-th step line, and a --resume
-ASYNC_STEPS = 12
+ASYNC_STEPS = 8
 ASYNC_EVERY = 4
 ASYNC_PROFILE_STEPS = 6
 PREEMPT_AFTER = 3
@@ -4828,7 +4852,9 @@ def phase_serve_replay(torch, workdir: str) -> dict:
 # drafter is the `tiny` preset (head_dim 32) reshaped to the target's vocab
 SPEC_K = 4
 SPEC_WIDTHS = (2, 3, 5, 9)           # k + 1 for k = 1, 2, 4, 8
-SPEC_SERVE_ARGS = PAGED_SERVE_ARGS + ["--speculate", str(SPEC_K)]
+# the speculative runs serve the paged mix's first 16 requests
+SPEC_SERVE_ARGS = _replace_flag(PAGED_SERVE_ARGS, "--num_requests",
+                                "16") + ["--speculate", str(SPEC_K)]
 SPEC_F32_REQUESTS = 8                # spec_serve's f32 identity burst
 SPEC_MIN_SELF_ACCEPT = 0.95          # drafter = target, f32
 
@@ -5253,10 +5279,10 @@ CP_ONE_BASE = ["--model", "45m", "--random_init", "--vocab_size", "1024",
                "--bf16", "--paged", "--page_size", "64", "--prefill_chunk",
                "128"]
 CP_SERVE_BASE = CP_ONE_BASE + ["--cp", "2", "--dist_backend", "gloo"]
-# 8 burst requests of 512-880 tokens (a 96-token shared prefix ending
+# 4 burst requests of 512-880 tokens (a 96-token shared prefix ending
 # mid-page + 416-784 of their own), 16 new tokens each, 8 slots
 CP_SERVE_RUNS = {
-    "serve_paged_cp2": ["--shared_prefix_len", "96", "--num_requests", "8",
+    "serve_paged_cp2": ["--shared_prefix_len", "96", "--num_requests", "4",
                         "--arrival", "burst", "--prompt_len_min", "416",
                         "--prompt_len_max", "784", "--max_new_tokens", "16",
                         "--slots", "8"],
@@ -5501,8 +5527,9 @@ FLEET_ARGS = (PAGED_SERVE_ARGS[:PAGED_SERVE_ARGS.index("--slots")]
               + ["--slots", "8", "--num_pages", "40", "--prefix_weight",
                  "0.5"])
 FLEET_ARGS.remove("--paged")
-# --disagg with int8 pages serves the mix's first 16 requests
-FLEET_RUNS = {"fleet_x2": ["--replicas", "2"], "disagg": ["--disagg"],
+# --disagg serves the mix's first 16 requests, with native and int8 pages
+FLEET_RUNS = {"fleet_x2": ["--replicas", "2"],
+              "disagg": ["--disagg", "--num_requests", "16"],
               "disagg_int8": ["--disagg", "--kv_dtype", "int8",
                               "--num_requests", "16"]}
 
@@ -5846,7 +5873,7 @@ MOE_PAGED_ARGS = _replace_flag(_replace_flag(
     PAGED_SERVE_ARGS, "--model", MOE), "--num_requests", "16")
 MOE_EP2_STEPS = 3
 MOE_EP2_ARGS = _replace_flag(CP_ARGS, "--model", MOE) + [
-    "--max_steps", str(MOE_EP2_STEPS)]
+    "--max_steps", str(MOE_EP2_STEPS), "--num_layers", str(CP_LAYERS)]
 # moe_check: the tiny widths with 4 experts and a capacity that drops
 MOE_TINY = dict(num_experts=4, moe_capacity_factor=1.0,
                 compute_dtype="float32")
@@ -6252,7 +6279,7 @@ def phase_moe_ep2_train(torch, workdir: str) -> dict:
     from distributed_pytorch_from_scratch_tpu_torch.data.dataset import (
         get_dataloader)
     from distributed_pytorch_from_scratch_tpu_torch.models import build_model
-    cfg = model_preset(MOE, compute_dtype="bfloat16")
+    cfg = model_preset(MOE, compute_dtype="bfloat16", num_layers=CP_LAYERS)
     layers = cfg.num_layers
     steps = MOE_EP2_STEPS
     _moe_ep2_exchange(torch)
@@ -6655,9 +6682,10 @@ def phase_moe_paths(torch, workdir: str, moe_served: dict) -> dict:
     return res
 
 
-ZERO_STEPS = 4
+ZERO_STEPS = 3
 ZERO_ARGS = CP_ARGS + ["--dp_size", "2", "--dist_backend", "gloo",
-                       "--max_steps", str(ZERO_STEPS)]
+                       "--max_steps", str(ZERO_STEPS), "--num_layers",
+                       str(CP_LAYERS)]
 ZERO_RUNS = {  # name: flags
     "zero0": ["--zero", "0"],
     "zero1": ["--zero", "1", "--dp_reduce_bucket_mb", "25"],
@@ -6758,7 +6786,7 @@ def phase_zero_train(torch, workdir: str) -> dict:
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
-    layers = model_preset("45m").num_layers
+    layers = CP_LAYERS
     base = ZERO_ARGS + ["--data_path", _corpus(workdir)]
     card = _smi()
     out, held, first = {}, {}, None
@@ -6836,6 +6864,205 @@ def phase_zero_train(torch, workdir: str) -> dict:
     return out
 
 
+# pp_train: the 45m preset at full width and depth (12 layers, 6 per
+# stage), b 8 x t 1000 bf16 with remat, two ranks on the card over gloo
+PP_M = 4               # microbatches of 2 rows
+PP_STEPS = 4
+PP_ARGS = CP_ARGS + ["--pp_size", "2", "--dist_backend", "gloo",
+                     "--pp_microbatches", str(PP_M)]
+PP_RUNS = {  # name: (flags, steps)
+    "pp2": ([], PP_STEPS),
+    "pp2_interleaved": (["--pp_schedule", "interleaved", "--pp_virtual",
+                         "2"], PP_STEPS),
+    "pp2_remat_steps": (["--pp_remat_steps"], 2),
+}
+
+
+def _pp_fwd(per_block: int, remat_steps: bool) -> int:
+    """K1 forwards per microbatch through a block of `per_block` layers
+    under remat: two per layer, and under `--pp_remat_steps` the stage
+    step's replay as well, which stops once it has the input of the last
+    layer's own checkpoint (torch's early stop): per_block - 1 more."""
+    return 2 * per_block + (per_block - 1 if remat_steps else 0)
+# the card-vs-CPU check's tiny shape: 4 layers (one per interleaved block),
+# f32, b 4 x t 64
+PP_TINY = dict(num_layers=4, maxlen=64, compute_dtype="float32")
+
+
+def _pp_tiny_tree(seed: int = 0):
+    """A JAX-layout numpy tree of the tiny pp shape, from the port's seeded
+    init (`tp_checks.model_runs` loads JAX-layout trees)."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.interop import (
+        params_to_jax)
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    model = build_model("llama", model_preset("tiny", **PP_TINY))
+    return params_to_jax(model.init_weights(seed).state_dict())
+
+
+def _pp_card_vs_cpu(torch) -> None:
+    """pp 2 (gpipe, interleaved) and pp 2 x tp 2 at the tiny shape, f32:
+    the loss within 1e-5 and every gradient within 1e-4 of its leaf's
+    max, on the card against the same ranks on the CPU and against one
+    rank on the card at pp 1."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.parallel.layout import (
+        shard_params)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    cfg = dataclasses.asdict(model_preset("tiny", **PP_TINY))
+    tree = _pp_tiny_tree()
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, cfg["vocab_size"], size=(4, 65))
+    batch = [np.ascontiguousarray(a, dtype=np.int32) for a in (
+        ids[:, :-1], ids[:, 1:], np.broadcast_to(np.arange(64), (4, 64)))]
+    runs = {"pp2": {}, "pp2_interleaved": dict(pp_schedule="interleaved")}
+    job = lambda axes, run: ("model_runs", axes, dict(
+        cfg=cfg, tree=tree, runs=[dict(run, batch=batch)]))
+    one = tp_checks.model_runs(make_mesh(MeshConfig(), device="cuda"), cfg,
+                               tree, [dict(batch=batch)])[0]
+    two = launch.spawn(tp_checks.jobs, 2, [job({"pp": 2}, r)
+                                           for r in runs.values()],
+                       ("cuda", "cpu"))
+    four = launch.spawn(tp_checks.jobs, 4, [job({"pp": 2, "tp": 2}, {})],
+                        ("cuda", "cpu"))
+    worst = {}
+
+    def held(name, card, ref, tp):
+        loss_err = abs(card["loss"] - ref["loss"]) / abs(ref["loss"])
+        want = shard_params({k: torch.from_numpy(v)
+                             for k, v in ref["grads"].items()}, tp,
+                            card["coords"]["tp"]) if tp > 1 else None
+        grad_err = 0.0
+        for k, g in card["grads"].items():
+            r = ref["grads"][k] if want is None else want[k].numpy()
+            top = max(float(np.abs(r).max()), 1e-30)
+            grad_err = max(grad_err, float(np.abs(g - r).max()) / top)
+        worst[name] = max(worst.get(name, 0.0), grad_err)
+        if not (loss_err <= 1e-5 and grad_err <= 1e-4):
+            raise AssertionError(f"pp card vs cpu {name}: loss err "
+                                 f"{loss_err:.3e}, grad err/max "
+                                 f"{grad_err:.3e}")
+
+    for i, name in enumerate(runs):
+        for rank in two:
+            card, cpu = rank[i][0], rank[len(runs) + i][0]
+            held(f"{name} card vs cpu", card, cpu, 1)
+            held(f"{name} vs pp 1", card, one, 1)
+    for rank in four:
+        held("pp2 x tp2 card vs cpu", rank[0][0], rank[1][0], 1)
+        held("pp2 x tp2 vs pp 1", rank[0][0], one, 2)
+    log(f"pp_train card vs cpu (tiny, f32, b 4 x t 64, 4 layers): worst "
+        f"gradient err / max {worst} (limit 1e-4; losses within 1e-5)")
+
+
+def phase_pp_train(torch, workdir: str) -> dict:
+    """`train --pp_size 2` at the 45m preset (phase 57): gpipe and
+    interleaved, the card against the CPU at the tiny shape, the pp 2
+    checkpoint resumed at pp 1 through the planner and resharded by the
+    offline CLI into a tp 2 set. Returns each run's K1 launches summed
+    over its ranks."""
+    import glob
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.reshard import (
+        reshard_ckpt)
+    layers = 12
+    per_stage = layers // 2
+    card = _smi()
+    base = PP_ARGS + ["--data_path", _corpus(workdir), "--max_steps",
+                      str(PP_STEPS)]
+    # pp 1 on the same batches: the reference trajectory of every pp run
+    ref = train.main(CP_ARGS + ["--data_path", _corpus(workdir),
+                                "--max_steps", str(PP_STEPS), "--save_dir",
+                                os.path.join(workdir, "pp1")])["losses"]
+    out, worst = {}, {}
+    for name, (flags, steps) in PP_RUNS.items():
+        save = os.path.join(workdir, name)
+        res = train.main(base + flags + ["--max_steps", str(steps),
+                                         "--save_dir", save])
+        losses = res["losses"]
+        if len(losses) != steps or not all(math.isfinite(x)
+                                           for x in losses):
+            raise AssertionError(f"{name}: losses not finite or not "
+                                 f"{steps}: {losses}")
+        blocks = res["pp_virtual"]
+        per = per_stage // blocks
+        fwd = blocks * _pp_fwd(per, res["pp_remat_steps"])
+        # OneCycle's warmup does not depend on --max_steps, so a 2-step
+        # run's losses are the pp 1 run's first two
+        worst[name] = max(abs(a - b) for a, b in zip(losses, ref))
+        summed = {}
+        for r in res["ranks"]:
+            # every microbatch through each of the stage's layers
+            _only(r["launches"], dict(
+                _flash_want(per_stage, steps * PP_M),
+                flash_attention_fwd=fwd * steps * PP_M),
+                f"{name} rank {r['rank']} ({steps} steps of {PP_M} "
+                f"microbatches)")
+            for k, v in r["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        out[name] = summed
+        pp = lambda r: r["hops_per_step"]["pp"]
+        log(f"pp_train {name} ({card}): {steps} steps of 45m b{CP_B} x "
+            f"t{CP_T} bf16, {layers} layers over pp {res['pp']} "
+            f"({res['pp_schedule']}, {res['pp_microbatches']} microbatches"
+            f", {res['pp_virtual']} block(s) per stage, remat steps "
+            f"{res['pp_remat_steps']}) over "
+            f"{res['dist_backend']} on {res['cards']} card(s): losses "
+            f"{[round(x, 4) for x in losses]}; step p50 "
+            f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_sec']:.1f} "
+            f"tok/s; pp hops per step " + "; ".join(
+                f"rank {r['rank']} {pp(r)['calls']:g} calls, "
+                f"{pp(r)['bytes'] / 1e6:.2f} MB, host {pp(r)['host_ms']:.1f}"
+                f" ms" for r in res["ranks"]) + "; " + "; ".join(
+                f"rank {r['rank']} peak {r['peak_mem_gib']:.3f} GiB, held "
+                f"{sum(r['state_bytes'].values())} B" for r in res["ranks"])
+            + f"; K1 per rank per step fwd {fwd * PP_M}, dq "
+            f"{per_stage * PP_M}, dk/dv {per_stage * PP_M} (checked)")
+    log(f"pp_train: pp 1 on the same batches: losses "
+        f"{[round(x, 4) for x in ref]}; worst |pp 2 - pp 1| per run "
+        f"{worst} (limit 1e-2 absolute)")
+    if not all(w <= 1e-2 for w in worst.values()):
+        raise AssertionError(f"pp 2 losses disagree with pp 1: {worst}")
+    _pp_card_vs_cpu(torch)
+    # the pp 2 checkpoint resumed at pp 1 (another layout: the planner)
+    save = os.path.join(workdir, "pp2")
+    resumed = train.main(CP_ARGS + ["--data_path", _corpus(workdir),
+                                    "--max_steps", str(PP_STEPS + 2),
+                                    "--save_dir", save, "--resume"])
+    info = resumed["reshard"]
+    _only(resumed["ranks"][0]["launches"], _flash_want(layers, 2),
+          "pp2 resumed at pp 1 (2 steps)")
+    out["pp2_resumed_pp1"] = dict(resumed["ranks"][0]["launches"])
+    log(f"pp_train: the pp 2 checkpoint resumed at pp 1 from step "
+        f"{resumed['start_step']}: losses {resumed['losses']}; "
+        f"reshard_event {info}")
+    if (resumed["start_step"] != PP_STEPS or info is None
+            or info["src"] != "pp2 zero0"
+            or info["peak_host_bytes"] > info["max_leaf_bytes"]
+            or not all(math.isfinite(x) for x in resumed["losses"])):
+        raise AssertionError("the pp 2 checkpoint did not resume at pp 1 "
+                             "through the planner")
+    dst = os.path.join(workdir, "pp2_as_tp2")
+    rec = reshard_ckpt.main(["--src", save, "--dst", dst, "--tp", "2",
+                             "--iter", str(PP_STEPS)])
+    files = sorted(glob.glob(os.path.join(dst, "tprank-*.npz")))
+    log(f"pp_train: the pp 2 checkpoint resharded to tp 2 by the CLI: "
+        f"{len(files)} files, {rec['bytes_moved']} bytes moved, ops "
+        f"{rec['ops']}, peak host {rec['peak_host_bytes']} B (largest leaf "
+        f"{rec['max_leaf_bytes']} B), {rec['wall_ms']} ms")
+    if len(files) != 2 or rec["peak_host_bytes"] > rec["max_leaf_bytes"]:
+        raise AssertionError("the reshard CLI did not write a tp 2 set "
+                             "within one leaf of host memory")
+    return out
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -6849,7 +7076,7 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
           "cp_serve", "fleet_check", "fleet_serve", "moe_check",
           "moe_train", "moe_serve", "moe_ep2_train", "zero_train",
-          "moe_paths")
+          "moe_paths", "pp_train")
 
 
 def main() -> None:
@@ -6908,7 +7135,7 @@ def run(torch, phases: set, workdir: str) -> list:
     with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
                 "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
                 "gpt2_train", "train_async_preempt", "serve_replay",
-                "moe_train", "moe_ep2_train", "zero_train")
+                "moe_train", "moe_ep2_train", "zero_train", "pp_train")
     res = {}
     from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
     with launch.kept_groups():
@@ -6935,7 +7162,7 @@ def run(torch, phases: set, workdir: str) -> list:
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
      replayed, spec_err, spec_served, cp_err, cp_served, fleet_served,
-     moe_trained, moe_served, moe_ep2, moe_paths, zero_runs) = (
+     moe_trained, moe_served, moe_ep2, moe_paths, zero_runs, pp_runs) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -6945,7 +7172,7 @@ def run(torch, phases: set, workdir: str) -> list:
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
              "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
              "cp_serve", "fleet_serve", "moe_train", "moe_serve",
-             "moe_ep2_train", "moe_paths", "zero_train"))
+             "moe_ep2_train", "moe_paths", "zero_train", "pp_train"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -6994,7 +7221,9 @@ def run(torch, phases: set, workdir: str) -> list:
                          "eval_moe_cp2": sum(r.get(k, 0) for r in
                                              moe_paths["eval_cp2"]),
                          **{f"train_dp2_{name}": run.get(k, 0)
-                            for name, run in zero_runs.items()}}
+                            for name, run in zero_runs.items()},
+                         **{f"train_{name}": run.get(k, 0)
+                            for name, run in pp_runs.items()}}
     at_path, at_gpt2 = bwd_times["errs"], gpt2_times["errs"]
     # K3's launches on the gpt2 paged runs, by C entry point
     gpt2_paged = lambda kernel: {

@@ -133,9 +133,8 @@ def model_preset(name: str, **overrides) -> ModelConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'); the port runs dp, cp, ep
-    and tp through torch.distributed and refuses pp > 1
-    (runtime/mesh.py)."""
+    """Mesh axes ('dp', 'pp', 'cp', 'ep', 'tp'), each run through
+    torch.distributed (runtime/mesh.py)."""
 
     dp: int = 1
     tp: int = 1

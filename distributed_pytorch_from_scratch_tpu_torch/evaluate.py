@@ -47,10 +47,9 @@ through the slot engine, prompt i drawing from seed `--random_seed` + i.
 
 A MoE model (`--model 45m-moe8`, or `--num_experts`) runs the sweep and
 the KV decoder at ep = 1 (every rank holds every expert) and any dp and
-tp. Refused with NotImplementedError, naming the ROADMAP item: a MoE model
-at `--cp_size > 1` (item 7), the multi-host flags (item 2). The JAX CLI's
-own refusals stay,
-with its messages. Not ported: the JAX CLI's span tracer (`val/trace.json`,
+tp, and at `--cp_size > 1`. Refused with NotImplementedError, naming the
+ROADMAP item: the multi-host flags (item 2). The JAX CLI's own refusals
+stay, with its messages. Not ported: the JAX CLI's span tracer (`val/trace.json`,
 ROADMAP item 8).
 """
 

@@ -23,10 +23,8 @@ native`). Runs on the card unless `--device cpu` is given; with no card it
 exits non-zero.
 
 A MoE model (`--model 45m-moe8`, or `--num_experts`) decodes through the
-slot engine at ep = 1 (every rank holds every expert) and any tp; at
-`--cp_size > 1` it is refused with NotImplementedError naming ROADMAP
-Queue 1 item 7, as evaluate.py refuses it. The JAX CLI's ulysses refusal
-stays, with its message.
+slot engine at ep = 1 (every rank holds every expert) and any tp and cp.
+The JAX CLI's ulysses refusal stays, with its message.
 """
 
 from __future__ import annotations

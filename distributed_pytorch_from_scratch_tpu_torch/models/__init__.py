@@ -23,7 +23,8 @@ def build_model(family: str, cfg: ModelConfig, **kw) -> Transformer:
 def num_params(model: Transformer) -> int:
     """The model's global parameter count, the tp- and ep-sharded leaves
     counted whole (with the vocab padded to a multiple of tp, as the JAX
-    tree holds it)."""
+    tree holds it), and every pp stage's layers (each holds as many)."""
     return sum(p.numel() * (1 if tp_dim(k) is None else model.tp_size)
                * (model.ep_size if is_expert(k) else 1)
+               * (model.pp_size if k.startswith("layers.") else 1)
                for k, p in model.named_parameters())

@@ -30,8 +30,14 @@ family's routed-expert `moe` module instead (SwiGLU experts, as in the JAX
 family: the trunk stays GPT-2), with its aux losses and expert
 parallelism.
 
+Under a pp axis the family pipelines as the llama one (`models/
+pipeline.py`). The tied head is the point there: stage 0 reads the
+embedding for its input and every stage for its head rows, so the
+embedding's gradient is the pp sum of both uses (the train step's
+all-reduce over pp of the leaves every stage holds).
+
 The JAX family's MHA-only rule stands (num_kv_heads must equal
-num_heads). Not ported: pipeline and tp overlap (ROADMAP Queue 1 item 7).
+num_heads). Not ported: tp overlap (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -87,23 +93,19 @@ class GPT2Transformer(Transformer):
     attn_norm_key = "ln1"
     ffn_norm_key = "ln2"
 
-    def __init__(self, cfg: ModelConfig, remat=True, cp_size: int = 1,
-                 cp_impl: str = "ring", cp_layout: str = "contiguous",
-                 mesh=None, sequence_parallel: bool = False):
+    def __init__(self, cfg: ModelConfig, remat=True, **kw):
         if cfg.kv_heads != cfg.num_heads:
             raise ValueError("grouped-query attention (num_kv_heads) is a "
                              "llama-family feature; the gpt2 family is MHA "
                              "(real GPT-2 has none — documented choice)")
-        super().__init__(cfg, remat=remat, cp_size=cp_size, cp_impl=cp_impl,
-                         cp_layout=cp_layout, mesh=mesh,
-                         sequence_parallel=sequence_parallel)
+        super().__init__(cfg, remat=remat, **kw)
 
     def _build(self, cfg: ModelConfig, tp_mesh) -> None:
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh, init_std=INIT_STD)
         self.pos_embedding = PositionTable(cfg.maxlen, cfg.attn_dim)
         self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
-                                    for _ in range(cfg.num_layers))
+                                    for _ in self.layer_ids)
         self.norm = LayerNorm(cfg.attn_dim)
 
     @property

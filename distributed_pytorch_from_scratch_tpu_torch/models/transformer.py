@@ -55,7 +55,19 @@ A MoE model's loss adds the router's auxiliary losses, `moe_aux_coef *
 load_balance + moe_z_coef * z`, from the layers' aux sums summed over the
 batch group (the JAX `loss_shard`).
 
-Not ported: pipeline and tp overlap.
+At `mesh.pp > 1` the model is one pipeline stage (`models/pipeline.py`):
+its `layers` are this stage's (`layer_ids`, in the canonical order's
+terms), the embedding, final norm and head are held whole on every stage,
+and the forward runs the local batch through the gpipe or interleaved
+schedule in `pp_microbatches` microbatches, each stage step's layers under
+one more checkpoint with `pp_remat_steps`. The loss takes JAX's head
+layout: with a local batch that divides by pp each stage runs the norm,
+head and CE on its b/pp rows of the last stage's output (`pp_scatter`),
+else every stage on all of them, counted on the last stage only; its sums
+(and a MoE model's aux sums, each stage's layers') are summed over the
+batch group and then over pp.
+
+Not ported: tp overlap.
 """
 
 from __future__ import annotations
@@ -80,8 +92,10 @@ from ..parallel.layout import shard_params
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..parallel.moe import AUX_KEYS, MoEFFN, add_aux, aux_losses, aux_zeros
 from ..parallel.norm import RMSNorm
+from . import pipeline
 from .decode import (_block, _embed, _logits_tokens, _positions,
                      decode_tables)
+from .pipeline import stage_layer_ids, validate_pp
 
 
 def validate_cp(cfg: ModelConfig, tp: int, cp_size: int, cp_impl: str,
@@ -205,7 +219,9 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, remat: bool = True,
                  cp_size: int = 1, cp_impl: str = "ring",
                  cp_layout: str = "contiguous", mesh=None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, pp_microbatches: int = 0,
+                 pp_schedule: str = "gpipe", pp_virtual: int = 2,
+                 pp_remat_steps: bool = False):
         super().__init__()
         if remat not in (True, False, "dots"):
             raise ValueError(
@@ -217,6 +233,9 @@ class Transformer(nn.Module):
         validate_tp(cfg, tp_size)
         validate_cp(cfg, tp_size, cp_size, cp_impl, cp_layout)
         validate_ep(cfg, ep_size)
+        pp_size = 1 if mesh is None else mesh.pp
+        validate_pp(cfg.num_layers, pp_size, pp_microbatches, pp_schedule,
+                    pp_virtual)
         if cp_size > 1 and (mesh is None or mesh.cp != cp_size):
             raise ValueError(f"cp_size {cp_size} needs the Mesh of its "
                              f"group (runtime.mesh.make_mesh), got {mesh}")
@@ -231,11 +250,22 @@ class Transformer(nn.Module):
         self.num_local_heads = cfg.num_heads // tp_size
         self.num_local_kv_heads = cfg.kv_heads // tp_size
         self.vocab_padded = cfg.padded_vocab_size(tp_size)
+        self.pp_size = pp_size
+        self.pp_microbatches, self.pp_schedule = pp_microbatches, pp_schedule
+        self.pp_virtual, self.pp_remat_steps = pp_virtual, pp_remat_steps
+        # the canonical indices of this stage's layers, in ModuleList order
+        self.layer_ids = stage_layer_ids(
+            cfg.num_layers, pp_size, 0 if mesh is None else mesh.pp_rank,
+            pp_schedule, pp_virtual)
         self._build(cfg, mesh if tp_size > 1 or ep_size > 1 else None)
 
     @property
     def is_moe(self) -> bool:
         return self.cfg.num_experts > 0
+
+    @property
+    def interleaved(self) -> bool:
+        return self.pp_size > 1 and self.pp_schedule == "interleaved"
 
     def _build(self, cfg: ModelConfig, tp_mesh) -> None:
         """The family's modules (`tp_mesh`: the mesh at tp or ep > 1, else
@@ -243,7 +273,7 @@ class Transformer(nn.Module):
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh)
         self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
-                                    for _ in range(cfg.num_layers))
+                                    for _ in self.layer_ids)
         self.norm = RMSNorm(cfg.attn_dim)
         self.lm_head = ColumnParallelLinear(cfg.attn_dim, self.vocab_padded,
                                             tp_mesh)
@@ -254,15 +284,17 @@ class Transformer(nn.Module):
         uniform(+-1/sqrt(idim)) linear weights, zero biases, unit norms.
         Draws on the CPU, so a seed gives the same weights on any device.
 
-        At tp or ep > 1 the full tree is drawn exactly as at tp = ep = 1
-        and this rank keeps its slice; the padded embedding rows and head
-        columns are zero. So a tp or ep model from seed s is the same
-        function as a one-rank model from seed s."""
+        At tp, ep or pp > 1 the full tree is drawn exactly as at one rank
+        and this rank keeps its slice (its stage's layers); the padded
+        embedding rows and head columns are zero. So a model of any mesh
+        from seed s is the same function as a one-rank model from seed
+        s."""
         device = self.embedding.weight.device
-        if self.tp_size > 1 or self.ep_size > 1:
+        if self.tp_size > 1 or self.ep_size > 1 or self.pp_size > 1:
             full = type(self)(self.cfg).init_weights(seed).state_dict()
             self.load_state_dict(shard_params(
-                full, self.tp_size, self.mesh.tp_rank, self.ep_size,
+                pipeline.from_canonical(full, self.layer_ids),
+                self.tp_size, self.mesh.tp_rank, self.ep_size,
                 self.mesh.ep_rank))
             return self
         gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -311,10 +343,12 @@ class Transformer(nn.Module):
         return self.forward_with_aux(input_ids, position_ids)[0]
 
     def forward_with_aux(self, input_ids: torch.Tensor,
-                         position_ids: torch.Tensor):
+                         position_ids: torch.Tensor,
+                         head_layout: str = "replicated"):
         """`forward`'s logits and, for a MoE model, the layers' aux sums
         summed over the layers (this rank's local sums; None for a dense
-        model)."""
+        model). At pp > 1 `head_layout` 'pp_scatter' gives the logits of
+        this stage's b/pp rows (`pipeline.run`)."""
         if (self.sequence_parallel
                 and input_ids.shape[-1] % self.tp_size != 0):
             raise ValueError(
@@ -327,34 +361,76 @@ class Transformer(nn.Module):
             x = _embed(self, input_ids, position_ids, dtype)
             cos, sin = _positions(*decode_tables(self, self.cfg.maxlen,
                                                  x.device), position_ids)
-            attend = self._attend(position_ids)
-
-            def layer(x, i, lp, *shards):
-                # ZeRO-3: the layer's weights are gathered HERE, inside
-                # the checkpointed function, from its resting shards: the
-                # gathered weights are not saved, the backward's replay
-                # gathers them again
-                with (z3.bind_layer(i, lp, shards) if z3
-                      else contextlib.nullcontext()):
-                    x, _, _, aux = _block(self, lp, x, cos, sin, dtype,
-                                          attend)
-                return x if aux is None else (x, aux)
-
             aux = (aux_zeros(self.cfg.num_experts, x.device) if self.is_moe
                    else None)
-            for i, lp in enumerate(self.layers):
-                shards = z3.layer_shards(i, lp) if z3 else ()
-                if self.remat and torch.is_grad_enabled():
-                    out = checkpoint(layer, x, i, lp, *shards,
-                                     **_remat_kwargs(self.remat))
-                else:
-                    out = layer(x, i, lp, *shards)
-                if self.is_moe:
-                    x, layer_aux = out
-                    aux = add_aux(aux, layer_aux)
-                else:
-                    x = out
+            if self.pp_size > 1:
+                x, aux = self._pipeline(x, cos, sin, position_ids, dtype,
+                                        aux, head_layout)
+            else:
+                x, aux = self._run_layers(
+                    x, range(len(self.layers)), cos, sin,
+                    self._attend(position_ids), dtype, aux)
             return _logits_tokens(self, x, dtype), aux
+
+    def _run_layers(self, x, idx, cos, sin, attend, dtype, aux):
+        """The layers at ModuleList positions `idx` on x, each under the
+        remat policy; returns (x', aux + their aux sums)."""
+        z3 = self.zero3
+
+        def layer(x, i, lp, cos, sin, *shards):
+            # ZeRO-3: the layer's weights are gathered HERE, inside the
+            # checkpointed function, from its resting shards: the gathered
+            # weights are not saved, the backward's replay gathers them
+            # again
+            with (z3.bind_layer(i, lp, shards) if z3
+                  else contextlib.nullcontext()):
+                x, _, _, aux = _block(self, lp, x, cos, sin, dtype, attend)
+            return x if aux is None else (x, aux)
+
+        for i in idx:
+            lp = self.layers[i]
+            shards = z3.layer_shards(i, lp) if z3 else ()
+            if self.remat and torch.is_grad_enabled():
+                out = checkpoint(layer, x, i, lp, cos, sin, *shards,
+                                 **_remat_kwargs(self.remat))
+            else:
+                out = layer(x, i, lp, cos, sin, *shards)
+            if self.is_moe:
+                x, layer_aux = out
+                aux = add_aux(aux, layer_aux)
+            else:
+                x = out
+        return x, aux
+
+    def _pipeline(self, x, cos, sin, position_ids, dtype, aux, head_layout):
+        """This stage's part of the pipeline (`pipeline.run`): its blocks of
+        layers on each microbatch, with that microbatch's rows of the
+        positions (and its ring schedule at cp > 1, made once)."""
+        M = self.pp_microbatches or self.pp_size
+        V = self.pp_virtual if self.interleaved else 1
+        per = len(self.layers) // V
+        mb = x.shape[0] // M      # `pipeline.run` refuses a remainder
+        attends = {}
+
+        def block(z, v, m):
+            rows = slice(m * mb, (m + 1) * mb)
+            if m not in attends:
+                attends[m] = self._attend(position_ids[rows])
+            pick = lambda a: None if a is None else a[rows]
+
+            def step(z):
+                return self._run_layers(
+                    z, range(v * per, (v + 1) * per), pick(cos), pick(sin),
+                    attends[m], dtype,
+                    aux_zeros(self.cfg.num_experts, z.device)
+                    if self.is_moe else None)
+
+            if self.pp_remat_steps and torch.is_grad_enabled():
+                return checkpoint(step, z, **_remat_kwargs(True))
+            return step(z)
+
+        return pipeline.run(self.mesh, x, M, block, self.pp_schedule,
+                            self.pp_virtual, aux, head_layout)
 
     @torch.no_grad()
     def full_logits(self, input_ids: torch.Tensor,
@@ -422,20 +498,34 @@ class Transformer(nn.Module):
 
         On a mesh the arguments are this rank's rows and chunk; the masked
         sum and the count (and the aux sums) are summed over the batch
-        group (dp x cp x ep) first, in one all-reduce,
+        group (dp x cp x ep) first, in one all-reduce (then over pp),
         so every rank returns the global loss. The sum's backward passes
         its cotangent through, so a rank's gradient is that of local_sum /
         global_count, and the batch group's sum of the ranks' gradients
         (the train step) is the global loss's."""
         if mode not in ("vocab_parallel", "gather"):
             raise ValueError(f"unknown loss mode {mode!r}")
-        logits, aux = self.forward_with_aux(input_ids, position_ids)
+        pp = self.pp_size
+        pp_scatter = pp > 1 and input_ids.shape[0] % pp == 0
+        logits, aux = self.forward_with_aux(
+            input_ids, position_ids,
+            head_layout="pp_scatter" if pp_scatter else "replicated")
+        if pp_scatter:      # this stage's rows of the batch
+            chunk = input_ids.shape[0] // pp
+            stage = self.mesh.pp_rank
+            target_ids = target_ids[stage * chunk:(stage + 1) * chunk]
         logits = logits.float()
         valid = target_ids != IGNORE_INDEX
         tgt = torch.where(valid, target_ids, 0).long()
         token_loss = self._token_ce(logits, tgt, mode)
         sums = [torch.where(valid, token_loss, 0.0).sum()[None],
                 valid.float().sum()[None]]
+        if pp > 1 and not pp_scatter:
+            # every stage computed the CE of the whole batch: counted on
+            # the last stage only (which also zeroes the other stages'
+            # cotangents of the head, the norm and the embedding)
+            is_last = float(self.mesh.pp_rank == pp - 1)
+            sums = [v * is_last for v in sums]
         if self.is_moe:
             if self.sequence_parallel:
                 # the router saw the tp-gathered tokens: every tp rank holds
@@ -448,6 +538,8 @@ class Transformer(nn.Module):
         flat = torch.cat(sums)
         if self.mesh is not None and self.mesh.axis("batch").size > 1:
             flat = all_reduce_sum(flat, self.mesh, "batch")
+        if pp > 1:
+            flat = all_reduce_sum(flat, self.mesh, "pp")
         loss = flat[0] / torch.clamp(flat[1], min=1.0)
         if self.is_moe:
             E = self.cfg.num_experts

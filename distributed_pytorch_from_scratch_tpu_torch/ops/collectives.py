@@ -1,9 +1,13 @@
 """Collectives over one axis of the mesh — the port of the JAX
 `ops/collectives.py`, as `torch.autograd.Function` conjugate pairs. Every
 op takes the `Mesh` and the name of the axis it runs over ('tp', 'cp',
-'ep', 'dp', 'batch' — the dp x cp x ep ranks that share a tp index — or
-'expert_batch', the dp x cp ranks that share an (ep, tp) pair); at axis
-size 1 each is the identity.
+'ep', 'dp', 'pp', 'batch' — the dp x cp x ep ranks that share a (pp, tp)
+pair — or 'expert_batch', the dp x cp ranks that share a (pp, ep, tp)
+triple); at axis size 1 each is the identity.
+
+Pipeline parallelism's: `stage_hop(x, mesh, wrap)`, the ring permute over
+'pp', passes a stage's activation to the next pp stage (JAX's `ppermute`
+over 'pp'), its backward the cotangent to the previous one.
 
 Megatron's tensor-parallel pairs (the JAX primitive in brackets):
 
@@ -64,7 +68,7 @@ from typing import Dict, List
 import torch
 import torch.distributed as dist
 
-STAT_AXES = ("tp", "cp", "ep", "dp", "batch", "expert_batch")
+STAT_AXES = ("tp", "cp", "ep", "dp", "pp", "batch", "expert_batch")
 # the serving dispatch broadcasts' entry in `stats`, apart from the axes
 DISPATCH = "dispatch"
 
@@ -280,35 +284,44 @@ def all_max(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
     return _all_reduce(x.detach(), mesh, axis, op=dist.ReduceOp.MAX)
 
 
-def _permute(x: torch.Tensor, mesh, shift: int,
-             axis: str = "cp") -> torch.Tensor:
+def _permute(x: torch.Tensor, mesh, shift: int, axis: str = "cp",
+             wrap: bool = True) -> torch.Tensor:
     """x sent to the rank `shift` places on along `axis`, what the rank
-    `shift` places back sent returned (no autograd)."""
+    `shift` places back sent returned (no autograd). Without `wrap` the
+    ends do not join: the last ranks send nothing and the first receive
+    zeros."""
     ax = mesh.axis(axis)
     n, r = ax.size, ax.rank
+    dst, src = r + shift, r - shift
+    if wrap:
+        dst, src = dst % n, src % n
 
     def run(send):
-        recv = torch.empty_like(send)
-        ops = [dist.P2POp(dist.isend, send, ax.members[(r + shift) % n],
-                          ax.group),
-               dist.P2POp(dist.irecv, recv, ax.members[(r - shift) % n],
-                          ax.group)]
+        recv = (torch.empty_like(send) if 0 <= src < n
+                else torch.zeros_like(send))
+        ops = []
+        if 0 <= dst < n:
+            ops.append(dist.P2POp(dist.isend, send, ax.members[dst],
+                                  ax.group))
+        if 0 <= src < n:
+            ops.append(dist.P2POp(dist.irecv, recv, ax.members[src],
+                                  ax.group))
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recv
 
-    return _collective(mesh, axis, x, run)
+    return _collective(mesh, axis, x, run, ring=1.0 if 0 <= dst < n else 0.0)
 
 
 class _RingPermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, shift):
-        ctx.mesh, ctx.shift = mesh, shift
-        return _permute(x, mesh, shift)
+    def forward(ctx, x, mesh, shift, axis, wrap):
+        ctx.args = (mesh, -shift, axis, wrap)
+        return _permute(x, mesh, shift, axis, wrap)
 
     @staticmethod
     def backward(ctx, g):
-        return _permute(g, ctx.mesh, -ctx.shift), None, None
+        return _permute(g, *ctx.args), None, None, None, None
 
 
 def ring_permute(x: torch.Tensor, mesh, shift: int = 1) -> torch.Tensor:
@@ -320,7 +333,22 @@ def ring_permute(x: torch.Tensor, mesh, shift: int = 1) -> torch.Tensor:
     if shift % mesh.cp == 0:
         raise ValueError("ring_permute needs a shift that is not a multiple "
                          f"of the group size {mesh.cp}; it would self-send")
-    return _RingPermute.apply(x, mesh, shift)
+    return _RingPermute.apply(x, mesh, shift, "cp", True)
+
+
+def stage_hop(x: torch.Tensor, mesh, wrap: bool = False) -> torch.Tensor:
+    """One pipeline hop over 'pp', the ring permute on that axis: stage p
+    sends x to stage p + 1 and returns what stage p - 1 sent (JAX's
+    `ppermute` of the pipeline step carry); the backward sends the
+    cotangent back. With `wrap` the last stage sends to stage 0 (the
+    interleaved schedule's ring); without it the last stage sends nothing
+    and stage 0 gets zeros, which the gpipe schedule overwrites with its
+    injected microbatch (JAX's wrapped hop carries a value stage 0 drops).
+    Every stage must call it, at every step, and keep its output in the
+    graph: its backward is a transfer with both neighbours."""
+    if mesh.axis("pp").size == 1:
+        raise ValueError("stage_hop needs a pp axis of size > 1")
+    return _RingPermute.apply(x, mesh, 1, "pp", wrap)
 
 
 def _a2a(x: torch.Tensor, mesh, axis: str, split_axis: int,

@@ -1,6 +1,6 @@
-"""Checkpoint layout records and the `__layout__` stamp — the stamp's part
-of the JAX `reshard/layout.py` (the redistribution planner and its
-executor are not ported: ROADMAP Queue 1 item 7).
+"""Checkpoint layout records and the `__layout__` stamp — the port of the
+JAX `reshard/layout.py`, which the redistribution planner (`plan.py`) and
+its executors (`apply.py`) read.
 
 A `Layout` says where a checkpoint's tree lived: the mesh axes larger than
 1, as (name, size) pairs in the JAX mesh's axis order (dp, pp, cp, ep,
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,12 +55,15 @@ def transposed(key: str) -> bool:
     return leaf == "weight" and (name in _LINEARS or key == "lm_head.weight")
 
 
-def canonical_specs(shapes: Dict[str, Iterable[int]]) -> Dict[str, Spec]:
+def canonical_specs(shapes: Dict[str, Iterable[int]],
+                    pp: int = 1) -> Dict[str, Spec]:
     """{flat JAX key: spec} of a port state dict (any mapping of its keys to
     their shapes): the JAX `canonical_specs()` flattened. Each leaf takes
     'tp' on the dim `parallel.layout.tp_dim` names, seen in the JAX layout
     (transposed weights swap their dims; stacked leaves gain a leading
-    None), an expert leaf 'ep' on its expert dim, and None elsewhere."""
+    num_layers dim, 'pp' at pp > 1 and None otherwise, whatever the
+    schedule: JAX stamps the gpipe specs), an expert leaf 'ep' on its
+    expert dim, and None elsewhere."""
     specs: Dict[str, Spec] = {}
     for key, shape in shapes.items():
         ndim = len(tuple(shape))
@@ -71,7 +74,8 @@ def canonical_specs(shapes: Dict[str, Iterable[int]]) -> Dict[str, Spec]:
         if is_expert(key):
             spec[0] = "ep"
         jkey, stacked = jax_key(key)
-        specs[jkey] = (None, *spec) if stacked else tuple(spec)
+        specs[jkey] = ((("pp" if pp > 1 else None), *spec) if stacked
+                       else tuple(spec))
     return specs
 
 
@@ -90,6 +94,28 @@ class Layout:
     mesh_axes: Tuple[Tuple[str, int], ...]
     specs: Dict[str, Spec]
     zero_stage: int = 0
+
+    def axis_size(self, name: str) -> int:
+        return dict(self.mesh_axes).get(name, 1)
+
+    @property
+    def tp(self) -> int:
+        return self.axis_size("tp")
+
+    @property
+    def dp(self) -> int:
+        return self.axis_size("dp")
+
+    def spec_for(self, key: str) -> Spec:
+        """The spec of any flat key: the moments ride their param's spec
+        (mu/nu shard exactly like the param)."""
+        kind, _, rest = key.partition("/")
+        pkey = "param/" + rest if kind in ("mu", "nu") else key
+        try:
+            return self.specs[pkey]
+        except KeyError:
+            raise KeyError(f"no spec for checkpoint key {key!r} "
+                           f"(looked up {pkey!r})") from None
 
     def describe(self) -> str:
         axes = "x".join(f"{a}{s}" for a, s in self.mesh_axes) or "single"
@@ -159,3 +185,71 @@ def read_stamp(npz) -> Optional[Layout]:
         return None
     return Layout.from_json(str(member.item() if hasattr(member, "item")
                                 else member))
+
+
+def spec_tp_dim(spec: Spec) -> Optional[int]:
+    """The dim of a JAX-layout spec that names 'tp' (the one dim a rank file
+    slices), or None."""
+    for i, axis in enumerate(spec):
+        if axis == "tp" or (isinstance(axis, tuple) and "tp" in axis):
+            return i
+    return None
+
+
+def spec_zero_dim(spec: Sequence, shape: Sequence[int], dp: int,
+                  start: int = 0) -> int:
+    """The JAX `_zero_dim` on a JAX-layout spec and shape: the first dim at
+    or after `start` that the spec leaves free and whose size dp divides,
+    or -1. The one rule ZeRO's shards
+    (`training/zero.zero_dim`) and the reshard planner share."""
+    if dp == 1:
+        return -1
+    spec = tuple(spec) + (None,) * (len(shape) - len(tuple(spec)))
+    for i, (s, d) in enumerate(zip(spec, shape)):
+        if i >= start and s is None and d > 0 and d % dp == 0:
+            return i
+    return -1
+
+
+def mesh_axes_of(mesh) -> Tuple[Tuple[str, int], ...]:
+    """(axis, size) pairs of a port `runtime.mesh.Mesh`, in the JAX mesh's
+    order, the size-1 axes dropped."""
+    sizes = {"dp": mesh.dp, "pp": mesh.pp, "cp": mesh.cp, "ep": mesh.ep,
+             "tp": mesh.tp}
+    return tuple((a, sizes[a]) for a in MESH_AXES if sizes[a] > 1)
+
+
+def resolve_source_layout(ckpt_dir: str, step: int,
+                          specs: Optional[Dict[str, Spec]] = None,
+                          ext: str = "npz",
+                          echo=print) -> Tuple[Layout, bool]:
+    """(source Layout, is_legacy) of a checkpoint on disk, the JAX
+    function. A stamped npz returns its stamp. Anything else — an npz
+    from before the stamp, or a `.pth` rank span, which has no place for
+    one — is legacy: the tp width comes from the file names (or
+    `__tp_size__`), the ZeRO stage from `__zero_stage__` when present, the
+    specs from the caller (`canonical_specs` of the model), with a loud
+    note; a legacy source without specs raises, naming the fix."""
+    from ..training.checkpoint import validate_checkpoint
+
+    tp_size, rank_files = validate_checkpoint(ckpt_dir, step, ext=ext)
+    zero_stage = 0
+    if ext == "npz":
+        with np.load(rank_files[min(rank_files)]) as npz:
+            stamped = read_stamp(npz)
+            if stamped is not None:
+                return stamped, False
+            try:
+                zero_stage = int(npz["__zero_stage__"])
+            except KeyError:
+                pass
+    if specs is None:
+        raise ValueError(
+            f"legacy checkpoint (no {LAYOUT_KEY} stamp) at {ckpt_dir} "
+            f"iter {step}: pass the model's canonical_specs() (CLI: "
+            f"--model <preset>) so the layout can be inferred")
+    echo(f"note: legacy checkpoint at {ckpt_dir} iter {step} — layout "
+         f"inferred from filenames (tp{tp_size}, zero{zero_stage}); "
+         f"re-save to stamp it")
+    return make_layout((("tp", tp_size),), specs,
+                       zero_stage=zero_stage), True

@@ -1,23 +1,25 @@
 """The port's counterpart of the JAX package's `runtime/mesh.py`.
 
 The JAX mesh names five axes ('dp', 'pp', 'cp', 'ep', 'tp') over the devices
-of one program. The port runs the dp, cp, ep and tp axes as
-`torch.distributed` processes, one per rank, as the reference ran its ranks
-(`mp.spawn` + NCCL). Ranks take their coordinates in the JAX device order:
-the grid (dp, pp, cp, ep, tp) with tp innermost, so global rank r sits at
-tp index r % tp, ep index (r // tp) % ep, cp index (r // (tp * ep)) % cp
-and dp index r // (tp * ep * cp). pp > 1 is refused until its slice lands
-(ROADMAP Queue 1 item 7).
+of one program. The port runs every one of them as `torch.distributed`
+processes, one per rank, as the reference ran its ranks (`mp.spawn` +
+NCCL). Ranks take their coordinates in the JAX device order: the grid (dp,
+pp, cp, ep, tp) with tp innermost, so global rank r sits at tp index r %
+tp, ep index (r // tp) % ep, cp index (r // (tp * ep)) % cp, pp index (r //
+(tp * ep * cp)) % pp and dp index r // (tp * ep * cp * pp).
 
 A `Mesh` is this process's device plus its place on each axis: the axis
 size, this process's index on it and the process group of the ranks that
 differ from it on that axis alone. Two more groups hold the batch axes
 (the JAX `batch_axes`): 'batch', the dp x cp x ep ranks that share this
-process's tp index (the loss sums its numerator and count over it, and
-the train step every gradient but the experts'), and, at ep > 1,
-'expert_batch', the dp x cp ranks that share its ep and tp indices (the
-experts' gradients: each ep rank holds its own experts). An axis of size 1
-has no group.
+process's pp and tp indices (the loss sums its numerator and count over
+it, and the train step every gradient but the experts'), and, at ep > 1,
+'expert_batch', the dp x cp ranks that share its pp, ep and tp indices
+(the experts' gradients: each ep rank holds its own experts). The pp
+index stays out of both: a pipeline stage holds its own layers, and only
+the loss's sums and the gradients of the leaves every stage holds (the
+embedding, the final norm, the head) add the 'pp' group on top. An axis
+of size 1 has no group.
 
 Transport: NCCL (one card per rank) or gloo. NCCL refuses two ranks on one
 card, so a group on a machine with fewer cards than ranks runs over gloo;
@@ -39,7 +41,7 @@ from ..config import MeshConfig
 
 AXIS_NAMES = ("dp", "pp", "cp", "ep", "tp")
 # the axes the port runs, and the order every rank creates their groups in
-GROUP_AXES = ("dp", "cp", "ep", "tp", "batch", "expert_batch")
+GROUP_AXES = ("dp", "pp", "cp", "ep", "tp", "batch", "expert_batch")
 BACKENDS = ("nccl", "gloo")
 # a collective that waits longer than this fails the run instead of
 # hanging it (no step of this port waits on a peer for minutes)
@@ -83,25 +85,27 @@ def dist_backend(backend: Optional[str], device: torch.device,
     return backend
 
 
-def coords(rank: int, dp: int, cp: int, tp: int,
-           ep: int = 1) -> Dict[str, int]:
-    """Global rank -> {dp, cp, ep, tp} indices, tp innermost (JAX device
-    order)."""
-    return {"dp": rank // (tp * ep * cp), "cp": (rank // (tp * ep)) % cp,
+def coords(rank: int, dp: int, cp: int, tp: int, ep: int = 1,
+           pp: int = 1) -> Dict[str, int]:
+    """Global rank -> {dp, pp, cp, ep, tp} indices, tp innermost (JAX
+    device order)."""
+    return {"dp": rank // (tp * ep * cp * pp),
+            "pp": (rank // (tp * ep * cp)) % pp,
+            "cp": (rank // (tp * ep)) % cp,
             "ep": (rank // tp) % ep, "tp": rank % tp}
 
 
-def axis_groups(axis: str, dp: int, cp: int, tp: int,
-                ep: int = 1) -> List[List[int]]:
+def axis_groups(axis: str, dp: int, cp: int, tp: int, ep: int = 1,
+                pp: int = 1) -> List[List[int]]:
     """Every group of `axis` as its ascending global ranks, in one fixed
-    order. 'batch' groups the dp x cp x ep ranks of each tp index,
-    'expert_batch' the dp x cp ranks of each (ep, tp) pair."""
-    world = dp * cp * ep * tp
-    at = lambda r: coords(r, dp, cp, tp, ep)
+    order. 'batch' groups the dp x cp x ep ranks of each (pp, tp) pair,
+    'expert_batch' the dp x cp ranks of each (pp, ep, tp) triple."""
+    world = dp * pp * cp * ep * tp
+    at = lambda r: coords(r, dp, cp, tp, ep, pp)
     if axis == "batch":
-        key = lambda r: at(r)["tp"]
+        key = lambda r: (at(r)["pp"], at(r)["tp"])
     elif axis == "expert_batch":
-        key = lambda r: (at(r)["ep"], at(r)["tp"])
+        key = lambda r: (at(r)["pp"], at(r)["ep"], at(r)["tp"])
     else:
         # the ranks that agree on every other axis form one group
         key = lambda r: tuple(v for a, v in at(r).items() if a != axis)
@@ -126,8 +130,8 @@ class Axis:
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's device and its place on the dp, cp, ep, tp and batch
-    axes."""
+    """This process's device and its place on the dp, pp, cp, ep, tp and
+    batch axes."""
 
     device: torch.device
     dp: int = 1
@@ -137,10 +141,11 @@ class Mesh:
     backend: Optional[str] = None  # "nccl" or "gloo"; None on one rank
     axes: Dict[str, Axis] = field(default_factory=dict)
     ep: int = 1
+    pp: int = 1
 
     @property
     def world(self) -> int:
-        return self.dp * self.cp * self.ep * self.tp
+        return self.dp * self.pp * self.cp * self.ep * self.tp
 
     def axis(self, name: str) -> Axis:
         return self.axes.get(name) or Axis(name)
@@ -148,6 +153,10 @@ class Mesh:
     @property
     def dp_rank(self) -> int:
         return self.axis("dp").rank
+
+    @property
+    def pp_rank(self) -> int:
+        return self.axis("pp").rank
 
     @property
     def cp_rank(self) -> int:
@@ -163,8 +172,8 @@ class Mesh:
 
     @property
     def coords(self) -> Dict[str, int]:
-        return {"dp": self.dp_rank, "cp": self.cp_rank, "ep": self.ep_rank,
-                "tp": self.tp_rank}
+        return {"dp": self.dp_rank, "pp": self.pp_rank, "cp": self.cp_rank,
+                "ep": self.ep_rank, "tp": self.tp_rank}
 
     @property
     def row_shard(self) -> Tuple[int, int]:
@@ -176,9 +185,8 @@ class Mesh:
 def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
               backend: Optional[str] = None,
               init_method: Optional[str] = None) -> Mesh:
-    """The mesh of this process: global rank `rank` of dp * cp * ep * tp.
-    With
-    more than one rank it takes card `rank % device_count` on a card, joins
+    """The mesh of this process: global rank `rank` of dp * pp * cp * ep *
+    tp. With more than one rank it takes card `rank % device_count` on a card, joins
     the process group through `init_method` (e.g. `file://<dir>/rendezvous`)
     unless one exists, and creates every axis's groups — every rank creates
     every group, in the one order of `GROUP_AXES` and `axis_groups`
@@ -187,15 +195,12 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
 
     Also pins float32 matmuls to full float32 on the card (no TF32), so a
     float32 run here computes what the float32 reference computes."""
-    if cfg.pp > 1:
-        raise NotImplementedError(
-            f"pp={cfg.pp}: not ported yet, see ROADMAP Queue 1 item 7 (the "
-            f"port runs dp, cp, ep and tp through torch.distributed)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(device)
-    world = cfg.dp * cfg.cp * cfg.ep * cfg.tp
-    shape = f"dp {cfg.dp} x cp {cfg.cp} x ep {cfg.ep} x tp {cfg.tp}"
+    world = cfg.dp * cfg.pp * cfg.cp * cfg.ep * cfg.tp
+    shape = (f"dp {cfg.dp} x pp {cfg.pp} x cp {cfg.cp} x ep {cfg.ep} x tp "
+             f"{cfg.tp}")
     if world == 1:
         return Mesh(dev)
     if not 0 <= rank < world:
@@ -216,7 +221,8 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
         raise RuntimeError(f"the process group holds rank "
                            f"{dist.get_rank()} of {dist.get_world_size()}, "
                            f"not rank {rank} of {shape}")
-    sizes = {"dp": cfg.dp, "cp": cfg.cp, "ep": cfg.ep, "tp": cfg.tp,
+    sizes = {"dp": cfg.dp, "pp": cfg.pp, "cp": cfg.cp, "ep": cfg.ep,
+             "tp": cfg.tp,
              "batch": cfg.dp * cfg.cp * cfg.ep,
              # at ep = 1 the experts' group is 'batch' itself
              "expert_batch": cfg.dp * cfg.cp if cfg.ep > 1 else 1}
@@ -224,7 +230,8 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
     for name in GROUP_AXES:
         if sizes[name] == 1:
             continue
-        for members in axis_groups(name, cfg.dp, cfg.cp, cfg.tp, cfg.ep):
+        for members in axis_groups(name, cfg.dp, cfg.cp, cfg.tp, cfg.ep,
+                                   cfg.pp):
             group = dist.new_group(members, timeout=COLLECTIVE_TIMEOUT)
             if rank in members:
                 axes[name] = Axis(name, sizes[name], members.index(rank),
@@ -233,4 +240,5 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
     # a serving engine's dispatch broadcasts (serving/tp_dispatch.py)
     axes["world"] = Axis("world", world, rank, tuple(range(world)),
                          dist.group.WORLD)
-    return Mesh(dev, cfg.dp, cfg.cp, cfg.tp, rank, backend, axes, cfg.ep)
+    return Mesh(dev, cfg.dp, cfg.cp, cfg.tp, rank, backend, axes, cfg.ep,
+                cfg.pp)

@@ -6,9 +6,9 @@ training (`collective_pairs`, `layer_cases`, `model_runs`,
 `seed_identity`, `checkpoint_steps`; the ZeRO stages' `zero_runs` and
 `int8_ring` live in `runtime/zero_checks.py`), serving at tp > 1 and on cp-sharded pages at cp or cp
 x tp (`serve_runs`, `decode_logits`, `quantized_params`, `combine`),
-the evaluation loss on any mesh (`doc_losses`) and the tensors a rank
+the evaluation loss on any mesh (`doc_losses`), the tensors a rank
 process still holds after its earlier calls (`hold_garbage`,
-`live_tensors`).
+`live_tensors`) and a rank's place on its mesh (`mesh_axes`).
 
 `jobs(rank, nprocs, init_method, todo)` runs a list of `(name, axes,
 kwargs)` jobs in one process group, one after the other, each on the mesh
@@ -35,6 +35,7 @@ from ..data.dataset import dp_rows
 from ..interop import params_from_jax, tree_family
 from ..models import decode
 from ..models import build_model
+from ..models.pipeline import from_canonical, to_canonical
 from ..models.transformer import Transformer
 from ..ops import collectives as C
 from ..ops.quant import quantize_decode_params
@@ -42,11 +43,13 @@ from ..serving.engine import (ContinuousBatchingEngine, PagedEngine, Request,
                               quantize_model)
 from ..serving.speculative import SpeculativeEngine
 from ..parallel.embedding import VocabParallelEmbedding
+from ..parallel.layout import shard_params
 from ..parallel.linear import ColumnParallelLinear, RowParallelLinear
 from ..training.checkpoint import (gather_experts, load_checkpoint,
                                    save_checkpoint)
 from ..training.optim import AdamState, init_adam_state
-from ..training.train_step import build_train_step, reduce_grads
+from ..training.train_step import (build_train_step, param_grads,
+                                   reduce_grads)
 from .mesh import make_mesh
 
 _np = lambda x: x.detach().float().cpu().numpy()
@@ -165,14 +168,22 @@ def layer_cases(mesh, cases: Sequence[Dict]) -> List[Dict]:
     return out
 
 
+PP_OPTIONS = ("pp_microbatches", "pp_schedule", "pp_virtual",
+              "pp_remat_steps")
+
+
 def _model(mesh, run: Dict, cfg: Dict, tree) -> Transformer:
+    """The model of `run` on this rank, its shard (and pp stage's layers)
+    of the JAX tree `tree` loaded."""
     model = build_model(tree_family(tree), ModelConfig(**cfg),
                         remat=run.get("remat", True), cp_size=mesh.cp,
                         cp_impl=run.get("impl", "ring"),
                         cp_layout=run.get("layout", "contiguous"),
-                        mesh=mesh, sequence_parallel=run.get("sp", False))
-    model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank,
-                                          mesh.ep, mesh.ep_rank))
+                        mesh=mesh, sequence_parallel=run.get("sp", False),
+                        **{k: run[k] for k in PP_OPTIONS if k in run})
+    model.load_state_dict(shard_params(
+        from_canonical(params_from_jax(tree), model.layer_ids), mesh.tp,
+        mesh.tp_rank, mesh.ep, mesh.ep_rank))
     return model.to(mesh.device)
 
 
@@ -185,9 +196,11 @@ def _batch(model, mesh, arrays) -> List[torch.Tensor]:
 
 def model_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
     """The model on this rank from the JAX param tree `tree` (ModelConfig
-    fields `cfg`), for each run {sp, mode, impl, layout, remat, batch:
+    fields `cfg`), for each run {sp, mode, impl, layout, remat, the
+    `PP_OPTIONS`, batch:
     (ids, targets, positions) (b, t)}: the loss and this rank's gradient
-    shard after the train step's reductions (`reduce_grads`) and a MoE
+    shard after the train step's reductions (`reduce_grads`; a pp stage's
+    layers under their canonical indices) and a MoE
     model's routing (`moe_summary`), and with
     `logits` the forward's logits of this rank's rows and chunk, every
     vocab column (the tp shards gathered); a run with `steps` and `optim`
@@ -219,9 +232,10 @@ def model_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
         loss = model.loss(*batch, mode=mode)
         loss.backward()
         params = dict(model.named_parameters())
-        reduce_grads(model, {k: p.grad for k, p in params.items()})
+        grads = reduce_grads(model, param_grads(params))
         res.update(loss=loss.item(), moe=model.moe_summary(),
-                   grads={k: _np(p.grad) for k, p in params.items()})
+                   grads=to_canonical({k: _np(g) for k, g in grads.items()},
+                                      model.layer_ids))
         out.append(res)
     return out
 
@@ -477,6 +491,14 @@ def combine(mesh, o: np.ndarray, lse: np.ndarray) -> np.ndarray:
                                  _t(lse[r], mesh.device), mesh))
 
 
+def mesh_axes(mesh) -> Dict:
+    """This rank's coordinates, the world size and the members of each of
+    its axis groups."""
+    return {"coords": mesh.coords, "world": mesh.world,
+            "axes": {a: list(ax.members) for a, ax in mesh.axes.items()
+                     if a != "world"}}
+
+
 def hold_garbage(mesh) -> int:
     """Collect garbage once, then stop the collector in this rank's
     process, so that a later `live_tensors` also counts the tensors that
@@ -508,7 +530,8 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
            "doc_losses": doc_losses, "quantized_params": quantized_params,
            "combine": combine, "checkpoint_steps": checkpoint_steps,
            "zero_runs": zero_runs, "int8_ring": int8_ring,
-           "hold_garbage": hold_garbage, "live_tensors": live_tensors}
+           "hold_garbage": hold_garbage, "live_tensors": live_tensors,
+           "mesh_axes": mesh_axes}
     out = []
     for device in devices:
         for name, axes, kwargs in todo:

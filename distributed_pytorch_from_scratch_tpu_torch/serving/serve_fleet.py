@@ -33,8 +33,8 @@ each handoff under `transfers`. `--log_dir` receives the router's
 
 Not ported yet, and refused: `--tp_size` > 1 and `--prefill_tp` (a replica
 over a tp group, with the global-head payload: ROADMAP Queue 1 item 6),
-`--restart_tp` (the reshard planner: item 7) and `--trace_requests`
-(item 8). The JAX record's `transfer_pricing` (a TPU interconnect's price
+`--restart_tp` (the fleet at tp > 1 and the live-tree reshard: item 6) and
+`--trace_requests` (item 8). The JAX record's `transfer_pricing` (a TPU interconnect's price
 of the bytes) and run stamp are left out: the record carries the bytes and
 milliseconds this run measured.
 """
@@ -167,8 +167,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                 "yet, see ROADMAP Queue 1 item 6")
     if args.restart_tp:
         p.error("--restart_tp: restarting a replica at another width needs "
-                "the reshard planner, not ported yet, see ROADMAP Queue 1 "
-                "item 7")
+                "the fleet at tp > 1 and the live-tree reshard "
+                "(reshard_params), not ported yet, see ROADMAP Queue 1 "
+                "item 6")
     if args.trace_requests:
         p.error("--trace_requests: request tracing is not ported yet, see "
                 "ROADMAP Queue 1 item 8")

@@ -5,6 +5,8 @@
         [--tp_size 2 [--sequence_parallel]] [--dp_size 2] \\
         [--cp_size 2 [--cp_impl ring|ulysses] [--cp_layout contiguous|zigzag]]
         [--model 45m-moe8 [--ep_size 2]]
+        [--pp_size 2 [--pp_microbatches 4] [--pp_schedule interleaved
+         [--pp_virtual 2]] [--pp_remat_steps]]
 
 Parses the same flags as the JAX CLI, plus two of its own: `--device`
 (default `cuda`; with no card the CLI exits non-zero rather than run on the
@@ -89,7 +91,27 @@ its words (`refuse_zero`). The first rank prints the stage, the wire and
 the buckets once; the summary holds each rank's held bytes and its hops
 per step.
 
-A flag that takes the run off the ported slices (pp > 1, tp overlap,
+`--pp_size P` pipelines the layers over P stages (`models/pipeline.py`):
+each stage holds num_layers/P of them, and every step runs the batch
+through the gpipe schedule in `--pp_microbatches` microbatches (default
+P), or the interleaved one (`--pp_schedule interleaved`, `--pp_virtual`
+round-robin blocks per stage), each stage step's layers replayed in the
+backward with `--pp_remat_steps`. Both families, any dp x cp x ep x tp,
+ZeRO 1 (stages 2 and 3 and the bucketed reducer are refused at pp > 1, in
+the JAX CLI's words). The summary's `hops_per_step` gives each axis's
+hops per step, their bytes and their host time (`host_ms`), and
+`state_bytes` each rank's held bytes. The checkpoint holds every stage's
+layers, in the canonical order.
+
+`--resume` reads the newest checkpoint's `__layout__` stamp. Written on
+this run's layout (the same mesh axes and ZeRO stage), it loads as
+before; written on another (another tp, dp, pp or ZeRO stage), each rank
+streams its own part of it one leaf at a time through the reshard planner
+(`reshard/apply.stream_load`), and the run writes JAX's `reshard_event`
+record into `metrics.jsonl`. Under `--pp_schedule interleaved` a resume
+across meshes is refused, with JAX's message.
+
+A flag that takes the run off the ported slices (tp overlap,
 `--seq_bucket`, the observability/control
 and multi-host flags) raises NotImplementedError at any non-default value,
 naming its ROADMAP item; for a MoE model they stay refused with the rest
@@ -115,6 +137,7 @@ from .config import (IGNORE_INDEX, MODEL_PRESETS, MeshConfig, ModelConfig,
 from .data.dataset import dp_rows, get_dataloader
 from .data.prefetch import Prefetcher, stack_window, window_stream
 from .models import build_model, num_params
+from .models.pipeline import from_canonical, to_canonical, validate_pp
 from .models.transformer import (Transformer, validate_cp, validate_ep,
                                  validate_tp)
 from .ops import collectives
@@ -122,8 +145,12 @@ from .ops.cuda import launch_counts
 from .runtime import launch
 from .runtime.mesh import dist_backend, make_mesh, resolve_device
 from .parallel.moe import validate_moe
-from .training.checkpoint import (gather_experts, latest_step,
-                                  load_checkpoint, save_checkpoint)
+from .reshard import (layouts_equal, make_layout, resolve_source_layout,
+                      stream_load)
+from .reshard.layout import canonical_specs, mesh_axes_of
+from .training.checkpoint import (gather_experts, gather_stages,
+                                  latest_step, load_checkpoint,
+                                  save_checkpoint)
 from .training.memory import hbm_budget_gib, select_remat
 from .training.metrics import (MetricsWriter, device_peak_flops,
                                model_flops_per_step)
@@ -137,14 +164,11 @@ from .training.zero import (build_plan, expected_state_bytes,
 REMAT_CHOICES = {"true": True, "dots": "dots", "false": False}
 
 _MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
-_LATER = "ROADMAP Queue 1 item 7 (d): pipeline, perf layers"
+_LATER = "ROADMAP Queue 1 item 7 (d): --tp_overlap"
 _OBS = "ROADMAP Queue 1 item 5: the obs hooks of train.py"
 # (flag dest, default, the ROADMAP item that brings it)
 OFF_SLICE = [
     ("tp_overlap", "off", _LATER),
-    ("pp_size", 1, _LATER), ("pp_microbatches", 0, _LATER),
-    ("pp_remat_steps", False, _LATER), ("pp_schedule", "gpipe", _LATER),
-    ("pp_virtual", 2, _LATER),
     ("seq_bucket", 0, "ROADMAP Queue 1 item 3: --seq_bucket"),
     ("no_trace", False, _OBS), ("no_sentinel", False, _OBS),
     ("sentinel_spike_factor", 3.0, _OBS), ("watchdog_secs", 300.0, _OBS),
@@ -163,9 +187,8 @@ def get_train_args(argv=None) -> argparse.Namespace:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
 
-    g = p.add_argument_group("distributed (dp, cp, ep and tp through "
-                             "torch.distributed; pp at 1 in this port so "
-                             "far)")
+    g = p.add_argument_group("distributed (dp, pp, cp, ep and tp through "
+                             "torch.distributed)")
     g.add_argument("--tp_size", type=int, default=1)
     g.add_argument("--dp_size", type=int, default=1)
     g.add_argument("--cp_size", type=int, default=1)
@@ -201,12 +224,30 @@ def get_train_args(argv=None) -> argparse.Namespace:
                    help="expert-parallel axis size (MoE: experts shard over "
                         "'ep'; requires --num_experts; 'ep' also shards the "
                         "batch, like dp)")
-    g.add_argument("--pp_size", type=int, default=1)
-    g.add_argument("--pp_microbatches", type=int, default=0)
-    g.add_argument("--pp_remat_steps", action="store_true")
+    g.add_argument("--pp_size", type=int, default=1,
+                   help="pipeline-parallel axis size: layers shard into "
+                        "pp stages, microbatches flow through a GPipe "
+                        "schedule (both model families)")
+    g.add_argument("--pp_microbatches", type=int, default=0,
+                   help="microbatches per pipeline step (default pp_size; "
+                        "more microbatches = smaller bubble fraction "
+                        "(pp-1)/(m+pp-1) but smaller per-microbatch work)")
+    g.add_argument("--pp_remat_steps", action="store_true",
+                   help="rematerialise each pipeline step: backward "
+                        "residuals shrink to the (mb, t, d) step carries "
+                        "for ~33%% recompute")
     g.add_argument("--pp_schedule", choices=["gpipe", "interleaved"],
-                   default="gpipe")
-    g.add_argument("--pp_virtual", type=int, default=2)
+                   default="gpipe",
+                   help="'interleaved' = Megatron-style virtual stages: "
+                        "each device owns pp_virtual round-robin layer "
+                        "blocks and microbatches circulate the ring "
+                        "pp_virtual times — bubble drops from "
+                        "(pp-1)/(m+pp-1) to (pp-1)/(pp_virtual*m+pp-1) at "
+                        "the cost of pp_virtual x more hops")
+    g.add_argument("--pp_virtual", type=int, default=2,
+                   help="virtual stages per device for "
+                        "--pp_schedule interleaved (num_layers must "
+                        "divide by pp_size*pp_virtual)")
 
     g = p.add_argument_group("training")
     g.add_argument("--lr", type=float, default=3e-4)
@@ -485,7 +526,8 @@ def _model_config(args: argparse.Namespace, vocab_size: int) -> ModelConfig:
 
 
 def _world(args: argparse.Namespace) -> int:
-    return args.dp_size * args.cp_size * args.ep_size * args.tp_size
+    return (args.dp_size * args.pp_size * args.cp_size * args.ep_size
+            * args.tp_size)
 
 
 def _check_dist(args: argparse.Namespace) -> None:
@@ -502,6 +544,8 @@ def _check_dist(args: argparse.Namespace) -> None:
     validate_cp(cfg, args.tp_size, args.cp_size, args.cp_impl,
                 args.cp_layout)
     validate_ep(cfg, args.ep_size)
+    validate_pp(cfg.num_layers, args.pp_size, args.pp_microbatches,
+                args.pp_schedule, args.pp_virtual)
     if cfg.num_experts:
         validate_moe(cfg.ffn_dim, cfg.num_experts, cfg.moe_top_k,
                      args.ep_size, args.tp_size)
@@ -535,8 +579,11 @@ def train(args: argparse.Namespace) -> dict:
     the one that completes step 2, and their whole time, step_ms_p50
     (their median; a dispatch of n steps counts n times its time / n),
     peak_mem_gib (None on the CPU), device, checkpoints (paths written,
-    every tp rank's), family, params (the global count), the mesh (dp, cp, ep,
-    tp, sequence_parallel, cp_impl, cp_layout), moe (a MoE model's last
+    every tp rank's), family, params (the global count), the mesh (dp, pp,
+    cp, ep, tp, sequence_parallel, cp_impl, cp_layout, pp_schedule,
+    pp_microbatches, pp_virtual, pp_remat_steps), reshard (an elastic
+    resume's plan summary, wall ms and peak host bytes; None when the
+    checkpoint was this run's layout or there was none), moe (a MoE model's last
     step's routing: `Transformer.moe_summary`; None for a dense one),
     dist_backend, cards, remat (the
     policy run, `auto` resolved), steps_per_dispatch, zero_stage,
@@ -551,7 +598,8 @@ def train(args: argparse.Namespace) -> dict:
     the steps' before the last save; None on the CPU) and time in the
     collectives per axis (`collectives`, the whole run's;
     `collectives_steps`, before the last save's; `hops_per_step`, those
-    over the steps run, per axis: calls, bytes and ring bytes),
+    over the steps run, per axis: calls, bytes, ring bytes and the host
+    ms of their waits and hops),
     `state_bytes` (the params, the grads Adam took and the moments as the
     rank holds them after its last step) and `expected_state_bytes` (their
     sum by `memory.zero_state_bytes_per_param`, leaf by leaf).
@@ -596,17 +644,19 @@ def _train(args: argparse.Namespace, rank: int = 0,
            init_method: str = None) -> dict:
     """The loop on one rank; see `train`."""
     try:
-        mesh = make_mesh(MeshConfig(dp=args.dp_size, cp=args.cp_size,
-                                    ep=args.ep_size, tp=args.tp_size),
+        mesh = make_mesh(MeshConfig(dp=args.dp_size, pp=args.pp_size,
+                                    cp=args.cp_size, ep=args.ep_size,
+                                    tp=args.tp_size),
                          device=args.device, rank=rank,
                          backend=args.dist_backend, init_method=init_method)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"train: {e}")
     device, cp, tp, world = mesh.device, mesh.cp, mesh.tp, mesh.world
     say = print if mesh.rank == 0 else (lambda *a, **k: None)
-    # the ranks at dp = cp = ep = 0 write the checkpoint, one file per tp
-    # rank
-    is_writer = mesh.dp_rank == 0 and mesh.cp_rank == 0 and mesh.ep_rank == 0
+    # the ranks at dp = pp = cp = ep = 0 write the checkpoint, one file per
+    # tp rank
+    is_writer = (mesh.dp_rank == 0 and mesh.pp_rank == 0
+                 and mesh.cp_rank == 0 and mesh.ep_rank == 0)
     maxlen = _model_config(args, 0).maxlen
     dataloader = get_dataloader(args.data_path, args.batch_size,
                                 IGNORE_INDEX, split="train", maxlen=maxlen,
@@ -628,7 +678,11 @@ def _train(args: argparse.Namespace, rank: int = 0,
                         cp_size=cp, cp_impl=args.cp_impl,
                         cp_layout=args.cp_layout,
                         mesh=mesh if world > 1 else None,
-                        sequence_parallel=args.sequence_parallel)
+                        sequence_parallel=args.sequence_parallel,
+                        pp_microbatches=args.pp_microbatches,
+                        pp_schedule=args.pp_schedule,
+                        pp_virtual=args.pp_virtual,
+                        pp_remat_steps=args.pp_remat_steps)
     model.init_weights(args.random_seed).to(device)
     ocfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup_steps,
                            max_steps=args.max_steps,
@@ -647,26 +701,69 @@ def _train(args: argparse.Namespace, rank: int = 0,
                  f"{mesh.backend}, {world} ranks on {cards or 'no'} card(s)")
     moe_note = (f", {cfg.num_experts} experts (top-{cfg.moe_top_k})"
                 if cfg.num_experts else "")
+    pp_note = ("" if mesh.pp == 1 else
+               f", pipeline {args.pp_schedule} over {mesh.pp} stages ("
+               f"{len(model.layers)} layers each"
+               + (f" in {args.pp_virtual} blocks" if model.interleaved
+                  else "")
+               + f"), {args.pp_microbatches or mesh.pp} microbatches"
+               + (", remat per step" if args.pp_remat_steps else ""))
     say(f"model[{args.family}]: {n_params / 1e6:.2f}M params{moe_note}, "
-        f"vocab={vocab_size}, mesh=dp{mesh.dp} x pp1 x cp{cp} x "
+        f"vocab={vocab_size}, mesh=dp{mesh.dp} x pp{mesh.pp} x cp{cp} x "
         f"ep{mesh.ep} x tp{tp}, compute="
         f"{cfg.compute_dtype}, remat={remat}"
         + (" (auto)" if args.remat == "auto" else "") + ", device="
-        f"{_device_name(device)}{dist_desc}")
+        f"{_device_name(device)}{dist_desc}{pp_note}")
     ck_opt = None
     start_step = 0
+    reshard_info = None
+    # the mesh axes and canonical specs the stamp of this run's checkpoints
+    # names (every stage's layers under one stacked key)
+    mesh_axes = mesh_axes_of(mesh)
+    specs = canonical_specs({k: v.shape for k, v in to_canonical(
+        model.state_dict(), model.layer_ids).items()}, pp=mesh.pp)
     if args.resume:
         last = latest_step(args.save_dir)
         if last is not None:
             try:
-                state_dict, ck_opt, start_step = load_checkpoint(
-                    args.save_dir, last, with_opt=True, tp_size=tp,
-                    tp_rank=mesh.tp_rank, ep_size=mesh.ep,
-                    ep_rank=mesh.ep_rank)
+                src_layout, _ = resolve_source_layout(
+                    args.save_dir, last, specs=specs, echo=say)
+                dst_layout = make_layout(mesh_axes, specs,
+                                         zero_stage=zero_stage)
+                if layouts_equal(src_layout, dst_layout):
+                    state_dict, ck_opt, start_step = load_checkpoint(
+                        args.save_dir, last, with_opt=True, tp_size=tp,
+                        tp_rank=mesh.tp_rank, ep_size=mesh.ep,
+                        ep_rank=mesh.ep_rank)
+                    state_dict = from_canonical(state_dict, model.layer_ids)
+                    if ck_opt is not None:
+                        ck_opt = AdamState(
+                            step=ck_opt.step,
+                            mu=from_canonical(ck_opt.mu, model.layer_ids),
+                            nu=from_canonical(ck_opt.nu, model.layer_ids))
+                    _load_into(model, state_dict, args.save_dir)
+                    say(f"resumed from iter {start_step} in "
+                        f"{args.save_dir}")
+                else:
+                    if model.interleaved:
+                        raise SystemExit(
+                            "--resume across meshes with interleaved "
+                            "pipeline stages is not supported: the "
+                            "on-device tree is a permutation of the "
+                            "canonical checkpoint tree (from_canonical "
+                            "is layout-dependent) — resume on the "
+                            "saving mesh, or use a non-interleaved "
+                            "schedule")
+                    state_dict, ck_opt, start_step, reshard_info = (
+                        stream_load(args.save_dir, last, model, dst_layout,
+                                    with_opt=True, specs=specs, echo=say))
+                    model.load_state_dict(state_dict)
+                    say(f"elastic resume: iter {start_step} resharded "
+                        f"{reshard_info['src']} -> {reshard_info['dst']} "
+                        f"({reshard_info['bytes_moved']} bytes moved, "
+                        f"{reshard_info['wall_ms']} ms)")
             except ValueError as e:
                 raise SystemExit(f"train: {e}")
-            _load_into(model, state_dict, args.save_dir)
-            say(f"resumed from iter {start_step} in {args.save_dir}")
     # ZeRO: the plan of the whole model (None: stage 0's flat reducer); at
     # stage 3 the parameters then rest as this rank's dp shards
     shapes = {k: tuple(p.shape) for k, p in params.items()}
@@ -741,6 +838,13 @@ def _train(args: argparse.Namespace, rank: int = 0,
     # dp = cp = 0, as for the checkpoints)
     writer = (MetricsWriter(os.path.join(args.save_dir, "logs"),
                             process_index=mesh.rank) if is_writer else None)
+    if writer is not None and reshard_info is not None:
+        writer.event("reshard_event", src_layout=reshard_info["src"],
+                     dst_layout=reshard_info["dst"],
+                     bytes_moved=reshard_info["bytes_moved"],
+                     plan_ops=reshard_info["ops"],
+                     wall_ms=reshard_info["wall_ms"], step=start_step,
+                     peak_host_bytes=reshard_info["peak_host_bytes"])
 
     shutdown = _ShutdownFlag()
     # the flag's all-reduce runs on the default group: NCCL reduces device
@@ -784,9 +888,10 @@ def _train(args: argparse.Namespace, rank: int = 0,
 
     def schedule_save(step: int) -> None:
         # parameters are replicated over dp and cp (and, but for the
-        # experts, ep): the ranks at dp = cp = ep = 0 write one file per tp
-        # rank, from a snapshot taken now, on a thread; at ep > 1 every
-        # rank gathers the experts first (a collective)
+        # experts, ep; but for the layers, pp): the ranks at dp = pp = cp =
+        # ep = 0 write one file per tp rank, from a snapshot taken now, on
+        # a thread; at ep > 1 every rank gathers the experts first, at pp >
+        # 1 every stage's layers (collectives, on this thread)
         nonlocal pending, last_saved
         t0 = time.perf_counter()
         avg = float(accum_loss) / max(step - start_step, 1)
@@ -802,13 +907,16 @@ def _train(args: argparse.Namespace, rank: int = 0,
             opt_sd = AdamState(step=opt_sd.step,
                                mu=gather_experts(opt_sd.mu, mesh),
                                nu=gather_experts(opt_sd.nu, mesh))
+        if mesh.pp > 1:
+            params_sd = gather_stages(params_sd, model)
+            opt_sd = AdamState(step=opt_sd.step,
+                               mu=gather_stages(opt_sd.mu, model),
+                               nu=gather_stages(opt_sd.nu, model))
         if is_writer:
             pending = save_checkpoint(
                 args.save_dir, step, avg, params_sd, opt_sd,
                 reserve_last_n=args.reserve_last_n_ckpts, tp_size=tp,
-                tp_rank=mesh.tp_rank, mesh_axes=(
-                    ("dp", mesh.dp), ("cp", cp), ("ep", mesh.ep),
-                    ("tp", tp)),
+                tp_rank=mesh.tp_rank, mesh_axes=mesh_axes,
                 async_write=True, zero_stage=zero_stage)
         last_saved = step
         save_stall_ms.append((time.perf_counter() - t0) * 1e3)
@@ -961,7 +1069,13 @@ def _train(args: argparse.Namespace, rank: int = 0,
         "peak_mem_gib": peak_mem,
         "device": _device_name(device), "checkpoints": saved,
         "family": args.family, "params": n_params,
-        "dp": mesh.dp, "cp": cp, "ep": mesh.ep, "tp": tp,
+        "dp": mesh.dp, "pp": mesh.pp, "cp": cp, "ep": mesh.ep, "tp": tp,
+        "pp_schedule": args.pp_schedule,
+        "pp_microbatches": (args.pp_microbatches or mesh.pp
+                            if mesh.pp > 1 else 0),
+        "pp_virtual": args.pp_virtual if model.interleaved else 1,
+        "pp_remat_steps": args.pp_remat_steps,
+        "reshard": reshard_info,
         "moe": model.moe_summary(),
         "sequence_parallel": model.sequence_parallel,
         "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
@@ -983,8 +1097,10 @@ def _train(args: argparse.Namespace, rank: int = 0,
                                    collectives.stats.items()},
                    "collectives_steps": loop_hops,
                    "hops_per_step": {
-                       a: {k: v[k] / max(n - start_step, 1)
-                           for k in ("calls", "bytes", "ring_bytes")}
+                       a: {**{k: v[k] / max(n - start_step, 1)
+                              for k in ("calls", "bytes", "ring_bytes")},
+                           "host_ms": (v["hop_s"] + v["wait_s"]) * 1e3
+                           / max(n - start_step, 1)}
                        for a, v in loop_hops.items() if v["calls"]},
                    "state_bytes": dict(getattr(step_fn, "held_bytes", {})),
                    "expected_state_bytes": expected_state_bytes(shapes,

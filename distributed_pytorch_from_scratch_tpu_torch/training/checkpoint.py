@@ -21,6 +21,12 @@ gathers before a save, and a load is cut to this rank's dp shard by the
 trainer (`training/zero.py`), so a checkpoint written at any stage
 resumes at any other.
 
+A pipeline stage holds its own layers, but the files hold them all, in the
+canonical order (JAX's `to_canonical`): before a save at pp > 1 every rank
+gathers the layers over its pp group (`gather_stages`) and the ranks at dp
+= pp = cp = ep = 0 write; the stage cuts its own layers from a load
+(`models/pipeline.from_canonical`).
+
 A MoE model's experts are sharded over ep as well, but the files keep
 JAX's tp-only format: each `tprank-*` file holds all E experts, sliced on
 the tp dim. Before a save at ep > 1 every rank gathers the experts over
@@ -51,8 +57,9 @@ import torch
 from ..interop import params_from_jax, params_to_jax
 from ..ops.collectives import all_gather
 from ..parallel.layout import assemble_params, is_expert, shard_params
-from ..reshard.layout import (Layout, canonical_specs, make_layout,
-                              read_stamp, stamp)
+from ..models.pipeline import stage_layer_ids
+from ..reshard.layout import (MESH_AXES, Layout, canonical_specs,
+                              make_layout, read_stamp, stamp)
 from .optim import AdamState
 
 CKPT_RE = re.compile(r"tprank-(\d+)_iter-(\d+)_loss-(.+?)\.npz$")
@@ -73,14 +80,42 @@ def latest_step(save_dir: str) -> Optional[int]:
     return ckpts[-1][0] if ckpts else None
 
 
-def find_rank_shards(ckpt_dir: str, step: int) -> Dict[int, str]:
-    """{rank: path} for the `tprank-{r}_iter-{step}_loss-*.npz` files."""
+def find_rank_shards(ckpt_dir: str, step: int,
+                     ext: str = "npz") -> Dict[int, str]:
+    """{rank: path} for the `tprank-{r}_iter-{step}_loss-*.{ext}` files."""
+    pat = re.compile(rf"tprank-(\d+)_iter-(\d+)_loss-(.+?)\.{ext}$")
     rank_files: Dict[int, str] = {}
-    for p in glob.glob(os.path.join(ckpt_dir, f"tprank-*_iter-{step}_loss-*.npz")):
-        m = CKPT_RE.search(os.path.basename(p))
+    for p in glob.glob(os.path.join(ckpt_dir,
+                                    f"tprank-*_iter-{step}_loss-*.{ext}")):
+        m = pat.search(os.path.basename(p))
         if m and int(m.group(2)) == step:
             rank_files[int(m.group(1))] = p
     return rank_files
+
+
+def validate_checkpoint(ckpt_dir: str, step: int, ext: str = "npz"
+                        ) -> Tuple[int, Dict[int, str]]:
+    """(tp_size, {rank: path}) of iteration `step` when every rank file is
+    there (the JAX function): the rank count from `__tp_size__` (an npz
+    file's), else the highest rank + 1; a missing rank file is refused by
+    name."""
+    rank_files = find_rank_shards(ckpt_dir, step, ext=ext)
+    if not rank_files:
+        raise FileNotFoundError(f"no checkpoint for iter {step} in {ckpt_dir}")
+    tp_size = None
+    if ext == "npz":
+        with np.load(rank_files[min(rank_files)]) as shard:
+            if "__tp_size__" in shard.files:
+                tp_size = int(shard["__tp_size__"])
+    if tp_size is None:
+        tp_size = max(rank_files) + 1
+    missing = sorted(set(range(tp_size)) - set(rank_files))
+    if missing:
+        raise FileNotFoundError(
+            f"checkpoint iter {step} was written with tp_size={tp_size} but "
+            f"shard files for rank(s) {missing} are missing from {ckpt_dir} "
+            f"— restore the missing rank file(s) or re-save the checkpoint")
+    return tp_size, rank_files
 
 
 def _unflatten(flat: Dict[str, np.ndarray], prefix: str) -> Dict[str, Any]:
@@ -102,18 +137,7 @@ def _read_rank_files(ckpt_dir: str, step: int
     """(tp_size, every rank file's members in rank order) of iteration
     `step`; a missing rank file is refused by name (the JAX
     `validate_checkpoint`)."""
-    rank_files = find_rank_shards(ckpt_dir, step)
-    if not rank_files:
-        raise FileNotFoundError(f"no checkpoint for iter {step} in {ckpt_dir}")
-    with np.load(rank_files[min(rank_files)]) as shard:
-        tp_size = (int(shard["__tp_size__"]) if "__tp_size__" in shard.files
-                   else max(rank_files) + 1)
-    missing = sorted(set(range(tp_size)) - set(rank_files))
-    if missing:
-        raise FileNotFoundError(
-            f"checkpoint iter {step} was written with tp_size={tp_size} but "
-            f"shard files for rank(s) {missing} are missing from {ckpt_dir} "
-            f"— restore the missing rank file(s) or re-save the checkpoint")
+    tp_size, rank_files = validate_checkpoint(ckpt_dir, step)
     files = []
     for r in range(tp_size):
         with np.load(rank_files[r]) as shard:
@@ -122,9 +146,8 @@ def _read_rank_files(ckpt_dir: str, step: int
     return tp_size, files
 
 
-# the mesh axes the port runs; a checkpoint stamped with any other (pp)
-# needs the reshard planner
-PORTED_AXES = ("dp", "cp", "ep", "tp")
+# the mesh axes the port runs: all five of the JAX mesh's
+PORTED_AXES = MESH_AXES
 
 
 def check_layout(layout: Optional[Layout], ckpt_dir: str, step: int) -> None:
@@ -137,8 +160,7 @@ def check_layout(layout: Optional[Layout], ckpt_dir: str, step: int) -> None:
         raise ValueError(
             f"checkpoint iter {step} in {ckpt_dir} was written on a "
             f"{layout.describe()} mesh; the port runs the axes "
-            f"{PORTED_AXES} only, and loading a {'/'.join(other)}-sharded "
-            f"layout needs the reshard planner, see ROADMAP Queue 1 item 7")
+            f"{PORTED_AXES} only")
 
 
 def _assemble(files: List[Dict[str, np.ndarray]], prefix: str,
@@ -197,6 +219,31 @@ def gather_experts(tree: Dict[str, torch.Tensor], mesh
     for k, part in zip(keys, parts):
         local = tree[k].shape
         out[k] = part.reshape((mesh.ep * local[0],) + tuple(local[1:]))
+    return out
+
+
+@torch.no_grad()
+def gather_stages(tree: Dict[str, torch.Tensor], model
+                  ) -> Dict[str, torch.Tensor]:
+    """`tree` (a state dict, or a moment tree keyed like it) with every pp
+    stage's layers, under their canonical indices: each stage's layers
+    through one all-gather over pp, renamed by that stage's
+    `layer_ids` (the interleaved schedule's blocks back in the canonical
+    order). Every rank of the pp group must call it, on the loop's
+    thread; at pp = 1 `tree` itself."""
+    mesh = model.mesh
+    if mesh is None or mesh.pp == 1:
+        return tree
+    keys = [k for k in tree if k.startswith("layers.")]
+    flat = torch.cat([tree[k].reshape(-1) for k in keys])
+    every = all_gather(flat, mesh, "pp")
+    out = {k: v for k, v in tree.items() if not k.startswith("layers.")}
+    for stage, part in enumerate(every):
+        ids = stage_layer_ids(model.cfg.num_layers, mesh.pp, stage,
+                              model.pp_schedule, model.pp_virtual)
+        for k, x in zip(keys, part.split([tree[k].numel() for k in keys])):
+            _, i, rest = k.split(".", 2)
+            out[f"layers.{ids[int(i)]}.{rest}"] = x.view_as(tree[k])
     return out
 
 
@@ -308,11 +355,15 @@ def save_checkpoint(save_dir: str, step: int, avg_loss: float,
 
     Under ZeRO the caller passes the whole tensors: every dp rank gathers
     its shards first (`zero.ZeroPlan.full_params` / `full_state`, a
-    collective), on the main thread, before the writer thread starts."""
+    collective), on the main thread, before the writer thread starts; at
+    pp > 1 likewise every stage's layers (`gather_stages`), so the file
+    holds every layer in the canonical order and the stamp's layer specs
+    name 'pp'."""
     os.makedirs(save_dir, exist_ok=True)
+    axes = mesh_axes if mesh_axes is not None else (("tp", tp_size),)
     layout = make_layout(
-        mesh_axes if mesh_axes is not None else (("tp", tp_size),),
-        canonical_specs({k: v.shape for k, v in state_dict.items()}),
+        axes, canonical_specs({k: v.shape for k, v in state_dict.items()},
+                              pp=dict(axes).get("pp", 1)),
         zero_stage=zero_stage)
 
     def write(params, opt, event=None) -> List[str]:

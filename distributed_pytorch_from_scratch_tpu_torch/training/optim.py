@@ -121,7 +121,9 @@ def global_norm(grads: Tensors, mesh=None, dp_sharded=()) -> torch.Tensor:
     ep rank's experts and a whole copy of the replicated ones: the squares
     of the experts are summed over the ep group, those of every tp-sharded
     leaf (the experts' included) over the tp group, and the replicated
-    ones are counted once. Under ZeRO 2 and 3 the leaves `dp_sharded`
+    ones are counted once. At pp > 1 the layers' squares are summed over
+    the pp group as well (each stage holds its own layers); the leaves
+    every stage holds are counted once. Under ZeRO 2 and 3 the leaves `dp_sharded`
     names are this rank's dp shards: their squares are summed over dp too
     (no MoE there)."""
     def sq(keys):
@@ -142,16 +144,23 @@ def global_norm(grads: Tensors, mesh=None, dp_sharded=()) -> torch.Tensor:
         tp_sum = all_reduce_sum(over_dp[0] + sq(by(True, False)), mesh,
                                 "tp")
         return torch.sqrt(tp_sum + over_dp[1] + sq(by(False, False)))
-    if mesh is None or (mesh.tp == 1 and mesh.ep == 1):
+    if mesh is None or (mesh.tp == 1 and mesh.ep == 1 and mesh.pp == 1):
         return torch.sqrt(sq(grads))
     experts = [k for k in grads if is_expert(k)]
     sharded = [k for k in grads
                if tp_dim(k) is not None and not is_expert(k)]
     replicated = [k for k in grads if tp_dim(k) is None]
-    local = sq(sharded)
+    # a pp stage holds its own layers (their squares summed over pp) and a
+    # copy of every other leaf (counted once)
+    layer = lambda keys: [k for k in keys if k.startswith("layers.")]
+    other = lambda keys: [k for k in keys if not k.startswith("layers.")]
+    local = sq(layer(sharded))
     if experts:
         local = local + all_reduce_sum(sq(experts), mesh, "ep")
-    return torch.sqrt(all_reduce_sum(local, mesh, "tp") + sq(replicated))
+    over_tp = all_reduce_sum(torch.stack([local, sq(other(sharded))]),
+                             mesh, "tp")
+    over_pp = all_reduce_sum(over_tp[0] + sq(layer(replicated)), mesh, "pp")
+    return torch.sqrt(over_pp + over_tp[1] + sq(other(replicated)))
 
 
 def clip_by_global_norm(grads: Tensors, max_norm: float, mesh=None,

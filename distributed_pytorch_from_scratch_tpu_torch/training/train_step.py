@@ -25,9 +25,12 @@ backward:
     rank's tokens (the all_to_all's backward brought their cotangents
     back), so they are summed over the dp x cp ranks of this (ep, tp)
     pair, the 'expert_batch' group, in a second buffer;
-(c) then the norm (the tp-sharded squares summed over tp, the experts'
-    over ep too), the clip and Adam — every rank of a (tp, ep) index then
-    holds the same parameters.
+(c) at pp > 1, the gradients of the leaves every stage holds (the
+    embedding, the final norm, the head: all but the layers) are summed
+    over the pp group: each stage saw part of their use;
+(d) then the norm (the tp-sharded squares summed over tp, the experts'
+    over ep too, the layers' over pp), the clip and Adam — every rank of a
+    (pp, tp, ep) index then holds the same parameters.
 
 Under a ZeRO stage or `--dp_reduce_bucket_mb` a `training/zero.ZeroPlan`
 picks the reducer of (b) (`reduce_grads`): the flat buffer above (stage
@@ -66,9 +69,17 @@ from .zero import held_bytes
 StepFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, AdamState]]
 
 
+def param_grads(params):
+    """{key: .grad} of `params`, zeros where a parameter took no gradient
+    (a pp stage past the first never reads the embedding: JAX's zero
+    cotangent)."""
+    return {k: torch.zeros_like(p) if p.grad is None else p.grad
+            for k, p in params.items()}
+
+
 @torch.no_grad()
 def reduce_grads(model, grads, plan=None):
-    """Steps (a) and (b) of the module docstring on `grads` (keyed like
+    """Steps (a) to (c) of the module docstring on `grads` (keyed like
     the model's parameters); returns the gradients Adam takes. Without a
     bucketed or stage >= 2 `plan`, in place: the tp sum of the replicated
     parameters' gradients under sequence parallelism, then the batch
@@ -91,11 +102,16 @@ def reduce_grads(model, grads, plan=None):
                         mesh, "tp")
     if mesh.ep == 1:
         all_reduce_sum_(list(grads.values()), mesh, "batch")
-        return grads
-    all_reduce_sum_([g for k, g in grads.items() if not is_expert(k)],
-                    mesh, "batch")
-    all_reduce_sum_([g for k, g in grads.items() if is_expert(k)], mesh,
-                    "expert_batch")
+    else:
+        all_reduce_sum_([g for k, g in grads.items() if not is_expert(k)],
+                        mesh, "batch")
+        all_reduce_sum_([g for k, g in grads.items() if is_expert(k)], mesh,
+                        "expert_batch")
+    # every pp stage holds the embedding, the final norm and the head, and
+    # each saw part of their use (JAX's shard_map transpose sums them over
+    # pp); the layers are each stage's own
+    all_reduce_sum_([g for k, g in grads.items()
+                     if not k.startswith("layers.")], mesh, "pp")
     return grads
 
 
@@ -148,8 +164,7 @@ def build_grad_accum_step(model, ocfg: OptimizerConfig,
                               mode=loss_mode)
             loss.backward()  # sums into .grad
             loss_sum = loss_sum + loss.detach()
-        grads = reduce_grads(model, {k: p.grad for k, p in params.items()},
-                             plan)
+        grads = reduce_grads(model, param_grads(params), plan)
         stage = 0 if plan is None else plan.stage
         if stage == 2:
             for p in params.values():    # the shards replace them

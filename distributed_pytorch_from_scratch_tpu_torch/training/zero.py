@@ -57,7 +57,8 @@ from ..ops.overlap import (WIRES, bucket_partition, bucketed_psum,
                            bucketed_reduce_scatter, gather_full,
                            gather_shards)
 from ..parallel.layout import tp_dim
-from ..reshard.layout import canonical_specs, jax_key, transposed
+from ..reshard.layout import (canonical_specs, jax_key, spec_zero_dim,
+                              transposed)
 from .memory import zero_state_bytes_per_param
 from .optim import AdamState
 
@@ -83,7 +84,7 @@ def zero_dim(key: str, shape: Sequence[int], dp: int) -> int:
     """The torch dim of state-dict leaf `key` (its tp-local `shape`) that
     shards over dp, or -1 (the leaf stays whole on every dp rank): the
     first dim of the JAX leaf that its spec leaves free and whose size dp
-    divides (the JAX `_zero_dim`; a layer leaf without the stacked layer
+    divides (`spec_zero_dim`; a layer leaf without the stacked layer
     axis, as JAX's `zero3_dims` - 1)."""
     if dp == 1:
         return -1
@@ -91,15 +92,15 @@ def zero_dim(key: str, shape: Sequence[int], dp: int) -> int:
     jkey, stacked = jax_key(key)
     spec = canonical_specs({key: shape})[jkey][1 if stacked else 0:]
     flip = transposed(key)
-    jshape = shape[::-1] if flip else shape
-    for i, (s, d) in enumerate(zip(spec, jshape)):
-        if s is None and d > 0 and d % dp == 0:
-            return len(shape) - 1 - i if flip else i
-    return -1
+    i = spec_zero_dim(spec, shape[::-1] if flip else shape, dp)
+    if i < 0:
+        return -1
+    return len(shape) - 1 - i if flip else i
 
 
 def check_scope(model, what: str) -> None:
-    """The JAX `_check_bucketed_scope` refusals (pp is 1 in the port)."""
+    """The JAX `_check_bucketed_scope` refusals (the train CLI refuses
+    the bucketed reducer at pp > 1 before it gets here)."""
     if model.is_moe:
         raise ValueError(
             f"{what} does not compose with MoE: expert grads are "

@@ -12,8 +12,8 @@ float32.
   every rank file; the JAX `read_stamp` + `layouts_equal` accept it, and
   `resolve_source_layout` returns it as no legacy layout.
 * The JAX trainer resumes a stamped port checkpoint with no legacy note,
-  the port's trainer resumes a stamped JAX one, an unstamped file still
-  loads, and a layout on a mesh axis the port does not run is refused by
+  the port's trainer resumes a stamped JAX one, an unstamped file and a
+  pp-stamped one load, and a layout on an axis no mesh has is refused by
   name.
 """
 
@@ -206,7 +206,16 @@ def test_reader_takes_unstamped_and_refuses_other_axes(tmp_path):
     np.savez(path, **members)
     back, _, step = checkpoint.load_checkpoint(str(tmp_path / "old"), 2)
     assert step == 2 and all(torch.equal(back[k], v) for k, v in sd.items())
+    # a pp-stamped file reads as any other: the files hold every layer
     checkpoint.save_checkpoint(str(tmp_path / "pp"), 2, 1.0, sd,
                                mesh_axes=(("pp", 2), ("tp", 1)))
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 7"):
-        checkpoint.load_checkpoint(str(tmp_path / "pp"), 2)
+    back, _, step = checkpoint.load_checkpoint(str(tmp_path / "pp"), 2)
+    assert step == 2 and all(torch.equal(back[k], v) for k, v in sd.items())
+    stamped = layout.read_stamp(_members(next(
+        (tmp_path / "pp").glob("tprank-0_*.npz"))))
+    assert stamped.describe() == "pp2 zero0"
+    assert stamped.specs["param/layers/wq/weight"][0] == "pp"
+    # an axis no mesh has is still refused by name
+    bad = layout.Layout(mesh_axes=(("xp", 2),), specs={})
+    with pytest.raises(ValueError, match="runs the axes"):
+        checkpoint.check_layout(bad, str(tmp_path), 2)

@@ -582,7 +582,7 @@ def test_serve_fleet_dry_runs_give_jax_keys(jref, tmp_path, capsys):
 @pytest.mark.parametrize("flags,tag", [
     (["--tp_size", "2"], "item 6"), (["--prefill_tp", "2", "--disagg"],
                                      "item 6"),
-    (["--restart_tp", "2"], "item 7"), (["--trace_requests"], "item 8")])
+    (["--restart_tp", "2"], "item 6"), (["--trace_requests"], "item 8")])
 def test_serve_fleet_refusals(flags, tag, capsys):
     with pytest.raises(SystemExit):
         serve_fleet.parse_args(["--dry_run", "--device", "cpu"] + flags)

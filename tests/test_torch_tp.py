@@ -703,8 +703,7 @@ def _cli(tmp_path, flags):
 
 def test_tp_cli_refusals_and_divisibility_errors(tmp_path):
     # still refused, each naming its ROADMAP item
-    for flags in (["--tp_overlap", "ring"], ["--coordinator", "h:1"],
-                  ["--pp_size", "2"]):
+    for flags in (["--tp_overlap", "ring"], ["--coordinator", "h:1"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _cli(tmp_path, TP2 + flags)
     # ep > 1 runs a MoE model; a dense one is refused with JAX's message
@@ -733,8 +732,12 @@ def test_tp_cli_refusals_and_divisibility_errors(tmp_path):
     with pytest.raises(SystemExit, match="--sequence_parallel needs"):
         _cli(tmp_path, TP2 + ["--tp_size", "4", "--num_kv_heads", "4",
                               "--maxlen", "66", "--sequence_parallel"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(MeshConfig(pp=2), device="cpu")
+    # pp > 1 builds a mesh: two ranks, each on its stage, with a pp group
+    meshes = launch.spawn(tp_checks.jobs, 2,
+                          [("mesh_axes", {"pp": 2}, {})])
+    assert [m[0]["coords"]["pp"] for m in meshes] == [0, 1]
+    assert all(m[0]["axes"]["pp"] == [0, 1] and m[0]["world"] == 2
+               for m in meshes)
 
 
 def test_mesh_coordinates_follow_the_jax_device_order():

@@ -390,7 +390,6 @@ def test_train_cli_refusals(tmp_path):
         train_cli.main(base)
     assert exc.value.code not in (0, None)
     for flags in (["--tp_overlap", "ring"], ["--seq_bucket", "128"],
-                  ["--pp_size", "2"], ["--pp_schedule", "interleaved"],
                   ["--no_trace"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_cli.main(base + ["--device", "cpu"] + flags)
