@@ -142,8 +142,8 @@ result line):
     the 45m widths at 4 layers (`CP_LAYERS`), bf16, b 8 x t 1000 with
     remat: 4 steps, one
     checkpoint file per tp rank and a 2-step `--resume`, then that
-    checkpoint resumed at tp=1 for a step; tp=2 with
-    `--sequence_parallel` 2 steps; tp 2 x dp 2 (four ranks) 2 steps —
+    checkpoint resumed at tp=1 for a step; tp 2 x dp 2 (four ranks) 2
+    steps (tp=2 with `--sequence_parallel` is phase 58's `off` run) —
     finite losses, falling at tp=2, the step-1 loss of each and of a tp=1
     run on the same batch within 1e-2, each rank's flash launches 2 x 4
     (forward) and 4 (dq, dk/dv) per step and no other attention kernel;
@@ -183,9 +183,7 @@ result line):
 31. graph_check: both engines at the phase-5 and phase-15 traffic (its
     deadlines x 1000, so the schedule does not follow the clock) with
     the decode step graphed (`--decode_graph auto`) and eager (`off`), at
-    bf16 and f32 (the first 8 requests of each mix): identical tokens,
-    the graph run
-    on every decode step;
+    bf16: identical tokens, the graph run on every decode step;
     a replayed decode step's logits and tokens bitwise the eager step's
     on the live rows (bf16 and f32, both engines); per engine (bf16, 8 and
     16 live) the decode step's wall, device busy and idle share both ways;
@@ -431,6 +429,41 @@ result line):
     leaf, K1 per the schedule) and resharded by the offline CLI
     (`reshard/reshard_ckpt.py`) into a tp 2 set: two files, bytes moved,
     the metered staging peak within the largest leaf.
+58. tp_overlap_train: `train --tp_size 2 --sequence_parallel --tp_overlap
+    off | ring | ring_q --dist_backend gloo` (two ranks on the card) at
+    the 45m preset, all 12 layers, b 8 x t 1000, bf16, remat, 3 steps
+    each on the same batches: finite losses, ring's within 1e-3 (relative)
+    of off's at every step and ring_q's within 1e-2, each rank's K1
+    launches exactly 2 x 12 forward and 12 + 12 backward per step and
+    nothing else, and each rank's tp hops per step exactly the calls and
+    bytes `ring_hops_want` derives from the same rank's `off` counts (the
+    rule the CPU tests hold against the port's CPU runs; ring_q's ring
+    hops carry about half of ring's bytes); step p50, tokens/s, the tp
+    hops' calls, bytes and host ms and each rank's peak memory printed
+    beside the card's name and power limit. Then at the tiny widths (4
+    layers), f32, b 4 x t 64, with SP: tp 2 ring and tp 2 ring_q (the kept
+    group of two), tp 2 x cp 2 ring and pp 2 x tp 2 ring (the group of
+    four), on the card against the same ranks on the CPU: losses within
+    1e-5, every gradient within 1e-4 of its leaf's max (ring_q's within
+    the int8 wire's 2^-4, as phase 55's: a code flips where the two
+    devices round one value on either side of a half step), and ring_q's
+    payload of one chunk byte-equal on both.
+59. greedy_decoder: `GreedyDecoder` (`models/decode.make_generate`: one
+    prefill, then one decode step per position with its state on the
+    card, the step a CUDA graph) at the 45m preset, full width and depth,
+    random weights, on 8 prompts of 64-512 tokens with 64 new tokens each
+    (per-row limits), bf16 and f32: the f32 greedy tokens equal to the
+    slot engine's on the same weights and prompts; in bf16, where a row's
+    tokens part from the engine's, the two tokens' logits at the shared
+    prefix within GD_TIE of the row's largest (a near tie: the two
+    programs' matmuls run at other shapes, so their caches differ in the
+    last bits); K1's forward 12
+    times per generation (the prefill) and nothing else, the host syncs
+    per generation printed with the prefill ms, the decode ms per step
+    and the slot engine's TPOT p50. Then at the tiny widths, f32, on the
+    kept pair at cp 2 (the ring prefill): the tokens of cp 1 on the card,
+    each rank's K2 forward launches exactly the ring schedule's (layers x
+    its blocks) and nothing else.
 
 Every phase also prints, for each call it made on a kept group of rank
 processes, each rank's card memory allocated before the call, at its
@@ -2635,6 +2668,24 @@ def _cp_want(layers: int, steps: int, name: str, t: int, b: int) -> list:
              "block_attention_bwd_dkv": layers * n * steps} for n in blocks]
 
 
+def _one_step_loss(workdir: str) -> float:
+    """The step-1 loss of a one-rank run of phases 20's and 24's flags
+    (CP_ARGS at CP_LAYERS, one step) on the workdir's corpus: the
+    reference both phases hold their step-1 losses against, run once per
+    workdir (the runs were the same program on the same batch)."""
+    path = os.path.join(workdir, "one_step_loss.json")
+    if not os.path.exists(path):
+        from distributed_pytorch_from_scratch_tpu_torch import train
+        res = train.main(CP_ARGS + ["--num_layers", str(CP_LAYERS),
+                                    "--data_path", _corpus(workdir),
+                                    "--max_steps", "1", "--save_dir",
+                                    os.path.join(workdir, "one_step")])
+        with open(path, "w") as f:
+            json.dump(res["losses"][0], f)
+    with open(path) as f:
+        return json.load(f)
+
+
 def phase_cp_train(torch, workdir: str) -> dict:
     """train.main at cp=2 in each layout and the cp=1 step on the same
     batch; returns each run's launches summed over ranks and the zigzag
@@ -2644,9 +2695,7 @@ def phase_cp_train(torch, workdir: str) -> dict:
     data = _corpus(workdir)
     layers = CP_LAYERS
     base = CP_ARGS + ["--num_layers", str(layers), "--data_path", data]
-    cp1 = train.main(base + ["--max_steps", "1", "--save_dir",
-                             os.path.join(workdir, "cp1")])
-    first = {"cp1": cp1["losses"][0]}
+    first = {"cp1": _one_step_loss(workdir)}
     out = {}
     for name, (flags, steps) in CP_RUNS.items():
         save = os.path.join(workdir, f"cp2_{name}")
@@ -2877,9 +2926,9 @@ def phase_cp_profile(torch) -> dict:
 # the tp=2 cell-to-be: the 45m preset at b 8 x t 1000 bf16 with remat, the
 # ranks sharing the one card over gloo, the cp cell's flags and corpus
 TP2 = ["--tp_size", "2", "--dist_backend", "gloo"]
-TP_RUNS = {  # name: (flags, steps; tp2 as CP_RUNS' zigzag)
+TP_RUNS = {  # name: (flags, steps; tp2 as CP_RUNS' zigzag); tp=2 with
+    # --sequence_parallel is phase 58's `off` run
     "tp2": ([], 4),
-    "tp2_sp": (["--sequence_parallel"], 2),
     "tp2_dp2": (["--dp_size", "2"], 2),
 }
 
@@ -2908,19 +2957,16 @@ def _rank_hops(r: dict) -> str:
 
 def phase_tp_train(torch, workdir: str) -> dict:
     """train.main at tp=2 (4 steps, a checkpoint and a 2-step --resume),
-    tp=2 with sequence parallelism (2 steps), tp 2 x dp 2 (2 steps), the tp
-    checkpoint resumed at tp=1 (1 step), and a tp=1 step on the same first
-    batch; returns each tp run's launches summed over ranks and the tp=2
-    run's summary."""
+    tp 2 x dp 2 (2 steps), the tp checkpoint resumed at tp=1 (1 step), and
+    a tp=1 step on the same first batch; returns each tp run's launches
+    summed over ranks and the tp=2 run's summary."""
     import glob
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
     data = _corpus(workdir)
     layers = CP_LAYERS
     base = CP_ARGS + ["--num_layers", str(layers), "--data_path", data]
-    first = {"tp1": train.main(base + ["--max_steps", "1", "--save_dir",
-                                       os.path.join(workdir, "tp1")])[
-        "losses"][0]}
+    first = {"tp1": _one_step_loss(workdir)}
     out = {}
     for name, (flags, steps) in TP_RUNS.items():
         save = os.path.join(workdir, name)
@@ -3747,15 +3793,14 @@ def _replay_vs_eager(torch, eng) -> tuple:
 GRAPH_CHECK_SLO = ["--slo_classes", "interactive=250,standard=1000,batch=8000"]
 # graph_check's f32 runs and its bf16 paged runs take the first 8 requests
 # of each mix
-GRAPH_CHECK_F32 = 8
 GRAPH_CHECK_PAGED = 8
 
 
 def phase_graph_check(torch) -> dict:
     """Both engines with the decode step graphed (`--decode_graph auto`)
     against eager (`off`): the phase-5 and phase-15 traffic (its deadlines
-    scaled, `GRAPH_CHECK_SLO`) served both ways at bf16 and f32 gives
-    identical tokens; a replayed decode step's
+    scaled, `GRAPH_CHECK_SLO`) served both ways at bf16 gives identical
+    tokens; a replayed decode step's
     logits are bitwise the eager step's (bf16 and f32); and per engine the
     decode step's wall, device busy and idle share both ways (profiled, as
     phases 7 and 17), with the served TPOT p50 and tokens/s."""
@@ -3770,10 +3815,9 @@ def phase_graph_check(torch) -> dict:
                        ("paged", _replace_flag(
                            PAGED_SERVE_ARGS, "--num_requests",
                            str(GRAPH_CHECK_PAGED)) + GRAPH_CHECK_SLO)):
-        for dtype, flag in (("bfloat16", "--bf16"), ("float32", "--no-bf16")):
-            if dtype == "float32":
-                args = _replace_flag(args, "--num_requests",
-                                     str(GRAPH_CHECK_F32))
+        # served at bf16 only: f32's graph against eager is held bitwise
+        # on a live engine below (the served f32 runs repeated that)
+        for dtype, flag in (("bfloat16", "--bf16"),):
             outs = {m: serve.main(args + [flag, "--decode_graph", m])
                     for m in ("off", "auto")}
             for m, out in outs.items():
@@ -7063,6 +7107,361 @@ def phase_pp_train(torch, workdir: str) -> dict:
     return out
 
 
+# phase 58: the tp ring collective matmuls at the 45m preset, all 12 layers
+OV_STEPS = 3
+OV_ARGS = CP_ARGS + TP2 + ["--sequence_parallel", "--max_steps",
+                           str(OV_STEPS)]
+OV_MODES = ("off", "ring", "ring_q")
+OV_TOL = {"ring": 1e-3, "ring_q": 1e-2}   # step losses vs off's, relative
+# the tiny card-vs-CPU cases: (mesh axes, tp_overlap)
+OV_TINY = {"tp2_ring": ({"tp": 2}, "ring"),
+           "tp2_ring_q": ({"tp": 2}, "ring_q"),
+           "tp2_cp2_ring": ({"cp": 2, "tp": 2}, "ring"),
+           "pp2_tp2_ring": ({"pp": 2, "tp": 2}, "ring")}
+
+
+def ring_hops_want(off: dict, layers: int, rows: int, d: int, item: int,
+                   tp: int, mode: str) -> tuple:
+    """(calls, bytes) of one rank's tp hops per train step at `mode`, from
+    the same rank's per-step counts at 'off' (`off`: {calls, bytes}), under
+    sequence parallelism and `--remat true`: the monolithic path's 11
+    collectives per layer (the gathers before qkv and gate/up and the wo
+    and down_proj reduce-scatters, their backwards, and the remat replay's,
+    which stops before down_proj's reduce-scatter) and the head's 2 give
+    way to the rings' hops, 14 (tp - 1) per layer (ag_matmul: forward,
+    replay, the re-gather and dx rings; matmul_rs: forward, replay, the
+    cotangent ring; each ring n - 1 hops) and 3 (tp - 1) for the head's
+    ag_matmul. A gather carries the rank's (rows, d) chunk, a
+    reduce-scatter the whole (tp rows, d); every ring hop a (rows, d)
+    chunk: d x item bytes a row at 'ring', d int8 codes + one f32 scale at
+    'ring_q'. Everything else (the embedding, the loss, the gradient
+    reductions) is the same at every mode."""
+    if mode == "off":
+        return off["calls"], off["bytes"]
+    chunk = rows * d * item
+    hops = (14 * layers + 3) * (tp - 1)
+    row = d * item if mode == "ring" else d + 4
+    return (off["calls"] - 11 * layers - 2 + hops,
+            off["bytes"] - (6 + 5 * tp) * layers * chunk - (1 + tp) * chunk
+            + hops * rows * row)
+
+
+def phase_tp_overlap_train(torch, workdir: str) -> dict:
+    """`train --tp_size 2 --sequence_parallel --tp_overlap off | ring |
+    ring_q` at the 45m preset, all 12 layers (phase 58), then the tiny
+    card-vs-CPU cases; returns each run's launches summed over its
+    ranks."""
+    import math
+    from distributed_pytorch_from_scratch_tpu_torch import train
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    cfg = model_preset("45m")
+    layers, card = cfg.num_layers, _smi()
+    base = OV_ARGS + ["--data_path", _corpus(workdir)]
+    res, out = {}, {}
+    for mode in OV_MODES:
+        r = res[mode] = train.main(base + ["--tp_overlap", mode,
+                                           "--save_dir", os.path.join(
+                                               workdir, f"ov_{mode}")])
+        if len(r["losses"]) != OV_STEPS or not all(
+                math.isfinite(x) for x in r["losses"]):
+            raise AssertionError(f"tp_overlap {mode}: losses not finite or "
+                                 f"not {OV_STEPS}: {r['losses']}")
+        summed = {}
+        for rank in r["ranks"]:
+            _only(rank["launches"], _flash_want(layers, OV_STEPS),
+                  f"tp_overlap {mode} rank {rank['rank']} ({OV_STEPS} "
+                  f"steps)")
+            for k, v in rank["launches"].items():
+                summed[k] = summed.get(k, 0) + v
+        out[mode] = summed
+    rows = CP_B * CP_T // 2
+    for mode in OV_MODES:
+        r = res[mode]
+        hops = [rank["hops_per_step"]["tp"] for rank in r["ranks"]]
+        log(f"tp_overlap_train {mode} ({card}): {OV_STEPS} steps of 45m "
+            f"b{CP_B} x t{CP_T} bf16, {layers} layers, tp 2 with sequence "
+            f"parallelism over {r['dist_backend']} on {r['cards']} card(s):"
+            f" losses {r['losses']}; step p50 {r['step_ms_p50']:.3f} ms, "
+            f"{r['tokens_per_sec']:.1f} tok/s; tp hops per step "
+            + "; ".join(f"rank {i} {h['calls']:g} calls, "
+                        f"{h['bytes'] / 1e6:.3f} MB, host {h['host_ms']:.1f}"
+                        f" ms" for i, h in enumerate(hops))
+            + "; " + "; ".join(f"rank {rank['rank']} peak "
+                               f"{rank['peak_mem_gib']:.3f} GiB"
+                               for rank in r["ranks"])
+            + f"; K1 per rank per step fwd {2 * layers}, dq {layers}, "
+            f"dk/dv {layers} (checked)")
+        if mode == "off":
+            continue
+        worst = max(abs(a - b) / abs(b) for a, b in zip(
+            r["losses"], res["off"]["losses"]))
+        log(f"tp_overlap_train {mode}: worst step loss vs off {worst:.3e} "
+            f"relative (limit {OV_TOL[mode]})")
+        if not worst <= OV_TOL[mode]:
+            raise AssertionError(f"tp_overlap {mode}: losses disagree with "
+                                 f"off's ({worst:.3e})")
+        for rank, off_rank in zip(r["ranks"], res["off"]["ranks"]):
+            got = rank["hops_per_step"]["tp"]
+            want = ring_hops_want(off_rank["hops_per_step"]["tp"], layers,
+                                  rows, cfg.attn_dim, 2, 2, mode)
+            if (got["calls"], got["bytes"]) != want:
+                raise AssertionError(
+                    f"tp_overlap {mode} rank {rank['rank']}: tp hops per "
+                    f"step {got['calls']} calls, {got['bytes']} B; "
+                    f"expected {want}")
+    hop_bytes = {m: rows * (cfg.attn_dim * 2 if m == "ring"
+                            else cfg.attn_dim + 4) for m in OV_TOL}
+    log(f"tp_overlap_train: one ring hop carries {hop_bytes['ring'] / 1e6:.3f}"
+        f" MB at ring, {hop_bytes['ring_q'] / 1e6:.3f} MB at ring_q "
+        f"({hop_bytes['ring_q'] / hop_bytes['ring']:.4f}); tp hops per step "
+        f"(calls, bytes) as `ring_hops_want` derives them from off's "
+        f"(checked on every rank)")
+    _ov_card_vs_cpu(torch)
+    return out
+
+
+# card vs CPU gradient bound per tiny case, of the leaf's max: ring_q's
+# int8 payloads flip a code where the card and the CPU round one value on
+# either side of a half step (their partial products differ in the last
+# bit), so it is held within the wire's 2^-4, as phase 55's int8 wire;
+# its payload from the same input is byte-equal on both devices
+OV_GRAD_TOL = {"tp2_ring_q": 2.0 ** -4}
+
+
+def _ov_card_vs_cpu(torch) -> None:
+    """The OV_TINY cases at the tiny shape (4 layers), f32, b 4 x t 64, with
+    SP: the loss within 1e-5 and every gradient within 1e-4 of its leaf's
+    max (ring_q: `OV_GRAD_TOL`), on the card against the same ranks on the
+    CPU; ring_q's payload of one input byte-equal on the card and the
+    CPU."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.ops import overlap
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, 500, 512, generator=torch.Generator().manual_seed(
+            58)).to(dtype)
+        card = overlap._encode(x.cuda(), True)[0].cpu()
+        if not torch.equal(card, overlap._encode(x, True)[0]):
+            raise AssertionError(f"ring_q payload ({dtype}) differs between "
+                                 f"the card and the CPU")
+    log("tp_overlap_train: ring_q's payload of one (8, 500, 512) chunk "
+        "byte-equal on the card and the CPU (f32 and bf16)")
+    cfg = dataclasses.asdict(model_preset("tiny", **PP_TINY))
+    tree = _pp_tiny_tree()
+    rng = np.random.default_rng(11)
+    ids = rng.integers(0, cfg["vocab_size"], size=(4, 65))
+    batch = [np.ascontiguousarray(a, dtype=np.int32) for a in (
+        ids[:, :-1], ids[:, 1:], np.broadcast_to(np.arange(64), (4, 64)))]
+    job = lambda axes, mode: ("model_runs", axes, dict(
+        cfg=cfg, tree=tree, runs=[dict(batch=batch, sp=True,
+                                       tp_overlap=mode)]))
+    worst = {}
+    for n in (2, 4):
+        names = [k for k, (axes, _) in OV_TINY.items()
+                 if int(np.prod(list(axes.values()))) == n]
+        res = launch.spawn(tp_checks.jobs, n, [job(*OV_TINY[k])
+                                               for k in names],
+                           ("cuda", "cpu"))
+        for i, name in enumerate(names):
+            for rank in res:
+                card, cpu = rank[i][0], rank[len(names) + i][0]
+                loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+                errs = {k: np.abs(g - cpu["grads"][k])
+                        / max(float(np.abs(cpu["grads"][k]).max()), 1e-30)
+                        for k, g in card["grads"].items()}
+                grad_err = max(float(e.max()) for e in errs.values())
+                w = worst.setdefault(name, [0.0, 0.0, 0])
+                w[0], w[1] = max(w[0], loss_err), max(w[1], grad_err)
+                w[2] += sum(int((e > 1e-4).sum()) for e in errs.values())
+                if not (loss_err <= 1e-5
+                        and grad_err <= OV_GRAD_TOL.get(name, 1e-4)):
+                    raise AssertionError(
+                        f"tp_overlap card vs cpu {name}: loss err "
+                        f"{loss_err:.3e}, grad err/max {grad_err:.3e}")
+    log(f"tp_overlap_train card vs cpu (tiny, f32, b 4 x t 64, 4 layers, "
+        f"SP): worst (loss rel err, gradient err / max, gradient elements "
+        f"beyond 1e-4 of their max over the ranks) per case {worst} "
+        f"(limits 1e-5, 1e-4; ring_q's gradients {OV_GRAD_TOL})")
+
+
+# phase 59: the one-shot decoder at the 45m preset
+GD_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
+GD_NEW = 64
+GD_EOS = 1
+# bf16: the decoder's prefill and catch-up steps run their matmuls at
+# other shapes than the slot engine's bucketed prefills, so the caches
+# differ in the last bits and a near-tied argmax can flip; where a row's
+# tokens part, the two tokens' logits at the shared prefix (a bf16
+# forward of it) must lie within this share of the row's largest |logit|
+GD_TIE = 2.0 ** -5
+
+
+def _tie_gaps(torch, model, prompts, tokens, slot) -> list:
+    """(row, first differing index, |logit a - logit b| / max |logit|) of
+    every row where the decoder's tokens and the slot engine's part, the
+    logits of the last position of a bf16 prefill of the shared prefix."""
+    from distributed_pytorch_from_scratch_tpu_torch.models import decode
+    gaps = []
+    dev = model.embedding.weight.device
+    tables = decode.decode_tables(model, model.cfg.maxlen, dev)
+    for i, (x, y) in enumerate(zip(tokens, slot)):
+        j = next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                 min(len(x), len(y)))
+        if x == y:
+            continue
+        pick = lambda t: t[j] if j < len(t) else GD_EOS   # stopped: EOS
+        prefix = list(prompts[i]) + x[:j]
+        with torch.inference_mode():
+            logits = decode._prefill(
+                model, torch.tensor([prefix], device=dev),
+                torch.tensor([len(prefix)], device=dev), *tables,
+                torch.bfloat16)[2][0].float()
+        gaps.append((i, j, float((logits[pick(x)] - logits[pick(y)]).abs()
+                                 / logits.abs().max())))
+    return gaps
+
+
+def _slot_tokens(model, mesh, prompts, buf_len: int) -> tuple:
+    """The slot engine's greedy tokens for `prompts` (GD_NEW new tokens
+    each, 8 slots) on `model`, and its TPOT p50 in ms."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        ContinuousBatchingEngine, Request)
+    eng = ContinuousBatchingEngine(model, mesh, num_slots=len(prompts),
+                                   buf_len=buf_len, eos_id=GD_EOS,
+                                   max_prefill_batch=4)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=list(p), max_new=GD_NEW))
+    while eng.has_work():
+        eng.step()
+    done = sorted(eng.completed, key=lambda r: r.rid)
+    tpot = [(r.finish_t - r.first_token_t) * 1e3 / (len(r.tokens) - 1)
+            for r in done if len(r.tokens) > 1]
+    return [list(r.tokens) for r in done], float(np.median(tpot))
+
+
+def phase_greedy_decoder(torch) -> dict:
+    """`GreedyDecoder` at the 45m preset, bf16 and f32, against the slot
+    engine (phase 59), then the cp 2 ring prefill at the tiny widths;
+    returns the launches of one bf16 generation and of the cp 2 one,
+    summed over its ranks."""
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
+        GreedyDecoder)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    card = _smi()
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    rng = np.random.default_rng(59)
+    buf_len = max(GD_LENS) + GD_NEW
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = model_preset("45m", compute_dtype=dtype)
+        prompts = [[int(x) for x in rng.integers(3, cfg.vocab_size, n)]
+                   for n in GD_LENS]
+        limits = [len(p) + GD_NEW for p in prompts]
+        model = Transformer(cfg).init_weights(seed=59).to(mesh.device)
+        dec = GreedyDecoder(model, mesh, buf_len)
+        if dtype == "bfloat16":     # capture first: the timed call replays
+            dec.decode_batch(prompts, GD_EOS, limits)
+        _reset_launches()
+        tokens = dec.decode_batch(prompts, GD_EOS, limits)
+        launches = _read_launches()
+        _only(launches, {"flash_attention_fwd": cfg.num_layers},
+              f"greedy_decoder {dtype}: one generation")
+        timing, syncs = dict(dec.timing), dec.host_syncs
+        slot, tpot = _slot_tokens(model, mesh, prompts, buf_len)
+        same = sum(a == b for a, b in zip(tokens, slot))
+        log(f"greedy_decoder {dtype} ({card}): 45m, {cfg.num_layers} "
+            f"layers, 8 prompts of {GD_LENS[0]}-{GD_LENS[-1]} tokens + "
+            f"{GD_NEW} new, buf_len {buf_len}: {sum(map(len, tokens))} "
+            f"tokens, {same}/8 rows equal to the slot engine's; prefill "
+            f"{timing['prefill_ms']:.3f} ms (f32: with the step's capture), "
+            f"{timing['steps']} decode steps"
+            f" in {timing['loop_ms']:.3f} ms ("
+            f"{timing['loop_ms'] / max(timing['steps'], 1):.3f} ms per "
+            f"step, the step a CUDA graph) against the slot engine's TPOT "
+            f"p50 {tpot:.3f} ms; {syncs} host syncs per generation; K1 "
+            f"forward {launches['flash_attention_fwd']} launches per "
+            f"generation (12: the prefill)")
+        if dtype == "float32" and same != len(prompts):
+            raise AssertionError("greedy_decoder f32: tokens differ from "
+                                 "the slot engine's")
+        if dtype == "bfloat16":
+            gaps = _tie_gaps(torch, model, prompts, tokens, slot)
+            log(f"greedy_decoder bf16: rows parting from the slot engine's "
+                f"(row, first differing token, logit gap / max |logit| "
+                f"there): {gaps} (limit {GD_TIE})")
+            if any(g > GD_TIE for _, _, g in gaps):
+                raise AssertionError("greedy_decoder bf16: a row parts from "
+                                     "the slot engine's where the argmax is "
+                                     "not a near tie")
+        if dtype == "bfloat16":
+            out["greedy_decoder"] = launches
+        del model, dec
+    out["greedy_decoder_cp2"] = _gd_cp2(torch)
+    return out
+
+
+def _gd_cp2(torch) -> dict:
+    """The tiny widths, f32, on the kept pair at cp 2 (the ring prefill)
+    against cp 1 on the card; returns the K2 launches summed over the
+    ranks."""
+    import dataclasses
+    import numpy as np
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.ops.ring_attention import (
+        block_schedule)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        launch, tp_checks)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    cfg = dataclasses.asdict(model_preset("tiny", **PP_TINY))
+    tree = _pp_tiny_tree(seed=5)
+    rng = np.random.default_rng(5)
+    prompts = [[int(x) for x in rng.integers(3, cfg["vocab_size"], n)]
+               for n in (5, 17, 30, 44)]
+    buf = 64
+    run = dict(prompts=prompts, eos=GD_EOS, max_total_len=buf, buf_len=buf)
+    one = tp_checks.generate_runs(make_mesh(MeshConfig(), device="cuda"),
+                                  cfg, tree, [run])[0]
+    two = launch.spawn(tp_checks.jobs, 2, [("generate_runs", {"cp": 2},
+                                            dict(cfg=cfg, tree=tree,
+                                                 runs=[run]))], ("cuda",))
+    tl = buf // 2
+    pos = np.stack([np.tile(np.arange(r * tl, (r + 1) * tl), (len(prompts),
+                                                              1))
+                    for r in range(2)])
+    blocks = [sum(len(s) for s in rank) for rank in block_schedule(pos)]
+    summed = {}
+    for r, rank in enumerate(two):
+        got = rank[0][0]
+        _only(got["launches"], {"block_attention_fwd":
+                                cfg["num_layers"] * blocks[r]},
+              f"greedy_decoder cp 2 rank {r}")
+        if got["tokens"] != one["tokens"]:
+            raise AssertionError(f"greedy_decoder cp 2 rank {r}: tokens "
+                                 f"differ from cp 1's")
+        for k, v in got["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+    log(f"greedy_decoder cp 2 (tiny, f32, {cfg['num_layers']} layers, 4 "
+        f"prompts of 5-44 tokens, buf_len {buf}): tokens equal cp 1's on "
+        f"the card on both ranks; K2 forward per rank "
+        f"{[cfg['num_layers'] * n for n in blocks]} (the ring schedule's "
+        f"blocks {blocks} per layer; checked), cp hops "
+        f"{[rank[0][0]['cp_hops'] for rank in two]}, host syncs "
+        f"{[rank[0][0]['host_syncs'] for rank in two]}")
+    return summed
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -7076,7 +7475,7 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
           "cp_serve", "fleet_check", "fleet_serve", "moe_check",
           "moe_train", "moe_serve", "moe_ep2_train", "zero_train",
-          "moe_paths", "pp_train")
+          "moe_paths", "pp_train", "tp_overlap_train", "greedy_decoder")
 
 
 def main() -> None:
@@ -7135,7 +7534,8 @@ def run(torch, phases: set, workdir: str) -> list:
     with_dir = ("train", "cp_train", "cp_tiny", "tp_train", "tp_tiny",
                 "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
                 "gpt2_train", "train_async_preempt", "serve_replay",
-                "moe_train", "moe_ep2_train", "zero_train", "pp_train")
+                "moe_train", "moe_ep2_train", "zero_train", "pp_train",
+                "tp_overlap_train")
     res = {}
     from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
     with launch.kept_groups():
@@ -7162,7 +7562,8 @@ def run(torch, phases: set, workdir: str) -> list:
      tp_runs, tp_tiny, tp_served, remat_runs, spd_run, evals, eval_pth,
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
      replayed, spec_err, spec_served, cp_err, cp_served, fleet_served,
-     moe_trained, moe_served, moe_ep2, moe_paths, zero_runs, pp_runs) = (
+     moe_trained, moe_served, moe_ep2, moe_paths, zero_runs, pp_runs,
+     ov_runs, decoded) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -7172,7 +7573,8 @@ def run(torch, phases: set, workdir: str) -> list:
              "gpt2_serve", "train_async_preempt", "serve_int8_weights",
              "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
              "cp_serve", "fleet_serve", "moe_train", "moe_serve",
-             "moe_ep2_train", "moe_paths", "zero_train", "pp_train"))
+             "moe_ep2_train", "moe_paths", "zero_train", "pp_train",
+             "tp_overlap_train", "greedy_decoder"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -7185,7 +7587,11 @@ def run(torch, phases: set, workdir: str) -> list:
                          "train_cp2_tiny_f32": cp_tiny["float32"].get(k, 0),
                          "train_cp2_tiny_bf16": cp_tiny["bfloat16"].get(k, 0),
                          "train_tp2": tp_runs["tp2"].get(k, 0),
-                         "train_tp2_sp": tp_runs["tp2_sp"].get(k, 0),
+                         "train_tp2_sp": ov_runs["off"].get(k, 0),
+                         "train_tp2_sp_ring": ov_runs["ring"].get(k, 0),
+                         "train_tp2_sp_ring_q": ov_runs["ring_q"].get(k, 0),
+                         **{name: run.get(k, 0)
+                            for name, run in decoded.items()},
                          "train_tp2_dp2": tp_runs["tp2_dp2"].get(k, 0),
                          "train_tp2_cp2_tiny_f32": tp_tiny["float32"].get(k, 0),
                          "train_tp2_cp2_tiny_bf16":

@@ -1,6 +1,7 @@
 """KV-cache decoding lowerings shared by the serving engines — counterpart
-of the JAX `models/decode.py` (`_prefill`, `_decode_one`, the paged
-`_paged_decode_one` / `_paged_prefill_chunk`, the sampler).
+of the JAX `models/decode.py` (`_prefill`, `_prefill_cp`, `_decode_one`,
+the paged `_paged_decode_one` / `_paged_prefill_chunk`, the sampler) — and
+the one-shot decoder (`make_generate`, `GreedyDecoder`).
 
 Slot caches are (num_layers, b, kv_heads, buf_len, head_dim) in the compute
 dtype. Paged pools are (num_layers, num_pages + 1, kv_heads, page_size,
@@ -38,16 +39,22 @@ accept and resample draws (`hash_uniform`) are streams of their own.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
 
 from ..ops.attention import MASK_VALUE, causal_attention
-from ..ops.collectives import all_gather, copy_to, gather_from
+from ..config import resolve_dtype_on
+from ..ops.collectives import all_gather, all_reduce_sum, copy_to, gather_from
 from ..ops.cuda.block_attention import block_attention_plain
 from ..ops.cuda.paged_attention import paged_attention
+from ..ops.overlap import ag_matmul
 from ..ops.quant import quantize_rows
+from ..ops.ring_attention import ring_attention, ring_schedule
 from ..ops.rope import apply_rotary, rope_tables
+from ..parallel.linear import apply_column_ring_fused
+from ..runtime.graphs import CapturedStep, use_decode_graph
 from ..serving.kv_manager import local_page_ids
 
 # the paged attends: the dense page view + einsum block (the oracle), or
@@ -57,25 +64,41 @@ PAGED_ATTN_IMPLS = ("gather", "kernel")
 NEG_INF = -1e9
 
 
+def _ring(model) -> bool:
+    """Whether the layers run the tp ring collective matmuls (`tp_overlap`
+    ring or ring_q, under sequence parallelism; JAX's `ring_ov`)."""
+    return model.sequence_parallel and model.tp_overlap != "off"
+
+
 def _qkv(model, lp, y: torch.Tensor, dtype):
     """Project y (b, t, d) -> q (b, local heads, t, hd) and k, v at (b,
     local kv heads, t, hd); y is the sublayer's shared input (`_tp_in`), so
-    the projections take it as 'gathered'."""
+    the projections take it as 'gathered'. Under the ring (`_ring`) y is
+    this rank's (b, t/tp, d) chunk and wq/wk/wv share one ring
+    (`apply_column_ring_fused`)."""
     b, t, _ = y.shape
     h = model.cfg.head_dim
+    if _ring(model):
+        t *= model.tp_size
+        q, k, v = apply_column_ring_fused(
+            [lp["wq"], lp["wk"], lp["wv"]], y, dtype,
+            model.tp_overlap == "ring_q")
+    else:
+        q, k, v = (lp[w](y, dtype, "gathered") for w in ("wq", "wk", "wv"))
     split = lambda z, nh: z.reshape(b, t, nh, h).transpose(1, 2)
-    q = split(lp["wq"](y, dtype, "gathered"), model.num_local_heads)
-    k = split(lp["wk"](y, dtype, "gathered"), model.num_local_kv_heads)
-    v = split(lp["wv"](y, dtype, "gathered"), model.num_local_kv_heads)
-    return q, k, v
+    return (split(q, model.num_local_heads),
+            split(k, model.num_local_kv_heads),
+            split(v, model.num_local_kv_heads))
 
 
 def _tp_in(model, y: torch.Tensor) -> torch.Tensor:
     """A sublayer's normed input, shared by its column projections: at tp >
     1 one `copy_to` (whose backward all-reduces the projections' summed
     input gradient), or under sequence parallelism one all-gather of the
-    sequence (the JAX `maybe_gather`: its backward is one reduce-scatter)."""
-    if model.tp_size == 1:
+    sequence (the JAX `maybe_gather`: its backward is one reduce-scatter).
+    Under the ring nothing is gathered: the projections' ring consumes the
+    chunk."""
+    if model.tp_size == 1 or _ring(model):
         return y
     if model.sequence_parallel:
         return gather_from(y, model.mesh, dim=-2)
@@ -149,12 +172,18 @@ def _dense_ffn(model, lp, x: torch.Tensor, dtype) -> torch.Tensor:
     """x + the dense FFN of norm(x): gpt2's tanh-GELU MLP where the layer
     has an `fc`, else SwiGLU."""
     y = _tp_in(model, lp[model.ffn_norm_key](x))
-    if "fc" in lp:
-        h = torch.nn.functional.gelu(lp["fc"](y, dtype, "gathered"),
-                                     approximate="tanh")
+    ring = _ring(model)
+    if "fc" in lp:      # under the ring, fc's own (its overlap)
+        h = torch.nn.functional.gelu(
+            lp["fc"](y, dtype, "seq_sharded" if ring else "gathered"),
+            approximate="tanh")
         return x + lp["proj"](h, dtype, _act_layout(model))
-    g = lp["gate_proj"](y, dtype, "gathered")
-    u = lp["up_proj"](y, dtype, "gathered")
+    if ring:
+        g, u = apply_column_ring_fused([lp["gate_proj"], lp["up_proj"]], y,
+                                       dtype, model.tp_overlap == "ring_q")
+    else:
+        g = lp["gate_proj"](y, dtype, "gathered")
+        u = lp["up_proj"](y, dtype, "gathered")
     return x + lp["down_proj"](torch.nn.functional.silu(g) * u, dtype,
                                _act_layout(model))
 
@@ -185,8 +214,11 @@ def _logits_tokens(model, x: torch.Tensor, dtype) -> torch.Tensor:
     of the token embedding: `x @ embedding.weight.T`, the same local-vocab
     layout, and the embedding weight takes both gradients."""
     y = model.norm(x)
-    if hasattr(model, "lm_head"):
+    if hasattr(model, "lm_head"):    # under the ring, lm_head's overlap
         logits = model.lm_head(y, dtype, _act_layout(model))
+    elif _ring(model):
+        logits = ag_matmul(y.to(dtype), (model.embedding.weight.to(dtype),),
+                           model.mesh, model.tp_overlap == "ring_q")[0]
     else:
         if model.tp_size > 1:       # the column layer's input layouts
             y = (gather_from(y, model.mesh, dim=-2)
@@ -262,6 +294,44 @@ def _prefill(model, buf: torch.Tensor, prompt_len: torch.Tensor,
     last = torch.gather(x, 1, idx)
     return (torch.stack(ks).to(dtype), torch.stack(vs).to(dtype),
             _logits_last(model, last, dtype))
+
+
+def _prefill_cp(model, buf: torch.Tensor, prompt_len: torch.Tensor,
+                cos_t, sin_t, dtype):
+    """The context-parallel `_prefill` (JAX `_prefill_cp`): buf (b, t) is
+    the whole buffer on every rank; this cp rank takes its contiguous
+    chunk of t / cp positions, every layer's attention is the ring
+    (`ring_attention`: the block kernels on the card), and the layers'
+    K/V chunks are all-gathered over cp in one collective, so the decode
+    loop runs on the full caches, replicated over cp. The logits need one
+    position per row (prompt_len - 1): the rank whose chunk holds it
+    contributes its (b, 1, d) row and a sum over cp picks it (every other
+    rank adds zeros, so the sum is exact). Returns what `_prefill`
+    returns, the same on every cp rank."""
+    mesh = model.mesh
+    b, t = buf.shape
+    i, tl = mesh.cp_rank, t // mesh.cp
+    pos = (i * tl + torch.arange(tl, device=buf.device))[None, :].expand(b,
+                                                                         tl)
+    x = _embed(model, buf[:, i * tl:(i + 1) * tl], pos, dtype)
+    cos, sin = _positions(cos_t, sin_t, pos)
+    schedule = ring_schedule(pos, mesh)
+    attend = lambda q, k, v: ring_attention(q, k, v, schedule, mesh)
+    ks, vs = [], []
+    for lp in model.layers:
+        x, k, v, _ = _block(model, lp, x, cos, sin, dtype, attend)
+        ks.append(k)
+        vs.append(v)
+    chunks = all_gather(torch.stack([torch.stack(ks), torch.stack(vs)]).to(
+        dtype), mesh, "cp")                 # (cp, 2, L, b, kvh, tl, hd)
+    kv = torch.cat(chunks.unbind(0), dim=-2)
+    idx = prompt_len.long() - 1
+    mine = (idx >= i * tl) & (idx < (i + 1) * tl)
+    sel = torch.gather(x, 1, (idx - i * tl).clamp(0, tl - 1)[
+        :, None, None].expand(b, 1, x.shape[-1]))
+    last = all_reduce_sum(torch.where(mine[:, None, None], sel,
+                                      torch.zeros_like(sel)), mesh, "cp")
+    return kv[0], kv[1], _logits_last(model, last, dtype)
 
 
 def _decode_one(model, cache_k: torch.Tensor, cache_v: torch.Tensor,
@@ -704,3 +774,234 @@ def host_sample_tokens(model, full_logits, seeds, positions,
                            torch.as_tensor(np.asarray(positions, np.int64)),
                            temperature, top_k, top_p)
     return tok.numpy().astype(np.int32)
+
+
+# ------------------------------------------------------ one-shot decoding --
+
+# decode steps between two reads of the done mask: the loop's only host
+# syncs besides the final read of the buffer
+DONE_CHECK_EVERY = 32
+
+
+class _Generate:
+    """The whole-generation program of `make_generate` for one model: the
+    prefill, then one decode step per position, each step's state on the
+    card (see `make_generate`)."""
+
+    def __init__(self, model, buf_len: int, temperature: float, top_k: int,
+                 top_p: float):
+        cfg = model.cfg
+        self.model, self.buf_len = model, buf_len
+        self.device = model.embedding.weight.device
+        self.dtype = resolve_dtype_on(cfg.compute_dtype, self.device)
+        # RoPE tables over the whole buffer, past the trained maxlen too
+        self.tables = decode_tables(model, max(cfg.maxlen, buf_len),
+                                    self.device)
+        self.sample = make_token_sampler(model, temperature, top_k, top_p)
+        self.graph = use_decode_graph("auto", self.device, model.tp_size,
+                                      model.cp_size)
+        self._graphs = {}       # batch rows -> CapturedStep
+        self.host_syncs = 0     # of the last call
+        # the last call's prefill and loop times and its decode steps
+        self.timing = {"prefill_ms": 0.0, "loop_ms": 0.0, "steps": 0}
+
+    def _mark(self):
+        """A time mark that costs no host sync: a CUDA event on a card (read
+        after the final sync), the host clock on the CPU."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _ms(self, a, b) -> float:
+        return (a.elapsed_time(b) if self.device.type == "cuda"
+                else (b - a) * 1e3)
+
+    def _step(self, buf, ck, cv, nxt, done, gen, cur, plen, limit, eos,
+              seeds):
+        """One position of every row, IN PLACE (the JAX loop body): a row
+        still inside its prompt re-feeds its own token, a done row writes
+        eos, the others the token sampled last; then the step's candidate
+        for position cur + 1, which a row counts once it is past its
+        prompt."""
+        in_prompt = cur < plen
+        tok = torch.where(in_prompt, buf.gather(1, cur[:, None])[:, 0],
+                          torch.where(done, eos, nxt))
+        gen.add_((~(in_prompt | done)).long())
+        buf.scatter_(1, cur[:, None], tok[:, None])
+        logits = _decode_one(self.model, ck, cv, tok, cur, self.buf_len,
+                             *self.tables, self.dtype)
+        cand = self.sample(logits, seeds, cur + 1)
+        done |= ((cur + 1) >= plen) & (cand == eos)
+        done |= plen + gen >= limit
+        nxt.copy_(cand)
+        cur.add_(1)
+
+    def __call__(self, buf, prompt_len, eos_id: int, max_total_len,
+                 seed: int = 0):
+        dev, L = self.device, self.buf_len
+        buf_h = np.asarray(buf, dtype=np.int64)
+        b = buf_h.shape[0]
+        if buf_h.shape[1] != L:
+            raise ValueError(f"buf has {buf_h.shape[1]} columns; the "
+                             f"decoder's buf_len is {L}")
+        plen_h = np.broadcast_to(np.asarray(prompt_len, np.int64), (b,))
+        limit_h = np.minimum(np.broadcast_to(
+            np.asarray(max_total_len, np.int64), (b,)), L)
+        cur0 = int(plen_h.min())
+        with torch.inference_mode():
+            marks = [self._mark()]
+            t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+            buf, plen, limit = t(buf_h), t(plen_h), t(limit_h)
+            eos = torch.full((b,), eos_id, dtype=torch.long, device=dev)
+            seeds = t(np.broadcast_to(np.asarray(seed, np.int64), (b,)))
+            prefill = _prefill_cp if self.model.cp_size > 1 else _prefill
+            ks, vs, logits = prefill(self.model, buf, plen, *self.tables,
+                                     self.dtype)
+            cur = torch.full((b,), cur0, dtype=torch.long, device=dev)
+            nxt = self.sample(logits, seeds, cur)
+            done = ((plen == cur0) & (nxt == eos)) | (plen >= limit)
+            gen = torch.zeros(b, dtype=torch.long, device=dev)
+            state = [buf, ks, vs, nxt, done, gen, cur, plen, limit, eos,
+                     seeds]
+            step = self._step
+            if self.graph:
+                if b not in self._graphs:
+                    self._graphs[b] = CapturedStep(self._step, state)
+                graph = self._graphs[b]
+                # the warm-up ran real steps on the graph's buffers
+                for dst, src in zip(graph.inputs, state):
+                    dst.copy_(src)
+                state, step = graph.inputs, lambda *_: graph()
+            marks.append(self._mark())
+            syncs = steps = 0
+            for i in range(max(0, int(limit_h.max()) - cur0)):
+                if i and i % DONE_CHECK_EVERY == 0:
+                    syncs += 1
+                    if bool(state[4].all()):
+                        break
+                step(*state)
+                steps += 1
+            marks.append(self._mark())
+            out = torch.cat([state[0], (state[7] + state[5])[:, None]],
+                            dim=1).cpu().numpy()
+            self.host_syncs = syncs + 1
+            self.timing = {"prefill_ms": self._ms(*marks[:2]),
+                           "loop_ms": self._ms(*marks[1:]), "steps": steps}
+        return out[:, :L].astype(np.int32), out[:, L].astype(np.int32)
+
+
+def make_generate(model, mesh, buf_len: int, temperature: float = 0.0,
+                  top_k: int = 0, top_p: float = 0.0):
+    """The whole-generation program (JAX `make_generate`): `generate(buf
+    (b, buf_len), prompt_len, eos_id, max_total_len, seed=0) -> (buf with
+    the generated tokens written, each row's total length (b,))`, numpy
+    int32, on the model's weights (`mesh` is the model's; the model holds
+    its shard of the weights).
+
+    `prompt_len`, `max_total_len` and `seed` may be scalars or (b,)
+    vectors: mixed
+    prompt lengths decode in one call and each row stops at its own EOS or
+    total-length limit. The cursor is shared by the rows ("teacher-forced
+    catch-up"): it starts at min(prompt_len), and a row whose prompt runs
+    past it re-feeds its own prompt tokens (recomputing the K/V the
+    prefill wrote, to the same values under causal attention) until it
+    clears its prompt. Temperature 0 is greedy; above it the port's hash
+    sampler (`make_token_sampler`: top-k, then top-p, then a Gumbel-max
+    draw keyed by (seed, absolute position)), so a sampled row's tokens
+    depend on `seed` and nothing else.
+
+    The prefill is `_prefill` (K1 on the card) or, at cp > 1, the ring
+    prefill `_prefill_cp` (K2); the decode loop then runs one step per
+    position with every piece of its state on the card: the buffer, the
+    caches, the last candidates, the done mask and the counts. No step
+    reads the card: at tp = cp = 1 on a card the step is one captured CUDA
+    graph (`runtime/graphs.CapturedStep`, one per batch size, where the
+    engines' 'auto' captures: `use_decode_graph`), and the
+    host knows from the prompt lengths and limits how many steps it can
+    take at most. It reads the done mask once every `DONE_CHECK_EVERY`
+    steps, to stop once every row is done, and the buffer and lengths
+    once at the end: 1 + floor((steps - 1) / DONE_CHECK_EVERY) host syncs
+    a generation (`host_syncs`). Steps past a row's end write eos where no
+    result reads, so the result does not depend on where the loop stops.
+    At tp or cp > 1 the step runs eagerly (its gloo hops are staged
+    through the host) and every rank decodes the same tokens."""
+    validate_sampling(model.cfg, temperature, top_k, top_p)
+    return _Generate(model, buf_len, temperature, top_k, top_p)
+
+
+class GreedyDecoder:
+    """The KV-cache decoder of the JAX package: `make_generate` built once
+    for a buffer length and reused across prompts. Greedy by default (the
+    name is the reference's contract); `temperature` / `top_k` / `top_p`
+    sample, and `seed` makes the draws reproducible.
+
+    At cp > 1 the prefill runs the ring over the cp group (the training
+    path's long-context attention), so a prompt longer than one card's
+    attention budget prefills across the group; it needs
+    cp_impl='ring' with the contiguous layout and a buffer that splits
+    into cp equal chunks. A family with learned positions (gpt2) caps the
+    buffer at its position table. The refusals are JAX's, word for
+    word."""
+
+    def __init__(self, model, mesh, buf_len: int, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0):
+        if model.cp_size > 1:
+            if model.cp_impl != "ring" or model.cp_layout != "contiguous":
+                raise ValueError(
+                    "cp decode supports cp_impl='ring' with the contiguous "
+                    f"layout (got impl={model.cp_impl!r}, "
+                    f"layout={model.cp_layout!r})")
+            if buf_len % model.cp_size:
+                raise ValueError(f"buf_len {buf_len} must be divisible by "
+                                 f"cp_size {model.cp_size} (contiguous "
+                                 f"chunks)")
+        cap = getattr(model, "max_decode_positions", None)
+        if cap is not None and buf_len > cap:
+            raise ValueError(
+                f"buf_len {buf_len} exceeds the model's learned position "
+                f"table ({cap}); clamp the buffer (evaluate.greedy_decode "
+                f"does) or retrain with a larger maxlen")
+        self.model = model
+        self.mesh = mesh
+        self.buf_len = buf_len
+        self.generate = make_generate(model, mesh, buf_len,
+                                      temperature=temperature, top_k=top_k,
+                                      top_p=top_p)
+
+    @property
+    def host_syncs(self) -> int:
+        """The host syncs of the last generation (`make_generate`)."""
+        return self.generate.host_syncs
+
+    @property
+    def timing(self) -> dict:
+        """The last generation's prefill and decode-loop ms (CUDA events on
+        a card) and its decode steps."""
+        return self.generate.timing
+
+    def decode(self, prompt_ids, eos_id: int, max_total_len: int,
+               seed: int = 0) -> list:
+        """One prompt (ids with BOS) -> its generated ids (prompt
+        excluded), stopping at EOS or `max_total_len` tokens in all."""
+        return self.decode_batch([prompt_ids], eos_id, max_total_len,
+                                 seed=seed)[0]
+
+    def decode_batch(self, prompts, eos_id: int, max_total_len,
+                     seed: int = 0) -> list:
+        """A list of prompts of any lengths, in one generation: one list
+        of generated ids per prompt. `max_total_len` and `seed` are shared
+        or one per prompt."""
+        b = len(prompts)
+        for p in prompts:
+            if len(p) >= self.buf_len:
+                raise ValueError(f"prompt length {len(p)} must leave room "
+                                 f"in buf_len {self.buf_len}")
+        buf = np.full((b, self.buf_len), eos_id, dtype=np.int32)
+        for i, p in enumerate(prompts):
+            buf[i, :len(p)] = p
+        plens = np.asarray([len(p) for p in prompts], np.int32)
+        buf, flen = self.generate(buf, plens, eos_id, max_total_len, seed)
+        return [buf[i, len(prompts[i]):int(flen[i])].tolist()
+                for i in range(b)]

@@ -36,8 +36,12 @@ embedding for its input and every stage for its head rows, so the
 embedding's gradient is the pp sum of both uses (the train step's
 all-reduce over pp of the leaves every stage holds).
 
+`tp_overlap` ring / ring_q runs the llama family's rings: one for
+wq/wk/wv, fc's own, `matmul_rs` for wo and proj, and the tied head as an
+`ag_matmul` over this rank's embedding rows (JAX `gpt2.py`).
+
 The JAX family's MHA-only rule stands (num_kv_heads must equal
-num_heads). Not ported: tp overlap (ROADMAP Queue 1 item 7).
+num_heads).
 """
 
 from __future__ import annotations
@@ -68,21 +72,22 @@ class PositionTable(nn.Module):
             self.weight.normal_(0.0, INIT_STD, generator=generator)
 
 
-def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
+def _layer(cfg: ModelConfig, mesh, overlap: str = "off") -> nn.ModuleDict:
     d, f = cfg.attn_dim, cfg.ffn_dim
     mods = {
         "ln1": LayerNorm(d),
         "wq": ColumnParallelLinear(d, d, mesh),
         "wk": ColumnParallelLinear(d, d, mesh),
         "wv": ColumnParallelLinear(d, d, mesh),
-        "wo": RowParallelLinear(d, d, mesh),
+        "wo": RowParallelLinear(d, d, mesh, overlap=overlap),
         "ln2": LayerNorm(d),
     }
     if cfg.num_experts:
         mods["moe"] = moe_ffn(cfg, mesh)
     else:
-        mods.update({"fc": ColumnParallelLinear(d, f, mesh),
-                     "proj": RowParallelLinear(f, d, mesh)})
+        mods.update({"fc": ColumnParallelLinear(d, f, mesh,
+                                                overlap=overlap),
+                     "proj": RowParallelLinear(f, d, mesh, overlap=overlap)})
     return nn.ModuleDict(mods)
 
 
@@ -104,7 +109,7 @@ class GPT2Transformer(Transformer):
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh, init_std=INIT_STD)
         self.pos_embedding = PositionTable(cfg.maxlen, cfg.attn_dim)
-        self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
+        self.layers = nn.ModuleList(_layer(cfg, tp_mesh, self.tp_overlap)
                                     for _ in self.layer_ids)
         self.norm = LayerNorm(cfg.attn_dim)
 

@@ -18,8 +18,15 @@ pipeline step at a time, as JAX's `lax.scan` does:
 A bubble step (no microbatch for this stage) runs no layer, as JAX's
 `lax.cond` skip; every member of a tp, cp, ep or dp group shares its
 stage, so all of them skip together and the collectives inside the layers
-stay matched (pp x ring cp needs no live gate here). Between steps every
-stage hands its activation on (`ops/collectives.stage_hop`).
+stay matched (pp x ring cp needs no live gate here). The same holds for
+the tp ring collective matmuls (`--tp_overlap ring | ring_q`): JAX runs
+the dense segments even on bubble steps under ring overlap, because its
+`ppermute` lowers with a global participant list and a stage-divergent
+`lax.cond` around it would deadlock; here a tp ring's hops stay inside
+one stage's tp group (`collectives.start_hop` over 'tp'), every tp rank of
+a stage shares that stage's bubble schedule, so a bubble step still runs
+no layer and no hop. Between steps every stage hands its activation on
+(`ops/collectives.stage_hop`).
 
 The backward is autograd's, through one graph per rank. Its transfers are
 the hops' backwards, so every stage must run every hop's backward, in the

@@ -67,7 +67,13 @@ else every stage on all of them, counted on the last stage only; its sums
 (and a MoE model's aux sums, each stage's layers') are summed over the
 batch group and then over pp.
 
-Not ported: tp overlap.
+`tp_overlap` ('off', 'ring', 'ring_q'; the JAX field, `validate_tp_overlap`
+with its messages: it needs sequence parallelism and refuses MoE) swaps
+the sequence-parallel gathers and reduce-scatters for the ring collective
+matmuls of `ops/overlap.py`: one ring for wq/wk/wv, one for gate/up (or
+gpt2's fc), `matmul_rs` for wo and down_proj (proj), and the head's
+`ag_matmul`. It is a compute schedule, not a layout: the weights, their
+shards and the checkpoints are the same at every value.
 """
 
 from __future__ import annotations
@@ -119,6 +125,25 @@ def validate_cp(cfg: ModelConfig, tp: int, cp_size: int, cp_impl: str,
     if cp_layout == "zigzag" and cp_impl != "ring":
         raise ValueError("cp_layout='zigzag' requires cp_impl='ring' "
                          "(Ulysses assumes rank-order contiguous chunks)")
+
+
+def validate_tp_overlap(tp_overlap: str, sequence_parallel: bool,
+                        num_experts: int = 0) -> None:
+    """The JAX `validate_tp_overlap` (both families), with its messages."""
+    if tp_overlap not in ("off", "ring", "ring_q"):
+        raise ValueError(f"tp_overlap must be 'off', 'ring' or 'ring_q', "
+                         f"got {tp_overlap!r}")
+    if tp_overlap in ("ring", "ring_q") and not sequence_parallel:
+        raise ValueError(
+            f"tp_overlap={tp_overlap!r} requires sequence_parallel: the "
+            "ring decomposes the SP all-gather/reduce-scatter pair; the "
+            "non-SP path's monolithic all-reduce has no chunk schedule to "
+            "overlap (or quantize per hop)")
+    if tp_overlap in ("ring", "ring_q") and num_experts:
+        raise ValueError(
+            f"tp_overlap={tp_overlap!r} does not compose with MoE yet: "
+            "the router consumes the full-token gather that the ring "
+            "collective matmul deliberately never materialises")
 
 
 def validate_tp(cfg: ModelConfig, tp: int) -> None:
@@ -175,13 +200,15 @@ def validate_ep(cfg: ModelConfig, ep_size: int) -> None:
                          "use dp for a pure data axis)")
 
 
-def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
+def _layer(cfg: ModelConfig, mesh, overlap: str = "off") -> nn.ModuleDict:
+    """One layer's modules; wq/wk/wv and gate/up keep overlap 'off' (under
+    the ring they share one fused ring, `decode._qkv` / `_dense_ffn`)."""
     d, f, kd = cfg.attn_dim, cfg.ffn_dim, cfg.kv_dim
     mods = {
         "wq": ColumnParallelLinear(d, d, mesh),
         "wk": ColumnParallelLinear(d, kd, mesh),
         "wv": ColumnParallelLinear(d, kd, mesh),
-        "wo": RowParallelLinear(d, d, mesh),
+        "wo": RowParallelLinear(d, d, mesh, overlap=overlap),
         "norm1": RMSNorm(d),
         "norm2": RMSNorm(d),
     }
@@ -190,7 +217,8 @@ def _layer(cfg: ModelConfig, mesh) -> nn.ModuleDict:
     else:
         mods.update({"gate_proj": ColumnParallelLinear(d, f, mesh),
                      "up_proj": ColumnParallelLinear(d, f, mesh),
-                     "down_proj": RowParallelLinear(f, d, mesh)})
+                     "down_proj": RowParallelLinear(f, d, mesh,
+                                                    overlap=overlap)})
     return nn.ModuleDict(mods)
 
 
@@ -221,7 +249,7 @@ class Transformer(nn.Module):
                  cp_layout: str = "contiguous", mesh=None,
                  sequence_parallel: bool = False, pp_microbatches: int = 0,
                  pp_schedule: str = "gpipe", pp_virtual: int = 2,
-                 pp_remat_steps: bool = False):
+                 pp_remat_steps: bool = False, tp_overlap: str = "off"):
         super().__init__()
         if remat not in (True, False, "dots"):
             raise ValueError(
@@ -233,6 +261,7 @@ class Transformer(nn.Module):
         validate_tp(cfg, tp_size)
         validate_cp(cfg, tp_size, cp_size, cp_impl, cp_layout)
         validate_ep(cfg, ep_size)
+        validate_tp_overlap(tp_overlap, sequence_parallel, cfg.num_experts)
         pp_size = 1 if mesh is None else mesh.pp
         validate_pp(cfg.num_layers, pp_size, pp_microbatches, pp_schedule,
                     pp_virtual)
@@ -246,6 +275,7 @@ class Transformer(nn.Module):
         self.cp_impl, self.cp_layout = cp_impl, cp_layout
         self.tp_size = tp_size
         self.sequence_parallel = sequence_parallel and tp_size > 1
+        self.tp_overlap = tp_overlap
         self.mesh = mesh
         self.num_local_heads = cfg.num_heads // tp_size
         self.num_local_kv_heads = cfg.kv_heads // tp_size
@@ -272,11 +302,12 @@ class Transformer(nn.Module):
         None)."""
         self.embedding = VocabParallelEmbedding(cfg.vocab_size, cfg.attn_dim,
                                                 tp_mesh)
-        self.layers = nn.ModuleList(_layer(cfg, tp_mesh)
+        self.layers = nn.ModuleList(_layer(cfg, tp_mesh, self.tp_overlap)
                                     for _ in self.layer_ids)
         self.norm = RMSNorm(cfg.attn_dim)
         self.lm_head = ColumnParallelLinear(cfg.attn_dim, self.vocab_padded,
-                                            tp_mesh)
+                                            tp_mesh,
+                                            overlap=self.tp_overlap)
 
     def init_weights(self, seed: int) -> "Transformer":
         """Random init from `seed` with the JAX package's distributions

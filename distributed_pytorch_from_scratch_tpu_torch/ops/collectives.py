@@ -5,6 +5,16 @@ op takes the `Mesh` and the name of the axis it runs over ('tp', 'cp',
 pair — or 'expert_batch', the dp x cp ranks that share a (pp, ep, tp)
 triple); at axis size 1 each is the identity.
 
+Tensor parallelism's ring hop, split in two so the caller can compute
+while it travels (the ring collective matmuls of `ops/overlap.py`):
+`start_hop(x, mesh, axis, tag)` sends x to the next rank of the ring and
+posts the receive from the previous one; `Hop.wait()` returns what
+arrived. Two hops may be in flight at once between the same two ranks
+(ag_matmul's backward runs its re-gather ring and its dx ring together):
+each ring passes a tag of its own, and every rank starts and waits on its
+hops in one fixed order, so a receive never takes the other ring's
+message. No autograd: the rings' Functions run their own backward hops.
+
 Pipeline parallelism's: `stage_hop(x, mesh, wrap)`, the ring permute over
 'pp', passes a stage's activation to the next pp stage (JAX's `ppermute`
 over 'pp'), its backward the cotangent to the previous one.
@@ -117,7 +127,10 @@ def _collective(mesh, axis: str, x: torch.Tensor, run,
         return out
     torch.cuda.current_stream(x.device).synchronize()
     t1 = time.perf_counter()
-    out = run(x.cpu()).to(x.device)
+    # contiguous before the copy: `cpu()` keeps a view's strides, and gloo
+    # receives only into contiguous tensors (a sequence-parallel reduce-
+    # scatter's output is a permuted view, and residual adds keep it)
+    out = run(x.contiguous().cpu()).to(x.device)
     st["wait_s"] += t1 - t0
     st["hop_s"] += time.perf_counter() - t1
     return out
@@ -349,6 +362,67 @@ def stage_hop(x: torch.Tensor, mesh, wrap: bool = False) -> torch.Tensor:
     if mesh.axis("pp").size == 1:
         raise ValueError("stage_hop needs a pp axis of size > 1")
     return _RingPermute.apply(x, mesh, 1, "pp", wrap)
+
+
+class Hop:
+    """One ring hop in flight (`start_hop`); `wait()` returns the tensor
+    the previous rank sent, on the sender's device type."""
+
+    def __init__(self, works, send, recv, device, st, timed: bool):
+        self._works, self._send, self._recv = works, send, recv
+        self._device, self._st, self._timed = device, st, timed
+
+    def wait(self) -> torch.Tensor:
+        t0 = time.perf_counter()
+        for w in self._works:
+            w.wait()
+        out = self._recv if self._device is None else self._recv.to(
+            self._device)
+        if self._timed:
+            self._st["hop_s"] += time.perf_counter() - t0
+        self._works = self._send = self._recv = None
+        return out
+
+
+def start_hop(x: torch.Tensor, mesh, axis: str = "tp",
+              tag: int = 0) -> Hop:
+    """Start one hop of the +1 ring over `axis`: x goes to rank r + 1 and
+    the receive from rank r - 1 is posted, in one `batch_isend_irecv`
+    (NCCL's group call: both ends of a 2-rank ring post both transfers at
+    once), under `tag`. Under gloo a card's x is copied to the host here
+    (after the work queued before it), the transfer runs in gloo's own
+    threads while the caller computes, and the copy back to the card
+    happens in `wait`. Counted in `stats[axis]` as one call of x's bytes,
+    ring bytes the same; `wait_s` the wait for the queued work, `hop_s`
+    the copies, the posting and the wait in `Hop.wait` (NCCL's enqueue is
+    not timed)."""
+    ax = mesh.axis(axis)
+    n, r = ax.size, ax.rank
+    st = stats[axis]
+    nbytes = x.numel() * x.element_size()
+    st["calls"] += 1
+    st["bytes"] += nbytes
+    st["ring_bytes"] += nbytes
+    x = x.contiguous()
+    staged = x.is_cuda and mesh.backend == "gloo"
+    timed = not (x.is_cuda and mesh.backend != "gloo")
+    t0 = time.perf_counter()
+    if staged:
+        torch.cuda.current_stream(x.device).synchronize()
+        t1 = time.perf_counter()
+        st["wait_s"] += t1 - t0
+        send = x.cpu()
+    else:
+        t1, send = t0, x
+    recv = torch.empty_like(send)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, ax.members[(r + 1) % n], ax.group,
+                   tag),
+        dist.P2POp(dist.irecv, recv, ax.members[(r - 1) % n], ax.group,
+                   tag)])
+    if timed:
+        st["hop_s"] += time.perf_counter() - t1
+    return Hop(works, send, recv, x.device if staged else None, st, timed)
 
 
 def _a2a(x: torch.Tensor, mesh, axis: str, split_axis: int,

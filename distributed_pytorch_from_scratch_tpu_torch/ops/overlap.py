@@ -1,8 +1,38 @@
-"""The data-parallel gradient wires: bucketed reduction, its bf16 and int8
-wires, and the gather of dp-sharded leaves whose backward is a
-reduce-scatter — the reduction half of the JAX `ops/overlap.py` (its ring
-collective matmuls `ag_matmul` / `matmul_rs`, `--tp_overlap`, are not
-ported: ROADMAP Queue 1 item 7).
+"""The communication-overlap ops of the JAX `ops/overlap.py`: the ring
+collective matmuls of tensor parallelism, and the data-parallel gradient
+wires (bucketed reduction, its bf16 and int8 wires, and the gather of
+dp-sharded leaves whose backward is a reduce-scatter).
+
+The ring collective matmuls (`--tp_overlap ring | ring_q`; "On
+Optimizing the Communication of Model Parallelism", arXiv:2211.05322)
+decompose sequence parallelism's monolithic all-gather before a column
+layer and reduce-scatter after a row layer into n steps over the tp ring,
+each step's hop started before the partial product of the chunk in hand
+(`collectives.start_hop`), so the transfer runs while the card computes:
+
+* `ag_matmul(x, ws, mesh, quantized)` — the all-gather of x (..., t/n, d)
+  over the sequence, then x @ w^T for each w of `ws` (several weights share
+  one ring: wq/wk/wv, gate/up), as (..., t, o_j) outputs. At step s the
+  chunk in hand came from rank (r - s) mod n and fills those output rows.
+  Its backward (JAX `_ag_matmul_bwd`) runs two rings at once: the
+  re-gather of x for the weight gradients and the dx reduce ring, whose
+  step s adds the partial for rank (r + n-1-s) mod n;
+* `matmul_rs(x, w, mesh, quantized)` — x (..., t, f) @ w^T reduced over
+  the ranks and scattered over the sequence: this rank's (..., t/n, o).
+  Step s computes the partial for rank (r + n-1-s) mod n and adds it to
+  the accumulator that arrives; its backward (JAX `_matmul_rs_bwd`) is one
+  gather ring of the cotangent.
+
+Weights are in torch's (odim, idim) layout, so a partial is chunk @ w^T.
+The rings add the ranks' partials in a fixed rank order, not in the
+monolithic reduce-scatter's: they agree with it to float tolerance, not
+bitwise. Under `quantized` (ring_q) the gather rings (ag's forward and both
+backward re-gathers) quantize each chunk once, at its origin, with
+`quant.quantize_rows` (one f32 scale per row), and every rank, the origin
+too, dequantizes before its product; the reduce rings (rs's forward, ag's
+dx ring) requantize the accumulator before each hop (JAX `_ring_hop_q`).
+The codes and their scales travel in one message. A sequence the ring
+cannot split evenly is refused; at n = 1 the ring makes no hop.
 
 * `bucket_partition(sizes, bucket_bytes)` — the JAX rule: leaves in list
   order, consecutive, <= bucket_bytes each (a larger leaf alone).
@@ -39,7 +69,7 @@ ported: ROADMAP Queue 1 item 7).
   (the stage 1/2 parameter gather after Adam, and checkpoints).
 
 All hops go through `ops/collectives` (staged through host memory under
-gloo, counted in its `stats`).
+gloo, counted in its `stats`: the rings' under 'tp').
 """
 
 from __future__ import annotations
@@ -49,8 +79,10 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .collectives import _all_reduce, _gather, _permute, _scatter, all_gather
-from .quant import WIRE_GROUP, dequantize_groups, quantize_groups
+from .collectives import (_all_reduce, _gather, _permute, _scatter,
+                          all_gather, start_hop)
+from .quant import (WIRE_GROUP, dequantize_groups, dequantize_rows,
+                    quantize_groups, quantize_rows)
 
 WIRES = ("f32", "bf16", "int8")
 
@@ -305,3 +337,200 @@ def gather_shards(shards: Sequence[torch.Tensor], dims: Sequence[int], mesh,
     if mesh.axis(axis).size == 1 or not shards:
         return list(shards)
     return list(_GatherShards.apply(mesh, axis, tuple(dims), *shards))
+
+
+# ----------------------------------------------- ring collective matmuls --
+
+# tags of the two rings ag_matmul's backward keeps in flight at once
+_TAG_GATHER, _TAG_REDUCE = 1, 2
+
+
+def _encode(x: torch.Tensor, quantized: bool):
+    """(message, chunk): what a hop carries and what this rank's product
+    takes — x and x, or under `quantized` one int8 message of its f32 row
+    scales' bytes (first, so they stay 4-byte aligned) and its int8 row
+    codes, and their dequantized x~."""
+    if not quantized:
+        return x, x
+    q, sc = quantize_rows(x)
+    return (torch.cat([sc.reshape(-1).view(torch.int8), q.reshape(-1)]),
+            dequantize_rows(q, sc, x.dtype))
+
+
+def _unpack_rows(msg: torch.Tensor, like: torch.Tensor):
+    """A quantized message -> (codes, scales) of `like`'s rows."""
+    m = like.numel() // like.shape[-1]
+    return (msg[4 * m:].view(like.shape),
+            msg[:4 * m].view(torch.float32).view(like.shape[:-1]))
+
+
+def _decode(msg: torch.Tensor, like: torch.Tensor,
+            quantized: bool) -> torch.Tensor:
+    """A message back to a tensor of `like`'s shape and dtype."""
+    if not quantized:
+        return msg
+    return dequantize_rows(*_unpack_rows(msg, like), like.dtype)
+
+
+def _seq_rows(a: torch.Tensor, slot: int, tl: int) -> torch.Tensor:
+    return a[..., slot * tl:(slot + 1) * tl, :]
+
+
+def _weight_grad(dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """sum over the batch and sequence of dy^T x: (o, d) from (..., o) and
+    (..., d)."""
+    return dy.reshape(-1, dy.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
+
+
+def _ag_forward(x, ws, mesh, quantized):
+    ax = mesh.axis("tp")
+    n, r, tl = ax.size, ax.rank, x.shape[-2]
+    outs = [x.new_empty(*x.shape[:-2], tl * n, w.shape[0]) for w in ws]
+    msg, chunk = _encode(x, quantized)
+    for s in range(n):
+        # the hop first: it does not wait on this step's products
+        hop = start_hop(msg, mesh, "tp", _TAG_GATHER) if s < n - 1 else None
+        slot = (r - s) % n          # the origin of the chunk in hand
+        for out, w in zip(outs, ws):
+            _seq_rows(out, slot, tl).copy_(torch.matmul(chunk, w.t()))
+        if hop is not None:
+            msg = hop.wait()
+            chunk = _decode(msg, x, quantized)
+    return outs
+
+
+def _ag_backward(x, ws, dys, mesh, quantized):
+    ax = mesh.axis("tp")
+    n, r, tl = ax.size, ax.rank, x.shape[-2]
+    dws = [torch.zeros_like(w) for w in ws]
+    msg, chunk = _encode(x, quantized)
+    dx_acc = dx_hop = None
+    for s in range(n):
+        gather = (start_hop(msg, mesh, "tp", _TAG_GATHER) if s < n - 1
+                  else None)
+        # the re-gather ring: the chunk in hand pairs with the cotangent
+        # rows of its origin; the dx ring: this step's partial is for the
+        # rank whose accumulator arrives next
+        slot, dest = (r - s) % n, (r + n - 1 - s) % n
+        part = None
+        for j, (w, dy) in enumerate(zip(ws, dys)):
+            dws[j] = dws[j] + _weight_grad(_seq_rows(dy, slot, tl), chunk)
+            p = torch.matmul(_seq_rows(dy, dest, tl), w)
+            part = p if part is None else part + p
+        dx_acc = (part if s == 0
+                  else _decode(dx_hop.wait(), part, quantized) + part)
+        if s < n - 1:
+            dx_hop = start_hop(_encode(dx_acc, quantized)[0], mesh, "tp",
+                               _TAG_REDUCE)
+        if gather is not None:
+            msg = gather.wait()
+            chunk = _decode(msg, x, quantized)
+    return dx_acc.to(x.dtype), [dw.to(w.dtype) for dw, w in zip(dws, ws)]
+
+
+def _rs_forward(x, w, mesh, quantized):
+    ax = mesh.axis("tp")
+    n, r = ax.size, ax.rank
+    tl = x.shape[-2] // n
+    acc = hop = None
+    for s in range(n):
+        # this step's product runs while the accumulator travels
+        part = torch.matmul(_seq_rows(x, (r + n - 1 - s) % n, tl), w.t())
+        acc = part if s == 0 else _decode(hop.wait(), part, quantized) + part
+        if s < n - 1:
+            hop = start_hop(_encode(acc, quantized)[0], mesh, "tp",
+                            _TAG_REDUCE)
+    return acc
+
+
+def _rs_backward(x, w, dy, mesh, quantized):
+    ax = mesh.axis("tp")
+    n, r = ax.size, ax.rank
+    tl = x.shape[-2] // n
+    dx = torch.empty_like(x)
+    dw = torch.zeros_like(w)
+    msg, chunk = _encode(dy, quantized)
+    for s in range(n):
+        hop = start_hop(msg, mesh, "tp", _TAG_GATHER) if s < n - 1 else None
+        slot = (r - s) % n
+        _seq_rows(dx, slot, tl).copy_(torch.matmul(chunk, w))
+        dw = dw + _weight_grad(chunk, _seq_rows(x, slot, tl))
+        if hop is not None:
+            msg = hop.wait()
+            chunk = _decode(msg, dy, quantized)
+    return dx, dw.to(w.dtype)
+
+
+class _AgMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, quantized, *ws):
+        ctx.args = (mesh, quantized)
+        ctx.save_for_backward(x, *ws)
+        return tuple(_ag_forward(x, ws, mesh, quantized))
+
+    @staticmethod
+    def backward(ctx, *dys):
+        x, *ws = ctx.saved_tensors
+        dx, dws = _ag_backward(x, ws, dys, *ctx.args)
+        return (dx, None, None, *dws)
+
+
+class _MatmulRs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, mesh, quantized):
+        ctx.args = (mesh, quantized)
+        ctx.save_for_backward(x, w)
+        return _rs_forward(x, w, mesh, quantized)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _rs_backward(x, w, dy, *ctx.args)
+        return dx, dw, None, None
+
+
+def _check_2d(name: str, x: torch.Tensor) -> None:
+    if x.ndim < 2:
+        raise ValueError(f"{name} needs a (..., seq, feature) operand, got "
+                         f"shape {tuple(x.shape)}")
+
+
+def ag_matmul(x: torch.Tensor, ws: Sequence[torch.Tensor], mesh,
+              quantized: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The ring all-gather-matmul over 'tp': x is this rank's (..., t/n,
+    d) chunk of the sequence, `ws` a non-empty tuple of local (o_j, d)
+    weights sharing one ring; returns each (..., t, o_j) = all_gather(x)
+    @ w_j^T. `quantized` (ring_q) puts int8 codes and row scales on every
+    hop of the forward and of the backward's re-gather ring, and
+    requantizes the backward's dx accumulator per hop."""
+    _check_2d("ag_matmul", x)
+    if not isinstance(ws, (tuple, list)) or not ws:
+        raise ValueError("ag_matmul takes a non-empty tuple of weights "
+                         "(one ring shared by all of them)")
+    for w in ws:
+        if w.ndim != 2 or w.shape[1] != x.shape[-1]:
+            raise ValueError(
+                f"ag_matmul weight shape {tuple(w.shape)} does not contract "
+                f"with x feature dim {x.shape[-1]}")
+    return _AgMatmul.apply(x, mesh, quantized, *ws)
+
+
+def matmul_rs(x: torch.Tensor, w: torch.Tensor, mesh,
+              quantized: bool = False) -> torch.Tensor:
+    """The ring matmul-reduce-scatter over 'tp': x (..., t, f) this rank's
+    partial-product input over the whole sequence, w its local (o, f)
+    weight; returns this rank's (..., t/n, o) chunk of the sum over the
+    ranks of x @ w^T. `quantized` (ring_q) requantizes the accumulator
+    before each hop of the forward and quantizes the backward's cotangent
+    chunks once, at their origin."""
+    _check_2d("matmul_rs", x)
+    n = mesh.axis("tp").size
+    if x.shape[-2] % n != 0:
+        raise ValueError(
+            f"matmul_rs: sequence length {x.shape[-2]} not divisible by "
+            f"axis 'tp' size {n} — the ring needs even chunks")
+    if w.ndim != 2 or w.shape[1] != x.shape[-1]:
+        raise ValueError(
+            f"matmul_rs weight shape {tuple(w.shape)} does not contract "
+            f"with x feature dim {x.shape[-1]}")
+    return _MatmulRs.apply(x, w, mesh, quantized)

@@ -2,11 +2,12 @@
 reference, run through `runtime.launch.spawn` — by the tests (against the
 JAX package, on the CPU) and by chip_smoke.py (the card's kernels against
 the CPU's plain versions), as `runtime/cp_checks.py` serves the cp paths:
-training (`collective_pairs`, `layer_cases`, `model_runs`,
+training (`collective_pairs`, `layer_cases`, `ring_ops`, `model_runs`,
 `seed_identity`, `checkpoint_steps`; the ZeRO stages' `zero_runs` and
 `int8_ring` live in `runtime/zero_checks.py`), serving at tp > 1 and on cp-sharded pages at cp or cp
 x tp (`serve_runs`, `decode_logits`, `quantized_params`, `combine`),
-the evaluation loss on any mesh (`doc_losses`), the tensors a rank
+the evaluation loss on any mesh (`doc_losses`), the one-shot decoder at
+tp or cp > 1 (`generate_runs`), the tensors a rank
 process still holds after its earlier calls (`hold_garbage`,
 `live_tensors`) and a rank's place on its mesh (`mesh_axes`).
 
@@ -168,6 +169,33 @@ def layer_cases(mesh, cases: Sequence[Dict]) -> List[Dict]:
     return out
 
 
+def ring_ops(mesh, cases: Sequence[Dict]) -> List[Dict]:
+    """Each case {op: ag | rs, x, ws, dys, quantized}, every array stacked
+    over the tp ranks on a leading axis (weights in torch's (o, i)
+    layout): `ops/overlap.ag_matmul(x_r, ws_r)` or `matmul_rs(x_r, ws_r[0])`
+    on this rank, then the backward of sum_j sum(y_j * dys_j,r). Returns
+    the outputs, x's and the weights' gradients, and the tp hops the case
+    made (calls, bytes)."""
+    from ..ops.overlap import ag_matmul, matmul_rs
+    r, dev = mesh.tp_rank, mesh.device
+    out = []
+    for case in cases:
+        x = _t(case["x"][r], dev).requires_grad_(True)
+        ws = [_t(w[r], dev).requires_grad_(True) for w in case["ws"]]
+        C.reset_stats()
+        if case["op"] == "ag":
+            ys = ag_matmul(x, tuple(ws), mesh, case["quantized"])
+        else:
+            ys = (matmul_rs(x, ws[0], mesh, case["quantized"]),)
+        sum((y * _t(d[r], dev)).sum()
+            for y, d in zip(ys, case["dys"])).backward()
+        out.append({"ys": [_np(y) for y in ys], "dx": _np(x.grad),
+                    "dws": [_np(w.grad) for w in ws],
+                    "calls": C.stats["tp"]["calls"],
+                    "bytes": C.stats["tp"]["bytes"]})
+    return out
+
+
 PP_OPTIONS = ("pp_microbatches", "pp_schedule", "pp_virtual",
               "pp_remat_steps")
 
@@ -180,6 +208,7 @@ def _model(mesh, run: Dict, cfg: Dict, tree) -> Transformer:
                         cp_impl=run.get("impl", "ring"),
                         cp_layout=run.get("layout", "contiguous"),
                         mesh=mesh, sequence_parallel=run.get("sp", False),
+                        tp_overlap=run.get("tp_overlap", "off"),
                         **{k: run[k] for k in PP_OPTIONS if k in run})
     model.load_state_dict(shard_params(
         from_canonical(params_from_jax(tree), model.layer_ids), mesh.tp,
@@ -282,6 +311,43 @@ def doc_losses(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
         means, real = model.doc_loss(*_batch(model, mesh, run["batch"]))
         out.append({"coords": mesh.coords, "means": _np(means),
                     "real": real.cpu().numpy()})
+    return out
+
+
+def generate_runs(mesh, cfg: Dict, tree, runs: Sequence[Dict]) -> List[Dict]:
+    """For each run {prompts, eos, max_total_len, buf_len, and optionally
+    seed, temperature, top_k, top_p, impl, layout}: `GreedyDecoder
+    .decode_batch` on this rank's shard of the JAX tree `tree`, the model
+    at the mesh's cp (`impl` / `layout` its cp_impl / cp_layout). Returns
+    the tokens, the host syncs, the cp hops and the kernel launches of
+    the generation, or {"error": the message} where the decoder refuses
+    the run."""
+    from ..ops.cuda import launch_counts
+    out = []
+    for run in runs:
+        model = build_model(tree_family(tree), ModelConfig(**cfg), mesh=mesh,
+                            cp_size=mesh.cp, cp_impl=run.get("impl", "ring"),
+                            cp_layout=run.get("layout", "contiguous"))
+        model.load_state_dict(params_from_jax(tree, mesh.tp, mesh.tp_rank))
+        model.to(mesh.device)
+        try:
+            dec = decode.GreedyDecoder(
+                model, mesh, run["buf_len"],
+                temperature=run.get("temperature", 0.0),
+                top_k=run.get("top_k", 0), top_p=run.get("top_p", 0.0))
+        except ValueError as e:
+            out.append({"error": str(e)})
+            continue
+        C.reset_stats()
+        before = launch_counts()
+        tokens = dec.decode_batch(run["prompts"], run["eos"],
+                                  run["max_total_len"],
+                                  seed=run.get("seed", 0))
+        after = launch_counts()
+        out.append({"coords": mesh.coords, "tokens": tokens,
+                    "host_syncs": dec.host_syncs,
+                    "cp_hops": C.stats["cp"]["calls"],
+                    "launches": {k: after[k] - before[k] for k in after}})
     return out
 
 
@@ -530,6 +596,7 @@ def jobs(rank: int, nprocs: int, init_method: str, todo: Sequence,
            "doc_losses": doc_losses, "quantized_params": quantized_params,
            "combine": combine, "checkpoint_steps": checkpoint_steps,
            "zero_runs": zero_runs, "int8_ring": int8_ring,
+           "ring_ops": ring_ops, "generate_runs": generate_runs,
            "hold_garbage": hold_garbage, "live_tensors": live_tensors,
            "mesh_axes": mesh_axes}
     out = []

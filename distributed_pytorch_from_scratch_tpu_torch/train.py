@@ -2,7 +2,8 @@
 
     python -m distributed_pytorch_from_scratch_tpu_torch.train \\
         --model 45m --bf16 --data_path tokens.json --save_dir ckpt \\
-        [--tp_size 2 [--sequence_parallel]] [--dp_size 2] \\
+        [--tp_size 2 [--sequence_parallel [--tp_overlap ring|ring_q]]] \\
+        [--dp_size 2] \\
         [--cp_size 2 [--cp_impl ring|ulysses] [--cp_layout contiguous|zigzag]]
         [--model 45m-moe8 [--ep_size 2]]
         [--pp_size 2 [--pp_microbatches 4] [--pp_schedule interleaved
@@ -49,7 +50,9 @@ chunk of the sequence (zig-zag order first under
 `--cp_layout zigzag`), and its tp index its shard of every tp-sharded
 weight (Megatron's column/row layers, the vocab-parallel embedding and
 head; `--sequence_parallel` shards the activations between sublayers over
-the sequence too). Attention is the flash kernels on the rank's local
+the sequence too, and `--tp_overlap ring | ring_q` swaps its gathers and
+reduce-scatters for the ring collective matmuls of `ops/overlap.py`, whose
+hops the summary's per-axis `collectives` count under tp). Attention is the flash kernels on the rank's local
 heads, or at cp > 1 the ring (the block kernels) or Ulysses over the cp
 group. Global rank 0 alone prints. The ranks at dp = cp = ep = 0 write
 one checkpoint file per tp rank, in the JAX shard format, between
@@ -139,7 +142,7 @@ from .data.prefetch import Prefetcher, stack_window, window_stream
 from .models import build_model, num_params
 from .models.pipeline import from_canonical, to_canonical, validate_pp
 from .models.transformer import (Transformer, validate_cp, validate_ep,
-                                 validate_tp)
+                                 validate_tp, validate_tp_overlap)
 from .ops import collectives
 from .ops.cuda import launch_counts
 from .runtime import launch
@@ -164,11 +167,9 @@ from .training.zero import (build_plan, expected_state_bytes,
 REMAT_CHOICES = {"true": True, "dots": "dots", "false": False}
 
 _MULTI = "ROADMAP Queue 1 item 2: the multi-host flags"
-_LATER = "ROADMAP Queue 1 item 7 (d): --tp_overlap"
-_OBS = "ROADMAP Queue 1 item 5: the obs hooks of train.py"
+_OBS = "ROADMAP Queue 1 item 8: the obs hooks of train.py"
 # (flag dest, default, the ROADMAP item that brings it)
 OFF_SLICE = [
-    ("tp_overlap", "off", _LATER),
     ("seq_bucket", 0, "ROADMAP Queue 1 item 3: --seq_bucket"),
     ("no_trace", False, _OBS), ("no_sentinel", False, _OBS),
     ("sentinel_spike_factor", 3.0, _OBS), ("watchdog_secs", 300.0, _OBS),
@@ -197,7 +198,14 @@ def get_train_args(argv=None) -> argparse.Namespace:
                    default="contiguous")
     g.add_argument("--sequence_parallel", action="store_true")
     g.add_argument("--tp_overlap", choices=["off", "ring", "ring_q"],
-                   default="off")
+                   default="off",
+                   help="'ring' decomposes the SP tp collectives into ring "
+                        "collective matmuls (ops/overlap.py): each hop "
+                        "travels while the partial product of the chunk in "
+                        "hand runs, fwd and bwd; 'ring_q' puts int8 codes + "
+                        "per-row scales on every hop (half the bf16 chunk "
+                        "bytes); requires --sequence_parallel. 'off' stays "
+                        "bit-identical to the monolithic path")
     g.add_argument("--zero", type=int, choices=[0, 1, 2, 3], default=None,
                    help="ZeRO stage over the dp axis (training/zero.py): 1 "
                         "shards the Adam moments, 2 also reduce-scatters "
@@ -544,6 +552,8 @@ def _check_dist(args: argparse.Namespace) -> None:
     validate_cp(cfg, args.tp_size, args.cp_size, args.cp_impl,
                 args.cp_layout)
     validate_ep(cfg, args.ep_size)
+    validate_tp_overlap(args.tp_overlap, args.sequence_parallel,
+                        cfg.num_experts)
     validate_pp(cfg.num_layers, args.pp_size, args.pp_microbatches,
                 args.pp_schedule, args.pp_virtual)
     if cfg.num_experts:
@@ -580,7 +590,8 @@ def train(args: argparse.Namespace) -> dict:
     (their median; a dispatch of n steps counts n times its time / n),
     peak_mem_gib (None on the CPU), device, checkpoints (paths written,
     every tp rank's), family, params (the global count), the mesh (dp, pp,
-    cp, ep, tp, sequence_parallel, cp_impl, cp_layout, pp_schedule,
+    cp, ep, tp, sequence_parallel, tp_overlap, cp_impl, cp_layout,
+    pp_schedule,
     pp_microbatches, pp_virtual, pp_remat_steps), reshard (an elastic
     resume's plan summary, wall ms and peak host bytes; None when the
     checkpoint was this run's layout or there was none), moe (a MoE model's last
@@ -679,6 +690,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
                         cp_layout=args.cp_layout,
                         mesh=mesh if world > 1 else None,
                         sequence_parallel=args.sequence_parallel,
+                        tp_overlap=args.tp_overlap,
                         pp_microbatches=args.pp_microbatches,
                         pp_schedule=args.pp_schedule,
                         pp_virtual=args.pp_virtual,
@@ -696,7 +708,8 @@ def _train(args: argparse.Namespace, rank: int = 0,
     cards = (len({r % torch.cuda.device_count() for r in range(world)})
              if device.type == "cuda" else 0)
     dist_desc = ("" if world == 1 else
-                 f", sequence_parallel={model.sequence_parallel}, cp_impl="
+                 f", sequence_parallel={model.sequence_parallel}, "
+                 f"tp_overlap={model.tp_overlap}, cp_impl="
                  f"{args.cp_impl}, cp_layout={args.cp_layout}, dist_backend="
                  f"{mesh.backend}, {world} ranks on {cards or 'no'} card(s)")
     moe_note = (f", {cfg.num_experts} experts (top-{cfg.moe_top_k})"
@@ -1078,6 +1091,7 @@ def _train(args: argparse.Namespace, rank: int = 0,
         "reshard": reshard_info,
         "moe": model.moe_summary(),
         "sequence_parallel": model.sequence_parallel,
+        "tp_overlap": model.tp_overlap,
         "cp_impl": args.cp_impl, "cp_layout": args.cp_layout,
         "dist_backend": mesh.backend, "cards": cards,
         "remat": remat, "steps_per_dispatch": spd,

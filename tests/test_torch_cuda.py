@@ -729,3 +729,45 @@ def test_speculative_round_graphed_is_the_eager_round(cuda_device):
         assert bool(eng._round_graphs) == (mode == "on")
         out[mode] = {r.rid: r.tokens for r in eng.completed}
     assert out["on"] == out["off"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_q_payload_on_the_card_is_the_cpus(cuda_device, dtype):
+    """ring_q's hop payload (int8 row codes and f32 row scales in one
+    message) from one input is byte-equal on the card and the CPU: the
+    scales divide by a tensor there as here."""
+    from distributed_pytorch_from_scratch_tpu_torch.ops import overlap
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4, 50, 96), dtype=np.float32) * 3).to(dtype)
+    card = overlap._encode(x.to(cuda_device), True)[0].cpu()
+    assert torch.equal(card, overlap._encode(x, True)[0])
+
+
+@pytest.mark.cuda
+def test_greedy_decoder_on_the_card_is_the_cpus(cuda_device):
+    """The one-shot decoder on the card (the prefill through K1's f32
+    route, each decode step a replay of one captured graph) gives the
+    CPU's greedy tokens at f32, on mixed prompt lengths with per-row
+    limits."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models.decode import (
+        GreedyDecoder)
+    from distributed_pytorch_from_scratch_tpu_torch.models.transformer import (
+        Transformer)
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    cfg = model_preset("tiny", compute_dtype="float32")
+    model = Transformer(cfg).init_weights(seed=4)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(3, cfg.vocab_size, n).tolist()
+               for n in (3, 17, 30, 9)]
+    limits = [len(p) + n for p, n in zip(prompts, (20, 8, 30, 1))]
+    want = GreedyDecoder(model, None, 64).decode_batch(prompts, 1, limits)
+    dec = GreedyDecoder(model.to(cuda_device),
+                        make_mesh(MeshConfig(), device="cuda"), 64)
+    assert dec.generate.graph
+    assert dec.decode_batch(prompts, 1, limits) == want
+    # 57 steps at most from the shortest prompt: one done check, one read
+    assert 1 <= dec.host_syncs <= 2

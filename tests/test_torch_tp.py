@@ -702,10 +702,15 @@ def _cli(tmp_path, flags):
 
 
 def test_tp_cli_refusals_and_divisibility_errors(tmp_path):
-    # still refused, each naming its ROADMAP item
-    for flags in (["--tp_overlap", "ring"], ["--coordinator", "h:1"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _cli(tmp_path, TP2 + flags)
+    # still refused, naming its ROADMAP item
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _cli(tmp_path, TP2 + ["--coordinator", "h:1"])
+    # the ring is ported: without --sequence_parallel, JAX's refusal
+    with pytest.raises(ValueError) as theirs:
+        JTransformer(JModelConfig(**TINY), tp_size=2, tp_overlap="ring")
+    with pytest.raises(ValueError) as ours:
+        _cli(tmp_path, TP2 + ["--tp_overlap", "ring"])
+    assert str(ours.value) == str(theirs.value)
     # ep > 1 runs a MoE model; a dense one is refused with JAX's message
     with pytest.raises(ValueError) as theirs:
         JTransformer(JModelConfig(**TINY), ep_size=2)

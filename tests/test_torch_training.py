@@ -389,7 +389,10 @@ def test_train_cli_refusals(tmp_path):
     with pytest.raises(SystemExit) as exc:   # no card, no --device cpu
         train_cli.main(base)
     assert exc.value.code not in (0, None)
-    for flags in (["--tp_overlap", "ring"], ["--seq_bucket", "128"],
-                  ["--no_trace"]):
+    for flags in (["--seq_bucket", "128"], ["--no_trace"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train_cli.main(base + ["--device", "cpu"] + flags)
+    # the ring is ported: without --sequence_parallel it is refused in
+    # JAX's words (tests/test_torch_overlap.py holds the message)
+    with pytest.raises(ValueError, match="requires sequence_parallel"):
+        train_cli.main(base + ["--device", "cpu", "--tp_overlap", "ring"])
