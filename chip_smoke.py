@@ -90,7 +90,7 @@ result line):
 15. paged_serve: `serve.main --paged` at the 45m preset, bf16, 32 requests
     of mixed traffic (interleaved 64/512-token prompts behind a shared
     64-token prefix, two tenants, three SLO classes) on 16 slots over an
-    80-page pool, then 16 requests with int8 pages — every request
+    80-page pool, then 8 requests with int8 pages — every request
     completes with in-vocab tokens, prefix hits, a drained pool, the paged
     kernels launched 12 times per decode step and per one-position chunk
     (decode route, cw = 1) and per other chunk dispatch (chunk route: the
@@ -180,8 +180,9 @@ result line):
     live requests) under torch.profiler in each rank: wall, device busy
     (kernels apart from the hops' copies), the tp hops' host time, the
     card's idle share, the paged decode kernel 12 times;
-31. graph_check: both engines at the phase-5 and phase-15 traffic (its
-    deadlines x 1000, so the schedule does not follow the clock) with
+31. graph_check: both engines on the first 8 requests of the phase-5 and
+    phase-15 traffic (its deadlines x 1000, so the schedule does not
+    follow the clock) with
     the decode step graphed (`--decode_graph auto`) and eager (`off`), at
     bf16: identical tokens, the graph run on every decode step;
     a replayed decode step's logits and tokens bitwise the eager step's
@@ -234,9 +235,10 @@ result line):
     8-step `--resume` from step 60, and the same resume at
     `--steps_per_dispatch 4`: bitwise the same losses and launches;
 39. gpt2_serve: `serve --family gpt2 --random_init --vocab_size 50257`
-    at that width, bf16, the decode step graphed: the slot engine on
-    phase 5's traffic, the paged engine on the first 16 requests of phase
-    15's (bf16, then int8 pages), 32 new tokens per request, each greedy and sampled (temperature 0.8, top-k 50, top-p
+    at that width, bf16, the decode step graphed: the slot engine on the
+    first 8 requests of phase 5's traffic, the paged engine on the first 8
+    of phase 15's (bf16, then int8 pages), 32 new tokens per request, each
+    greedy and sampled (temperature 0.8, top-k 50, top-p
     0.95): in-vocab tokens, exact launches (K1 12 per prefill dispatch;
     K3 12 per decode step and per chunk), a drained pool; sampled slot
     tokens identical with the decode step eager and with
@@ -251,17 +253,18 @@ result line):
     from one seeded row of 50257 logits at top-k 50, top-p 0.95 against
     the filtered softmax by a chi-square at p = 1e-3; the first 500 draws
     identical on the CPU.
-42. train_async_preempt: the train cell 8 steps with a checkpoint every
-    4 steps written in the background (a device snapshot, then a writer
+42. train_async_preempt: the train cell 6 steps with a checkpoint every
+    3 steps written in the background (a device snapshot, then a writer
     thread) and with none: identical losses, the loop's host time per
     save, the prefetch thread's wait, step p50 of each, beside one
     synchronous save of the same state timed alone; the idle share of a
-    6-step loop with saves every 4, profiled on the device, from step 3
+    5-step loop with saves every 3, profiled on the device, from step 3
     on; then `python -m ...train` in a process of its own
     gets SIGTERM after its step-3 line: exit 0, the shutdown line, a
     checkpoint at the step it reached, and a 2-step `--resume` from it;
     K1's launches per the schedule in every run of this process;
-43. serve_int8_weights: phase 5's and 15's traffic with
+43. serve_int8_weights: the first 8 requests of phase 5's and 15's
+    traffic with
     `--decode_weight_dtype int8`, the decode step graphed, each after a
     run with native weights (TPOT, TTFT and tokens/s of both), checked:
     weight bytes about a quarter,
@@ -269,7 +272,7 @@ result line):
     and chunk on its routes; then the 45m widths at 2 layers,
     f32: both engines' greedy and sampled int8 tokens on the card those of
     the CPU's plain path;
-44. serve_replay: a seeded poisson trace of 16 slot-cell requests written
+44. serve_replay: a seeded poisson trace of 8 slot-cell requests written
     to the workdir, served with `--tokenizer_path tokenizer/tokenizer.json
     --arrival replay --replay <trace>`: submitted in arrival order, every
     request served in-vocab, K1 12 per prefill dispatch;
@@ -280,7 +283,7 @@ result line):
     and f32, native and int8 pools, one launch each on its route, two
     verify calls bit-equal; then the verify shape q (16, 8, 5, 64): kernel,
     plain, SDPA over the gathered view, bound;
-46. spec_serve: `serve --paged --speculate 4` at 45m bf16 on the first 16
+46. spec_serve: `serve --paged --speculate 4` at 45m bf16 on the first 8
     requests of phase 15's mix with the tiny drafter, greedy and sampled: every request served
     in-vocab, both pools
     drained, K3's launches exactly the rounds' and chunks' per route
@@ -318,10 +321,11 @@ result line):
     `export_pages` bitwise on bf16 and int8 pools on the card, and a bf16
     frame read back bitwise;
 50. fleet_serve: `serve_fleet` at the 45m preset, bf16, random weights,
-    phase 15's mix (32 burst requests, 64/512-token prompts behind the
+    phase 15's mix (burst requests, 64/512-token prompts behind the
     96-token shared prefix, two tenants, three classes, page 64, chunk
-    128): `--replicas 2` with 8 slots on 40 pages each, then `--disagg`
-    with 8 + 8 slots on 40 + 40 pages on the first 16 requests, native
+    128): `--replicas 2` with 8 slots on 40 pages each on its first 16
+    requests, then `--disagg` with 8 + 8 slots on 40 + 40 pages on the
+    first 8, native
     and int8 pages — every request served in-vocab, every pool drained, each tenant on one
     replica, the router's predicted hits at least the first admissions'
     actual hits (both printed with the resumes' hits), the pages and bytes
@@ -347,8 +351,9 @@ result line):
     mean); then one step of the same cell profiled beside one MoE layer's
     forward and backward at its input shape: the MoE layers' share of
     device busy;
-53. moe_serve: the slot engine at 45m-moe8 on phase 5's traffic, then the
-    paged engine on 16 requests of phase 15's mix, bf16, the decode step
+53. moe_serve: the slot engine at 45m-moe8 on the first 8 requests of
+    phase 5's traffic, then the
+    paged engine on 8 requests of phase 15's mix, bf16, the decode step
     graphed: every request in-vocab, K1 12 per prefill dispatch, K3 12
     per decode step and per chunk on its routes, a drained pool; TTFT,
     TPOT and tokens/s beside the dense 45m figures of phases 5 and 15;
@@ -397,7 +402,8 @@ result line):
     identical. Then at full width, bf16, random weights with a seeded
     normal router (`_moe_routed`; the init's zero router ties every
     token on two experts): (a)
-    phase 5's traffic with `--decode_weight_dtype int8`, the decode step
+    phase 53's slot traffic with `--decode_weight_dtype int8`, the decode
+    step
     graphed: weight bytes about a quarter of phase 53's native run, K1 12
     per prefill dispatch; (b) `--paged --speculate 4` with the tiny
     drafter on phase 53's paged mix (`_check_spec_run`); (c) the router
@@ -431,10 +437,10 @@ result line):
     the metered staging peak within the largest leaf.
 58. tp_overlap_train: `train --tp_size 2 --sequence_parallel --tp_overlap
     off | ring | ring_q --dist_backend gloo` (two ranks on the card) at
-    the 45m preset, all 12 layers, b 8 x t 1000, bf16, remat, 3 steps
-    each on the same batches: finite losses, ring's within 1e-3 (relative)
-    of off's at every step and ring_q's within 1e-2, each rank's K1
-    launches exactly 2 x 12 forward and 12 + 12 backward per step and
+    the 45m widths, CP_LAYERS (4) of its 12 layers, b 8 x t 1000, bf16,
+    remat, 3 steps each on the same batches: finite losses, ring's within
+    1e-3 (relative) of off's at every step and ring_q's within 1e-2, each
+    rank's K1 launches exactly 2 x 4 forward and 4 + 4 backward per step and
     nothing else, and each rank's tp hops per step exactly the calls and
     bytes `ring_hops_want` derives from the same rank's `off` counts (the
     rule the CPU tests hold against the port's CPU runs; ring_q's ring
@@ -464,6 +470,38 @@ result line):
     kept pair at cp 2 (the ring prefill): the tokens of cp 1 on the card,
     each rank's K2 forward launches exactly the ring schedule's (layers x
     its blocks) and nothing else.
+60. fleet_tp: the serving fleet at tp > 1 over the kept pair (gloo).
+    First at the tiny preset, f32, 6 requests behind one shared page, on
+    the card and then on the CPU (`runtime/fleet_checks.fleet_runs`): the
+    router fleet of two tp 2 replicas, disaggregated prefill -> decode at
+    tp (2, 1), (1, 2), (2, 2) with native pages and (2, 1) with int8
+    pages, and a replica restarted tp 2 -> 1 and 1 -> 2 between two waves
+    — the card's tokens the CPU's, every native run's the router fleet's,
+    every pool drained. Then `serve_fleet` at the 45m preset, full width
+    and depth, bf16, random weights, phase 15's mix cut to 8 requests
+    (8 slots on 40 pages per engine): `--replicas 2 --tp_size 2`,
+    `--disagg --prefill_tp 2` into a decode engine at tp 1, and
+    `--replicas 2 --tp_size 2 --restart_tp 1` (r0 restarted after the
+    first wave, its live weights moved leaf by leaf) — every request
+    served in-vocab, every pool drained, each rank's K3 exactly 12 per
+    decode step and per chunk of the engines it holds, on the routes the
+    widths name; TTFT / TPOT p50 and p95, tokens/s, each rank's page
+    gather / scatter, reshard and tp hops (calls, bytes, host ms), the
+    transfer ms, and the restart's planned bytes beside the bytes its
+    hops carried and its wall ms printed;
+61. serve_obs: phase 15's mix on the paged engine with `--trace_requests
+    --flight_records --metrics_port 0 --control act`: a scrape of
+    /metrics.json and /metrics from another thread mid-run answers,
+    every line of `metrics.jsonl` validates under the port's schema,
+    every request's span sum equals its wall, K3 as phase 15's; TPOT p50
+    beside phase 15's run with obs off (the ratio printed, not gated),
+    the controller's decisions, the flight dumps. Then phase 5's slot
+    engine on 4 requests with `--trace_requests --flight_records`: K1's
+    forward 12 per prefill dispatch, a valid timeline per request; and
+    the controller's speculation knob on the card (the 45m widths at 2
+    layers, f32, drafter = target, the round graphed): greedy tokens the
+    plain paged engine's through every change of k, each width captured
+    once.
 
 Every phase also prints, for each call it made on a kept group of rank
 processes, each rank's card memory allocated before the call, at its
@@ -550,7 +588,7 @@ PAGED_SERVE_ARGS = ["--model", "45m", "--random_init", "--vocab_size", "1024",
                     "--class_mix", "interactive=1,standard=1,batch=1",
                     "--max_new_tokens", "64", "--slots", "16",
                     "--num_pages", "80"]
-PAGED_INT8_REQUESTS = 16
+PAGED_INT8_REQUESTS = 8
 # the gpt2 family at GPT-2 small's published widths (d 768, 12 heads of 64,
 # ffn 3072, 12 layers, maxlen 1024) and vocab 50257, so the tied head runs
 # at full width: the train cell b 8 x t 1024 bf16 and its attention shape
@@ -585,11 +623,10 @@ GPT2_PAGED_ARGS = (GPT2_MODEL + ["--vocab_size", str(GPT2_VOCAB)]
                                       PAGED_SERVE_ARGS.index("--vocab_size")]
                    + PAGED_SERVE_ARGS[PAGED_SERVE_ARGS.index("--vocab_size")
                                       + 2:])
-# with 32 new tokens each; the paged runs serve the mix's first 16
-# requests
+# with 32 new tokens each, on the first 8 requests of each mix
 for _args in (GPT2_SERVE_ARGS, GPT2_PAGED_ARGS):
     _args[_args.index("--max_new_tokens") + 1] = "32"
-GPT2_PAGED_ARGS[GPT2_PAGED_ARGS.index("--num_requests") + 1] = "16"
+    _args[_args.index("--num_requests") + 1] = "8"
 SAMPLED_ARGS = ["--temperature", "0.8", "--decode_top_k", "50",
                 "--decode_top_p", "0.95"]
 SAMPLER_DRAWS = 20000    # sampler_check: seeds 0..19999 on one row
@@ -3791,8 +3828,7 @@ def _replay_vs_eager(torch, eng) -> tuple:
 # re-prefilled by the chunk kernel, whose bf16 roundings are not the decode
 # step's: the two runs would serve other schedules, not the same requests.
 GRAPH_CHECK_SLO = ["--slo_classes", "interactive=250,standard=1000,batch=8000"]
-# graph_check's f32 runs and its bf16 paged runs take the first 8 requests
-# of each mix
+# graph_check's served runs take the first 8 requests of each mix
 GRAPH_CHECK_PAGED = 8
 
 
@@ -3811,7 +3847,8 @@ def phase_graph_check(torch) -> dict:
     from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
     from distributed_pytorch_from_scratch_tpu_torch.serving import serve
     res = {}
-    for kind, args in (("slot", SERVE_ARGS),
+    for kind, args in (("slot", _replace_flag(SERVE_ARGS, "--num_requests",
+                                              str(GRAPH_CHECK_PAGED))),
                        ("paged", _replace_flag(
                            PAGED_SERVE_ARGS, "--num_requests",
                            str(GRAPH_CHECK_PAGED)) + GRAPH_CHECK_SLO)):
@@ -4528,12 +4565,12 @@ def phase_sampler_check(torch) -> dict:
 # steps (written in the background) and with none; a profiled loop of
 # ASYNC_PROFILE_STEPS with saves; then a process of its own that gets
 # SIGTERM after its PREEMPT_AFTER-th step line, and a --resume
-ASYNC_STEPS = 8
-ASYNC_EVERY = 4
-ASYNC_PROFILE_STEPS = 6
+ASYNC_STEPS = 6
+ASYNC_EVERY = 3
+ASYNC_PROFILE_STEPS = 5
 PREEMPT_AFTER = 3
 # serve_replay: a seeded poisson trace of the slot cell's requests
-REPLAY_REQUESTS = 16
+REPLAY_REQUESTS = 8
 REPLAY_RATE = 8.0
 TOKENIZER = "tokenizer/tokenizer.json"
 
@@ -4745,6 +4782,9 @@ def _serve_with_widths(serve, args: list) -> tuple:
             dict(paged_attention.launches_by_kernel), widths)
 
 
+INT8W_REQUESTS = "8"   # serve_int8_weights: the first 8 of each cell's mix
+
+
 def _int8_line(name: str, out: dict, native: dict, counts: dict) -> None:
     st, nst = out["engine_stats"], native["engine_stats"]
     log(f"serve_int8_weights {name}: weight bytes {st['weight_bytes']} vs "
@@ -4791,11 +4831,13 @@ def phase_serve_int8_weights(torch) -> dict:
     layers = model_preset("45m").num_layers
     int8 = ["--decode_weight_dtype", "int8"]
     # one native run of each cell beside the int8 one, warm (phases 5 and
-    # 15 ran first in the process)
-    native = {kind: serve.main(args) for kind, args in (
-        ("slot", SERVE_ARGS), ("paged", PAGED_SERVE_ARGS))}
+    # 15 ran first in the process), on the first INT8W_REQUESTS requests
+    cells = {kind: _replace_flag(args, "--num_requests", INT8W_REQUESTS)
+             for kind, args in (("slot", SERVE_ARGS),
+                                ("paged", PAGED_SERVE_ARGS))}
+    native = {kind: serve.main(args) for kind, args in cells.items()}
     _reset_launches()
-    slot = serve.main(SERVE_ARGS + int8)
+    slot = serve.main(cells["slot"] + int8)
     counts = _read_launches()
     _int8_line("slot", slot, native["slot"], counts)
     if slot["completed"] != slot["requests"] or not all(
@@ -4805,7 +4847,7 @@ def phase_serve_int8_weights(torch) -> dict:
     _only(counts, {"flash_attention_fwd": layers * slot["prefill_dispatches"]},
           f"int8 slot serving ({layers} per prefill dispatch)")
     out, pcounts, by_route, by_kernel, widths = _serve_with_widths(
-        serve, PAGED_SERVE_ARGS + int8)
+        serve, cells["paged"] + int8)
     _int8_line("paged", out, native["paged"], pcounts)
     _check_paged_run(out, out["engine_stats"], pcounts, by_route, by_kernel,
                      widths, layers, 1024)
@@ -4896,9 +4938,9 @@ def phase_serve_replay(torch, workdir: str) -> dict:
 # drafter is the `tiny` preset (head_dim 32) reshaped to the target's vocab
 SPEC_K = 4
 SPEC_WIDTHS = (2, 3, 5, 9)           # k + 1 for k = 1, 2, 4, 8
-# the speculative runs serve the paged mix's first 16 requests
+# the speculative runs serve the paged mix's first 8 requests
 SPEC_SERVE_ARGS = _replace_flag(PAGED_SERVE_ARGS, "--num_requests",
-                                "16") + ["--speculate", str(SPEC_K)]
+                                "8") + ["--speculate", str(SPEC_K)]
 SPEC_F32_REQUESTS = 8                # spec_serve's f32 identity burst
 SPEC_MIN_SELF_ACCEPT = 0.95          # drafter = target, f32
 
@@ -5571,11 +5613,12 @@ FLEET_ARGS = (PAGED_SERVE_ARGS[:PAGED_SERVE_ARGS.index("--slots")]
               + ["--slots", "8", "--num_pages", "40", "--prefix_weight",
                  "0.5"])
 FLEET_ARGS.remove("--paged")
-# --disagg serves the mix's first 16 requests, with native and int8 pages
-FLEET_RUNS = {"fleet_x2": ["--replicas", "2"],
-              "disagg": ["--disagg", "--num_requests", "16"],
+# the router fleet serves the mix's first 16 requests, --disagg its first 8,
+# with native and int8 pages
+FLEET_RUNS = {"fleet_x2": ["--replicas", "2", "--num_requests", "16"],
+              "disagg": ["--disagg", "--num_requests", "8"],
               "disagg_int8": ["--disagg", "--kv_dtype", "int8",
-                              "--num_requests", "16"]}
+                              "--num_requests", "8"]}
 
 
 class _Tape:
@@ -5912,9 +5955,10 @@ MOE_STEPS = 10
 MOE_TRAIN_ARGS = _replace_flag(_replace_flag(_replace_flag(
     TRAIN_ARGS, "--model", MOE), "--max_steps", str(MOE_STEPS)),
     "--save_interval", str(MOE_STEPS))
-MOE_SERVE_ARGS = _replace_flag(SERVE_ARGS, "--model", MOE)
+MOE_SERVE_ARGS = _replace_flag(_replace_flag(SERVE_ARGS, "--model", MOE),
+                               "--num_requests", "8")
 MOE_PAGED_ARGS = _replace_flag(_replace_flag(
-    PAGED_SERVE_ARGS, "--model", MOE), "--num_requests", "16")
+    PAGED_SERVE_ARGS, "--model", MOE), "--num_requests", "8")
 MOE_EP2_STEPS = 3
 MOE_EP2_ARGS = _replace_flag(CP_ARGS, "--model", MOE) + [
     "--max_steps", str(MOE_EP2_STEPS), "--num_layers", str(CP_LAYERS)]
@@ -7110,7 +7154,7 @@ def phase_pp_train(torch, workdir: str) -> dict:
 # phase 58: the tp ring collective matmuls at the 45m preset, all 12 layers
 OV_STEPS = 3
 OV_ARGS = CP_ARGS + TP2 + ["--sequence_parallel", "--max_steps",
-                           str(OV_STEPS)]
+                           str(OV_STEPS), "--num_layers", str(CP_LAYERS)]
 OV_MODES = ("off", "ring", "ring_q")
 OV_TOL = {"ring": 1e-3, "ring_q": 1e-2}   # step losses vs off's, relative
 # the tiny card-vs-CPU cases: (mesh axes, tp_overlap)
@@ -7148,14 +7192,14 @@ def ring_hops_want(off: dict, layers: int, rows: int, d: int, item: int,
 
 def phase_tp_overlap_train(torch, workdir: str) -> dict:
     """`train --tp_size 2 --sequence_parallel --tp_overlap off | ring |
-    ring_q` at the 45m preset, all 12 layers (phase 58), then the tiny
-    card-vs-CPU cases; returns each run's launches summed over its
+    ring_q` at the 45m widths, CP_LAYERS of its 12 layers (phase 58), then
+    the tiny card-vs-CPU cases; returns each run's launches summed over its
     ranks."""
     import math
     from distributed_pytorch_from_scratch_tpu_torch import train
     from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
     cfg = model_preset("45m")
-    layers, card = cfg.num_layers, _smi()
+    layers, card = CP_LAYERS, _smi()
     base = OV_ARGS + ["--data_path", _corpus(workdir)]
     res, out = {}, {}
     for mode in OV_MODES:
@@ -7462,6 +7506,365 @@ def _gd_cp2(torch) -> dict:
     return summed
 
 
+# fleet_tp: the tiny preset's f32 card-vs-CPU checks of every tp path,
+# then the 45m runs (phase 15's mix, 8 requests, over gloo)
+FLEET_TP_SEED = 23
+FLEET_TP_PROMPTS = [[0, 5, 17, 33, 60, 2, 4, 6] + t for t in
+                    ([7], [9, 11], [3, 5, 7, 11], [13], [21, 23], [25])]
+FLEET_TP_ENGINE = dict(num_slots=4, buf_len=32, eos_id=1, page_size=8,
+                       prefill_chunk=8)
+FLEET_TP_TINY = ([dict(kind="fleet", tp=2)]
+                 + [dict(kind="disagg", prefill_tp=p, decode_tp=d, kv=kv)
+                    for p, d, kv in ((2, 1, None), (1, 2, None),
+                                     (2, 2, None), (2, 1, "int8"))]
+                 + [dict(kind="restart", tp=s, restart_tp=d,
+                         prefix_weight=0.0) for s, d in ((2, 1), (1, 2))])
+FLEET_TP_GLOO = ["--dist_backend", "gloo", "--num_requests", "8"]
+FLEET_TP_RUNS = {"fleet_x2_tp2": ["--replicas", "2", "--tp_size", "2"],
+                 "disagg_p2d1": ["--disagg", "--prefill_tp", "2"],
+                 "restart_tp2_to_1": ["--replicas", "2", "--tp_size", "2",
+                                      "--restart_tp", "1"]}
+
+
+def _fleet_tp_tiny(torch) -> None:
+    """Every tp path of the fleet at the tiny preset, f32, on the kept pair:
+    the card's tokens the CPU's; each native run's the router fleet's."""
+    import dataclasses
+
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.runtime import (
+        fleet_checks, launch)
+    cfg = dataclasses.asdict(dataclasses.replace(
+        model_preset("tiny"), compute_dtype="float32"))
+    reqs = [(p, 6) for p in FLEET_TP_PROMPTS]
+    runs = [dict(run, requests=reqs, requests2=reqs) for run in FLEET_TP_TINY]
+    todo = [("fleet_runs", dict(cfg=cfg, tree=None, runs=runs,
+                                engine_kw=FLEET_TP_ENGINE,
+                                seed=FLEET_TP_SEED))]
+    got = {dev: launch.spawn(fleet_checks.jobs, 2, todo, dev)[0][0]
+           for dev in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    names = [f"{r['kind']}" + (f" p{r['prefill_tp']}d{r['decode_tp']} "
+                               f"{r.get('kv') or 'native'}"
+                               if r["kind"] == "disagg" else
+                               f" tp{r['tp']}" + (f"->{r['restart_tp']}"
+                                                  if "restart_tp" in r
+                                                  else ""))
+             for r in runs]
+    ref = got["cpu"][0]["tokens"]
+    for name, card, cpu in zip(names, got["cuda"], got["cpu"]):
+        if card["tokens"] != cpu["tokens"]:
+            raise AssertionError(f"fleet_tp {name}: the card's tokens "
+                                 f"differ from the CPU's")
+        if not all(card["drained"]):
+            raise AssertionError(f"fleet_tp {name}: a pool did not drain")
+        native = "int8" not in name
+        want = ({**ref, **{k + 100: v for k, v in ref.items()}}
+                if "restart" in name else ref)
+        if native and cpu["tokens"] != want:
+            raise AssertionError(f"fleet_tp {name}: tokens differ from the "
+                                 f"tp 2 router fleet's")
+    if not any(ref.values()):
+        raise AssertionError("fleet_tp: no tokens generated")
+    log(f"fleet_tp: the tiny preset, f32, 6 requests behind one shared "
+        f"page, on the kept pair: {', '.join(names)} give the CPU's tokens "
+        f"on the card, every native run the tp 2 router fleet's, every pool "
+        f"drained")
+
+
+def _fleet_tp_want(rank: dict, layers: int) -> dict:
+    """K3's launches a rank's dispatches imply, by route, over every engine
+    it held (each rank of an engine runs each of its dispatches)."""
+    decode = chunk = 0
+    for shapes in rank["dispatch_shapes"].values():
+        for kind, shape, n in shapes:
+            if kind == "paged_decode":
+                decode += n
+            elif kind == "paged_chunk":
+                if shape[0] == 1:
+                    decode += n
+                else:
+                    chunk += n
+    return {"decode": layers * decode, "chunk": layers * chunk}
+
+
+def _hops_line(rank: dict) -> str:
+    return ", ".join(
+        f"{k} {rank[k]['calls']} calls {rank[k]['bytes']} B "
+        f"{rank[k]['hop_s'] * 1e3:.1f} host ms"
+        for k in ("kv_gather", "kv_scatter", "reshard", "tp_hops"))
+
+
+def phase_fleet_tp(torch, workdir: str) -> dict:
+    """The fleet at tp > 1: the tiny card-vs-CPU checks, then `serve_fleet`
+    at the 45m preset, bf16, over gloo on phase 15's mix cut to 8
+    requests: the router fleet x2 at tp 2, `--disagg --prefill_tp 2` into
+    decode tp 1, and a restart of r0 from tp 2 to tp 1 between two waves.
+    Returns each run's K3 launches by kernel, summed over the ranks."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve_fleet
+    _fleet_tp_tiny(torch)
+    layers = model_preset("45m").num_layers
+    res = {}
+    for name, extra in FLEET_TP_RUNS.items():
+        args = serve_fleet.parse_args(
+            FLEET_ARGS + FLEET_TP_GLOO + extra
+            + ["--log_dir", os.path.join(workdir, name)])
+        out, fleet = serve_fleet.run(args)
+        torch.cuda.synchronize()
+        ranks = out["ranks"]
+        if out["completed"] != args.num_requests:
+            raise AssertionError(f"fleet_tp {name}: served "
+                                 f"{out['completed']} of {args.num_requests}")
+        toks = [t for ts in fleet["outputs"].values() for t in ts]
+        if not toks or not all(0 <= t < 1024 for t in toks):
+            raise AssertionError(f"fleet_tp {name}: tokens missing or "
+                                 f"outside the vocab")
+        if not all(ranks[0]["drained"].values()):
+            raise AssertionError(f"fleet_tp {name}: pools not drained "
+                                 f"{ranks[0]['drained']}")
+        for r in ranks:
+            want = _fleet_tp_want(r, layers)
+            _only(r["launches"], {"paged_attention": sum(want.values())},
+                  f"fleet_tp {name} rank {r['rank']}")
+            kern = {"paged_decode": want["decode"],
+                    "paged_chunk_sm90": want["chunk"], "paged_attn": 0}
+            if r["paged_by_route"] != want or r["paged_by_kernel"] != kern:
+                raise AssertionError(
+                    f"fleet_tp {name} rank {r['rank']}: K3 by route "
+                    f"{r['paged_by_route']}, by kernel "
+                    f"{r['paged_by_kernel']}; expected {want}, {kern}")
+        line = (f"fleet_tp {name}: {out['completed']}/{args.num_requests} "
+                f"requests, {out['generated_tokens']} tokens; TTFT p50/p95 "
+                f"{out['ttft_ms_p50']}/{out['ttft_ms_p95']} ms; TPOT p50/p95 "
+                f"{out['tpot_ms_p50']}/{out['tpot_ms_p95']} ms")
+        if "fleet_tokens_per_sec" in out:
+            line += (f"; {out['fleet_tokens_per_sec']} tok/s, dispatched "
+                     f"{ {k: v['dispatched'] for k, v in out['per_replica'].items()} }")
+        if args.disagg:
+            if out["transferred_pages"] <= 0 or not ranks[0]["kv_gather"][
+                    "calls"]:
+                raise AssertionError(f"fleet_tp {name}: no pages streamed "
+                                     f"through the tp 2 gather")
+            line += (f"; {out['transferred_pages']} pages, "
+                     f"{out['transferred_bytes']} B transferred, transfer "
+                     f"ms p50/p95 {out['transfer_ms_p50']}/"
+                     f"{out['transfer_ms_p95']}")
+        if args.restart_tp:
+            rs = out["restart"]
+            if not (rs["hops"]["hop_bytes"] > 0 and out["wave_a_completed"]):
+                raise AssertionError(f"fleet_tp {name}: the restart moved "
+                                     f"nothing {rs}")
+            line += (f"; restart {rs['src']} -> {rs['dst']}: plan "
+                     f"{rs['bytes_moved']} B moved ({rs['ops']}), hops "
+                     f"{rs['hops']['hop_calls']} calls "
+                     f"{rs['hops']['hop_bytes']} B "
+                     f"{rs['hops']['hop_ms']} host ms, wall {rs['wall_ms']} "
+                     f"ms, staging peak {rs['hops']['peak_host_bytes']} B")
+        for r in ranks:
+            line += (f"; rank {r['rank']}: {_hops_line(r)}, K3 by kernel "
+                     f"{r['paged_by_kernel']}")
+        log(line)
+        res[name] = {k: sum(r["paged_by_kernel"][k] for r in ranks)
+                     for k in ranks[0]["paged_by_kernel"]}
+    return res
+
+
+# serve_obs: phase 15's mix with every obs flag and the controller acting
+SERVE_OBS_FLAGS = ["--trace_requests", "--flight_records", "--metrics_port",
+                   "0", "--control", "act"]
+SERVE_OBS_SLOT_REQUESTS = "4"
+
+
+def _scraper(port_box: dict, got: dict):
+    """A thread that scrapes the exporter's endpoint once it reports two
+    decode steps (the port from the patched `start`)."""
+    import urllib.request
+
+    def run():
+        deadline = time.time() + 300
+        while time.time() < deadline and "json" not in got:
+            port = port_box.get("port")
+            if port is not None:
+                base = f"http://127.0.0.1:{port}"
+                try:
+                    with urllib.request.urlopen(base + "/metrics.json",
+                                                timeout=5) as r:
+                        snap = json.loads(r.read().decode())
+                    if snap["counters"].get("serve/decode_steps", 0) >= 2:
+                        with urllib.request.urlopen(base + "/metrics",
+                                                    timeout=5) as r:
+                            got["prom"] = r.read().decode()
+                        got["json"] = snap
+                        return
+                except OSError:
+                    pass
+            time.sleep(0.05)
+
+    import threading
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def _traced_records(log_dir: str) -> list:
+    from distributed_pytorch_from_scratch_tpu_torch.obs import validate_jsonl
+    path = os.path.join(log_dir, "metrics.jsonl")
+    bad = validate_jsonl(path)
+    if bad:
+        raise AssertionError(f"serve_obs: {path} fails the schema: {bad}")
+    recs = [json.loads(line) for line in open(path)]
+    traces = [r for r in recs if r["tag"] == "request_trace"]
+    for r in traces:
+        total = sum(s["dur_ms"] for s in r["spans"])
+        wall = r["ttft_ms"] + (r["tpot_ms"] or 0.0) * max(
+            r["generated"] - 1, 0)
+        if abs(total - r["total_ms"]) > 0.002 * len(r["spans"]) + 0.01 or \
+                abs(wall - r["total_ms"]) > 0.01 + 0.001 * r["generated"]:
+            raise AssertionError(f"serve_obs: request {r['rid']}: span sum "
+                                 f"{total}, total {r['total_ms']}, wall "
+                                 f"{wall} ms")
+    return recs
+
+
+def _spec_k_on_the_card(torch) -> None:
+    """The controller's speculation knob on the card: the 45m widths at 2
+    layers, f32, drafter = target (every draft accepted, so act mode
+    raises k), the round graphed: greedy tokens the plain paged engine's
+    through every change of k, each new width's round captured once."""
+    import dataclasses
+
+    from distributed_pytorch_from_scratch_tpu_torch.config import (
+        MeshConfig, model_preset)
+    from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+    from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import (
+        make_mesh)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.controller import (
+        SLOController)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
+        PagedEngine, Request)
+    from distributed_pytorch_from_scratch_tpu_torch.serving.speculative import (
+        SpeculativeEngine)
+    cfg = dataclasses.replace(model_preset("45m"), num_layers=2,
+                              compute_dtype="float32")
+    model = build_model("llama", cfg).init_weights(FLEET_TP_SEED).to("cuda")
+    mesh = make_mesh(MeshConfig(), device="cuda")
+    kw = dict(num_slots=4, buf_len=48, eos_id=1, page_size=16,
+              prefill_chunk=16)
+    reqs = lambda: [Request(rid=i, prompt=list(p), max_new=20)
+                    for i, p in enumerate(FLEET_TP_PROMPTS)]
+    toks = lambda done: {r.rid: list(r.tokens) for r in done}
+    plain = PagedEngine(model, mesh, **kw)
+    for r in reqs():
+        plain.submit(r)
+    want = toks(plain.run_to_completion())
+    eng = SpeculativeEngine(model, mesh, model, speculate_k=2, **kw)
+    ctl = SLOController(eng, "act", interval=2)
+    eng.controller = ctl
+    for r in reqs():
+        eng.submit(r)
+    got = toks(eng.run_to_completion())
+    torch.cuda.synchronize()
+    ks = [d["new"] for d in ctl.decisions
+          if d["knob"] == "speculate_k" and d["applied"]]
+    st = eng.stats()
+    if got != want or not ks or st["round_captures"] != 1 + len(set(ks)):
+        raise AssertionError(f"serve_obs spec k: tokens equal {got == want}, "
+                             f"k moved {ks}, round captures "
+                             f"{st['round_captures']}")
+    log(f"serve_obs spec k (45m widths, 2 layers, f32, drafter = target): "
+        f"the controller moved k 2 -> {ks} in act mode, {st['spec_rounds']} "
+        f"rounds, {st['round_captures']} round captures, greedy tokens the "
+        f"plain paged engine's")
+
+
+def phase_serve_obs(torch, workdir: str, one_engine) -> dict:
+    """Phase 15's mix on the paged engine with `--trace_requests
+    --flight_records --metrics_port 0 --control act`: a scrape from another
+    thread mid-run answers, every `metrics.jsonl` line validates under
+    the port's schema, every request's span sum equals its wall, K3 as
+    phase 15's rule; TPOT p50 beside phase 15's run with obs off (the
+    ratio reported, not gated). Then phase 5's slot engine, traced, on 8
+    requests: K1's forward 12 per prefill dispatch. Returns both runs'
+    launches."""
+    from distributed_pytorch_from_scratch_tpu_torch.config import model_preset
+    from distributed_pytorch_from_scratch_tpu_torch.obs.telemetry import (
+        TelemetryExporter)
+    from distributed_pytorch_from_scratch_tpu_torch.serving import serve
+    layers = model_preset("45m").num_layers
+    log_dir = os.path.join(workdir, "serve_obs")
+    port_box, scraped = {}, {}
+    start = TelemetryExporter.start
+
+    def started(self, port):
+        port_box["port"] = start(self, port)
+        return port_box["port"]
+
+    TelemetryExporter.start = started
+    scraper = _scraper(port_box, scraped)
+    try:
+        out, counts, by_route, by_kernel, widths = _serve_with_widths(
+            serve, PAGED_SERVE_ARGS + SERVE_OBS_FLAGS
+            + ["--log_dir", log_dir])
+    finally:
+        TelemetryExporter.start = start
+    scraper.join(timeout=10)
+    torch.cuda.synchronize()
+    st = out["engine_stats"]
+    _check_paged_run(out, st, counts, by_route, by_kernel, widths, layers,
+                     1024)
+    if "json" not in scraped or "# TYPE serve_live gauge" not in scraped[
+            "prom"]:
+        raise AssertionError("serve_obs: the mid-run scrape got no answer")
+    recs = _traced_records(log_dir)
+    traces = [r for r in recs if r["tag"] == "request_trace"]
+    if len(traces) != out["completed"]:
+        raise AssertionError(f"serve_obs: {len(traces)} request_trace "
+                             f"events for {out['completed']} requests")
+    ctl = out["controller"]
+    ratio = (out["tpot_ms_p50"] / one_engine["tpot_ms_p50"]
+             if one_engine else None)
+    log(f"serve_obs (paged, phase 15's mix, every obs flag, control act): "
+        f"{out['completed']}/{out['requests']} requests, "
+        f"{out['tokens_per_sec']} tok/s; TTFT p50/p95 {out['ttft_ms_p50']}/"
+        f"{out['ttft_ms_p95']} ms; TPOT p50/p95 {out['tpot_ms_p50']}/"
+        f"{out['tpot_ms_p95']} ms against phase 15's obs-off TPOT p50 "
+        f"{one_engine and one_engine['tpot_ms_p50']} ms (ratio {ratio}); "
+        f"{len(recs)} metrics lines valid, {len(traces)} request timelines "
+        f"with span sum == wall; mid-run scrape at decode step "
+        f"{scraped['json']['counters']['serve/decode_steps']:.0f} "
+        f"({len(scraped['json']['gauges'])} gauges); telemetry snapshots "
+        f"{out['telemetry_snapshots']}; controller {ctl['decisions']} "
+        f"decisions ({ctl['applied']} applied, last {ctl['last_knob']}); "
+        f"flight dumps {len(out['flight_dumps'])}; K3 by route {by_route}")
+    slot_dir = os.path.join(workdir, "serve_obs_slot")
+    _reset_launches()
+    n = SERVE_ARGS.index("--num_requests") + 1
+    slot = serve.main(SERVE_ARGS[:n] + [SERVE_OBS_SLOT_REQUESTS]
+                      + SERVE_ARGS[n + 1:]
+                      + ["--trace_requests", "--flight_records",
+                         "--log_dir", slot_dir])
+    slot_counts = _read_launches()
+    torch.cuda.synchronize()
+    _only(slot_counts, {"flash_attention_fwd": layers
+                        * slot["prefill_dispatches"]},
+          f"serve_obs slot ({layers} per prefill dispatch)")
+    slot_traces = [r for r in _traced_records(slot_dir)
+                   if r["tag"] == "request_trace"]
+    if len(slot_traces) != slot["completed"] or slot["completed"] != int(
+            SERVE_OBS_SLOT_REQUESTS):
+        raise AssertionError(f"serve_obs slot: {len(slot_traces)} timelines "
+                             f"for {slot['completed']} requests")
+    _spec_k_on_the_card(torch)
+    log(f"serve_obs (slot, traced, {slot['completed']} requests): TPOT "
+        f"p50/p95 {slot['tpot_ms_p50']}/{slot['tpot_ms_p95']} ms, TTFT "
+        f"p50/p95 {slot['ttft_ms_p50']}/{slot['ttft_ms_p95']} ms; K1 "
+        f"{slot_counts['flash_attention_fwd']} launches "
+        f"({slot['prefill_dispatches']} prefill dispatches)")
+    return {"paged_by_kernel": by_kernel, "paged_by_route": by_route,
+            "slot": slot_counts}
+
+
 PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "profile", "bwd_check", "bwd_times", "train", "train_card_vs_cpu",
           "train_profile", "paged_check", "paged_times", "paged_serve",
@@ -7475,7 +7878,8 @@ PHASES = ("build", "kernel_vs_plain", "times", "serve", "card_vs_cpu",
           "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
           "cp_serve", "fleet_check", "fleet_serve", "moe_check",
           "moe_train", "moe_serve", "moe_ep2_train", "zero_train",
-          "moe_paths", "pp_train", "tp_overlap_train", "greedy_decoder")
+          "moe_paths", "pp_train", "tp_overlap_train", "greedy_decoder",
+          "fleet_tp", "serve_obs")
 
 
 def main() -> None:
@@ -7535,7 +7939,7 @@ def run(torch, phases: set, workdir: str) -> list:
                 "train_remat", "train_spd", "eval", "eval_pth", "eval_tp",
                 "gpt2_train", "train_async_preempt", "serve_replay",
                 "moe_train", "moe_ep2_train", "zero_train", "pp_train",
-                "tp_overlap_train")
+                "tp_overlap_train", "fleet_tp")
     res = {}
     from distributed_pytorch_from_scratch_tpu_torch.runtime import launch
     with launch.kept_groups():
@@ -7553,6 +7957,9 @@ def run(torch, phases: set, workdir: str) -> list:
                          if name == "moe_serve" else
                          fn(torch, workdir, res.get("moe_serve"))
                          if name == "moe_paths" else
+                         fn(torch, workdir, (res.get("paged_serve") or {})
+                            .get("one_engine"))
+                         if name == "serve_obs" else
                          fn(torch, workdir) if name in with_dir else fn(torch))
             _kept_calls(name, launch.calls[kept:])
             log(f"chip_smoke: phase {name} took "
@@ -7563,7 +7970,7 @@ def run(torch, phases: set, workdir: str) -> list:
      eval_tp, gpt2_times, gpt2_trained, gpt2_served, preempted, int8_served,
      replayed, spec_err, spec_served, cp_err, cp_served, fleet_served,
      moe_trained, moe_served, moe_ep2, moe_paths, zero_runs, pp_runs,
-     ov_runs, decoded) = (
+     ov_runs, decoded, fleet_tp, served_obs) = (
          res.get(k) for k in (
              "kernel_vs_plain", "times", "serve", "bwd_check", "bwd_times",
              "train", "paged_check", "paged_times", "paged_serve",
@@ -7574,7 +7981,7 @@ def run(torch, phases: set, workdir: str) -> list:
              "serve_replay", "spec_check", "spec_serve", "cp_serve_check",
              "cp_serve", "fleet_serve", "moe_train", "moe_serve",
              "moe_ep2_train", "moe_paths", "zero_train", "pp_train",
-             "tp_overlap_train", "greedy_decoder"))
+             "tp_overlap_train", "greedy_decoder", "fleet_tp", "serve_obs"))
     log(f"chip_smoke: phases {','.join(p for p in PHASES if p in phases)} "
         f"passed in {time.perf_counter() - t0:.1f} s")
     if phases != set(PHASES):
@@ -7617,6 +8024,7 @@ def run(torch, phases: set, workdir: str) -> list:
                          "serve_paged_int8_weights":
                              int8_served["paged"].get(k, 0),
                          "serve_replay": replayed.get(k, 0),
+                         "serve_obs_slot": served_obs["slot"].get(k, 0),
                          "train_moe": moe_trained[k],
                          "train_moe_resume": moe_trained["resume"].get(k, 0),
                          "train_moe_ep2": moe_ep2.get(k, 0),
@@ -7647,6 +8055,12 @@ def run(torch, phases: set, workdir: str) -> list:
     fleet_paged = lambda kernel: {
         f"serve_{name}": by_kernel[kernel]
         for name, by_kernel in fleet_served.items()}
+    # K3's launches on the tp fleet runs (summed over the ranks) and the
+    # traced paged run, by C entry point
+    obs_paged = lambda kernel: {
+        **{f"serve_{name}": by_kernel[kernel]
+           for name, by_kernel in fleet_tp.items()},
+        "serve_obs_paged": served_obs["paged_by_kernel"][kernel]}
     # K3's launches on moe_paths' paged runs (cp 2: summed over the ranks)
     moe_paged = lambda kernel: {
         "serve_moe_paged_spec": moe_paths["spec"][kernel],
@@ -7709,7 +8123,9 @@ def run(torch, phases: set, workdir: str) -> list:
                                   moe_served["paged_by_kernel"][
                                       "paged_decode"],
                               **{f"{k}_decode_kernel": v for k, v in
-                                 moe_paged("paged_decode").items()}}},
+                                 moe_paged("paged_decode").items()},
+                              **{f"{k}_decode_kernel": v for k, v in
+                                 obs_paged("paged_decode").items()}}},
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": PAGED_SOURCES["chunk"], "replaces": PAGED_REPLACES,
          "launches": paged_served["paged_by_kernel"]["paged_chunk_sm90"],
@@ -7736,7 +8152,8 @@ def run(torch, phases: set, workdir: str) -> list:
              **fleet_paged("paged_chunk_sm90"),
              "serve_moe_paged": moe_served["paged_by_kernel"][
                  "paged_chunk_sm90"],
-             **moe_paged("paged_chunk_sm90")}},
+             **moe_paged("paged_chunk_sm90"),
+             **obs_paged("paged_chunk_sm90")}},
     ]
     for part, name in (("fwd", "block_attention_fwd"),
                        ("dq", "block_attention_bwd_dq"),

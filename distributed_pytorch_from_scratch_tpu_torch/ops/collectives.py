@@ -52,7 +52,12 @@ Serving's: `broadcast_ints(x, mesh, axis)` sends a host int tensor from
 index 0 of `axis` to its other ranks (a serving engine's dispatch, over the
 'world' axis of every rank: rank 0 decides, every rank computes;
 `serving/tp_dispatch.py`). It is no autograd Function and is counted apart
-from the model's hops, under `stats["dispatch"]`.
+from the model's hops, under `stats["dispatch"]`. The serving fleet's own
+hops, counted apart too: `broadcast(x, mesh, axis, stat)` of a tensor of
+any dtype and `all_gather(..., stat=)`, the KV pages' gather to an
+exporting engine's rank 0 and broadcast to an importing engine's ranks
+(`stats["kv_gather"]`, `["kv_scatter"]`) and a live replica's weights
+moved to another tp width (`stats["reshard"]`).
 
 Transport: under gloo a CUDA tensor is copied to the host, sent, received
 and copied back, in these functions and nowhere else — gloo takes CPU
@@ -81,6 +86,11 @@ import torch.distributed as dist
 STAT_AXES = ("tp", "cp", "ep", "dp", "pp", "batch", "expert_batch")
 # the serving dispatch broadcasts' entry in `stats`, apart from the axes
 DISPATCH = "dispatch"
+# the serving fleet's own hops, apart from the model's: the KV pages'
+# gather to an exporting leader and broadcast to an importing engine's
+# ranks (`serving/kv_manager.py`), and a live replica's weights moved to
+# another tp width (`reshard/apply.reshard_params`)
+KV_GATHER, KV_SCATTER, RESHARD = "kv_gather", "kv_scatter", "reshard"
 
 
 def _zero() -> Dict[str, float]:
@@ -88,8 +98,9 @@ def _zero() -> Dict[str, float]:
             "hop_s": 0.0}
 
 
-stats: Dict[str, Dict[str, float]] = {a: _zero()
-                                      for a in STAT_AXES + (DISPATCH,)}
+stats: Dict[str, Dict[str, float]] = {
+    a: _zero() for a in STAT_AXES + (DISPATCH, KV_GATHER, KV_SCATTER,
+                                     RESHARD)}
 
 
 def reset_stats() -> None:
@@ -499,9 +510,10 @@ def all_reduce_sum_(tensors: List[torch.Tensor], mesh, axis: str) -> None:
 
 
 @torch.no_grad()
-def all_gather(x: torch.Tensor, mesh, axis: str = "cp") -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh, axis: str = "cp",
+               stat: str = None) -> torch.Tensor:
     """(size, *x.shape): every rank's x on `axis` in rank order (no
-    gradient)."""
+    gradient); counted under `stat` (default: the axis)."""
     ax = mesh.axis(axis)
     if ax.size == 1:
         return x[None]
@@ -511,7 +523,24 @@ def all_gather(x: torch.Tensor, mesh, axis: str = "cp") -> torch.Tensor:
         dist.all_gather(recv, send, group=ax.group)
         return torch.stack(recv)
 
-    return _collective(mesh, axis, x, run, ring=ax.size - 1)
+    return _collective(mesh, axis, x, run, stat, ring=ax.size - 1)
+
+
+@torch.no_grad()
+def broadcast(x: torch.Tensor, mesh, axis: str, stat: str,
+              src: int = 0) -> torch.Tensor:
+    """x as the rank at index `src` of `axis` holds it, on every rank of
+    the axis, any dtype (every other rank passes a tensor of x's shape and
+    dtype); counted under `stat`."""
+    ax = mesh.axis(axis)
+    if ax.size == 1:
+        return x
+
+    def run(buf):
+        dist.broadcast(buf, src=ax.members[src], group=ax.group)
+        return buf
+
+    return _collective(mesh, axis, x, run, stat)
 
 
 @torch.no_grad()
@@ -521,15 +550,8 @@ def broadcast_ints(x: torch.Tensor, mesh, axis: str = "tp") -> torch.Tensor:
     the same shape and dtype and gets the sender's values. Under gloo the
     host tensor goes as it is (received in place); NCCL moves it through
     the card."""
-    ax = mesh.axis(axis)
-    if ax.size == 1:
+    if mesh.axis(axis).size == 1:
         return x
-
-    def run(buf):
-        dist.broadcast(buf, src=ax.members[0], group=ax.group)
-        return buf
-
     if mesh.backend == "nccl":
-        return _collective(mesh, axis, x.to(mesh.device), run,
-                           DISPATCH).cpu()
-    return _collective(mesh, axis, x, run, DISPATCH)
+        return broadcast(x.to(mesh.device), mesh, axis, DISPATCH).cpu()
+    return broadcast(x, mesh, axis, DISPATCH)

@@ -21,9 +21,14 @@ leading index). The staging peak is therefore one global leaf, as
 A reference `.pth` rank span (torch pickles) cannot stream: it is bridged
 through `interop.load_reference_checkpoint`, with a loud note, and is
 exempt from the one-leaf bound (the meter still records what it cost), as
-in JAX. Moving live trees between meshes (`reshard_params`, the fleet's
-replica restarts at a new tp) waits for the fleet at tp > 1 (ROADMAP
-Queue 1 item 6).
+in JAX.
+
+* `reshard_params`: a LIVE model's weights → another tp width, device to
+  device through the ranks' group (the fleet's replica restart,
+  `serving/serve_fleet.py --restart_tp`), one leaf at a time: each leaf is
+  gathered whole from the ranks that hold it at the old width and cut to
+  each rank's slice at the new one (`HostMeter` holds the staging to one
+  global leaf here too); `live_plan` is its plan.
 """
 
 from __future__ import annotations
@@ -441,3 +446,87 @@ def stream_load(ckpt_dir: str, step: int, model, dst_layout: Layout,
                 wall_ms=round((time.perf_counter() - t0) * 1e3, 3),
                 peak_host_bytes=meter.peak)
     return trees["param"], opt_state, step_loaded, info
+
+
+# -------------------------------------------------------- device→device --
+
+# the dtypes a live leaf may carry, by their index in the leaf header
+_LEAF_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
+
+
+def reshard_params(state: Optional[Dict[str, torch.Tensor]], keys, mesh,
+                   src_tp: int, dst_tp: int, device,
+                   meter: Optional[HostMeter] = None
+                   ) -> Optional[Dict[str, torch.Tensor]]:
+    """Re-lay a LIVE model from tp `src_tp` to tp `dst_tp` (the JAX
+    `reshard_params`: the same global leaves under another layout) over
+    `mesh`'s process group, the ranks of both widths (its 'world' axis): a
+    collective every rank of `mesh` calls with the state-dict `keys` in one
+    order. `state` is this rank's state dict at `src_tp` (None on a rank at
+    or past `src_tp`). Per leaf: rank 0 broadcasts the shard's shape and
+    dtype, one all-gather brings every holder's shard to every rank
+    (counted under `collectives.stats["reshard"]`), the global leaf is
+    joined along its tp dim (`parallel.layout.tp_dim`; a replicated leaf
+    is the first holder's) and cut to this rank's slice at `dst_tp`, on
+    `device`. Returns this rank's state dict at `dst_tp`, None on a rank
+    at or past `dst_tp`. The vocab leaves keep their padding: the caller
+    refuses two widths whose padded vocab differs."""
+    from ..ops.collectives import RESHARD, all_gather, broadcast
+
+    meter = meter if meter is not None else HostMeter()
+    rank = mesh.rank
+    out: Dict[str, torch.Tensor] = {}
+    for key in keys:
+        head = torch.zeros(8, dtype=torch.int32, device=device)
+        if rank == 0:
+            x = state[key]
+            head[0], head[1] = x.dim(), _LEAF_DTYPES.index(x.dtype)
+            head[2:2 + x.dim()] = torch.tensor(x.shape, dtype=torch.int32)
+        head = broadcast(head, mesh, "world", RESHARD).tolist()
+        shape = tuple(head[2:2 + head[0]])
+        dtype = _LEAF_DTYPES[head[1]]
+        mine = (state[key] if rank < src_tp else
+                torch.zeros(shape, dtype=dtype, device=device))
+        shards = all_gather(mine.contiguous(), mesh, "world",
+                            RESHARD)[:src_tp]
+        dim = tp_dim(key)
+        whole = (torch.cat(list(shards), dim) if dim is not None
+                 else shards[0])
+        meter.alloc(whole.numel() * whole.element_size())
+        if rank < dst_tp:
+            part = (whole.chunk(dst_tp, dim)[rank] if dim is not None
+                    else whole)
+            out[key] = part.to(device, copy=True)
+        meter.free(whole.numel() * whole.element_size())
+        del shards, whole
+    return out if rank < dst_tp else None
+
+
+def live_plan(state: Dict[str, torch.Tensor], src_tp: int, dst_tp: int
+              ) -> ReshardPlan:
+    """The reshard plan of a live tp `src_tp` model (rank 0's `state`) to
+    tp `dst_tp`: JAX's flat keys, global shapes (the stacked layer leaves
+    whole, JAX's orientation) and canonical specs."""
+    from .layout import canonical_specs, jax_key, make_layout
+
+    glob: Dict[str, Tuple[int, ...]] = {}
+    for key, x in state.items():
+        shape = list(x.shape)
+        dim = tp_dim(key)
+        if dim is not None:
+            shape[dim] *= src_tp
+        glob[key] = tuple(shape)
+    specs = canonical_specs(glob)
+    shapes, sizes = {}, {}
+    layers = {}
+    for key, shape in glob.items():
+        jkey, stacked = jax_key(key)
+        jshape = tuple(reversed(shape)) if transposed(key) else shape
+        if stacked:
+            layers[jkey] = layers.get(jkey, 0) + 1
+            jshape = (layers[jkey],) + jshape
+        shapes[jkey] = jshape
+        sizes[jkey] = state[key].element_size()
+    src = make_layout((("tp", src_tp),), specs)
+    dst = make_layout((("tp", dst_tp),), specs)
+    return plan_reshard(sorted(shapes), shapes, sizes, src, dst)

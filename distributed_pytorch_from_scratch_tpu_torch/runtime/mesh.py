@@ -242,3 +242,26 @@ def make_mesh(cfg: MeshConfig, device="cuda", rank: int = 0,
                          dist.group.WORLD)
     return Mesh(dev, cfg.dp, cfg.cp, cfg.tp, rank, backend, axes, cfg.ep,
                 cfg.pp)
+
+
+def tp_submesh(mesh: Mesh, width: int) -> Optional[Mesh]:
+    """A tensor-parallel mesh of `width` over the first `width` ranks of
+    `mesh`'s process group (the serving fleet's replicas: one per width, on
+    the ranks they need), with a process group of its own, which serves as
+    both its 'tp' and its 'world' axis, so an engine on it broadcasts its
+    dispatches and runs its hops apart from every other engine's. Every
+    rank of the group calls it, in one order (`dist.new_group` is a
+    collective); a rank at or past `width` gets None. At width 1 it is rank
+    0's one-rank mesh and no group is made."""
+    if not 1 <= width <= mesh.world:
+        raise ValueError(f"a tp width of {width} over a group of "
+                         f"{mesh.world} ranks")
+    if width == 1:
+        return Mesh(mesh.device) if mesh.rank == 0 else None
+    members = tuple(range(width))
+    group = dist.new_group(list(members), timeout=COLLECTIVE_TIMEOUT)
+    if mesh.rank >= width:
+        return None
+    axis = lambda name: Axis(name, width, mesh.rank, members, group)
+    return Mesh(mesh.device, tp=width, rank=mesh.rank, backend=mesh.backend,
+                axes={"tp": axis("tp"), "world": axis("world")})

@@ -46,13 +46,26 @@ The products stay `torch.matmul` on the dequantized weight, as XLA's
 convert-into-matmul fusion is JAX's. `weight_bytes` counts the weights
 either way (the serve CLI reports it beside `stats()`, which stays the
 JAX engine's).
-TTFT/TPOT/queue-wait are measured per request; the JAX engine's tracing
-hooks (span tracer, metrics writer, request tracer, flight recorder,
-telemetry, duty profiler, HBM plane) wait for the obs slice (ROADMAP.md).
+TTFT/TPOT/queue-wait are measured per request. The JAX engines' obs hooks
+are here, each None (and free) unless the caller passes it, and only on
+the rank that runs the host loop: `tracer` (`obs.trace.SpanTracer`: one
+host span per dispatch, the `slots_live` / `pages_in_use` counters),
+`writer` (a `MetricsWriter`: `serve_request` events), `request_tracer`
+(`obs.reqtrace.RequestTracer`: each request's contiguous span timeline and
+page counters, continued from a `trace_ctx` another process handed over),
+`flight` (`obs.flight.FlightRecorder`: pool stats per decode step, the
+scheduler's and the pool's decisions, a dump on a PoolExhausted
+preemption and on an in-run SLO collapse), `telemetry`
+(`obs.telemetry.TelemetryExporter`: the live gauges and counters, and the
+device-memory plane of `training.metrics.publish_hbm`) and, on the paged
+engines, `controller` (`serving.controller.SLOController`, ticked and
+actuated at the decode step's safe point). The JAX duty profiler waits for
+the profilers (ROADMAP).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import Counter, deque
 from dataclasses import dataclass, field
@@ -66,11 +79,14 @@ from ..models.decode import (
     PAGED_ATTN_IMPLS, _decode_one, _full_vocab_logits, _paged_decode_one,
     _paged_prefill_chunk, _prefill, decode_tables, host_sample_tokens,
     sample_from_full, validate_sampling)
+from ..obs.control import control_safe_point
+from ..obs.reqtrace import TraceContext
 from ..ops.quant import quantize_decode_params
 from ..parallel.moe import count_drops, dropped_share
 from ..parallel.layout import tp_dim
 from ..runtime.graphs import CapturedStep, use_decode_graph
-from .kv_manager import KVCachePool, PagedKVPool, PoolExhausted
+from ..training.metrics import publish_hbm
+from .kv_manager import KVCachePool, PagedKVPool, PoolExhausted, page_bytes
 from .scheduler import FIFOScheduler, SLOScheduler
 from .tp_dispatch import Dispatcher
 
@@ -89,6 +105,9 @@ class Request:
     arrival: float = 0.0                 # loadgen's planned arrival offset
     tenant: str = "default"              # fair-queuing bucket (SLOScheduler)
     slo_class: Optional[str] = None      # TTFT deadline class (None=default)
+    trace_id: Optional[str] = None       # per-request trace (obs/reqtrace)
+    trace_ctx: Optional[dict] = None     # a wire TraceContext from another
+    #                                      process: submit CONTINUES it
     tokens: List[int] = field(default_factory=list)
     submit_t: Optional[float] = None     # entered the admission queue
     admit_t: Optional[float] = None      # left the queue (prefill dispatch)
@@ -118,6 +137,65 @@ class Request:
                 or len(self.tokens) < 2):
             return None
         return (self.finish_t - self.first_token_t) / (len(self.tokens) - 1)
+
+
+def _wire_ctx(req: Request):
+    """A request's cross-process trace handoff, deserialized (or None)."""
+    if req.trace_ctx is None:
+        return None
+    return TraceContext.from_wire(req.trace_ctx)
+
+
+# device-memory watermark cadences: gauges every N decode steps, events
+# every M (and at the first step, so a short run records one)
+_HBM_GAUGE_EVERY = 10
+_HBM_EVENT_EVERY = 100
+
+
+def _publish_hbm_plane(engine, pool_bytes=None) -> None:
+    """The engines' device-memory publication on its cadences (the JAX
+    `_publish_hbm_plane`): live gauges into the exporter, `hbm_watermark`
+    events into the metrics stream. `pool_bytes` is the paged pool's
+    accounted page bytes."""
+    step = engine.decode_steps
+    gauge = engine.telemetry is not None and (
+        step == 1 or step % _HBM_GAUGE_EVERY == 0)
+    event = engine.writer is not None and (
+        step == 1 or step % _HBM_EVENT_EVERY == 0)
+    if not (gauge or event):
+        return
+    publish_hbm(telemetry=engine.telemetry if gauge else None,
+                writer=engine.writer if event else None, step=step,
+                pool_accounted_bytes=pool_bytes, event=event)
+
+
+class _Obs:
+    """The obs hooks both engines keep (see the module docstring)."""
+
+    def _setup_obs(self, tracer, writer, request_tracer, flight,
+                   telemetry) -> None:
+        self.tracer = tracer
+        self.writer = writer
+        self.rt = request_tracer
+        self.flight = flight
+        self.telemetry = telemetry
+
+    def _span(self, name, **args):
+        if self.tracer is not None:
+            return self.tracer.span(name, cat="serve", **args)
+        return contextlib.nullcontext()
+
+    def _request_event(self, req: Request, **extra) -> None:
+        """Retire the request's timeline and write its `serve_request`."""
+        if self.rt is not None:
+            self.rt.retire(req)
+        if self.writer is not None:
+            ms = lambda s: None if s is None else round(s * 1e3, 3)
+            self.writer.event(
+                "serve_request", rid=req.rid, prompt_len=req.prompt_len,
+                generated=len(req.tokens), **extra, trace_id=req.trace_id,
+                queue_wait_ms=ms(req.queue_wait_s), ttft_ms=ms(req.ttft_s),
+                tpot_ms=ms(req.tpot_s))
 
 
 def decode_prompts(engine: "ContinuousBatchingEngine", prompts,
@@ -332,7 +410,7 @@ def _chunk_maps(ids, s: int, n: int, cw: int, ps: int, eos_id: int,
     return buf, dstp, dsto
 
 
-class ContinuousBatchingEngine(_Sampling):
+class ContinuousBatchingEngine(_Sampling, _Obs):
     """Slot-based continuous batching on one device, or across the tp ranks
     of `mesh` (one engine per rank; see `tp_dispatch`: the scheduler lives
     on tp rank 0 alone), for a model of either family.
@@ -351,7 +429,9 @@ class ContinuousBatchingEngine(_Sampling):
                  max_prefill_batch: int = 4, max_queue: int = 0,
                  decode_graph: str = "auto",
                  debug_host_sampler: bool = False,
-                 decode_weight_dtype=None):
+                 decode_weight_dtype=None, tracer=None, writer=None,
+                 request_tracer=None, flight=None, telemetry=None,
+                 clock=time.monotonic):
         if getattr(model, "cp_size", 1) > 1:
             raise ValueError(
                 "the slot engine's per-slot caches are replicated over cp; "
@@ -370,6 +450,8 @@ class ContinuousBatchingEngine(_Sampling):
         self.buf_len = buf_len
         self.eos_id = int(eos_id)
         self.max_prefill_batch = max_prefill_batch
+        self._clock = clock
+        self._setup_obs(tracer, writer, request_tracer, flight, telemetry)
         self._dtype = resolve_dtype_on(model.cfg.compute_dtype, mesh.device)
         self._cos, self._sin = decode_tables(
             model, max(model.cfg.maxlen, buf_len), self.device)
@@ -382,7 +464,8 @@ class ContinuousBatchingEngine(_Sampling):
                                           "slot_decode": self._run_decode})
         self.scheduler = (FIFOScheduler(buf_len,
                                         prefill_bucket=prefill_bucket,
-                                        max_queue=max_queue)
+                                        max_queue=max_queue, clock=clock,
+                                        flight=flight)
                           if self.dispatch.leader else None)
         n = num_slots + 1  # + the scratch row (kv_manager.py)
         self._decode_rows = n
@@ -406,8 +489,12 @@ class ContinuousBatchingEngine(_Sampling):
 
     # -- request intake --------------------------------------------------
     def submit(self, req: Request) -> None:
-        """FIFO enqueue (raises scheduler.QueueFull past the bound)."""
+        """FIFO enqueue (raises scheduler.QueueFull past the bound). An
+        accepted request opens its trace timeline at submit_t, or continues
+        a `trace_ctx` handed over from another process."""
         self.scheduler.submit(req)
+        if self.rt is not None:
+            self.rt.begin(req, ctx=_wire_ctx(req))
 
     def has_work(self) -> bool:
         return bool(self.scheduler.pending or self._slot_req)
@@ -441,13 +528,15 @@ class ContinuousBatchingEngine(_Sampling):
                 min(self.pool.free_slots, self.max_prefill_batch))
             if not group:
                 break
-            now = time.monotonic()
+            now = self._clock()
             ready = []
             for req in group:
                 req.admit_t = now
                 req.prompt_len = len(req.prompt)
                 req.limit = min(req.prompt_len + req.max_new, self.buf_len)
                 self.prompt_tokens += req.prompt_len
+                if self.rt is not None:
+                    self.rt.mark(req, "queued", now)
                 if req.limit <= req.prompt_len:   # max_new == 0
                     req.finish_t = now
                     self._complete(req, done)
@@ -471,14 +560,17 @@ class ContinuousBatchingEngine(_Sampling):
             seeds[i] = np.uint32(req.seed)
         # one copy: the prompt buffer | prompt lengths | target slots |
         # seeds
-        tok = self.dispatch("slot_prefill", (nb, width), np.concatenate(
-            [buf.ravel(), plens, slot_idx, _seed_bits(seeds)]))
+        with self._span("prefill", rows=len(ready), nb=nb, width=width):
+            tok = self.dispatch("slot_prefill", (nb, width), np.concatenate(
+                [buf.ravel(), plens, slot_idx, _seed_bits(seeds)]))
         self.prefill_dispatches += 1
         self.prefill_positions += nb * width
         self.prefill_positions_monolithic += len(ready) * self.buf_len
-        now = time.monotonic()
+        now = self._clock()
         for i, req in enumerate(ready):
             req.first_token_t = now
+            if self.rt is not None:
+                self.rt.mark(req, "prefill", now, positions=req.prompt_len)
             first = int(tok[i])
             if first == self.eos_id:              # 0 generated tokens
                 req.finish_t = now
@@ -528,13 +620,29 @@ class ContinuousBatchingEngine(_Sampling):
                                _seed_bits(self._seeds)])
 
     def _decode(self, done: List[Request]) -> None:
-        tok = self.dispatch("slot_decode", (), self._decode_payload())
-        now = time.monotonic()
+        with self._span("decode_step", live=len(self._slot_req)):
+            tok = self.dispatch("slot_decode", (), self._decode_payload())
+        now = self._clock()
         self.decode_steps += 1
         self._occupancy_sum += self.pool.occupancy
+        if self.tracer is not None:
+            self.tracer.counter("slots_live", len(self._slot_req))
+        if self.flight is not None:
+            self.flight.record("pool_stats", live=len(self._slot_req),
+                               free_slots=self.pool.free_slots,
+                               queued=self.scheduler.pending)
+        if self.telemetry is not None:
+            tel = self.telemetry
+            tel.gauge("serve/live", len(self._slot_req))
+            tel.gauge("serve/queue_depth", self.scheduler.pending)
+            tel.rate("serve/tokens_per_sec", self.generated_tokens)
+            tel.counter("serve/decode_steps", self.decode_steps)
+        _publish_hbm_plane(self)
         for slot, req in list(self._slot_req.items()):
             # the pending token was written at `pos` by this dispatch: it
             # is now part of the output
+            if self.rt is not None:
+                self.rt.mark(req, "decode", now)
             req.tokens.append(int(self._tokens[slot]))
             self.generated_tokens += 1
             cand = int(tok[slot])
@@ -551,6 +659,7 @@ class ContinuousBatchingEngine(_Sampling):
     def _complete(self, req: Request, done: List[Request]) -> None:
         self.completed.append(req)
         done.append(req)
+        self._request_event(req)
 
     # -- aggregate view ---------------------------------------------------
     def stats(self) -> dict:
@@ -589,7 +698,7 @@ class _PrefillState:
     keys: List[object] = field(default_factory=list)
 
 
-class PagedEngine(_Sampling):
+class PagedEngine(_Sampling, _Obs):
     """Continuous batching over a PAGED KV cache (the JAX `PagedEngine`; at
     tp > 1 or cp > 1 one engine per rank, as the slot engine), for a model
     of either family, greedy or sampled as the slot engine.
@@ -633,18 +742,20 @@ class PagedEngine(_Sampling):
     `paged_attn_impl` — 'kernel' (the CUDA paged-attention kernel; its plain
     version on the CPU) or 'gather' (the dense page view, the oracle) — and
     the only sync is the host copy of the chosen tokens. Speculative
-    decoding subclasses it (`serving/speculative.py`); the JAX engine's
-    tracing hooks are not ported (ROADMAP).
-    `decode_graph`, the sampling knobs and `decode_weight_dtype` as the slot
-    engine's.
+    decoding subclasses it (`serving/speculative.py`). The obs hooks and
+    the `controller` as in the module docstring. `decode_graph`, the
+    sampling knobs and `decode_weight_dtype` as the slot engine's.
 
-    Disaggregated serving (`serving/transfer.py`), at tp = cp = 1: a
+    Disaggregated serving (`serving/transfer.py`), at any tp and cp: a
     `prefill_only` engine never decodes (and captures no decode step) —
     each finished prefill parks in `handoffs` with its page references
-    until the caller streams it out (`export_handoff`) and drops them
+    until the caller streams it out (`export_handoff`: an `export_pages`
+    dispatch, the global heads gathered to rank 0) and drops them
     (`finish_handoff`); a decode engine takes it in through
-    `admit_prefilled`, which imports the pages and installs the slot as
-    `_finish_prefill` would, so decoding continues token for token."""
+    `admit_prefilled`, which imports the pages (an `import_pages`
+    dispatch: every rank writes its heads of the pages its slab owns) and
+    installs the slot as `_finish_prefill` would, so decoding continues
+    token for token."""
 
     # whether __init__ captures the one-token decode step (a subclass that
     # never runs it, the speculative engine, captures its own steps)
@@ -659,7 +770,9 @@ class PagedEngine(_Sampling):
                  paged_attn_impl: str = "kernel", clock=time.monotonic,
                  decode_graph: str = "auto",
                  debug_host_sampler: bool = False,
-                 decode_weight_dtype=None, prefill_only: bool = False):
+                 decode_weight_dtype=None, prefill_only: bool = False,
+                 tracer=None, writer=None, request_tracer=None,
+                 flight=None, telemetry=None, controller=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if page_size < 1:
@@ -697,6 +810,10 @@ class PagedEngine(_Sampling):
         self.eos_id = int(eos_id)
         self.prefill_chunk = prefill_chunk
         self._clock = clock
+        self._setup_obs(tracer, writer, request_tracer, flight, telemetry)
+        # a serving.controller.SLOController, observed and actuated only
+        # from `_control_tick` (the registered safe point)
+        self.controller = controller
         self._dtype = resolve_dtype_on(model.cfg.compute_dtype, mesh.device)
         self._cos, self._sin = decode_tables(
             model, max(model.cfg.maxlen, self.buf_len), self.device)
@@ -707,13 +824,19 @@ class PagedEngine(_Sampling):
         self.paged_attn_impl = paged_attn_impl
         self.kv_dtype = kv_dtype
         self.pool = PagedKVPool(model, mesh, num_pages, page_size,
-                                kv_dtype=kv_dtype)
+                                kv_dtype=kv_dtype, flight=flight)
+        # bytes one leased page costs: the pool-vs-device memory gauge
+        self._page_bytes_each = page_bytes(model.cfg, page_size, kv_dtype)
         self.dispatch = Dispatcher(mesh, {"paged_chunk": self._run_chunk,
                                           "paged_decode": self._run_decode,
-                                          "cow_copy": self._run_copy})
+                                          "cow_copy": self._run_copy,
+                                          "export_pages": self._run_export,
+                                          "import_pages": self._run_import})
+        self._import_payload = None          # the leader's (k, v) in flight
         self.scheduler = (SLOScheduler(self.buf_len, classes=slo_classes,
                                        default_class=default_class,
-                                       max_queue=max_queue, clock=clock)
+                                       max_queue=max_queue, clock=clock,
+                                       flight=flight)
                           if self.dispatch.leader else None)
         self._free_slots = deque(range(num_slots))
         # (slots, max_pages) page table; free rows aim at the scratch page
@@ -734,8 +857,10 @@ class PagedEngine(_Sampling):
         self.pages_exported = 0
         self.pages_imported = 0
         # live per-class TTFT attainment, {class: [completed, hit]}, folded
-        # by the fleet summary (`loadgen.fleet_slo_attainment`)
+        # by the fleet summary (`obs.telemetry.fleet_slo_attainment`); feeds
+        # the live gauges and the in-run collapse dump (once per class)
         self._slo_counts: Dict[str, list] = {}
+        self.slo_collapsed: set = set()
         # -- aggregate stats ---------------------------------------------
         self.decode_steps = 0
         self.prefill_dispatches = 0         # chunk dispatches
@@ -785,6 +910,8 @@ class PagedEngine(_Sampling):
                 f"{self.pool.pages_per_rank} — raise --num_pages or lower "
                 f"the budget")
         self.scheduler.submit(req)
+        if self.rt is not None:
+            self.rt.begin(req, ctx=_wire_ctx(req))
 
     def has_work(self) -> bool:
         return bool(self.scheduler.pending or self._slot_req
@@ -855,6 +982,8 @@ class PagedEngine(_Sampling):
             self._tbl[slot, j] = best_page
             st.s += best_len
             self.prefix_hit_tokens += best_len
+            if self.rt is not None:
+                self.rt.note(st.req, prefix_hit_tokens=best_len)
             if best_len < ps:
                 break                      # partial match ends the walk
 
@@ -884,6 +1013,10 @@ class PagedEngine(_Sampling):
                 req.prompt_len = len(req.prompt)
                 req.limit = min(req.prompt_len + req.max_new, self.buf_len)
                 self.prompt_tokens += req.prompt_len
+            if self.rt is not None:
+                # the first admission and every resume after a preemption
+                # (the span since `preempted` was queue time)
+                self.rt.mark(req, "queued", now)
             if req.limit <= len(ids):      # max_new == 0
                 req.finish_t = now
                 self._complete(req, done)
@@ -929,9 +1062,16 @@ class PagedEngine(_Sampling):
             req = self._slot_req.pop(slot)
         else:
             req = self._prefilling.pop(slot).req
-        self._release_slot(slot)
+        freed = self._release_slot(slot)
         req.preemptions += 1
         self.preemptions += 1
+        if self.rt is not None:
+            self.rt.mark(req, "preempted", self._clock())
+            self.rt.note(req, pages_freed=freed)
+        if self.flight is not None:
+            self.flight.record("preempt", rid=req.rid, slot=slot,
+                               generated=len(req.tokens),
+                               pages_freed=freed, slo_class=req.slo_class)
         self.scheduler.requeue(req)
 
     def _release_slot(self, slot: int) -> int:
@@ -964,7 +1104,9 @@ class PagedEngine(_Sampling):
         """A free page from cp rank `owner`'s slab (cp = 1: the pool),
         evicting victims while the slab is dry (never the needy slot
         itself). Submit-time validation guarantees a sole live request
-        fits, so exhaustion with no victim cannot happen."""
+        fits, so exhaustion with no victim cannot happen. Such a preemption
+        freezes the flight ring: the dump shows the pool and scheduler
+        state that led to it."""
         while True:
             try:
                 return self.pool.alloc(owner)
@@ -975,19 +1117,32 @@ class PagedEngine(_Sampling):
                         "page pool exhausted with no preemption candidate "
                         "— a single request outgrew num_pages (submit-time "
                         "validation should have refused it)")
-                self._preempt(cands[0][0])
+                victim_slot, victim = cands[0]
+                self._preempt(victim_slot)
+                if self.flight is not None:
+                    self.flight.dump(
+                        {"kind": "pool_exhausted_preempt",
+                         "needy_slot": needy_slot,
+                         "victim_rid": victim.rid,
+                         "victim_slot": victim_slot,
+                         "victim_generated": len(victim.tokens),
+                         "num_pages": self.pool.num_pages},
+                        tag="pool_exhausted")
 
-    def _ensure_writable(self, slot: int, lo: int, hi: int) -> None:
+    def _ensure_writable(self, slot: int, lo: int, hi: int):
         """Positions [lo, hi) of `slot` must land in PRIVATE pages before a
         write dispatch: unmapped entries allocate, shared entries
-        copy-on-write (one copy dispatch)."""
+        copy-on-write (one copy dispatch). Returns (pages allocated, pages
+        copied), the owning request's timeline counters."""
         ps, scratch = self.page_size, self.pool.scratch_page
         pairs = []
+        allocated = 0
         for j in range(lo // ps, -(-hi // ps)):
             owner = j // self._mpp     # the cp rank whose slab backs column j
             pid = int(self._tbl[slot, j])
             if pid == scratch:
                 self._tbl[slot, j] = self._alloc_page(slot, owner)
+                allocated += 1
             elif self.pool.refcount[pid] > 1:
                 # same-column COW: source and copy share the owner
                 new = self._alloc_page(slot, owner)
@@ -996,6 +1151,7 @@ class PagedEngine(_Sampling):
                 self._tbl[slot, j] = new
         if pairs:
             self.dispatch("cow_copy", (), np.array(pairs, np.int32))
+        return allocated, len(pairs)
 
     def _run_copy(self, shape, pairs: np.ndarray) -> None:
         """The copy-on-write dispatch: (src, dst) page pairs."""
@@ -1030,8 +1186,8 @@ class PagedEngine(_Sampling):
     def _dispatch_chunk(self, slot: int, st: _PrefillState, n: int,
                         done: List[Request]) -> None:
         ps = self.page_size
-        s, ids = st.s, st.ids
-        self._ensure_writable(slot, s, s + n)
+        s, ids, req = st.s, st.ids, st.req
+        leased, cowed = self._ensure_writable(slot, s, s + n)
         cw = _pow2_at_most(n, self.prefill_chunk)
         # JAX's cp query ring splits the chunk into cp sub-blocks: its
         # widths round up to a cp multiple (pads are scratch-aimed), and so
@@ -1042,9 +1198,10 @@ class PagedEngine(_Sampling):
                                       self._tbl[slot])
         # one copy: tokens | start | qlen | table row | dst pages | offsets |
         # seed
-        tok = self.dispatch("paged_chunk", (cw,), np.concatenate([
-            buf[0], np.array([s, n], np.int32), self._tbl[slot], dstp[0],
-            dsto[0], _seed_bits([st.req.seed])]))
+        with self._span("prefill_chunk", slot=slot, pos0=s, n=n, cw=cw):
+            tok = self.dispatch("paged_chunk", (cw,), np.concatenate([
+                buf[0], np.array([s, n], np.int32), self._tbl[slot],
+                dstp[0], dsto[0], _seed_bits([req.seed])]))
         self.prefill_dispatches += 1
         self.prefill_positions += n
         # register freshly completed prompt pages in the prefix index: full
@@ -1058,6 +1215,10 @@ class PagedEngine(_Sampling):
                 self.pool.register_prefix(parent, int(self._tbl[slot, j]),
                                           ids[j * ps:end])
         st.s += n
+        if self.rt is not None:
+            self.rt.mark(req, "prefill_chunk", self._clock(),
+                         positions=n, cow=cowed)
+            self.rt.note(req, pages_leased=leased, cow_copies=cowed)
         if st.s >= len(ids):
             self._finish_prefill(slot, st, int(tok[0]), done)
 
@@ -1085,11 +1246,13 @@ class PagedEngine(_Sampling):
         if req.first_token_t is None:
             req.first_token_t = now
         if self.prefill_only:
-            self._stage_handoff(slot, st, first)
+            self._stage_handoff(slot, st, first, now)
             return
         if first == self.eos_id:              # 0 (more) generated tokens
             req.finish_t = now
-            self._release_slot(slot)
+            freed = self._release_slot(slot)
+            if self.rt is not None:
+                self.rt.note(req, pages_freed=freed)
             self._complete(req, done)
             return
         self._install(slot, req, first, len(st.ids))
@@ -1103,7 +1266,8 @@ class PagedEngine(_Sampling):
         self._seeds[slot] = np.uint32(req.seed)
 
     # -- disaggregated prefill -> decode handoff ---------------------------
-    def _stage_handoff(self, slot: int, st: _PrefillState, first: int) -> None:
+    def _stage_handoff(self, slot: int, st: _PrefillState, first: int,
+                       now: float) -> None:
         """Park a finished prefill for stream-out instead of decoding: the
         page-table row detaches into the handoff WITH its references (the
         pages, and their prefix-index entries, stay live for export and for
@@ -1118,19 +1282,47 @@ class PagedEngine(_Sampling):
         self.handoffs.append({"req": st.req, "pages": pages,
                               "first": first, "n_tokens": len(st.ids)})
         self.handoffs_staged += 1
+        if self.rt is not None:
+            self.rt.mark(st.req, "prefill_done", now, pages=n_pages)
 
     def export_handoff(self, h) -> tuple:
         """The host payload (k, v) of one staged handoff's pages
-        (`PagedKVPool.export_pages`)."""
-        k, v = self.pool.export_pages(h["pages"])
+        (`PagedKVPool.export_pages`: the global heads, whatever this
+        engine's tp; on more than one rank an `export_pages` dispatch, so
+        every rank gives its share)."""
+        pages = np.asarray(h["pages"], np.int32)
+        k, v = self.dispatch("export_pages", (len(pages),), pages)
         self.pages_exported += len(h["pages"])
         return k, v
 
+    def _run_export(self, shape, pages: np.ndarray):
+        """The export dispatch: rank 0 gets the payload, the others None."""
+        return self.pool.export_pages(pages.tolist())
+
+    def _write_pages(self, pages, k, v) -> None:
+        """`PagedKVPool.import_pages`' write, as an `import_pages` dispatch:
+        the page ids ride in the payload, the KV payload goes from rank 0 to
+        every rank inside the pool's write."""
+        self._import_payload = (k, v)
+        try:
+            self.dispatch("import_pages", (len(pages),),
+                          np.asarray(pages, np.int32))
+        finally:
+            self._import_payload = None
+
+    def _run_import(self, shape, pages: np.ndarray) -> None:
+        k, v = self._import_payload or (None, None)
+        self.pool.write_pages(pages.tolist(), k, v)
+
     def finish_handoff(self, h) -> None:
         """Drop the handoff's page references once the receiving pool holds
-        its own copies (shared prefix pages live on for their sharers)."""
+        its own copies (shared prefix pages live on for their sharers), and
+        retire the request's timeline here: the decode side continues it
+        from the exported context."""
         for p in h["pages"]:
             self.pool.unref(p)
+        if self.rt is not None:
+            self.rt.retire(h["req"])
 
     def admit_prefilled(self, req: Request, k, v, first: int) -> int:
         """Take in an ALREADY-PREFILLED request: import its pages (the
@@ -1164,9 +1356,12 @@ class PagedEngine(_Sampling):
         req.admit_t = now
         req.prompt_len = len(req.prompt)
         req.limit = min(req.prompt_len + req.max_new, self.buf_len)
+        if self.rt is not None:
+            self.rt.begin(req, ctx=_wire_ctx(req))
         with torch.inference_mode():
             pages = self.pool.import_pages(
-                k, v, owners=[j // self._mpp for j in range(n_pages)])
+                k, v, owners=[j // self._mpp for j in range(n_pages)],
+                write=self._write_pages)
         self.prompt_tokens += req.prompt_len
         self.pages_imported += len(pages)
         slot = self._free_slots.popleft()
@@ -1177,11 +1372,15 @@ class PagedEngine(_Sampling):
         for j in range(n_pages):
             self.pool.register_prefix(keys[j - 1] if j else None, pages[j],
                                       ids[j * ps:(j + 1) * ps])
+        if self.rt is not None:
+            self.rt.mark(req, "kv_import", self._clock(), pages=n_pages)
         if req.first_token_t is None:
             req.first_token_t = self._clock()
         if int(first) == self.eos_id or req.limit <= len(ids):
             req.finish_t = self._clock()
-            self._release_slot(slot)
+            freed = self._release_slot(slot)
+            if self.rt is not None:
+                self.rt.note(req, pages_freed=freed)
             self._complete(req, [])
             return -1
         self._install(slot, req, int(first), len(ids))
@@ -1198,7 +1397,11 @@ class PagedEngine(_Sampling):
             if slot not in self._slot_req:
                 continue
             pos = int(self._pos[slot])
-            self._ensure_writable(slot, pos, pos + 1)
+            leased, cowed = self._ensure_writable(slot, pos, pos + 1)
+            if self.rt is not None and (leased or cowed):
+                req = self._slot_req.get(slot)
+                if req is not None:
+                    self.rt.note(req, pages_leased=leased, cow_copies=cowed)
         if not self._slot_req:
             return None
         # the dispatch is dense over ALL slot rows, and a non-live row (a
@@ -1220,19 +1423,17 @@ class PagedEngine(_Sampling):
         payload = self._decode_payload()
         if payload is None:
             return
-        tok = self.dispatch("paged_decode", (), payload)
+        with self._span("decode_step", live=len(self._slot_req)):
+            tok = self.dispatch("paged_decode", (), payload)
         now = self._clock()
         self.decode_steps += 1
-        live_tokens = sum(int(self._pos[s]) + 1 for s in self._slot_req)
-        live_tokens += sum(st.s for st in self._prefilling.values())
-        used = self.pool.pages_in_use
-        self._occupancy_sum += self.live_requests / self.num_slots
-        self._pages_used_sum += used
-        if used:
-            self._kv_util_sum += live_tokens / (used * self.page_size)
+        used, live_tokens = self._step_accounting()
+        self._after_step(used, live_tokens)
         for slot, req in list(self._slot_req.items()):
             # the pending token was written at `pos` by this dispatch: it
             # is now part of the output
+            if self.rt is not None:
+                self.rt.mark(req, "decode", now)
             req.tokens.append(int(self._tokens[slot]))
             self.generated_tokens += 1
             cand = int(tok[slot])
@@ -1241,10 +1442,79 @@ class PagedEngine(_Sampling):
                     or req.prompt_len + len(req.tokens) >= req.limit):
                 req.finish_t = now
                 del self._slot_req[slot]
-                self._release_slot(slot)
-                self._complete(req, done)
+                self._retire_slot(slot, req, done)
             else:
                 self._tokens[slot] = cand
+
+    def _step_accounting(self) -> tuple:
+        """A decode step's occupancy sums; returns (pages in use, live
+        tokens)."""
+        live_tokens = sum(int(self._pos[s]) + 1 for s in self._slot_req)
+        live_tokens += sum(st.s for st in self._prefilling.values())
+        used = self.pool.pages_in_use
+        self._occupancy_sum += self.live_requests / self.num_slots
+        self._pages_used_sum += used
+        if used:
+            self._kv_util_sum += live_tokens / (used * self.page_size)
+        return used, live_tokens
+
+    def _after_step(self, used: int, live_tokens: int,
+                    pool_bytes: int = None, **extra) -> None:
+        """The obs hooks of a decode step (the speculative engine's round
+        too), once its tokens are on the host: the span tracer's counters,
+        the flight ring's pool stats, the live gauges, the device-memory
+        plane, and the controller's safe point. `extra`: the subclass's
+        own pool numbers, in the flight record and as `serve/<name>`
+        gauges."""
+        if self.tracer is not None:
+            self.tracer.counter("slots_live", len(self._slot_req))
+            self.tracer.counter("pages_in_use", used)
+        if self.flight is not None:
+            self.flight.record("pool_stats", live=len(self._slot_req),
+                               prefilling=len(self._prefilling),
+                               pages_in_use=used,
+                               free_pages=self.pool.free_pages, **extra,
+                               queued=self.scheduler.pending)
+        if self.telemetry is not None:
+            self._publish_telemetry(used, live_tokens)
+            for name, value in extra.items():
+                self.telemetry.gauge(f"serve/{name}", value)
+        _publish_hbm_plane(self, pool_bytes=used * self._page_bytes_each
+                           if pool_bytes is None else pool_bytes)
+        if self.controller is not None:
+            self._control_tick()
+
+    def _retire_slot(self, slot: int, req: Request, done) -> None:
+        """A finished decoding row: its pages dropped, the request done."""
+        freed = self._release_slot(slot)
+        if self.rt is not None:
+            self.rt.note(req, pages_freed=freed)
+        self._complete(req, done)
+
+    @control_safe_point
+    def _control_tick(self) -> None:
+        """The control plane's registered safe point: this decode step's
+        device work is on the host already and nothing is being captured,
+        so the SLO controller may observe and (act mode) actuate here."""
+        self.controller.tick(self.decode_steps)
+        self.controller.apply_decisions()
+
+    def _publish_telemetry(self, pages_used: int, live_tokens: int) -> None:
+        """The exporter's per-decode-step update: lock-guarded dict stores,
+        no formatting and no I/O on the hot path."""
+        tel = self.telemetry
+        tel.gauge("serve/live", len(self._slot_req))
+        tel.gauge("serve/prefilling", len(self._prefilling))
+        tel.gauge("serve/queue_depth", self.scheduler.pending)
+        tel.gauge("serve/pages_in_use", pages_used)
+        tel.gauge("serve/free_pages", self.pool.free_pages)
+        tel.gauge("serve/num_pages", self.pool.num_pages)
+        if pages_used:
+            tel.gauge("serve/kv_util",
+                      live_tokens / (pages_used * self.page_size))
+        tel.rate("serve/tokens_per_sec", self.generated_tokens)
+        tel.counter("serve/decode_steps", self.decode_steps)
+        tel.counter("serve/preemptions", self.preemptions)
 
     def _decode_body(self, dev: torch.Tensor):
         """Every slot row one token on, from the packed dispatch on the card
@@ -1262,16 +1532,41 @@ class PagedEngine(_Sampling):
     def _run_decode(self, shape, packed: np.ndarray) -> np.ndarray:
         return _run_decode_step(self, packed)
 
+    def _account_slo(self, req: Request) -> None:
+        """Fold one completion into the live per-class attainment; an
+        in-run collapse (under 50% attained over 4 or more completions)
+        freezes the flight ring once per class, while the history that
+        produced it is still in the ring."""
+        cls = req.slo_class or self.scheduler.default_class
+        deadline = self.scheduler.classes.get(cls)
+        if deadline is None:
+            return
+        c = self._slo_counts.setdefault(cls, [0, 0])
+        c[0] += 1
+        if req.ttft_s is not None and req.ttft_s <= deadline:
+            c[1] += 1
+        attained = c[1] / c[0]
+        if self.telemetry is not None:
+            tel = self.telemetry
+            tel.counter(f"slo/{cls}/completed", c[0])
+            tel.counter(f"slo/{cls}/hit", c[1])
+            tel.gauge(f"slo/{cls}/attained", attained)
+        if (self.flight is not None and c[0] >= 4 and attained < 0.5
+                and cls not in self.slo_collapsed):
+            self.slo_collapsed.add(cls)
+            self.flight.dump(
+                {"kind": "slo_attainment_collapse", "slo_class": cls,
+                 "completed": c[0], "attained": round(attained, 4),
+                 "deadline_s": deadline},
+                tag="slo_collapse")
+
     def _complete(self, req: Request, done: List[Request]) -> None:
         self.completed.append(req)
         done.append(req)
-        cls = req.slo_class or self.scheduler.default_class
-        deadline = self.scheduler.classes.get(cls)
-        if deadline is not None:
-            c = self._slo_counts.setdefault(cls, [0, 0])
-            c[0] += 1
-            if req.ttft_s is not None and req.ttft_s <= deadline:
-                c[1] += 1
+        if self.scheduler.classes:
+            self._account_slo(req)
+        self._request_event(req, tenant=req.tenant, slo_class=req.slo_class,
+                            preemptions=req.preemptions)
 
     # -- aggregate view ---------------------------------------------------
     def stats(self) -> dict:

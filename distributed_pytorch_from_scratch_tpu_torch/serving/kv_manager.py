@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_dtype
+from ..ops.collectives import KV_GATHER, KV_SCATTER, all_gather, broadcast
 
 
 def local_page_ids(ids: torch.Tensor, ppr: int, rank: int) -> torch.Tensor:
@@ -172,11 +173,13 @@ class PagedKVPool:
     The pool tensors are written in place by the decode lowerings, which
     takes the place of the JAX engine's buffer donation. `export_pages` /
     `import_pages` move whole pages between pools through the host (the
-    disaggregated prefill -> decode handoff, `serving/transfer.py`), at
-    tp = cp = 1."""
+    disaggregated prefill -> decode handoff, `serving/transfer.py`) in
+    JAX's payload, the global heads, so the two pools may run at other tp
+    and cp widths; on a sharded pool they are collectives over its
+    mesh."""
 
     def __init__(self, model, mesh, num_pages: int, page_size: int,
-                 kv_dtype=None):
+                 kv_dtype=None, flight=None):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         if page_size < 1:
@@ -196,7 +199,12 @@ class PagedKVPool:
         # this process's slab: global pages [lo, lo + pages_per_rank)
         self.cp_rank = mesh.cp_rank if self.cp > 1 else 0
         self.tp = getattr(mesh, "tp", 1)
+        self.tp_rank = mesh.tp_rank if self.tp > 1 else 0
+        self.mesh = mesh
+        self.world = getattr(mesh, "world", 1)
+        self.leader = getattr(mesh, "rank", 0) == 0
         self.page_size = page_size
+        self.flight = flight  # obs.flight.FlightRecorder: exhaustion, COW
         self.scratch_page = num_pages          # never leased; pad target
         self.kv_dtype = "int8" if kv_dtype == "int8" else None
         shape = (cfg.num_layers, self.pages_per_rank + 1,
@@ -237,6 +245,9 @@ class PagedKVPool:
     def alloc(self, owner: int = 0) -> int:
         """A free page from cp rank `owner`'s slab (cp = 1: the pool)."""
         if not self._free[owner]:
+            if self.flight is not None:
+                self.flight.record("pool_exhausted", owner=owner,
+                                   num_pages=self.num_pages)
             raise PoolExhausted(
                 f"page pool exhausted (rank {owner}'s slab of "
                 f"{self.pages_per_rank} pages fully leased) — the engine "
@@ -310,6 +321,9 @@ class PagedKVPool:
                     f"replacement must stay with its owning rank")
         mine = [(s, d) for s, d in pairs if s // ppr == self.cp_rank]
         self.cow_copies += len(pairs)
+        if self.flight is not None:
+            self.flight.record("cow_copy", pages=len(pairs),
+                               free_pages=self.free_pages)
         if not mine:
             return
         idx = np.array(mine, np.int64).T - self.cp_rank * ppr
@@ -319,44 +333,81 @@ class PagedKVPool:
             a[:, dst] = a[:, src]
 
     # -- host-side page transfer (disaggregated serving) -----------------
-    def _check_transfer(self, what: str) -> None:
-        if self.tp > 1 or self.cp > 1:
-            raise NotImplementedError(
-                f"{what} at tp {self.tp}, cp {self.cp}: a pool sharded over "
-                f"ranks would send the global-head payload from every rank; "
-                f"not ported yet, see ROADMAP Queue 1 item 6")
+    def _check_pages(self, pages) -> None:
+        for p in pages:
+            if not 0 <= int(p) < self.num_pages:
+                raise ValueError(f"page {p} out of range [0, "
+                                 f"{self.num_pages})")
+
+    def _local(self, pages) -> tuple:
+        """(this rank's local indices of `pages`, whether it owns each):
+        a page of another cp rank's slab maps to the local scratch page."""
+        ids = torch.tensor([int(p) for p in pages], dtype=torch.long,
+                           device=self.device)
+        lo = self.cp_rank * self.pages_per_rank
+        owned = (ids >= lo) & (ids < lo + self.pages_per_rank)
+        return local_page_ids(ids, self.pages_per_rank, self.cp_rank), owned
 
     def export_pages(self, pages):
         """A host copy of `pages` (global ids, any order), for streaming to
         another pool: (k, v), each a CPU tensor of shape (layers,
         len(pages), kv_heads, page_size, head_dim) in the pool's dtype, or
         for int8 pools a (codes, scales) pair with scales (layers,
-        len(pages), kv_heads, page_size) — the JAX `export_pages`
-        payload. One gather and one device-to-host copy per pool tensor.
-        Pages stay leased: refcounts do not change."""
-        self._check_transfer("export_pages")
-        for p in pages:
-            if not 0 <= int(p) < self.num_pages:
-                raise ValueError(f"page {p} out of range [0, "
-                                 f"{self.num_pages})")
-        idx = torch.tensor([int(p) for p in pages], dtype=torch.long,
-                           device=self.device)
-        out = [t[:, idx].cpu() for t in kv_leaves(self.ks, self.vs)]
+        len(pages), kv_heads, page_size) — the JAX `export_pages` payload,
+        with the GLOBAL head count in JAX's order at any tp, each page from
+        the cp slab that owns it. Pages stay leased: refcounts do not
+        change.
+
+        On one rank: one gather and one device-to-host copy per pool
+        tensor. On a pool sharded over the ranks of `mesh` (tp, cp or cp x
+        tp) it is a collective: every rank calls it with the same pages,
+        each gathers its own heads of them (its scratch page for a page
+        another slab owns), one all-gather per pool tensor over the mesh's
+        'world' axis brings every rank's share to every rank (counted
+        under `collectives.stats["kv_gather"]`), and rank 0 assembles and
+        returns the payload; the other ranks return None."""
+        self._check_pages(pages)
+        local, _ = self._local(pages)
+        parts = [t[:, local] for t in kv_leaves(self.ks, self.vs)]
+        if self.world > 1:
+            parts = [self._assemble(all_gather(x, self.mesh, "world",
+                                               KV_GATHER), pages)
+                     for x in parts]
+            if not self.leader:
+                return None
+        out = [x.cpu() for x in parts]
         if self.kv_dtype:
             return (out[0], out[1]), (out[2], out[3])
         return out[0], out[1]
 
-    def import_pages(self, k, v, owners=None) -> List[int]:
+    def _assemble(self, g: torch.Tensor, pages) -> torch.Tensor:
+        """Every rank's (layers, n, kv_heads / tp, ...) share of an export,
+        stacked in rank order (rank r at tp r % tp, cp r // tp), as the
+        payload: page i from the ranks of its owner's cp index, their heads
+        concatenated in tp order."""
+        tp, cp = self.tp, self.cp
+        g = g.view((cp, tp) + tuple(g.shape[1:]))
+        # (cp, tp, L, n, h, ...) -> (L, n, cp, tp, h, ...)
+        g = g.permute((2, 3, 0, 1) + tuple(range(4, g.dim())))
+        n = g.shape[1]
+        owner = torch.tensor([int(p) // self.pages_per_rank for p in pages],
+                             dtype=torch.long, device=g.device)
+        g = g[:, torch.arange(n, device=g.device), owner]
+        return g.reshape(g.shape[:2] + (tp * g.shape[3],)
+                         + tuple(g.shape[4:]))
+
+    def import_pages(self, k, v, owners=None, write=None) -> List[int]:
         """Lease one page per payload entry (refcount 1: the caller's page
         table row owns them) and write the payload of another pool's
-        `export_pages` into them, one index-put per pool tensor; returns
-        the page ids in payload order. Tensors or numpy arrays, cast to
-        the pool's dtype. `owners[i]` names the slab page i comes from
+        `export_pages` into them (`write_pages`, or the caller's `write`:
+        the engine's dispatch, which runs it on every rank of its mesh);
+        returns the page ids in payload order. Tensors or numpy arrays,
+        cast to the pool's dtype, with the global head count whatever
+        either side's tp. `owners[i]` names the slab page i comes from
         (cp = 1: slab 0). On PoolExhausted every page leased so far is
         returned before the raise, so no partial lease leaks. Refuses a
         payload of the other kind, another page_size or head_dim, and an
         `owners` of the wrong length, as JAX's does."""
-        self._check_transfer("import_pages")
         if self.kv_dtype:
             if not (isinstance(k, tuple) and isinstance(v, tuple)):
                 raise ValueError("int8 pool import needs (codes, scales) "
@@ -389,10 +440,34 @@ class PagedKVPool:
             for p in pages:
                 self.unref(p)
             raise
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        with torch.no_grad():
-            for dst, src in zip(kv_leaves(self.ks, self.vs),
-                                kv_leaves(k, v)):
-                # dim 1 is the page dim of codes (5-D) and scales (4-D)
-                dst[:, idx] = torch.as_tensor(src).to(self.device, dst.dtype)
+        (write or self.write_pages)(pages, k, v)
         return pages
+
+    def write_pages(self, pages, k=None, v=None) -> None:
+        """Write an `export_pages` payload (global heads) into leased
+        `pages`, one index-put per pool tensor. On a pool sharded over the
+        ranks of `mesh` it is a collective: every rank passes the same
+        pages, and rank 0's payload (the others' is not read) goes to every
+        rank, one broadcast per pool tensor over the mesh's 'world' axis
+        (counted under `collectives.stats["kv_scatter"]`); each rank writes
+        its own heads of the pages its slab owns."""
+        leaves = kv_leaves(self.ks, self.vs)
+        src = kv_leaves(k, v) if self.leader else [None] * len(leaves)
+        local, owned = self._local(pages)
+        keep = local[owned]
+        h = self.ks[0].shape[2] if self.kv_dtype else self.ks.shape[2]
+        with torch.no_grad():
+            for dst, x in zip(leaves, src):
+                shape = (dst.shape[0], len(pages), h * self.tp) + tuple(
+                    dst.shape[3:])
+                if x is None:
+                    x = torch.empty(shape, dtype=dst.dtype,
+                                    device=self.device)
+                else:
+                    x = torch.as_tensor(x).to(self.device, dst.dtype)
+                if self.world > 1:
+                    x = broadcast(x.contiguous(), self.mesh, "world",
+                                  KV_SCATTER)
+                x = x[:, :, self.tp_rank * h:(self.tp_rank + 1) * h]
+                # dim 1 is the page dim of codes (5-D) and scales (4-D)
+                dst[:, keep] = x[:, owned]

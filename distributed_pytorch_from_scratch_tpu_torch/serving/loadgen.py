@@ -1,6 +1,5 @@
 """Synthetic arrival stream, trace replay and the offline serving benchmark
-loops (the port's copy of the JAX `serving/loadgen.py`, and of the pure
-`fleet_slo_attainment` of the JAX `obs/telemetry.py`).
+loops (the port's copy of the JAX `serving/loadgen.py`).
 
 `synthetic_requests` is numpy-only and draws exactly as the JAX version
 does, so one seed gives the same requests in both packages;
@@ -16,10 +15,11 @@ from __future__ import annotations
 import json
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 
+from ..obs.telemetry import fleet_slo_attainment
 from .engine import Request
 from .scheduler import QueueFull
 
@@ -114,11 +114,47 @@ def _pctl(vals: List[Optional[float]], q: float) -> Optional[float]:
     return float(np.percentile(np.asarray(vals, np.float64), q))
 
 
-def run_loadgen(engine, requests: List[Request]) -> dict:
+def worst_request_exemplars(engine, done, k: int = 3) -> Optional[dict]:
+    """The k worst TTFT and TPOT requests WITH their span timelines (from
+    the engine's request tracer): what explains an SLO miss, not only
+    counts it. None when tracing is off."""
+    rt = engine.rt
+    if rt is None:
+        return None
+    ms = 1e3
+
+    def exemplars(key):
+        ranked = sorted((r for r in done if key(r) is not None),
+                        key=key, reverse=True)[:k]
+        out = []
+        for r in ranked:
+            rec = rt.timeline(r.rid)
+            out.append({
+                "rid": r.rid, "trace_id": r.trace_id,
+                "ttft_ms": None if r.ttft_s is None
+                else round(r.ttft_s * ms, 3),
+                "tpot_ms": None if r.tpot_s is None
+                else round(r.tpot_s * ms, 3),
+                "preemptions": r.preemptions,
+                "slo_class": r.slo_class,
+                "timeline": rec["spans"] if rec else None,
+            })
+        return out
+
+    return {"k": k,
+            "worst_ttft": exemplars(lambda r: r.ttft_s),
+            "worst_tpot": exemplars(lambda r: r.tpot_s)}
+
+
+def run_loadgen(engine, requests: List[Request], k_worst: int = 3) -> dict:
     """Drive `engine` through the arrival stream; returns the summary dict
     (percentiles in ms; throughput over the wall window). Backpressure
     (QueueFull) counts as `rejected`, a malformed request as `invalid`;
-    neither stops the run."""
+    neither stops the run. With the engine's obs hooks: the k worst
+    requests' timelines (`worst_ttft_rids` / `worst_tpot_rids`), a flight
+    dump for a class whose attainment collapsed (unless the engine dumped
+    it in the run), and the `request_exemplars`, `serving_summary`,
+    `paged_kv_stats` and `spec_decode_stats` events."""
     pending = sorted(requests, key=lambda r: r.arrival)
     t0 = time.monotonic()
     i = 0
@@ -182,6 +218,40 @@ def run_loadgen(engine, requests: List[Request]) -> dict:
     att = slo_attainment(engine, done)
     if att is not None:
         summary["slo_attainment"] = att
+        if engine.flight is not None:
+            dumped = getattr(engine, "slo_collapsed", set())
+            for name, c in sorted(att.items()):
+                if (c["completed"] >= 4 and c["attained"] < 0.5
+                        and name not in dumped):
+                    engine.flight.dump(
+                        {"kind": "slo_attainment_collapse",
+                         "slo_class": name, **c},
+                        tag="slo_collapse")
+    exemplars = worst_request_exemplars(engine, done, k=k_worst)
+    if exemplars is not None:
+        summary["worst_ttft_rids"] = [e["rid"]
+                                      for e in exemplars["worst_ttft"]]
+        summary["worst_tpot_rids"] = [e["rid"]
+                                      for e in exemplars["worst_tpot"]]
+    if engine.writer is not None:
+        if exemplars is not None:
+            engine.writer.event("request_exemplars", **exemplars)
+        engine.writer.event("serving_summary", **summary)
+        if "kv_util_mean" in stats:
+            engine.writer.event("paged_kv_stats", **{k: stats[k] for k in (
+                "page_size", "kv_dtype", "cp", "pages_per_rank",
+                "num_pages", "pages_in_use_mean",
+                "kv_util_mean", "kv_fragmentation_mean", "prefix_hit_rate",
+                "prefix_hit_tokens", "cow_copies", "preemptions",
+                "max_live", "max_interleaved_prefill_positions")})
+        if "speculate_k" in stats:
+            engine.writer.event("spec_decode_stats", **{k: stats[k] for k in (
+                "speculate_k", "spec_rounds",
+                "accepted_tokens_per_dispatch", "acceptance_rate",
+                "acceptance_rate_by_position", "rounds_per_request",
+                "drafter_ms_total", "target_ms_total",
+                "drafter_num_pages", "drafter_pages_in_use",
+                "drafter_page_bytes", "target_page_bytes")})
     return summary
 
 
@@ -203,21 +273,6 @@ def slo_attainment(engine, done) -> Optional[dict]:
         out[name] = {"deadline_s": deadline, "completed": len(reqs),
                      "attained": round(hit / len(reqs), 4)}
     return out or None
-
-
-def fleet_slo_attainment(per_proc_counts) -> dict:
-    """Fold per-replica SLO counters into FLEET attainment: from an iterable
-    of `{class: (completed, hit)}` dicts (one per replica), the
-    completion-weighted attainment per class, so 100% of 2 requests on one
-    replica cannot mask 40% of 2000 on another."""
-    agg: Dict[str, list] = {}
-    for proc in per_proc_counts:
-        for cls, (completed, hit) in proc.items():
-            a = agg.setdefault(cls, [0, 0])
-            a[0] += int(completed)
-            a[1] += int(hit)
-    return {cls: {"completed": c, "attained": round(h / c, 4) if c else 0.0}
-            for cls, (c, h) in sorted(agg.items())}
 
 
 def run_fleet_loadgen(router, requests: List[Request],

@@ -27,8 +27,12 @@ that took it last (its KV prefix lives there); when that replica refuses
 `session_spill` writer event, never a silent drop. Only a fleet-wide
 QueueFull reaches the caller.
 
-The JAX router also feeds a telemetry exporter and a request tracer; the
-port has neither yet (ROADMAP Queue 1 item 8), so both stay None.
+With a `request_tracer` the router is the first hop of each request's
+trace: it opens the timeline at submit, closes it as a `route` span when
+it hands the request to a replica (`export_context`: the replica's
+tracer continues the trace from the request's `trace_ctx`) and retires
+its own record. A `telemetry` exporter gets the `fleet/session_spills`
+counter.
 """
 
 from __future__ import annotations
@@ -116,13 +120,10 @@ class FleetRouter:
 
     def __init__(self, replicas, prefix_weight: float = 4.0,
                  load_weight: float = 1.0, pool_weight: float = 1.0,
-                 writer=None, telemetry=None, request_tracer=None):
+                 writer=None, telemetry=None, request_tracer=None,
+                 clock=time.monotonic):
         if not replicas:
             raise ValueError("FleetRouter needs at least one replica")
-        if telemetry is not None or request_tracer is not None:
-            raise NotImplementedError(
-                "the router's telemetry and request tracer are not ported "
-                "yet, see ROADMAP Queue 1 item 8")
         self.replicas: List[Tuple[str, object]] = [
             r if isinstance(r, tuple) else (f"r{i}", r)
             for i, r in enumerate(replicas)]
@@ -133,6 +134,9 @@ class FleetRouter:
         self.load_weight = float(load_weight)
         self.pool_weight = float(pool_weight)
         self.writer = writer
+        self.telemetry = telemetry
+        self.rt = request_tracer            # the router's own hop
+        self._clock = clock
         self._shadow: Dict[str, _ShadowIndex] = {
             n: _ShadowIndex(e.page_size) for n, e in self.replicas}
         self._sessions: Dict[object, str] = {}
@@ -179,9 +183,16 @@ class FleetRouter:
         if pinned is not None:
             order = ([(n, h) for n, h in order if n == pinned]
                      + [(n, h) for n, h in order if n != pinned])
+        if self.rt is not None:
+            self.rt.begin(req)
         last_err = None
         for name, hit in order:
             eng = self._engine(name)
+            if self.rt is not None:
+                # closes the routing span; the replica's tracer continues
+                # the trace from here (its submit adopts trace_ctx)
+                ctx = self.rt.export_context(req, "route")
+                req.trace_ctx = ctx.to_wire() if ctx is not None else None
             try:
                 eng.submit(req)
             except QueueFull as e:
@@ -193,6 +204,9 @@ class FleetRouter:
                         self.writer.event("session_spill", session=session,
                                           rid=req.rid, pinned=name,
                                           queued=eng.scheduler.pending)
+                    if self.telemetry is not None:
+                        self.telemetry.counter("fleet/session_spills",
+                                               self.spills)
                 continue
             ids = list(req.prompt)
             self._shadow[name].register(ids)
@@ -201,9 +215,13 @@ class FleetRouter:
             self.dispatched[name] += 1
             if session is not None:
                 self._sessions[session] = name
+            if self.rt is not None:
+                self.rt.retire(req, t=self._clock())
             self.dispatch_ms.append((time.perf_counter() - t0) * 1e3)
             return name
         self.rejected += 1
+        if self.rt is not None:
+            self.rt.retire(req, t=self._clock())
         raise last_err if last_err is not None else QueueFull(
             "no replica accepted the request")
 

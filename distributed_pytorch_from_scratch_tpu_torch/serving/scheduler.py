@@ -12,7 +12,9 @@ changes cost only, never values.
 and per-tenant fairness; see its docstring.
 
 `max_queue` bounds the waiting requests of both: `submit()` past it raises
-`QueueFull`.
+`QueueFull`. With a `flight` recorder (`obs/flight.py`) each decision goes
+into its ring: `sched_submit`, `sched_reject`, and the SLO scheduler's
+`sched_admit` and `sched_requeue`.
 """
 
 from __future__ import annotations
@@ -40,10 +42,12 @@ def bucket_width(prompt_len: int, prefill_bucket: int, buf_len: int) -> int:
 
 class FIFOScheduler:
     def __init__(self, buf_len: int, prefill_bucket: int = 64,
-                 max_queue: int = 0):
+                 max_queue: int = 0, clock=time.monotonic, flight=None):
         self.buf_len = buf_len
         self.prefill_bucket = prefill_bucket
         self.max_queue = max_queue
+        self._clock = clock
+        self.flight = flight  # obs.flight.FlightRecorder: decision ring
         self._queue: "deque[Request]" = deque()
         self.rejected = 0
 
@@ -67,11 +71,18 @@ class FIFOScheduler:
                              f"got {req.max_new}")
         if self.max_queue and len(self._queue) >= self.max_queue:
             self.rejected += 1
+            if self.flight is not None:
+                self.flight.record("sched_reject", rid=req.rid,
+                                   pending=len(self._queue))
             raise QueueFull(
                 f"admission queue full ({self.max_queue} waiting); request "
                 f"{req.rid} refused — retry later or raise --queue_limit")
         if req.submit_t is None:
-            req.submit_t = time.monotonic()
+            req.submit_t = self._clock()
+        if self.flight is not None:
+            self.flight.record("sched_submit", rid=req.rid,
+                               prompt_len=len(req.prompt),
+                               pending=len(self._queue))
         self._queue.append(req)
 
     def take_batch(self, max_requests: int) -> List["Request"]:
@@ -145,7 +156,7 @@ class SLOScheduler:
 
     def __init__(self, buf_len: int, classes: Optional[dict] = None,
                  default_class: str = "standard", max_queue: int = 0,
-                 clock=time.monotonic):
+                 clock=time.monotonic, flight=None):
         self.buf_len = buf_len
         self.classes = dict(classes or DEFAULT_SLO_CLASSES)
         if default_class not in self.classes:
@@ -154,6 +165,7 @@ class SLOScheduler:
         self.default_class = default_class
         self.max_queue = max_queue
         self._clock = clock
+        self.flight = flight  # obs.flight.FlightRecorder: decision ring
         self._queues: dict = {}          # (tenant, class) -> deque[Request]
         self.service: dict = {}          # tenant -> tokens admitted
         self.rejected = 0
@@ -187,6 +199,9 @@ class SLOScheduler:
         self._validate(req)
         if self.max_queue and len(self) >= self.max_queue:
             self.rejected += 1
+            if self.flight is not None:
+                self.flight.record("sched_reject", rid=req.rid,
+                                   pending=len(self))
             raise QueueFull(
                 f"admission queue full ({self.max_queue} waiting); request "
                 f"{req.rid} refused — retry later or raise --queue_limit")
@@ -197,6 +212,11 @@ class SLOScheduler:
         req.deadline_t = req.submit_t + self.classes[req.slo_class]
         req._sched_seq = self._seq
         self._seq += 1
+        if self.flight is not None:
+            self.flight.record("sched_submit", rid=req.rid,
+                               tenant=req.tenant, slo_class=req.slo_class,
+                               prompt_len=len(req.prompt),
+                               pending=len(self))
         self._queues.setdefault((req.tenant, req.slo_class),
                                 deque()).append(req)
 
@@ -205,6 +225,10 @@ class SLOScheduler:
         fresh deadline budget, no second service charge, never a QueueFull
         (the engine already owns this work)."""
         req.deadline_t = self._clock() + self.classes[req.slo_class]
+        if self.flight is not None:
+            self.flight.record("sched_requeue", rid=req.rid,
+                               slo_class=req.slo_class,
+                               generated=len(req.tokens))
         self._queues.setdefault((req.tenant, req.slo_class),
                                 deque()).appendleft(req)
 
@@ -241,4 +265,10 @@ class SLOScheduler:
             self.service[req.tenant] = (self.service.get(req.tenant, 0)
                                         + len(req.prompt) + req.max_new)
             req._service_charged = True
+        if self.flight is not None:
+            self.flight.record(
+                "sched_admit", rid=req.rid, tenant=req.tenant,
+                slo_class=req.slo_class,
+                overdue=bool(req.deadline_t is not None
+                             and self._clock() >= req.deadline_t))
         return req

@@ -80,8 +80,22 @@ sampled ones distributed as its. The drafter's weights come from
 tp) or from a random init at `--seed` + 1. The report adds the engine's
 acceptance numbers and the drafter/target wall split.
 
-The JAX CLI's observability/control flags do not exist here yet
-(ROADMAP.md).
+Observability and control (JAX's flags, rank 0 only; with every flag off
+nothing is written and the record gains no field): `--trace_requests`
+(each request's span timeline as a `request_trace` event in `--log_dir`'s
+`metrics.jsonl` and a track in its Chrome `trace.json`, the record's
+`worst_ttft_rids` / `worst_tpot_rids` and a `request_exemplars` event),
+`--flight_records` / `--flight_ring` (the anomaly flight recorder: a
+`flightdump_*.json` on a PoolExhausted preemption or an SLO collapse),
+`--metrics_port` (the live exporter at http://127.0.0.1:PORT/metrics.json
+and /metrics; 0 = ephemeral, the bound port in the record) with
+`--rollup_interval` (its `telemetry_snapshot` events), `--metrics_max_mb`
+(the stream's rotation), and `--control advise|act` with
+`--control_interval` (the SLO controller, `serving/controller.py`: its
+`controller_decision` ledger and, in act mode, the moved knobs). Refused:
+`--control_force` (it guards the JAX pages_per_block autotuner's cache,
+TPU tuning the port leaves out) and the profiler flags (`--profile_*`,
+ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -89,6 +103,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -106,6 +121,7 @@ from ..runtime import launch
 from ..runtime.graphs import DECODE_GRAPH_MODES, use_decode_graph
 from ..runtime.mesh import dist_backend, make_mesh, resolve_device
 from ..training.checkpoint import latest_step, load_checkpoint
+from ..training.metrics import MetricsWriter
 from .engine import ContinuousBatchingEngine, PagedEngine, graph_stats
 from .kv_manager import device_bytes
 from .loadgen import replay_requests, run_loadgen, synthetic_requests
@@ -273,6 +289,65 @@ def get_serve_args(argv=None) -> argparse.Namespace:
     g.add_argument("--prompt_len_min", type=int, default=8)
     g.add_argument("--prompt_len_max", type=int, default=64)
     g.add_argument("--seed", type=int, default=0)
+
+    g = p.add_argument_group("observability")
+    g.add_argument("--trace_requests", action="store_true",
+                   help="per-request span timelines (obs/reqtrace.py): "
+                        "every request emits a request_trace event + a "
+                        "Chrome-trace track under --log_dir, and the "
+                        "summary carries the k-worst-TTFT/TPOT exemplars "
+                        "WITH their timelines")
+    g.add_argument("--flight_records", action="store_true",
+                   help="anomaly flight recorder (obs/flight.py): pool "
+                        "stats + scheduler decisions ring-buffered; "
+                        "PoolExhausted preemptions and SLO-attainment "
+                        "collapses dump flightdump_*.json to --log_dir")
+    g.add_argument("--flight_ring", type=int, default=512,
+                   help="--flight_records: ring capacity (events); "
+                        "0 disables the recorder")
+    g.add_argument("--metrics_port", type=int, default=None,
+                   help="live telemetry exporter (obs/telemetry.py): "
+                        "serve gauges/counters at http://127.0.0.1:PORT"
+                        "/metrics.json (JSON) and /metrics (Prometheus "
+                        "text); 0 = ephemeral (the bound port is printed "
+                        "and lands in the summary record). A busy port "
+                        "refuses loudly up front")
+    g.add_argument("--rollup_interval", type=float, default=1.0,
+                   help="--metrics_port: seconds between "
+                        "telemetry_snapshot events mirrored into "
+                        "metrics.jsonl")
+    for flag, kw in (("--profile_on_anomaly", dict(type=int, default=0)),
+                     ("--profile_every", dict(type=int, default=0)),
+                     ("--profile_window", dict(type=int, default=4)),
+                     ("--profile_budget_mb", dict(type=float,
+                                                  default=64.0))):
+        g.add_argument(flag, **kw,
+                       help="the JAX CLI's device-profiler flags: refused "
+                            "(the profilers are ROADMAP Queue 1 item 8)")
+    g.add_argument("--metrics_max_mb", type=float, default=0.0,
+                   help="rotate metrics.jsonl past N MiB (-> "
+                        "metrics.001.jsonl ... via schema-valid "
+                        "'rotated' continuation events); 0 = unbounded")
+    g.add_argument("--control", choices=["off", "advise", "act"],
+                   default="off",
+                   help="the control plane (obs/control.py, serving/"
+                        "controller.py): 'advise' computes SLO/admission "
+                        "decisions and lands them in the decision ledger "
+                        "with applied=false (nothing mutates); 'act' "
+                        "additionally moves the knobs (prefill chunk, "
+                        "admission limit, speculation K) at the decode "
+                        "step's safe point. 'off' (default) is zero-cost: "
+                        "no controller, no events, no record fields")
+    g.add_argument("--control_interval", type=int, default=32,
+                   help="--control: decode steps between SLO-controller "
+                        "evaluations (the adaptation + cooldown window)")
+    g.add_argument("--control_force", action="store_true",
+                   help="the JAX CLI's guard of its pages_per_block "
+                        "autotuner's cache: refused")
+    g.add_argument("--log_dir", default="serve_logs",
+                   help="obs output: trace.jsonl/trace.json spans + "
+                        "metrics.jsonl events + flight dumps")
+    g = p.add_argument_group("other")
     g.add_argument("--dry_run", action="store_true",
                    help="tiny random-init model + a 6-request burst; "
                         "ignores --ckpt_dir")
@@ -325,6 +400,33 @@ def get_serve_args(argv=None) -> argparse.Namespace:
         if args.tenants != 1:
             p.error("--tenants needs --paged (the FIFO engine ignores "
                     "tenants)")
+    if (args.profile_on_anomaly or args.profile_every
+            or args.profile_window != 4 or args.profile_budget_mb != 64.0):
+        p.error("--profile_on_anomaly/--profile_every/--profile_window/"
+                "--profile_budget_mb: the device profilers are not ported "
+                "yet, see ROADMAP Queue 1 item 8")
+    if args.control != "off":
+        if not args.paged:
+            p.error("--control drives the paged engine's scheduler "
+                    "admission and prefill chunking (the slot engine has "
+                    "none of those knobs); add --paged")
+        if args.control_interval < 1:
+            p.error(f"--control_interval must be >= 1, got "
+                    f"{args.control_interval}")
+    if args.control_force:
+        if args.control != "act":
+            p.error("--control_force needs --control act (only act mode "
+                    "writes the block cache; nothing can shadow a swept "
+                    "entry otherwise)")
+        p.error("--control_force guards the JAX pages_per_block "
+                "autotuner's swept block cache, TPU tuning the port "
+                "leaves out (ROADMAP): there is no cache to force")
+    if args.metrics_port is not None and args.metrics_port < 0:
+        p.error(f"--metrics_port must be >= 0 (0 = ephemeral), got "
+                f"{args.metrics_port}")
+    if args.metrics_port is not None and args.rollup_interval <= 0:
+        p.error("--rollup_interval must be > 0 (seconds between "
+                "telemetry_snapshot events)")
     # 'pallas' is the JAX CLI's name for the kernel impl
     args.paged_attn = {None: "kernel", "pallas": "kernel"}.get(
         args.paged_attn, args.paged_attn)
@@ -332,6 +434,105 @@ def get_serve_args(argv=None) -> argparse.Namespace:
         p.error("pick a weight source: --ckpt_dir, --random_init, or "
                 "--dry_run")
     return args
+
+
+def require_writable_dir(path: str, why: str) -> None:
+    """Loud up-front refusal when an obs output dir cannot take writes: a
+    traced run that silently drops its timelines is worse than no run."""
+    try:
+        os.makedirs(path, exist_ok=True)
+        probe = os.path.join(path, ".obs_write_probe")
+        with open(probe, "w") as f:
+            f.write("ok")
+        os.remove(probe)
+    except OSError as e:
+        raise SystemExit(
+            f"{why}: trace output dir {path!r} is not writable "
+            f"({type(e).__name__}: {e}) — point --log_dir at a writable "
+            f"directory or drop the flag")
+
+
+def obs_wanted(args: argparse.Namespace) -> bool:
+    """Whether any obs or control flag is on (all off: no obs object, no
+    file, no record field)."""
+    return bool(args.trace_requests or args.flight_records
+                or args.metrics_port is not None or args.control != "off")
+
+
+class ServeObs:
+    """Rank 0's obs objects for one serve run, made as the JAX CLI makes
+    them: the span tracer and the metrics writer on `--log_dir`, the
+    exporter (started before the engine, so a hung prefill is still
+    scrapeable; headless under `--control` alone: the controller's
+    decisions cross-link its snapshots), the flight recorder and the
+    request tracer."""
+
+    def __init__(self, args: argparse.Namespace):
+        from ..obs import (FlightRecorder, RequestTracer, SpanTracer,
+                           TelemetryExporter)
+        self.args = args
+        self.tracer = SpanTracer(args.log_dir, process_name="serve")
+        self.writer = MetricsWriter(args.log_dir, process_index=0,
+                                    max_bytes=int(args.metrics_max_mb
+                                                  * 2 ** 20))
+        self.telemetry = None
+        if args.metrics_port is not None:
+            self.telemetry = TelemetryExporter(
+                writer=self.writer, rollup_interval=args.rollup_interval)
+            port = self.telemetry.start(args.metrics_port)
+            print(f"telemetry exporter: http://127.0.0.1:{port}/metrics.json"
+                  f" (Prometheus text at /metrics)", file=sys.stderr)
+        elif args.control != "off":
+            self.telemetry = TelemetryExporter(writer=self.writer)
+        self.flight = (FlightRecorder(args.log_dir, maxlen=args.flight_ring)
+                       if args.flight_records and args.flight_ring > 0
+                       else None)
+        self.rt = (RequestTracer(writer=self.writer, tracer=self.tracer,
+                                 flight=self.flight, clock=time.monotonic)
+                   if args.trace_requests else None)
+        self.controller = None
+
+    def engine_kw(self) -> dict:
+        return dict(tracer=self.tracer, writer=self.writer,
+                    request_tracer=self.rt, flight=self.flight,
+                    telemetry=self.telemetry)
+
+    def attach(self, engine) -> None:
+        """The SLO controller on `engine` under `--control advise|act`."""
+        if self.args.control != "off":
+            from .controller import SLOController
+            self.controller = SLOController(
+                engine, self.args.control, writer=self.writer,
+                telemetry=self.telemetry,
+                interval=self.args.control_interval)
+            engine.controller = self.controller
+
+    def close(self) -> None:
+        """The controller's unapplied decisions, the exporter's last
+        snapshot, then the streams (in JAX's order)."""
+        if self.controller is not None:
+            self.controller.close()
+        if self.telemetry is not None:
+            self.telemetry.close()
+        self.trace_path = self.tracer.close()
+        self.writer.close()
+
+    def record(self) -> dict:
+        """The record's obs fields."""
+        out = {}
+        if self.args.trace_requests:
+            out["trace_requests"] = True
+        tel = self.telemetry
+        if tel is not None and tel.port is not None:
+            out["metrics_port"] = tel.port
+        if tel is not None:
+            out["telemetry_snapshots"] = tel.snapshots
+        if self.controller is not None:
+            out["control"] = self.args.control
+            out["controller"] = self.controller.summary()
+        if self.flight is not None:
+            out["flight_dumps"] = list(self.flight.dumps)
+        return out
 
 
 def _read_tokenizer(args: argparse.Namespace) -> None:
@@ -466,10 +667,12 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
             print(f"Warning: clamping serve buffer {buf_len} -> {cap} "
                   f"(learned position table size)", file=sys.stderr)
         buf_len = cap
+    obs = ServeObs(args) if mesh.rank == 0 and obs_wanted(args) else None
     sampling = dict(temperature=args.temperature, top_k=args.decode_top_k,
                     top_p=args.decode_top_p,
                     debug_host_sampler=args.debug_host_sampler,
-                    decode_weight_dtype=args.decode_weight_dtype)
+                    decode_weight_dtype=args.decode_weight_dtype,
+                    **(obs.engine_kw() if obs is not None else {}))
     if args.paged:
         paged_kw = dict(
             num_slots=args.slots, buf_len=buf_len,
@@ -494,13 +697,21 @@ def _serve(args: argparse.Namespace, cfg: ModelConfig, rank: int = 0,
             max_prefill_batch=args.max_prefill_batch,
             max_queue=args.queue_limit, decode_graph=args.decode_graph,
             **sampling)
+    if obs is not None:
+        obs.attach(engine)
     launches0 = launch_counts()
     kernels0 = dict(paged_attention.launches_by_kernel)
     collectives.reset_stats()
     t0 = time.perf_counter()
     if engine.dispatch.leader:
-        out = run_loadgen(engine, requests)
-        engine.dispatch.stop()
+        try:
+            out = run_loadgen(engine, requests)
+        finally:
+            engine.dispatch.stop()
+            if obs is not None:
+                obs.close()
+        if obs is not None:
+            out.update(obs.record())
     else:
         engine.dispatch.serve()
         out = {}
@@ -611,6 +822,13 @@ def _report(args: argparse.Namespace, summary: dict) -> None:
         rec["decode_weight_dtype"] = args.decode_weight_dtype
     if "moe_dropped_share" in summary["engine_stats"]:
         rec["moe_dropped_share"] = summary["engine_stats"]["moe_dropped_share"]
+    for k in ("worst_ttft_rids", "worst_tpot_rids", "trace_requests",
+              "metrics_port", "telemetry_snapshots", "control",
+              "controller", "flight_dumps"):
+        if k in summary:
+            rec[k] = summary[k]
+    for d in summary.get("flight_dumps", ()):
+        print(f"flight dump written: {d}", file=sys.stderr)
     print(json.dumps(rec))
 
 
@@ -625,6 +843,11 @@ def serve(args: argparse.Namespace) -> dict:
     dispatches by kind (and by shape) and its kernel launches. At tp or cp
     > 1 the ranks run in processes of their own and the summary is rank
     0's."""
+    if (args.trace_requests or args.flight_records
+            or args.metrics_port is not None):
+        require_writable_dir(
+            args.log_dir,
+            "--trace_requests/--flight_records/--metrics_port")
     cfg = _model_config(args)
     world = args.tp_size * args.cp
     if world == 1:

@@ -57,8 +57,13 @@ request retires or is preempted. A target at cp > 1 shards its pages over
 the cp ranks (`PagedEngine`) and its verify width rounds up to a cp
 multiple, as JAX's; the drafter stays at cp = 1, its whole pool on every
 rank. int8 decode weights quantize the target
-only. The JAX engine's observability hooks (spans, request tracer, flight
-recorder, telemetry, controller) wait for the obs slice (ROADMAP).
+only. The paged engine's obs hooks run here too (the `draft` and
+`verify` spans, a `spec_round` span per round in each request's timeline,
+the drafter's pages in the flight ring and the gauges), and its
+controller may move `k`: the next round dispatches at the new width (the
+draft and verify headers carry k, so the other ranks follow), the graphs
+captured at that width once (`round_captures` in `stats()`), up to
+`k_max`, the largest k the drafter's page rows hold.
 """
 
 from __future__ import annotations
@@ -127,7 +132,7 @@ class SpeculativeEngine(PagedEngine):
             raise ValueError(f"drafter weights lie on {weights_on}, the mesh "
                              f"on {mesh.device}")
         super().__init__(model, mesh, num_slots, buf_len, eos_id, **kw)
-        self.k = k = int(speculate_k)
+        self._k = k = int(speculate_k)
         self.drafter_model = drafter_model
         self._ddtype = resolve_dtype_on(drafter_model.cfg.compute_dtype,
                                         mesh.device)
@@ -148,6 +153,8 @@ class SpeculativeEngine(PagedEngine):
             drafter_pages = num_slots * self._d_max_pages
         self.dpool = PagedKVPool(drafter_model, mesh, drafter_pages, ps,
                                  kv_dtype=self.kv_dtype)
+        self._drafter_page_bytes_each = page_bytes(drafter_model.cfg, ps,
+                                                   self.kv_dtype)
         self._dtbl = np.full((num_slots, self._d_max_pages),
                              self.dpool.scratch_page, np.int32)
         # the verify's width: k + 1 positions padded up to a cp multiple
@@ -170,10 +177,43 @@ class SpeculativeEngine(PagedEngine):
         # when the round is captured, else each eager draft's
         self._draft_out = None
         self._round_graphs = ()
-        if use_decode_graph(kw.get("decode_graph", "auto"), self.device,
-                            mesh.tp, self.cp):
+        self._graphs_by_k = {}            # k -> (draft graph, verify graph)
+        self.round_captures = 0
+        self._graphed = use_decode_graph(kw.get("decode_graph", "auto"),
+                                         self.device, mesh.tp, self.cp)
+        if self._graphed:
             self._capture_round()
         self.reset_drop_tally()
+
+    # -- the speculation width ---------------------------------------------
+    @property
+    def k(self) -> int:
+        return self._k
+
+    @k.setter
+    def k(self, value: int) -> None:
+        """A new speculation width (the SLO controller's knob): the next
+        round drafts `value` tokens; its graphs are captured at that width
+        at the first use."""
+        k = int(value)
+        if k == self._k:
+            return
+        if not 1 <= k <= self.k_max:
+            raise ValueError(f"speculate_k {k} outside [1, {self.k_max}] "
+                             f"(the drafter's page rows hold buf_len + "
+                             f"k + 1 positions)")
+        self._k = k
+        self._vw = self.cp * -(-(k + 1) // self.cp)
+        if k > len(self._acc_attempt):
+            pad = np.zeros(k - len(self._acc_attempt), np.int64)
+            self._acc_attempt = np.concatenate([self._acc_attempt, pad])
+            self._acc_accept = np.concatenate([self._acc_accept, pad])
+        if self._graphed:
+            self._capture_round()
+
+    @property
+    def k_max(self) -> int:
+        return self._d_max_pages * self.page_size - self.buf_len - 1
 
     # -- the round's device programs --------------------------------------
     def _capture_round(self) -> None:
@@ -189,13 +229,20 @@ class SpeculativeEngine(PagedEngine):
             np.zeros(4 * n, np.int32),
             np.full(n * (mp + cw), self.pool.scratch_page, np.int32),
             np.tile(np.arange(cw, dtype=np.int32) % self.page_size, n)])
-        with torch.no_grad():
-            draft_graph = CapturedStep(
-                self._draft_body, [torch.from_numpy(draft).to(self.device)])
-            self._draft_out = draft_graph.outputs
-            verify_graph = CapturedStep(
-                self._verify_body, [torch.from_numpy(verify).to(self.device)])
-        self._round_graphs = (draft_graph, verify_graph)
+        if self._k not in self._graphs_by_k:
+            with torch.no_grad():
+                draft_graph = CapturedStep(
+                    self._draft_body,
+                    [torch.from_numpy(draft).to(self.device)])
+                # the verify graph reads the draft graph's static outputs
+                self._draft_out = draft_graph.outputs
+                verify_graph = CapturedStep(
+                    self._verify_body,
+                    [torch.from_numpy(verify).to(self.device)])
+            self._graphs_by_k[self._k] = (draft_graph, verify_graph)
+            self.round_captures += 1
+        self._round_graphs = self._graphs_by_k[self._k]
+        self._draft_out = self._round_graphs[0].outputs
 
     def _propose(self, full: torch.Tensor, seeds: torch.Tensor,
                  positions: torch.Tensor):
@@ -304,6 +351,9 @@ class SpeculativeEngine(PagedEngine):
             torch.cuda.synchronize(self.device)
 
     def _run_draft(self, shape, packed: np.ndarray) -> None:
+        # a round's dispatch carries its k: a rank at another width (the
+        # controller moves rank 0's) takes it on first
+        self.k = shape[0]
         if self._round_graphs:
             self._round_graphs[0](packed)   # writes self._draft_out
         else:
@@ -311,6 +361,7 @@ class SpeculativeEngine(PagedEngine):
                                                           self.device))
 
     def _run_verify(self, shape, packed: np.ndarray) -> np.ndarray:
+        self.k = shape[0]
         if self._round_graphs:
             res = self._round_graphs[1](packed)
         else:
@@ -395,10 +446,12 @@ class SpeculativeEngine(PagedEngine):
                                           self.dpool.scratch_page,
                                           self._dtbl[slot])
             t0 = time.monotonic()
-            self.dispatch("drafter_chunk", (cw,), np.concatenate([
-                buf[0], np.array([s, n], np.int32), self._dtbl[slot],
-                dstp[0], dsto[0]]))
-            self._sync()
+            with self._span("drafter_prefill_chunk", slot=slot, pos0=s,
+                            n=n):
+                self.dispatch("drafter_chunk", (cw,), np.concatenate([
+                    buf[0], np.array([s, n], np.int32), self._dtbl[slot],
+                    dstp[0], dsto[0]]))
+                self._sync()
             self.drafter_s += time.monotonic() - t0
             s += n
 
@@ -407,6 +460,9 @@ class SpeculativeEngine(PagedEngine):
         # goes live (a resumed request passes here too, so both caches
         # rebuild from the same prompt + generated prefix)
         self._drafter_prefill(slot, st.ids)
+        if self.rt is not None:
+            self.rt.mark(st.req, "drafter_prefill", self._clock(),
+                         positions=len(st.ids))
         super()._finish_prefill(slot, st, first, done)
 
     # -- the speculative round --------------------------------------------
@@ -457,26 +513,27 @@ class SpeculativeEngine(PagedEngine):
         draft, verify, qlen = payloads
         k = self.k
         t0 = time.monotonic()
-        self.dispatch("spec_draft", (), draft)
-        # sync, so the drafter/target split of the wall is honest (the
-        # drafts stay on the card: the verify reads them there)
-        self._sync()
+        with self._span("draft", live=len(self._slot_req), k=k):
+            self.dispatch("spec_draft", (k,), draft)
+            # sync, so the drafter/target split of the wall is honest (the
+            # drafts stay on the card: the verify reads them there)
+            self._sync()
         self.drafter_s += time.monotonic() - t0
         t0 = time.monotonic()
-        res = self.dispatch("spec_verify", (), verify)
+        with self._span("verify", live=len(self._slot_req), k=k):
+            res = self.dispatch("spec_verify", (k,), verify)
         self.target_s += time.monotonic() - t0
         n_acc, out = res[:, 0], res[:, 1:]
         now = self._clock()
         self.decode_steps += 1
         self.spec_rounds += 1
         self.spec_row_rounds += len(self._slot_req)
-        live_tokens = sum(int(self._pos[s]) + 1 for s in self._slot_req)
-        live_tokens += sum(st.s for st in self._prefilling.values())
-        used = self.pool.pages_in_use
-        self._occupancy_sum += self.live_requests / self.num_slots
-        self._pages_used_sum += used
-        if used:
-            self._kv_util_sum += live_tokens / (used * self.page_size)
+        used, live_tokens = self._step_accounting()
+        dused = self.dpool.pages_in_use
+        self._after_step(used, live_tokens,
+                         pool_bytes=used * self._page_bytes_each
+                         + dused * self._drafter_page_bytes_each,
+                         drafter_pages_in_use=dused)
         for slot, req in list(self._slot_req.items()):
             na = int(n_acc[slot])
             n_att = min(k, int(qlen[slot]) - 1)
@@ -485,6 +542,10 @@ class SpeculativeEngine(PagedEngine):
                 self._acc_accept[j] += 1
             if na < n_att:
                 self._acc_attempt[na] += 1    # the first rejected draft
+            if self.rt is not None:
+                # one `spec_round` span per verify; `accepted` sums over
+                # coalesced rounds
+                self.rt.mark(req, "spec_round", now, accepted=na)
             # the pending token was written at `pos` by the verify: emitted
             req.tokens.append(int(self._tokens[slot]))
             self.generated_tokens += 1
@@ -496,8 +557,7 @@ class SpeculativeEngine(PagedEngine):
                         or req.prompt_len + len(req.tokens) >= req.limit):
                     req.finish_t = now
                     del self._slot_req[slot]
-                    self._release_slot(slot)
-                    self._complete(req, done)
+                    self._retire_slot(slot, req, done)
                     finished = True
                     break
                 if j < na:                    # an accepted draft: emitted
@@ -517,6 +577,7 @@ class SpeculativeEngine(PagedEngine):
         st.update({
             "speculate_k": self.k,
             "spec_rounds": self.spec_rounds,
+            "round_captures": self.round_captures,
             # tokens emitted per ROW per target dispatch: the plain engine
             # emits 1.0, a perfect drafter k+1
             "accepted_tokens_per_dispatch": round(

@@ -16,9 +16,11 @@ either package: one frame per handoff,
     u32    header length (big-endian)
     bytes  header: UTF-8 JSON — the request's fields, the first sampled
            token, the kv kind ('native' | 'int8'), page_size, n_tokens,
-           trace_ctx (always null here: the port's requests carry no trace
-           context yet, ROADMAP Queue 1 item 8; ignored when read), t_send,
-           and per blob {dtype, shape}
+           trace_ctx (the prefill side's `RequestTracer.export_context`,
+           null when tracing is off: the decode engine continues the trace
+           from it, so the `handoff` span closes the prefill side's
+           record and `kv_import` opens the decode side's), t_send, and
+           per blob {dtype, shape}
     per blob: u64 length (big-endian) + its raw C-order bytes
 
 The blobs are the `export_pages` payload in tree order: native pools send
@@ -127,9 +129,10 @@ def _unflatten_kv(kind: str, blobs: list):
 
 
 def send_handoff(sock: socket.socket, h: dict, k, v, kv_dtype,
-                 page_size: int) -> int:
+                 page_size: int, ctx=None) -> int:
     """Ship one staged `PagedEngine` handoff (its `export_handoff` payload)
-    as a frame; returns the bytes sent. submit_t / first_token_t ride along
+    as a frame; returns the bytes sent. `ctx`: the prefill side's
+    `RequestTracer.export_context`. submit_t / first_token_t ride along
     for a receiver in this process (the same clock: TTFT spans the whole
     disaggregated path); a receiver on another host must drop them."""
     req = h["req"]
@@ -143,7 +146,7 @@ def send_handoff(sock: socket.socket, h: dict, k, v, kv_dtype,
         "first": int(h["first"]), "n_tokens": int(h["n_tokens"]),
         "pages": len(h["pages"]), "page_size": int(page_size),
         "kv": kv_dtype or "native",
-        "trace_ctx": None,
+        "trace_ctx": ctx.to_wire() if ctx is not None else None,
         "t_send": time.monotonic(),
         "blobs": [{"dtype": _NAMES[b.dtype], "shape": list(b.shape)}
                   for b in blobs],
@@ -152,8 +155,8 @@ def send_handoff(sock: socket.socket, h: dict, k, v, kv_dtype,
 
 
 def recv_handoff(sock: socket.socket):
-    """One handoff: (req, first, k, v, header) with a fresh Request, or None
-    on a clean EOF. The header's trace_ctx is ignored."""
+    """One handoff: (req, first, k, v, header) with a fresh Request carrying
+    the frame's trace context, or None on a clean EOF."""
     got = recv_frame(sock)
     if got is None:
         return None
@@ -161,7 +164,8 @@ def recv_handoff(sock: socket.socket):
     req = Request(rid=int(header["rid"]), prompt=list(header["prompt"]),
                   max_new=int(header["max_new"]),
                   seed=int(header["seed"]), arrival=header["arrival"],
-                  tenant=header["tenant"], slo_class=header["slo_class"])
+                  tenant=header["tenant"], slo_class=header["slo_class"],
+                  trace_ctx=header.get("trace_ctx"))
     req.tokens = list(header.get("tokens", ()))
     req.submit_t = header.get("submit_t")
     req.first_token_t = header.get("first_token_t")
@@ -210,9 +214,11 @@ def run_disaggregated(prefill: PagedEngine, decode: PagedEngine,
                 while prefill.handoffs:
                     h = prefill.handoffs.popleft()
                     k, v = prefill.export_handoff(h)
+                    ctx = (prefill.rt.export_context(h["req"], "handoff")
+                           if prefill.rt is not None else None)
                     ts = time.monotonic()
                     nbytes = send_handoff(a, h, k, v, prefill.pool.kv_dtype,
-                                          prefill.page_size)
+                                          prefill.page_size, ctx=ctx)
                     transfers.append({"rid": h["req"].rid,
                                       "pages": len(h["pages"]),
                                       "bytes": nbytes,

@@ -15,14 +15,12 @@ import os
 import sys
 import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.distributed as dist
 
-# the JAX `obs/schema.EVENT_SCHEMA_VERSION` the records carry, so either
-# package's readers take the other's files
-EVENT_SCHEMA_VERSION = 7
+from ..obs.schema import EVENT_SCHEMA_VERSION
 
 
 class MetricsWriter:
@@ -165,3 +163,83 @@ def model_flops_per_step(cfg, batch: int, seqlen: int,
     return (6 * n * batch * seqlen
             + 12 * cfg.num_layers * batch * cfg.num_heads
             * seqlen * seqlen * cfg.head_dim)
+
+
+def device_memory_stats(device=None) -> Optional[dict]:
+    """The card's allocator statistics (`torch.cuda.memory_stats`) in the
+    JAX `memory_stats()` names (`bytes_in_use`, `peak_bytes_in_use`,
+    `bytes_limit`), or None where there are none (the CPU, or no card):
+    callers render None as 'unavailable', never as 0 bytes (JAX's
+    silent-zero rule)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_initialized():
+        return None
+    st = torch.cuda.memory_stats(device)
+    if not st:
+        return None
+    _, total = torch.cuda.mem_get_info(device)
+    return {"bytes_in_use": int(st.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(st.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": int(total)}
+
+
+def hbm_watermarks() -> Optional[List[dict]]:
+    """One watermark per visible card (`bytes_in_use`, `peak_bytes`,
+    `limit_bytes`: the JAX `hbm_watermarks`), None when no card reports
+    stats — unavailable stays a value of its own, not a list of zeros."""
+    out = []
+    if torch.cuda.is_available():
+        for i in range(torch.cuda.device_count()):
+            stats = device_memory_stats(torch.device("cuda", i))
+            if stats is None:
+                continue
+            out.append({"device": f"cuda:{i}",
+                        "bytes_in_use": stats["bytes_in_use"],
+                        "peak_bytes": stats["peak_bytes_in_use"],
+                        "limit_bytes": stats["bytes_limit"]})
+    return out or None
+
+
+def publish_hbm(telemetry=None, writer=None, step: Optional[int] = None,
+                pool_accounted_bytes: Optional[int] = None,
+                event: bool = False) -> Optional[List[dict]]:
+    """The JAX `publish_hbm`: live device-memory gauges into `telemetry`
+    and, with `event`, one `hbm_watermark` event into `writer`.
+
+    Gauges: `hbm/available` (0/1: no stats is exported as 0-available,
+    never as 0 bytes), and where available `hbm/bytes_in_use`,
+    `hbm/peak_bytes`, `hbm/limit_bytes` (the worst card) plus per-card
+    `hbm/d<i>/...`. `pool_accounted_bytes` (the paged pool's pages in use
+    times page bytes) rides as `hbm/kv_accounted_bytes` and, with stats,
+    `hbm/kv_accounted_frac` (accounted pool bytes over measured bytes in
+    use). Returns the watermarks (None when unavailable)."""
+    marks = hbm_watermarks()
+    if telemetry is not None:
+        telemetry.gauge("hbm/available", 0.0 if marks is None else 1.0)
+        if marks is not None:
+            telemetry.gauge("hbm/bytes_in_use",
+                            max(m["bytes_in_use"] for m in marks))
+            telemetry.gauge("hbm/peak_bytes",
+                            max(m["peak_bytes"] for m in marks))
+            telemetry.gauge("hbm/limit_bytes",
+                            max(m["limit_bytes"] for m in marks))
+            for i, m in enumerate(marks):
+                telemetry.gauge(f"hbm/d{i}/bytes_in_use", m["bytes_in_use"])
+                telemetry.gauge(f"hbm/d{i}/peak_bytes", m["peak_bytes"])
+        if pool_accounted_bytes is not None:
+            telemetry.gauge("hbm/kv_accounted_bytes", pool_accounted_bytes)
+            if marks is not None:
+                in_use = max(m["bytes_in_use"] for m in marks)
+                if in_use:
+                    telemetry.gauge("hbm/kv_accounted_frac",
+                                    pool_accounted_bytes / in_use)
+    if event and writer is not None:
+        fields = {"devices": marks or [], "available": marks is not None}
+        if pool_accounted_bytes is not None:
+            fields["pool_accounted_bytes"] = int(pool_accounted_bytes)
+        writer.event("hbm_watermark", step=step, **fields)
+    return marks

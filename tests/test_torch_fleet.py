@@ -8,7 +8,8 @@ for the module (`jref`).
 * `PagedKVPool.export_pages` / `import_pages`: import -> export bitwise on
   native and int8 pools, and the port's export equal to JAX's of the same
   pages written from the same numpy arrays; a rollback on PoolExhausted and
-  JAX's four refusals, with JAX's messages; tp / cp > 1 refused.
+  JAX's four refusals, with JAX's messages (tp / cp > 1:
+  tests/test_torch_fleet_tp.py).
 * `FleetRouter`: the shadow's predicted hits equal the replicas' actual
   `prefix_hit_tokens` on the shared-prefix burst; picks and predicted hits
   equal JAX's router's on the same stream (`run_fleet_loadgen`), and the
@@ -22,7 +23,8 @@ for the module (`jref`).
   JAX's colocated tokens, the port's frames read by JAX's `recv_handoff`,
   and bf16 blobs bit for bit in both directions.
 * `serve_fleet --dry_run` (fleet and `--disagg`): JAX's summary keys, less
-  `transfer_pricing`; its refusals.
+  `transfer_pricing`; JAX's refusals of its width flags, and the serve
+  CLI's refusals of `--control_force` and the profiler flags.
 * `ops/cuda/build.load` builds a source once when two threads ask at once.
 """
 
@@ -56,10 +58,11 @@ from distributed_pytorch_from_scratch_tpu_torch.config import (
     MeshConfig, ModelConfig)
 from distributed_pytorch_from_scratch_tpu_torch.interop import params_from_jax
 from distributed_pytorch_from_scratch_tpu_torch.models import build_model
+from distributed_pytorch_from_scratch_tpu_torch.obs import TelemetryExporter
 from distributed_pytorch_from_scratch_tpu_torch.ops.cuda import build
 from distributed_pytorch_from_scratch_tpu_torch.runtime.mesh import make_mesh
 from distributed_pytorch_from_scratch_tpu_torch.serving import (
-    serve_fleet, transfer)
+    serve, serve_fleet, transfer)
 from distributed_pytorch_from_scratch_tpu_torch.serving.engine import (
     PagedEngine, Request)
 from distributed_pytorch_from_scratch_tpu_torch.serving.kv_manager import (
@@ -259,8 +262,8 @@ def test_export_import_roundtrip_matches_jax(kv_dtype):
 
 def test_import_rollback_and_refusals_match_jax():
     """A pool too dry for the payload returns every page it leased before
-    PoolExhausted; the four refusals raise JAX's errors; a pool sharded
-    over tp or cp refuses both methods (ROADMAP item 6)."""
+    PoolExhausted; the four refusals raise JAX's errors. (Pools sharded
+    over tp and cp: tests/test_torch_fleet_tp.py.)"""
     rng = np.random.default_rng(4)
     port, jpool = _pools(None)
     held = port.import_pages(*_payload(jpool, 3, rng))
@@ -287,14 +290,7 @@ def test_import_rollback_and_refusals_match_jax():
     assert port.free_pages == port.num_pages - 3
     for p in held:
         port.unref(p)
-    wide = PagedKVPool(SimpleNamespace(cfg=ModelConfig(**SHAPE), cp_size=1,
-                                       num_local_kv_heads=4),
-                       SimpleNamespace(device=torch.device("cpu"), tp=2),
-                       8, PS)
-    for call in (lambda: wide.export_pages([0]),
-                 lambda: wide.import_pages(*_payload(jpool, 1, rng))):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    assert port.free_pages == port.num_pages
 
 
 # ------------------------------------------------------ the router ---
@@ -389,13 +385,15 @@ def test_replace_replica_resets_its_shadow(tree, jref, tmp_path):
 
 def test_session_affinity_and_loud_spill(tree, tmp_path):
     """A session sticks to its replica; a full one spills the request to
-    the next best with a `session_spill` event; only a fleet-wide refusal
-    reaches the caller."""
+    the next best with a `session_spill` event and the telemetry counter
+    `fleet/session_spills`; only a fleet-wide refusal reaches the
+    caller."""
     w = MetricsWriter(str(tmp_path), process_index=0)
+    tel = TelemetryExporter()
     model = _model(tree)
     router = FleetRouter([_engine(model, num_slots=1, max_queue=1),
                           _engine(model, num_slots=1, max_queue=1)],
-                         writer=w)
+                         writer=w, telemetry=tel)
     first = router.submit(Request(rid=0, prompt=[0, 9, 21], max_new=2),
                           session="s1")
     spilled = router.submit(Request(rid=1, prompt=[0, 13, 37], max_new=2),
@@ -410,8 +408,7 @@ def test_session_affinity_and_loud_spill(tree, tmp_path):
     spill = [e for e in evs if e.get("tag") == "session_spill"]
     assert len(spill) == 1
     assert spill[0]["session"] == "s1" and spill[0]["pinned"] == first
-    with pytest.raises(NotImplementedError, match="item 8"):
-        FleetRouter([router.replicas[0][1]], telemetry=object())
+    assert tel.snapshot()["counters"] == {"fleet/session_spills": 1.0}
 
 
 # ------------------------------------- disaggregated prefill/decode ---
@@ -579,13 +576,25 @@ def test_serve_fleet_dry_runs_give_jax_keys(jref, tmp_path, capsys):
         "page_bytes"]
 
 
-@pytest.mark.parametrize("flags,tag", [
-    (["--tp_size", "2"], "item 6"), (["--prefill_tp", "2", "--disagg"],
-                                     "item 6"),
-    (["--restart_tp", "2"], "item 6"), (["--trace_requests"], "item 8")])
-def test_serve_fleet_refusals(flags, tag, capsys):
+@pytest.mark.parametrize("cli,flags,tag", [
+    ("fleet", ["--prefill_tp", "2"], "--prefill_tp is a --disagg knob"),
+    ("fleet", ["--restart_tp", "2", "--disagg"],
+     "it does not compose with --disagg"),
+    ("fleet", ["--restart_tp", "-1"], "--restart_tp must be >= 0"),
+    ("serve", ["--paged", "--control_force"],
+     "--control_force needs --control act"),
+    ("serve", ["--paged", "--control", "act", "--control_force"],
+     "pages_per_block autotuner"),
+    ("serve", ["--paged", "--profile_every", "4"], "item 8"),
+    ("serve", ["--paged", "--flight_records", "--profile_on_anomaly", "2"],
+     "item 8")])
+def test_serve_fleet_refusals(cli, flags, tag, capsys):
+    """JAX's refusals of the fleet's width flags in JAX's words, and the
+    serve CLI's refusals of what the port leaves out."""
+    parse = {"fleet": serve_fleet.parse_args,
+             "serve": serve.get_serve_args}[cli]
     with pytest.raises(SystemExit):
-        serve_fleet.parse_args(["--dry_run", "--device", "cpu"] + flags)
+        parse(["--dry_run", "--device", "cpu"] + flags)
     assert tag in capsys.readouterr().err
 
 
